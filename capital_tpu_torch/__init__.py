@@ -1,0 +1,19 @@
+"""capital_tpu_torch: the PyTorch / CUDA port of capital_tpu for NVIDIA
+Hopper (H100).
+
+The JAX package `capital_tpu` stays beside it as the reference; this
+package imports torch, numpy and the standard library only — never jax and
+nothing of `capital_tpu`.  Sub-packages mirror the reference's names.
+Entry points run on the CUDA card by default (`Grid.square()`); pass
+`device="cpu"` for the plain PyTorch path on the host.
+
+This slice ports single-device cholinv (`models/cholesky.factor`) with its
+four kernels (ops/hopper.py, ops/csrc/).  `KERNELS` holds their launch
+counters.
+"""
+
+from capital_tpu_torch.models import cholesky
+from capital_tpu_torch.ops.hopper import KERNELS
+from capital_tpu_torch.parallel.topology import Grid
+
+__all__ = ["Grid", "KERNELS", "cholesky"]

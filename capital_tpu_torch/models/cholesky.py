@@ -1,0 +1,350 @@
+"""cholinv: recursive Cholesky + triangular inverse on one device
+(counterpart of capital_tpu/models/cholesky.py).
+
+For SPD A it computes the upper factor R (A = RᵀR) and R⁻¹ together, by the
+reference's recursion (cholinv.hpp:87-165):
+
+    recurse(A):
+      1. R11, R11inv = recurse(A11)
+      2. R12 = R11⁻ᵀ · A12                                # CI::trsm (trmm)
+      3. A22' = A22 − R12ᵀ·R12                            # CI::tmu  (syrk)
+      4. R22, R22inv = recurse(A22')
+      5. R12inv = −R11inv · R12 · R22inv                  # CI::inv  (2 trmms)
+
+`plan` fixes the schedule on the host; `factor` runs it eagerly against two
+p x p buffers (R and R⁻¹) that every phase reads and writes through windows,
+in place.  On a CUDA device each phase launches the hand-written kernels of
+ops/hopper.py; on the CPU the same calls run their plain versions.
+
+In-place semantics are real here (the JAX package returns new arrays):
+`out_buffers` are written into, and `schur_in_place=True` overwrites the
+trailing windows of the operand — the caller's A itself when no padding is
+needed.  Not ported yet: `tail_fuse_depth > 0` (ROADMAP Queue B item 7,
+fused_tail) and `balance != 'block'` (ROADMAP Queue A item 10,
+multi-device); both raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from capital_tpu_torch.ops import hopper, lapack
+from capital_tpu_torch.parallel import summa
+from capital_tpu_torch.parallel.summa import SyrkArgs, TrmmArgs
+from capital_tpu_torch.parallel.topology import Grid
+from capital_tpu_torch.robust import detect
+from capital_tpu_torch.robust.config import RobustConfig
+from capital_tpu_torch.utils import tracing
+from capital_tpu_torch.utils.config import BaseCasePolicy
+
+
+@dataclasses.dataclass(frozen=True)
+class CholinvConfig:
+    """User configuration, field for field the JAX package's CholinvConfig.
+
+    complete_inv: compute the full R⁻¹, or leave the top-level off-diagonal
+        block of R⁻¹ zero (False).
+    split: the top window is n >> split.
+    base_case_dim: recursion bottoms out at windows <= this size.
+    policy: base-case replication policy (one device: all coincide).
+    mode: 'pallas' (the hand-written kernels), 'explicit' (the same route
+        on one device) or 'xla' (masked torch.matmul).
+    base_case_dtype: dtype of the leaf potrf/trtri; None means f32 for
+        inputs narrower than f32, else the input dtype.
+    precision: accepted for parity; f32 products are always IEEE f32.
+    balance: 'block' only (the balanced schedules are multi-device).
+    schur_in_place: write each Schur complement into the operand's own
+        trailing window instead of a fresh buffer (peak memory ~3n² instead
+        of ~3.35n²).  MODIFIES the operand — the caller's A when p == n.
+    tail_fuse_depth: 0 only (the fused tail kernel is not ported yet).
+    base_prefetch: 2 writes both leaf results with one transpose_pair
+        launch, 1 with two transpose launches; bitwise-identical results.
+    robust: with a RobustConfig, factor() also returns a LAPACK-style int32
+        info of R (robust/detect.factor_info).
+    """
+
+    complete_inv: bool = True
+    split: int = 1
+    base_case_dim: int = 256
+    policy: BaseCasePolicy = BaseCasePolicy.REPLICATE_COMM_COMP
+    mode: str = "xla"
+    base_case_dtype: Optional[torch.dtype] = None
+    precision: Optional[str] = "highest"
+    balance: str = "block"
+    balance_min_window: int = 8192
+    schur_in_place: bool = False
+    tail_fuse_depth: int = 0
+    base_prefetch: int = 2
+    robust: Optional[RobustConfig] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanNode:
+    """One recursion window: [off, off+n) on the diagonal."""
+
+    off: int
+    n: int
+    is_base: bool
+    top: tuple["PlanNode", "PlanNode"] | None = None
+
+
+def padded_dim(n: int, base_case_dim: int) -> int:
+    """Smallest base_case_dim · 2^k >= n."""
+    p = min(base_case_dim, n)
+    while p < n:
+        p *= 2
+    return p
+
+
+def pad_embed_identity(X: torch.Tensor, n: int, p: int) -> torch.Tensor:
+    """diag(X, I) of size p (X itself when p == n): SPD stays SPD and
+    factors to diag(R, I) with no cross-talk."""
+    if p == n:
+        return X
+    Xp = torch.zeros((p, p), dtype=X.dtype, device=X.device)
+    Xp[:n, :n] = X
+    Xp.diagonal()[n:] = 1
+    return Xp
+
+
+def plan(n: int, cfg: CholinvConfig, off: int = 0) -> PlanNode:
+    """The recursion schedule for a (padded) window of size n."""
+    if cfg.split < 1:
+        raise ValueError(f"split must be >= 1 (split={cfg.split} would not shrink the window)")
+    if n <= cfg.base_case_dim:
+        return PlanNode(off=off, n=n, is_base=True)
+    n1 = max(cfg.base_case_dim, n >> cfg.split)
+    left = plan(n1, cfg, off)
+    right = plan(n - n1, cfg, off + n1)
+    return PlanNode(off=off, n=n, is_base=False, top=(left, right))
+
+
+def top_split(n: int, cfg: CholinvConfig) -> int:
+    """Column where the top-level recursion splits the cropped n x n output
+    (the boundary of the zero block of R⁻¹ when complete_inv=False)."""
+    node = plan(padded_dim(n, cfg.base_case_dim), cfg)
+    return n if node.is_base else min(node.top[0].n, n)
+
+
+def _zeros_plan(grid: Grid, node: PlanNode, cfg: CholinvConfig) -> int:
+    """The zeros_dead_lower tile when every leaf window is a tile multiple
+    (the recursion then writes every live tile), else 0 (plain zeros)."""
+
+    def aligned(nd: PlanNode, tile: int) -> bool:
+        if nd.is_base:
+            return nd.off % tile == 0 and nd.n % tile == 0
+        return all(aligned(c, tile) for c in nd.top)
+
+    tile = min(512, cfg.base_case_dim)
+    return tile if grid.num_devices == 1 and aligned(node, tile) else 0
+
+
+def _check_config(cfg: CholinvConfig) -> None:
+    if cfg.balance not in ("block", "tile_cyclic", "tile_cyclic_persistent"):
+        raise ValueError(f"unknown balance {cfg.balance!r}")
+    if cfg.balance != "block":
+        raise NotImplementedError(
+            f"balance={cfg.balance!r} is not ported yet (ROADMAP Queue A item 10, "
+            "multi-device schedules)"
+        )
+    if cfg.tail_fuse_depth > 0:
+        raise NotImplementedError(
+            "tail_fuse_depth > 0 is not ported yet (ROADMAP Queue B item 7, "
+            "pallas_tpu.fused_tail)"
+        )
+
+
+def _base_case_into(grid, buf, off, n, dest, cfg, Rp, RIp):
+    """Leaf: read the window (off, off, n, n) of `buf` (upper triangle
+    valid) as a lower panel, factor and invert it, and write triu(Lᵀ) /
+    triu(Linvᵀ) into Rp / RIp at (dest, dest)."""
+    bc_dtype = cfg.base_case_dtype
+    if bc_dtype is None:
+        bc_dtype = buf.dtype if buf.dtype.itemsize >= 4 else torch.float32
+    with tracing.scope("CI::factor_diag"):
+        comm, ncoll = tracing.replicate_cost(grid, n, n, bc_dtype)
+        tracing.emit(flops=tracing.potrf_trtri_flops(n), comm_bytes=comm, collectives=ncoll)
+        P_low = hopper.transpose(buf, in_view=(off, off, n, n), out_uplo="L", out_dtype=bc_dtype)
+        # torch.linalg hands back column-major factors; the write-back
+        # kernels read row-major panels (a bc x bc copy each)
+        L = lapack.cholesky_lower(P_low).contiguous()
+        eye = torch.eye(n, dtype=bc_dtype, device=L.device)
+        Linv = torch.linalg.solve_triangular(L, eye, upper=False).contiguous()
+        if cfg.base_prefetch >= 2:
+            return hopper.transpose_pair(L, Linv, Rp, RIp, dest=dest)
+        Rp = hopper.transpose(L, out_uplo="U", out=Rp, out_off=(dest, dest))
+        RIp = hopper.transpose(Linv, out_uplo="U", out=RIp, out_off=(dest, dest))
+        return Rp, RIp
+
+
+def _recurse(grid, buf, off, node, cfg, top, Rp, RIp):
+    """One recursion window: the input is the (off, off, node.n, node.n)
+    window of `buf` (upper triangle valid), the output blocks land in Rp /
+    RIp at the window's absolute offset node.off."""
+    if node.is_base:
+        return _base_case_into(grid, buf, off, node.n, node.off, cfg, Rp, RIp)
+
+    left, right = node.top
+    n1, n2 = left.n, right.n
+    d0 = node.off
+
+    # 1. top-left window
+    Rp, RIp = _recurse(grid, buf, off, left, cfg, False, Rp, RIp)
+
+    # 2. TRSM phase: R12 = R11⁻ᵀ · A12
+    with tracing.scope("CI::trsm"):
+        summa.trmm(
+            grid, RIp, buf,
+            TrmmArgs(side="L", uplo="U", trans_a=True, precision=cfg.precision),
+            mode=cfg.mode,
+            a_view=(d0, d0, n1, n1),
+            b_view=(off, off + n1, n1, n2),
+            out=Rp, out_off=(d0, d0 + n1),
+        )
+
+    # 3. Schur complement: A22' = A22 − R12ᵀR12, into buf's own trailing
+    # window (schur_in_place) or a fresh (n2, n2) buffer
+    with tracing.scope("CI::tmu"):
+        S = summa.syrk(
+            grid, Rp, buf,
+            SyrkArgs(trans=True, alpha=-1.0, beta=1.0, precision=cfg.precision),
+            mode=cfg.mode,
+            a_view=(d0, d0 + n1, n1, n2),
+            c_view=(off + n1, off + n1, n2, n2),
+            in_place=cfg.schur_in_place,
+        )
+
+    # 4. trailing window
+    s_off = off + n1 if cfg.schur_in_place else 0
+    Rp, RIp = _recurse(grid, S, s_off, right, cfg, False, Rp, RIp)
+
+    # 5. inverse completion: R⁻¹12 = −R11inv·R12·R22inv, skipped at the top
+    # level when complete_inv=False (the block keeps its initial zeros)
+    if cfg.complete_inv or not top:
+        with tracing.scope("CI::inv"):
+            T = summa.trmm(
+                grid, RIp, Rp,
+                TrmmArgs(side="L", uplo="U", precision=cfg.precision),
+                mode=cfg.mode,
+                a_view=(d0, d0, n1, n1),
+                b_view=(d0, d0 + n1, n1, n2),
+            )
+            summa.trmm(
+                grid, RIp, T,
+                TrmmArgs(side="R", uplo="U", alpha=-1.0, precision=cfg.precision),
+                mode=cfg.mode,
+                a_view=(right.off, right.off, n2, n2),
+                out=RIp, out_off=(d0, d0 + n1),
+            )
+    return Rp, RIp
+
+
+def factor(
+    grid: Grid,
+    A: torch.Tensor,
+    cfg: CholinvConfig = CholinvConfig(),
+    out_buffers: tuple[torch.Tensor, torch.Tensor] | None = None,
+):
+    """Factor SPD A into (R, Rinv): A = RᵀR, Rinv = R⁻¹ (upper triangular).
+
+    With complete_inv=False the top-level off-diagonal block of Rinv is
+    zero.  out_buffers: (Rp, RIp) p x p buffers to factor INTO (they are
+    written in place and returned, cropped when p > n); their strictly-
+    lower halves must be zero, p == padded_dim(n, bc), complete_inv=True —
+    a previous factor's outputs satisfy this.  With cfg.schur_in_place the
+    Schur complements are written into the operand: A itself is modified
+    when n needs no padding (hand factor a copy if A is needed afterwards).
+    With cfg.robust set the return is (R, Rinv, info), info the int32
+    potrf status of R (0 clean)."""
+    n = A.shape[0]
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"cholinv needs a square matrix, got {tuple(A.shape)}")
+    if A.device.type != grid.device.type:
+        raise ValueError(f"A is on {A.device}, the grid on {grid.device}")
+    _check_config(cfg)
+    p = padded_dim(n, cfg.base_case_dim)
+    Ap = pad_embed_identity(A, n, p)
+    node = plan(p, cfg)
+
+    if out_buffers is not None:
+        Rp, RIp = out_buffers
+        if Rp.shape != (p, p) or RIp.shape != (p, p):
+            raise ValueError(
+                f"out_buffers must be ({p}, {p}) for n={n}, "
+                f"bc={cfg.base_case_dim}; got {tuple(Rp.shape)}, {tuple(RIp.shape)}"
+            )
+        if not cfg.complete_inv:
+            raise ValueError(
+                "out_buffers requires complete_inv=True (the skipped "
+                "off-diagonal window would keep the previous contents)"
+            )
+    else:
+        tile = _zeros_plan(grid, node, cfg)
+        if tile:
+            # every live upper tile is written exactly once by the
+            # recursion; only the dead lower half (and the skipped top-right
+            # R⁻¹ window when complete_inv=False) needs zeros
+            with tracing.scope("CI::buffers"):
+                Rp = hopper.zeros_dead_lower(p, A.dtype, tile, device=A.device)
+                extra = (
+                    ()
+                    if cfg.complete_inv or node.is_base
+                    else ((0, node.top[0].n, node.top[0].n, p - node.top[0].n),)
+                )
+                RIp = hopper.zeros_dead_lower(p, A.dtype, tile, extra=extra, device=A.device)
+        else:
+            Rp = torch.zeros((p, p), dtype=A.dtype, device=A.device)
+            RIp = torch.zeros((p, p), dtype=A.dtype, device=A.device)
+
+    R, Rinv = _recurse(grid, Ap, 0, node, cfg, True, Rp, RIp)
+    if p != n:
+        R, Rinv = R[:n, :n], Rinv[:n, :n]
+    if cfg.robust is not None:
+        return R, Rinv, detect.factor_info(R)
+    return R, Rinv
+
+
+def factor_buffers(
+    grid: Grid, n: int, dtype: torch.dtype, cfg: CholinvConfig = CholinvConfig()
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fresh (Rp, RIp) buffers satisfying factor's out_buffers contract."""
+    p = padded_dim(n, cfg.base_case_dim)
+    node = plan(p, cfg)
+    tile = _zeros_plan(grid, node, cfg)
+    if tile:
+        with tracing.scope("CI::buffers"):
+            return (
+                hopper.zeros_dead_lower(p, dtype, tile, device=grid.device),
+                hopper.zeros_dead_lower(p, dtype, tile, device=grid.device),
+            )
+    return (
+        torch.zeros((p, p), dtype=dtype, device=grid.device),
+        torch.zeros((p, p), dtype=dtype, device=grid.device),
+    )
+
+
+def solve(grid: Grid, A: torch.Tensor, B: torch.Tensor, cfg: CholinvConfig = CholinvConfig()):
+    """SPD solve A·X = B: factor with complete_inv=False, then the two
+    triangular sweeps (ops/lapack.potrs).  With cfg.robust the return is
+    (X, info); X is garbage when info != 0."""
+    if B.shape[0] != A.shape[0]:
+        raise ValueError(f"shape mismatch: A {tuple(A.shape)} vs B {tuple(B.shape)}")
+    ccfg = dataclasses.replace(cfg, complete_inv=False)
+    if cfg.robust is not None:
+        R, _, info = factor(grid, A, ccfg)
+        return lapack.potrs(R, B, uplo="U"), info
+    R, _ = factor(grid, A, ccfg)
+    return lapack.potrs(R, B, uplo="U")
+
+
+def spd_inverse(grid: Grid, A: torch.Tensor, cfg: CholinvConfig = CholinvConfig()) -> torch.Tensor:
+    """A⁻¹ = R⁻¹·R⁻ᵀ for SPD A."""
+    cfg = dataclasses.replace(cfg, complete_inv=True, robust=None)
+    _, Rinv = factor(grid, A, cfg)
+    return summa.gemm(
+        grid, Rinv, Rinv, args=summa.GemmArgs(trans_b=True, precision=cfg.precision),
+        mode=cfg.mode,
+    )

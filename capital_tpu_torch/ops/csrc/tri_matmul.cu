@@ -1,0 +1,353 @@
+// tri_matmul: C = alpha * op(A) @ op(B), with at most one triangular operand
+// or a triangular output, fused beta * C at flush, operands read through
+// windows of flat row-major buffers and the result written into a window.
+//
+// Replaces capital_tpu/ops/pallas_tpu.py:tri_matmul (trmm_kernel,
+// syrk_kernel, dense_kernel).  What the TPU kernel computes, kept here:
+//   * dead triangular tiles are never visited: a triangular operand limits
+//     each output tile's k loop to its live range (trmm form); a triangular
+//     output launches only its live tiles, through a 1-D grid mapped onto the
+//     tile triangle (syrk form);
+//   * tiles that straddle the diagonal are masked against window-relative
+//     indices of the untransposed operand, by select, so garbage (NaN) in a
+//     dead half never reaches the sum;
+//   * flush: alpha, then the out_uplo mask, then + beta * C at the promoted
+//     type, then one cast.  Accumulation is f32 for bf16/f32 and f64 for f64;
+//     f32 is IEEE FMA (no TF32).
+// What bounds it on the card: operations.  cholinv's trmm/syrk windows are
+// thousands wide, far above the H100's ~295 flop/byte balance point.  The
+// design answers with tensor cores for bf16 (WMMA m16n16k16, f32
+// accumulate, 128x128 tiles) and register-tiled FMA for f32/f64 (64x64
+// tiles, 4x4 per thread).  Loads are plain coalesced element loads into
+// shared memory; cp.async/TMA and wgmma are later work.
+//
+// The sequential (tile, k) pair axis of the TPU grid becomes the k loop
+// inside one thread block: blocks own disjoint output tiles, so nothing is
+// carried between blocks.
+
+#include <mma.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+struct MM {
+  const void* A;
+  long long lda;
+  const void* B;
+  long long ldb;
+  void* O;
+  long long ldo;
+  const void* C;
+  long long ldc;
+  double alpha, beta;
+  int M, N, K;
+  int a_tri, b_tri;  // uplo of the untransposed triangular window, or 0
+  int out_uplo;
+  int fused_c;
+  int all_tiles;  // grid covers every output tile; dead ones are zeroed
+  int ntm, ntn;
+  int bm, bn;
+};
+
+// live output columns [lo, hi) of tile-row i under out_uplo — the JAX
+// kernel's tile predicate i*bm < (j+1)*bn ('U') / j*bn < (i+1)*bm ('L')
+__host__ __device__ inline void live_cols(const MM& p, int i, int& lo, int& hi) {
+  lo = 0;
+  hi = p.ntn;
+  if (p.out_uplo == UPLO_U) {
+    long long l = ((long long)i * p.bm) / p.bn;
+    lo = l < p.ntn ? (int)l : p.ntn;
+  } else if (p.out_uplo == UPLO_L) {
+    long long h = ((long long)(i + 1) * p.bm + p.bn - 1) / p.bn;
+    hi = h < p.ntn ? (int)h : p.ntn;
+  }
+}
+
+__device__ inline void tile_of(const MM& p, int bid, int& ti, int& tj, bool& live) {
+  if (p.out_uplo == UPLO_NONE || p.all_tiles) {
+    ti = bid / p.ntn;
+    tj = bid % p.ntn;
+    int lo, hi;
+    live_cols(p, ti, lo, hi);
+    live = tj >= lo && tj < hi;
+    return;
+  }
+  for (int i = 0; i < p.ntm; ++i) {
+    int lo, hi;
+    live_cols(p, i, lo, hi);
+    int cnt = hi > lo ? hi - lo : 0;
+    if (bid < cnt) {
+      ti = i;
+      tj = lo + bid;
+      live = true;
+      return;
+    }
+    bid -= cnt;
+  }
+  ti = p.ntm;
+  tj = 0;
+  live = false;
+}
+
+// live k range of the output tile at (i0, j0): a triangular operand bounds it
+__device__ inline void k_range(const MM& p, bool at, bool bt, int i0, int j0,
+                               int bm, int bn, int bk, int& kb, int& ke) {
+  kb = 0;
+  ke = p.K;
+  if (p.a_tri) {
+    bool upper = (p.a_tri == UPLO_U) != at;  // op(A)(i, k) != 0 needs k >= i
+    if (upper) kb = i0;
+    else ke = min(p.K, i0 + bm);
+  }
+  if (p.b_tri) {
+    bool upper = (p.b_tri == UPLO_U) != bt;  // op(B)(k, j) != 0 needs k <= j
+    if (upper) ke = min(p.K, j0 + bn);
+    else kb = j0;
+  }
+  kb = (kb / bk) * bk;
+}
+
+template <typename T, bool AT>
+__device__ __forceinline__ T load_a(const MM& p, const T* A, int i, int k) {
+  if (i >= p.M || k >= p.K) return zero_of<T>();
+  long long r = AT ? k : i, c = AT ? i : k;
+  if (p.a_tri && !in_tri(p.a_tri, r, c)) return zero_of<T>();
+  return A[r * p.lda + c];
+}
+
+template <typename T, bool BT>
+__device__ __forceinline__ T load_b(const MM& p, const T* B, int k, int j) {
+  if (k >= p.K || j >= p.N) return zero_of<T>();
+  long long r = BT ? j : k, c = BT ? k : j;
+  if (p.b_tri && !in_tri(p.b_tri, r, c)) return zero_of<T>();
+  return B[r * p.ldb + c];
+}
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
+
+// flush one element: alpha, out_uplo mask (select), + beta * C, one cast.
+// Explicit _rn operations keep the compiler from contracting the epilogue
+// into an FMA, so it rounds like the plain version.
+template <typename T>
+__device__ __forceinline__ void flush(const MM& p, T* O, const T* C, int i, int j,
+                                      typename AccOf<T>::type acc) {
+  typedef typename AccOf<T>::type A_t;
+  if (i >= p.M || j >= p.N) return;
+  A_t v = mul_rn((A_t)p.alpha, acc);
+  if (!in_tri(p.out_uplo, i, j)) v = A_t(0);
+  if (p.fused_c) v = add_rn(v, mul_rn((A_t)p.beta, widen(C[(long long)i * p.ldc + j])));
+  O[(long long)i * p.ldo + j] = Cast<T>::from(v);
+}
+
+template <typename T>
+__device__ inline void zero_tile(const MM& p, T* O, int i0, int j0, int bm, int bn) {
+  for (int e = threadIdx.x; e < bm * bn; e += blockDim.x) {
+    int i = i0 + e / bn, j = j0 + e % bn;
+    if (i < p.M && j < p.N) O[(long long)i * p.ldo + j] = zero_of<T>();
+  }
+}
+
+// ---- f32 / f64: register-tiled FMA -----------------------------------------
+template <typename T, bool AT, bool BT>
+__global__ void __launch_bounds__(256) mm_simt(MM p) {
+  constexpr int BM = 64, BN = 64, BK = 16;
+  typedef typename AccOf<T>::type A_t;
+  __shared__ T As[BK][BM + 1];
+  __shared__ T Bs[BK][BN + 1];
+  int ti, tj;
+  bool live;
+  tile_of(p, blockIdx.x, ti, tj, live);
+  const int i0 = ti * BM, j0 = tj * BN;
+  T* O = (T*)p.O;
+  if (!live) {
+    zero_tile(p, O, i0, j0, BM, BN);
+    return;
+  }
+  const T* A = (const T*)p.A;
+  const T* B = (const T*)p.B;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  A_t acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = A_t(0);
+  int kb, ke;
+  k_range(p, AT, BT, i0, j0, BM, BN, BK, kb, ke);
+  for (int k0 = kb; k0 < ke; k0 += BK) {
+    for (int e = tid; e < BM * BK; e += 256) {
+      int ii = AT ? e % BM : e / BK, kk = AT ? e / BM : e % BK;
+      As[kk][ii] = load_a<T, AT>(p, A, i0 + ii, k0 + kk);
+    }
+    for (int e = tid; e < BK * BN; e += 256) {
+      int jj = BT ? e / BK : e % BN, kk = BT ? e % BK : e / BN;
+      Bs[kk][jj] = load_b<T, BT>(p, B, k0 + kk, j0 + jj);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      A_t a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = widen(As[kk][ty + 16 * r]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) b[c] = widen(Bs[kk][tx + 16 * c]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fma_(a[r], b[c], acc[r][c]);
+    }
+    __syncthreads();
+  }
+  const T* C = (const T*)p.C;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) flush(p, O, C, i0 + ty + 16 * r, j0 + tx + 16 * c, acc[r][c]);
+}
+
+// ---- bf16: WMMA on the tensor cores, f32 accumulate ------------------------
+// 8 warps as 4 (rows) x 2 (cols); each warp owns 32 x 64 of the 128 x 128
+// tile = 2 x 4 fragments.  Shared tiles are stored in the operand's memory
+// orientation (row_major or col_major fragments), so every global load is
+// contiguous across a warp.
+template <bool AT, bool BT>
+__global__ void __launch_bounds__(256) mm_wmma(MM p) {
+  constexpr int BM = 128, BN = 128, BK = 32;
+  constexpr int LDA = AT ? BM + 8 : BK + 8;  // As[k][i] if AT else As[i][k]
+  constexpr int LDB = BT ? BK + 8 : BN + 8;  // Bs[j][k] if BT else Bs[k][j]
+  __shared__ __align__(32) bf16 As[AT ? BK * LDA : BM * LDA];
+  __shared__ __align__(32) bf16 Bs[BT ? BN * LDB : BK * LDB];
+  __shared__ __align__(32) float scratch[8][16 * 16];
+  int ti, tj;
+  bool live;
+  tile_of(p, blockIdx.x, ti, tj, live);
+  const int i0 = ti * BM, j0 = tj * BN;
+  bf16* O = (bf16*)p.O;
+  if (!live) {
+    zero_tile(p, O, i0, j0, BM, BN);
+    return;
+  }
+  const bf16* A = (const bf16*)p.A;
+  const bf16* B = (const bf16*)p.B;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp / 2, wc = warp % 2;
+  typedef typename std::conditional<AT, wmma::col_major, wmma::row_major>::type LayA;
+  typedef typename std::conditional<BT, wmma::col_major, wmma::row_major>::type LayB;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wmma::fill_fragment(acc[r][c], 0.0f);
+  int kb, ke;
+  k_range(p, AT, BT, i0, j0, BM, BN, BK, kb, ke);
+  for (int k0 = kb; k0 < ke; k0 += BK) {
+    for (int e = tid; e < BM * BK; e += 256) {
+      if (AT) {
+        int ii = e % BM, kk = e / BM;
+        As[kk * LDA + ii] = load_a<bf16, AT>(p, A, i0 + ii, k0 + kk);
+      } else {
+        int ii = e / BK, kk = e % BK;
+        As[ii * LDA + kk] = load_a<bf16, AT>(p, A, i0 + ii, k0 + kk);
+      }
+    }
+    for (int e = tid; e < BK * BN; e += 256) {
+      if (BT) {
+        int jj = e / BK, kk = e % BK;
+        Bs[jj * LDB + kk] = load_b<bf16, BT>(p, B, k0 + kk, j0 + jj);
+      } else {
+        int jj = e % BN, kk = e / BN;
+        Bs[kk * LDB + jj] = load_b<bf16, BT>(p, B, k0 + kk, j0 + jj);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> b[4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int row = wr * 32 + r * 16;
+        const bf16* src = AT ? As + ks * LDA + row : As + row * LDA + ks;
+        wmma::load_matrix_sync(a[r], src, LDA);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        int col = wc * 64 + c * 16;
+        const bf16* src = BT ? Bs + col * LDB + ks : Bs + ks * LDB + col;
+        wmma::load_matrix_sync(b[c], src, LDB);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wmma::mma_sync(acc[r][c], a[r], b[c], acc[r][c]);
+    }
+    __syncthreads();
+  }
+  const bf16* C = (const bf16*)p.C;
+  float* sc = scratch[warp];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      wmma::store_matrix_sync(sc, acc[r][c], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        flush(p, O, C, i0 + wr * 32 + r * 16 + e / 16, j0 + wc * 64 + c * 16 + e % 16, sc[e]);
+      }
+      __syncwarp();
+    }
+}
+
+static long long count_blocks(const MM& p) {
+  if (p.out_uplo == UPLO_NONE || p.all_tiles) return (long long)p.ntm * p.ntn;
+  long long total = 0;
+  for (int i = 0; i < p.ntm; ++i) {
+    int lo, hi;
+    live_cols(p, i, lo, hi);
+    if (hi > lo) total += hi - lo;
+  }
+  return total;
+}
+
+#define CAPITAL_MM_DISPATCH(KERNEL, ...)                                  \
+  do {                                                                    \
+    if (at && bt) KERNEL<__VA_ARGS__ true, true><<<grid, 256, 0, s>>>(p); \
+    else if (at) KERNEL<__VA_ARGS__ true, false><<<grid, 256, 0, s>>>(p); \
+    else if (bt) KERNEL<__VA_ARGS__ false, true><<<grid, 256, 0, s>>>(p); \
+    else KERNEL<__VA_ARGS__ false, false><<<grid, 256, 0, s>>>(p);        \
+  } while (0)
+
+// Returns the cudaError_t of the launch (0 = launched); -1 for a bad dtype.
+extern "C" int capital_tri_matmul(int dtype, const void* A, long long lda, const void* B,
+                                  long long ldb, void* O, long long ldo, const void* C,
+                                  long long ldc, double alpha, double beta, int M, int N,
+                                  int K, int a_trans, int b_trans, int a_tri, int b_tri,
+                                  int out_uplo, int fused_c, int all_tiles, void* stream) {
+  MM p;
+  p.A = A; p.lda = lda; p.B = B; p.ldb = ldb; p.O = O; p.ldo = ldo; p.C = C; p.ldc = ldc;
+  p.alpha = alpha; p.beta = beta; p.M = M; p.N = N; p.K = K;
+  p.a_tri = a_tri; p.b_tri = b_tri; p.out_uplo = out_uplo; p.fused_c = fused_c;
+  p.all_tiles = all_tiles;
+  p.bm = p.bn = dtype == DT_BF16 ? 128 : 64;
+  p.ntm = (M + p.bm - 1) / p.bm;
+  p.ntn = (N + p.bn - 1) / p.bn;
+  long long blocks = count_blocks(p);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((unsigned)blocks);
+  cudaStream_t s = (cudaStream_t)stream;
+  bool at = a_trans != 0, bt = b_trans != 0;
+  switch (dtype) {
+    case DT_BF16: CAPITAL_MM_DISPATCH(mm_wmma, ); break;
+    case DT_F32: CAPITAL_MM_DISPATCH(mm_simt, float,); break;
+    case DT_F64: CAPITAL_MM_DISPATCH(mm_simt, double,); break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,502 @@
+"""The cholinv path's kernels on Hopper (counterpart of
+capital_tpu/ops/pallas_tpu.py).
+
+Each kernel sits here as three things side by side:
+
+* the **wrapper** (`tri_matmul`, `transpose`, `transpose_pair`,
+  `zeros_dead_lower`): it validates its arguments, then launches the
+  hand-written CUDA kernel (ops/csrc/*.cu) when its tensors lie on a CUDA
+  device, or runs the plain version when they lie on the CPU.  There is no
+  other route: a CUDA tensor launches the kernel or raises.
+* the **plain version** (`*_plain`): the same function in plain PyTorch, used
+  for CPU tensors and, on the card, as the reference a kernel is held to.
+* the **launch counter** (`KERNELS`): each wrapper adds one where it
+  launches its kernel, and nowhere else.
+
+Unlike the JAX package, where "consumed" buffers are a promise to XLA,
+writes here are real mutation: `out` windows are written in place and the
+wrapper returns the same tensor.  An in-place window that overlaps a window
+the same call reads raises.
+
+Windows are `(r0, c0, rows, cols)` tuples on 2-D row-major buffers; kernels
+address them through a base pointer, a leading dimension and the window
+origin, so any offset works without materializing a slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from capital_tpu_torch.ops import _build
+from capital_tpu_torch.ops.masking import take_triangle
+
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
+_UPLO = {None: 0, "U": 1, "L": 2}
+_CSRC = "capital_tpu_torch/ops/csrc/"
+_PALLAS = "capital_tpu/ops/pallas_tpu.py:"
+#: most `extra` windows one zeros_dead_lower launch takes (csrc MAX_EXTRA)
+MAX_EXTRA = 8
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One kernel's identity and its launch count."""
+
+    name: str
+    source: str  # CUDA source, relative to the repo root
+    replaces: str  # the Pallas kernel's pallas_call, file:line
+    route: str = "cuda"
+    launches: int = 0
+
+
+#: every kernel of this module, by name
+KERNELS: dict[str, Kernel] = {
+    k.name: k
+    for k in (
+        Kernel("tri_matmul.trmm", _CSRC + "tri_matmul.cu", _PALLAS + "1306"),
+        Kernel("tri_matmul.syrk", _CSRC + "tri_matmul.cu", _PALLAS + "1199"),
+        Kernel("tri_matmul.dense", _CSRC + "tri_matmul.cu", _PALLAS + "1104"),
+        Kernel("transpose", _CSRC + "transpose.cu", _PALLAS + "661"),
+        Kernel("transpose_pair", _CSRC + "transpose.cu", _PALLAS + "723"),
+        Kernel("zeros_dead_lower", _CSRC + "zeros_dead.cu", _PALLAS + "409"),
+    )
+}
+
+
+def reset_counts() -> None:
+    """Set every launch counter to 0."""
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def counts() -> dict[str, int]:
+    """Launch count of every kernel, by name."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+# --------------------------------------------------------------------------
+# shared argument handling
+# --------------------------------------------------------------------------
+
+
+def _on_card(*tensors) -> bool:
+    """True when every given tensor is on a CUDA device, False when every
+    one is on the CPU; anything else raises."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"operands must all be on one CUDA device or all on the CPU, got {kinds}")
+
+
+def _full_view(X: torch.Tensor, view):
+    return tuple(view) if view is not None else (0, 0, *X.shape)
+
+
+def _check_window(X: torch.Tensor, view, what: str) -> None:
+    if X.dim() != 2:
+        raise ValueError(f"{what} must be 2-D, got shape {tuple(X.shape)}")
+    r0, c0, rows, cols = view
+    if min(r0, c0, rows, cols) < 0 or r0 + rows > X.shape[0] or c0 + cols > X.shape[1]:
+        raise ValueError(f"{what} window {view} outside its buffer {tuple(X.shape)}")
+
+
+def _window(X: torch.Tensor, view) -> torch.Tensor:
+    r0, c0, rows, cols = view
+    return X[r0:r0 + rows, c0:c0 + cols]
+
+
+def _overlaps(X: torch.Tensor, xv, Y: torch.Tensor, yv) -> bool:
+    """Do window xv of X and window yv of Y share any element?"""
+    if X.untyped_storage().data_ptr() != Y.untyped_storage().data_ptr():
+        return False
+    if X.stride() != Y.stride() or X.stride(1) != 1:
+        raise ValueError("operands share storage with different layouts")
+    ld = X.stride(0)
+    xr, xc = divmod(X.storage_offset(), ld)
+    yr, yc = divmod(Y.storage_offset(), ld)
+    ar, ac, ah, aw = xr + xv[0], xc + xv[1], xv[2], xv[3]
+    br, bc, bh, bw = yr + yv[0], yc + yv[1], yv[2], yv[3]
+    if min(ah, aw, bh, bw) == 0:
+        return False
+    return ar < br + bh and br < ar + ah and ac < bc + bw and bc < ac + aw
+
+
+def _kernel_operand(X: torch.Tensor, what: str) -> None:
+    if X.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what}: the kernels take bf16, f32 or f64, got {X.dtype}")
+    if X.dim() != 2 or X.stride(1) != 1:
+        raise ValueError(
+            f"{what}: the kernels take row-major 2-D buffers (stride(1) == 1), "
+            f"got strides {X.stride()}"
+        )
+
+
+def _ptr(X: torch.Tensor, r0: int, c0: int) -> int:
+    return X.data_ptr() + (r0 * X.stride(0) + c0) * X.element_size()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _launched(rc: int, kernel: Kernel) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel.name}: CUDA launch failed (error {rc})")
+    kernel.launches += 1
+
+
+# --------------------------------------------------------------------------
+# tri_matmul
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _MMSpec:
+    av: tuple
+    bv: tuple
+    M: int
+    N: int
+    K: int
+    fused_c: bool
+    rmw: bool
+    form: str
+
+
+def _mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view, b_view,
+             out, out_off, c, c_view, beta) -> _MMSpec:
+    """Validate a tri_matmul call (the JAX package's rules, plus the bounds
+    and overlap checks that in-place mutation needs)."""
+    if a_uplo is not None and b_uplo is not None:
+        raise ValueError("at most one triangular operand")
+    if out_uplo is not None and (a_uplo is not None or b_uplo is not None):
+        raise ValueError("out_uplo cannot combine with a triangular operand")
+    for u in (a_uplo, b_uplo, out_uplo):
+        if u not in _UPLO:
+            raise ValueError(f"uplo must be 'U', 'L' or None, got {u!r}")
+    rmw = (
+        out_uplo is not None and out is not None and beta != 0.0 and out is c
+        and tuple(out_off) == ((c_view[0], c_view[1]) if c_view is not None else (0, 0))
+    )
+    if out_uplo is not None and out is not None and not rmw:
+        raise ValueError(
+            "in-place `out` with out_uplo requires out to BE the C operand "
+            "with out_off == the c_view origin (syrk RMW)"
+        )
+    if beta != 0.0 and (out_uplo is None or c is None):
+        raise ValueError("beta accumulation needs out_uplo and the C operand")
+    av, bv = _full_view(A, a_view), _full_view(B, b_view)
+    _check_window(A, av, "A")
+    _check_window(B, bv, "B")
+    am, ak = (av[3], av[2]) if a_trans else (av[2], av[3])
+    bk, bn = (bv[3], bv[2]) if b_trans else (bv[2], bv[3])
+    if ak != bk:
+        raise ValueError(
+            f"contraction mismatch: {(am, ak)} x {(bk, bn)} "
+            f"(A{tuple(A.shape)} view {a_view}, B{tuple(B.shape)} view {b_view})"
+        )
+    fused_c = beta != 0.0 and c is not None
+    if fused_c:
+        cv = _full_view(c, c_view)
+        _check_window(c, cv, "C")
+        if (cv[2], cv[3]) != (am, bn):
+            raise ValueError(f"C operand {(cv[2], cv[3])} does not match the {(am, bn)} result")
+    if out is not None:
+        ov = (out_off[0], out_off[1], am, bn)
+        _check_window(out, ov, "out")
+        for X, xv, what in ((A, av, "A"), (B, bv, "B")):
+            if _overlaps(out, ov, X, xv):
+                raise ValueError(f"in-place out window {ov} overlaps the {what} window {xv}")
+    form = "syrk" if out_uplo else ("trmm" if (a_uplo or b_uplo) else "dense")
+    return _MMSpec(av, bv, am, bn, ak, fused_c, rmw, form)
+
+
+def _acc_dtype(*dtypes) -> torch.dtype:
+    dt = dtypes[0]
+    for d in dtypes[1:]:
+        dt = torch.promote_types(dt, d)
+    return torch.float64 if dt == torch.float64 else torch.float32
+
+
+def tri_matmul_plain(
+    A, B, *, a_uplo=None, a_trans=False, b_uplo=None, b_trans=False,
+    out_uplo=None, alpha=1.0, precision=None, a_view=None, b_view=None,
+    out=None, out_off=(0, 0), c=None, c_view=None, beta=0.0,
+):
+    """Plain PyTorch version of `tri_matmul` (same arguments, same result).
+    With fused beta·C the dead half of a fresh result is NaN — undefined by
+    contract, and NaN makes a reader of it visible."""
+    s = _mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view,
+                 b_view, out, out_off, c, c_view, beta)
+    del precision  # f32 is always full IEEE f32 here
+    Aw, Bw = _window(A, s.av), _window(B, s.bv)
+    if a_uplo is not None:
+        Aw = take_triangle(Aw, a_uplo)
+    if b_uplo is not None:
+        Bw = take_triangle(Bw, b_uplo)
+    acc = _acc_dtype(A.dtype, B.dtype)
+    opA = (Aw.T if a_trans else Aw).to(acc)
+    opB = (Bw.T if b_trans else Bw).to(acc)
+    res = opA @ opB
+    if alpha != 1.0:
+        res = alpha * res
+    if out_uplo is not None:
+        res = take_triangle(res, out_uplo)
+    live = None
+    if s.fused_c:
+        Cw = _window(c, _full_view(c, c_view))
+        add = torch.promote_types(res.dtype, c.dtype)
+        res = res.to(add) + beta * Cw.to(add)
+        r = torch.arange(s.M, device=res.device)[:, None]
+        q = torch.arange(s.N, device=res.device)[None, :]
+        live = (r <= q) if out_uplo == "U" else (r >= q)
+    if out is not None:
+        ow = _window(out, (out_off[0], out_off[1], s.M, s.N))
+        res = res.to(out.dtype)
+        ow.copy_(torch.where(live, res, ow) if s.rmw else res)
+        return out
+    if s.fused_c:
+        out_dtype = torch.promote_types(torch.promote_types(A.dtype, B.dtype), c.dtype)
+        res = torch.where(live, res, torch.full_like(res, float("nan")))
+    else:
+        out_dtype = torch.promote_types(A.dtype, B.dtype)
+    return res.to(out_dtype).contiguous()
+
+
+def tri_matmul(
+    A, B, *, a_uplo=None, a_trans=False, b_uplo=None, b_trans=False,
+    out_uplo=None, alpha=1.0, precision=None, a_view=None, b_view=None,
+    out=None, out_off=(0, 0), c=None, c_view=None, beta=0.0,
+):
+    """C = alpha · op(A) · op(B) with dead triangular tiles never visited
+    (ops/csrc/tri_matmul.cu; the JAX package's pallas_tpu.tri_matmul).
+
+    a_uplo/a_trans, b_uplo/b_trans — at most one triangular operand, its
+        uplo naming the stored triangle of the untransposed window (BLAS
+        trmm); the dead triangle is zero whatever the buffer holds.
+    out_uplo — only that triangle of the result is computed (syrk); with
+        beta == 0 the dead half is zero, with fused beta·C it is UNDEFINED.
+    a_view/b_view/c_view — (r0, c0, rows, cols) windows of the buffers.
+    out/out_off — write the result into `out` at out_off in place and return
+        `out`.  `out` may be A's or B's buffer when the windows are disjoint;
+        with out_uplo the one in-place form is the syrk read-modify-write
+        (out IS c, out_off == the c_view origin).
+    precision — accepted for the JAX signature; f32 always runs as IEEE f32
+        (the reference's 'highest'; 'high' is never less precise this way).
+
+    The kernel takes A, B, C and out of one dtype (bf16, f32 or f64) and
+    accumulates in f32 (f64 for f64)."""
+    s = _mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view,
+                 b_view, out, out_off, c, c_view, beta)
+    cc = c if s.fused_c else None
+    if not _on_card(A, B, out, cc):
+        return tri_matmul_plain(
+            A, B, a_uplo=a_uplo, a_trans=a_trans, b_uplo=b_uplo, b_trans=b_trans,
+            out_uplo=out_uplo, alpha=alpha, a_view=a_view, b_view=b_view,
+            out=out, out_off=out_off, c=c, c_view=c_view, beta=beta,
+        )
+    for X, what in ((A, "A"), (B, "B"), (out, "out"), (cc, "C")):
+        if X is not None:
+            _kernel_operand(X, what)
+            if X.dtype != A.dtype:
+                raise TypeError(f"tri_matmul kernel: {what} is {X.dtype}, A is {A.dtype}")
+    if out is None:
+        res = torch.empty((s.M, s.N), dtype=A.dtype, device=A.device)
+        o_ptr, ldo = res.data_ptr(), s.N
+    else:
+        res = out
+        o_ptr, ldo = _ptr(out, out_off[0], out_off[1]), out.stride(0)
+    if s.M == 0 or s.N == 0:
+        return res
+    if s.fused_c:
+        cv = _full_view(c, c_view)
+        c_ptr, ldc = _ptr(c, cv[0], cv[1]), c.stride(0)
+    else:
+        c_ptr, ldc = None, 0
+    all_tiles = out_uplo is not None and not s.fused_c
+    rc = _build.entry("capital_tri_matmul")(
+        _DTYPE_CODE[A.dtype],
+        _ptr(A, s.av[0], s.av[1]), A.stride(0),
+        _ptr(B, s.bv[0], s.bv[1]), B.stride(0),
+        o_ptr, ldo, c_ptr, ldc,
+        float(alpha), float(beta), s.M, s.N, s.K,
+        int(bool(a_trans)), int(bool(b_trans)),
+        _UPLO[a_uplo], _UPLO[b_uplo], _UPLO[out_uplo],
+        int(s.fused_c), int(all_tiles), _stream(),
+    )
+    _launched(rc, KERNELS["tri_matmul." + s.form])
+    return res
+
+
+# --------------------------------------------------------------------------
+# transpose / transpose_pair
+# --------------------------------------------------------------------------
+
+
+def _transpose_spec(X, in_view, out_uplo, out, out_off):
+    if out_uplo not in _UPLO:
+        raise ValueError(f"out_uplo must be 'U', 'L' or None, got {out_uplo!r}")
+    iv = _full_view(X, in_view)
+    _check_window(X, iv, "X")
+    if out is not None:
+        ov = (out_off[0], out_off[1], iv[3], iv[2])
+        _check_window(out, ov, "out")
+        if _overlaps(out, ov, X, iv):
+            raise ValueError(f"in-place out window {ov} overlaps the input window {iv}")
+    return iv
+
+
+def transpose_plain(X, *, in_view=None, out_uplo=None, out=None, out_off=(0, 0), out_dtype=None):
+    """Plain PyTorch version of `transpose`."""
+    iv = _transpose_spec(X, in_view, out_uplo, out, out_off)
+    res_dtype = out.dtype if out is not None else (out_dtype or X.dtype)
+    t = _window(X, iv).T
+    if out_uplo is not None:
+        t = take_triangle(t, out_uplo)
+    t = t.to(res_dtype)
+    if out is not None:
+        _window(out, (out_off[0], out_off[1], iv[3], iv[2])).copy_(t)
+        return out
+    return t.contiguous()
+
+
+def transpose(X, *, in_view=None, out_uplo=None, out=None, out_off=(0, 0), out_dtype=None):
+    """Windowᵀ, masked to `out_uplo` of the result (dead half zero whatever
+    the input holds), cast to `out_dtype` (or out's dtype) in the kernel,
+    and written into `out` at out_off in place (returning `out`) or into a
+    fresh tensor (ops/csrc/transpose.cu; pallas_tpu.transpose)."""
+    iv = _transpose_spec(X, in_view, out_uplo, out, out_off)
+    if not _on_card(X, out):
+        return transpose_plain(X, in_view=in_view, out_uplo=out_uplo, out=out,
+                               out_off=out_off, out_dtype=out_dtype)
+    res_dtype = out.dtype if out is not None else (out_dtype or X.dtype)
+    _kernel_operand(X, "X")
+    if out is None:
+        res = torch.empty((iv[3], iv[2]), dtype=res_dtype, device=X.device)
+        o_ptr, ldo = res.data_ptr(), iv[2]
+    else:
+        res = out
+        o_ptr, ldo = _ptr(out, out_off[0], out_off[1]), out.stride(0)
+    _kernel_operand(res, "out")
+    if iv[2] == 0 or iv[3] == 0:
+        return res
+    rc = _build.entry("capital_transpose")(
+        _DTYPE_CODE[X.dtype], _DTYPE_CODE[res_dtype],
+        _ptr(X, iv[0], iv[1]), X.stride(0), o_ptr, ldo,
+        iv[2], iv[3], _UPLO[out_uplo], _stream(),
+    )
+    _launched(rc, KERNELS["transpose"])
+    return res
+
+
+def _pair_spec(L, Linv, Rp, RIp, dest):
+    n = L.shape[0]
+    if L.shape != (n, n) or Linv.shape != (n, n) or Rp.shape != RIp.shape:
+        raise ValueError(
+            f"transpose_pair wants square panels and matching buffers, got "
+            f"L{tuple(L.shape)} Linv{tuple(Linv.shape)} Rp{tuple(Rp.shape)} RIp{tuple(RIp.shape)}"
+        )
+    ov = (dest, dest, n, n)
+    _check_window(Rp, ov, "Rp")
+    if _overlaps(Rp, ov, RIp, ov):
+        raise ValueError("transpose_pair: Rp and RIp windows overlap")
+    for Y in (Rp, RIp):
+        for X in (L, Linv):
+            if _overlaps(Y, ov, X, (0, 0, n, n)):
+                raise ValueError("transpose_pair: an output window overlaps an input")
+    return n
+
+
+def transpose_pair_plain(L, Linv, Rp, RIp, *, dest):
+    """Plain PyTorch version of `transpose_pair`: two `transpose_plain`
+    calls."""
+    _pair_spec(L, Linv, Rp, RIp, dest)
+    Rp = transpose_plain(L, out_uplo="U", out=Rp, out_off=(dest, dest))
+    RIp = transpose_plain(Linv, out_uplo="U", out=RIp, out_off=(dest, dest))
+    return Rp, RIp
+
+
+def transpose_pair(L, Linv, Rp, RIp, *, dest: int):
+    """Both leaf write-backs in one launch: triu(Lᵀ) into Rp and
+    triu(Linvᵀ) into RIp at (dest, dest), in place; bitwise equal to two
+    `transpose` calls (ops/csrc/transpose.cu; pallas_tpu.transpose_pair)."""
+    n = _pair_spec(L, Linv, Rp, RIp, dest)
+    if not _on_card(L, Linv, Rp, RIp):
+        return transpose_pair_plain(L, Linv, Rp, RIp, dest=dest)
+    for X, what in ((L, "L"), (Linv, "Linv"), (Rp, "Rp"), (RIp, "RIp")):
+        _kernel_operand(X, what)
+    if L.dtype != Linv.dtype or L.stride(0) != Linv.stride(0):
+        raise TypeError("transpose_pair kernel: L and Linv need one dtype and layout")
+    if Rp.dtype != RIp.dtype or Rp.stride(0) != RIp.stride(0):
+        raise TypeError("transpose_pair kernel: Rp and RIp need one dtype and layout")
+    if n == 0:
+        return Rp, RIp
+    rc = _build.entry("capital_transpose_pair")(
+        _DTYPE_CODE[L.dtype], _DTYPE_CODE[Rp.dtype],
+        L.data_ptr(), Linv.data_ptr(), L.stride(0),
+        _ptr(Rp, dest, dest), _ptr(RIp, dest, dest), Rp.stride(0), n, _stream(),
+    )
+    _launched(rc, KERNELS["transpose_pair"])
+    return Rp, RIp
+
+
+# --------------------------------------------------------------------------
+# zeros_dead_lower
+# --------------------------------------------------------------------------
+
+
+def _zeros_spec(p, dtype, tile, extra, dead):
+    if tile < 1 or p < 1:
+        raise ValueError(f"zeros_dead_lower needs p >= 1 and tile >= 1, got p={p}, tile={tile}")
+    if dead not in ("lower", "upper"):
+        raise ValueError(f"dead must be 'lower' or 'upper', got {dead!r}")
+    if not dtype.is_floating_point:
+        raise TypeError(f"zeros_dead_lower takes a floating dtype, got {dtype}")
+    extra = [tuple(int(v) for v in w) for w in extra]
+    if len(extra) > MAX_EXTRA:
+        raise ValueError(f"at most {MAX_EXTRA} extra windows, got {len(extra)}")
+    for w in extra:
+        r0, c0, rows, cols = w
+        if min(w) < 0 or r0 + rows > p or c0 + cols > p:
+            raise ValueError(f"extra window {w} outside the {p} x {p} buffer")
+    return extra
+
+
+def zeros_dead_lower_plain(p, dtype, tile, extra=(), dead="lower", *, device="cpu"):
+    """Plain PyTorch version of `zeros_dead_lower`.  Every tile the kernel
+    leaves unwritten is NaN here, so a recursion that leaves a live tile
+    unwritten shows up as NaN in its result."""
+    extra = _zeros_spec(p, dtype, tile, extra, dead)
+    buf = torch.full((p, p), float("nan"), dtype=dtype, device=device)
+    t = torch.arange(p, device=device) // tile
+    dead_mask = (t[:, None] < t[None, :]) if dead == "upper" else (t[:, None] > t[None, :])
+    buf[dead_mask] = 0
+    for r0, c0, rows, cols in extra:
+        buf[r0:r0 + rows, c0:c0 + cols] = 0
+    return buf
+
+
+def zeros_dead_lower(p, dtype, tile, extra=(), dead="lower", *, device):
+    """A p x p buffer whose strictly-sub-diagonal `tile` blocks (strictly-
+    super-diagonal with dead='upper') and `extra` (r0, c0, rows, cols)
+    windows are zero; every other tile is left unwritten (ops/csrc/
+    zeros_dead.cu; pallas_tpu.zeros_dead_lower).  On the card the buffer
+    comes from torch.empty; the plain version fills the rest with NaN."""
+    device = torch.device(device)
+    extra = _zeros_spec(p, dtype, tile, extra, dead)
+    if device.type == "cpu":
+        return zeros_dead_lower_plain(p, dtype, tile, extra, dead, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"zeros_dead_lower: unsupported device {device}")
+    buf = torch.empty((p, p), dtype=dtype, device=device)
+    flat = (ctypes.c_longlong * max(1, 4 * len(extra)))(*[v for w in extra for v in w])
+    rc = _build.entry("capital_zeros_dead")(
+        buf.data_ptr(), p, buf.stride(0), buf.element_size(), tile,
+        int(dead == "upper"), flat, len(extra), _stream(),
+    )
+    _launched(rc, KERNELS["zeros_dead_lower"])
+    return buf

@@ -1,0 +1,96 @@
+"""Local factorizations — the LAPACK seam (counterpart of
+capital_tpu/ops/lapack.py).
+
+The JAX package maps this seam onto `lax.linalg`, a library call; the port
+maps it onto `torch.linalg`.  Sub-f32 inputs (bf16/f16) are upcast to f32
+for the factorization and cast back once, as in the reference.
+
+A breakdown NaN-fills the factor, as `lax.linalg.cholesky` does, so that
+`robust/detect.factor_info` reports it the same way in both packages
+(`torch.linalg.cholesky` would raise instead).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from capital_tpu_torch.robust import detect
+
+
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Panel factorizations run at >= f32."""
+    return torch.float32 if dtype.itemsize < 4 else dtype
+
+
+def cholesky_lower(P: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor reading only the lower triangle of P; the whole
+    factor is NaN on breakdown (lax.linalg.cholesky semantics)."""
+    L, info = torch.linalg.cholesky_ex(P)
+    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+
+
+def _eye(n: int, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return torch.eye(n, dtype=dtype, device=like.device)
+
+
+def potrf(A: torch.Tensor, uplo: str = "U", with_info: bool = False):
+    """Cholesky factor of SPD A: upper R with A = RᵀR (uplo='U') or lower L
+    with A = LLᵀ (uplo='L')."""
+    L = cholesky_lower(A.to(_compute_dtype(A.dtype))).to(A.dtype)
+    T = L.T if uplo == "U" else L
+    return (T, detect.factor_info(T)) if with_info else T
+
+
+def potrs(T: torch.Tensor, B: torch.Tensor, uplo: str = "U") -> torch.Tensor:
+    """SPD solve A·X = B from an existing Cholesky factor by two triangular
+    sweeps (Rᵀ then R for 'U', L then Lᵀ for 'L')."""
+    if uplo not in ("U", "L"):
+        raise ValueError(f"uplo must be 'U' or 'L', got {uplo!r}")
+    ct = _compute_dtype(T.dtype)
+    Tc, Bc = T.to(ct), B.to(ct)
+    # the transposed sweep comes first for 'U' (Rᵀ then R), second for 'L'
+    first, second = (Tc.mT, Tc) if uplo == "U" else (Tc, Tc.mT)
+    Y = torch.linalg.solve_triangular(first, Bc, upper=False)
+    X = torch.linalg.solve_triangular(second, Y, upper=True)
+    return X.to(B.dtype)
+
+
+def trtri(T: torch.Tensor, uplo: str = "U", unit_diag: bool = False) -> torch.Tensor:
+    """Inverse of a triangular matrix (leading batch dims invert as a
+    stack)."""
+    ct = _compute_dtype(T.dtype)
+    eye = torch.eye(T.shape[-1], dtype=ct, device=T.device).expand(T.shape)
+    out = torch.linalg.solve_triangular(
+        T.to(ct), eye, upper=(uplo == "U"), unitriangular=unit_diag
+    )
+    return out.to(T.dtype)
+
+
+def potrf_trtri(A: torch.Tensor, uplo: str = "U", with_info: bool = False):
+    """Factor + triangular inverse back to back; the factor stays at the
+    compute dtype between the two steps."""
+    ct = _compute_dtype(A.dtype)
+    L = cholesky_lower(A.to(ct))
+    T = L.T if uplo == "U" else L
+    Tinv = torch.linalg.solve_triangular(
+        T, _eye(A.shape[-1], A, ct), upper=(uplo == "U")
+    )
+    T, Tinv = T.to(A.dtype), Tinv.to(A.dtype)
+    return (T, Tinv, detect.factor_info(T)) if with_info else (T, Tinv)
+
+
+def potrf_trtri_upper(P: torch.Tensor, with_info: bool = False):
+    """(R, R⁻¹) upper-triangular from a symmetric panel whose upper
+    triangle holds the valid content (the lower half may be garbage).  The
+    three transposes go through the port's transpose kernel
+    (ops/hopper.transpose), as the JAX package routes them through its
+    Pallas transpose."""
+    from capital_tpu_torch.ops import hopper
+
+    ct = _compute_dtype(P.dtype)
+    P_low = hopper.transpose(P, out_uplo="L", out_dtype=ct)
+    L = cholesky_lower(P_low).contiguous()  # row-major for the kernel
+    Linv = torch.linalg.solve_triangular(L, _eye(P.shape[-1], P, ct), upper=False).contiguous()
+    R = hopper.transpose(L, out_uplo="U", out_dtype=P.dtype)
+    Rinv = hopper.transpose(Linv, out_uplo="U", out_dtype=P.dtype)
+    return (R, Rinv, detect.factor_info(R)) if with_info else (R, Rinv)

@@ -1,0 +1,62 @@
+"""Residual norms — the correctness gates (counterpart of
+capital_tpu/utils/residual.py).
+
+Dense gates keep the JAX package's arithmetic: `cholesky_residual` and
+`cholesky_inverse_residual` compute at the operands' dtype,
+`inverse_residual` at the f32 floor.  The probe-vector gates are O(n²): they
+check a factor at sizes where an n³ product would cost more than the
+factorization (the n=49152 flagship).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _floor(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def rel_fro(err: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """sqrt(sum(err²)) / sqrt(sum(ref²))."""
+    return torch.sqrt(torch.sum(torch.square(err))) / torch.sqrt(
+        torch.sum(torch.square(ref))
+    )
+
+
+def cholesky_residual(A: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """‖A − RᵀR‖_F / ‖A‖_F for upper-triangular R."""
+    return rel_fro(A - R.T @ R, A)
+
+
+def cholesky_inverse_residual(R: torch.Tensor, Rinv: torch.Tensor) -> torch.Tensor:
+    """‖I − R·R⁻¹‖_F / ‖I‖_F."""
+    eye = torch.eye(R.shape[0], dtype=R.dtype, device=R.device)
+    return rel_fro(eye - R @ Rinv, eye)
+
+
+def inverse_residual(A: torch.Tensor, Ainv: torch.Tensor) -> torch.Tensor:
+    """‖I − A·A⁻¹‖_F / ‖I‖_F, accumulated at the f32 floor."""
+    ct = _floor(A.dtype)
+    eye = torch.eye(A.shape[0], dtype=ct, device=A.device)
+    return rel_fro(eye - A.to(ct) @ Ainv.to(ct), eye)
+
+
+def cholesky_probe_residual(
+    A: torch.Tensor, R: torch.Tensor, v: torch.Tensor
+) -> torch.Tensor:
+    """‖A·v − Rᵀ(R·v)‖ / ‖A·v‖ for probe vectors v (n x k), at the f32
+    floor: O(n²k) instead of the n³ dense gate."""
+    ct = _floor(A.dtype)
+    Rc, vc = R.to(ct), v.to(ct)
+    Av = A.to(ct) @ vc
+    return rel_fro(Av - Rc.T @ (Rc @ vc), Av)
+
+
+def inverse_probe_residual(
+    R: torch.Tensor, Rinv: torch.Tensor, v: torch.Tensor
+) -> torch.Tensor:
+    """‖v − R·(R⁻¹·v)‖ / ‖v‖ at the f32 floor (O(n²k))."""
+    ct = _floor(R.dtype)
+    vc = v.to(ct)
+    return rel_fro(vc - R.to(ct) @ (Rinv.to(ct) @ vc), vc)

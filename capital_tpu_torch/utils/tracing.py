@@ -1,0 +1,162 @@
+"""Phase scopes and the analytic cost model (the subset of
+capital_tpu/utils/tracing.py that single-device cholinv calls).
+
+Phase tags keep the reference's critter symbol names (``CI::trsm`` ...) so
+phase tables compare across the two packages.  `scope` pushes the tag for
+cost attribution and opens a `torch.profiler.record_function` region, so a
+`torch.profiler` trace of the card groups kernels by phase.  `emit` and
+`note` are no-ops unless a `Recorder` is active.
+
+PyTorch runs eagerly, so unlike the JAX package (which emits once per
+trace) every call emits: a Recorder around one `factor` call captures
+exactly that call.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from collections import defaultdict
+
+import torch
+
+#: Registered phase tags — the cholinv subset of the JAX package's registry,
+#: names unchanged.  `scope()` refuses any other tag.
+PHASE_REGISTRY: tuple[str, ...] = (
+    "CI::factor_diag", "CI::trsm", "CI::tmu", "CI::inv", "CI::buffers",
+    "CI::tail_fused",
+)
+_PHASE_SET: set[str] = set(PHASE_REGISTRY)
+
+
+def register_phase(tag: str) -> str:
+    """Register an out-of-tree phase tag so `scope()` accepts it."""
+    global PHASE_REGISTRY
+    if tag not in _PHASE_SET:
+        PHASE_REGISTRY = PHASE_REGISTRY + (tag,)
+        _PHASE_SET.add(tag)
+    return tag
+
+
+_SCOPE_STACK: list[str] = []
+_ACTIVE: list["Recorder"] = []
+
+
+@dataclasses.dataclass
+class PhaseStats:
+    """Accumulated model costs for one phase tag.  `flops` is the
+    homogeneous model count; `flops_vol` / `flops_max` the executed views
+    (dead-tile skipping counts there)."""
+
+    calls: int = 0
+    flops: float = 0.0
+    comm_bytes: float = 0.0
+    collectives: int = 0
+    flops_vol: float = 0.0
+    flops_max: float = 0.0
+    copy_bytes: float = 0.0
+
+    def merge(self, other: "PhaseStats") -> None:
+        self.calls += other.calls
+        self.flops += other.flops
+        self.comm_bytes += other.comm_bytes
+        self.collectives += other.collectives
+        self.flops_vol += other.flops_vol
+        self.flops_max += other.flops_max
+        self.copy_bytes += other.copy_bytes
+
+
+@contextlib.contextmanager
+def scope(tag: str):
+    """Enter an algorithm phase: profiler region + cost attribution."""
+    if tag not in _PHASE_SET:
+        raise ValueError(
+            f"unregistered phase tag {tag!r}: add it to "
+            "tracing.PHASE_REGISTRY (or register_phase)"
+        )
+    _SCOPE_STACK.append(tag)
+    try:
+        with torch.profiler.record_function(tag):
+            yield
+    finally:
+        _SCOPE_STACK.pop()
+
+
+def emit(
+    flops: float = 0.0,
+    comm_bytes: float = 0.0,
+    collectives: int = 0,
+    flops_vol: float | None = None,
+    flops_max: float | None = None,
+    copy_bytes: float = 0.0,
+) -> None:
+    """Attribute model costs to the innermost active phase."""
+    if not _ACTIVE:
+        return
+    tag = _SCOPE_STACK[-1] if _SCOPE_STACK else "<top>"
+    for rec in _ACTIVE:
+        st = rec.stats[tag]
+        st.calls += 1
+        st.flops += flops
+        st.comm_bytes += comm_bytes
+        st.collectives += collectives
+        st.flops_vol += flops if flops_vol is None else flops_vol
+        st.flops_max += flops if flops_max is None else flops_max
+        st.copy_bytes += copy_bytes
+
+
+def note(tag: str) -> None:
+    """Count-only event under its own tag (not the scope stack)."""
+    for rec in _ACTIVE:
+        rec.stats[tag].calls += 1
+
+
+class Recorder:
+    """Collects per-phase model costs while active::
+
+        with tracing.Recorder() as rec:
+            cholesky.factor(grid, A, cfg)
+        rec.stats["CI::trsm"].flops
+    """
+
+    def __init__(self) -> None:
+        self.stats: dict[str, PhaseStats] = defaultdict(PhaseStats)
+
+    def __enter__(self) -> "Recorder":
+        _ACTIVE.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _ACTIVE.remove(self)
+
+    def total(self) -> PhaseStats:
+        t = PhaseStats()
+        for s in self.stats.values():
+            t.merge(s)
+        return t
+
+
+def gemm_cost(grid, M: int, N: int, K: int, dtype) -> tuple[float, float, int]:
+    """(flops, comm_bytes, collectives) per device for C[M,N] = A[M,K] @
+    B[K,N].  One device moves no collective bytes."""
+    del dtype
+    return 2.0 * M * N * K / grid.num_devices, 0.0, 0
+
+
+def replicate_cost(grid, m: int, n: int, dtype) -> tuple[float, int]:
+    """(comm_bytes, collectives) to replicate an m x n panel: zero on one
+    device."""
+    del grid, m, n, dtype
+    return 0.0, 0
+
+
+def allreduce_cost(grid, m: int, n: int, dtype, axes: str = "all") -> tuple[float, int]:
+    """(comm_bytes, collectives) for a sum over devices: zero on one
+    device."""
+    del grid, m, n, dtype, axes
+    return 0.0, 0
+
+
+def potrf_trtri_flops(n: int) -> float:
+    """Local panel factor + triangular inverse: n³/3 + n³/3."""
+    return 2.0 * n**3 / 3.0

@@ -59,3 +59,7 @@ def pytest_configure(config):
         "slow: excluded from the tier-1 gate (pytest -m 'not slow'); "
         "covered by `make audit` targets instead",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the PyTorch port's kernels); skips without one",
+    )

@@ -1,0 +1,167 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `gpu`; every test takes the `cuda` fixture, which skips when no CUDA
+device is present (decided at run time, never at import or collection).
+Run on a machine with an H100: `python -m pytest -m gpu tests/test_torch_gpu.py`.
+
+Tolerances, relative to the largest |plain| entry: f64 1e-12, f32 1e-5
+(IEEE FMA against the CPU-style sum order of the plain matmul), bf16 one
+bf16 ulp per entry plus 1e-5 (both sides accumulate in f32 and round once).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from capital_tpu_torch import Grid
+from capital_tpu_torch.models import cholesky
+from capital_tpu_torch.ops import hopper
+from capital_tpu_torch.utils import residual
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16}
+P = 1024
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(seed, shape, dt, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=torch.float64).to(DTYPES[dt]).to(dev)
+
+
+def _close(got, want, dt, mask=None):
+    got, want = got.double().cpu(), want.double().cpu()
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    if dt == "bf16":
+        assert bool((err <= 2.0**-7 * want.abs() + 1e-5 * scale).all()), float(err.max())
+    else:
+        assert float(err.max()) <= {"f64": 1e-12, "f32": 1e-5}[dt] * scale
+
+
+MM_CASES = {
+    "trsm": dict(a_uplo="U", a_trans=True, a_view=(0, 0, 512, 512),
+                 b_view=(0, 512, 512, 512), out="third", out_off=(0, 512)),
+    "inv_side_R": dict(b_uplo="U", alpha=-1.0, a_view=(0, 0, 384, 512),
+                       b_view=(512, 512, 512, 512), out="B", out_off=(0, 512)),
+    "lower_ragged": dict(a_uplo="L", alpha=0.5, a_view=(128, 64, 300, 300),
+                         b_view=(7, 3, 300, 200)),
+    "dense_bt": dict(b_trans=True, a_view=(0, 0, 320, 448), b_view=(64, 0, 256, 448)),
+}
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", list(MM_CASES))
+def test_tri_matmul_kernel_vs_plain(cuda, case, dt):
+    kw = dict(MM_CASES[case])
+    where = kw.pop("out", None)
+    A, B = _rand(1, (P, P), dt, cuda), _rand(2, (P, P), dt, cuda)
+    outs = []
+    for fn in (hopper.tri_matmul, hopper.tri_matmul_plain):
+        a, b = A.clone(), B.clone()
+        out = {"B": b, "third": _rand(3, (P, P), dt, cuda)}.get(where)
+        outs.append(fn(a, b, out=out, **kw))
+    torch.cuda.synchronize()
+    _close(outs[0], outs[1], dt)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("in_place", [False, True])
+def test_syrk_kernel_vs_plain(cuda, in_place, dt):
+    A, C = _rand(4, (P, P), dt, cuda), _rand(5, (P, P), dt, cuda)
+    kw = dict(a_trans=True, b_trans=False, out_uplo="U", alpha=-1.0, beta=1.0,
+              a_view=(0, 512, 512, 512), b_view=(0, 512, 512, 512),
+              c_view=(512, 512, 512, 512))
+    res = []
+    for fn in (hopper.tri_matmul, hopper.tri_matmul_plain):
+        c = C.clone()
+        extra = dict(out=c, out_off=(512, 512)) if in_place else {}
+        res.append(fn(A, A, c=c, **kw, **extra))
+    torch.cuda.synchronize()
+    live = torch.triu(torch.ones(512, 512, dtype=torch.bool))
+    if in_place:
+        mask = torch.zeros(P, P, dtype=torch.bool)
+        mask[512:, 512:] = live
+        _close(res[0], res[1], dt, mask)
+        outside = torch.ones(P, P, dtype=torch.bool)
+        outside[512:, 512:] = False
+        assert torch.equal(res[0].cpu()[outside], C.cpu()[outside])
+    else:
+        _close(res[0], res[1], dt, live)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_syrk_beta0_zeroes_dead_half(cuda, dt):
+    A = _rand(6, (P, P), dt, cuda)
+    kw = dict(a_trans=True, b_trans=False, out_uplo="L", a_view=(0, 0, 256, 640),
+              b_view=(0, 0, 256, 640))
+    got = hopper.tri_matmul(A, A, **kw)
+    want = hopper.tri_matmul_plain(A, A, **kw)
+    _close(got, want, dt)
+    assert bool((torch.triu(got, 1) == 0).all())
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("pair", [False, True])
+def test_transpose_kernels_bitwise(cuda, pair, dt):
+    X = _rand(7, (P, P), "f32", cuda)
+    Y = _rand(8, (P, P), "f32", cuda)
+    Rp, RIp = _rand(9, (P, P), dt, cuda), _rand(10, (P, P), dt, cuda)
+    if pair:
+        L, Li = X[:384, :384].contiguous(), Y[:384, :384].contiguous()
+        got = hopper.transpose_pair(L, Li, Rp.clone(), RIp.clone(), dest=256)
+        want = hopper.transpose_pair_plain(L, Li, Rp.clone(), RIp.clone(), dest=256)
+        two = (hopper.transpose(L, out_uplo="U", out=Rp.clone(), out_off=(256, 256)),
+               hopper.transpose(Li, out_uplo="U", out=RIp.clone(), out_off=(256, 256)))
+        for g, w, t in zip(got, want, two):
+            assert torch.equal(g, w) and torch.equal(g, t)
+    else:
+        kw = dict(in_view=(100, 36, 300, 500), out_uplo="L", out_dtype=DTYPES[dt])
+        assert torch.equal(hopper.transpose(X, **kw), hopper.transpose_plain(X, **kw))
+
+
+@pytest.mark.parametrize("dead", ["lower", "upper"])
+def test_zeros_dead_lower_kernel(cuda, dead):
+    p, tile = 1536, 512
+    extra = ((0, 512, 512, 1024),)
+    got = hopper.zeros_dead_lower(p, torch.float32, tile, extra=extra, dead=dead, device=cuda)
+    want = hopper.zeros_dead_lower_plain(p, torch.float32, tile, extra=extra, dead=dead,
+                                         device=cuda)
+    zero = want == 0
+    assert bool((got[zero] == 0).all())
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_factor_kernels_vs_plain(cuda, monkeypatch, dt):
+    n, bc = 1024, 128
+    g = np.random.default_rng(11).standard_normal((n, n))
+    A = torch.from_numpy(g @ g.T / n + 3 * np.eye(n)).to(DTYPES[dt]).to(cuda)
+    grid = Grid.square()
+    cfg = cholesky.CholinvConfig(mode="pallas", base_case_dim=bc)
+    hopper.reset_counts()
+    R, Ri = cholesky.factor(grid, A, cfg)
+    L = n // bc
+    assert hopper.counts() == {
+        "tri_matmul.trmm": 3 * (L - 1), "tri_matmul.syrk": L - 1, "tri_matmul.dense": 0,
+        "transpose": L, "transpose_pair": L, "zeros_dead_lower": 2,
+    }
+    for name in ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower"):
+        monkeypatch.setattr(hopper, name, getattr(hopper, name + "_plain"))
+    Rq, Riq = cholesky.factor(grid, A, cfg)
+    tol = {"f32": 1e-5, "bf16": 2e-2}[dt]
+    assert float(residual.rel_fro(R.double() - Rq.double(), Rq.double())) < tol
+    assert float(residual.rel_fro(Ri.double() - Riq.double(), Riq.double())) < tol
+    gate = {"f32": 2e-6, "bf16": 1e-2}[dt]
+    assert float(residual.cholesky_residual(A.double(), R.double())) < gate
+    assert float(residual.cholesky_inverse_residual(R.double(), Ri.double())) < gate
