@@ -7,13 +7,14 @@ nothing of `capital_tpu`.  Sub-packages mirror the reference's names.
 Entry points run on the CUDA card by default (`Grid.square()`); pass
 `device="cpu"` for the plain PyTorch path on the host.
 
-This slice ports single-device cholinv (`models/cholesky.factor`) with its
-four kernels (ops/hopper.py, ops/csrc/).  `KERNELS` holds their launch
-counters.
+Ported so far: single-device cholinv (`models/cholesky.factor`) and
+single-device CholeskyQR2 (`models/qr.factor`), with their hand-written
+kernels (ops/hopper.py, ops/qr_fused.py, ops/csrc/).  `KERNELS` holds every
+kernel's launch counter.
 """
 
-from capital_tpu_torch.models import cholesky
+from capital_tpu_torch.models import cholesky, qr
 from capital_tpu_torch.ops.hopper import KERNELS
 from capital_tpu_torch.parallel.topology import Grid
 
-__all__ = ["Grid", "KERNELS", "cholesky"]
+__all__ = ["Grid", "KERNELS", "cholesky", "qr"]

@@ -1,1 +1,1 @@
-"""Algorithms: cholinv."""
+"""Algorithms: cholinv and CholeskyQR2."""

@@ -1,1 +1,1 @@
-"""Local kernels: masks, the LAPACK seam, and the hand-written Hopper kernels."""
+"""Local kernels: masks, the LAPACK seam, TSQR, and the hand-written Hopper kernels."""

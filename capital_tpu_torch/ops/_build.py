@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tri_matmul.cu", "transpose.cu", "zeros_dead.cu")
+SOURCES = ("tri_matmul.cu", "transpose.cu", "zeros_dead.cu", "qr_fused.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,6 +47,11 @@ SIGNATURES = {
     "capital_zeros_dead": (
         "zeros_dead.cu",
         [_P, _LL, _LL, _I, _I, _I, ctypes.POINTER(_LL), _I, _P],
+    ),
+    "capital_gram_blocked": ("qr_fused.cu", [_I, _P, _LL, _LL, _I, _I, _P, _P, _I, _P]),
+    "capital_scale_blocked": ("qr_fused.cu", [_I, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _P]),
+    "capital_scale_gram": (
+        "qr_fused.cu", [_I, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _I, _P, _P, _I, _P],
     ),
 }
 

@@ -1,5 +1,7 @@
 """The cholinv path's kernels on Hopper (counterpart of
-capital_tpu/ops/pallas_tpu.py).
+capital_tpu/ops/pallas_tpu.py), and the one launch-counter registry of every
+kernel of the port (`KERNELS`; the CholeskyQR2 kernels' wrappers live in
+ops/qr_fused.py).
 
 Each kernel sits here as three things side by side:
 
@@ -37,6 +39,7 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
 _UPLO = {None: 0, "U": 1, "L": 2}
 _CSRC = "capital_tpu_torch/ops/csrc/"
 _PALLAS = "capital_tpu/ops/pallas_tpu.py:"
+_QR_FUSED = "capital_tpu/ops/qr_fused.py:"
 #: most `extra` windows one zeros_dead_lower launch takes (csrc MAX_EXTRA)
 MAX_EXTRA = 8
 
@@ -62,6 +65,10 @@ KERNELS: dict[str, Kernel] = {
         Kernel("transpose", _CSRC + "transpose.cu", _PALLAS + "661"),
         Kernel("transpose_pair", _CSRC + "transpose.cu", _PALLAS + "723"),
         Kernel("zeros_dead_lower", _CSRC + "zeros_dead.cu", _PALLAS + "409"),
+        # CholeskyQR2's tall passes; wrappers in ops/qr_fused.py
+        Kernel("qr.gram_blocked", _CSRC + "qr_fused.cu", _QR_FUSED + "181"),
+        Kernel("qr.scale_gram", _CSRC + "qr_fused.cu", _QR_FUSED + "260"),
+        Kernel("qr.scale_blocked", _CSRC + "qr_fused.cu", _QR_FUSED + "328"),
     )
 }
 

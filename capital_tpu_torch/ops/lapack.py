@@ -8,13 +8,17 @@ for the factorization and cast back once, as in the reference.
 A breakdown NaN-fills the factor, as `lax.linalg.cholesky` does, so that
 `robust/detect.factor_info` reports it the same way in both packages
 (`torch.linalg.cholesky` would raise instead).
+
+`potrf`, `potrf_trtri` and `potrf_trtri_upper` carry the fault-injection
+taps where the reference has them (robust/faultinject.py); a tap is the
+identity when no plan is active.
 """
 
 from __future__ import annotations
 
 import torch
 
-from capital_tpu_torch.robust import detect
+from capital_tpu_torch.robust import detect, faultinject
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -36,6 +40,7 @@ def _eye(n: int, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def potrf(A: torch.Tensor, uplo: str = "U", with_info: bool = False):
     """Cholesky factor of SPD A: upper R with A = RᵀR (uplo='U') or lower L
     with A = LLᵀ (uplo='L')."""
+    A = faultinject.tap(A)
     L = cholesky_lower(A.to(_compute_dtype(A.dtype))).to(A.dtype)
     T = L.T if uplo == "U" else L
     return (T, detect.factor_info(T)) if with_info else T
@@ -69,6 +74,7 @@ def trtri(T: torch.Tensor, uplo: str = "U", unit_diag: bool = False) -> torch.Te
 def potrf_trtri(A: torch.Tensor, uplo: str = "U", with_info: bool = False):
     """Factor + triangular inverse back to back; the factor stays at the
     compute dtype between the two steps."""
+    A = faultinject.tap(A)
     ct = _compute_dtype(A.dtype)
     L = cholesky_lower(A.to(ct))
     T = L.T if uplo == "U" else L
@@ -87,6 +93,7 @@ def potrf_trtri_upper(P: torch.Tensor, with_info: bool = False):
     Pallas transpose."""
     from capital_tpu_torch.ops import hopper
 
+    P = faultinject.tap(P)
     ct = _compute_dtype(P.dtype)
     P_low = hopper.transpose(P, out_uplo="L", out_dtype=ct)
     L = cholesky_lower(P_low).contiguous()  # row-major for the kernel

@@ -1,0 +1,288 @@
+"""CholeskyQR2's fused tall passes on Hopper (counterpart of
+capital_tpu/ops/qr_fused.py).
+
+The 1d CQR2 pipeline (models/qr.py) is three passes over the tall m x n
+operand:
+
+* ``gram_blocked`` — the upper block-row gram at column split g: block row j
+  (rows jc..(j+1)c, c = n/g) holds (AᵀA)[jc:(j+1)c, jc:]; the strictly lower
+  block triangle is zero.  (g+1)/2g of the dense flops.
+* ``scale_gram`` — Q = A·R⁻¹ (R⁻¹ upper triangular with true zeros below the
+  diagonal), Q rounded to A's dtype, then the gram of the ROUNDED Q in the
+  same layout: sweep 1's scale and sweep 2's gram in one call.
+* ``scale_blocked`` — Q = A·R⁻¹ alone (CQR2's final scale).
+
+Each is a wrapper, a plain version and a launch counter, as in ops/hopper.py:
+the wrapper validates its arguments with the JAX package's rule
+(`_shape_gate`, same message), launches the hand-written kernel
+(ops/csrc/qr_fused.cu) for CUDA tensors and runs the plain version for CPU
+tensors — no other route.  The counters are `hopper.KERNELS["qr.*"]`.  The
+plain versions follow the JAX kernels' block structure: row blocks of `bm`
+accumulated in turn into the gram, g column blocks, the zero block
+triangle.  The gram accumulates in f32 (f64 for f64).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from capital_tpu_torch.ops import _build, hopper
+
+#: output tile edge of the gram kernel per dtype (ops/csrc/qr_fused.cu)
+_GRAM_TILE = {torch.bfloat16: 128, torch.float32: 64, torch.float64: 64}
+#: gram blocks that fill the card a few times over (4 waves of 132 SMs)
+_FILL_BLOCKS = 4 * 132
+_MAX_SPLITS = 16
+#: rows per step of the plain scale (values do not depend on it)
+_PLAIN_SCALE_ROWS = 1 << 16
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32 accumulation for sub-f32 operands, f64 for f64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _pick_bm(m: int, preferred: int) -> int:
+    bm = preferred
+    while bm >= 256 and m % bm:
+        bm //= 2
+    return bm if m % bm == 0 else 0
+
+
+def live_fraction(g: int) -> float:
+    """Executed fraction of the dense contraction at column split g."""
+    return (g + 1) / (2.0 * g) if g > 1 else 1.0
+
+
+def _eligible(m: int, n: int, bm: int = 1024, g: int = 2) -> int:
+    """The one eligibility rule of every fused tall pass: g-way column
+    blocks that are 128-multiples of at least 128 (g=2 also needs
+    n/2 >= 256) and a row block that tiles m.  Returns the picked bm, or 0
+    if ineligible."""
+    if g < 2 or n % (g * 128):
+        return 0
+    if g == 2 and n // 2 < 256:
+        return 0
+    return _pick_bm(m, bm)
+
+
+def _shape_gate(name: str, m: int, n: int, bm: int, g: int) -> int:
+    bm = _eligible(m, n, bm, g)
+    if bm == 0:
+        raise ValueError(
+            f"{name} needs bm | m and a {g}-way 128-aligned column split "
+            f"(n % {g * 128} == 0), got {(m, n)}"
+        )
+    return bm
+
+
+def pick_g(n: int, override: int = 0) -> int:
+    """Column split of the fused passes: the largest g whose blocks stay
+    128 wide (the JAX package's rule)."""
+    if override:
+        return override if _eligible(1 << 20, n, 1024, override) else 0
+    g = 2
+    while n % (2 * g * 128) == 0:
+        g *= 2
+    return g if _eligible(1 << 20, n, 1024, g) else 0
+
+
+def assemble_sym(Gu: torch.Tensor, c: int) -> torch.Tensor:
+    """Symmetric gram from the upper block-row form with block width c
+    (every strictly lower block is the transpose of its mirror)."""
+    G = Gu.clone()
+    n = G.shape[0]
+    for i in range(1, n // c):
+        G[i * c:(i + 1) * c, : i * c] = G[: i * c, i * c:(i + 1) * c].T
+    return G
+
+
+def fused_plan(grid, m: int, n: int, mode: str, bm: int = 1024, g: int = 2,
+               *, dtype) -> str | None:
+    """Which fused CQR2 pipeline runs: 'full' (gram_blocked, scale_gram,
+    scale_blocked) for every eligible shape in mode 'pallas', else None.
+
+    The JAX rule also answers 'split' and 'panels' where a kernel's VMEM
+    envelope would be exceeded; the card has no such envelope, so its
+    answer is the one the JAX rule gives where no VMEM applies.  The
+    'split' and 'panels' tiers stay callable directly
+    (models/qr._cqr2_fused, _cqr2_panels)."""
+    del dtype  # no envelope depends on it here
+    if grid.num_devices != 1:
+        raise NotImplementedError(
+            "fused_plan on a multi-device grid is not ported yet (ROADMAP Queue A item 10)"
+        )
+    if mode == "pallas" and _eligible(m, n, bm, g):
+        return "full"
+    return None
+
+
+def fused_ok(grid, m: int, n: int, mode: str, bm: int = 1024, g: int = 2,
+             *, dtype) -> bool:
+    """True when a fused pipeline tier can run (see fused_plan)."""
+    return fused_plan(grid, m, n, mode, bm, g, dtype=dtype) is not None
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+
+def _gram_into(G: torch.Tensor, X: torch.Tensor, bm: int, g: int) -> torch.Tensor:
+    n = X.shape[1]
+    c = n // g
+    for r0 in range(0, X.shape[0], bm):
+        Xb = X[r0:r0 + bm].to(G.dtype)
+        for j in range(g):
+            G[j * c:(j + 1) * c, j * c:] += Xb[:, j * c:(j + 1) * c].T @ Xb[:, j * c:]
+    return G
+
+
+def _scale(A: torch.Tensor, Rinv: torch.Tensor, g: int) -> torch.Tensor:
+    m, n = A.shape
+    c = n // g
+    acc = _acc_dtype(A.dtype)
+    R = Rinv.to(acc)
+    Q = torch.empty_like(A)
+    for r0 in range(0, m, _PLAIN_SCALE_ROWS):
+        Ab = A[r0:r0 + _PLAIN_SCALE_ROWS].to(acc)
+        for j in range(g):
+            Q[r0:r0 + Ab.shape[0], j * c:(j + 1) * c] = (
+                Ab[:, :(j + 1) * c] @ R[:(j + 1) * c, j * c:(j + 1) * c]
+            ).to(A.dtype)
+    return Q
+
+
+def _check_rinv(A: torch.Tensor, Rinv: torch.Tensor) -> None:
+    n = A.shape[1]
+    if tuple(Rinv.shape) != (n, n):
+        raise ValueError(f"Rinv {tuple(Rinv.shape)} does not match A {tuple(A.shape)}")
+
+
+def gram_blocked_plain(A, *, bm: int = 1024, g: int = 2, precision=None):
+    """Plain PyTorch version of `gram_blocked`."""
+    del precision  # f32 is always IEEE f32 here
+    m, n = A.shape
+    bm = _shape_gate("gram_blocked", m, n, bm, g)
+    G = torch.zeros((n, n), dtype=_acc_dtype(A.dtype), device=A.device)
+    return _gram_into(G, A, bm, g)
+
+
+def scale_blocked_plain(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
+    """Plain PyTorch version of `scale_blocked`."""
+    del precision
+    m, n = A.shape
+    _check_rinv(A, Rinv)
+    _shape_gate("scale_blocked", m, n, bm, g)
+    return _scale(A, Rinv, g)
+
+
+def scale_gram_plain(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
+    """Plain PyTorch version of `scale_gram`: the scale, then the gram of
+    the rounded Q."""
+    del precision
+    m, n = A.shape
+    _check_rinv(A, Rinv)
+    bm = _shape_gate("scale_gram", m, n, bm, g)
+    Q = _scale(A, Rinv, g)
+    G = torch.zeros((n, n), dtype=_acc_dtype(A.dtype), device=A.device)
+    return Q, _gram_into(G, Q, bm, g)
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+
+def gram_splits(m: int, n: int, g: int, dtype: torch.dtype) -> int:
+    """Row splits of the gram kernel: double them (up to 16) until live
+    output tiles x splits fill the card a few times over, keeping every
+    split a whole number of 32-row k-steps."""
+    T = _GRAM_TILE[dtype]
+    c, nt = n // g, n // T
+    live = sum(nt - (i * T // c) * (c // T) for i in range(nt))
+    s = 1
+    while s < _MAX_SPLITS and live * s < _FILL_BLOCKS and m % (2 * s * 32) == 0:
+        s *= 2
+    return s
+
+
+def _kernel_args(A: torch.Tensor, what: str) -> None:
+    hopper._kernel_operand(A, what)
+    if A.data_ptr() % 16 or (A.stride(0) * A.element_size()) % 16:
+        raise ValueError(f"{what}: the kernels read 16-byte aligned rows")
+
+
+def _gram_out(A: torch.Tensor, m: int, n: int, g: int):
+    acc = _acc_dtype(A.dtype)
+    G = torch.empty((n, n), dtype=acc, device=A.device)
+    splits = gram_splits(m, n, g, A.dtype)
+    work = torch.empty((splits, n, n), dtype=acc, device=A.device) if splits > 1 else None
+    return G, work, splits
+
+
+def _scale_operands(A, Rinv):
+    _kernel_args(A, "A")
+    _kernel_args(Rinv, "Rinv")
+    if Rinv.dtype != A.dtype:
+        raise TypeError(f"qr_fused kernel: Rinv is {Rinv.dtype}, A is {A.dtype}")
+
+
+def gram_blocked(A, *, bm: int = 1024, g: int = 2, precision=None):
+    """Upper block-row gram of tall-skinny A at the g-way split: (n, n) in
+    f32 (f64 for f64), block row j valid from column j·(n/g), the strictly
+    lower block triangle zero (ops/csrc/qr_fused.cu; the JAX package's
+    qr_fused.gram_blocked).  `bm` enters only the shape rule."""
+    m, n = A.shape
+    _shape_gate("gram_blocked", m, n, bm, g)
+    if not hopper._on_card(A):
+        return gram_blocked_plain(A, bm=bm, g=g, precision=precision)
+    _kernel_args(A, "A")
+    G, work, splits = _gram_out(A, m, n, g)
+    rc = _build.entry("capital_gram_blocked")(
+        hopper._DTYPE_CODE[A.dtype], A.data_ptr(), A.stride(0), m, n, g,
+        G.data_ptr(), work.data_ptr() if work is not None else None, splits,
+        hopper._stream(),
+    )
+    hopper._launched(rc, hopper.KERNELS["qr.gram_blocked"])
+    return G
+
+
+def scale_gram(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
+    """(Q, G) = (A @ Rinv rounded to A's dtype, the upper block-row gram of
+    that rounded Q) in one call (ops/csrc/qr_fused.cu; qr_fused.scale_gram).
+    Rinv must be upper triangular with true zeros below the diagonal (the
+    kernel skips them); on the card it has A's dtype."""
+    m, n = A.shape
+    _check_rinv(A, Rinv)
+    _shape_gate("scale_gram", m, n, bm, g)
+    if not hopper._on_card(A, Rinv):
+        return scale_gram_plain(A, Rinv, bm=bm, g=g, precision=precision)
+    _scale_operands(A, Rinv)
+    Q = torch.empty_like(A, memory_format=torch.contiguous_format)
+    G, work, splits = _gram_out(A, m, n, g)
+    rc = _build.entry("capital_scale_gram")(
+        hopper._DTYPE_CODE[A.dtype], A.data_ptr(), A.stride(0), Rinv.data_ptr(),
+        Rinv.stride(0), Q.data_ptr(), Q.stride(0), m, n, g, G.data_ptr(),
+        work.data_ptr() if work is not None else None, splits, hopper._stream(),
+    )
+    hopper._launched(rc, hopper.KERNELS["qr.scale_gram"])
+    return Q, G
+
+
+def scale_blocked(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
+    """Q = A @ Rinv in A's dtype, Rinv upper triangular with true zeros
+    below the diagonal (ops/csrc/qr_fused.cu; qr_fused.scale_blocked)."""
+    m, n = A.shape
+    _check_rinv(A, Rinv)
+    _shape_gate("scale_blocked", m, n, bm, g)
+    if not hopper._on_card(A, Rinv):
+        return scale_blocked_plain(A, Rinv, bm=bm, g=g, precision=precision)
+    _scale_operands(A, Rinv)
+    Q = torch.empty_like(A, memory_format=torch.contiguous_format)
+    rc = _build.entry("capital_scale_blocked")(
+        hopper._DTYPE_CODE[A.dtype], A.data_ptr(), A.stride(0), Rinv.data_ptr(),
+        Rinv.stride(0), Q.data_ptr(), Q.stride(0), m, n, hopper._stream(),
+    )
+    hopper._launched(rc, hopper.KERNELS["qr.scale_blocked"])
+    return Q

@@ -1,1 +1,1 @@
-"""Breakdown detection."""
+"""Breakdown detection, fault injection and the shifted-CholeskyQR recovery ladder."""

@@ -5,8 +5,9 @@ configuration.  Operands cross as numpy arrays.  JAX hands bf16 out as
 `ml_dtypes.bfloat16` arrays, which `torch.from_numpy` refuses, so bf16
 travels as its raw 16-bit patterns — bitwise, never through a float.
 Configurations cross as the field dict of `dataclasses.asdict()` of a JAX
-`CholinvConfig`, with enums and dtypes mapped by name, so the port never
-imports the JAX class.
+`CholinvConfig` or `CacqrConfig`, with enums and dtypes mapped by name, so
+the port never imports the JAX classes.  A `RobustInfo` of either package
+crosses as a dict of numpy scalars.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import numpy as np
 import torch
 
 from capital_tpu_torch.models.cholesky import CholinvConfig
-from capital_tpu_torch.robust.config import RobustConfig
+from capital_tpu_torch.models.qr import CacqrConfig
+from capital_tpu_torch.robust.config import RobustConfig, RobustInfo
 from capital_tpu_torch.utils.config import BaseCasePolicy
 
 
@@ -60,3 +62,34 @@ def config_from_fields(fields: dict) -> CholinvConfig:
     if isinstance(rob, dict):
         kw["robust"] = RobustConfig(**rob)
     return CholinvConfig(**kw)
+
+
+def cacqr_config_from_fields(fields: dict) -> CacqrConfig:
+    """The port's CacqrConfig from `dataclasses.asdict(jax_cfg)`, nested
+    `cholinv` and `robust` included."""
+    kw = dict(fields)
+    if isinstance(kw.get("cholinv"), dict):
+        kw["cholinv"] = config_from_fields(kw["cholinv"])
+    if isinstance(kw.get("robust"), dict):
+        kw["robust"] = RobustConfig(**kw["robust"])
+    return CacqrConfig(**kw)
+
+
+#: numpy dtype of each RobustInfo field (both packages)
+_ROBUST_INFO_DTYPES = {
+    "info": np.int32, "breakdown": np.int32, "shifted": np.int32, "sigma": np.float32,
+    "escalated": np.int32, "ortho": np.float32, "gate": np.int32,
+}
+
+
+def robust_info_to_numpy(ri) -> dict:
+    """{field: numpy scalar} of a RobustInfo from either package (torch
+    tensors, JAX arrays or Python numbers), so two can be compared field by
+    field."""
+    out = {}
+    for name in RobustInfo._fields:
+        v = getattr(ri, name)
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        out[name] = np.asarray(v).astype(_ROBUST_INFO_DTYPES[name])[()]
+    return out

@@ -5,7 +5,9 @@ Dense gates keep the JAX package's arithmetic: `cholesky_residual` and
 `cholesky_inverse_residual` compute at the operands' dtype,
 `inverse_residual` at the f32 floor.  The probe-vector gates are O(n²): they
 check a factor at sizes where an n³ product would cost more than the
-factorization (the n=49152 flagship).
+factorization (the n=49152 flagship).  The QR gates follow the JAX
+package's: orthogonality at Q's dtype, residuals at the f32 floor, the
+row-blocked residual for shapes whose m x n f32 temporaries would not fit.
 """
 
 from __future__ import annotations
@@ -60,3 +62,37 @@ def inverse_probe_residual(
     ct = _floor(R.dtype)
     vc = v.to(ct)
     return rel_fro(vc - R.to(ct) @ (Rinv.to(ct) @ vc), vc)
+
+
+def qr_orthogonality(Q: torch.Tensor) -> torch.Tensor:
+    """‖I − QᵀQ‖_F / ‖I‖_F, at Q's dtype."""
+    eye = torch.eye(Q.shape[1], dtype=Q.dtype, device=Q.device)
+    return rel_fro(eye - Q.T @ Q, eye)
+
+
+def qr_residual(A: torch.Tensor, Q: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """‖A − QR‖_F / ‖A‖_F at the f32 floor."""
+    ct = _floor(A.dtype)
+    Ac = A.to(ct)
+    return rel_fro(Ac - Q.to(ct) @ R.to(ct), Ac)
+
+
+def qr_residual_blocked(
+    A: torch.Tensor, Q: torch.Tensor, R: torch.Tensor, block_rows: int = 65536
+) -> torch.Tensor:
+    """qr_residual accumulated over row blocks: O(block_rows·n) extra memory
+    instead of several m x n f32 temporaries (8.6 GB each at the 2M x 1024
+    shape).  The dense form when block_rows does not tile m."""
+    m = A.shape[0]
+    if m % block_rows or m == block_rows:
+        return qr_residual(A, Q, R)
+    ct = _floor(A.dtype)
+    Rc = R.to(ct)  # R as given, like the dense form
+    num = torch.zeros((), dtype=ct, device=A.device)
+    den = torch.zeros((), dtype=ct, device=A.device)
+    for r0 in range(0, m, block_rows):
+        ab = A[r0:r0 + block_rows].to(ct)
+        err = ab - Q[r0:r0 + block_rows].to(ct) @ Rc
+        num = num + torch.sum(torch.square(err))
+        den = den + torch.sum(torch.square(ab))
+    return torch.sqrt(num) / torch.sqrt(den)

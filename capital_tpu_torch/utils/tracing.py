@@ -1,5 +1,6 @@
 """Phase scopes and the analytic cost model (the subset of
-capital_tpu/utils/tracing.py that single-device cholinv calls).
+capital_tpu/utils/tracing.py that single-device cholinv and CholeskyQR2
+call).
 
 Phase tags keep the reference's critter symbol names (``CI::trsm`` ...) so
 phase tables compare across the two packages.  `scope` pushes the tag for
@@ -20,11 +21,16 @@ from collections import defaultdict
 
 import torch
 
-#: Registered phase tags — the cholinv subset of the JAX package's registry,
-#: names unchanged.  `scope()` refuses any other tag.
+#: Registered phase tags — the cholinv and cacqr subsets of the JAX
+#: package's registry, names unchanged.  `scope()` refuses any other tag.
+#: CQR::scale is historical (kept so phase tables still line up);
+#: CQR::recover is the shifted-CholeskyQR escalation path.
 PHASE_REGISTRY: tuple[str, ...] = (
     "CI::factor_diag", "CI::trsm", "CI::tmu", "CI::inv", "CI::buffers",
     "CI::tail_fused",
+    "CQR::gram", "CQR::chol", "CQR::scale", "CQR::merge", "CQR::fused",
+    "CQR::formR", "CQR::recover",
+    "QR::tsqr",
 )
 _PHASE_SET: set[str] = set(PHASE_REGISTRY)
 
@@ -40,6 +46,25 @@ def register_phase(tag: str) -> str:
 
 _SCOPE_STACK: list[str] = []
 _ACTIVE: list["Recorder"] = []
+_MUTED: list[bool] = []
+
+
+def current_scope() -> str | None:
+    """Innermost active phase tag, or None outside every scope() — the key
+    the fault-injection taps (robust/faultinject.py) resolve against."""
+    return _SCOPE_STACK[-1] if _SCOPE_STACK else None
+
+
+@contextlib.contextmanager
+def muted():
+    """Suppress emit()/note() attribution inside the block: the robust
+    recovery work (robust/recovery.guarded_chol, the sCQR3 escalation) is
+    priced out of the model, which describes the healthy path."""
+    _MUTED.append(True)
+    try:
+        yield
+    finally:
+        _MUTED.pop()
 
 
 @dataclasses.dataclass
@@ -91,7 +116,7 @@ def emit(
     copy_bytes: float = 0.0,
 ) -> None:
     """Attribute model costs to the innermost active phase."""
-    if not _ACTIVE:
+    if not _ACTIVE or _MUTED:
         return
     tag = _SCOPE_STACK[-1] if _SCOPE_STACK else "<top>"
     for rec in _ACTIVE:
@@ -107,6 +132,8 @@ def emit(
 
 def note(tag: str) -> None:
     """Count-only event under its own tag (not the scope stack)."""
+    if _MUTED:
+        return
     for rec in _ACTIVE:
         rec.stats[tag].calls += 1
 
@@ -160,3 +187,12 @@ def allreduce_cost(grid, m: int, n: int, dtype, axes: str = "all") -> tuple[floa
 def potrf_trtri_flops(n: int) -> float:
     """Local panel factor + triangular inverse: n³/3 + n³/3."""
     return 2.0 * n**3 / 3.0
+
+
+def tsqr_flops(m: int, n: int, leaves: int) -> float:
+    """Blocked Householder TSQR (QR::tsqr): leaf panel QRs ≈ 4·m·n², the
+    leaves − 1 pairwise (2n, n) reduction QRs ≈ 8n³ each, and the per-level
+    Q-assembly products ≈ 2·m·n² per level."""
+    leaves = max(int(leaves), 1)
+    levels = max(leaves.bit_length() - 1, 0)
+    return 4.0 * m * n**2 + 8.0 * (leaves - 1) * n**3 + 2.0 * levels * m * n**2

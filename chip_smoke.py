@@ -13,14 +13,24 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    windows, 512-wide leaves), in bf16 and f32, and times kernel, plain
    version and the nearest single PyTorch call with CUDA events beside the
    kernel's bound;
-3. drives the main path, `models/cholesky.factor` in mode 'pallas': n=16384
-   bf16 (against the same factor through the plain versions, plus residual
-   gates), n=8192 f32 (residual gates), and the n=49152 bf16 flagship with
-   bc=384 (timed, probe-vector residual gates, and one factor traced with
-   torch.profiler: device time by CI:: phase and kernel, idle share) —
-   each with the launch counters set to 0 just before and checked just
-   after against what the plan predicts;
-4. prints the `kernels` JSON line, the nvidia-smi line, and last
+3. drives the cholinv path, `models/cholesky.factor` in mode 'pallas':
+   n=16384 bf16 (against the same factor through the plain versions, plus
+   residual gates), n=8192 f32 (residual gates), and the n=49152 bf16
+   flagship with bc=384 (timed, probe-vector residual gates, and one factor
+   traced with torch.profiler: device time by CI:: phase and kernel, idle
+   share) — each with the launch counters set to 0 just before and checked
+   just after against what the plan predicts;
+4. holds the CholeskyQR2 kernels (gram_blocked, scale_gram, scale_blocked)
+   against their plain versions at the 2,097,152 x 1024 bf16 QR flagship and
+   at 65536 x 512 f32, timed beside their bounds and library calls;
+5. drives the CholeskyQR2 path, `models/qr.factor` in mode 'pallas': the
+   2,097,152 x 1024 bf16 flagship (timed, profiled, gated), 65536 x 512 f32
+   (also against the same factor through the plain versions), 65536 x 4096
+   bf16 (both grams through cholinv at bc=128), CQR1 at 65536 x 1024 bf16,
+   and a robust f32 run with a rank-deficient gram injected — each with
+   the counters set to 0 just before and checked just after against the
+   plan, and the orthogonality and residual gates of bench/drivers.py;
+6. prints the `kernels` JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -44,6 +54,12 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 FMA
 PATH_KERNELS = ("tri_matmul.trmm", "tri_matmul.syrk", "transpose", "transpose_pair",
                 "zeros_dead_lower")
+QR_KERNELS = ("qr.gram_blocked", "qr.scale_gram", "qr.scale_blocked")
+#: (m, n) of each CholeskyQR2 run: the BASELINE.md "CAQR2 ... 2M x 1024"
+#: flagship (bf16), the f32 row (65536 x 512), a wide gram whose factor goes
+#: through cholinv (n=4096, bc=128), CQR1 and the robust run (n=1024)
+QR_SHAPES = {"flagship": (2_097_152, 1024), "f32": (65536, 512), "wide": (65536, 4096),
+             "cqr1": (65536, 1024)}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -98,7 +114,9 @@ def spd_hash(n: int, dtype, salt: int, device) -> torch.Tensor:
 def check_close(name, got, want, dtype, mask=None) -> float:
     """Kernel against plain version.  Tolerance: bf16, one bf16 ulp of each
     entry plus 1e-5 of the largest (both accumulate in f32 and round once);
-    f32, 3e-5 of the largest entry (8192-long IEEE sums in another order)."""
+    f32, 3e-5 of the largest entry (8192-long IEEE sums in another order).
+    The QR kernels' Q is held the same way; their gram G by relative
+    Frobenius (`check_gram`)."""
     g, w = got.float(), want.float()
     if mask is not None:
         g, w = g[mask], w[mask]
@@ -111,6 +129,21 @@ def check_close(name, got, want, dtype, mask=None) -> float:
     worst = float(err.max())
     check(ok and math.isfinite(worst), f"{name} {dtype}: kernel vs plain max err {worst} (scale {scale})")
     return worst
+
+
+def check_gram(name, got, want, dtype, g) -> float:
+    """Gram kernel against plain version: relative Frobenius <= 1e-3 from
+    bf16 input (scale_gram's two grams are of two Qs that may differ by an
+    ulp), 1e-5 from f32 input (long IEEE sums in another order); the strictly
+    lower block triangle must be exactly zero."""
+    n = got.shape[0]
+    rel = float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double()))
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    check(rel <= tol, f"{name} {dtype}: gram kernel vs plain relative Frobenius {rel} > {tol}")
+    t = torch.arange(n, device=got.device) // (n // g)
+    check(bool((got[t[:, None] > t[None, :]] == 0).all()), f"{name} {dtype}: dead block triangle not zero")
+    print(json.dumps({"gram": name, "dtype": str(dtype), "rel_fro_vs_plain": rel}), flush=True)
+    return float((got - want).abs().max())
 
 
 def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
@@ -250,10 +283,11 @@ def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
 
 
 def predicted_counts(leaves: int) -> dict:
+    """Launches of one cholinv factor with split=1 and `leaves` leaves."""
     return {
         "tri_matmul.trmm": 3 * (leaves - 1), "tri_matmul.syrk": leaves - 1,
         "tri_matmul.dense": 0, "transpose": leaves, "transpose_pair": leaves,
-        "zeros_dead_lower": 2,
+        "zeros_dead_lower": 2, **dict.fromkeys(QR_KERNELS, 0),
     }
 
 
@@ -289,31 +323,37 @@ def drive(cholesky, hopper, grid, n, dtype, bc, precision):
     return R, Ri, A, cfg, counts, secs
 
 
-def profile_factor(cholesky, grid, A, cfg) -> dict:
-    """One factor under torch.profiler: wall time, device time by kernel
-    name and by CI:: phase, and the share of the wall the device was idle
-    (no kernel running)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(run, prefix: str) -> dict:
+    """One call of `run` under torch.profiler: wall time, device time by
+    kernel name and by phase (scopes whose tag starts with `prefix`), and
+    the share of the wall the device was idle (no kernel running)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from capital_tpu_torch.utils import tracing
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with torch_profile(activities=acts) as prof:
+        # a trace loses its first kernel: spend it on a tiny one (its few
+        # microseconds count as busy, outside the timed window)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        R, Ri = cholesky.factor(grid, A, cfg)
+        res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    del R, Ri
+    del res
 
     phases = {  # device time of the kernels launched inside each scope
         evt.key: float(evt.device_time_total) / 1e3
-        for evt in prof.key_averages() if evt.key.startswith("CI::")
+        for evt in prof.key_averages() if evt.key.startswith(prefix)
     }
     kernels: dict[str, float] = {}
     spans = []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA or e.time_range.end <= e.time_range.start:
             continue
-        if getattr(e, "is_user_annotation", False) or e.name.startswith("CI::"):
+        if getattr(e, "is_user_annotation", False) or e.name in tracing.PHASE_REGISTRY:
             continue  # a scope's range on the device timeline, not a kernel
         kernels[e.name[:80]] = kernels.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
         spans.append((e.time_range.start, e.time_range.end))
@@ -333,6 +373,229 @@ def profile_factor(cholesky, grid, A, cfg) -> dict:
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
                 idle_share=max(0.0, 1.0 - busy / 1e3 / (wall * 1e3)),
                 phases_device_ms=phases, top_kernels_device_ms=top)
+
+
+def tall_randn(m: int, n: int, dtype, seed: int, device) -> torch.Tensor:
+    """Gaussian m x n operand made on the card from a seed (well
+    conditioned: cond ~ (1 + sqrt(n/m)) / (1 - sqrt(n/m)))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((m, n), generator=gen, device=device, dtype=dtype)
+
+
+def qr_kernel_phase(qr_fused, m: int, n: int, dtype, dev) -> dict:
+    """The three CholeskyQR2 kernels against their plain versions at (m, n)
+    and its column split, timed beside bound and library call."""
+    g = qr_fused.pick_g(n)
+    live = qr_fused.live_fraction(g)
+    item = torch.tensor([], dtype=dtype).element_size()
+    A = tall_randn(m, n, dtype, 11, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    Rinv = torch.triu(torch.randn((n, n), generator=gen, device=dev) * (0.1 / math.sqrt(n))
+                      + torch.eye(n, device=dev)).to(dtype)
+    flops = 2.0 * m * n * n * live
+    res, iters = {}, 3
+    pi = 1 if m * n > 1 << 28 else 3  # the plain versions loop over row blocks
+
+    Gk, Gp = qr_fused.gram_blocked(A, g=g), qr_fused.gram_blocked_plain(A, g=g)
+    err = check_gram("gram_blocked", Gk, Gp, dtype, g)
+    del Gk, Gp
+    res["qr.gram_blocked"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: qr_fused.gram_blocked(A, g=g), iters),
+        plain_ms=time_ms(lambda: qr_fused.gram_blocked_plain(A, g=g), pi, warmup=1),
+        library_ms=time_ms(lambda: torch.mm(A.t(), A), iters),
+        shape=f"{m}x{n} {dtype} g={g}",
+        bound=bound_ms(m * n * item + 4.0 * n * n, flops, dtype),
+    )
+
+    Qk, Qp = qr_fused.scale_blocked(A, Rinv, g=g), qr_fused.scale_blocked_plain(A, Rinv, g=g)
+    err = check_close("scale_blocked", Qk, Qp, dtype)
+    del Qk, Qp
+    Rt = torch.triu(Rinv)
+    res["qr.scale_blocked"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: qr_fused.scale_blocked(A, Rinv, g=g), iters),
+        plain_ms=time_ms(lambda: qr_fused.scale_blocked_plain(A, Rinv, g=g), pi, warmup=1),
+        library_ms=time_ms(lambda: A @ Rt, iters),
+        shape=f"{m}x{n} {dtype} g={g}",
+        bound=bound_ms(2.0 * m * n * item + n * n * item, flops, dtype),
+    )
+    del Rt
+
+    (Qk, Gk), (Qp, Gp) = qr_fused.scale_gram(A, Rinv, g=g), qr_fused.scale_gram_plain(A, Rinv, g=g)
+    err = max(check_close("scale_gram Q", Qk, Qp, dtype), check_gram("scale_gram", Gk, Gp, dtype, g))
+    del Qk, Gk, Qp, Gp
+    res["qr.scale_gram"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: qr_fused.scale_gram(A, Rinv, g=g), iters),
+        plain_ms=time_ms(lambda: qr_fused.scale_gram_plain(A, Rinv, g=g), pi, warmup=1),
+        library_ms=None,  # no single PyTorch call computes it
+        shape=f"{m}x{n} {dtype} g={g}",
+        bound=bound_ms(2.0 * m * n * item + n * n * item + 4.0 * n * n, 2 * flops, dtype),
+    )
+    del A, Rinv
+    torch.cuda.empty_cache()
+    return res
+
+
+def predicted_qr_counts(n: int, bc: int, num_iter: int, shifted: int = 0) -> dict:
+    """Launches of one qr.factor in mode 'pallas' on one device: CQR2 runs
+    the three fused kernels and factors both grams through cholinv
+    (n >= 2048) or potrf_trtri_upper (three transposes each, once more per
+    shifted retry); CQR1 runs one tri_matmul trmm."""
+    counts = dict.fromkeys(predicted_counts(1), 0)
+    if num_iter == 1:
+        counts["tri_matmul.trmm"] = 1
+        return counts
+    if n >= 2048:
+        counts = {k: 2 * v for k, v in predicted_counts(n // bc).items()}
+    else:
+        counts["transpose"] = 3 * (2 + shifted)
+    counts.update(dict.fromkeys(QR_KERNELS, 1))
+    return counts
+
+
+@contextmanager
+def plain_qr_versions(hopper, qr_fused):
+    """Route a QR factor through the plain versions (comparison run only)."""
+    names = ("gram_blocked", "scale_gram", "scale_blocked")
+    saved = {n: getattr(qr_fused, n) for n in names}
+    try:
+        for n in names:
+            setattr(qr_fused, n, getattr(qr_fused, n + "_plain"))
+        with plain_versions(hopper):
+            yield
+    finally:
+        for n, f in saved.items():
+            setattr(qr_fused, n, f)
+
+
+def qr_gates(residual, A, Q, R, label) -> dict:
+    """The gates of capital_tpu/bench/drivers.py (`_tolerance`):
+    ‖I − QᵀQ‖ and the row-blocked ‖A − QR‖/‖A‖ < 5e-2 (bf16), 5e-5 (f32)."""
+    tol = 5e-2 if A.dtype == torch.bfloat16 else 5e-5
+    orth = float(residual.qr_orthogonality(Q))
+    res = float(residual.qr_residual_blocked(A, Q, R))
+    check(orth < tol and res < tol, f"{label}: orthogonality {orth}, residual {res} (tol {tol})")
+    return dict(orthogonality=orth, residual=res)
+
+
+def drive_qr(qr, hopper, grid, A, cfg, want, label):
+    """One qr.factor with the counters set to 0 just before and read just
+    after, held to the plan's launch counts."""
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    t0 = time.perf_counter()
+    out = qr.factor(grid, A, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = hopper.counts()
+    if callable(want):
+        want = want(out)
+    check(counts == want, f"{label}: launch counts {counts} != predicted {want}")
+    return out, counts, secs
+
+
+def qr_path(hopper, dev, grid) -> dict:
+    """The CholeskyQR2 runs of the path table."""
+    from capital_tpu_torch.models import cholesky, qr
+    from capital_tpu_torch.ops import qr_fused
+    from capital_tpu_torch.robust import faultinject
+    from capital_tpu_torch.robust.config import RobustConfig
+    from capital_tpu_torch.utils import residual
+
+    out = {}
+
+    def cfg_for(dtype, bc=128, **kw):
+        prec = "highest" if dtype == torch.float32 else None
+        return qr.CacqrConfig(regime="1d", mode="pallas", precision=prec,
+                              cholinv=cholesky.CholinvConfig(base_case_dim=bc, mode="pallas"), **kw)
+
+    # ---- the QR flagship: 2,097,152 x 1024 bf16, g=8, plan 'full' ---------
+    m, n = QR_SHAPES["flagship"]
+    A = tall_randn(m, n, torch.bfloat16, 1, dev)
+    cfg = cfg_for(torch.bfloat16)
+    (Q, R), counts, secs = drive_qr(qr, hopper, grid, A, cfg, predicted_qr_counts(n, 128, 2),
+                                    "QR flagship")
+    gates = qr_gates(residual, A, Q, R, "QR flagship")
+    del Q, R
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        Q = R = None  # free the previous result: peak memory of one factor
+        Q, R = qr.factor(grid, A, cfg)
+    end.record()
+    end.synchronize()
+    t = start.elapsed_time(end) / 1e3 / iters
+    peak = torch.cuda.max_memory_allocated()
+    del Q, R
+    out["flagship"] = dict(m=m, n=n, dtype="bfloat16", g=qr_fused.pick_g(n), plan="full",
+                           seconds=t, tflops=2.0 * m * n * n * 2 / t / 1e12, peak_bytes=peak,
+                           seconds_first=secs, counts=counts, **gates)
+    print(json.dumps({"qr": "flagship", **out["flagship"]}), flush=True)
+    out["profile"] = profile(lambda: qr.factor(grid, A, cfg), "CQR::")
+    print(json.dumps({"profile": "QR flagship", **out["profile"]}), flush=True)
+    del A
+    torch.cuda.empty_cache()
+
+    # ---- 65536 x 512 f32, precision 'highest', g=4: also vs plain ---------
+    m, n = QR_SHAPES["f32"]
+    A = tall_randn(m, n, torch.float32, 2, dev)
+    cfg = cfg_for(torch.float32)
+    (Q, R), counts, secs = drive_qr(qr, hopper, grid, A, cfg, predicted_qr_counts(n, 128, 2),
+                                    "QR f32")
+    gates = qr_gates(residual, A, Q, R, "QR f32")
+    with plain_qr_versions(hopper, qr_fused):
+        Qp, Rp = qr.factor(grid, A, cfg)
+    dQ = float(residual.rel_fro(Q - Qp, Qp))
+    dR = float(residual.rel_fro(R - Rp, Rp))
+    # f32: the kernels and the plain versions sum in other orders; 1e-5
+    check(dQ < 1e-5 and dR < 1e-5, f"QR f32 kernels vs plain: Q {dQ}, R {dR}")
+    out["f32"] = dict(m=m, n=n, counts=counts, seconds_first=secs, vs_plain=[dQ, dR], **gates)
+    print(json.dumps({"qr": "65536x512 f32", **out["f32"]}), flush=True)
+    del A, Q, R, Qp, Rp
+
+    # ---- 65536 x 4096 bf16: both grams through cholinv at bc=128 ----------
+    (m, n), bc = QR_SHAPES["wide"], 128
+    A = tall_randn(m, n, torch.bfloat16, 3, dev)
+    (Q, R), counts, secs = drive_qr(qr, hopper, grid, A, cfg_for(torch.bfloat16, bc),
+                                    predicted_qr_counts(n, bc, 2), "QR wide gram")
+    out["wide_gram"] = dict(m=m, n=n, bc=bc, counts=counts, seconds_first=secs,
+                            **qr_gates(residual, A, Q, R, "QR wide gram"))
+    print(json.dumps({"qr": "65536x4096 bf16", **out["wide_gram"]}), flush=True)
+    del A, Q, R
+
+    # ---- CQR1, 65536 x 1024 bf16: the sweep's tri_matmul trmm -------------
+    m, n = QR_SHAPES["cqr1"]
+    A = tall_randn(m, n, torch.bfloat16, 4, dev)
+    (Q, R), counts, secs = drive_qr(qr, hopper, grid, A, cfg_for(torch.bfloat16, num_iter=1),
+                                    predicted_qr_counts(n, 128, 1), "CQR1")
+    out["cqr1"] = dict(m=m, n=n, counts=counts, seconds_first=secs,
+                       **qr_gates(residual, A, Q, R, "CQR1"))
+    print(json.dumps({"qr": "CQR1 65536x1024 bf16", **out["cqr1"]}), flush=True)
+    del A, Q, R
+
+    # ---- robust: 65536 x 1024 f32, rank-deficient gram injected -----------
+    # exempt from the orthogonality gate: the corrupted gram no longer
+    # describes A; the ladder's flags and a finite Q are the contract
+    A = tall_randn(m, n, torch.float32, 5, dev)
+    with faultinject.active_plan(faultinject.Fault(tag="CQR::gram", kind="rank_deficient")) as plan:
+        (Q, R, ri), counts, secs = drive_qr(
+            qr, hopper, grid, A, cfg_for(torch.float32, robust=RobustConfig()),
+            lambda res: predicted_qr_counts(n, 128, 2, shifted=int(res[2].shifted)), "QR robust")
+    info = {k: float(v) for k, v in ri._asdict().items()}
+    check(info["breakdown"] >= 1 and info["shifted"] >= 1, f"QR robust: no breakdown seen {info}")
+    check(bool(torch.isfinite(Q).all()), "QR robust: Q not finite")
+    check(info["info"] in (0, n + 2), f"QR robust: info {info['info']}")
+    check(plan.fired == [("CQR::gram", 0)], f"QR robust: fired {plan.fired}")
+    out["robust"] = dict(m=m, n=n, counts=counts, seconds_first=secs, robust_info=info)
+    print(json.dumps({"qr": "robust 65536x1024 f32", **out["robust"]}), flush=True)
+    del A, Q, R
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -438,21 +701,40 @@ def main(argv=None) -> int:
     out["factor"]["flagship"] = flag
     print(json.dumps({"factor": "flagship", **flag}), flush=True)
     del R, Ri
-    out["profile"] = profile_factor(cholesky, grid, A, cfg)
+    out["profile"] = profile(lambda: cholesky.factor(grid, A, cfg), "CI::")
     print(json.dumps({"profile": "flagship", **out["profile"]}), flush=True)
     del A
 
     missing = [k for k in PATH_KERNELS if path_counts.get(k, 0) < 1]
     check(not missing, f"kernels of the path never launched: {missing}")
 
+    # ---- phase 4: the CholeskyQR2 kernels against their plain versions ----
+    from capital_tpu_torch.ops import qr_fused
+
+    for run, dtype in (("flagship", torch.bfloat16), ("f32", torch.float32)):
+        m, n = QR_SHAPES[run]
+        res = qr_kernel_phase(qr_fused, m, n, dtype, dev)
+        for name, r in res.items():
+            b, by = r.pop("bound")
+            r.update(bound_ms=b, bound_by=by)
+            print(json.dumps({"kernel": name, "dtype": str(dtype), **r}), flush=True)
+        out["kernels"][str(dtype)].update(res)
+
+    # ---- phase 5: the CholeskyQR2 path ------------------------------------
+    out["qr"] = qr_path(hopper, dev, grid)
+    qr_counts = out["qr"]["flagship"]["counts"]
+    missing = [k for k in QR_KERNELS if qr_counts.get(k, 0) < 1]
+    check(not missing, f"kernels of the QR path never launched: {missing}")
+
     bf = out["kernels"][str(torch.bfloat16)]
+    launches = {**{k: path_counts[k] for k in PATH_KERNELS}, **{k: qr_counts[k] for k in QR_KERNELS}}
     line = {"kernels": [
         {"name": k, "route": hopper.KERNELS[k].route, "source": hopper.KERNELS[k].source,
-         "replaces": hopper.KERNELS[k].replaces, "launches": path_counts[k],
+         "replaces": hopper.KERNELS[k].replaces, "launches": launches[k],
          "max_abs_err": bf[k]["max_abs_err"], "ms": bf[k]["ms"], "plain_ms": bf[k]["plain_ms"],
          "bound_ms": bf[k]["bound_ms"], "bound_by": bf[k]["bound_by"],
          "library_ms": bf[k]["library_ms"]}
-        for k in PATH_KERNELS
+        for k in PATH_KERNELS + QR_KERNELS
     ]}
     if args.out:
         with open(args.out, "w") as f:

@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from capital_tpu_torch import Grid
-from capital_tpu_torch.models import cholesky
-from capital_tpu_torch.ops import hopper
+from capital_tpu_torch.models import cholesky, qr
+from capital_tpu_torch.ops import hopper, qr_fused
 from capital_tpu_torch.utils import residual
 
 pytestmark = pytest.mark.gpu
@@ -155,6 +155,7 @@ def test_factor_kernels_vs_plain(cuda, monkeypatch, dt):
     assert hopper.counts() == {
         "tri_matmul.trmm": 3 * (L - 1), "tri_matmul.syrk": L - 1, "tri_matmul.dense": 0,
         "transpose": L, "transpose_pair": L, "zeros_dead_lower": 2,
+        "qr.gram_blocked": 0, "qr.scale_gram": 0, "qr.scale_blocked": 0,
     }
     for name in ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower"):
         monkeypatch.setattr(hopper, name, getattr(hopper, name + "_plain"))
@@ -165,3 +166,106 @@ def test_factor_kernels_vs_plain(cuda, monkeypatch, dt):
     gate = {"f32": 2e-6, "bf16": 1e-2}[dt]
     assert float(residual.cholesky_residual(A.double(), R.double())) < gate
     assert float(residual.cholesky_inverse_residual(R.double(), Ri.double())) < gate
+
+
+# ---- CholeskyQR2's fused tall passes (ops/qr_fused.py) ---------------------
+# Tolerances: Q within one bf16 ulp per entry plus 1e-5 of the largest (both
+# sides sum in f32 and round once), f32 1e-5 and f64 1e-12 of the largest
+# entry; G relative Frobenius 1e-3 from bf16 input (the two grams are of two
+# Qs that may differ by an ulp), 1e-5 for f32, 1e-12 for f64.
+
+QR_SHAPES = [(2048, 512, 2), (4096, 512, 4), (8192, 1024, 8)]
+G_REL = {"f64": 1e-12, "f32": 1e-5, "bf16": 1e-3}
+
+
+def _tall(seed, m, n, dt, dev):
+    return _rand(seed, (m, n), dt, dev) / float(np.sqrt(m))
+
+
+def _rinv(seed, n, dt, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    R = torch.triu(0.1 * torch.randn((n, n), generator=g, dtype=torch.float64) + torch.eye(n))
+    return R.to(DTYPES[dt]).to(dev)
+
+
+def _g_rel(got, want):
+    return float(residual.rel_fro(got.double() - want.double(), want.double()))
+
+
+def _dead_block_triangle(n, g):
+    c = n // g
+    t = torch.arange(n) // c
+    return t[:, None] > t[None, :]
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("shape", QR_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_gram_blocked_kernel_vs_plain(cuda, shape, dt):
+    m, n, g = shape
+    A = _tall(20, m, n, dt, cuda)
+    hopper.reset_counts()
+    got = qr_fused.gram_blocked(A, g=g)
+    want = qr_fused.gram_blocked_plain(A, g=g)
+    torch.cuda.synchronize()
+    assert hopper.counts()["qr.gram_blocked"] == 1
+    assert got.dtype == want.dtype
+    assert _g_rel(got, want) <= (1e-12 if dt == "f64" else 1e-5)  # exact products, f32 sums
+    assert bool((got.cpu()[_dead_block_triangle(n, g)] == 0).all())
+    assert torch.equal(got, qr_fused.gram_blocked(A, g=g))  # no atomics: same bits
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("shape", QR_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_scale_kernels_vs_plain(cuda, shape, dt):
+    m, n, g = shape
+    A, Rinv = _tall(21, m, n, dt, cuda), _rinv(22, n, dt, cuda)
+    hopper.reset_counts()
+    Q = qr_fused.scale_blocked(A, Rinv, g=g)
+    Qg, G = qr_fused.scale_gram(A, Rinv, g=g)
+    Qp, Gp = qr_fused.scale_gram_plain(A, Rinv, g=g)
+    torch.cuda.synchronize()
+    assert hopper.counts()["qr.scale_blocked"] == 1 and hopper.counts()["qr.scale_gram"] == 1
+    assert torch.equal(Q, Qg)  # one scale kernel behind both entries
+    _close(Q, Qp, dt)
+    assert _g_rel(G, Gp) <= G_REL[dt]
+    assert bool((G.cpu()[_dead_block_triangle(n, g)] == 0).all())
+
+
+def test_qr_kernels_refuse_bad_operands(cuda):
+    A = _tall(23, 1024, 512, "f32", cuda)
+    with pytest.raises(TypeError):
+        qr_fused.scale_blocked(A, _rinv(24, 512, "f64", cuda), g=2)
+    with pytest.raises(ValueError, match="needs bm"):
+        qr_fused.gram_blocked(A[:1000], g=2)
+    with pytest.raises(ValueError, match="row-major"):
+        qr_fused.gram_blocked(A.t().contiguous().t(), g=2)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_cqr2_kernels_vs_plain(cuda, monkeypatch, dt):
+    m, n = 8192, 1024
+    A = _tall(25, m, n, dt, cuda)
+    grid = Grid.square()
+    cfg = qr.CacqrConfig(regime="1d", mode="pallas", precision="highest" if dt == "f32" else None)
+    hopper.reset_counts()
+    Q, R = qr.factor(grid, A, cfg)
+    c = hopper.counts()
+    assert (c["qr.gram_blocked"], c["qr.scale_gram"], c["qr.scale_blocked"]) == (1, 1, 1)
+    gate = {"f32": 5e-5, "bf16": 5e-2}[dt]
+    assert float(residual.qr_orthogonality(Q)) < gate
+    assert float(residual.qr_residual(A, Q, R)) < gate
+    for name in ("gram_blocked", "scale_gram", "scale_blocked"):
+        monkeypatch.setattr(qr_fused, name, getattr(qr_fused, name + "_plain"))
+    monkeypatch.setattr(hopper, "transpose", hopper.transpose_plain)
+    Qp, Rp = qr.factor(grid, A, cfg)
+    tol = {"f32": 1e-5, "bf16": 2e-2}[dt]
+    assert float(residual.rel_fro(Q.double() - Qp.double(), Qp.double())) < tol
+    assert float(residual.rel_fro(R.double() - Rp.double(), Rp.double())) < tol
+
+
+def test_cqr1_runs_the_trmm_kernel(cuda):
+    A = _tall(26, 8192, 1024, "bf16", cuda)
+    hopper.reset_counts()
+    Q, R = qr.factor(Grid.square(), A, qr.CacqrConfig(num_iter=1, regime="1d", mode="pallas"))
+    assert hopper.counts()["tri_matmul.trmm"] == 1
+    assert float(residual.qr_residual(A, Q, R)) < 5e-2

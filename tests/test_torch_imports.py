@@ -35,6 +35,9 @@ def test_import_loads_no_jax_and_no_reference_package():
     code = (
         "import sys, capital_tpu_torch\n"
         "import capital_tpu_torch.utils.interop, capital_tpu_torch.utils.residual\n"
+        "import capital_tpu_torch.models.qr, capital_tpu_torch.ops.qr_fused\n"
+        "import capital_tpu_torch.ops.tsqr, capital_tpu_torch.robust.recovery\n"
+        "import capital_tpu_torch.robust.faultinject\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'capital_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'capital_tpu.')))\n"
         "print(','.join(bad))\n"
@@ -55,6 +58,13 @@ def test_sources_import_neither_jax_nor_capital_tpu(path):
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
             names.append(node.module)
     assert not [n for n in names if _forbidden(n)]
+
+
+def test_cholesky_qr2_slice_files_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("models/qr.py", "ops/qr_fused.py", "ops/tsqr.py", "robust/recovery.py",
+              "robust/faultinject.py"):
+        assert "capital_tpu_torch/" + f in names
 
 
 def test_grid_without_device_needs_cuda():

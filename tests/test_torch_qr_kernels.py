@@ -1,0 +1,212 @@
+"""The port's CholeskyQR2 kernels (capital_tpu_torch/ops/qr_fused.py) against
+the JAX package's Pallas kernels (capital_tpu/ops/qr_fused.py).
+
+On the CPU the port's wrappers run their plain PyTorch versions and the
+Pallas kernels run in interpret mode, so this holds the plain versions to
+the reference (tests/test_torch_gpu.py holds the CUDA kernels to the plain
+versions on the card).  Operands are made with numpy from a seed and handed
+to both packages; bf16 crosses bitwise.
+
+Tolerances, relative to the largest |reference| entry unless stated:
+* f64 1e-12 and f32 1e-5: the two sides sum in different orders;
+* bf16 Q within one bf16 ulp of each entry plus 1e-5: both sides sum the
+  exact bf16 products in f32 and round once, and a sum that differs in its
+  last f32 bits may round to the neighbouring bf16;
+* G from bf16 input, relative Frobenius: 1e-5 for gram_blocked (exact
+  products, f32 sums), 1e-3 for scale_gram (the grams of two Qs that may
+  differ by an ulp).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from capital_tpu.ops import qr_fused as jq
+from capital_tpu.parallel.topology import Grid as JGrid
+from capital_tpu_torch import Grid
+from capital_tpu_torch.ops import hopper
+from capital_tpu_torch.ops import qr_fused as tq
+from capital_tpu_torch.utils.interop import tensor_from_numpy
+
+DTYPES = {
+    "f64": (np.float64, torch.float64),
+    "f32": (np.float32, torch.float32),
+    "bf16": (jnp.bfloat16, torch.bfloat16),
+}
+# (m, n, g): the g=4 and g=2 splits of n=512 and the flagship's g=8 split
+SHAPES = [(2048, 512, 4), (1024, 512, 2), (1024, 1024, 8)]
+REL = {"f64": 1e-12, "f32": 1e-5}
+
+
+def _ids(s):
+    return "x".join(map(str, s))
+
+
+def _operands(m, n, dt, seed=0):
+    rng = np.random.default_rng(seed)
+    A = (rng.standard_normal((m, n)) / np.sqrt(m)).astype(DTYPES[dt][0])
+    Rinv = np.triu(0.1 * rng.standard_normal((n, n)) / np.sqrt(n) + np.eye(n)).astype(DTYPES[dt][0])
+    return A, Rinv
+
+
+def _f64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float64).numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float64))
+
+
+def _assert_q(got, want, dt):
+    got, want = _f64(got), _f64(want)
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    if dt == "bf16":
+        assert np.all(np.abs(got - want) <= 2.0**-7 * np.abs(want) + 1e-5 * scale)
+    else:
+        assert np.abs(got - want).max() <= REL[dt] * scale
+
+
+def _assert_g(got, want, dt, bf16_rel):
+    got, want = _f64(got), _f64(want)
+    assert got.shape == want.shape
+    if dt == "bf16":
+        assert np.linalg.norm(got - want) <= bf16_rel * np.linalg.norm(want)
+    else:
+        assert np.abs(got - want).max() <= REL[dt] * np.abs(want).max()
+
+
+def _dead(n, g):
+    t = np.arange(n) // (n // g)
+    return t[:, None] > t[None, :]
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids)
+def test_gram_blocked_plain_vs_pallas(shape, dt):
+    m, n, g = shape
+    A, _ = _operands(m, n, dt)
+    want = jq.gram_blocked(jnp.asarray(A), g=g)
+    got = tq.gram_blocked(tensor_from_numpy(A), g=g)
+    assert got.dtype == (torch.float64 if dt == "f64" else torch.float32)
+    _assert_g(got, want, dt, bf16_rel=1e-5)
+    assert np.all(_f64(got)[_dead(n, g)] == 0) and np.all(_f64(want)[_dead(n, g)] == 0)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids)
+def test_scale_blocked_plain_vs_pallas(shape, dt):
+    m, n, g = shape
+    A, Rinv = _operands(m, n, dt, seed=1)
+    want = jq.scale_blocked(jnp.asarray(A), jnp.asarray(Rinv), g=g)
+    got = tq.scale_blocked(tensor_from_numpy(A), tensor_from_numpy(Rinv), g=g)
+    assert got.dtype == DTYPES[dt][1]
+    _assert_q(got, want, dt)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids)
+def test_scale_gram_plain_vs_pallas(shape, dt):
+    m, n, g = shape
+    A, Rinv = _operands(m, n, dt, seed=2)
+    Qj, Gj = jq.scale_gram(jnp.asarray(A), jnp.asarray(Rinv), g=g)
+    Qt, Gt = tq.scale_gram(tensor_from_numpy(A), tensor_from_numpy(Rinv), g=g)
+    _assert_q(Qt, Qj, dt)
+    _assert_g(Gt, Gj, dt, bf16_rel=1e-3)
+    assert np.all(_f64(Gt)[_dead(n, g)] == 0)
+    # the gram is of the ROUNDED Q: exactly the plain gram of the returned Q
+    assert torch.equal(Gt, tq.gram_blocked_plain(Qt, g=g))
+
+
+# shapes every fused kernel refuses, each for its own reason
+GATE_CASES = {
+    "g2_needs_half_256": (1024, 256, 2),
+    "bm_does_not_tile_m": (1000, 512, 2),
+    "n_not_g128_aligned": (1024, 384, 4),
+}
+
+
+@pytest.mark.parametrize("fn", ["gram_blocked", "scale_blocked", "scale_gram"])
+@pytest.mark.parametrize("case", list(GATE_CASES))
+def test_shape_gate_errors_match(case, fn):
+    m, n, g = GATE_CASES[case]
+    A = np.zeros((m, n), np.float32)
+    args = (A,) if fn == "gram_blocked" else (A, np.zeros((n, n), np.float32))
+    with pytest.raises(ValueError) as want:
+        getattr(jq, fn)(*(jnp.asarray(a) for a in args), g=g)
+    with pytest.raises(ValueError) as got:
+        getattr(tq, fn)(*(torch.from_numpy(a) for a in args), g=g)
+    assert str(got.value) == str(want.value)
+
+
+def test_rinv_shape_error_matches():
+    A, R = np.zeros((1024, 512), np.float32), np.zeros((256, 256), np.float32)
+    with pytest.raises(ValueError) as want:
+        jq.scale_gram(jnp.asarray(A), jnp.asarray(R), g=2)
+    with pytest.raises(ValueError) as got:
+        tq.scale_gram(torch.from_numpy(A), torch.from_numpy(R), g=2)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("n", [128, 192, 256, 384, 512, 768, 1024, 2048, 4096])
+@pytest.mark.parametrize("override", [0, 2, 4, 8])
+def test_pick_g_agrees(n, override):
+    assert tq.pick_g(n, override) == jq.pick_g(n, override)
+
+
+@pytest.mark.parametrize("m", [1000, 1024, 1536, 65536])
+@pytest.mark.parametrize("n,g", [(256, 2), (512, 2), (512, 4), (768, 2), (1024, 8), (4096, 32)])
+@pytest.mark.parametrize("bm", [1024, 512])
+def test_eligible_agrees(m, n, g, bm):
+    assert tq._eligible(m, n, bm, g) == jq._eligible(m, n, bm, g)
+    assert tq.live_fraction(g) == jq.live_fraction(g)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "xla"])
+@pytest.mark.parametrize("m,n,g", [(1 << 21, 1024, 8), (65536, 4096, 32), (1000, 512, 2),
+                                   (1024, 192, 2), (65536, 512, 4)])
+def test_fused_plan_agrees_in_interpret_mode(m, n, g, mode):
+    jgrid = JGrid.square(c=1, devices=jax.devices("cpu")[:1])
+    want = jq.fused_plan(jgrid, m, n, mode, g=g, dtype=jnp.bfloat16)
+    got = tq.fused_plan(Grid.square(device="cpu"), m, n, mode, g=g, dtype=torch.bfloat16)
+    assert got == want
+    assert tq.fused_ok(Grid.square(device="cpu"), m, n, mode, g=g, dtype=torch.bfloat16) == (
+        want is not None
+    )
+
+
+def test_assemble_sym_agrees():
+    A, _ = _operands(1024, 512, "f64", seed=3)
+    Gu = jq.gram_blocked(jnp.asarray(A), g=4)
+    want = np.asarray(jq.assemble_sym(Gu, 128))
+    got = tq.assemble_sym(tq.gram_blocked(tensor_from_numpy(A), g=4), 128).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+    np.testing.assert_allclose(got, A.T @ A, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m,n,g,dt,want", [
+    (1 << 21, 1024, 8, torch.bfloat16, 16),  # 36 live 128-tiles: fill with 16 splits
+    (65536, 4096, 32, torch.bfloat16, 1),  # 528 live tiles fill the card alone
+    (65536, 512, 4, torch.float32, 16),
+    (65536, 1024, 8, torch.float32, 4),
+    (128, 512, 4, torch.float32, 4),  # capped where a split would drop under 32 rows
+])
+def test_gram_splits(m, n, g, dt, want):
+    s = tq.gram_splits(m, n, g, dt)
+    assert s == want and m % (s * 32) == 0
+
+
+def test_cpu_wrappers_take_plain_versions_and_count_nothing():
+    A, R = (tensor_from_numpy(x) for x in _operands(1024, 512, "f32", seed=4))
+    hopper.reset_counts()
+    assert torch.equal(tq.gram_blocked(A, g=2), tq.gram_blocked_plain(A, g=2))
+    assert torch.equal(tq.scale_blocked(A, R, g=2), tq.scale_blocked_plain(A, R, g=2))
+    for got, want in zip(tq.scale_gram(A, R, g=2), tq.scale_gram_plain(A, R, g=2)):
+        assert torch.equal(got, want)
+    assert all(v == 0 for v in hopper.counts().values())
+    names = ("qr.gram_blocked", "qr.scale_gram", "qr.scale_blocked")
+    lines = ("181", "260", "328")
+    for name, line in zip(names, lines):
+        k = hopper.KERNELS[name]
+        assert k.replaces == "capital_tpu/ops/qr_fused.py:" + line
+        assert k.source == "capital_tpu_torch/ops/csrc/qr_fused.cu" and k.route == "cuda"
