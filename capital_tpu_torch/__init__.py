@@ -7,10 +7,11 @@ nothing of `capital_tpu`.  Sub-packages mirror the reference's names.
 Entry points run on the CUDA card by default (`Grid.square()`); pass
 `device="cpu"` for the plain PyTorch path on the host.
 
-Ported so far: single-device cholinv (`models/cholesky.factor`) and
-single-device CholeskyQR2 (`models/qr.factor`), with their hand-written
-kernels (ops/hopper.py, ops/qr_fused.py, ops/csrc/).  `KERNELS` holds every
-kernel's launch counter.
+Ported so far: single-device cholinv (`models/cholesky.factor`),
+single-device CholeskyQR2 (`models/qr.factor`) and the small-N batched
+solves of serve's bucket programs (`serve/api.batched`), with their
+hand-written kernels (ops/hopper.py, ops/qr_fused.py, ops/batched_small.py,
+ops/csrc/).  `KERNELS` holds every kernel's launch counter.
 """
 
 from capital_tpu_torch.models import cholesky, qr

@@ -5,7 +5,7 @@ with a plain C interface, loaded with `ctypes` — no PyTorch headers, so a
 build takes seconds.  All sources compile in parallel, one `nvcc` process
 each, at the first launch of any kernel (or an explicit `build()`), into
 `build/capital_tpu_torch/` beside the package.  A library's file name
-carries a hash of its source, the shared header and the flags, so an edited
+carries a hash of its source, the shared headers and the flags, so an edited
 source rebuilds and a stale library is never loaded.
 
 Nothing here runs at import: the CPU test machine has no `nvcc`.
@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tri_matmul.cu", "transpose.cu", "zeros_dead.cu", "qr_fused.cu")
+SOURCES = ("tri_matmul.cu", "transpose.cu", "zeros_dead.cu", "qr_fused.cu", "batched_small.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,6 +53,10 @@ SIGNATURES = {
     "capital_scale_gram": (
         "qr_fused.cu", [_I, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _I, _P, _P, _I, _P],
     ),
+    "capital_small_potrf": ("batched_small.cu", [_I, _P, _P, _P, _I, _I, _I, _P]),
+    "capital_small_potrs": ("batched_small.cu", [_I, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "capital_small_posv": ("batched_small.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "capital_small_lstsq": ("batched_small.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 
@@ -79,7 +83,7 @@ def nvcc() -> str:
 
 def _lib_path(src: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / src, CSRC / "common.cuh"):
+    for part in (CSRC / src, *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return build_dir() / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"

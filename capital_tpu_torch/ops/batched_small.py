@@ -1,0 +1,450 @@
+"""Small-N batched solves on Hopper (counterpart of
+capital_tpu/ops/batched_small.py): one launch per bucket batch, one block
+per problem.
+
+serve's bucketed requests (n <= 128) are latency-bound: a loop of library
+calls pays one dispatch per problem and per phase, and round-trips each
+factor through device memory between factor and solve.  These kernels put
+the batch on the launch grid instead — block b owns problem b, so problems
+never read each other's data (a NaN in one problem touches exactly its own
+outputs and info: the serve fault-containment contract) — and fuse:
+
+* ``posv``: the Cholesky factor and both triangular sweeps in one block;
+  the factor lives in shared memory only.
+* ``lstsq``: the whole CholeskyQR2 normal-equations pipeline (gram, two
+  Cholesky sweeps, the R1⁻ᵀ·G·R1⁻¹ correction, the RHS sweeps and the
+  back-substitution through R2·R1) in one block.
+* ``potrf`` / ``potrs``: the unfused factor and solve (the `pallas_split`
+  route, and the resident-factor solve).
+
+Each is a wrapper, a plain version and a launch counter, as in
+ops/hopper.py.  The wrapper validates shapes, uplo and dtype (bf16 or f32;
+f64 raises TypeError — the kernels compute in f32 and would downgrade it),
+launches the hand-written kernel (ops/csrc/batched_small.cu) for CUDA
+tensors and runs the plain version for CPU tensors.  The counters are
+`hopper.KERNELS["small.*"]`.
+
+The plain versions follow the JAX kernels' arithmetic: a column sweep of
+rank-1 updates over the full matrix with the divisor of a bad pivot guarded
+to 1.0, substitution sweeps that read only the live triangle, and the
+in-program info of the LAPACK potrf convention (0 healthy, j for the first
+bad pivot, n+1 for a clean diagonal with a non-finite entry).  Where the
+JAX kernel's one-hot contractions spread a non-finite value (NaN·0 is NaN),
+`_chol_plain` spreads it the same way, so `info` agrees exactly: a
+non-finite anywhere in row i of the working matrix poisons the extracted
+column's entry i, and the pivot is that column's entry j.  The CUDA sweep
+(ops/csrc/batched_small.cuh) derives the same info from the entries it
+keeps.  Identity problems and identity-tail pads solve exactly (every
+product is 0·x or 1·x, every divisor 1.0), so bucket padding stays
+invisible: zero right-hand sides solve to exact zeros with info 0.
+
+The `block` knob (the JAX kernels' static column unroll) is validated and
+changes nothing here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from capital_tpu_torch.ops import _build, hopper
+from capital_tpu_torch.utils import tracing
+
+#: Largest bucket n the "auto" impl routes to these kernels (the JAX
+#: package's value; the serve config can force either side).
+SMALL_N_MAX = 128
+
+IMPLS = ("auto", "vmap", "pallas", "pallas_split")
+
+#: shared memory one block may use on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+#: kept back from it for the kernels' static shared memory
+SMEM_RESERVE = 1024
+#: rows of A and B staged per chunk by the lstsq kernel (csrc LSTSQ_ROWS)
+LSTSQ_ROWS = 16
+
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def pick_block(n: int) -> int:
+    """Default column-block unroll: largest power of two <= 8 dividing n."""
+    for b in (8, 4, 2):
+        if n % b == 0:
+            return b
+    return 1
+
+
+def _resolve_block(n: int, block: int) -> int:
+    b = block or pick_block(n)
+    while n % b:
+        b -= 1
+    return max(b, 1)
+
+
+def smem_bytes(op: str, n: int, k: int) -> int:
+    """Dynamic shared memory of one block of the `op` kernel for one problem
+    of order n with k right-hand sides: f32 matrices with an odd leading
+    dimension ld (n + 1 for even n) so column walks are free of bank
+    conflicts.
+
+    potrf        4·n·ld                       (the working matrix)
+    potrs, posv  4·(n·ld + n·k)               (factor, right-hand sides)
+    lstsq        4·(2·n·ld + n·k + 16·(n+k))  (R1, the G→V→G2→R2→R buffer,
+                                               AᵀB, a 16-row stage of A|B)
+    """
+    ld = n + 1 if n % 2 == 0 else n
+    if op == "potrf":
+        return 4 * n * ld
+    if op in ("potrs", "posv"):
+        return 4 * (n * ld + n * k)
+    if op == "lstsq":
+        return 4 * (2 * n * ld + n * k + LSTSQ_ROWS * (n + k))
+    raise ValueError(f"unknown batched_small op {op!r}")
+
+
+def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype,
+             *, interpret: bool | None = None) -> bool:
+    """Whether the kernel takes ONE problem of these BATCHED (batch, m, n) /
+    (batch, n, k) shapes: its working set (`smem_bytes`) must fit the
+    shared memory of one block, 232,448 bytes less a 1,024-byte reserve.
+    m does not enter (lstsq streams A and B through a 16-row stage); the
+    batch axis lives on the launch grid.  `op` is 'posv' (also 'potrs', and
+    serve's inv as posv with k = n), 'lstsq' or 'potrf'; b_shape None means
+    k = n.
+
+    Edges at f32 and bf16 alike (shared memory holds f32): n = 128 takes
+    posv up to k = 323 and lstsq up to k = 158; n = 160 takes posv up to
+    k = 200; potrf takes n up to 240.  Every bucket the 'auto' rule routes
+    here (n <= 128, posv/inv with k <= n, lstsq with k <= n) is eligible,
+    so 'auto' resolves as the JAX package does there.
+
+    interpret=True (the default where no CUDA device exists) answers True:
+    the plain versions have no envelope, as the JAX kernels in interpret
+    mode have none."""
+    del dtype  # the working set is f32 whatever the storage dtype
+    if interpret is None:
+        interpret = not torch.cuda.is_available()
+    if interpret:
+        return True
+    n = a_shape[-1]
+    k = b_shape[-1] if b_shape is not None else n
+    kop = "posv" if op in ("posv", "potrs", "inv") else op
+    return smem_bytes(kop, n, k) <= SMEM_PER_BLOCK - SMEM_RESERVE
+
+
+def dtype_capable(dtype) -> bool:
+    """Whether the kernels serve this dtype without precision loss: they
+    compute in f32, so f64 is out, even under a forced impl."""
+    return dtype in _KERNEL_DTYPES
+
+
+def default_impl(op: str, a_shape: tuple, b_shape: tuple | None, dtype,
+                 *, interpret: bool | None = None) -> str:
+    """Resolve impl='auto' for one bucket from its BATCHED shapes: 'pallas'
+    (the fused kernels) for posv/lstsq at n <= SMALL_N_MAX in bf16 or f32
+    within the envelope (`eligible`), else 'vmap'.  f64 always takes
+    vmap."""
+    if op not in ("posv", "lstsq"):
+        return "vmap"
+    if not dtype_capable(dtype):
+        return "vmap"
+    if a_shape[-1] > SMALL_N_MAX:
+        return "vmap"
+    return ("pallas"
+            if eligible(op, a_shape, b_shape, dtype, interpret=interpret)
+            else "vmap")
+
+
+# --------------------------------------------------------------------------
+# argument handling
+# --------------------------------------------------------------------------
+
+
+def _check_batched(A, B=None, *, square=True, op="batched_small"):
+    if A.ndim != 3 or (square and A.shape[1] != A.shape[2]):
+        raise ValueError(
+            f"{op}: operand batch must be (batch, n, n), got {tuple(A.shape)}"
+        )
+    if B is not None:
+        if B.ndim != 3 or B.shape[0] != A.shape[0] or B.shape[1] != A.shape[1]:
+            raise ValueError(
+                f"{op}: RHS batch {tuple(B.shape)} does not ride operand batch "
+                f"{tuple(A.shape)}"
+            )
+
+
+def _check_uplo(uplo: str) -> None:
+    if uplo not in ("U", "L"):
+        raise ValueError(f"uplo must be 'U' or 'L', got {uplo!r}")
+
+
+def _check_dtype(op: str, *tensors) -> None:
+    for t in tensors:
+        if t.dtype not in _KERNEL_DTYPES:
+            raise TypeError(
+                f"{op}: takes bf16 or f32, got {t.dtype} (the kernels compute "
+                "in f32; f64 takes the vmap route)"
+            )
+    if len({t.dtype for t in tensors}) > 1:
+        raise TypeError(f"{op}: operands of one dtype, got {[t.dtype for t in tensors]}")
+
+
+def _check_lstsq(A, B) -> None:
+    _check_batched(A, B, square=False, op="batched lstsq")
+    if A.shape[1] < A.shape[2]:
+        raise ValueError(f"batched lstsq wants tall problems, got {tuple(A.shape[1:])}")
+    _check_dtype("batched lstsq", A, B)
+
+
+def _kernel_gate(op: str, n: int, k: int) -> None:
+    need, have = smem_bytes(op, n, k), SMEM_PER_BLOCK - SMEM_RESERVE
+    if need > have:
+        raise ValueError(
+            f"batched {op}: one problem of order {n} with {k} right-hand sides "
+            f"needs {need} bytes of shared memory, a block has {have}"
+        )
+
+
+def _launch(name: str, *args) -> None:
+    rc = _build.entry("capital_small_" + name)(*args, hopper._stream())
+    hopper._launched(rc, hopper.KERNELS["small." + name])
+
+
+# --------------------------------------------------------------------------
+# plain versions: one Python loop over columns, batched tensor ops inside
+# --------------------------------------------------------------------------
+
+
+def _safe_div(d: torch.Tensor) -> torch.Tensor:
+    return torch.where((d != 0) & torch.isfinite(d), d, torch.ones_like(d))
+
+
+def _chol_plain(S: torch.Tensor, uplo: str):
+    """Column-sweep Cholesky of a batch of f32 (n, n) matrices: at column j,
+    u = S[:, j] / sqrt(S[j, j]) becomes row j of R ('U'; column j of L for
+    'L') and the rank-1 update S -= u·uᵀ clears row and column j.  A bad
+    pivot (non-finite or <= 0) sets info to j + 1 once and divides by 1.0;
+    a clean diagonal with a non-finite factor entry gives n + 1.  Entry i
+    of the extracted column is NaN when row i of S holds a non-finite
+    value (the JAX kernel's one-hot contraction)."""
+    S = S.clone()
+    batch, n, _ = S.shape
+    R = torch.zeros_like(S)
+    info = torch.zeros(batch, dtype=torch.int32, device=S.device)
+    nan = torch.full((), float("nan"), device=S.device)
+    one = torch.ones((), device=S.device)
+    for j in range(n):
+        col = torch.where(torch.isfinite(S).all(-1), S[:, :, j], nan)
+        d = col[:, j]
+        good = torch.isfinite(d) & (d > 0)
+        info = torch.where((info == 0) & ~good, j + 1, info).to(torch.int32)
+        u = col / torch.sqrt(torch.where(good, d, one))[:, None]
+        if uplo == "U":
+            R[:, j, :] = u
+        else:
+            R[:, :, j] = u
+        S -= u[:, :, None] * u[:, None, :]
+    off_bad = ~torch.isfinite(R).all(-1).all(-1)
+    info = torch.where((info == 0) & off_bad, n + 1, info).to(torch.int32)
+    return R, info
+
+
+def _fwd_solve_plain(T: torch.Tensor, B: torch.Tensor, *, from_upper: bool) -> torch.Tensor:
+    """Forward substitution L·Y = B, L = Tᵀ (T stored upper) or T (stored
+    lower); only the live triangle of T is read."""
+    Y = B.clone()
+    n = T.shape[-1]
+    for j in range(n):
+        lcol = T[:, j, :] if from_upper else T[:, :, j]  # L[:, j]
+        y = Y[:, j, :] / _safe_div(lcol[:, j])[:, None]
+        Y[:, j + 1:, :] -= lcol[:, j + 1:, None] * y[:, None, :]
+        Y[:, j, :] = y
+    return Y
+
+
+def _bwd_solve_plain(T: torch.Tensor, Y: torch.Tensor, *, from_upper: bool) -> torch.Tensor:
+    """Back substitution U·X = Y, U = T (stored upper) or Tᵀ (stored
+    lower)."""
+    X = Y.clone()
+    n = T.shape[-1]
+    for j in range(n - 1, -1, -1):
+        ucol = T[:, :, j] if from_upper else T[:, j, :]  # U[:, j]
+        x = X[:, j, :] / _safe_div(ucol[:, j])[:, None]
+        X[:, :j, :] -= ucol[:, :j, None] * x[:, None, :]
+        X[:, j, :] = x
+    return X
+
+
+def _rsolve_upper_plain(R: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """Right-side solve W·R = V for upper-triangular R (column sweep
+    ascending)."""
+    W = V.clone()
+    n = R.shape[-1]
+    for j in range(n):
+        w = W[:, :, j] / _safe_div(R[:, j, j])[:, None]
+        W[:, :, j + 1:] -= w[:, :, None] * R[:, None, j, j + 1:]
+        W[:, :, j] = w
+    return W
+
+
+def potrf_plain(A, *, uplo: str = "U", block: int = 0, precision=None):
+    """Plain PyTorch version of `potrf`."""
+    del precision  # f32 is always IEEE f32 here
+    _check_batched(A, op="batched potrf")
+    _check_uplo(uplo)
+    _check_dtype("batched potrf", A)
+    _resolve_block(A.shape[-1], block)
+    R, info = _chol_plain(A.float(), uplo)
+    R = torch.triu(R) if uplo == "U" else torch.tril(R)
+    return R.to(A.dtype), info
+
+
+def potrs_plain(T, B, *, uplo: str = "U", block: int = 0, precision=None):
+    """Plain PyTorch version of `potrs`."""
+    del precision
+    _check_batched(T, B, op="batched potrs")
+    _check_uplo(uplo)
+    _check_dtype("batched potrs", T, B)
+    _resolve_block(T.shape[-1], block)
+    t = T.float()
+    y = _fwd_solve_plain(t, B.float(), from_upper=(uplo == "U"))
+    return _bwd_solve_plain(t, y, from_upper=(uplo == "U")).to(B.dtype)
+
+
+def posv_plain(A, B, *, uplo: str = "U", block: int = 0, precision=None):
+    """Plain PyTorch version of `posv`."""
+    del precision
+    _check_batched(A, B, op="batched posv")
+    _check_uplo(uplo)
+    _check_dtype("batched posv", A, B)
+    _resolve_block(A.shape[-1], block)
+    R, info = _chol_plain(A.float(), uplo)
+    y = _fwd_solve_plain(R, B.float(), from_upper=(uplo == "U"))
+    x = _bwd_solve_plain(R, y, from_upper=(uplo == "U"))
+    return x.to(B.dtype), info
+
+
+def lstsq_plain(A, B, *, block: int = 0, precision=None):
+    """Plain PyTorch version of `lstsq`."""
+    del precision
+    _check_lstsq(A, B)
+    _resolve_block(A.shape[-1], block)
+    a, b = A.float(), B.float()
+    G = a.mT @ a
+    C = a.mT @ b
+    R1, i1 = _chol_plain(G, "U")
+    V = _fwd_solve_plain(R1, G, from_upper=True)
+    G2 = _rsolve_upper_plain(R1, V)
+    R2, i2 = _chol_plain(G2, "U")
+    t1 = _fwd_solve_plain(R1, C, from_upper=True)
+    t2 = _fwd_solve_plain(R2, t1, from_upper=True)
+    R = torch.triu(R2) @ torch.triu(R1)
+    x = _bwd_solve_plain(R, t2, from_upper=True)
+    return x.to(B.dtype), torch.maximum(i1, i2)
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+
+def potrf(A, *, uplo: str = "U", block: int = 0, precision: str | None = "highest"):
+    """Batched Cholesky: (batch, n, n) symmetric SPD -> (R, info), R
+    triangular per `uplo` with its dead triangle exactly zero, info (batch,)
+    int32 in the potrf convention.  One launch (ops/csrc/batched_small.cu)."""
+    _check_batched(A, op="batched potrf")
+    _check_uplo(uplo)
+    _check_dtype("batched potrf", A)
+    _resolve_block(A.shape[-1], block)
+    batch, n, _ = A.shape
+    with tracing.scope("OP::batched_small"):
+        tracing.emit(flops=batch * tracing.batched_chol_flops(n))
+        if not hopper._on_card(A):
+            return potrf_plain(A, uplo=uplo)
+        _kernel_gate("potrf", n, n)
+        A = A.contiguous()
+        R = torch.empty_like(A)
+        info = torch.empty(batch, dtype=torch.int32, device=A.device)
+        if batch:
+            _launch("potrf", hopper._DTYPE_CODE[A.dtype], A.data_ptr(), R.data_ptr(),
+                    info.data_ptr(), batch, n, int(uplo == "U"))
+    return R, info
+
+
+def trsm(T, B, *, uplo: str = "U", trans: bool = False, block: int = 0,
+         precision: str | None = "highest"):
+    """Batched triangular solve: not ported yet (ROADMAP Queue B item 14);
+    no serve program reaches it."""
+    raise NotImplementedError(
+        "batched_small.trsm is not ported yet (ROADMAP Queue B item 14)"
+    )
+
+
+def potrs(T, B, *, uplo: str = "U", block: int = 0, precision: str | None = "highest"):
+    """Batched SPD solve from a ready factor (A = RᵀR for 'U', L·Lᵀ for 'L'):
+    both triangular sweeps in one launch, the factor read once.  X is a new
+    tensor; B is kept."""
+    _check_batched(T, B, op="batched potrs")
+    _check_uplo(uplo)
+    _check_dtype("batched potrs", T, B)
+    _resolve_block(T.shape[-1], block)
+    batch, n, _ = T.shape
+    k = B.shape[-1]
+    with tracing.scope("OP::batched_small"):
+        tracing.emit(flops=batch * 2 * tracing.batched_trsm_flops(n, k))
+        if not hopper._on_card(T, B):
+            return potrs_plain(T, B, uplo=uplo)
+        _kernel_gate("potrs", n, k)
+        T, B = T.contiguous(), B.contiguous()
+        X = torch.empty_like(B)
+        if batch and k:
+            _launch("potrs", hopper._DTYPE_CODE[T.dtype], T.data_ptr(), B.data_ptr(),
+                    X.data_ptr(), batch, n, k, int(uplo == "U"))
+    return X
+
+
+def posv(A, B, *, uplo: str = "U", block: int = 0, precision: str | None = "highest"):
+    """FUSED batched SPD solve: factor and both substitution sweeps in one
+    launch; the factor never exists in device memory.  Returns (X, info):
+    X (batch, n, k) a new tensor, info (batch,) int32."""
+    _check_batched(A, B, op="batched posv")
+    _check_uplo(uplo)
+    _check_dtype("batched posv", A, B)
+    _resolve_block(A.shape[-1], block)
+    batch, n, _ = A.shape
+    k = B.shape[-1]
+    with tracing.scope("SV::fused_posv"):
+        tracing.emit(flops=batch * tracing.fused_posv_flops(n, k))
+        if not hopper._on_card(A, B):
+            return posv_plain(A, B, uplo=uplo)
+        _kernel_gate("posv", n, k)
+        A, B = A.contiguous(), B.contiguous()
+        X = torch.empty_like(B)
+        info = torch.empty(batch, dtype=torch.int32, device=A.device)
+        if batch:
+            _launch("posv", hopper._DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(),
+                    X.data_ptr(), info.data_ptr(), batch, n, k)
+    return X, info
+
+
+def lstsq(A, B, *, block: int = 0, precision: str | None = "highest"):
+    """FUSED batched CholeskyQR2 least squares in one launch: G = AᵀA and
+    C = AᵀB from A and B streamed once, then R1 = chol(G),
+    G2 = R1⁻ᵀ·G·R1⁻¹, R2 = chol(G2), X = (R2·R1)⁻¹·R2⁻ᵀ·R1⁻ᵀ·C on (n, n)
+    state in shared memory.  Returns (X, info): X (batch, n, k), info =
+    max(info1, info2)."""
+    _check_lstsq(A, B)
+    _resolve_block(A.shape[-1], block)
+    batch, m, n = A.shape
+    k = B.shape[-1]
+    with tracing.scope("SV::fused_lstsq"):
+        tracing.emit(flops=batch * tracing.fused_lstsq_flops(m, n, k))
+        if not hopper._on_card(A, B):
+            return lstsq_plain(A, B)
+        _kernel_gate("lstsq", n, k)
+        A, B = A.contiguous(), B.contiguous()
+        X = torch.empty((batch, n, k), dtype=B.dtype, device=B.device)
+        info = torch.empty(batch, dtype=torch.int32, device=A.device)
+        if batch:
+            _launch("lstsq", hopper._DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(),
+                    X.data_ptr(), info.data_ptr(), batch, m, n, k)
+    return X, info

@@ -1,7 +1,7 @@
 """The cholinv path's kernels on Hopper (counterpart of
 capital_tpu/ops/pallas_tpu.py), and the one launch-counter registry of every
 kernel of the port (`KERNELS`; the CholeskyQR2 kernels' wrappers live in
-ops/qr_fused.py).
+ops/qr_fused.py, the small-N batched solves' in ops/batched_small.py).
 
 Each kernel sits here as three things side by side:
 
@@ -40,6 +40,9 @@ _UPLO = {None: 0, "U": 1, "L": 2}
 _CSRC = "capital_tpu_torch/ops/csrc/"
 _PALLAS = "capital_tpu/ops/pallas_tpu.py:"
 _QR_FUSED = "capital_tpu/ops/qr_fused.py:"
+#: the batched-grid kernels share one pallas_call (_batched_call); each
+#: entry names it and the kernel's own def line
+_SMALL = "capital_tpu/ops/batched_small.py:358 (def :"
 #: most `extra` windows one zeros_dead_lower launch takes (csrc MAX_EXTRA)
 MAX_EXTRA = 8
 
@@ -69,6 +72,11 @@ KERNELS: dict[str, Kernel] = {
         Kernel("qr.gram_blocked", _CSRC + "qr_fused.cu", _QR_FUSED + "181"),
         Kernel("qr.scale_gram", _CSRC + "qr_fused.cu", _QR_FUSED + "260"),
         Kernel("qr.scale_blocked", _CSRC + "qr_fused.cu", _QR_FUSED + "328"),
+        # small-N batched solves; wrappers in ops/batched_small.py
+        Kernel("small.potrf", _CSRC + "batched_small.cu", _SMALL + "398)"),
+        Kernel("small.potrs", _CSRC + "batched_small.cu", _SMALL + "470)"),
+        Kernel("small.posv", _CSRC + "batched_small.cu", _SMALL + "506)"),
+        Kernel("small.lstsq", _CSRC + "batched_small.cu", _SMALL + "546)"),
     )
 }
 

@@ -7,7 +7,9 @@ for the factorization and cast back once, as in the reference.
 
 A breakdown NaN-fills the factor, as `lax.linalg.cholesky` does, so that
 `robust/detect.factor_info` reports it the same way in both packages
-(`torch.linalg.cholesky` would raise instead).
+(`torch.linalg.cholesky` would raise instead).  Every routine also takes a
+stack of matrices (leading batch dimensions), as `torch.linalg` does: the
+serve tier's vmap route writes its batch axis out this way.
 
 `potrf`, `potrf_trtri` and `potrf_trtri_upper` carry the fault-injection
 taps where the reference has them (robust/faultinject.py); a tap is the
@@ -28,9 +30,10 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def cholesky_lower(P: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor reading only the lower triangle of P; the whole
-    factor is NaN on breakdown (lax.linalg.cholesky semantics)."""
+    factor is NaN on breakdown (lax.linalg.cholesky semantics), per matrix
+    of a stack."""
     L, info = torch.linalg.cholesky_ex(P)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
 
 
 def _eye(n: int, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -42,7 +45,7 @@ def potrf(A: torch.Tensor, uplo: str = "U", with_info: bool = False):
     with A = LLᵀ (uplo='L')."""
     A = faultinject.tap(A)
     L = cholesky_lower(A.to(_compute_dtype(A.dtype))).to(A.dtype)
-    T = L.T if uplo == "U" else L
+    T = L.mT if uplo == "U" else L
     return (T, detect.factor_info(T)) if with_info else T
 
 
@@ -77,7 +80,7 @@ def potrf_trtri(A: torch.Tensor, uplo: str = "U", with_info: bool = False):
     A = faultinject.tap(A)
     ct = _compute_dtype(A.dtype)
     L = cholesky_lower(A.to(ct))
-    T = L.T if uplo == "U" else L
+    T = L.mT if uplo == "U" else L
     Tinv = torch.linalg.solve_triangular(
         T, _eye(A.shape[-1], A, ct), upper=(uplo == "U")
     )

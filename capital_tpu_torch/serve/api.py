@@ -1,0 +1,238 @@
+"""The served solves: posv / lstsq / inv, batched and single-problem
+(counterpart of capital_tpu/serve/api.py).
+
+* **batched** — the whole bucket batch in one program, behind the `impl`
+  switch (batched_small.IMPLS, the ServeConfig.small_n_impl vocabulary):
+
+  - ``vmap`` — the pure-library route: the reference's vmap over the
+    per-problem LAPACK seam becomes a batch axis written out over
+    ops/lapack (batched `torch.linalg`):
+
+        posv   potrf(A) + the two triangular sweeps of potrs
+        lstsq  CholeskyQR2 on the gram + triangular solve
+        inv    potrf_trtri + R⁻¹·R⁻ᵀ
+
+  - ``pallas`` — the batched-grid kernels of ops/batched_small (the names
+    are the config vocabulary; on the card they are the CUDA kernels): one
+    fused launch per bucket batch (posv, lstsq).  ``pallas_split`` runs the
+    factor and the solve as two launches (potrf + potrs); lstsq has no
+    split form and takes the fused kernel.  ``auto`` resolves per bucket
+    from the batch shapes (batched_small.default_impl: pallas for posv /
+    lstsq at n <= SMALL_N_MAX within the envelope, else vmap).
+
+    inv rides the posv kernel against the identity RHS (the serve contract
+    guarantees an SPD operand); its auto resolution asks posv's question
+    with k = n.
+
+  f64 buckets always take vmap, even under a forced impl: the kernels
+  compute in f32.  Every batched program returns (X, info), info the
+  per-problem int32 potrf status (0 / j / n+1).
+
+* **single** — a request beyond every ladder runs unbatched through the
+  models: cholesky.solve, qr.factor + apply_QT + a triangular solve,
+  cholesky.factor + summa.gemm.
+
+The other serve ops wait for their slices (ROADMAP Queue A items 6-8) and
+raise NotImplementedError naming the item.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from capital_tpu_torch.models import cholesky, qr
+from capital_tpu_torch.ops import batched_small, lapack
+from capital_tpu_torch.parallel import summa
+from capital_tpu_torch.serve import batching
+from capital_tpu_torch.utils import tracing
+
+
+def _tri_solve_upper(R, B, precision):
+    """R·X = B for upper-triangular R (or a stack) at the >= f32 compute
+    dtype."""
+    del precision  # a triangular solve has no precision knob
+    ct = lapack._compute_dtype(R.dtype)
+    X = torch.linalg.solve_triangular(R.to(ct), B.to(ct), upper=True)
+    return X.to(B.dtype)
+
+
+def _one_posv(precision):
+    def f(a, b):
+        with tracing.scope("serve::solve"):
+            R, info = lapack.potrf(a, uplo="U", with_info=True)
+            return lapack.potrs(R, b, uplo="U"), info
+
+    return f
+
+
+def _one_lstsq(precision):
+    def f(a, b):
+        with tracing.scope("serve::solve"):
+            # CQR2 (models/qr.py single-problem form): two gram-Cholesky
+            # sweeps; Q = A·R1⁻¹·R2⁻¹, R = R2·R1; then solve R·X = QᵀB.
+            g = a.mT @ a
+            r1, r1i, i1 = lapack.potrf_trtri(g, uplo="U", with_info=True)
+            q1 = a @ torch.triu(r1i)
+            g2 = q1.mT @ q1
+            r2, r2i, i2 = lapack.potrf_trtri(g2, uplo="U", with_info=True)
+            R = torch.triu(r2) @ torch.triu(r1)
+            qtb = torch.triu(r2i).mT @ (q1.mT @ b)
+            return _tri_solve_upper(R, qtb, precision), torch.maximum(i1, i2)
+
+    return f
+
+
+def _one_inv(precision):
+    def f(a):
+        with tracing.scope("serve::solve"):
+            _, rinv, info = lapack.potrf_trtri(a, uplo="U", with_info=True)
+            tri = torch.triu(rinv)
+            return tri @ tri.mT, info
+
+    return f
+
+
+def _batched_vmap(op: str, precision):
+    """The library batch program: correctness reference and the f64 route.
+    The per-problem functions above take a stack as they stand."""
+    if op == "inv":
+        return _one_inv(precision)
+    return {"posv": _one_posv, "lstsq": _one_lstsq}[op](precision)
+
+
+def _batched_pallas(op: str, precision, split: bool):
+    """The batched-grid route: the whole bucket batch in one (fused) or two
+    (split) kernel launches.  f64 buckets take the vmap program even when
+    the impl was forced (batched_small.dtype_capable)."""
+    if op == "inv":
+        def kernel(a):
+            eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand(a.shape)
+            if split:
+                R, info = batched_small.potrf(a, uplo="U", precision=precision)
+                return batched_small.potrs(R, eye, uplo="U", precision=precision), info
+            return batched_small.posv(a, eye, uplo="U", precision=precision)
+
+        def f_inv(a):
+            if not batched_small.dtype_capable(a.dtype):
+                return _batched_vmap(op, precision)(a)
+            return kernel(a)
+
+        return f_inv
+    if op == "lstsq":
+        def kernel(a, b):
+            return batched_small.lstsq(a, b, precision=precision)
+    elif split:
+        def kernel(a, b):
+            R, info = batched_small.potrf(a, uplo="U", precision=precision)
+            return batched_small.potrs(R, b, uplo="U", precision=precision), info
+    else:
+        def kernel(a, b):
+            return batched_small.posv(a, b, uplo="U", precision=precision)
+
+    def f(a, b):
+        if not batched_small.dtype_capable(a.dtype):
+            return _batched_vmap(op, precision)(a, b)
+        return kernel(a, b)
+
+    return f
+
+
+def _host_side(a) -> bool:
+    """The envelope question is the card's only for CUDA operands (the
+    plain versions have none)."""
+    return a.device.type != "cuda"
+
+
+def batched(op: str, precision: str | None = "highest",
+            impl: str = "auto", *, tier: str = "balanced"):
+    """The program for one bucket: maps the fixed (capacity, *problem)
+    batch through the solve, returning (X, info) stacks.  `impl` picks the
+    batch program ('vmap', 'pallas', 'pallas_split' or 'auto', resolved per
+    bucket from the batch shapes); `tier` must be 'balanced'."""
+    if impl not in batched_small.IMPLS:
+        raise ValueError(
+            f"unknown batched impl {impl!r}: expected one of "
+            f"{batched_small.IMPLS}"
+        )
+    batching.check_op(op)
+    batching._check_tier(tier)
+    if impl == "vmap":
+        return _batched_vmap(op, precision)
+    if impl in ("pallas", "pallas_split"):
+        return _batched_pallas(op, precision, split=(impl == "pallas_split"))
+    if op == "inv":
+        # auto for inv: the identity-RHS posv's question, b_shape == a_shape
+        def auto_inv(a):
+            pick = batched_small.default_impl(
+                "posv", a.shape, a.shape, a.dtype, interpret=_host_side(a)
+            )
+            if pick == "vmap":
+                return _batched_vmap(op, precision)(a)
+            return _batched_pallas(op, precision, split=False)(a)
+
+        return auto_inv
+
+    def auto(a, b):
+        pick = batched_small.default_impl(op, a.shape, b.shape, a.dtype,
+                                          interpret=_host_side(a))
+        if pick == "vmap":
+            return _batched_vmap(op, precision)(a, b)
+        return _batched_pallas(op, precision, split=False)(a, b)
+
+    return auto
+
+
+def single(op: str, grid, precision: str | None = "highest", robust=None,
+           tail_fuse_depth: int = 0):
+    """The oversize route: one exact-shape problem through the models on
+    `grid`.  Returns (X, info): info is a scalar int32 (posv/inv) or a
+    RobustInfo (lstsq under robust); int32 0 when robust is None."""
+
+    def zero():
+        return torch.zeros((), dtype=torch.int32, device=grid.device)
+
+    if op == "posv":
+        ccfg = cholesky.CholinvConfig(precision=precision, robust=robust,
+                                      tail_fuse_depth=tail_fuse_depth)
+
+        def f(a, b):
+            out = cholesky.solve(grid, a, b, ccfg)
+            return out if robust is not None else (out, zero())
+
+        return f
+    if op == "lstsq":
+        qcfg = qr.CacqrConfig(
+            precision=precision, robust=robust,
+            cholinv=cholesky.CholinvConfig(precision=precision,
+                                           tail_fuse_depth=tail_fuse_depth),
+        )
+
+        def f(a, b):
+            out = qr.factor(grid, a, qcfg)
+            if robust is not None:
+                Q, R, rinfo = out
+            else:
+                (Q, R), rinfo = out, zero()
+            qtb = qr.apply_QT(grid, Q, b, precision=precision)
+            return _tri_solve_upper(R, qtb, precision), rinfo
+
+        return f
+    if op == "inv":
+        ccfg = cholesky.CholinvConfig(precision=precision, robust=robust,
+                                      tail_fuse_depth=tail_fuse_depth)
+
+        def f(a):
+            if robust is not None:
+                _, rinv, info = cholesky.factor(grid, a, ccfg)
+            else:
+                _, rinv = cholesky.factor(grid, a, ccfg)
+                info = zero()
+            ainv = summa.gemm(
+                grid, rinv, rinv,
+                args=summa.GemmArgs(trans_b=True, precision=precision),
+                mode=ccfg.mode,
+            )
+            return ainv, info
+
+        return f
+    batching.check_op(op)  # raises: posv, lstsq and inv returned above

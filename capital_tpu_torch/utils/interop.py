@@ -5,8 +5,8 @@ configuration.  Operands cross as numpy arrays.  JAX hands bf16 out as
 `ml_dtypes.bfloat16` arrays, which `torch.from_numpy` refuses, so bf16
 travels as its raw 16-bit patterns — bitwise, never through a float.
 Configurations cross as the field dict of `dataclasses.asdict()` of a JAX
-`CholinvConfig` or `CacqrConfig`, with enums and dtypes mapped by name, so
-the port never imports the JAX classes.  A `RobustInfo` of either package
+`CholinvConfig`, `CacqrConfig` or `ServeConfig`, with enums and dtypes
+mapped by name, so the port never imports the JAX classes.  A `RobustInfo` of either package
 crosses as a dict of numpy scalars.
 """
 
@@ -18,6 +18,7 @@ import torch
 from capital_tpu_torch.models.cholesky import CholinvConfig
 from capital_tpu_torch.models.qr import CacqrConfig
 from capital_tpu_torch.robust.config import RobustConfig, RobustInfo
+from capital_tpu_torch.serve.engine import ServeConfig
 from capital_tpu_torch.utils.config import BaseCasePolicy
 
 
@@ -73,6 +74,15 @@ def cacqr_config_from_fields(fields: dict) -> CacqrConfig:
     if isinstance(kw.get("robust"), dict):
         kw["robust"] = RobustConfig(**kw["robust"])
     return CacqrConfig(**kw)
+
+
+def serve_config_from_fields(fields: dict) -> ServeConfig:
+    """The port's ServeConfig from `dataclasses.asdict(jax_cfg)`, `robust`
+    as a RobustConfig."""
+    kw = dict(fields)
+    if isinstance(kw.get("robust"), dict):
+        kw["robust"] = RobustConfig(**kw["robust"])
+    return ServeConfig(**kw)
 
 
 #: numpy dtype of each RobustInfo field (both packages)

@@ -1,6 +1,6 @@
 """Phase scopes and the analytic cost model (the subset of
-capital_tpu/utils/tracing.py that single-device cholinv and CholeskyQR2
-call).
+capital_tpu/utils/tracing.py that single-device cholinv, CholeskyQR2 and the
+small-N batched solves call).
 
 Phase tags keep the reference's critter symbol names (``CI::trsm`` ...) so
 phase tables compare across the two packages.  `scope` pushes the tag for
@@ -31,6 +31,13 @@ PHASE_REGISTRY: tuple[str, ...] = (
     "CQR::gram", "CQR::chol", "CQR::scale", "CQR::merge", "CQR::fused",
     "CQR::formR", "CQR::recover",
     "QR::tsqr",
+    # serve (serve/): serve::pad wraps bucket padding, serve::solve the
+    # per-problem library solves of the vmap route
+    "serve::pad", "serve::solve",
+    # batched small-N kernels (ops/batched_small.py): OP::batched_small
+    # wraps the standalone potrf/potrs kernels, SV::fused_* the fused
+    # factor+solve kernels (one phase: the factor never leaves the block)
+    "OP::batched_small", "SV::fused_posv", "SV::fused_lstsq",
 )
 _PHASE_SET: set[str] = set(PHASE_REGISTRY)
 
@@ -196,3 +203,39 @@ def tsqr_flops(m: int, n: int, leaves: int) -> float:
     leaves = max(int(leaves), 1)
     levels = max(leaves.bit_length() - 1, 0)
     return 4.0 * m * n**2 + 8.0 * (leaves - 1) * n**3 + 2.0 * levels * m * n**2
+
+
+# -- batched small-N kernel pricing (ops/batched_small.py) -----------------
+# Copied unchanged from the JAX package so Recorder totals agree across the
+# two: they count the TPU column sweep's EXECUTED flops (full-matrix rank-1
+# updates, one-hot extractions), not useful flops.  The CUDA kernels do the
+# useful work only (n³/3 for a Cholesky); their bound on the card is
+# computed from useful flops (chip_smoke.py).
+
+
+def batched_chol_flops(n: int) -> float:
+    """Full-matrix rank-1 sweep Cholesky, per problem: ≈ 6n³ executed."""
+    return 6.0 * n**3
+
+
+def batched_trsm_flops(n: int, k: int) -> float:
+    """One masked substitution sweep, per problem: 2n³ + 4n²k executed."""
+    return 2.0 * n**3 + 4.0 * n**2 * k
+
+
+def fused_posv_flops(n: int, k: int) -> float:
+    """Fused factor + two substitution sweeps, per problem (SV::fused_posv)."""
+    return batched_chol_flops(n) + 2.0 * batched_trsm_flops(n, k)
+
+
+def fused_lstsq_flops(m: int, n: int, k: int) -> float:
+    """Fused batched CholeskyQR2 lstsq, per problem (SV::fused_lstsq):
+    gram 2mn² + AᵀB 2mnk, two sweep factors, the R1⁻ᵀ·G·R1⁻¹ correction
+    (2 trsm sweeps at k=n), the RHS sweeps and the R2·R1 product."""
+    return (
+        2.0 * m * n * (n + k)
+        + 2.0 * batched_chol_flops(n)
+        + 2.0 * batched_trsm_flops(n, n)
+        + 4.0 * batched_trsm_flops(n, k)
+        + 2.0 * n**3
+    )

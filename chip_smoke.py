@@ -30,7 +30,20 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    and a robust f32 run with a rank-deficient gram injected — each with
    the counters set to 0 just before and checked just after against the
    plan, and the orthogonality and residual gates of bench/drivers.py;
-6. prints the `kernels` JSON line, the nvidia-smi line, and last
+6. holds the small-N batched kernels (potrf, potrs, posv, lstsq) against
+   their plain versions, timed beside their bounds and library calls, at
+   the serve latency bucket (8 problems, n=128, 8 right-hand sides, f32)
+   and at a throughput batch (8192 problems of n=128; lstsq 2048 of
+   512 x 128), f32 and bf16;
+7. drives the small-N serve path: ragged posv / lstsq / inv requests
+   through `batching.bucket_for` -> `pad_operands` -> `assemble` ->
+   `api.batched` -> `crop` under impl auto, pallas and pallas_split (and
+   one f64 bucket each, which takes the library route), with the counters
+   set to 0 just before each call and checked just after, the residual
+   gates of bench/drivers.py against an f64 host reference, the pallas
+   and vmap routes against each other, identity-tail exactness and NaN
+   containment;
+8. prints the `kernels` JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -55,6 +68,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor
 PATH_KERNELS = ("tri_matmul.trmm", "tri_matmul.syrk", "transpose", "transpose_pair",
                 "zeros_dead_lower")
 QR_KERNELS = ("qr.gram_blocked", "qr.scale_gram", "qr.scale_blocked")
+SMALL_KERNELS = ("small.potrf", "small.potrs", "small.posv", "small.lstsq")
+#: the small-N shapes, (batch, m, n, k): the serve latency bucket
+#: (ServeConfig.max_batch problems) and the throughput batches (A is
+#: 537 MB either way; lstsq at the bench drivers' m = 4n)
+SMALL_SHAPES = {
+    "latency": {"square": (8, 128, 128, 8), "tall": (8, 512, 128, 8)},
+    "throughput": {"square": (8192, 128, 128, 8), "tall": (2048, 512, 128, 8)},
+}
 #: (m, n) of each CholeskyQR2 run: the BASELINE.md "CAQR2 ... 2M x 1024"
 #: flagship (bf16), the f32 row (65536 x 512), a wide gram whose factor goes
 #: through cholinv (n=4096, bc=128), CQR1 and the robust run (n=1024)
@@ -83,7 +104,8 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     """The least time the card could take: the larger of bytes over memory
-    rate and operations over peak rate."""
+    rate and operations over peak rate (`dtype` names the operations' type:
+    the small-N kernels compute f32 whatever they store)."""
     tb, tf = nbytes / MEM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
@@ -288,6 +310,7 @@ def predicted_counts(leaves: int) -> dict:
         "tri_matmul.trmm": 3 * (leaves - 1), "tri_matmul.syrk": leaves - 1,
         "tri_matmul.dense": 0, "transpose": leaves, "transpose_pair": leaves,
         "zeros_dead_lower": 2, **dict.fromkeys(QR_KERNELS, 0),
+        **dict.fromkeys(SMALL_KERNELS, 0),
     }
 
 
@@ -598,6 +621,286 @@ def qr_path(hopper, dev, grid) -> dict:
     return out
 
 
+def small_flops(name: str, m: int, n: int, k: int) -> float:
+    """Useful f32 operations of one problem: Cholesky n³/3, a triangular
+    solve n²k per sweep; lstsq the kernel's CholeskyQR2 normal equations —
+    the gram's lower triangle m·n·(n+1), AᵀB 2mnk, two Choleskys, the
+    R1⁻ᵀ·G·R1⁻¹ correction (two n-wide sweeps), the R2·R1 product n³/3 and
+    four k-wide sweeps."""
+    if name == "small.potrf":
+        return n**3 / 3.0
+    if name == "small.potrs":
+        return 2.0 * n * n * k
+    if name == "small.posv":
+        return n**3 / 3.0 + 2.0 * n * n * k
+    return m * n * (n + 1) + 2.0 * m * n * k + 3.0 * n**3 + 4.0 * n * n * k
+
+
+def small_bytes(name: str, m: int, n: int, k: int, item: int) -> float:
+    """Bytes of one problem: each input read once, each output written once
+    (info 4 bytes)."""
+    if name == "small.potrf":
+        return 2.0 * n * n * item + 4
+    if name == "small.potrs":
+        return (n * n + 2.0 * n * k) * item
+    if name == "small.posv":
+        return (n * n + 2.0 * n * k) * item + 4
+    return (m * n + m * k + n * k) * item + 4
+
+
+def time_budget_ms(fn, budget_ms: float = 300.0, most: int = 20) -> float:
+    """Mean milliseconds per call of a call whose time may be anywhere from
+    microseconds to seconds: one warm-up call, timed, sets how many calls
+    fit the budget (1 to `most`)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    return time_ms(fn, max(1, min(most, int(budget_ms / max(first, 1e-3)))), warmup=0)
+
+
+def small_close(name, got, want, dtype) -> float:
+    """Kernel against plain version: f32 1e-5 of the largest entry (IEEE
+    f32 in both, sums in another order; lstsq 1e-4, the gram squares the
+    condition number); bf16 one bf16 ulp of each entry plus that."""
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    scale = float(w.abs().max())
+    rel = 1e-4 if name == "small.lstsq" else 1e-5
+    bound = rel * scale + (2.0**-7 * w.abs() if dtype == torch.bfloat16 else 0.0)
+    worst = float(err.max())
+    check(bool((err <= bound).all()) and math.isfinite(worst),
+          f"{name} {dtype}: kernel vs plain max err {worst} (scale {scale})")
+    return worst
+
+
+def small_kernel_phase(batched_small, size: str, dtype, dev, names=SMALL_KERNELS) -> dict:
+    """The small-N kernels against their plain versions at one of
+    SMALL_SHAPES, timed beside bound, plain version and library call."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b, _, n, k = SMALL_SHAPES[size]["square"]
+    X = torch.randn((b, n, n), generator=gen, device=dev)
+    A = (X @ X.mT / n + 3.0 * torch.eye(n, device=dev)).to(dtype)
+    del X
+    B = torch.randn((b, n, k), generator=gen, device=dev).to(dtype)
+    iters = 3 if size == "throughput" else 20
+    f32 = dtype == torch.float32
+    res = {}
+
+    def record(name, got, want, info_k, info_p, run, plain, library, shape):
+        err = small_close(name, got, want, dtype)
+        if info_k is not None:
+            check(torch.equal(info_k, info_p), f"{name} {dtype}: info differs from plain")
+            check(not bool(info_k.any()), f"{name} {dtype}: info nonzero on SPD input")
+        bm, mm, nn, kk = shape
+        res[name] = dict(
+            max_abs_err=err, ms=time_ms(run, iters),
+            plain_ms=time_budget_ms(plain),
+            library_ms=time_budget_ms(library) if library is not None else None,
+            shape=f"batch {bm} m {mm} n {nn} k {kk} {dtype}",
+            bound=bound_ms(bm * small_bytes(name, mm, nn, kk, item),
+                           bm * small_flops(name, mm, nn, kk), torch.float32),
+        )
+
+    if "small.potrf" in names:
+        R, info = batched_small.potrf(A)
+        Rp, infop = batched_small.potrf_plain(A)
+        Af = A.float()
+        record("small.potrf", R, Rp, info, infop, lambda: batched_small.potrf(A),
+               lambda: batched_small.potrf_plain(A),
+               (lambda: torch.linalg.cholesky_ex(Af, upper=True)) if f32 else None, (b, n, n, k))
+        del Rp
+        Xk = batched_small.potrs(R, B)
+        Xp = batched_small.potrs_plain(R, B)
+        Rf, Bf = R.float(), B.float()
+        record("small.potrs", Xk, Xp, None, None, lambda: batched_small.potrs(R, B),
+               lambda: batched_small.potrs_plain(R, B),
+               (lambda: torch.cholesky_solve(Bf, Rf, upper=True)) if f32 else None, (b, n, n, k))
+        del R, Xk, Xp, Rf, Bf, Af
+    if "small.posv" in names:
+        Xk, info = batched_small.posv(A, B)
+        Xp, infop = batched_small.posv_plain(A, B)
+        record("small.posv", Xk, Xp, info, infop, lambda: batched_small.posv(A, B),
+               lambda: batched_small.posv_plain(A, B),
+               (lambda: torch.linalg.solve(A, B)) if f32 else None, (b, n, n, k))
+        if size == "throughput" and f32:
+            res["small.posv"]["profile"] = profile(lambda: batched_small.posv(A, B), "SV::")
+        del Xk, Xp
+    del A, B
+    if "small.lstsq" in names:
+        b, m, n, k = SMALL_SHAPES[size]["tall"]
+        At = torch.randn((b, m, n), generator=gen, device=dev).to(dtype)
+        Bt = torch.randn((b, m, k), generator=gen, device=dev).to(dtype)
+        Xk, info = batched_small.lstsq(At, Bt)
+        Xp, infop = batched_small.lstsq_plain(At, Bt)
+        record("small.lstsq", Xk, Xp, info, infop, lambda: batched_small.lstsq(At, Bt),
+               lambda: batched_small.lstsq_plain(At, Bt),
+               (lambda: torch.linalg.lstsq(At, Bt)) if f32 else None, (b, m, n, k))
+        del At, Bt, Xk, Xp
+    torch.cuda.empty_cache()
+    return res
+
+
+#: launches of one api.batched call, by (op, impl), on an f32 bucket
+SERVE_LAUNCHES = {
+    ("posv", "auto"): {"small.posv": 1}, ("posv", "pallas"): {"small.posv": 1},
+    ("posv", "pallas_split"): {"small.potrf": 1, "small.potrs": 1},
+    ("lstsq", "auto"): {"small.lstsq": 1}, ("lstsq", "pallas"): {"small.lstsq": 1},
+    ("lstsq", "pallas_split"): {"small.lstsq": 1},
+    ("inv", "auto"): {"small.posv": 1}, ("inv", "pallas"): {"small.posv": 1},
+    ("inv", "pallas_split"): {"small.potrf": 1, "small.potrs": 1},
+}
+
+
+def serve_requests(op: str, count: int, dtype, seed: int):
+    """Ragged requests made on the host from a seed: n in {40, 64, 100,
+    128}, k in {1, 3, 8}; SPD operands for posv and inv, Gaussian (4n, n)
+    ones for lstsq."""
+    gen = torch.Generator().manual_seed(seed)
+    reqs = []
+    for _ in range(count):
+        n = (40, 64, 100, 128)[int(torch.randint(4, (1,), generator=gen))]
+        k = (1, 3, 8)[int(torch.randint(3, (1,), generator=gen))]
+        if op == "lstsq":
+            A = torch.randn((4 * n, n), generator=gen, dtype=torch.float64)
+            B = torch.randn((4 * n, k), generator=gen, dtype=torch.float64)
+        else:
+            X = torch.randn((n, n), generator=gen, dtype=torch.float64)
+            A = X @ X.T / n + 3.0 * torch.eye(n, dtype=torch.float64)
+            B = None if op == "inv" else torch.randn((n, k), generator=gen, dtype=torch.float64)
+        reqs.append((A.to(dtype), None if B is None else B.to(dtype)))
+    return reqs
+
+
+def serve_residual(op: str, A, B, X) -> float:
+    """The drivers' residual (bench/drivers.py:_small_residual) in f64 on
+    the host: ‖AX − B‖/‖B‖ for posv (B = I for inv), the normal-equations
+    ‖Aᵀ(AX − B)‖/‖AᵀB‖ for lstsq."""
+    A, X = A.double().cpu(), X.double().cpu()
+    if op == "inv":
+        B = torch.eye(A.shape[0], dtype=torch.float64)
+    B = B.double().cpu()
+    if op == "lstsq":
+        return float(torch.linalg.norm(A.T @ (A @ X - B)) / torch.linalg.norm(A.T @ B))
+    return float(torch.linalg.norm(A @ X - B) / torch.linalg.norm(B))
+
+
+def serve_phase(hopper, dev) -> dict:
+    """The small-N serve path, request to response, with the counters set
+    to 0 just before each batched call and checked just after."""
+    from capital_tpu_torch.serve import api, batching
+    from capital_tpu_torch.serve.engine import ServeConfig
+
+    cfg = ServeConfig(buckets=(32, 64, 128), rows_buckets=(128, 256, 512),
+                      nrhs_buckets=(1, 8), max_batch=8)
+    launches = dict.fromkeys(SMALL_KERNELS, 0)
+    out = {"calls": 0, "worst_residual": {}, "pallas_vs_vmap": {}}
+    tol32 = 5e-5  # bench/drivers.py:_tolerance, f32; 10x for lstsq
+
+    def run(op, impl, Ab, Bb):
+        torch.cuda.synchronize()
+        hopper.reset_counts()
+        f = api.batched(op, "highest", impl)
+        X, info = f(Ab) if Bb is None else f(Ab, Bb)
+        torch.cuda.synchronize()
+        return X, info, hopper.counts()
+
+    for op in ("posv", "lstsq", "inv"):
+        for dtype in (torch.float32, torch.float64):
+            reqs = serve_requests(op, 12 if dtype == torch.float32 else 3, dtype, seed=len(op))
+            groups: dict = {}
+            for A, B in reqs:
+                bk = batching.bucket_for(op, tuple(A.shape), None if B is None else tuple(B.shape),
+                                         str(dtype).replace("torch.", ""), cfg)
+                check(bk is not None, f"serve {op}: request {tuple(A.shape)} has no bucket")
+                groups.setdefault(bk, []).append((A.to(dev), None if B is None else B.to(dev)))
+            impls = ("auto", "pallas", "pallas_split") if dtype == torch.float32 else ("pallas",)
+            tol = (10 * tol32 if op == "lstsq" else tol32) if dtype == torch.float32 else (
+                1e-12 if op == "lstsq" else 1e-13)
+            worst, agree = 0.0, 0.0
+            for bk, members in groups.items():
+                for c0 in range(0, len(members), bk.capacity):
+                    chunk = members[c0:c0 + bk.capacity]
+                    padded = [batching.pad_operands(op, A, B, bk) for A, B in chunk]
+                    Ab, Bb, _ = batching.assemble([p[0] for p in padded], [p[1] for p in padded],
+                                                  bk, device=dev)
+                    Xv, infov, _ = run(op, "vmap", Ab, Bb)
+                    for impl in impls:
+                        X, info, counts = run(op, impl, Ab, Bb)
+                        want = dict.fromkeys(counts, 0)
+                        if dtype == torch.float32:
+                            want.update(SERVE_LAUNCHES[(op, impl)])
+                        check(counts == want, f"serve {op} {impl} {dtype}: launches {counts} != {want}")
+                        for name in SMALL_KERNELS:
+                            launches[name] += counts[name]
+                        out["calls"] += 1
+                        check(not bool(info.any()), f"serve {op} {impl}: info {info.tolist()}")
+                        for i, (A, B) in enumerate(chunk):
+                            xi = batching.crop(op, X[i], tuple(A.shape),
+                                               None if B is None else tuple(B.shape))
+                            r = serve_residual(op, A, B, xi)
+                            check(r < tol, f"serve {op} {impl} {dtype}: residual {r} >= {tol}")
+                            worst = max(worst, r)
+                            # the identity tail: padded rows and columns exactly zero
+                            tail = X[i].clone()
+                            tail[: xi.shape[0], : xi.shape[1]] = 0
+                            if op != "inv":
+                                check(not bool(tail.any()), f"serve {op} {impl}: padded tail not zero")
+                        fill = X[len(chunk):]
+                        want_fill = (torch.eye(fill.shape[-1], dtype=dtype, device=dev).expand(fill.shape)
+                                     if op == "inv" else torch.zeros_like(fill))
+                        check(torch.equal(fill, want_fill), f"serve {op} {impl}: fill slots not exact")
+                        d = float((X.double() - Xv.double()).abs().max() / Xv.double().abs().max())
+                        check(d < 1e-4, f"serve {op} {impl}: pallas vs vmap {d}")
+                        agree = max(agree, d)
+            out["worst_residual"][f"{op} {dtype}"] = worst
+            out["pallas_vs_vmap"][f"{op} {dtype}"] = agree
+
+    # NaN containment through a fused batch: one poisoned problem
+    reqs = serve_requests("posv", 8, torch.float32, seed=99)
+    bk = batching.bucket_for("posv", (128, 128), (128, 8), "float32", cfg)
+    padded = [batching.pad_operands("posv", A.to(dev), B.to(dev), bk) for A, B in reqs]
+    Ab, Bb, _ = batching.assemble([p[0] for p in padded], [p[1] for p in padded], bk, device=dev)
+    Xc, ic, cc = run("posv", "pallas", Ab, Bb)
+    Ap = Ab.clone()
+    Ap[3, 10, 10] = float("nan")
+    Xn, inn, cn = run("posv", "pallas", Ap, Bb)
+    for counts in (cc, cn):
+        check(counts["small.posv"] == 1 and sum(counts.values()) == 1,
+              f"serve containment: launches {counts}")
+        launches["small.posv"] += 1
+    others = [i for i in range(8) if i != 3]
+    check(int(inn[3]) != 0 and not bool(inn[others].any()) and not bool(ic.any()),
+          f"serve containment: info {inn.tolist()}")
+    check(all(torch.equal(Xn[i], Xc[i]) for i in others), "serve containment: a neighbour changed")
+    out["containment_info"] = inn.tolist()
+
+    # per-call latency of the (8, 128, 8) f32 bucket: host clock around a
+    # synchronised call, the fused kernel against the library route
+    lat = {}
+    for impl in ("pallas", "vmap"):
+        f = api.batched("posv", "highest", impl)
+        for _ in range(3):
+            f(Ab, Bb)
+        samples = []
+        for _ in range(30):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f(Ab, Bb)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        samples.sort()
+        lat[impl] = dict(p50_ms=samples[len(samples) // 2], p90_ms=samples[int(0.9 * len(samples))])
+    out["latency_posv_8x128x8_f32"] = lat
+    for impl in ("pallas", "vmap"):
+        f = api.batched("posv", "highest", impl)
+        out[f"profile_posv_8x128x8_{impl}"] = profile(lambda: f(Ab, Bb), "SV::" if impl == "pallas" else "serve::")
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -726,15 +1029,40 @@ def main(argv=None) -> int:
     missing = [k for k in QR_KERNELS if qr_counts.get(k, 0) < 1]
     check(not missing, f"kernels of the QR path never launched: {missing}")
 
+    # ---- phase 6: the small-N batched kernels against their plain versions
+    from capital_tpu_torch.ops import batched_small
+
+    small = {}
+    for size, dtype, names in (("latency", torch.float32, SMALL_KERNELS),
+                               ("throughput", torch.float32, SMALL_KERNELS),
+                               ("throughput", torch.bfloat16, ("small.posv", "small.lstsq"))):
+        res = small_kernel_phase(batched_small, size, dtype, dev, names)
+        for name, r in res.items():
+            b, by = r.pop("bound")
+            r.update(bound_ms=b, bound_by=by)
+            print(json.dumps({"kernel": name, "size": size, "dtype": str(dtype), **r}), flush=True)
+        small[f"{size} {dtype}"] = res
+    out["kernels"]["small"] = small
+
+    # ---- phase 7: the small-N serve path ----------------------------------
+    out["serve"] = serve_phase(hopper, dev)
+    print(json.dumps({"serve": "small-N posv/lstsq/inv", **out["serve"]}), flush=True)
+    serve_counts = out["serve"]["launches"]
+    missing = [k for k in SMALL_KERNELS if serve_counts.get(k, 0) < 1]
+    check(not missing, f"kernels of the serve path never launched: {missing}")
+
     bf = out["kernels"][str(torch.bfloat16)]
-    launches = {**{k: path_counts[k] for k in PATH_KERNELS}, **{k: qr_counts[k] for k in QR_KERNELS}}
+    # the small-N kernels report their f32 throughput batch
+    measured = {**bf, **small[f"throughput {torch.float32}"]}
+    launches = {**{k: path_counts[k] for k in PATH_KERNELS}, **{k: qr_counts[k] for k in QR_KERNELS},
+                **serve_counts}
     line = {"kernels": [
         {"name": k, "route": hopper.KERNELS[k].route, "source": hopper.KERNELS[k].source,
          "replaces": hopper.KERNELS[k].replaces, "launches": launches[k],
-         "max_abs_err": bf[k]["max_abs_err"], "ms": bf[k]["ms"], "plain_ms": bf[k]["plain_ms"],
-         "bound_ms": bf[k]["bound_ms"], "bound_by": bf[k]["bound_by"],
-         "library_ms": bf[k]["library_ms"]}
-        for k in PATH_KERNELS + QR_KERNELS
+         "max_abs_err": measured[k]["max_abs_err"], "ms": measured[k]["ms"],
+         "plain_ms": measured[k]["plain_ms"], "bound_ms": measured[k]["bound_ms"],
+         "bound_by": measured[k]["bound_by"], "library_ms": measured[k]["library_ms"]}
+        for k in PATH_KERNELS + QR_KERNELS + SMALL_KERNELS
     ]}
     if args.out:
         with open(args.out, "w") as f:

@@ -1,0 +1,379 @@
+"""The small-N batched solves of the port (capital_tpu_torch/ops/
+batched_small.py) against the JAX package's Pallas kernels
+(capital_tpu/ops/batched_small.py) in interpret mode.
+
+On the CPU the port's wrappers run their plain versions, so this holds the
+plain versions to the reference; tests/test_torch_gpu.py holds the CUDA
+kernels to the plain versions on the card.  Operands are made with numpy
+from a seed and handed to both packages; the reference callables are jitted
+once at module level and shared, so each shape compiles once.
+
+Tolerances, relative to the largest |reference| entry: f32 1e-5 (the port
+divides by sqrt(d) where the reference multiplies by rsqrt(d), and sums in
+another order; n <= 32 keeps the growth small), lstsq 1e-4 (two Cholesky
+sweeps of the gram square the condition number); bf16 one bf16 ulp of each
+entry plus 1e-5 (both compute in f32 and round once).  `info` is compared
+exactly.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from capital_tpu.ops import batched_small as ref
+from capital_tpu.utils import tracing as ref_tracing
+from capital_tpu_torch.ops import batched_small as bs
+from capital_tpu_torch.utils import tracing
+from capital_tpu_torch.utils.interop import tensor_from_numpy, tensor_to_numpy
+
+N, BATCH = 16, 4
+
+
+@functools.lru_cache(maxsize=None)
+def _ref(name, **kw):
+    return jax.jit(functools.partial(getattr(ref, name), **kw))
+
+
+def _spd(seed, batch=BATCH, n=N, dtype=np.float32):
+    X = np.random.default_rng(seed).standard_normal((batch, n, n))
+    return (X @ X.transpose(0, 2, 1) / n + 3.0 * np.eye(n)).astype(dtype)
+
+
+def _rhs(seed, shape, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _t(a):
+    return tensor_from_numpy(np.asarray(a))
+
+
+def _f64(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float64).numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float64))
+
+
+def _close(got, want, rel=1e-5, mask=None):
+    got, want = _f64(got), _f64(want)
+    assert got.shape == want.shape
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    scale = max(np.abs(want).max(), 1e-30)
+    assert np.abs(got - want).max() <= rel * scale, np.abs(got - want).max() / scale
+
+
+def _info(x):
+    return np.asarray(x).astype(np.int32) if not isinstance(x, torch.Tensor) else x.numpy()
+
+
+# ---------------------------------------------------------------------------
+# parity with the reference, clean operands
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("uplo", ["U", "L"])
+def test_potrf_matches_reference(uplo):
+    A = _spd(1)
+    R, info = _ref("potrf", uplo=uplo)(jnp.asarray(A))
+    Rp, infop = bs.potrf(_t(A), uplo=uplo)
+    _close(Rp, R)
+    assert np.array_equal(_info(infop), _info(info)) and not _info(infop).any()
+    dead = np.tril(np.ones((N, N), bool), -1) if uplo == "U" else np.triu(np.ones((N, N), bool), 1)
+    assert np.all(Rp.numpy()[:, dead] == 0)
+
+
+@pytest.mark.parametrize("uplo", ["U", "L"])
+def test_potrs_matches_reference(uplo):
+    A = _spd(2)
+    R, _ = _ref("potrf", uplo=uplo)(jnp.asarray(A))
+    B = _rhs(3, (BATCH, N, 4))
+    X = _ref("potrs", uplo=uplo)(R, jnp.asarray(B))
+    Xp = bs.potrs(_t(R), _t(B), uplo=uplo)
+    _close(Xp, X)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_posv_matches_reference(k):
+    A, B = _spd(4), _rhs(5, (BATCH, N, k))
+    X, info = _ref("posv")(jnp.asarray(A), jnp.asarray(B))
+    Xp, infop = bs.posv(_t(A), _t(B))
+    _close(Xp, X)
+    assert np.array_equal(_info(infop), _info(info))
+    ref64 = np.linalg.solve(A.astype(np.float64), B.astype(np.float64))
+    _close(Xp, ref64, rel=1e-5)
+
+
+def test_lstsq_matches_reference():
+    rng = np.random.default_rng(6)
+    A = rng.standard_normal((BATCH, 64, N)).astype(np.float32)
+    B = rng.standard_normal((BATCH, 64, 2)).astype(np.float32)
+    X, info = _ref("lstsq")(jnp.asarray(A), jnp.asarray(B))
+    Xp, infop = bs.lstsq(_t(A), _t(B))
+    _close(Xp, X, rel=1e-4)
+    assert np.array_equal(_info(infop), _info(info)) and not _info(infop).any()
+
+
+def test_posv_bf16_matches_reference():
+    A = _spd(7).astype(jnp.bfloat16)
+    B = _rhs(8, (BATCH, N, 1)).astype(jnp.bfloat16)
+    X, info = _ref("posv")(jnp.asarray(A), jnp.asarray(B))
+    Xp, infop = bs.posv(tensor_from_numpy(A), tensor_from_numpy(B))
+    assert Xp.dtype == torch.bfloat16
+    got, want = _f64(Xp), _f64(X)
+    scale = np.abs(want).max()
+    assert np.all(np.abs(got - want) <= 2.0**-7 * np.abs(want) + 1e-5 * scale)
+    assert np.array_equal(_info(infop), _info(info))
+
+
+@pytest.mark.parametrize("block", [1, 2, 4, 8])
+def test_block_knob_changes_nothing(block):
+    A, B = _spd(9), _rhs(10, (BATCH, N, 2))
+    X, infop = bs.posv(_t(A), _t(B), block=block)
+    X0, _ = bs.posv(_t(A), _t(B))
+    assert torch.equal(X, X0) and not infop.any()
+    Xr, _ = _ref("posv", block=block)(jnp.asarray(A), jnp.asarray(B))
+    _close(X, Xr)
+
+
+# ---------------------------------------------------------------------------
+# info: exactly the reference's, fault by fault
+# ---------------------------------------------------------------------------
+
+
+def _faulted():
+    """[clean, NaN on the diagonal at [1, 3, 3], indefinite pivot at
+    [2, 5, 5], off-diagonal-only contamination at [3, 0, 7] (upper half
+    only: the lower half the factor reads stays clean)]."""
+    A = _spd(11)
+    A[1, 3, 3] = np.nan
+    A[2, 5, 5] = -100.0
+    A[3, 0, 7] = np.nan
+    return A
+
+
+@pytest.mark.parametrize("uplo", ["U", "L"])
+def test_potrf_info_matches_reference(uplo):
+    A = _faulted()
+    R, info = _ref("potrf", uplo=uplo)(jnp.asarray(A))
+    Rp, infop = bs.potrf(_t(A), uplo=uplo)
+    assert np.array_equal(_info(infop), _info(info))
+    assert list(_info(infop)) == [0, 2, 6, 1]
+    _close(Rp[0], np.asarray(R)[0])
+
+
+def test_posv_info_matches_reference_and_is_contained():
+    A, B = _faulted(), _rhs(12, (BATCH, N, 2))
+    X, info = _ref("posv")(jnp.asarray(A), jnp.asarray(B))
+    Xp, infop = bs.posv(_t(A), _t(B))
+    assert np.array_equal(_info(infop), _info(info))
+    _close(Xp[0], np.asarray(X)[0])
+    Xc, _ = bs.posv(_t(_spd(11)), _t(B))
+    assert torch.equal(Xp[0], Xc[0])
+
+
+@pytest.mark.parametrize("where", [(0, 0, 0), (1, 17, 5), (2, 40, 15)])
+def test_lstsq_info_matches_reference(where):
+    rng = np.random.default_rng(13)
+    A = rng.standard_normal((3, 64, N)).astype(np.float32)
+    B = rng.standard_normal((3, 64, 2)).astype(np.float32)
+    A[where] = np.nan
+    X, info = _ref("lstsq")(jnp.asarray(A), jnp.asarray(B))
+    Xp, infop = bs.lstsq(_t(A), _t(B))
+    assert np.array_equal(_info(infop), _info(info))
+    assert _info(infop)[where[0]] != 0
+
+
+@pytest.mark.parametrize("val", [np.nan, np.inf, -np.inf])
+def test_info_over_every_fault_position(val):
+    """One non-finite entry at every (p, q) of an 8 x 8 problem."""
+    n = 8
+    base = _spd(14, batch=1, n=n)[0]
+    A = np.repeat(base[None], n * n, 0)
+    for e in range(n * n):
+        A[e, e // n, e % n] = val
+    _, info = _ref("potrf")(jnp.asarray(A))
+    _, infop = bs.potrf(_t(A))
+    assert np.array_equal(_info(infop), _info(info))
+
+
+# ---------------------------------------------------------------------------
+# identity-tail exactness (bucket padding)
+# ---------------------------------------------------------------------------
+
+
+def test_posv_identity_tail_exact():
+    A, B = _spd(15), _rhs(16, (BATCH, N, 2))
+    A[2:] = np.eye(N, dtype=np.float32)
+    B[2:] = 0.0
+    Xp, infop = bs.posv(_t(A), _t(B))
+    assert not infop.any()
+    assert np.all(Xp.numpy()[2:] == 0.0)
+    X, _ = _ref("posv")(jnp.asarray(A), jnp.asarray(B))
+    _close(Xp, X)
+
+
+def test_lstsq_identity_tail_exact():
+    rng = np.random.default_rng(17)
+    A = rng.standard_normal((BATCH, 64, N)).astype(np.float32)
+    B = rng.standard_normal((BATCH, 64, 2)).astype(np.float32)
+    A[3:] = np.eye(64, N, dtype=np.float32)
+    B[3:] = 0.0
+    Xp, infop = bs.lstsq(_t(A), _t(B))
+    assert not infop.any()
+    assert np.all(Xp.numpy()[3:] == 0.0)
+
+
+def test_padded_problem_solves_exactly_to_zero_tail():
+    """diag(A, I) against [B; 0]: the tail rows of X are exact zeros."""
+    A = _spd(18, n=12)
+    Ap = np.zeros((BATCH, N, N), np.float32)
+    Ap[:, :12, :12] = A
+    Ap[:, 12:, 12:] = np.eye(4)
+    B = np.zeros((BATCH, N, 3), np.float32)
+    B[:, :12] = _rhs(19, (BATCH, 12, 3))
+    Xp, infop = bs.posv(_t(Ap), _t(B))
+    assert not infop.any() and np.all(Xp.numpy()[:, 12:] == 0.0)
+
+
+# ---------------------------------------------------------------------------
+# dispatch rules
+# ---------------------------------------------------------------------------
+
+
+def test_dispatch_constants_match_reference():
+    assert bs.SMALL_N_MAX == ref.SMALL_N_MAX
+    assert bs.IMPLS == ref.IMPLS
+    for n in (1, 2, 3, 6, 12, 16, 24, 100, 128, 129):
+        assert bs.pick_block(n) == ref.pick_block(n)
+        for block in (0, 1, 3, 8):
+            assert bs._resolve_block(n, block) == ref._resolve_block(n, block)
+
+
+def test_dtype_capable_matches_reference():
+    for t, j in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),
+                 (torch.float64, jnp.float64)):
+        assert bs.dtype_capable(t) == ref.dtype_capable(j)
+
+
+@pytest.mark.parametrize("interpret", [True, False])
+def test_default_impl_matches_reference(interpret):
+    """Every bucket the kernels take on either machine resolves as the
+    reference does (the card's envelope admits every n <= 128 bucket with
+    k <= n)."""
+    cases = []
+    for n in (8, 16, 64, 100, 128, 129, 256):
+        for k in (1, 8, n):
+            cases += [("posv", (8, n, n), (8, n, k)), ("lstsq", (8, 4 * n, n), (8, 4 * n, k)),
+                      ("inv", (8, n, n), None)]
+    for op, a, b in cases:
+        for t, j in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),
+                     (torch.float64, jnp.float64)):
+            assert (bs.default_impl(op, a, b, t, interpret=interpret)
+                    == ref.default_impl(op, a, b, j, interpret=True)), (op, a, b, t)
+
+
+def test_eligible_card_edges_as_documented():
+    e = functools.partial(bs.eligible, dtype=torch.float32, interpret=False)
+    assert e("posv", (8, 128, 128), (8, 128, 323))
+    assert not e("posv", (8, 128, 128), (8, 128, 324))
+    assert e("lstsq", (8, 512, 128), (8, 512, 158))
+    assert not e("lstsq", (8, 512, 128), (8, 512, 159))
+    assert e("lstsq", (8, 1 << 20, 128), (8, 1 << 20, 8))  # m does not enter
+    assert e("posv", (8, 160, 160), (8, 160, 200))
+    assert not e("posv", (8, 160, 160), (8, 160, 201))
+    assert e("inv", (8, 128, 128), None) and e("potrf", (8, 240, 240), None)
+    assert not e("potrf", (8, 241, 241), None)
+    for n in range(1, 129):
+        for op in ("posv", "lstsq"):
+            assert e(op, (8, 4 * n, n), (8, 4 * n, n))
+    assert bs.eligible("posv", (8, 4096, 4096), (8, 4096, 1), torch.float32, interpret=True)
+
+
+# ---------------------------------------------------------------------------
+# argument checks
+# ---------------------------------------------------------------------------
+
+
+def test_wrappers_raise_on_f64():
+    A = _t(_spd(20).astype(np.float64))
+    B = _t(_rhs(21, (BATCH, N, 1), np.float64))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        bs.posv(A, B)
+    with pytest.raises(TypeError):
+        bs.potrf(A)
+    with pytest.raises(TypeError):
+        bs.potrs(A, B)
+    with pytest.raises(TypeError):
+        bs.lstsq(A, B)
+    with pytest.raises(TypeError, match="one dtype"):
+        bs.posv(_t(_spd(20)), B.to(torch.bfloat16))
+
+
+def test_wrappers_raise_on_bad_shapes_with_reference_messages():
+    A = np.zeros((2, 4, 5), np.float32)
+    with pytest.raises(ValueError) as r:
+        ref.potrf(jnp.asarray(A))
+    with pytest.raises(ValueError) as p:
+        bs.potrf(_t(A))
+    assert str(p.value) == str(r.value)
+    A, B = _spd(22), np.zeros((BATCH, N + 1, 2), np.float32)
+    with pytest.raises(ValueError) as r:
+        ref.posv(jnp.asarray(A), jnp.asarray(B))
+    with pytest.raises(ValueError) as p:
+        bs.posv(_t(A), _t(B))
+    assert str(p.value) == str(r.value)
+    with pytest.raises(ValueError, match="tall"):
+        bs.lstsq(_t(np.zeros((2, 4, 8), np.float32)), _t(np.zeros((2, 4, 1), np.float32)))
+    with pytest.raises(ValueError, match="uplo"):
+        bs.potrf(_t(_spd(22)), uplo="X")
+
+
+def test_wrappers_raise_on_mixed_devices():
+    A = _t(_spd(23))
+    with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
+        bs.posv(A, torch.zeros((BATCH, N, 1), device="meta"))
+
+
+def test_trsm_names_its_queue_item():
+    with pytest.raises(NotImplementedError, match="Queue B item 14"):
+        bs.trsm(_t(_spd(24)), _t(_rhs(25, (BATCH, N, 1))))
+
+
+# ---------------------------------------------------------------------------
+# cost model
+# ---------------------------------------------------------------------------
+
+
+def test_flop_model_matches_reference():
+    for n, k, m in ((16, 1, 64), (128, 8, 512), (100, 3, 400)):
+        assert tracing.batched_chol_flops(n) == ref_tracing.batched_chol_flops(n)
+        assert tracing.batched_trsm_flops(n, k) == ref_tracing.batched_trsm_flops(n, k)
+        assert tracing.fused_posv_flops(n, k) == ref_tracing.fused_posv_flops(n, k)
+        assert tracing.fused_lstsq_flops(m, n, k) == ref_tracing.fused_lstsq_flops(m, n, k)
+    for tag in ("OP::batched_small", "SV::fused_posv", "SV::fused_lstsq",
+                "serve::pad", "serve::solve"):
+        assert tag in tracing.PHASE_REGISTRY and tag in ref_tracing.PHASE_REGISTRY
+
+
+def test_recorder_prices_each_call():
+    A, B = _t(_spd(26)), _t(_rhs(27, (BATCH, N, 2)))
+    with tracing.Recorder() as rec:
+        R, _ = bs.potrf(A)
+        bs.potrs(R, B)
+        bs.posv(A, B)
+    assert rec.stats["OP::batched_small"].flops == BATCH * (
+        tracing.batched_chol_flops(N) + 2 * tracing.batched_trsm_flops(N, 2))
+    assert rec.stats["SV::fused_posv"].flops == BATCH * tracing.fused_posv_flops(N, 2)
+
+
+def test_bf16_outputs_round_once():
+    """bf16 storage: the plain version computes from the f32 upcast and
+    rounds once on store."""
+    A = _spd(28).astype(jnp.bfloat16)
+    R, _ = bs.potrf(tensor_from_numpy(A))
+    R32, _ = bs.potrf(tensor_from_numpy(A).float())
+    assert np.array_equal(tensor_to_numpy(R), tensor_to_numpy(R32.to(torch.bfloat16)))

@@ -15,7 +15,8 @@ import torch
 
 from capital_tpu_torch import Grid
 from capital_tpu_torch.models import cholesky, qr
-from capital_tpu_torch.ops import hopper, qr_fused
+from capital_tpu_torch.ops import batched_small, hopper, qr_fused
+from capital_tpu_torch.serve import api
 from capital_tpu_torch.utils import residual
 
 pytestmark = pytest.mark.gpu
@@ -156,6 +157,7 @@ def test_factor_kernels_vs_plain(cuda, monkeypatch, dt):
         "tri_matmul.trmm": 3 * (L - 1), "tri_matmul.syrk": L - 1, "tri_matmul.dense": 0,
         "transpose": L, "transpose_pair": L, "zeros_dead_lower": 2,
         "qr.gram_blocked": 0, "qr.scale_gram": 0, "qr.scale_blocked": 0,
+        "small.potrf": 0, "small.potrs": 0, "small.posv": 0, "small.lstsq": 0,
     }
     for name in ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower"):
         monkeypatch.setattr(hopper, name, getattr(hopper, name + "_plain"))
@@ -269,3 +271,109 @@ def test_cqr1_runs_the_trmm_kernel(cuda):
     Q, R = qr.factor(Grid.square(), A, qr.CacqrConfig(num_iter=1, regime="1d", mode="pallas"))
     assert hopper.counts()["tri_matmul.trmm"] == 1
     assert float(residual.qr_residual(A, Q, R)) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# small-N batched solves (ops/batched_small.py)
+# ---------------------------------------------------------------------------
+
+
+def _spd_batch(seed, batch, n, dt, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    X = torch.randn((batch, n, n), generator=g, dtype=torch.float64)
+    return (X @ X.mT / n + 3 * torch.eye(n, dtype=torch.float64)).to(DTYPES[dt]).to(dev)
+
+
+SMALL_SHAPES = [(3, 16, 4), (5, 37, 3), (8, 128, 8), (4, 128, 128)]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
+def test_small_kernels_vs_plain(cuda, shape, dt):
+    b, n, k = shape
+    A = _spd_batch(30, b, n, dt, cuda)
+    B = _rand(31, (b, n, k), dt, cuda)
+    hopper.reset_counts()
+    for uplo in ("U", "L"):
+        R, info = batched_small.potrf(A, uplo=uplo)
+        Rp, infop = batched_small.potrf_plain(A, uplo=uplo)
+        _close(R, Rp, dt)
+        assert torch.equal(info, infop) and torch.equal(R == 0, Rp == 0)
+        _close(batched_small.potrs(Rp, B, uplo=uplo), batched_small.potrs_plain(Rp, B, uplo=uplo), dt)
+    X, info = batched_small.posv(A, B)
+    Xp, infop = batched_small.posv_plain(A, B)
+    _close(X, Xp, dt)
+    assert torch.equal(info, infop)
+    Al, Bl = _rand(32, (b, 4 * n, n), dt, cuda), _rand(33, (b, 4 * n, k), dt, cuda)
+    X, info = batched_small.lstsq(Al, Bl)
+    Xp, infop = batched_small.lstsq_plain(Al, Bl)
+    # lstsq: two Cholesky sweeps of the gram square the condition number
+    got, want = X.double().cpu(), Xp.double().cpu()
+    scale = float(want.abs().max())
+    tol = 2.0**-7 * want.abs() + 1e-4 * scale if dt == "bf16" else 1e-4 * scale
+    assert bool(((got - want).abs() <= tol).all())
+    assert torch.equal(info, infop)
+    assert hopper.counts()["small.potrf"] == 2 and hopper.counts()["small.potrs"] == 2
+    assert hopper.counts()["small.posv"] == 1 and hopper.counts()["small.lstsq"] == 1
+
+
+def test_small_info_matches_plain(cuda):
+    n = 16
+    A = _spd_batch(34, 64, n, "f32", cuda)
+    for e in range(63):
+        A[e, e // 4, 4 * (e % 4) + e % 3] = (float("nan"), float("inf"), -float("inf"))[e % 3]
+    A[63, 5, 5] = -100.0
+    for uplo in ("U", "L"):
+        assert torch.equal(batched_small.potrf(A, uplo=uplo)[1],
+                           batched_small.potrf_plain(A, uplo=uplo)[1])
+    B = _rand(35, (64, n, 2), "f32", cuda)
+    assert torch.equal(batched_small.posv(A, B)[1], batched_small.posv_plain(A, B)[1])
+    Al, Bl = _rand(36, (8, 64, n), "f32", cuda), _rand(37, (8, 64, 2), "f32", cuda)
+    Al[1, 0, 0], Al[3, 10, 7] = float("nan"), float("inf")
+    assert torch.equal(batched_small.lstsq(Al, Bl)[1], batched_small.lstsq_plain(Al, Bl)[1])
+
+
+def test_small_identity_problems_solve_exactly(cuda):
+    A = torch.eye(32, device=cuda).expand(4, 32, 32)
+    X, info = batched_small.posv(A, torch.zeros(4, 32, 3, device=cuda))
+    assert not info.any() and not X.any()
+    Al = torch.eye(96, 32, device=cuda).expand(4, 96, 32)
+    X, info = batched_small.lstsq(Al, torch.zeros(4, 96, 3, device=cuda))
+    assert not info.any() and not X.any()
+
+
+def test_small_counters_move_only_on_launch(cuda):
+    A = _spd_batch(38, 4, 16, "f32", cuda)
+    B = _rand(39, (4, 16, 2), "f32", cuda)
+    hopper.reset_counts()
+    batched_small.posv_plain(A, B)
+    batched_small.potrf_plain(A)
+    assert not any(hopper.counts().values())
+    batched_small.posv(A.cpu(), B.cpu())
+    assert not any(hopper.counts().values())
+    batched_small.posv(A, B)
+    assert hopper.counts()["small.posv"] == 1 and sum(hopper.counts().values()) == 1
+
+
+def test_small_wrappers_refuse(cuda):
+    A64 = _spd_batch(40, 2, 16, "f64", cuda)
+    with pytest.raises(TypeError):
+        batched_small.posv(A64, torch.zeros(2, 16, 1, dtype=torch.float64, device=cuda))
+    A = _spd_batch(41, 2, 256, "f32", cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        batched_small.posv(A, torch.zeros(2, 256, 256, device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        batched_small.potrf(_spd_batch(42, 1, 242, "f32", cuda))
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_split", "auto", "vmap"])
+def test_small_serve_programs_launch_their_kernels(cuda, impl):
+    A = _spd_batch(43, 8, 64, "f32", cuda)
+    B = _rand(44, (8, 64, 4), "f32", cuda)
+    hopper.reset_counts()
+    X, info = api.batched("posv", "highest", impl)(A, B)
+    c = hopper.counts()
+    want = {"pallas": (1, 0, 0), "auto": (1, 0, 0), "pallas_split": (0, 1, 1), "vmap": (0, 0, 0)}[impl]
+    assert (c["small.posv"], c["small.potrf"], c["small.potrs"]) == want
+    ref = torch.linalg.solve(A.double(), B.double())
+    assert float((X.double() - ref).abs().max() / ref.abs().max()) < 1e-5 and not info.any()

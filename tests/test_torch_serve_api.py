@@ -1,0 +1,275 @@
+"""The port's small-N serve path (capital_tpu_torch/serve/) against the JAX
+package's (capital_tpu/serve/): the batched bucket programs of
+`api.batched` for posv / lstsq / inv under every impl, the dense bucketing
+that feeds them, `api.single`, and `ServeConfig`.
+
+Operands are made with numpy from a seed and handed to both packages; the
+reference programs are jitted once per (op, impl, dtype) at module level and
+shared.  Tolerances, relative to the largest |reference| entry: f32 1e-5
+(posv, inv) and 1e-4 (lstsq: the gram squares the condition number); f64
+1e-10, where both packages take the library (vmap) route.  `info` is
+compared exactly.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from capital_tpu import Grid as JGrid
+from capital_tpu.serve import api as rapi
+from capital_tpu.serve import batching as rbat
+from capital_tpu.serve import engine as reng
+from capital_tpu_torch import Grid
+from capital_tpu_torch.ops import batched_small, hopper
+from capital_tpu_torch.serve import api, batching
+from capital_tpu_torch.serve.engine import ServeConfig
+from capital_tpu_torch.utils import interop
+
+IMPLS = ("vmap", "pallas", "pallas_split", "auto")
+BATCH, N, M, K = 3, 12, 40, 2
+TOL = {"posv": 1e-5, "inv": 1e-5, "lstsq": 1e-4}
+CFG = dict(buckets=(8, 16, 32), rows_buckets=(32, 64, 128), nrhs_buckets=(1, 4),
+           max_batch=4)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_program(op, impl):
+    return jax.jit(rapi.batched(op, "highest", impl))
+
+
+def _operands(op, dtype, seed=0, batch=BATCH):
+    rng = np.random.default_rng(seed)
+    if op == "lstsq":
+        A = rng.standard_normal((batch, M, N))
+        B = rng.standard_normal((batch, M, K))
+    else:
+        X = rng.standard_normal((batch, N, N))
+        A = X @ X.transpose(0, 2, 1) / N + 3.0 * np.eye(N)
+        B = rng.standard_normal((batch, N, K))
+    return A.astype(dtype), (None if op == "inv" else B.astype(dtype))
+
+
+def _run_both(op, impl, A, B):
+    rf = _ref_program(op, impl)
+    pf = api.batched(op, "highest", impl)
+    if B is None:
+        (X, info), (Xp, infop) = rf(jnp.asarray(A)), pf(torch.from_numpy(A))
+    else:
+        (X, info) = rf(jnp.asarray(A), jnp.asarray(B))
+        Xp, infop = pf(torch.from_numpy(A), torch.from_numpy(B))
+    return np.asarray(X), np.asarray(info), Xp, infop
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("op", ["posv", "lstsq", "inv"])
+def test_batched_f32_matches_reference(op, impl):
+    A, B = _operands(op, np.float32)
+    X, info, Xp, infop = _run_both(op, impl, A, B)
+    assert Xp.dtype == torch.float32 and Xp.shape == X.shape
+    assert _rel(Xp.numpy(), X) <= TOL[op]
+    assert np.array_equal(infop.numpy(), info.astype(np.int32)) and not info.any()
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("op", ["posv", "lstsq", "inv"])
+def test_batched_f64_takes_vmap_and_matches_reference(op, impl):
+    A, B = _operands(op, np.float64, seed=1)
+    hopper.reset_counts()
+    X, info, Xp, infop = _run_both(op, impl, A, B)
+    assert Xp.dtype == torch.float64
+    assert _rel(Xp.numpy(), X) <= 1e-10
+    assert np.array_equal(infop.numpy(), info.astype(np.int32))
+    assert not any(hopper.counts().values())
+
+
+def test_auto_resolves_as_reference():
+    """The routes `auto` takes here: the fused kernels' plain versions for
+    f32 posv/lstsq and inv at n <= 128, vmap beyond and for f64."""
+    A, B = _operands("posv", np.float32)
+    X, _ = api.batched("posv", "highest", "auto")(torch.from_numpy(A), torch.from_numpy(B))
+    Xk, _ = api.batched("posv", "highest", "pallas")(torch.from_numpy(A), torch.from_numpy(B))
+    assert torch.equal(X, Xk)
+    for op, a, b in (("posv", (8, 200, 200), (8, 200, 4)), ("lstsq", (8, 64, 16), (8, 64, 1))):
+        assert batched_small.default_impl(op, a, b, torch.float32, interpret=True) == \
+            rapi.batched_small.default_impl(op, a, b, jnp.float32, interpret=True)
+
+
+def test_unknown_impl_message_matches_reference():
+    with pytest.raises(ValueError) as r:
+        rapi.batched("posv", impl="cuda")
+    with pytest.raises(ValueError) as p:
+        api.batched("posv", impl="cuda")
+    assert str(p.value) == str(r.value)
+
+
+@pytest.mark.parametrize("op", ["posv_blocktri", "posv_arrowhead", "chol_update",
+                                "posv_cached", "posv_cached_miss", "session_solve"])
+def test_later_ops_name_their_roadmap_item(op):
+    item = "item 8" if op in ("chol_update", "posv_cached", "posv_cached_miss") else "item 6"
+    with pytest.raises(NotImplementedError, match=item):
+        api.batched(op)
+    with pytest.raises(NotImplementedError, match=item):
+        batching.bucket_for(op, (2, 4, 8, 8), (4, 8, 1), "float32", ServeConfig(**CFG))
+
+
+@pytest.mark.parametrize("tier", ["fast", "guaranteed"])
+def test_tiers_beyond_balanced_name_their_roadmap_item(tier):
+    with pytest.raises(NotImplementedError, match="item 7"):
+        api.batched("posv", tier=tier)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        batching.bucket_for("posv", (8, 8), (8, 1), "float32", ServeConfig(**CFG), tier=tier)
+
+
+def test_nan_is_contained_to_its_problem():
+    A, B = _operands("posv", np.float32, seed=2, batch=4)
+    f = api.batched("posv", "highest", "pallas")
+    Xc, ic = f(torch.from_numpy(A), torch.from_numpy(B))
+    A[2, 4, 4] = np.nan
+    Xn, inn = f(torch.from_numpy(A), torch.from_numpy(B))
+    assert inn[2] != 0 and not inn[[0, 1, 3]].any() and not ic.any()
+    for i in (0, 1, 3):
+        assert torch.equal(Xn[i], Xc[i])
+    X, info = _ref_program("posv", "pallas")(jnp.asarray(A), jnp.asarray(B))
+    assert np.array_equal(inn.numpy(), np.asarray(info).astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# bucketing
+# ---------------------------------------------------------------------------
+
+
+REQUESTS = [("posv", (5, 5), (5, 1)), ("posv", (12, 12), (12, 3)), ("posv", (16, 16), (16, 2)),
+            ("posv", (32, 32), (32, 4)), ("lstsq", (50, 14), (50, 4)),
+            ("posv", (33, 33), (33, 1)), ("posv", (8, 8), (8, 5)),
+            ("lstsq", (20, 5), (20, 1)), ("lstsq", (40, 12), (40, 3)), ("lstsq", (120, 30), (120, 2)),
+            ("lstsq", (64, 16), (64, 1)), ("inv", (7, 7), None), ("inv", (16, 16), None)]
+
+
+def test_bucket_for_matches_reference():
+    cfg, pcfg = reng.ServeConfig(**CFG), ServeConfig(**CFG)
+    for op, a, b in REQUESTS:
+        rb = rbat.bucket_for(op, a, b, "float32", cfg)
+        pb = batching.bucket_for(op, a, b, "float32", pcfg)
+        assert (rb is None) == (pb is None), (op, a, b)
+        if rb is not None:
+            assert pb.key == rb.key
+            assert batching.bucket_label(pb) == rbat.bucket_label(rb)
+            assert batching.bucket_label(pb.key) == rbat.bucket_label(rb.key)
+    with pytest.raises(ValueError) as r:
+        rbat.bucket_for("svd", (4, 4), None, "float32", cfg)
+    with pytest.raises(ValueError) as p:
+        batching.bucket_for("svd", (4, 4), None, "float32", pcfg)
+    assert str(p.value) == str(r.value)
+
+
+@pytest.mark.parametrize("op", ["posv", "lstsq", "inv"])
+def test_pad_assemble_crop_match_reference(op):
+    cfg, pcfg = reng.ServeConfig(**CFG), ServeConfig(**CFG)
+    rng = np.random.default_rng(3)
+    reqs = [r for r in REQUESTS if r[0] == op]
+    rb = rbat.bucket_for(op, reqs[1][1], reqs[1][2], "float32", cfg)
+    pb = batching.bucket_for(op, reqs[1][1], reqs[1][2], "float32", pcfg)
+    same = [r for r in reqs if rbat.bucket_for(op, r[1], r[2], "float32", cfg) == rb]
+    pa_r, pb_r, pa_p, pb_p, shapes = [], [], [], [], []
+    for _, a_shape, b_shape in same:
+        A = rng.standard_normal(a_shape)
+        if op != "lstsq":  # SPD
+            A = A @ A.T / a_shape[0] + 3.0 * np.eye(a_shape[0])
+        A = A.astype(np.float32)
+        B = None if b_shape is None else rng.standard_normal(b_shape).astype(np.float32)
+        ra, rbb = rbat.pad_operands(op, jnp.asarray(A), None if B is None else jnp.asarray(B), rb)
+        qa, qbb = batching.pad_operands(op, torch.from_numpy(A),
+                                        None if B is None else torch.from_numpy(B), pb)
+        assert np.array_equal(qa.numpy(), np.asarray(ra))
+        assert (qbb is None) == (rbb is None)
+        if qbb is not None:
+            assert np.array_equal(qbb.numpy(), np.asarray(rbb))
+        pa_r.append(ra), pb_r.append(rbb), pa_p.append(qa), pb_p.append(qbb)
+        shapes.append((a_shape, b_shape))
+    Ar, Br, occ_r = rbat.assemble(pa_r, pb_r, rb)
+    Ap, Bp, occ_p = batching.assemble(pa_p, pb_p, pb, device="cpu")
+    assert occ_p == occ_r and np.array_equal(Ap.numpy(), np.asarray(Ar))
+    if Bp is not None:
+        assert np.array_equal(Bp.numpy(), np.asarray(Br))
+    Xr, _ = _ref_program(op, "pallas")(*([Ar] if Br is None else [Ar, Br]))
+    Xp, ip = api.batched(op, "highest", "pallas")(*([Ap] if Bp is None else [Ap, Bp]))
+    assert not ip.any()
+    for i, (a_shape, b_shape) in enumerate(shapes):
+        cp = batching.crop(op, Xp[i], a_shape, b_shape)
+        cr = rbat.crop(op, np.asarray(Xr)[i], a_shape, b_shape)
+        assert cp.shape == cr.shape
+        assert _rel(cp.numpy(), cr) <= TOL[op]
+    # fill slots solve exactly: zeros against a zero RHS, I for inv
+    fill = Xp[len(shapes):]
+    want = torch.eye(fill.shape[-1]).expand(fill.shape) if op == "inv" else torch.zeros_like(fill)
+    assert len(fill) and torch.equal(fill, want)
+
+
+def test_fill_problem_needs_a_device():
+    pb = batching.Bucket("posv", "float32", (8, 8), (8, 1), 4)
+    fa, fb = batching.fill_problem(pb, device="cpu")
+    fr, fbr = rbat.fill_problem(rbat.Bucket("posv", "float32", (8, 8), (8, 1), 4))
+    assert np.array_equal(fa.numpy(), np.asarray(fr)) and np.array_equal(fb.numpy(), np.asarray(fbr))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            batching.fill_problem(pb)
+    with pytest.raises(ValueError, match="capacity"):
+        batching.assemble([fa] * 5, [fb] * 5, pb, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the single (oversize) route
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("op", ["posv", "lstsq", "inv"])
+def test_single_matches_reference(op):
+    rng = np.random.default_rng(4)
+    n = 24
+    if op == "lstsq":
+        A = rng.standard_normal((96, n)).astype(np.float32)
+        B = rng.standard_normal((96, 2)).astype(np.float32)
+    else:
+        X = rng.standard_normal((n, n))
+        A = (X @ X.T / n + 3.0 * np.eye(n)).astype(np.float32)
+        B = None if op == "inv" else rng.standard_normal((n, 2)).astype(np.float32)
+    jgrid = JGrid.square(c=1, devices=jax.devices()[:1])
+    rf = rapi.single(op, jgrid, "highest")
+    pf = api.single(op, Grid.square(device="cpu"), "highest")
+    args_r = [jnp.asarray(A)] + ([] if B is None else [jnp.asarray(B)])
+    args_p = [torch.from_numpy(A)] + ([] if B is None else [torch.from_numpy(B)])
+    (X, info), (Xp, infop) = rf(*args_r), pf(*args_p)
+    assert _rel(Xp.numpy(), np.asarray(X)) <= TOL[op]
+    assert int(infop) == int(info) == 0
+    with pytest.raises(NotImplementedError, match="item 6"):
+        api.single("posv_blocktri", Grid.square(device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# ServeConfig
+# ---------------------------------------------------------------------------
+
+
+def test_serve_config_crosses_from_the_reference():
+    cfg = reng.ServeConfig(**CFG, small_n_impl="pallas_split")
+    pc = interop.serve_config_from_fields(dataclasses.asdict(cfg))
+    assert dataclasses.asdict(pc) == dataclasses.asdict(cfg)
+    assert dataclasses.asdict(ServeConfig()) == dataclasses.asdict(reng.ServeConfig())
+
+
+@pytest.mark.parametrize("bad", [dict(buckets=()), dict(rows_buckets=(0,)), dict(nrhs_buckets=[1]),
+                                 dict(max_batch=0), dict(precision="fp8"),
+                                 dict(small_n_impl="cuda")])
+def test_serve_config_validates_what_the_slice_reads(bad):
+    with pytest.raises(ValueError):
+        ServeConfig(**bad)
