@@ -7,15 +7,17 @@ nothing of `capital_tpu`.  Sub-packages mirror the reference's names.
 Entry points run on the CUDA card by default (`Grid.square()`); pass
 `device="cpu"` for the plain PyTorch path on the host.
 
-Ported so far: single-device cholinv (`models/cholesky.factor`),
-single-device CholeskyQR2 (`models/qr.factor`) and the small-N batched
+Ported so far: single-device cholinv (`models/cholesky.factor`, with the
+fused tail), single-device CholeskyQR2 (`models/qr.factor`), triangular
+inversion and TRSM (`models/inverse.rectri` / `newton`,
+`models/trsm.solve`), TSQR (`ops/tsqr.tsqr`) and the small-N batched
 solves of serve's bucket programs (`serve/api.batched`), with their
 hand-written kernels (ops/hopper.py, ops/qr_fused.py, ops/batched_small.py,
-ops/csrc/).  `KERNELS` holds every kernel's launch counter.
+ops/tsqr.py, ops/csrc/).  `KERNELS` holds every kernel's launch counter.
 """
 
-from capital_tpu_torch.models import cholesky, qr
+from capital_tpu_torch.models import cholesky, inverse, qr, trsm
 from capital_tpu_torch.ops.hopper import KERNELS
 from capital_tpu_torch.parallel.topology import Grid
 
-__all__ = ["Grid", "KERNELS", "cholesky", "qr"]
+__all__ = ["Grid", "KERNELS", "cholesky", "inverse", "qr", "trsm"]

@@ -16,12 +16,16 @@ p x p buffers (R and R⁻¹) that every phase reads and writes through windows,
 in place.  On a CUDA device each phase launches the hand-written kernels of
 ops/hopper.py; on the CPU the same calls run their plain versions.
 
+With `tail_fuse_depth > 0` a subtree whose window passes `_tail_fusible`
+runs as one `hopper.fused_tail` launch (CI::tail_fused) in place of its
+leaf, trsm, syrk and trmm launches; on the card that admits n = 128
+windows only (`hopper.tail_eligible`).
+
 In-place semantics are real here (the JAX package returns new arrays):
 `out_buffers` are written into, and `schur_in_place=True` overwrites the
 trailing windows of the operand — the caller's A itself when no padding is
-needed.  Not ported yet: `tail_fuse_depth > 0` (ROADMAP Queue B item 7,
-fused_tail) and `balance != 'block'` (ROADMAP Queue A item 10,
-multi-device); both raise NotImplementedError.
+needed.  Not ported yet: `balance != 'block'` (ROADMAP Queue A item 10,
+multi-device), which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from capital_tpu_torch.ops import hopper, lapack
+from capital_tpu_torch.ops import batched_small, hopper, lapack
 from capital_tpu_torch.parallel import summa
 from capital_tpu_torch.parallel.summa import SyrkArgs, TrmmArgs
 from capital_tpu_torch.parallel.topology import Grid
@@ -59,7 +63,8 @@ class CholinvConfig:
     schur_in_place: write each Schur complement into the operand's own
         trailing window instead of a fresh buffer (peak memory ~3n² instead
         of ~3.35n²).  MODIFIES the operand — the caller's A when p == n.
-    tail_fuse_depth: 0 only (the fused tail kernel is not ported yet).
+    tail_fuse_depth: windows up to base_case_dim << depth may run as one
+        fused_tail launch, where `_tail_fusible` admits them (0: never).
     base_prefetch: 2 writes both leaf results with one transpose_pair
         launch, 1 with two transpose launches; bitwise-identical results.
     robust: with a RobustConfig, factor() also returns a LAPACK-style int32
@@ -150,11 +155,6 @@ def _check_config(cfg: CholinvConfig) -> None:
             f"balance={cfg.balance!r} is not ported yet (ROADMAP Queue A item 10, "
             "multi-device schedules)"
         )
-    if cfg.tail_fuse_depth > 0:
-        raise NotImplementedError(
-            "tail_fuse_depth > 0 is not ported yet (ROADMAP Queue B item 7, "
-            "pallas_tpu.fused_tail)"
-        )
 
 
 def _base_case_into(grid, buf, off, n, dest, cfg, Rp, RIp):
@@ -180,10 +180,49 @@ def _base_case_into(grid, buf, off, n, dest, cfg, Rp, RIp):
         return Rp, RIp
 
 
-def _recurse(grid, buf, off, node, cfg, top, Rp, RIp):
+def _tail_fusible(grid, buf, off, node, cfg, top, Rp) -> bool:
+    """Whether this plan() subtree runs as one fused_tail launch (the JAX
+    package's gate): the knob is on and the window within
+    base_case_dim << tail_fuse_depth; one device; not a top-level window
+    under complete_inv=False (the kernel always writes the whole window
+    inverse); the window a multiple of 128 and off, node.off and the
+    buffers' dimensions multiples of it; bf16 or f32 (f64 takes the
+    unfused recursion); and the window fits the kernel
+    (`hopper.tail_eligible`, whose envelope applies to CUDA
+    buffers only)."""
+    if cfg.tail_fuse_depth <= 0:
+        return False
+    if node.n > cfg.base_case_dim << cfg.tail_fuse_depth:
+        return False
+    if grid.num_devices != 1:
+        return False
+    if top and not cfg.complete_inv:
+        return False
+    if node.n % 128:
+        return False
+    if (off % node.n or node.off % node.n or buf.shape[0] % node.n
+            or buf.shape[1] % node.n or Rp.shape[0] % node.n):
+        return False
+    if not batched_small.dtype_capable(buf.dtype):
+        return False
+    return hopper.tail_eligible(node.n, buf.dtype, interpret=not buf.is_cuda)
+
+
+def _recurse(grid, buf, off, node, cfg, top, Rp, RIp, tail_infos=None):
     """One recursion window: the input is the (off, off, node.n, node.n)
     window of `buf` (upper triangle valid), the output blocks land in Rp /
-    RIp at the window's absolute offset node.off."""
+    RIp at the window's absolute offset node.off.  A fused subtree appends
+    (node.off, node.n, info) to `tail_infos` when it is a list."""
+    if _tail_fusible(grid, buf, off, node, cfg, top, Rp):
+        with tracing.scope("CI::tail_fused"):
+            tracing.emit(flops=tracing.fused_tail_flops(node.n))
+            Rp, RIp, kinfo = hopper.fused_tail(
+                buf, Rp, RIp, off=off, n=node.n, dest=node.off, precision=cfg.precision,
+            )
+        if tail_infos is not None:
+            tail_infos.append((node.off, node.n, kinfo))
+        return Rp, RIp
+
     if node.is_base:
         return _base_case_into(grid, buf, off, node.n, node.off, cfg, Rp, RIp)
 
@@ -192,7 +231,7 @@ def _recurse(grid, buf, off, node, cfg, top, Rp, RIp):
     d0 = node.off
 
     # 1. top-left window
-    Rp, RIp = _recurse(grid, buf, off, left, cfg, False, Rp, RIp)
+    Rp, RIp = _recurse(grid, buf, off, left, cfg, False, Rp, RIp, tail_infos)
 
     # 2. TRSM phase: R12 = R11⁻ᵀ · A12
     with tracing.scope("CI::trsm"):
@@ -219,7 +258,7 @@ def _recurse(grid, buf, off, node, cfg, top, Rp, RIp):
 
     # 4. trailing window
     s_off = off + n1 if cfg.schur_in_place else 0
-    Rp, RIp = _recurse(grid, S, s_off, right, cfg, False, Rp, RIp)
+    Rp, RIp = _recurse(grid, S, s_off, right, cfg, False, Rp, RIp, tail_infos)
 
     # 5. inverse completion: R⁻¹12 = −R11inv·R12·R22inv, skipped at the top
     # level when complete_inv=False (the block keeps its initial zeros)
@@ -299,11 +338,17 @@ def factor(
             Rp = torch.zeros((p, p), dtype=A.dtype, device=A.device)
             RIp = torch.zeros((p, p), dtype=A.dtype, device=A.device)
 
-    R, Rinv = _recurse(grid, Ap, 0, node, cfg, True, Rp, RIp)
+    # fused windows report breakdown through their in-kernel info, which
+    # combines with the post-hoc scan of R
+    tail_infos = [] if cfg.robust is not None else None
+    R, Rinv = _recurse(grid, Ap, 0, node, cfg, True, Rp, RIp, tail_infos)
     if p != n:
         R, Rinv = R[:n, :n], Rinv[:n, :n]
     if cfg.robust is not None:
-        return R, Rinv, detect.factor_info(R)
+        info = detect.factor_info(R)
+        if tail_infos:
+            info = detect.combine_block_infos(info, tail_infos, n)
+        return R, Rinv, info
     return R, Rinv
 
 

@@ -23,7 +23,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tri_matmul.cu", "transpose.cu", "zeros_dead.cu", "qr_fused.cu", "batched_small.cu")
+SOURCES = ("tri_matmul.cu", "transpose.cu", "zeros_dead.cu", "qr_fused.cu", "batched_small.cu",
+           "write_diag.cu", "fused_tail.cu", "tsqr.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,6 +58,10 @@ SIGNATURES = {
     "capital_small_potrs": ("batched_small.cu", [_I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "capital_small_posv": ("batched_small.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _P]),
     "capital_small_lstsq": ("batched_small.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "capital_small_trsm": ("batched_small.cu", [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "capital_write_diag": ("write_diag.cu", [_I, _I, _P, _P, _LL, _I, _I, _P]),
+    "capital_fused_tail": ("fused_tail.cu", [_I, _P, _LL, _P, _P, _LL, _P, _I, _P]),
+    "capital_tsqr_panel": ("tsqr.cu", [_I, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 

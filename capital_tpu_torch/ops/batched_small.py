@@ -16,6 +16,8 @@ outputs and info: the serve fault-containment contract) — and fuse:
   back-substitution through R2·R1) in one block.
 * ``potrf`` / ``potrs``: the unfused factor and solve (the `pallas_split`
   route, and the resident-factor solve).
+* ``trsm``: one triangular sweep, op(T)·X = B, for every uplo × trans (no
+  serve program calls it).
 
 Each is a wrapper, a plain version and a launch counter, as in
 ops/hopper.py.  The wrapper validates shapes, uplo and dtype (bf16 or f32;
@@ -30,7 +32,7 @@ to 1.0, substitution sweeps that read only the live triangle, and the
 in-program info of the LAPACK potrf convention (0 healthy, j for the first
 bad pivot, n+1 for a clean diagonal with a non-finite entry).  Where the
 JAX kernel's one-hot contractions spread a non-finite value (NaN·0 is NaN),
-`_chol_plain` spreads it the same way, so `info` agrees exactly: a
+`sweeps.chol_plain` spreads it the same way, so `info` agrees exactly: a
 non-finite anywhere in row i of the working matrix poisons the extracted
 column's entry i, and the pivot is that column's entry j.  The CUDA sweep
 (ops/csrc/batched_small.cuh) derives the same info from the entries it
@@ -46,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from capital_tpu_torch.ops import _build, hopper
+from capital_tpu_torch.ops import _build, hopper, sweeps
 from capital_tpu_torch.utils import tracing
 
 #: Largest bucket n the "auto" impl routes to these kernels (the JAX
@@ -55,10 +57,6 @@ SMALL_N_MAX = 128
 
 IMPLS = ("auto", "vmap", "pallas", "pallas_split")
 
-#: shared memory one block may use on an H100 (227 KB)
-SMEM_PER_BLOCK = 232448
-#: kept back from it for the kernels' static shared memory
-SMEM_RESERVE = 1024
 #: rows of A and B staged per chunk by the lstsq kernel (csrc LSTSQ_ROWS)
 LSTSQ_ROWS = 16
 
@@ -86,23 +84,23 @@ def smem_bytes(op: str, n: int, k: int) -> int:
     dimension ld (n + 1 for even n) so column walks are free of bank
     conflicts.
 
-    potrf        4·n·ld                       (the working matrix)
-    potrs, posv  4·(n·ld + n·k)               (factor, right-hand sides)
-    lstsq        4·(2·n·ld + n·k + 16·(n+k))  (R1, the G→V→G2→R2→R buffer,
-                                               AᵀB, a 16-row stage of A|B)
+    potrf              4·n·ld                       (the working matrix)
+    trsm, potrs, posv  4·(n·ld + n·k)               (factor, right-hand sides)
+    lstsq              4·(2·n·ld + n·k + 16·(n+k))  (R1, the G→V→G2→R2→R
+                                                     buffer, AᵀB, a 16-row
+                                                     stage of A|B)
     """
     ld = n + 1 if n % 2 == 0 else n
     if op == "potrf":
         return 4 * n * ld
-    if op in ("potrs", "posv"):
+    if op in ("trsm", "potrs", "posv"):
         return 4 * (n * ld + n * k)
     if op == "lstsq":
         return 4 * (2 * n * ld + n * k + LSTSQ_ROWS * (n + k))
     raise ValueError(f"unknown batched_small op {op!r}")
 
 
-def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype,
-             *, interpret: bool | None = None) -> bool:
+def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype, *, interpret: bool) -> bool:
     """Whether the kernel takes ONE problem of these BATCHED (batch, m, n) /
     (batch, n, k) shapes: its working set (`smem_bytes`) must fit the
     shared memory of one block, 232,448 bytes less a 1,024-byte reserve.
@@ -117,18 +115,16 @@ def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype,
     here (n <= 128, posv/inv with k <= n, lstsq with k <= n) is eligible,
     so 'auto' resolves as the JAX package does there.
 
-    interpret=True (the default where no CUDA device exists) answers True:
-    the plain versions have no envelope, as the JAX kernels in interpret
-    mode have none."""
+    interpret=True (the operands lie on the CPU) answers True: the plain
+    versions have no envelope, as the JAX kernels in interpret mode have
+    none."""
     del dtype  # the working set is f32 whatever the storage dtype
-    if interpret is None:
-        interpret = not torch.cuda.is_available()
     if interpret:
         return True
     n = a_shape[-1]
     k = b_shape[-1] if b_shape is not None else n
-    kop = "posv" if op in ("posv", "potrs", "inv") else op
-    return smem_bytes(kop, n, k) <= SMEM_PER_BLOCK - SMEM_RESERVE
+    kop = "posv" if op in ("posv", "potrs", "inv", "trsm") else op
+    return smem_bytes(kop, n, k) <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
 
 
 def dtype_capable(dtype) -> bool:
@@ -137,8 +133,7 @@ def dtype_capable(dtype) -> bool:
     return dtype in _KERNEL_DTYPES
 
 
-def default_impl(op: str, a_shape: tuple, b_shape: tuple | None, dtype,
-                 *, interpret: bool | None = None) -> str:
+def default_impl(op: str, a_shape: tuple, b_shape: tuple | None, dtype, *, interpret: bool) -> str:
     """Resolve impl='auto' for one bucket from its BATCHED shapes: 'pallas'
     (the fused kernels) for posv/lstsq at n <= SMALL_N_MAX in bf16 or f32
     within the envelope (`eligible`), else 'vmap'.  f64 always takes
@@ -196,7 +191,7 @@ def _check_lstsq(A, B) -> None:
 
 
 def _kernel_gate(op: str, n: int, k: int) -> None:
-    need, have = smem_bytes(op, n, k), SMEM_PER_BLOCK - SMEM_RESERVE
+    need, have = smem_bytes(op, n, k), hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
     if need > have:
         raise ValueError(
             f"batched {op}: one problem of order {n} with {k} right-hand sides "
@@ -209,83 +204,6 @@ def _launch(name: str, *args) -> None:
     hopper._launched(rc, hopper.KERNELS["small." + name])
 
 
-# --------------------------------------------------------------------------
-# plain versions: one Python loop over columns, batched tensor ops inside
-# --------------------------------------------------------------------------
-
-
-def _safe_div(d: torch.Tensor) -> torch.Tensor:
-    return torch.where((d != 0) & torch.isfinite(d), d, torch.ones_like(d))
-
-
-def _chol_plain(S: torch.Tensor, uplo: str):
-    """Column-sweep Cholesky of a batch of f32 (n, n) matrices: at column j,
-    u = S[:, j] / sqrt(S[j, j]) becomes row j of R ('U'; column j of L for
-    'L') and the rank-1 update S -= u·uᵀ clears row and column j.  A bad
-    pivot (non-finite or <= 0) sets info to j + 1 once and divides by 1.0;
-    a clean diagonal with a non-finite factor entry gives n + 1.  Entry i
-    of the extracted column is NaN when row i of S holds a non-finite
-    value (the JAX kernel's one-hot contraction)."""
-    S = S.clone()
-    batch, n, _ = S.shape
-    R = torch.zeros_like(S)
-    info = torch.zeros(batch, dtype=torch.int32, device=S.device)
-    nan = torch.full((), float("nan"), device=S.device)
-    one = torch.ones((), device=S.device)
-    for j in range(n):
-        col = torch.where(torch.isfinite(S).all(-1), S[:, :, j], nan)
-        d = col[:, j]
-        good = torch.isfinite(d) & (d > 0)
-        info = torch.where((info == 0) & ~good, j + 1, info).to(torch.int32)
-        u = col / torch.sqrt(torch.where(good, d, one))[:, None]
-        if uplo == "U":
-            R[:, j, :] = u
-        else:
-            R[:, :, j] = u
-        S -= u[:, :, None] * u[:, None, :]
-    off_bad = ~torch.isfinite(R).all(-1).all(-1)
-    info = torch.where((info == 0) & off_bad, n + 1, info).to(torch.int32)
-    return R, info
-
-
-def _fwd_solve_plain(T: torch.Tensor, B: torch.Tensor, *, from_upper: bool) -> torch.Tensor:
-    """Forward substitution L·Y = B, L = Tᵀ (T stored upper) or T (stored
-    lower); only the live triangle of T is read."""
-    Y = B.clone()
-    n = T.shape[-1]
-    for j in range(n):
-        lcol = T[:, j, :] if from_upper else T[:, :, j]  # L[:, j]
-        y = Y[:, j, :] / _safe_div(lcol[:, j])[:, None]
-        Y[:, j + 1:, :] -= lcol[:, j + 1:, None] * y[:, None, :]
-        Y[:, j, :] = y
-    return Y
-
-
-def _bwd_solve_plain(T: torch.Tensor, Y: torch.Tensor, *, from_upper: bool) -> torch.Tensor:
-    """Back substitution U·X = Y, U = T (stored upper) or Tᵀ (stored
-    lower)."""
-    X = Y.clone()
-    n = T.shape[-1]
-    for j in range(n - 1, -1, -1):
-        ucol = T[:, :, j] if from_upper else T[:, j, :]  # U[:, j]
-        x = X[:, j, :] / _safe_div(ucol[:, j])[:, None]
-        X[:, :j, :] -= ucol[:, :j, None] * x[:, None, :]
-        X[:, j, :] = x
-    return X
-
-
-def _rsolve_upper_plain(R: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """Right-side solve W·R = V for upper-triangular R (column sweep
-    ascending)."""
-    W = V.clone()
-    n = R.shape[-1]
-    for j in range(n):
-        w = W[:, :, j] / _safe_div(R[:, j, j])[:, None]
-        W[:, :, j + 1:] -= w[:, :, None] * R[:, None, j, j + 1:]
-        W[:, :, j] = w
-    return W
-
-
 def potrf_plain(A, *, uplo: str = "U", block: int = 0, precision=None):
     """Plain PyTorch version of `potrf`."""
     del precision  # f32 is always IEEE f32 here
@@ -293,7 +211,7 @@ def potrf_plain(A, *, uplo: str = "U", block: int = 0, precision=None):
     _check_uplo(uplo)
     _check_dtype("batched potrf", A)
     _resolve_block(A.shape[-1], block)
-    R, info = _chol_plain(A.float(), uplo)
+    R, info = sweeps.chol_plain(A.float(), uplo)
     R = torch.triu(R) if uplo == "U" else torch.tril(R)
     return R.to(A.dtype), info
 
@@ -306,8 +224,8 @@ def potrs_plain(T, B, *, uplo: str = "U", block: int = 0, precision=None):
     _check_dtype("batched potrs", T, B)
     _resolve_block(T.shape[-1], block)
     t = T.float()
-    y = _fwd_solve_plain(t, B.float(), from_upper=(uplo == "U"))
-    return _bwd_solve_plain(t, y, from_upper=(uplo == "U")).to(B.dtype)
+    y = sweeps.fwd_solve_plain(t, B.float(), from_upper=(uplo == "U"))
+    return sweeps.bwd_solve_plain(t, y, from_upper=(uplo == "U")).to(B.dtype)
 
 
 def posv_plain(A, B, *, uplo: str = "U", block: int = 0, precision=None):
@@ -317,9 +235,9 @@ def posv_plain(A, B, *, uplo: str = "U", block: int = 0, precision=None):
     _check_uplo(uplo)
     _check_dtype("batched posv", A, B)
     _resolve_block(A.shape[-1], block)
-    R, info = _chol_plain(A.float(), uplo)
-    y = _fwd_solve_plain(R, B.float(), from_upper=(uplo == "U"))
-    x = _bwd_solve_plain(R, y, from_upper=(uplo == "U"))
+    R, info = sweeps.chol_plain(A.float(), uplo)
+    y = sweeps.fwd_solve_plain(R, B.float(), from_upper=(uplo == "U"))
+    x = sweeps.bwd_solve_plain(R, y, from_upper=(uplo == "U"))
     return x.to(B.dtype), info
 
 
@@ -331,14 +249,14 @@ def lstsq_plain(A, B, *, block: int = 0, precision=None):
     a, b = A.float(), B.float()
     G = a.mT @ a
     C = a.mT @ b
-    R1, i1 = _chol_plain(G, "U")
-    V = _fwd_solve_plain(R1, G, from_upper=True)
-    G2 = _rsolve_upper_plain(R1, V)
-    R2, i2 = _chol_plain(G2, "U")
-    t1 = _fwd_solve_plain(R1, C, from_upper=True)
-    t2 = _fwd_solve_plain(R2, t1, from_upper=True)
+    R1, i1 = sweeps.chol_plain(G, "U")
+    V = sweeps.fwd_solve_plain(R1, G, from_upper=True)
+    G2 = sweeps.rsolve_upper_plain(R1, V)
+    R2, i2 = sweeps.chol_plain(G2, "U")
+    t1 = sweeps.fwd_solve_plain(R1, C, from_upper=True)
+    t2 = sweeps.fwd_solve_plain(R2, t1, from_upper=True)
     R = torch.triu(R2) @ torch.triu(R1)
-    x = _bwd_solve_plain(R, t2, from_upper=True)
+    x = sweeps.bwd_solve_plain(R, t2, from_upper=True)
     return x.to(B.dtype), torch.maximum(i1, i2)
 
 
@@ -370,13 +288,43 @@ def potrf(A, *, uplo: str = "U", block: int = 0, precision: str | None = "highes
     return R, info
 
 
+def trsm_plain(T, B, *, uplo: str = "U", trans: bool = False, block: int = 0, precision=None):
+    """Plain PyTorch version of `trsm`."""
+    del precision
+    _check_batched(T, B, op="batched trsm")
+    _check_uplo(uplo)
+    _check_dtype("batched trsm", T, B)
+    _resolve_block(T.shape[-1], block)
+    forward = (uplo == "L") ^ bool(trans)
+    solve = sweeps.fwd_solve_plain if forward else sweeps.bwd_solve_plain
+    return solve(T.float(), B.float(), from_upper=(uplo == "U")).to(B.dtype)
+
+
 def trsm(T, B, *, uplo: str = "U", trans: bool = False, block: int = 0,
          precision: str | None = "highest"):
-    """Batched triangular solve: not ported yet (ROADMAP Queue B item 14);
-    no serve program reaches it."""
-    raise NotImplementedError(
-        "batched_small.trsm is not ported yet (ROADMAP Queue B item 14)"
-    )
+    """Batched triangular solve op(T)·X = B over (batch, n, n) factors and
+    (batch, n, k) right-hand sides, op(T) = T or Tᵀ (trans): one launch,
+    one sweep per problem — forward when op(T) is lower ((uplo == 'L') xor
+    trans), else backward; only the live triangle of T is read.  X is a new
+    tensor: the JAX kernel aliases it onto B, the port keeps B."""
+    _check_batched(T, B, op="batched trsm")
+    _check_uplo(uplo)
+    _check_dtype("batched trsm", T, B)
+    _resolve_block(T.shape[-1], block)
+    batch, n, _ = T.shape
+    k = B.shape[-1]
+    forward = (uplo == "L") ^ bool(trans)
+    with tracing.scope("OP::batched_small"):
+        tracing.emit(flops=batch * tracing.batched_trsm_flops(n, k))
+        if not hopper._on_card(T, B):
+            return trsm_plain(T, B, uplo=uplo, trans=trans)
+        _kernel_gate("trsm", n, k)
+        T, B = T.contiguous(), B.contiguous()
+        X = torch.empty_like(B)
+        if batch and k:
+            _launch("trsm", hopper._DTYPE_CODE[T.dtype], T.data_ptr(), B.data_ptr(),
+                    X.data_ptr(), batch, n, k, int(uplo == "U"), int(forward))
+    return X
 
 
 def potrs(T, B, *, uplo: str = "U", block: int = 0, precision: str | None = "highest"):

@@ -1,9 +1,9 @@
-// Small-N batched solves: potrf, potrs, posv and lstsq over a batch of
-// independent problems, one block per problem (blockIdx.x = problem).
+// Small-N batched solves: potrf, trsm, potrs, posv and lstsq over a batch
+// of independent problems, one block per problem (blockIdx.x = problem).
 //
 // Replaces capital_tpu/ops/batched_small.py: the one pallas_call (:358,
-// through _batched_call :347) of potrf :398, potrs :470, posv :506 and
-// lstsq :546.  As there, the batch is the grid and problems share nothing:
+// through _batched_call :347) of potrf :398, trsm :431, potrs :470, posv
+// :506 and lstsq :546.  As there, the batch is the grid and problems share nothing:
 // a NaN in one problem reaches only its own outputs and info.
 //
 // What bounds them on the card: at the throughput batch (8192 problems of
@@ -22,7 +22,7 @@
 // Shared memory per block (f32; ld = odd_ld(n)), as
 // capital_tpu_torch/ops/batched_small.smem_bytes computes it:
 //   potrf        n·ld
-//   potrs, posv  n·ld + n·k
+//   trsm, potrs, posv  n·ld + n·k
 //   lstsq        2·n·ld + n·k + LSTSQ_ROWS·(n+k)
 // Above 48 KB it is dynamic shared memory, enabled per kernel with
 // cudaFuncSetAttribute.  lstsq streams A and B through a LSTSQ_ROWS-row
@@ -87,6 +87,24 @@ __global__ void __launch_bounds__(NT) potrs_kernel(const T* Tm, const T* B, T* X
   // 'U': S holds R = Lᵀ (upper-stored); 'L': S holds L
   fwd_sweep(S, ld, upper != 0, Y, k, n, k);
   bwd_sweep(S, ld, upper != 0, Y, k, n, k);
+  store_tile(X + b * n * k, Y, k, n, k);
+}
+
+// op(T)·X = B with one sweep: forward (L = T stored lower, or Tᵀ of a T
+// stored upper) or backward (U = T stored upper, or Tᵀ of a T stored lower)
+template <typename T>
+__global__ void __launch_bounds__(NT) trsm_kernel(const T* Tm, const T* B, T* X, int n, int k, int upper,
+                                                  int forward) {
+  extern __shared__ float smem[];
+  const int ld = odd_ld(n);
+  float* S = smem;
+  float* Y = smem + n * ld;
+  const long long b = blockIdx.x;
+  load_tile(S, ld, Tm + b * n * n, n, n);
+  load_tile(Y, k, B + b * n * k, n, k);
+  __syncthreads();
+  if (forward) fwd_sweep(S, ld, upper != 0, Y, k, n, k);
+  else bwd_sweep(S, ld, upper != 0, Y, k, n, k);
   store_tile(X + b * n * k, Y, k, n, k);
 }
 
@@ -224,6 +242,19 @@ extern "C" int capital_small_potrs(int dtype, const void* Tm, const void* B, voi
     return run<potrs_kernel<float>>(batch, smem, stream, (const float*)Tm, (const float*)B, (float*)X, n, k, upper);
   if (dtype == DT_BF16)
     return run<potrs_kernel<bf16>>(batch, smem, stream, (const bf16*)Tm, (const bf16*)B, (bf16*)X, n, k, upper);
+  return -1;
+}
+
+extern "C" int capital_small_trsm(int dtype, const void* Tm, const void* B, void* X, int batch, int n,
+                                  int k, int upper, int forward, void* stream) {
+  if (n < 1 || k < 0) return -1;
+  const size_t smem = tile_bytes(n) + sizeof(float) * (size_t)n * k;
+  if (dtype == DT_F32)
+    return run<trsm_kernel<float>>(batch, smem, stream, (const float*)Tm, (const float*)B, (float*)X, n, k, upper,
+               forward);
+  if (dtype == DT_BF16)
+    return run<trsm_kernel<bf16>>(batch, smem, stream, (const bf16*)Tm, (const bf16*)B, (bf16*)X, n, k, upper,
+               forward);
   return -1;
 }
 

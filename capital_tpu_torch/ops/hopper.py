@@ -1,12 +1,14 @@
-"""The cholinv path's kernels on Hopper (counterpart of
+"""The cholinv and rectri paths' kernels on Hopper (counterpart of
 capital_tpu/ops/pallas_tpu.py), and the one launch-counter registry of every
 kernel of the port (`KERNELS`; the CholeskyQR2 kernels' wrappers live in
-ops/qr_fused.py, the small-N batched solves' in ops/batched_small.py).
+ops/qr_fused.py, the small-N batched solves' in ops/batched_small.py, the
+TSQR panel kernel's in ops/tsqr.py).
 
 Each kernel sits here as three things side by side:
 
 * the **wrapper** (`tri_matmul`, `transpose`, `transpose_pair`,
-  `zeros_dead_lower`): it validates its arguments, then launches the
+  `zeros_dead_lower`, `write_diag_blocks`, `fused_tail`): it validates its
+  arguments, then launches the
   hand-written CUDA kernel (ops/csrc/*.cu) when its tensors lie on a CUDA
   device, or runs the plain version when they lie on the CPU.  There is no
   other route: a CUDA tensor launches the kernel or raises.
@@ -32,7 +34,7 @@ import dataclasses
 
 import torch
 
-from capital_tpu_torch.ops import _build
+from capital_tpu_torch.ops import _build, sweeps
 from capital_tpu_torch.ops.masking import take_triangle
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
@@ -45,6 +47,10 @@ _QR_FUSED = "capital_tpu/ops/qr_fused.py:"
 _SMALL = "capital_tpu/ops/batched_small.py:358 (def :"
 #: most `extra` windows one zeros_dead_lower launch takes (csrc MAX_EXTRA)
 MAX_EXTRA = 8
+#: shared memory one block may use on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+#: kept back from it for the kernels' static shared memory
+SMEM_RESERVE = 1024
 
 
 @dataclasses.dataclass
@@ -68,6 +74,9 @@ KERNELS: dict[str, Kernel] = {
         Kernel("transpose", _CSRC + "transpose.cu", _PALLAS + "661"),
         Kernel("transpose_pair", _CSRC + "transpose.cu", _PALLAS + "723"),
         Kernel("zeros_dead_lower", _CSRC + "zeros_dead.cu", _PALLAS + "409"),
+        # the rectri batched prefix's write-back and the opt-in cholinv tail
+        Kernel("write_diag_blocks", _CSRC + "write_diag.cu", _PALLAS + "560"),
+        Kernel("fused_tail", _CSRC + "fused_tail.cu", _PALLAS + "827"),
         # CholeskyQR2's tall passes; wrappers in ops/qr_fused.py
         Kernel("qr.gram_blocked", _CSRC + "qr_fused.cu", _QR_FUSED + "181"),
         Kernel("qr.scale_gram", _CSRC + "qr_fused.cu", _QR_FUSED + "260"),
@@ -77,6 +86,10 @@ KERNELS: dict[str, Kernel] = {
         Kernel("small.potrs", _CSRC + "batched_small.cu", _SMALL + "470)"),
         Kernel("small.posv", _CSRC + "batched_small.cu", _SMALL + "506)"),
         Kernel("small.lstsq", _CSRC + "batched_small.cu", _SMALL + "546)"),
+        Kernel("small.trsm", _CSRC + "batched_small.cu", _SMALL + "431)"),
+        # TSQR's Householder panel QR; wrapper in ops/tsqr.py
+        Kernel("tsqr.panel_qr", _CSRC + "tsqr.cu",
+               "capital_tpu/ops/batched_small.py:358 (def capital_tpu/ops/tsqr.py:200)"),
     )
 }
 
@@ -515,3 +528,169 @@ def zeros_dead_lower(p, dtype, tile, extra=(), dead="lower", *, device):
     )
     _launched(rc, KERNELS["zeros_dead_lower"])
     return buf
+
+
+# --------------------------------------------------------------------------
+# write_diag_blocks
+# --------------------------------------------------------------------------
+
+
+def _diag_spec(out, W):
+    if W.dim() != 3 or W.shape[1] != W.shape[2]:
+        raise ValueError(f"write_diag_blocks: W must be a (count, s, s) stack, got {tuple(W.shape)}")
+    if out.dim() != 2 or out.shape[0] != out.shape[1]:
+        raise ValueError(f"write_diag_blocks: out must be square, got {tuple(out.shape)}")
+    count, s = W.shape[0], W.shape[1]
+    if count * s > out.shape[0]:
+        raise ValueError(
+            f"write_diag_blocks: {count} blocks of {s} do not fit the diagonal of "
+            f"{tuple(out.shape)}"
+        )
+    if W.untyped_storage().data_ptr() == out.untyped_storage().data_ptr():
+        raise ValueError("write_diag_blocks: W shares storage with out")
+    return count, s
+
+
+def write_diag_blocks_plain(out, W):
+    """Plain PyTorch version of `write_diag_blocks`: one copy per block."""
+    count, s = _diag_spec(out, W)
+    for i in range(count):
+        out[i * s:(i + 1) * s, i * s:(i + 1) * s].copy_(W[i])
+    return out
+
+
+def write_diag_blocks(out, W):
+    """Write the (count, s, s) stack W onto the diagonal blocks
+    ``out[i*s:(i+1)*s, i*s:(i+1)*s]`` in place, cast to out's dtype, and
+    return `out`; every other element of `out` is left untouched
+    (ops/csrc/write_diag.cu; pallas_tpu.write_diag_blocks).  Any block size
+    s works.  Where the JAX package's fallback would clip a block (a
+    non-square `out`, or count·s beyond its edge) this raises ValueError."""
+    count, s = _diag_spec(out, W)
+    if not _on_card(out, W):
+        return write_diag_blocks_plain(out, W)
+    _kernel_operand(out, "out")
+    if W.dtype not in _DTYPE_CODE:
+        raise TypeError(f"write_diag_blocks: W must be bf16, f32 or f64, got {W.dtype}")
+    if count == 0 or s == 0:
+        return out
+    W = W.contiguous()
+    rc = _build.entry("capital_write_diag")(
+        _DTYPE_CODE[W.dtype], _DTYPE_CODE[out.dtype], W.data_ptr(), out.data_ptr(),
+        out.stride(0), count, s, _stream(),
+    )
+    _launched(rc, KERNELS["write_diag_blocks"])
+    return out
+
+
+# --------------------------------------------------------------------------
+# fused_tail
+# --------------------------------------------------------------------------
+
+
+def _tail_spec(buf, Rp, RIp, off, n, dest):
+    if n < 1:
+        raise ValueError(f"fused_tail: window n must be >= 1, got {n}")
+    if (off % n or dest % n or buf.shape[0] % n or buf.shape[1] % n
+            or Rp.shape[0] % n or Rp.shape[1] % n or Rp.shape != RIp.shape):
+        raise ValueError(
+            f"fused_tail alignment: off={off} dest={dest} n={n} "
+            f"buf{tuple(buf.shape)} Rp{tuple(Rp.shape)} RIp{tuple(RIp.shape)} must all be "
+            "multiples of the window"
+        )
+    iv, ov = (off, off, n, n), (dest, dest, n, n)
+    _check_window(buf, iv, "buf")
+    _check_window(Rp, ov, "Rp")
+    if _overlaps(Rp, ov, RIp, ov):
+        raise ValueError("fused_tail: the Rp and RIp windows overlap")
+    for Y, what in ((Rp, "Rp"), (RIp, "RIp")):
+        if _overlaps(Y, ov, buf, iv):
+            raise ValueError(f"fused_tail: the {what} window overlaps the input window")
+
+
+def tail_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of one `fused_tail` block for an (n, n)
+    window: the window, then R⁻¹, both f32 with an odd leading dimension
+    ld (n + 1 for even n) -- 4·(n·ld + n·n)."""
+    ld = n + 1 if n % 2 == 0 else n
+    return 4 * (n * ld + n * n)
+
+
+def tail_eligible(n: int, dtype, *, interpret: bool) -> bool:
+    """Whether `fused_tail` takes an (n, n) window: its working set
+    (`tail_smem_bytes`) must fit one block's shared memory less the
+    reserve, at f32 and bf16 alike.  That reaches n = 169, so with
+    cholinv's `n % 128 == 0` gate only n = 128 windows fuse on the card:
+    with the default base_case_dim=256 nothing fuses there, where the JAX
+    package fused windows up to bc << depth.  A kernel for 256–512 windows
+    (a thread-block cluster, or R⁻¹ streamed to device memory) is
+    ROADMAP's redesign of this one.
+
+    interpret=True (the caller's buffers lie on the CPU) answers True: the
+    plain version has no envelope, as the JAX kernel in interpret mode has
+    none."""
+    del dtype  # the working set is f32 whatever the storage dtype
+    return interpret or tail_smem_bytes(n) <= SMEM_PER_BLOCK - SMEM_RESERVE
+
+
+def fused_tail_plain(buf, Rp, RIp, *, off, n, dest, block=0, precision="highest"):
+    """Plain PyTorch version of `fused_tail`: the window symmetrised from
+    its upper half, `sweeps.chol_plain` (uplo U) and `sweeps.bwd_solve_plain`
+    of the identity, in f32."""
+    _tail_spec(buf, Rp, RIp, off, n, dest)
+    del block, precision
+    w = buf[off:off + n, off:off + n].float()
+    idx = torch.arange(n, device=buf.device)
+    upper = idx[:, None] <= idx[None, :]
+    S = torch.where(upper, w, w.T)
+    R, info = sweeps.chol_plain(S[None], "U")
+    eye = torch.eye(n, dtype=torch.float32, device=buf.device)[None]
+    Rinv = sweeps.bwd_solve_plain(R, eye, from_upper=True)
+    zero = torch.zeros((), device=buf.device)
+    _window(Rp, (dest, dest, n, n)).copy_(torch.where(upper, R[0], zero))
+    _window(RIp, (dest, dest, n, n)).copy_(torch.where(upper, Rinv[0], zero))
+    return Rp, RIp, info[0]
+
+
+def fused_tail(buf, Rp, RIp, *, off: int, n: int, dest: int, block: int = 0,
+               precision: str | None = "highest"):
+    """A whole cholinv recursion subtree in one launch (ops/csrc/
+    fused_tail.cu; pallas_tpu.fused_tail): read the (off, off, n, n) window
+    of `buf` (upper triangle valid; the lower half may hold anything),
+    factor it A = RᵀR by the column sweep of the batched small-N kernels,
+    invert R by back-substituting the identity, and write triu(R) and
+    triu(R⁻¹) into the (dest, dest, n, n) windows of `Rp` and `RIp` in
+    place.  Returns (Rp, RIp, info), info a 0-d int32 tensor in the potrf
+    0/k/n+1 convention of `batched_small.potrf`, computed in the kernel.
+
+    off, dest and both dimensions of every buffer must be multiples of n
+    (ValueError otherwise, as in the JAX package).  The kernel takes bf16
+    or f32 buffers of one dtype and computes in f32 in shared memory; the
+    window must fit it (`tail_eligible`: n <= 169).  `block` (the JAX
+    kernel's static column unroll) changes nothing here."""
+    _tail_spec(buf, Rp, RIp, off, n, dest)
+    del block
+    if not _on_card(buf, Rp, RIp):
+        return fused_tail_plain(buf, Rp, RIp, off=off, n=n, dest=dest)
+    for X, what in ((buf, "buf"), (Rp, "Rp"), (RIp, "RIp")):
+        _kernel_operand(X, what)
+        if X.dtype not in (torch.bfloat16, torch.float32) or X.dtype != buf.dtype:
+            raise TypeError(
+                f"fused_tail kernel: buf, Rp and RIp must share one dtype, bf16 or f32; "
+                f"{what} is {X.dtype}, buf {buf.dtype}"
+            )
+    if Rp.stride(0) != RIp.stride(0):
+        raise ValueError("fused_tail kernel: Rp and RIp need one layout")
+    if not tail_eligible(n, buf.dtype, interpret=False):
+        raise ValueError(
+            f"fused_tail: a window of {n} needs {tail_smem_bytes(n)} bytes of shared "
+            f"memory, a block has {SMEM_PER_BLOCK - SMEM_RESERVE}"
+        )
+    info = torch.empty((), dtype=torch.int32, device=buf.device)
+    rc = _build.entry("capital_fused_tail")(
+        _DTYPE_CODE[buf.dtype], _ptr(buf, off, off), buf.stride(0),
+        _ptr(Rp, dest, dest), _ptr(RIp, dest, dest), Rp.stride(0),
+        info.data_ptr(), n, _stream(),
+    )
+    _launched(rc, KERNELS["fused_tail"])
+    return Rp, RIp, info

@@ -104,3 +104,89 @@ def potrf_trtri_upper(P: torch.Tensor, with_info: bool = False):
     R = hopper.transpose(L, out_uplo="U", out_dtype=P.dtype)
     Rinv = hopper.transpose(Linv, out_uplo="U", out_dtype=P.dtype)
     return (R, Rinv, detect.factor_info(R)) if with_info else (R, Rinv)
+
+
+def trtri_newton(D: torch.Tensor, unit_diag: bool = False, precision: str | None = "highest") -> torch.Tensor:
+    """Exact inverse of a (..., s, s) LOWER-triangular stack by the
+    finite-termination Newton iteration, all batched matmuls: with
+    X₀ = diag(D)⁻¹ the residual I − D·X₀ is strictly lower triangular,
+    hence nilpotent, and each step X ← X·(2I − D·X) squares it, so
+    ⌈log₂ s⌉ steps give the inverse.  Runs at the >= f32 compute dtype
+    and casts back once.  unit_diag never reads the stored diagonal."""
+    del precision  # f32 products are IEEE f32 here
+    ct = _compute_dtype(D.dtype)
+    s = D.shape[-1]
+    eye = torch.eye(s, dtype=ct, device=D.device)
+    if unit_diag:
+        Dm = torch.tril(D, -1).to(ct) + eye
+        d = torch.ones(D.shape[:-1], dtype=ct, device=D.device)
+    else:
+        Dm = torch.tril(D).to(ct)
+        d = torch.diagonal(Dm, dim1=-2, dim2=-1)
+    X = (1.0 / d)[..., :, None] * eye
+    two_eye = 2.0 * eye
+    for _ in range(max(1, (s - 1).bit_length())):
+        X = X @ (two_eye - Dm @ X)
+    return X.to(D.dtype)
+
+
+def diag_block_stack(X: torch.Tensor, o: int, s: int, stride: int) -> torch.Tensor:
+    """(count, s, s) stack of the diagonal-band blocks
+    ``X[..., i*stride + o : i*stride + o + s, i*stride : i*stride + s]``,
+    flattened over any leading batch dims (o=0, stride=s: the diagonal
+    blocks; o=s, stride=2s: the sub-diagonal block of each merge pair).
+    One strided view of X, copied once."""
+    count = X.shape[-2] // stride
+    r, c = X.stride(-2), X.stride(-1)
+    view = X.as_strided(
+        tuple(X.shape[:-2]) + (count, s, s),
+        tuple(X.stride()[:-2]) + (stride * (r + c), r, c),
+        X.storage_offset() + o * r,
+    )
+    return view.reshape(-1, s, s)
+
+
+def trtri_stack(D: torch.Tensor, uplo: str = "L", unit_diag: bool = False, inner: int = 128,
+                precision: str | None = None) -> torch.Tensor:
+    """Inverse of a (nb, bc, bc) stack of triangular blocks: inner blocks
+    of the largest bc/2^j <= `inner` through `trtri_newton`, then batched
+    merge levels
+
+        [A11  0 ]^-1   [      A11⁻¹          0   ]
+        [A21 A22]    = [−A22⁻¹·A21·A11⁻¹   A22⁻¹ ]
+
+    (the plain batched `trtri` when halving cannot reach `inner`).  The
+    whole chain runs at the >= f32 compute dtype and casts back once;
+    precision None means 'highest' (IEEE f32 here either way)."""
+    nb, bc = D.shape[0], D.shape[-1]
+    d = bc
+    while inner > 0 and d > inner and d % 2 == 0:
+        d //= 2
+    k = bc // d if 0 < d <= inner else 0
+    inner = d
+    if k <= 1:
+        return trtri(D, uplo=uplo, unit_diag=unit_diag)
+    if uplo != "L":
+        # one transpose each way keeps a single (lower) merge body
+        return trtri_stack(D.mT, "L", unit_diag, inner, precision).mT
+    ct = _compute_dtype(D.dtype)
+    Dm = torch.tril(D).to(ct)
+    W = trtri_newton(diag_block_stack(Dm, 0, inner, inner), unit_diag=unit_diag)
+    s = inner
+    while s < bc:
+        W = merge_level(W, Dm, s)
+        s *= 2
+    return W.to(D.dtype)
+
+
+def merge_level(W: torch.Tensor, T: torch.Tensor, s: int) -> torch.Tensor:
+    """One batched merge level: W holds the inverses of T's consecutive
+    (s, s) lower-triangular diagonal blocks; pair them into the inverses
+    of the (2s, 2s) blocks, B21 = −A22⁻¹·A21·A11⁻¹ with A21 read from T."""
+    A21 = diag_block_stack(T, s, s, 2 * s)
+    A11i, A22i = W[0::2], W[1::2]
+    B21 = -(A22i @ (A21 @ A11i))
+    return torch.cat(
+        [torch.cat([A11i, torch.zeros_like(A11i)], dim=2), torch.cat([B21, A22i], dim=2)],
+        dim=1,
+    )

@@ -8,18 +8,23 @@ pairs of (n, n) R factors stack into (2n, n) panels and re-factor, halving
 the count per level, while each level's thin-Q blocks multiply into the
 per-leaf Q accumulators.
 
-Panel QRs take the library route, batched `torch.linalg.qr`, as the JAX
-package's `_qr_xla` takes `lax.linalg.qr`.  The JAX package's other route,
-a batched Householder Pallas kernel for f32/bf16 panels of n <= 128
-(`_qr_pallas`), is not ported yet (ROADMAP Queue B item 11): a call that
-resolves to it raises NotImplementedError instead of quietly taking the
-library route.  f64 always takes the library route, in both packages.
+Panel QRs have two routes, resolved per batch of panels by `default_impl`
+as in the JAX package: the batched Householder panel kernel
+(ops/csrc/tsqr.cu, `panel_qr`; the JAX package's `_qr_pallas`) for f32/bf16
+panels of n <= 128 whose working tile fits one block's shared memory, and
+batched `torch.linalg.qr` (`_qr_xla`, the JAX package's `lax.linalg.qr`)
+otherwise.  f64 always takes the library route, in both packages: the
+kernel computes in f32.  `panel_qr` is a wrapper, a plain version
+(`panel_qr_plain`, the JAX kernel's `_house_panel` step by step) and the
+launch counter `hopper.KERNELS["tsqr.panel_qr"]`; it launches the kernel
+for CUDA tensors and runs the plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from capital_tpu_torch.ops import _build, batched_small, hopper
 from capital_tpu_torch.utils import tracing
 
 IMPLS = ("auto", "pallas", "xla")
@@ -47,14 +52,31 @@ def resolve_leaves(m: int, n: int, panel: int = 0) -> int:
     return 1 << (raw - 1).bit_length()
 
 
-def default_impl(n: int, dtype: torch.dtype) -> str:
-    """Resolve impl='auto' for a batch of n-column panels: 'pallas' (the
-    Householder kernel) for f32/bf16 panels with n <= SMALL_N_MAX, else
-    'xla'.  f64 always takes 'xla'; the card has no VMEM envelope to
-    consult, unlike the JAX rule."""
+def smem_bytes(rows: int, n: int) -> int:
+    """Dynamic shared memory of one block of the panel kernel: the (rows,
+    n) f32 tile with an odd leading dimension and R's diagonal."""
+    ld = n + 1 if n % 2 == 0 else n
+    return 4 * (rows * ld + n)
+
+
+def eligible(rows: int, n: int, dtype, *, interpret: bool) -> bool:
+    """Whether the panel kernel takes (rows, n) panels: its tile
+    (`smem_bytes`) must fit one block's shared memory, 232,448 bytes less a
+    1,024-byte reserve, at f32 and bf16 alike.  n = 128 takes panels up to
+    447 rows, so every panel `tsqr` cuts for n <= 128 (rows max(2n, 128),
+    reduction panels 2n) fits.  interpret=True (the panels lie on the CPU)
+    answers True: the plain version has no envelope."""
+    del dtype  # the tile is f32 whatever the storage dtype
+    return interpret or smem_bytes(rows, n) <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+
+
+def default_impl(rows: int, n: int, dtype: torch.dtype, *, interpret: bool) -> str:
+    """Resolve impl='auto' for a batch of (rows, n) panels: 'pallas' (the
+    panel kernel) for f32/bf16 panels with n <= SMALL_N_MAX that fit it
+    (`eligible`), else 'xla'.  f64 always takes 'xla'."""
     if dtype.itemsize > 4 or n > SMALL_N_MAX:
         return "xla"
-    return "pallas"
+    return "pallas" if eligible(rows, n, dtype, interpret=interpret) else "xla"
 
 
 def _qr_xla(P: torch.Tensor, precision):
@@ -64,18 +86,93 @@ def _qr_xla(P: torch.Tensor, precision):
     return Q, torch.triu(R)
 
 
+def _house_panel_plain(a: torch.Tensor):
+    """Householder QR of a batch of f32 (p, n) panels, the JAX kernel's
+    `_house_panel` arithmetic step by step: for column j, x = W[j:, j],
+    α = −sign(x_j)·‖x‖, v = (x − α·e_j)/‖x − α·e_j‖ (0 for a zero column),
+    W ← W − 2·v·(vᵀW); R = triu of the top n rows; thin Q by applying the
+    stored reflectors to I[:, :n] in descending order."""
+    _, p, n = a.shape
+    rows = torch.arange(p, device=a.device)
+    W, V = a.clone(), torch.zeros_like(a)
+    one, zero = torch.ones((), device=a.device), torch.zeros((), device=a.device)
+    for j in range(n):
+        x = torch.where(rows >= j, W[:, :, j], zero)
+        xj = x[:, j]
+        sig = torch.sqrt(torch.sum(x * x, dim=1))
+        alpha = -torch.where(xj >= 0, one, -one) * sig
+        v = x - alpha[:, None] * (rows == j)
+        vn2 = torch.sum(v * v, dim=1)
+        v = v * torch.where(vn2 > 0, torch.rsqrt(torch.where(vn2 > 0, vn2, one)), zero)[:, None]
+        vtW = torch.einsum("bp,bpn->bn", v, W)
+        W = W - 2.0 * (v[:, :, None] * vtW[:, None, :])
+        V[:, :, j] = v
+    R = torch.triu(W[:, :n, :])
+    E = torch.eye(p, n, device=a.device).expand(a.shape).clone()
+    for j in range(n - 1, -1, -1):
+        v = V[:, :, j]
+        vtE = torch.einsum("bp,bpn->bn", v, E)
+        E = E - 2.0 * (v[:, :, None] * vtE[:, None, :])
+    return E, R
+
+
+def _check_panels(P: torch.Tensor) -> None:
+    if P.dim() != 3 or P.shape[1] < P.shape[2]:
+        raise ValueError(f"panel_qr: wants a (batch, p, n) stack with p >= n, got {tuple(P.shape)}")
+    if P.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(
+            f"panel_qr: takes bf16 or f32, got {P.dtype} (the kernel computes in f32; "
+            "f64 takes the library route)"
+        )
+
+
+def panel_qr_plain(P: torch.Tensor, *, block: int = 0, precision=None):
+    """Plain PyTorch version of `panel_qr`."""
+    _check_panels(P)
+    batched_small._resolve_block(P.shape[-1], block)
+    Q, R = _house_panel_plain(P.float())
+    return Q.to(P.dtype), R.to(P.dtype)
+
+
+def panel_qr(P: torch.Tensor, *, block: int = 0, precision: str | None = "highest"):
+    """Batched Householder QR of (batch, p, n) panels, p >= n: (Q, R) with
+    Q (batch, p, n) thin and R (batch, n, n) upper triangular, one launch
+    with one block per panel (ops/csrc/tsqr.cu; the JAX package's
+    `tsqr._qr_pallas`).  bf16 or f32; computes in f32; the panel must fit
+    the kernel's shared memory (`eligible`, ValueError otherwise)."""
+    _check_panels(P)
+    batched_small._resolve_block(P.shape[-1], block)
+    if not hopper._on_card(P):
+        return panel_qr_plain(P)
+    batch, p, n = P.shape
+    if not eligible(p, n, P.dtype, interpret=False):
+        raise ValueError(
+            f"panel_qr: a ({p}, {n}) panel needs {smem_bytes(p, n)} bytes of shared memory, "
+            f"a block has {hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE}"
+        )
+    P = P.contiguous()
+    Q = torch.empty_like(P)
+    R = torch.empty((batch, n, n), dtype=P.dtype, device=P.device)
+    if batch:
+        rc = _build.entry("capital_tsqr_panel")(
+            hopper._DTYPE_CODE[P.dtype], P.data_ptr(), Q.data_ptr(), R.data_ptr(),
+            batch, p, n, hopper._stream(),
+        )
+        hopper._launched(rc, hopper.KERNELS["tsqr.panel_qr"])
+    return Q, R
+
+
 def _qr_batch(P: torch.Tensor, impl: str, *, precision):
+    """One batch of panels through the resolved route.  Whether the
+    kernel's envelope applies follows the panels' device: CPU panels take
+    the plain version, which has none."""
     pick = impl
     if impl == "auto":
-        pick = default_impl(P.shape[-1], P.dtype)
+        pick = default_impl(P.shape[-2], P.shape[-1], P.dtype, interpret=not P.is_cuda)
     elif impl == "pallas" and P.dtype.itemsize > 4:
         pick = "xla"  # the kernel computes in f32: never downgrade f64
     if pick == "pallas":
-        raise NotImplementedError(
-            f"tsqr: the batched Householder panel kernel (the JAX package's "
-            f"tsqr._qr_pallas) is not ported yet (ROADMAP Queue B item 11); "
-            f"{tuple(P.shape)} {P.dtype} panels resolve to it — pass impl='xla'"
-        )
+        return panel_qr(P, precision=precision)
     return _qr_xla(P, precision)
 
 

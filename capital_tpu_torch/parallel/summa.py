@@ -9,6 +9,8 @@ gemm).
 * mode 'xla' masks the triangle and leaves the product to `torch.matmul`,
   as the JAX package leaves it to XLA.
 * gemm is a plain product outside any kernel: `torch.matmul` in every mode.
+* transpose is a plain `A.T`, made contiguous (the windowed kernels take
+  row-major buffers only).
 
 Windowed writes (`out`, syrk `in_place`) mutate the passed buffer and
 return it.  The distributed schedules and the balanced layouts wait for the
@@ -215,3 +217,11 @@ def syrk(
         _window(C, c_view).copy_(out)
         return C
     return out
+
+
+def transpose(grid: Grid, A: torch.Tensor) -> torch.Tensor:
+    """Aᵀ as a new row-major tensor (the JAX package's summa.transpose: a
+    plain transpose, no kernel).  One device has no grid transpose to
+    price, so nothing is emitted."""
+    _check(grid, "xla", "block", "transpose")
+    return A.T.contiguous()

@@ -5,7 +5,8 @@ configuration.  Operands cross as numpy arrays.  JAX hands bf16 out as
 `ml_dtypes.bfloat16` arrays, which `torch.from_numpy` refuses, so bf16
 travels as its raw 16-bit patterns — bitwise, never through a float.
 Configurations cross as the field dict of `dataclasses.asdict()` of a JAX
-`CholinvConfig`, `CacqrConfig` or `ServeConfig`, with enums and dtypes
+`CholinvConfig`, `CacqrConfig`, `ServeConfig`, `RectriConfig`,
+`NewtonConfig` or `TrsmConfig`, with enums and dtypes
 mapped by name, so the port never imports the JAX classes.  A `RobustInfo` of either package
 crosses as a dict of numpy scalars.
 """
@@ -16,7 +17,9 @@ import numpy as np
 import torch
 
 from capital_tpu_torch.models.cholesky import CholinvConfig
+from capital_tpu_torch.models.inverse import NewtonConfig, RectriConfig
 from capital_tpu_torch.models.qr import CacqrConfig
+from capital_tpu_torch.models.trsm import TrsmConfig
 from capital_tpu_torch.robust.config import RobustConfig, RobustInfo
 from capital_tpu_torch.serve.engine import ServeConfig
 from capital_tpu_torch.utils.config import BaseCasePolicy
@@ -74,6 +77,21 @@ def cacqr_config_from_fields(fields: dict) -> CacqrConfig:
     if isinstance(kw.get("robust"), dict):
         kw["robust"] = RobustConfig(**kw["robust"])
     return CacqrConfig(**kw)
+
+
+def rectri_config_from_fields(fields: dict) -> RectriConfig:
+    """The port's RectriConfig from `dataclasses.asdict(jax_cfg)`."""
+    return RectriConfig(**fields)
+
+
+def newton_config_from_fields(fields: dict) -> NewtonConfig:
+    """The port's NewtonConfig from `dataclasses.asdict(jax_cfg)`."""
+    return NewtonConfig(**fields)
+
+
+def trsm_config_from_fields(fields: dict) -> TrsmConfig:
+    """The port's TrsmConfig from `dataclasses.asdict(jax_cfg)`."""
+    return TrsmConfig(**fields)
 
 
 def serve_config_from_fields(fields: dict) -> ServeConfig:

@@ -44,6 +44,28 @@ def inverse_residual(A: torch.Tensor, Ainv: torch.Tensor) -> torch.Tensor:
     return rel_fro(eye - A.to(ct) @ Ainv.to(ct), eye)
 
 
+def inverse_residual_blocked(
+    A: torch.Tensor, Ainv: torch.Tensor, block_rows: int = 4096
+) -> torch.Tensor:
+    """inverse_residual accumulated over row blocks: O(block_rows·n) extra
+    memory for the error instead of an n x n f32 one.  The operands are
+    brought to the f32 floor once (bf16 is exact in f32, so the values match
+    the dense form).  When block_rows does not tile n the largest divisor of
+    n <= block_rows is used; only n <= block_rows takes the dense form."""
+    n = A.shape[0]
+    if n <= block_rows:
+        return inverse_residual(A, Ainv)
+    br = next(b for b in range(min(block_rows, n), 0, -1) if n % b == 0)
+    ct = _floor(A.dtype)
+    Ac, Ai = A.to(ct), Ainv.to(ct)
+    num = torch.zeros((), dtype=ct, device=A.device)
+    for r0 in range(0, n, br):
+        err = Ac[r0:r0 + br] @ Ai
+        err[:, r0:r0 + br].diagonal().sub_(1.0)
+        num = num + torch.sum(torch.square(err))
+    return torch.sqrt(num) / torch.sqrt(torch.tensor(float(n), dtype=ct, device=A.device))
+
+
 def cholesky_probe_residual(
     A: torch.Tensor, R: torch.Tensor, v: torch.Tensor
 ) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Phase scopes and the analytic cost model (the subset of
-capital_tpu/utils/tracing.py that single-device cholinv, CholeskyQR2 and the
-small-N batched solves call).
+capital_tpu/utils/tracing.py that single-device cholinv, CholeskyQR2, the
+small-N batched solves, rectri and TRSM call).
 
 Phase tags keep the reference's critter symbol names (``CI::trsm`` ...) so
 phase tables compare across the two packages.  `scope` pushes the tag for
@@ -31,6 +31,11 @@ PHASE_REGISTRY: tuple[str, ...] = (
     "CQR::gram", "CQR::chol", "CQR::scale", "CQR::merge", "CQR::fused",
     "CQR::formR", "CQR::recover",
     "QR::tsqr",
+    # rectri (models/inverse.py); RT::buffers is the output-buffer init
+    "RT::base", "RT::merge", "RT::batch_base", "RT::batch_merge",
+    "RT::batch_write", "RT::buffers",
+    # trsm (models/trsm.py)
+    "TS::dinv", "TS::leaf", "TS::update",
     # serve (serve/): serve::pad wraps bucket padding, serve::solve the
     # per-problem library solves of the vmap route
     "serve::pad", "serve::solve",
@@ -226,6 +231,14 @@ def batched_trsm_flops(n: int, k: int) -> float:
 def fused_posv_flops(n: int, k: int) -> float:
     """Fused factor + two substitution sweeps, per problem (SV::fused_posv)."""
     return batched_chol_flops(n) + 2.0 * batched_trsm_flops(n, k)
+
+
+def fused_tail_flops(n: int) -> float:
+    """Fused recursion-tail kernel, whole subtree (CI::tail_fused): the
+    column-sweep factor of the (n, n) window (executed flops, like
+    batched_chol_flops) plus the back-substitution inverse of the n-wide
+    identity (one sweep at k = n)."""
+    return batched_chol_flops(n) + batched_trsm_flops(n, n)
 
 
 def fused_lstsq_flops(m: int, n: int, k: int) -> float:

@@ -43,8 +43,32 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    gates of bench/drivers.py against an f64 host reference, the pallas
    and vmap routes against each other, identity-tail exactness and NaN
    containment;
-8. prints the `kernels` JSON line, the nvidia-smi line, and last
-   {"ok": true, "device": {...}}.
+8. holds the four kernels of the triangular-inversion slice against their
+   plain versions, timed beside their bounds and library calls:
+   write_diag_blocks (96 blocks of 512² bf16 into a NaN-filled 49152²
+   buffer), fused_tail (n=128 windows, bf16 and f32, healthy and with
+   faults), batched trsm (8 and 8192 problems of n=128, k=8, f32, every
+   uplo x trans) and the TSQR panel QR (8192 panels of 256 x 128 f32);
+9. drives the rectri path, `models/inverse.rectri` in mode 'pallas': the
+   n=49152 bf16 flagship with bc=512 (timed, row-blocked inverse-residual
+   gate, one run profiled by RT:: phase), n=8192 f32 against the same
+   inverse through the plain versions, and uplo 'U' once;
+10. drives `models/trsm.solve` at n=32768 with 8192 bf16 right-hand sides
+    (invert leaves, mode 'xla'; timed, the five gates of bench/drivers.py) and
+    `inverse.newton` at n=8192 f32 (iterations, residual gate) — neither
+    launches a kernel of the port;
+11. drives cholinv with `tail_fuse_depth=2` at n=16384 bf16, bc=128: the
+    fused tail on every leaf, against the unfused factor, residual gates,
+    and a robust run with a bad pivot planted in one leaf window whose
+    info must equal the unfused factor's;
+12. drives `ops/tsqr.tsqr(impl='auto')` at 2,097,152 x 128 f32 (14 panel
+    kernel launches; orthogonality, residual, R against the library
+    route's up to row signs; timed beside that route);
+13. prints the `kernels` JSON line, the nvidia-smi line, and last
+    {"ok": true, "device": {...}}.
+
+Phases 3, 5, 7 and 9–12 set every launch counter to 0 just before
+their runs and check the counts just after against the plan.
 
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA or a directory without the package.
@@ -69,6 +93,8 @@ PATH_KERNELS = ("tri_matmul.trmm", "tri_matmul.syrk", "transpose", "transpose_pa
                 "zeros_dead_lower")
 QR_KERNELS = ("qr.gram_blocked", "qr.scale_gram", "qr.scale_blocked")
 SMALL_KERNELS = ("small.potrf", "small.potrs", "small.posv", "small.lstsq")
+#: the triangular-inversion slice's kernels
+INV_KERNELS = ("write_diag_blocks", "fused_tail", "small.trsm", "tsqr.panel_qr")
 #: the small-N shapes, (batch, m, n, k): the serve latency bucket
 #: (ServeConfig.max_batch problems) and the throughput batches (A is
 #: 537 MB either way; lstsq at the bench drivers' m = 4n)
@@ -81,6 +107,15 @@ SMALL_SHAPES = {
 #: through cholinv (n=4096, bc=128), CQR1 and the robust run (n=1024)
 QR_SHAPES = {"flagship": (2_097_152, 1024), "f32": (65536, 512), "wide": (65536, 4096),
              "cqr1": (65536, 1024)}
+#: the inversion slice's shapes: write_diag_blocks (count, s) as the rectri
+#: flagship writes them; the fused_tail window (n, off, dest, buffer edge);
+#: the TSQR panels (count, rows, n) of the QR flagship's leaves; rectri
+#: (n, bc) — the bench flagship (drivers.pick_bc for rectri: 512) and the
+#: f32 row; trsm (n, nrhs, bc, gate rhs); newton n; the fused-tail factor
+#: (n, bc); tsqr (m, n)
+INV_SHAPES = {"write_diag": (96, 512), "tail": (128, 256, 384, 1024), "panel": (8192, 256, 128),
+              "rectri": (49152, 512), "rectri_f32": (8192, 512), "trsm": (32768, 8192, 512, 4096),
+              "newton": 8192, "tail_factor": (16384, 128), "tsqr": (2_097_152, 128)}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -310,7 +345,7 @@ def predicted_counts(leaves: int) -> dict:
         "tri_matmul.trmm": 3 * (leaves - 1), "tri_matmul.syrk": leaves - 1,
         "tri_matmul.dense": 0, "transpose": leaves, "transpose_pair": leaves,
         "zeros_dead_lower": 2, **dict.fromkeys(QR_KERNELS, 0),
-        **dict.fromkeys(SMALL_KERNELS, 0),
+        **dict.fromkeys(SMALL_KERNELS, 0), **dict.fromkeys(INV_KERNELS, 0),
     }
 
 
@@ -318,7 +353,8 @@ def predicted_counts(leaves: int) -> dict:
 def plain_versions(hopper):
     """Route the factor through the plain versions (for the comparison run
     only): swap the wrappers in the module namespace and restore them."""
-    names = ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower")
+    names = ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower",
+             "write_diag_blocks", "fused_tail")
     saved = {n: getattr(hopper, n) for n in names}
     try:
         for n in names:
@@ -641,8 +677,8 @@ def small_bytes(name: str, m: int, n: int, k: int, item: int) -> float:
     (info 4 bytes)."""
     if name == "small.potrf":
         return 2.0 * n * n * item + 4
-    if name == "small.potrs":
-        return (n * n + 2.0 * n * k) * item
+    if name == "small.potrs":  # the factor's live triangle only
+        return (n * (n + 1) / 2.0 + 2.0 * n * k) * item
     if name == "small.posv":
         return (n * n + 2.0 * n * k) * item + 4
     return (m * n + m * k + n * k) * item + 4
@@ -901,6 +937,373 @@ def serve_phase(hopper, dev) -> dict:
     return out
 
 
+# ---- the triangular-inversion slice (phases 8-12) --------------------------
+
+
+def tri_operand(n: int, dtype, seed: int, device) -> torch.Tensor:
+    """The rectri/trsm bench operand (capital_tpu/bench/drivers.py
+    `_tri_operand`): tril(G, −1)/√n + 3I with G Gaussian, made on the card
+    from a seed in row blocks (κ ≈ 2 at every n)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = torch.empty((n, n), dtype=dtype, device=device)
+    c = torch.arange(n, device=device)[None, :]
+    for r0 in range(0, n, 4096):
+        r = torch.arange(r0, min(n, r0 + 4096), device=device)[:, None]
+        G = torch.randn((r.shape[0], n), generator=gen, device=device)
+        out[r0:r0 + r.shape[0]] = (torch.where(c < r, G / math.sqrt(n), 0.0) + 3.0 * (c == r)).to(dtype)
+        del G
+    return out
+
+
+def inv_kernel_phase(hopper, batched_small, tsqr, dev) -> dict:
+    """The four kernels of the triangular-inversion slice against their
+    plain versions at the shapes their paths give them."""
+    res = {}
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    # write_diag_blocks: the rectri flagship's write-back, 96 x 512² bf16
+    # into a NaN-filled 49152² buffer — nothing outside the blocks written
+    count, s = INV_SHAPES["write_diag"]
+    p = count * s
+    W = torch.randn((count, s, s), generator=gen, device=dev).to(torch.bfloat16)
+    out = torch.full((p, p), float("nan"), dtype=torch.bfloat16, device=dev)
+    hopper.write_diag_blocks(out, W)
+    torch.cuda.synchronize()
+    blocks = out.as_strided((count, s, s), (s * p + s, p, 1))
+    check(torch.equal(blocks, W), "write_diag_blocks: a block differs from W")
+    nan = int(torch.isnan(out).sum())
+    check(nan == p * p - count * s * s, f"write_diag_blocks: {p * p - count * s * s - nan} elements "
+          "outside the blocks were written")
+    res["write_diag_blocks"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: hopper.write_diag_blocks(out, W), 20),
+        plain_ms=time_ms(lambda: hopper.write_diag_blocks_plain(out, W), 5),
+        library_ms=time_ms(lambda: blocks.copy_(W), 20),
+        shape=f"{count} x {s}x{s} bf16 into {p}x{p}",
+        bound=bound_ms(2.0 * count * s * s * 2, 0.0, torch.bfloat16),
+    )
+    del out, blocks, W
+    torch.cuda.empty_cache()
+
+    # fused_tail: a 128 window at (256, 256) of a 1024² operand into the
+    # (384, 384) windows of NaN-filled Rp / RIp; healthy, then faults
+    n, off, dest, P = INV_SHAPES["tail"]
+    for dtype in (torch.bfloat16, torch.float32):
+        A = spd_hash(P, torch.float32, salt=5, device=dev)
+        A[off:off + n, off:off + n] = torch.triu(A[off:off + n, off:off + n]) + torch.tril(
+            torch.full((n, n), float("nan"), device=dev), -1)  # the lower half is never read
+        A = A.to(dtype)
+        err = 0.0
+        for fault, want_info in ((None, 0), ((5, 5, -1.0), 6), ((0, 7, float("nan")), 1),
+                                 ((3, 9, float("inf")), 2)):
+            buf = A.clone()
+            if fault is not None:
+                buf[off + fault[0], off + fault[1]] = fault[2]
+            outs = []
+            for fn in (hopper.fused_tail, hopper.fused_tail_plain):
+                Rp = torch.full((P, P), float("nan"), dtype=dtype, device=dev)
+                RIp = torch.full((P, P), float("nan"), dtype=dtype, device=dev)
+                outs.append(fn(buf, Rp, RIp, off=off, n=n, dest=dest))
+            torch.cuda.synchronize()
+            (Rk, RIk, ik), (Rq, RIq, iq) = outs
+            check(int(ik) == int(iq) == want_info,
+                  f"fused_tail {dtype} fault {fault}: info {int(ik)}, plain {int(iq)}, want {want_info}")
+            for X in (Rk, RIk):
+                outside = torch.isnan(X).sum() - (torch.isnan(X[dest:dest + n, dest:dest + n])).sum()
+                check(int(outside) == P * P - n * n, f"fused_tail {dtype}: wrote outside its window")
+            if fault is None:
+                w = (slice(dest, dest + n), slice(dest, dest + n))
+                err = max(check_close("fused_tail R", Rk[w], Rq[w], dtype),
+                          check_close("fused_tail R^-1", RIk[w], RIq[w], dtype))
+        Rp = torch.zeros((P, P), dtype=dtype, device=dev)
+        RIp = torch.zeros((P, P), dtype=dtype, device=dev)
+        item = torch.tensor([], dtype=dtype).element_size()
+        res[f"fused_tail {dtype}"] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: hopper.fused_tail(A, Rp, RIp, off=off, n=n, dest=dest), 50),
+            plain_ms=time_budget_ms(lambda: hopper.fused_tail_plain(A, Rp, RIp, off=off, n=n, dest=dest)),
+            library_ms=None,  # no single PyTorch call factors and inverts
+            shape=f"window {n} {dtype}",
+            # bytes: the upper half of the window read, triu(R) and triu(R⁻¹)
+            # written as whole windows, info; useful work: potrf n³/3 and the
+            # triangular inverse n³/3, f32
+            bound=bound_ms((n * (n + 1) / 2.0 + 2.0 * n * n) * item + 4, 2.0 * n**3 / 3.0,
+                           torch.float32),
+        )
+        del A, buf, Rp, RIp, outs
+    res["fused_tail"] = res[f"fused_tail {torch.bfloat16}"]
+
+    # batched trsm: the serve latency shape and the throughput shape, f32,
+    # every uplo x trans; timed at the throughput shape, uplo 'U'
+    for size in ("latency", "throughput"):
+        b, _, n, k = SMALL_SHAPES[size]["square"]
+        T = torch.randn((b, n, n), generator=gen, device=dev) / math.sqrt(n) + 3.0 * torch.eye(n, device=dev)
+        B = torch.randn((b, n, k), generator=gen, device=dev)
+        err = 0.0
+        for uplo in ("U", "L"):
+            for trans in (False, True):
+                Xk = batched_small.trsm(T, B, uplo=uplo, trans=trans)
+                Xp = batched_small.trsm_plain(T, B, uplo=uplo, trans=trans)
+                err = max(err, small_close("small.trsm", Xk, Xp, torch.float32))
+        Tu = torch.triu(T)
+        res[f"small.trsm {size}"] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: batched_small.trsm(T, B), 3 if size == "throughput" else 20),
+            plain_ms=time_budget_ms(lambda: batched_small.trsm_plain(T, B)),
+            library_ms=time_budget_ms(lambda: torch.linalg.solve_triangular(Tu, B, upper=True)),
+            shape=f"batch {b} n {n} k {k} float32",
+            # bytes: T's live triangle and B read, X written
+            bound=bound_ms(b * (n * (n + 1) / 2.0 + 2.0 * n * k) * 4, b * float(n * n * k),
+                           torch.float32),
+        )
+        del T, B, Tu, Xk, Xp
+    res["small.trsm"] = res["small.trsm throughput"]
+
+    # TSQR panel QR: the QR flagship's 8192 leaf panels of 256 x 128 f32
+    batch, pr, n = INV_SHAPES["panel"]
+    Pn = torch.randn((batch, pr, n), generator=gen, device=dev)
+    Qk, Rk = tsqr.panel_qr(Pn)
+    Qq, Rq = tsqr.panel_qr_plain(Pn)
+    err = max(check_close("panel_qr Q", Qk, Qq, torch.float32), check_close("panel_qr R", Rk, Rq, torch.float32))
+    check(bool((torch.tril(Rk, -1) == 0).all()), "panel_qr: R not upper triangular")
+    del Qk, Rk, Qq, Rq
+    res["tsqr.panel_qr"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: tsqr.panel_qr(Pn), 3),
+        plain_ms=time_budget_ms(lambda: tsqr.panel_qr_plain(Pn), most=2),
+        library_ms=time_budget_ms(lambda: torch.linalg.qr(Pn), most=2),
+        shape=f"{batch} panels {pr}x{n} float32",
+        bound=bound_ms(batch * (2.0 * pr * n + n * n) * 4, batch * (4.0 * pr * n * n - 4.0 * n**3 / 3),
+                       torch.float32),
+    )
+    del Pn
+    torch.cuda.empty_cache()
+    return res
+
+
+def drive_counted(hopper, run, want: dict, label: str):
+    """One call of `run` with the counters set to 0 just before and read
+    just after, held to `want` (every kernel not named there: 0)."""
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = hopper.counts()
+    full = {**dict.fromkeys(counts, 0), **want}
+    check(counts == full, f"{label}: launch counts {counts} != predicted {full}")
+    return out, counts, secs
+
+
+def timed_s(run, iters: int) -> float:
+    """Seconds per call by CUDA events around `iters` calls (each call's
+    result freed before the next)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters
+
+
+def rectri_phase(hopper, grid, dev) -> dict:
+    """Phase 9: the rectri path at the bench flagship and at n=8192 f32."""
+    from capital_tpu_torch.models import inverse
+    from capital_tpu_torch.utils import residual
+
+    out = {}
+    n, bc = INV_SHAPES["rectri"]
+    nb = n // bc
+    # 96 blocks is not a power of two: the prefix is base-only (t = bc)
+    want = {"zeros_dead_lower": 1, "write_diag_blocks": 1, "tri_matmul.trmm": 2 * (nb - 1)}
+    L = tri_operand(n, torch.bfloat16, 0, dev)
+    cfg = inverse.RectriConfig(base_case_dim=bc, mode="pallas", precision=None)
+    Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(grid, L, "L", cfg), want,
+                                     "rectri flagship")
+    gate = float(residual.inverse_residual_blocked(L, Li))
+    check(gate < 5e-2, f"rectri flagship: inverse residual {gate} >= 5e-2")
+    del Li
+    torch.cuda.empty_cache()
+    t = timed_s(lambda: inverse.rectri(grid, L, "L", cfg), 2)
+    out["flagship"] = dict(n=n, bc=bc, dtype="bfloat16", seconds=t, tflops=n**3 / 3.0 / t / 1e12,
+                           inverse_residual=gate, seconds_first=secs, counts=counts)
+    print(json.dumps({"rectri": "flagship", **out["flagship"]}), flush=True)
+    out["profile"] = profile(lambda: inverse.rectri(grid, L, "L", cfg), "RT::")
+    print(json.dumps({"profile": "rectri flagship", **out["profile"]}), flush=True)
+    del L
+    torch.cuda.empty_cache()
+
+    # n=8192 f32: kernels against the plain versions through the whole path
+    n, bc = INV_SHAPES["rectri_f32"]
+    want = {"zeros_dead_lower": 1, "write_diag_blocks": 1, "tri_matmul.trmm": 2 * (n // bc - 1)}
+    L = tri_operand(n, torch.float32, 1, dev)
+    cfg = inverse.RectriConfig(base_case_dim=bc, mode="pallas", precision="highest")
+    Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(grid, L, "L", cfg), want, "rectri f32")
+    with plain_versions(hopper):
+        Lq = inverse.rectri(grid, L, "L", cfg)
+    d = float(residual.rel_fro(Li - Lq, Lq))
+    gate = float(residual.inverse_residual(L, Li))
+    # f32: the kernel and torch.matmul sum in other orders; 1e-5
+    check(d < 1e-5 and gate < 5e-5, f"rectri f32: vs plain {d}, inverse residual {gate}")
+    U = L.T.contiguous()
+    Ui, ucounts, _ = drive_counted(hopper, lambda: inverse.rectri(grid, U, "U", cfg), want, "rectri U")
+    ugate = float(residual.inverse_residual(U, Ui))
+    check(ugate < 5e-5 and float(torch.tril(Ui, -1).abs().max()) == 0.0, f"rectri U: residual {ugate}")
+    out["f32"] = dict(n=n, bc=bc, counts=counts, seconds_first=secs, vs_plain=d, inverse_residual=gate,
+                      upper_inverse_residual=ugate)
+    print(json.dumps({"rectri": "n=8192 f32", **out["f32"]}), flush=True)
+    del L, Li, Lq, U, Ui
+    torch.cuda.empty_cache()
+    return out
+
+
+def trsm_newton_phase(hopper, grid, dev) -> dict:
+    """Phase 10: trsm.solve and inverse.newton (no kernel of the port)."""
+    from capital_tpu_torch.models import inverse, trsm
+    from capital_tpu_torch.utils import residual
+
+    out = {}
+    n, nrhs, bc, gate_rhs = INV_SHAPES["trsm"]
+    L = tri_operand(n, torch.bfloat16, 0, dev)
+    B = torch.randn((n, nrhs), generator=torch.Generator(device=dev).manual_seed(1), device=dev,
+                    dtype=torch.bfloat16)
+    # mode 'xla': bench/drivers.py resolves 'auto' so for the invert leaf
+    cfg = trsm.TrsmConfig(base_case_dim=bc, mode="xla", precision=None, leaf="invert")
+    X, counts, secs = drive_counted(hopper, lambda: trsm.solve(grid, L, B, "L", "L", cfg=cfg), {},
+                                    "trsm")
+    del X
+    t = timed_s(lambda: trsm.solve(grid, L, B, "L", "L", cfg=cfg), 3)
+    gates = {}
+    Bv = B[:, :gate_rhs]
+    tf = L.float()
+    for side, uplo, unit in (("L", "L", False), ("L", "U", False), ("R", "L", False),
+                             ("R", "U", False), ("L", "L", True)):
+        # the gates of bench/drivers.py: op = tril(L) / triu(Lᵀ), or the raw
+        # operand under unit_diag against tril(L, −1) + I
+        if unit:
+            Tf = torch.tril(tf, -1) + torch.eye(n, device=dev)
+            op = L
+        else:
+            Tf = torch.tril(tf) if uplo == "L" else torch.triu(tf.T)
+            op = Tf.to(torch.bfloat16)
+        b = Bv if side == "L" else Bv.T.contiguous()
+        Xs = trsm.solve(grid, op, b, side, uplo, cfg=cfg, unit_diag=unit)
+        got = Tf @ Xs.float() if side == "L" else Xs.float() @ Tf
+        err = float(residual.rel_fro(got - b.float(), b.float()))
+        name = f"trsm_residual_{'unit_diag' if unit else side + uplo}"
+        check(err < 5e-2, f"{name}: {err} >= 5e-2")
+        gates[name] = err
+        del Tf, op, b, Xs, got
+    out["trsm"] = dict(n=n, nrhs=nrhs, bc=bc, dtype="bfloat16", seconds=t, tflops=n * n * nrhs / t / 1e12,
+                       seconds_first=secs, counts=counts, **gates)
+    print(json.dumps({"trsm": "n=32768 nrhs=8192 bf16", **out["trsm"]}), flush=True)
+    del L, B, Bv, tf
+    torch.cuda.empty_cache()
+
+    n = INV_SHAPES["newton"]
+    A = spd_hash(n, torch.float32, salt=2, device=dev)
+    ncfg = inverse.NewtonConfig(max_iter=30, mode="xla", precision="highest")  # bench/drivers.py --newton-iters
+    (X, iters), counts, secs = drive_counted(hopper, lambda: inverse.newton(grid, A, ncfg), {}, "newton")
+    gate = float(residual.inverse_residual(A, X))
+    check(gate < 5e-4, f"newton: inverse residual {gate} >= 5e-4")
+    out["newton"] = dict(n=n, dtype="float32", iters_executed=iters, seconds=secs,
+                         tflops=2.0 * n**3 * (2 * iters + 1) / secs / 1e12, inverse_residual=gate,
+                         counts=counts)
+    print(json.dumps({"newton": "n=8192 f32", **out["newton"]}), flush=True)
+    del A, X
+    torch.cuda.empty_cache()
+    return out
+
+
+def tail_phase(hopper, grid, dev) -> dict:
+    """Phase 11: cholinv with the fused tail at n=16384 bf16, bc=128."""
+    import dataclasses
+
+    from capital_tpu_torch.models import cholesky
+    from capital_tpu_torch.robust.config import RobustConfig
+    from capital_tpu_torch.utils import residual
+
+    n, bc = INV_SHAPES["tail_factor"]
+    leaves = n // bc
+    cfg = cholesky.CholinvConfig(mode="pallas", base_case_dim=bc, precision=None, tail_fuse_depth=2)
+    cfg0 = dataclasses.replace(cfg, tail_fuse_depth=0)
+    A = spd_hash(n, torch.bfloat16, salt=1, device=dev)
+    # only n = 128 windows fit the kernel: every leaf fuses, nothing above
+    want = {"fused_tail": leaves, "tri_matmul.trmm": 3 * (leaves - 1), "tri_matmul.syrk": leaves - 1,
+            "zeros_dead_lower": 2}
+    (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(grid, A, cfg), want,
+                                          "fused-tail factor")
+    (R0, Ri0), _, secs0 = drive_counted(
+        hopper, lambda: cholesky.factor(grid, A, cfg0),
+        {**predicted_counts(leaves), "zeros_dead_lower": 2}, "unfused factor")
+    dR = float(residual.rel_fro(R.float() - R0.float(), R0.float()))
+    dRi = float(residual.rel_fro(Ri.float() - Ri0.float(), Ri0.float()))
+    check(dR < 2e-2 and dRi < 2e-2, f"fused tail vs unfused: {dR}, {dRi}")
+    del R0, Ri0
+    Af = A.float()
+    res_r = float(residual.cholesky_residual(Af, R.float()))
+    res_i = float(residual.cholesky_inverse_residual(R.float(), Ri.float()))
+    del Af, R, Ri
+    check(res_r < 1e-2 and res_i < 1e-2, f"fused tail residuals {res_r}, {res_i}")
+    t = timed_s(lambda: cholesky.factor(grid, A, cfg), 2)
+    t0 = timed_s(lambda: cholesky.factor(grid, A, cfg0), 2)
+    # a bad pivot at the first column of leaf 37: the unfused leaf's
+    # library factor and the fused sweep both report it there
+    j = (37 % leaves) * bc
+    Ab = A.clone()
+    Ab[j, j] = -1.0
+    infos = []
+    for c in (cfg, cfg0):
+        _, _, info = cholesky.factor(grid, Ab, dataclasses.replace(c, robust=RobustConfig()))
+        infos.append(int(info))
+    check(infos[0] == infos[1] == j + 1, f"fused tail robust info {infos[0]}, unfused {infos[1]}, want {j + 1}")
+    out = dict(n=n, bc=bc, dtype="bfloat16", tail_fuse_depth=2, counts=counts, seconds_first=secs,
+               seconds=t, seconds_unfused=t0, seconds_first_unfused=secs0, vs_unfused=[dR, dRi],
+               residual=res_r, inverse_residual=res_i, robust_info=infos)
+    print(json.dumps({"factor": "fused tail n=16384 bf16 bc=128", **out}), flush=True)
+    del A, Ab
+    torch.cuda.empty_cache()
+    return out
+
+
+def tsqr_phase(hopper, dev) -> dict:
+    """Phase 12: tsqr(impl='auto') at 2,097,152 x 128 f32."""
+    from capital_tpu_torch.ops import tsqr
+    from capital_tpu_torch.utils import residual
+
+    m, n = INV_SHAPES["tsqr"]  # the QR flagship's rows; 128 is the widest 'auto' sends to the kernel
+    leaves = tsqr.resolve_leaves(m, n)
+    A = tall_randn(m, n, torch.float32, 6, dev)
+    (Q, R), counts, secs = drive_counted(
+        hopper, lambda: tsqr.tsqr(A, impl="auto"),
+        {"tsqr.panel_qr": leaves.bit_length()}, "tsqr")  # leaves, then log2(leaves) levels
+    ortho = float(tsqr.ortho_gate(Q))
+    res = float(residual.qr_residual_blocked(A, Q, R))
+    check(ortho < 5e-5 and res < 5e-5, f"tsqr: orthogonality {ortho}, residual {res} (tol 5e-5)")
+    del Q
+    t0 = time.perf_counter()
+    Qx, Rx = tsqr.tsqr(A, impl="xla")
+    torch.cuda.synchronize()
+    secs_xla = time.perf_counter() - t0
+    del Qx
+    sgn = torch.sign(torch.diagonal(R)) * torch.sign(torch.diagonal(Rx))
+    dR = float(residual.rel_fro(R - sgn[:, None] * Rx, Rx))
+    check(dR < 1e-5, f"tsqr: R against the library route's {dR}")
+    del R, Rx
+    t = timed_s(lambda: tsqr.tsqr(A, impl="auto"), 3)
+    t_xla = timed_s(lambda: tsqr.tsqr(A, impl="xla"), 1)
+    out = dict(m=m, n=n, leaves=leaves, panel=tsqr.resolve_panel(m, n), counts=counts, seconds_first=secs,
+               seconds=t, seconds_xla=t_xla, seconds_first_xla=secs_xla, orthogonality=ortho, residual=res,
+               r_vs_xla=dR)
+    print(json.dumps({"tsqr": "2097152x128 f32", **out}), flush=True)
+    del A
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -1051,18 +1454,42 @@ def main(argv=None) -> int:
     missing = [k for k in SMALL_KERNELS if serve_counts.get(k, 0) < 1]
     check(not missing, f"kernels of the serve path never launched: {missing}")
 
+    # ---- phase 8: the inversion slice's kernels against plain versions ---
+    from capital_tpu_torch.ops import tsqr
+
+    inv = inv_kernel_phase(hopper, batched_small, tsqr, dev)
+    for name, r in inv.items():
+        if "bound" in r:
+            b, by = r.pop("bound")
+            r.update(bound_ms=b, bound_by=by)
+        print(json.dumps({"kernel": name, **r}), flush=True)
+    out["kernels"]["inversion"] = inv
+
+    # ---- phases 9-12: rectri, TRSM and Newton, the fused tail, TSQR -------
+    out["rectri"] = rectri_phase(hopper, grid, dev)
+    out["trsm_newton"] = trsm_newton_phase(hopper, grid, dev)
+    out["tail"] = tail_phase(hopper, grid, dev)
+    out["tsqr"] = tsqr_phase(hopper, dev)
+    inv_counts = {"write_diag_blocks": out["rectri"]["flagship"]["counts"]["write_diag_blocks"],
+                  "fused_tail": out["tail"]["counts"]["fused_tail"],
+                  "tsqr.panel_qr": out["tsqr"]["counts"]["tsqr.panel_qr"],
+                  # no program of either package calls it: 0 in every counted run
+                  "small.trsm": out["rectri"]["flagship"]["counts"]["small.trsm"]}
+    missing = [k for k in ("write_diag_blocks", "fused_tail", "tsqr.panel_qr") if inv_counts[k] < 1]
+    check(not missing, f"kernels of the inversion paths never launched: {missing}")
+
     bf = out["kernels"][str(torch.bfloat16)]
     # the small-N kernels report their f32 throughput batch
-    measured = {**bf, **small[f"throughput {torch.float32}"]}
+    measured = {**bf, **small[f"throughput {torch.float32}"], **inv}
     launches = {**{k: path_counts[k] for k in PATH_KERNELS}, **{k: qr_counts[k] for k in QR_KERNELS},
-                **serve_counts}
+                **serve_counts, **inv_counts}
     line = {"kernels": [
         {"name": k, "route": hopper.KERNELS[k].route, "source": hopper.KERNELS[k].source,
          "replaces": hopper.KERNELS[k].replaces, "launches": launches[k],
          "max_abs_err": measured[k]["max_abs_err"], "ms": measured[k]["ms"],
          "plain_ms": measured[k]["plain_ms"], "bound_ms": measured[k]["bound_ms"],
          "bound_by": measured[k]["bound_by"], "library_ms": measured[k]["library_ms"]}
-        for k in PATH_KERNELS + QR_KERNELS + SMALL_KERNELS
+        for k in PATH_KERNELS + QR_KERNELS + SMALL_KERNELS + INV_KERNELS
     ]}
     if args.out:
         with open(args.out, "w") as f:

@@ -338,9 +338,43 @@ def test_wrappers_raise_on_mixed_devices():
         bs.posv(A, torch.zeros((BATCH, N, 1), device="meta"))
 
 
-def test_trsm_names_its_queue_item():
-    with pytest.raises(NotImplementedError, match="Queue B item 14"):
-        bs.trsm(_t(_spd(24)), _t(_rhs(25, (BATCH, N, 1))))
+@pytest.mark.parametrize("uplo", ["U", "L"])
+@pytest.mark.parametrize("trans", [False, True])
+def test_trsm_matches_reference(uplo, trans):
+    # a triangular factor from the reference potrf, garbage in its dead
+    # triangle (only the live one may be read)
+    R, _ = _ref("potrf", uplo=uplo)(jnp.asarray(_spd(24)))
+    G = _rhs(26, (BATCH, N, N))
+    T = np.asarray(R) + (np.triu(G, 1) if uplo == "L" else np.tril(G, -1))
+    B = _rhs(25, (BATCH, N, 3))
+    X = _ref("trsm", uplo=uplo, trans=trans)(jnp.asarray(T), jnp.asarray(B))
+    Xp = bs.trsm(_t(T), _t(B), uplo=uplo, trans=trans)
+    _close(Xp, X)
+    op = np.triu(T) if uplo == "U" else np.tril(T)
+    op = np.swapaxes(op, 1, 2) if trans else op
+    _close(Xp, np.linalg.solve(op.astype(np.float64), B.astype(np.float64)), rel=1e-5)
+
+
+def test_trsm_bf16_matches_reference():
+    R, _ = _ref("potrf", uplo="L")(jnp.asarray(_spd(27)))
+    T = np.asarray(R).astype(jnp.bfloat16)
+    B = _rhs(28, (BATCH, N, 2)).astype(jnp.bfloat16)
+    X = _ref("trsm", uplo="L", trans=True)(jnp.asarray(T), jnp.asarray(B))
+    Xp = bs.trsm(tensor_from_numpy(T), tensor_from_numpy(B), uplo="L", trans=True)
+    assert Xp.dtype == torch.bfloat16
+    got, want = _f64(Xp), _f64(X)
+    assert np.all(np.abs(got - want) <= 2.0**-7 * np.abs(want) + 1e-5 * np.abs(want).max())
+
+
+def test_trsm_envelope_and_refusals():
+    # one sweep holds the factor and the right-hand sides: posv's envelope
+    e = functools.partial(bs.eligible, dtype=torch.float32, interpret=False)
+    assert e("trsm", (8, 128, 128), (8, 128, 323)) and not e("trsm", (8, 128, 128), (8, 128, 324))
+    assert bs.smem_bytes("trsm", 128, 8) == bs.smem_bytes("posv", 128, 8)
+    with pytest.raises(TypeError):
+        bs.trsm(torch.zeros((2, 4, 4), dtype=torch.float64), torch.zeros((2, 4, 1), dtype=torch.float64))
+    with pytest.raises(ValueError, match="uplo"):
+        bs.trsm(torch.zeros((2, 4, 4)), torch.zeros((2, 4, 1)), uplo="X")
 
 
 # ---------------------------------------------------------------------------

@@ -250,10 +250,7 @@ def test_config_from_jax_fields(jgrid, tgrid):
     assert _rel(R, jR) < VS_JAX["bf16"] and _rel(Ri, jRi) < VS_JAX["bf16"]
 
 
-@pytest.mark.parametrize(
-    "kw,match",
-    [(dict(tail_fuse_depth=1), "Queue B item 7"), (dict(balance="tile_cyclic"), "Queue A item 10")],
-)
+@pytest.mark.parametrize("kw,match", [(dict(balance="tile_cyclic"), "Queue A item 10")])
 def test_unported_options_raise(tgrid, kw, match):
     A = tensor_from_numpy(_spd(256, "f32"))
     with pytest.raises(NotImplementedError, match=match):

@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from capital_tpu_torch import Grid
-from capital_tpu_torch.models import cholesky, qr
-from capital_tpu_torch.ops import batched_small, hopper, qr_fused
+from capital_tpu_torch.models import cholesky, inverse, qr
+from capital_tpu_torch.ops import batched_small, hopper, qr_fused, tsqr
 from capital_tpu_torch.serve import api
 from capital_tpu_torch.utils import residual
 
@@ -158,6 +158,7 @@ def test_factor_kernels_vs_plain(cuda, monkeypatch, dt):
         "transpose": L, "transpose_pair": L, "zeros_dead_lower": 2,
         "qr.gram_blocked": 0, "qr.scale_gram": 0, "qr.scale_blocked": 0,
         "small.potrf": 0, "small.potrs": 0, "small.posv": 0, "small.lstsq": 0,
+        "write_diag_blocks": 0, "fused_tail": 0, "small.trsm": 0, "tsqr.panel_qr": 0,
     }
     for name in ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower"):
         monkeypatch.setattr(hopper, name, getattr(hopper, name + "_plain"))
@@ -377,3 +378,199 @@ def test_small_serve_programs_launch_their_kernels(cuda, impl):
     assert (c["small.posv"], c["small.potrf"], c["small.potrs"]) == want
     ref = torch.linalg.solve(A.double(), B.double())
     assert float((X.double() - ref).abs().max() / ref.abs().max()) < 1e-5 and not info.any()
+
+
+# ---------------------------------------------------------------------------
+# the inversion slice: write_diag_blocks, fused_tail, batched trsm, the TSQR
+# panel QR, and the paths that launch them
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dts", [("bf16", "bf16"), ("f32", "bf16"), ("f64", "f32"), ("f32", "f64")])
+@pytest.mark.parametrize("s", [37, 128])
+def test_write_diag_blocks_kernel(cuda, s, dts):
+    count = 5
+    W = _rand(50, (count, s, s), dts[0], cuda)
+    outs = []
+    for fn in (hopper.write_diag_blocks, hopper.write_diag_blocks_plain):
+        out = torch.full((count * s + 9, count * s + 9), float("nan"), dtype=DTYPES[dts[1]], device=cuda)
+        outs.append(fn(out, W))
+    torch.cuda.synchronize()
+    got, want = outs[0].cpu(), outs[1].cpu()
+    # bitwise: both round W to out's dtype once, NaN exactly where untouched
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got[~torch.isnan(want)], want[~torch.isnan(want)])
+    assert int(torch.isnan(got).sum()) == got.numel() - count * s * s
+
+
+def test_write_diag_blocks_refuses(cuda):
+    W = _rand(51, (4, 16, 16), "f32", cuda)
+    with pytest.raises(ValueError, match="do not fit"):
+        hopper.write_diag_blocks(torch.zeros((60, 60), device=cuda), W)
+    with pytest.raises(ValueError, match="square"):
+        hopper.write_diag_blocks(torch.zeros((64, 80), device=cuda), W)
+
+
+def _tail_operand(seed, n, P, off, dt, dev):
+    g = np.random.default_rng(seed).standard_normal((P, P))
+    A = g @ g.T / P + 3 * np.eye(P)
+    A[off:off + n, off:off + n][np.tril_indices(n, -1)] = np.nan  # never read
+    return torch.from_numpy(A).to(DTYPES[dt]).to(dev)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [16, 128, 160])
+def test_fused_tail_kernel_vs_plain(cuda, n, dt):
+    P, off, dest = 4 * n, n, 2 * n
+    buf = _tail_operand(52, n, P, off, dt, cuda)
+    outs = []
+    for fn in (hopper.fused_tail, hopper.fused_tail_plain):
+        Rp = torch.full((P, P), float("nan"), dtype=DTYPES[dt], device=cuda)
+        RIp = torch.full((P, P), float("nan"), dtype=DTYPES[dt], device=cuda)
+        outs.append(fn(buf, Rp, RIp, off=off, n=n, dest=dest))
+    torch.cuda.synchronize()
+    (R, RI, info), (Rq, RIq, infoq) = outs
+    assert int(info) == int(infoq) == 0
+    w = (slice(dest, dest + n), slice(dest, dest + n))
+    _close(R[w], Rq[w], dt)
+    _close(RI[w], RIq[w], dt)
+    assert bool((torch.tril(R[w], -1) == 0).all()) and bool((torch.tril(RI[w], -1) == 0).all())
+    for X in (R, RI):  # nothing outside the window is written
+        outside = torch.isnan(X).clone()
+        outside[w] = True
+        assert bool(outside.all())
+
+
+def test_fused_tail_info_matches_plain(cuda):
+    # a NaN / +inf / -inf at every position of the upper half of a 16 x 16
+    # window (the lower half is never read), and a bad pivot
+    n, P, off = 16, 64, 16
+    base = _tail_operand(53, n, P, off, "f32", cuda)
+    cases = [(r, c) for r in range(n) for c in range(r, n)]
+    for e, (r, c) in enumerate(cases):
+        buf = base.clone()
+        buf[off + r, off + c] = (float("nan"), float("inf"), -float("inf"))[e % 3]
+        got = hopper.fused_tail(buf, torch.zeros_like(buf), torch.zeros_like(buf), off=off, n=n, dest=0)[2]
+        want = hopper.fused_tail_plain(buf, torch.zeros_like(buf), torch.zeros_like(buf), off=off, n=n,
+                                       dest=0)[2]
+        assert int(got) == int(want) and int(got) > 0, (r, c, int(got), int(want))
+    buf = base.clone()
+    buf[off + 6, off + 6] = -100.0
+    assert int(hopper.fused_tail(buf, torch.zeros_like(buf), torch.zeros_like(buf), off=off, n=n,
+                                 dest=0)[2]) == 7
+
+
+def test_fused_tail_refuses(cuda):
+    buf = _tail_operand(54, 128, 512, 0, "f32", cuda)
+    z = torch.zeros_like(buf)
+    with pytest.raises(ValueError, match="alignment"):
+        hopper.fused_tail(buf, z, z.clone(), off=64, n=128, dest=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        hopper.fused_tail(buf, z, z.clone(), off=0, n=256, dest=0)
+    with pytest.raises(TypeError):
+        hopper.fused_tail(buf.double(), z.double(), z.double(), off=0, n=128, dest=0)
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 4), (5, 37, 3), (8, 128, 8), (4, 128, 128)])
+def test_small_trsm_kernel_vs_plain(cuda, shape):
+    b, n, k = shape
+    T = _rand(55, (b, n, n), "f32", cuda) / float(np.sqrt(n)) + 3 * torch.eye(n, device=cuda)
+    B = _rand(56, (b, n, k), "f32", cuda)
+    hopper.reset_counts()
+    for uplo in ("U", "L"):
+        for trans in (False, True):
+            X = batched_small.trsm(T, B, uplo=uplo, trans=trans)
+            _close(X, batched_small.trsm_plain(T, B, uplo=uplo, trans=trans), "f32")
+            op = torch.triu(T) if uplo == "U" else torch.tril(T)
+            op = op.mT if trans else op
+            assert float((op.double() @ X.double() - B.double()).abs().max()) < 1e-4
+    assert hopper.counts()["small.trsm"] == 4
+
+
+def _panels(seed, shape, dev):
+    P = _rand(seed, shape, "f32", dev)
+    P[0, :, 3] = 0  # a zero column: the identity reflector
+    P[1] = 0        # a zero panel (tsqr's padding)
+    return P
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 128), (3, 40, 17), (5, 128, 64)])
+def test_panel_qr_kernel_vs_plain(cuda, shape):
+    P = _panels(57, shape, cuda)
+    Q, R = tsqr.panel_qr(P)
+    Qq, Rq = tsqr.panel_qr_plain(P)
+    _close(Q, Qq, "f32")
+    _close(R, Rq, "f32")
+    assert bool((torch.tril(R, -1) == 0).all()) and not bool(R[1].any())
+    assert float((Q.double() @ R.double() - P.double()).abs().max()) < 1e-4
+
+
+def test_tsqr_launches_the_panel_kernel(cuda):
+    m, n = 8192, 64
+    A = _rand(58, (m, n), "f32", cuda)
+    leaves = tsqr.resolve_leaves(m, n)
+    hopper.reset_counts()
+    Q, R = tsqr.tsqr(A)
+    assert hopper.counts()["tsqr.panel_qr"] == leaves.bit_length()
+    assert sum(hopper.counts().values()) == leaves.bit_length()
+    assert float(tsqr.ortho_gate(Q)) < 5e-5 and float(residual.qr_residual(A, Q, R)) < 5e-5
+    hopper.reset_counts()
+    tsqr.tsqr(A.double())  # f64 takes the library route
+    assert not any(hopper.counts().values())
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rectri_kernels_vs_plain(cuda, monkeypatch, dt):
+    n, bc = 1536, 256  # 6 blocks: a base-only prefix and uneven merges
+    g = np.random.default_rng(59).standard_normal((n, n))
+    L = torch.from_numpy(np.tril(g, -1) / np.sqrt(n) + 3 * np.eye(n)).to(DTYPES[dt]).to(cuda)
+    grid = Grid.square()
+    cfg = inverse.RectriConfig(base_case_dim=bc, mode="pallas")
+    hopper.reset_counts()
+    Li = inverse.rectri(grid, L, "L", cfg)
+    c = hopper.counts()
+    assert (c["zeros_dead_lower"], c["write_diag_blocks"], c["tri_matmul.trmm"]) == (1, 1, 10)
+    assert sum(c.values()) == 12
+    gate = {"f32": 5e-5, "bf16": 5e-2}[dt]
+    assert float(residual.inverse_residual(L, Li)) < gate
+    for name in ("tri_matmul", "zeros_dead_lower", "write_diag_blocks"):
+        monkeypatch.setattr(hopper, name, getattr(hopper, name + "_plain"))
+    Lq = inverse.rectri(grid, L, "L", cfg)
+    tol = {"f32": 1e-5, "bf16": 2e-2}[dt]
+    assert float(residual.rel_fro(Li.double() - Lq.double(), Lq.double())) < tol
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_fused_tail_factor_on_the_card(cuda, dt):
+    n, bc = 1024, 128
+    g = np.random.default_rng(60).standard_normal((n, n))
+    A = torch.from_numpy(g @ g.T / n + 3 * np.eye(n)).to(DTYPES[dt]).to(cuda)
+    grid = Grid.square()
+    cfg = cholesky.CholinvConfig(mode="pallas", base_case_dim=bc, tail_fuse_depth=2)
+    hopper.reset_counts()
+    R, Ri = cholesky.factor(grid, A, cfg)
+    L = n // bc
+    c = hopper.counts()
+    assert (c["fused_tail"], c["transpose"], c["transpose_pair"]) == (L, 0, 0)
+    assert (c["tri_matmul.trmm"], c["tri_matmul.syrk"]) == (3 * (L - 1), L - 1)
+    R0, Ri0 = cholesky.factor(grid, A, cholesky.CholinvConfig(mode="pallas", base_case_dim=bc))
+    tol = {"f32": 1e-5, "bf16": 2e-2}[dt]
+    assert float(residual.rel_fro(R.double() - R0.double(), R0.double())) < tol
+    assert float(residual.rel_fro(Ri.double() - Ri0.double(), Ri0.double())) < tol
+
+
+def test_inversion_counters_move_only_on_launch(cuda):
+    W = _rand(61, (2, 16, 16), "f32", cuda)
+    out = torch.zeros((32, 32), device=cuda)
+    hopper.reset_counts()
+    hopper.write_diag_blocks_plain(out, W)
+    hopper.write_diag_blocks(out.cpu(), W.cpu())
+    tsqr.panel_qr_plain(_panels(62, (2, 32, 8), cuda))
+    batched_small.trsm_plain(W, W)
+    assert not any(hopper.counts().values())
+    hopper.write_diag_blocks(out, W)
+    batched_small.trsm(W, W)
+    tsqr.panel_qr(_panels(62, (2, 32, 8), cuda))
+    c = hopper.counts()
+    assert (c["write_diag_blocks"], c["small.trsm"], c["tsqr.panel_qr"]) == (1, 1, 1)
+    assert sum(c.values()) == 3

@@ -40,6 +40,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import capital_tpu_torch.robust.faultinject\n"
         "import capital_tpu_torch.ops.batched_small, capital_tpu_torch.serve.api\n"
         "import capital_tpu_torch.serve.batching, capital_tpu_torch.serve.engine\n"
+        "import capital_tpu_torch.models.inverse, capital_tpu_torch.models.trsm\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'capital_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'capital_tpu.')))\n"
         "print(','.join(bad))\n"
@@ -73,6 +74,13 @@ def test_small_n_slice_files_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for f in ("ops/batched_small.py", "serve/api.py", "serve/batching.py", "serve/engine.py",
               "serve/__init__.py"):
+        assert "capital_tpu_torch/" + f in names
+
+
+def test_inversion_slice_files_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("models/inverse.py", "models/trsm.py", "ops/tsqr.py", "ops/lapack.py",
+              "ops/hopper.py", "ops/sweeps.py", "utils/interop.py"):
         assert "capital_tpu_torch/" + f in names
 
 

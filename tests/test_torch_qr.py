@@ -337,20 +337,12 @@ def test_tsqr_matches_jax_at_f64():
     assert float(ortho) <= 1e-13
 
 
-@pytest.mark.parametrize("dt,impl", [(torch.float32, "pallas"), (torch.bfloat16, "pallas"),
-                                     (torch.float32, "auto")])
-def test_tsqr_pallas_route_is_not_ported(dt, impl):
-    A = torch.from_numpy(_tall(512, 64, "f32")).to(dt)
-    with pytest.raises(NotImplementedError, match="Queue B item 11"):
-        ttsqr.tsqr(A, impl=impl)
-
-
 def test_tsqr_library_route_where_jax_takes_it():
     A = torch.from_numpy(_tall(512, 64, "f64"))
     Q, R = ttsqr.tsqr(A, impl="pallas")  # f64 never takes the f32 kernel
-    assert ttsqr.default_impl(64, torch.float64) == "xla"
-    assert ttsqr.default_impl(256, torch.float32) == "xla"
-    assert ttsqr.default_impl(128, torch.bfloat16) == "pallas"
+    assert ttsqr.default_impl(128, 64, torch.float64, interpret=True) == "xla"
+    assert ttsqr.default_impl(512, 256, torch.float32, interpret=True) == "xla"
+    assert ttsqr.default_impl(256, 128, torch.bfloat16, interpret=True) == "pallas"
     assert _rel(Q @ R, A) < 1e-13
     Q, R = ttsqr.tsqr(A.float(), impl="xla")
     assert _rel(Q @ R, A) < 1e-6
