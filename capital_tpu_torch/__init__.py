@@ -10,14 +10,17 @@ Entry points run on the CUDA card by default (`Grid.square()`); pass
 Ported so far: single-device cholinv (`models/cholesky.factor`, with the
 fused tail), single-device CholeskyQR2 (`models/qr.factor`), triangular
 inversion and TRSM (`models/inverse.rectri` / `newton`,
-`models/trsm.solve`), TSQR (`ops/tsqr.tsqr`) and the small-N batched
-solves of serve's bucket programs (`serve/api.batched`), with their
-hand-written kernels (ops/hopper.py, ops/qr_fused.py, ops/batched_small.py,
-ops/tsqr.py, ops/csrc/).  `KERNELS` holds every kernel's launch counter.
+`models/trsm.solve`), TSQR (`ops/tsqr.tsqr`), the small-N batched
+solves of serve's bucket programs (`serve/api.batched`) and the
+block-tridiagonal chain solvers (`models/blocktri`, `models/arrowhead`,
+`models/banded`), with their hand-written kernels (ops/hopper.py,
+ops/qr_fused.py, ops/batched_small.py, ops/tsqr.py, ops/blocktri_small.py,
+ops/csrc/).  `KERNELS` holds every kernel's launch counter.
 """
 
-from capital_tpu_torch.models import cholesky, inverse, qr, trsm
+from capital_tpu_torch.models import arrowhead, banded, blocktri, cholesky, inverse, qr, trsm
 from capital_tpu_torch.ops.hopper import KERNELS
 from capital_tpu_torch.parallel.topology import Grid
 
-__all__ = ["Grid", "KERNELS", "cholesky", "inverse", "qr", "trsm"]
+__all__ = ["Grid", "KERNELS", "arrowhead", "banded", "blocktri", "cholesky", "inverse", "qr",
+           "trsm"]

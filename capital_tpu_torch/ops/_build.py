@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tri_matmul.cu", "transpose.cu", "zeros_dead.cu", "qr_fused.cu", "batched_small.cu",
-           "write_diag.cu", "fused_tail.cu", "tsqr.cu")
+           "write_diag.cu", "fused_tail.cu", "tsqr.cu", "blocktri_small.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -62,6 +62,16 @@ SIGNATURES = {
     "capital_write_diag": ("write_diag.cu", [_I, _I, _P, _P, _LL, _I, _I, _P]),
     "capital_fused_tail": ("fused_tail.cu", [_I, _P, _LL, _P, _P, _LL, _P, _I, _P]),
     "capital_tsqr_panel": ("tsqr.cu", [_I, _P, _P, _P, _I, _I, _I, _P]),
+    "capital_bt_fused_forward": (
+        "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "capital_bt_factor": ("blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "capital_bt_forward_solve": (
+        "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "capital_bt_solve_backward": (
+        "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 

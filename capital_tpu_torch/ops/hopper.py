@@ -2,7 +2,8 @@
 capital_tpu/ops/pallas_tpu.py), and the one launch-counter registry of every
 kernel of the port (`KERNELS`; the CholeskyQR2 kernels' wrappers live in
 ops/qr_fused.py, the small-N batched solves' in ops/batched_small.py, the
-TSQR panel kernel's in ops/tsqr.py).
+TSQR panel kernel's in ops/tsqr.py, the block-tridiagonal scan steps' in
+ops/blocktri_small.py).
 
 Each kernel sits here as three things side by side:
 
@@ -45,6 +46,8 @@ _QR_FUSED = "capital_tpu/ops/qr_fused.py:"
 #: the batched-grid kernels share one pallas_call (_batched_call); each
 #: entry names it and the kernel's own def line
 _SMALL = "capital_tpu/ops/batched_small.py:358 (def :"
+#: the blocktri scan steps reach that pallas_call from their own module
+_BT = "capital_tpu/ops/batched_small.py:358 (def capital_tpu/ops/blocktri_small.py:"
 #: most `extra` windows one zeros_dead_lower launch takes (csrc MAX_EXTRA)
 MAX_EXTRA = 8
 #: shared memory one block may use on an H100 (227 KB)
@@ -90,6 +93,11 @@ KERNELS: dict[str, Kernel] = {
         # TSQR's Householder panel QR; wrapper in ops/tsqr.py
         Kernel("tsqr.panel_qr", _CSRC + "tsqr.cu",
                "capital_tpu/ops/batched_small.py:358 (def capital_tpu/ops/tsqr.py:200)"),
+        # block-tridiagonal scan steps; wrappers in ops/blocktri_small.py
+        Kernel("bt.fused_forward", _CSRC + "blocktri_small.cu", _BT + "171)"),
+        Kernel("bt.factor", _CSRC + "blocktri_small.cu", _BT + "229)"),
+        Kernel("bt.forward_solve", _CSRC + "blocktri_small.cu", _BT + "266)"),
+        Kernel("bt.solve_backward", _CSRC + "blocktri_small.cu", _BT + "304)"),
     )
 }
 

@@ -50,3 +50,17 @@ def combine_block_infos(info: torch.Tensor, tail_infos: list, n: int) -> torch.T
             torch.where(cand == 0, info, torch.minimum(info, cand)),
         )
     return info
+
+
+def combine_window_infos(infos: torch.Tensor, nw: int, n: int, offset: int = 0) -> torch.Tensor:
+    """`combine_block_infos` from a zero start over consecutive windows of
+    width nw: window i of ``infos`` (batch, W) sits at offset + i·nw.  From
+    a zero start nothing is dropped and the fold is the minimum of the
+    windows' non-zero candidates, so it is taken in one vectorized pass —
+    the loop of per-window folds costs a chain of W small launches a call."""
+    w = infos.to(torch.int64)
+    dest = offset + nw * torch.arange(w.shape[-1], device=w.device)
+    piv = torch.where((w > 0) & (w <= nw) & (dest + w <= n), dest + w, 0)
+    cand = torch.where(piv > 0, piv, torch.where(w == nw + 1, n + 1, 0))
+    first = torch.where(cand > 0, cand, n + 2).amin(dim=-1)
+    return torch.where(first == n + 2, 0, first).to(torch.int32)

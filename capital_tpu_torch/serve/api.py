@@ -1,5 +1,6 @@
-"""The served solves: posv / lstsq / inv, batched and single-problem
-(counterpart of capital_tpu/serve/api.py).
+"""The served solves: posv / lstsq / inv and the block-tridiagonal
+posv_blocktri / posv_arrowhead, batched and single-problem (counterpart of
+capital_tpu/serve/api.py).
 
 * **batched** — the whole bucket batch in one program, behind the `impl`
   switch (batched_small.IMPLS, the ServeConfig.small_n_impl vocabulary):
@@ -28,11 +29,19 @@
   compute in f32.  Every batched program returns (X, info), info the
   per-problem int32 potrf status (0 / j / n+1).
 
+  posv_blocktri and posv_arrowhead run models/blocktri.posv (and
+  models/arrowhead.posv) on the unpacked chain; the impl vocabulary maps
+  onto blocktri's: 'vmap' is the library route 'xla', 'pallas_split' is
+  'pallas' (the chain has no split form), and `blocktri_impl`
+  (ServeConfig.blocktri_impl) picks the algorithm: 'partitioned' forces
+  the Spike driver, 'scan' pins the sequential loop, 'auto' leaves the
+  choice to blocktri.  posv_arrowhead returns (X_chain, X_corner, info).
+
 * **single** — a request beyond every ladder runs unbatched through the
   models: cholesky.solve, qr.factor + apply_QT + a triangular solve,
-  cholesky.factor + summa.gemm.
+  cholesky.factor + summa.gemm, and the chain ops as a batch of one.
 
-The other serve ops wait for their slices (ROADMAP Queue A items 6-8) and
+The other serve ops wait for their slices (ROADMAP Queue A items 7-8) and
 raise NotImplementedError naming the item.
 """
 
@@ -40,8 +49,8 @@ from __future__ import annotations
 
 import torch
 
-from capital_tpu_torch.models import cholesky, qr
-from capital_tpu_torch.ops import batched_small, lapack
+from capital_tpu_torch.models import arrowhead, blocktri, cholesky, qr
+from capital_tpu_torch.ops import batched_small, blocktri_small, lapack
 from capital_tpu_torch.parallel import summa
 from capital_tpu_torch.serve import batching
 from capital_tpu_torch.utils import tracing
@@ -143,12 +152,72 @@ def _host_side(a) -> bool:
     return a.device.type != "cuda"
 
 
+#: serve-wide impl vocabulary -> blocktri's ('vmap' is the library route;
+#: the chain has no split form)
+_TWO_IMPL_MAP = {"auto": "auto", "pallas": "pallas", "pallas_split": "pallas", "vmap": "xla"}
+
+
+def _check_algorithm(blocktri_impl: str) -> None:
+    if blocktri_impl not in blocktri.ALGORITHMS:
+        raise ValueError(
+            f"unknown blocktri_impl {blocktri_impl!r}: expected one of {blocktri.ALGORITHMS}")
+
+
+def _chain_algorithm(mapped: str, blocktri_impl: str, partitions: int, a, k: int) -> dict:
+    """The chain solve's algorithm keywords for one bucket (A the chain
+    pack, k the chain solve's RHS width): the partitioned driver with
+    `mapped` inside; the sequential scan with the kernel picked per bucket
+    when both are left to 'auto' on the scan; else `mapped` as posv's impl."""
+    if blocktri_impl == "partitioned":
+        return dict(impl="partitioned", partitions=partitions, partition_inner=mapped)
+    if blocktri_impl == "scan" and mapped == "auto":
+        nblocks, bs = a.shape[2], a.shape[3]
+        return dict(impl=blocktri_small.default_impl(bs, k, blocktri.resolve_seg(nblocks), a.dtype,
+                                                     interpret=_host_side(a)))
+    return dict(impl=mapped, partitions=partitions)
+
+
+def _batched_blocktri(precision, impl: str, blocktri_impl: str = "auto", partitions: int = 0):
+    """The block-tridiagonal bucket program: unpack the (batch, 2, nblocks,
+    b, b) chain pack (A[:, 0] diagonal blocks, A[:, 1] sub-diagonal ones)
+    and run blocktri.posv (`_chain_algorithm` maps impl and algorithm)."""
+    mapped = _TWO_IMPL_MAP[impl]
+    _check_algorithm(blocktri_impl)
+
+    def f(a, b):
+        kw = _chain_algorithm(mapped, blocktri_impl, partitions, a, b.shape[-1])
+        return blocktri.posv(a[:, 0], a[:, 1], b, precision=precision, **kw)
+
+    return f
+
+
+def _batched_arrowhead(precision, impl: str, blocktri_impl: str = "auto", partitions: int = 0):
+    """The block-arrowhead bucket program: the chain pack A like
+    posv_blocktri's plus the packed tail operand B = (batch, nblocks·b + s,
+    s + k) (models/arrowhead.pack).  Three outputs (X_chain, X_corner,
+    info): the chain half stays blocked (batch, nblocks, b, k) so
+    `batching.crop` unpads it by slicing.  The impl and algorithm maps are
+    `_batched_blocktri`'s; they reach the one widened chain solve (k + s
+    columns)."""
+    mapped = _TWO_IMPL_MAP[impl]
+    _check_algorithm(blocktri_impl)
+
+    def f(a, b):
+        F, S, B, Bs = arrowhead.unpack(b, a.shape[2], a.shape[3])
+        kw = _chain_algorithm(mapped, blocktri_impl, partitions, a, B.shape[-1] + F.shape[2])
+        return arrowhead.posv(a[:, 0], a[:, 1], F, S, B, Bs, precision=precision, **kw)
+
+    return f
+
+
 def batched(op: str, precision: str | None = "highest",
-            impl: str = "auto", *, tier: str = "balanced"):
+            impl: str = "auto", *, blocktri_impl: str = "auto",
+            blocktri_partitions: int = 0, tier: str = "balanced"):
     """The program for one bucket: maps the fixed (capacity, *problem)
     batch through the solve, returning (X, info) stacks.  `impl` picks the
     batch program ('vmap', 'pallas', 'pallas_split' or 'auto', resolved per
-    bucket from the batch shapes); `tier` must be 'balanced'."""
+    bucket from the batch shapes); `blocktri_impl` / `blocktri_partitions`
+    reach only the chain programs; `tier` must be 'balanced'."""
     if impl not in batched_small.IMPLS:
         raise ValueError(
             f"unknown batched impl {impl!r}: expected one of "
@@ -156,6 +225,10 @@ def batched(op: str, precision: str | None = "highest",
         )
     batching.check_op(op)
     batching._check_tier(tier)
+    if op == "posv_blocktri":
+        return _batched_blocktri(precision, impl, blocktri_impl, blocktri_partitions)
+    if op == "posv_arrowhead":
+        return _batched_arrowhead(precision, impl, blocktri_impl, blocktri_partitions)
     if impl == "vmap":
         return _batched_vmap(op, precision)
     if impl in ("pallas", "pallas_split"):
@@ -235,4 +308,26 @@ def single(op: str, grid, precision: str | None = "highest", robust=None,
             return ainv, info
 
         return f
-    batching.check_op(op)  # raises: posv, lstsq and inv returned above
+    if op == "posv_blocktri":
+        # a batch of one through the models' dispatch: 'auto' picks the
+        # partitioned driver from PARTITION_MIN_NBLOCKS on, where oversize
+        # chains live (`grid` is taken for a uniform signature)
+        def f(a, b):
+            X, info = blocktri.posv(a[None, 0], a[None, 1], b[None], precision=precision)
+            return X[0], (info[0] if robust is not None else zero())
+
+        return f
+    if op == "posv_arrowhead":
+        # a batch of one; the flat (nblocks·b + s, k) solution is assembled
+        # here (the single route has no second output)
+        def f(a, b):
+            nblocks, bs = a.shape[1], a.shape[2]
+            F, S, B, Bs = arrowhead.unpack(b[None], nblocks, bs)
+            X, Xs, info = arrowhead.posv(a[None, 0], a[None, 1], F, S, B, Bs,
+                                         precision=precision)
+            flat = torch.cat([X[0].reshape(nblocks * bs, X.shape[-1]), Xs[0]], dim=0)
+            return flat, (info[0] if robust is not None else zero())
+
+        return f
+    batching.check_op(op)  # raises for the ops this port does not serve yet
+    raise ValueError(f"unknown serve op {op!r}")

@@ -1,5 +1,6 @@
 """Shape bucketing and micro-batch assembly (counterpart of
-capital_tpu/serve/batching.py), the dense part: posv, lstsq and inv.
+capital_tpu/serve/batching.py): the dense ops posv, lstsq and inv, and the
+structured ops posv_blocktri and posv_arrowhead.
 
 Every distinct operand shape would be a fresh program; bucketing pads each
 request to the smallest rung of the config's ladders with a structure-safe
@@ -9,9 +10,17 @@ zero-fills the right-hand side, so the identity tail solves to exact zeros
 and `crop` recovers the request's solution.  A short batch is topped up
 with identity fill problems against zero right-hand sides.
 
-The structured ops (posv_blocktri, posv_arrowhead, the session ops) wait
-for ROADMAP Queue A item 6, the factor-residency ops for item 8, and
-accuracy tiers other than 'balanced' for item 7: each raises
+posv_blocktri packs the chain as A = (2, nblocks, b, b) (A[0] the diagonal
+blocks, A[1] the sub-diagonal ones, A[1, 0] dead) and B = (nblocks, b,
+nrhs); nblocks and b bucket on their own ladders.  Each diagonal block pads
+to diag(D_i, I), couplings and right-hand sides zero-pad, and appended
+chain blocks are identity blocks: the real blocks' solution is bitwise the
+unpadded one.  posv_arrowhead adds one packed tail operand
+(models/arrowhead.pack) whose border columns zero-pad and whose corner
+embeds as diag(S, I); the border width s has its own ladder.
+
+The session ops and the factor-residency ops wait for ROADMAP Queue A item
+8 and accuracy tiers other than 'balanced' for item 7: each raises
 NotImplementedError naming its item.  Functions that create tensors take
 `device=`, which defaults to the CUDA card and raises without one.
 """
@@ -38,20 +47,22 @@ MISS_OPS = ("posv_cached_miss",)
 #: engine-internal session bucket ops.
 SESSION_BUCKET_OPS = ("session_extend", "session_solve")
 
-#: the ops this slice serves
+#: the dense ops
 DENSE_OPS = ("posv", "lstsq", "inv")
+
+#: the block-tridiagonal chain ops (models/blocktri, models/arrowhead)
+STRUCTURED_OPS = ("posv_blocktri", "posv_arrowhead")
 
 
 def check_op(op: str) -> None:
-    """Raise for an op this slice does not serve: NotImplementedError
-    naming its ROADMAP item for a later slice's op, ValueError for an
-    unknown one."""
-    if op in DENSE_OPS:
+    """Raise for an op the port does not serve yet: NotImplementedError
+    naming its ROADMAP item, ValueError for an unknown op."""
+    if op in DENSE_OPS or op in STRUCTURED_OPS:
         return
     if op in FACTOR_OPS or op in MISS_OPS:
         item = "Queue A item 8, serve tier (factor residency)"
-    elif op in OPS or op in SESSION_BUCKET_OPS:
-        item = "Queue A item 6, structured solvers"
+    elif op in SESSION_BUCKET_OPS:
+        item = "Queue A item 8, serve tier (streaming sessions)"
     else:
         raise ValueError(f"unknown serve op {op!r}; expected one of {OPS}")
     raise NotImplementedError(f"serve op {op!r} is not ported yet (ROADMAP {item})")
@@ -129,9 +140,31 @@ def bucket_for(op: str, a_shape, b_shape, dtype: str, cfg,
     """Resolve a request's operand shapes to a bucket, or None when any
     dimension exceeds its ladder (the request then takes the single route).
     lstsq rows bucket at `m + (nb - n)`: each padded column needs its own
-    appended row (masking.embed_identity_tail)."""
+    appended row (masking.embed_identity_tail).  posv_blocktri buckets
+    nblocks and b on cfg.nblocks_buckets / cfg.block_buckets and nrhs on
+    the dense ladder; posv_arrowhead's tail operand (nblocks·b + s, s + k)
+    buckets to (nbb·bb + sb, sb + kb), s on cfg.border_buckets."""
     check_op(op)
     _check_tier(tier)
+    if op == "posv_blocktri":
+        _, nblocks, b, _ = a_shape
+        nbb = _pick(cfg.nblocks_buckets, nblocks)
+        bb = _pick(cfg.block_buckets, b)
+        kb = _pick(cfg.nrhs_buckets, b_shape[2])
+        if nbb is None or bb is None or kb is None:
+            return None
+        return Bucket(op, dtype, (2, nbb, bb, bb), (nbb, bb, kb), cfg.max_batch)
+    if op == "posv_arrowhead":
+        _, nblocks, b, _ = a_shape
+        s = b_shape[0] - nblocks * b
+        k = b_shape[1] - s
+        nbb = _pick(cfg.nblocks_buckets, nblocks)
+        bb = _pick(cfg.block_buckets, b)
+        sb = _pick(cfg.border_buckets, s)
+        kb = _pick(cfg.nrhs_buckets, k)
+        if nbb is None or bb is None or sb is None or kb is None:
+            return None
+        return Bucket(op, dtype, (2, nbb, bb, bb), (nbb * bb + sb, sb + kb), cfg.max_batch)
     if op in ("posv", "inv"):
         n = a_shape[0]
         nb = _pick(cfg.buckets, n)
@@ -160,6 +193,10 @@ def pad_operands(op: str, A, B, bucket: Bucket):
     (on A's device)."""
     check_op(op)
     with tracing.scope("serve::pad"):
+        if op == "posv_blocktri":
+            return _pad_blocktri(A, B, bucket)
+        if op == "posv_arrowhead":
+            return _pad_arrowhead(A, B, bucket)
         pa = masking.embed_identity_tail(A, *bucket.a_shape)
         pb = None
         if bucket.b_shape is not None:
@@ -170,12 +207,72 @@ def pad_operands(op: str, A, B, bucket: Bucket):
         return pa, pb
 
 
+def _chain_pad(A, bucket: Bucket):
+    """The chain pack A = (2, nblocks, b, b) padded to the bucket's
+    (2, nbb, bb, bb): real diagonal blocks complete to diag(D_i, I),
+    couplings zero-pad, appended blocks become I with zero couplings."""
+    _, nblocks, b, _ = A.shape
+    nbb, bb = bucket.a_shape[1], bucket.a_shape[2]
+    pa = torch.nn.functional.pad(A, (0, bb - b, 0, bb - b, 0, nbb - nblocks))
+    eye = torch.eye(bb, dtype=A.dtype, device=A.device)
+    tail = torch.where(torch.arange(bb, device=A.device) >= b, eye, torch.zeros_like(eye))
+    blk = (torch.arange(nbb, device=A.device) < nblocks)[:, None, None]
+    pa[0] += torch.where(blk, tail, eye)
+    return pa
+
+
+def _pad_blocktri(A, B, bucket: Bucket):
+    """Structure-safe pad for the block-tridiagonal chain (module
+    docstring): the padded operand stays block-tridiagonal SPD and the real
+    blocks' solution is bitwise the unpadded one (trailing identity blocks
+    never feed back; their carries are exact zeros)."""
+    nbb, bb, kb = bucket.b_shape
+    nblocks, b, k = B.shape
+    return _chain_pad(A, bucket), torch.nn.functional.pad(
+        B, (0, kb - k, 0, bb - b, 0, nbb - nblocks))
+
+
+def _pad_arrowhead(A, P, bucket: Bucket):
+    """Structure-safe pad for the block-arrowhead operands: the chain pack
+    pads as `_pad_blocktri`'s; in the tail operand the border columns
+    zero-pad, the corner embeds as diag(S, I) and the RHS zero-pads, so the
+    padded system is diag(A_real, I).  The chain rows are re-blocked before
+    padding (a flat row pad would interleave the appended block-tail rows
+    wrongly when bb > b)."""
+    _, nblocks, b, _ = A.shape
+    nbb, bb = bucket.a_shape[1], bucket.a_shape[2]
+    n_t = nblocks * b
+    s = P.shape[0] - n_t
+    k = P.shape[1] - s
+    sb = bucket.b_shape[0] - nbb * bb
+    kb = bucket.b_shape[1] - sb
+    pad = torch.nn.functional.pad
+    top = P[:n_t].reshape(nblocks, b, s + k)
+    ptop = torch.cat([pad(top[..., :s], (0, sb - s, 0, bb - b, 0, nbb - nblocks)),
+                      pad(top[..., s:], (0, kb - k, 0, bb - b, 0, nbb - nblocks))],
+                     dim=-1).reshape(nbb * bb, sb + kb)
+    pbot = torch.cat([masking.embed_identity_tail(P[n_t:, :s], sb, sb),
+                      pad(P[n_t:, s:], (0, kb - k, 0, sb - s))], dim=-1)
+    return _chain_pad(A, bucket), torch.cat([ptop, pbot], dim=0)
+
+
 def fill_problem(bucket: Bucket, *, device=None):
     """The benign problem that tops a short batch up to capacity: an
     identity operand (SPD for posv/inv, orthonormal columns for lstsq)
-    against a zero RHS."""
+    against a zero RHS.  For posv_blocktri the identity chain (identity
+    diagonal blocks, zero couplings); for posv_arrowhead that chain coupled
+    to an identity corner through a zero border (the whole matrix is I)."""
     check_op(bucket.op)
     dev, dt = _device(device), _dtype(bucket.dtype)
+    if bucket.op in STRUCTURED_OPS:
+        _, nbb, bb, _ = bucket.a_shape
+        eyes = torch.eye(bb, dtype=dt, device=dev).expand(nbb, bb, bb)
+        fa = torch.stack([eyes, torch.zeros((nbb, bb, bb), dtype=dt, device=dev)])
+        fb = torch.zeros(bucket.b_shape, dtype=dt, device=dev)
+        if bucket.op == "posv_arrowhead":
+            sb = bucket.b_shape[0] - nbb * bb
+            fb[nbb * bb:, :sb] = torch.eye(sb, dtype=dt, device=dev)
+        return fa, fb
     fa = torch.eye(*bucket.a_shape, dtype=dt, device=dev)
     fb = None
     if bucket.b_shape is not None:
@@ -205,5 +302,13 @@ def crop(op: str, X, a_shape, b_shape):
         return X[: a_shape[0], : b_shape[1]]
     if op == "lstsq":
         return X[: a_shape[1], : b_shape[1]]
+    if op == "posv_blocktri":
+        return X[: a_shape[1], : a_shape[2], : b_shape[2]]
+    if op == "posv_arrowhead":
+        # X is the chain half (nbb, bb, kb), blocked, so slicing unpads; the
+        # corner half is the program's second output
+        nblocks, b = a_shape[1], a_shape[2]
+        s = b_shape[0] - nblocks * b
+        return X[:nblocks, :b, : b_shape[1] - s]
     check_op(op)
     return X[: a_shape[0], : a_shape[0]]  # inv

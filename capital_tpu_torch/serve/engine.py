@@ -2,8 +2,10 @@
 
 Only `ServeConfig` is ported so far, as a copy of the reference dataclass
 with the same fields and defaults.  The fields the batched bucket programs
-read (`buckets`, `rows_buckets`, `nrhs_buckets`, `max_batch`, `precision`,
-`small_n_impl`) are validated on construction.  `SolveEngine` waits for
+read (`buckets`, `rows_buckets`, `nrhs_buckets`, `nblocks_buckets`,
+`block_buckets`, `border_buckets`, `max_batch`, `precision`,
+`small_n_impl`, `blocktri_impl`, `blocktri_partitions`) are validated on
+construction.  `SolveEngine` waits for
 ROADMAP Queue A item 8.
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from capital_tpu_torch.models import blocktri
 from capital_tpu_torch.ops import batched_small
 from capital_tpu_torch.robust.config import RobustConfig
 
@@ -26,9 +29,10 @@ class ServeConfig:
     buckets: the n ladder (SPD dimension / lstsq columns).
     rows_buckets: the lstsq m ladder (requests bucket at m + column-pad).
     nrhs_buckets: the RHS-columns ladder.
-    nblocks_buckets, block_buckets, border_buckets, blocktri_impl,
-        blocktri_partitions: the structured solvers' ladders and knobs
-        (ROADMAP Queue A item 6).
+    nblocks_buckets, block_buckets, border_buckets: the posv_blocktri /
+        posv_arrowhead ladders (chain length, block size, border width).
+    blocktri_impl: the chain algorithm of those programs ('auto', 'scan',
+        'partitioned'); blocktri_partitions: its split count (0 = default).
     max_batch: per-bucket batch capacity — one program per bucket at this
         fixed batch size.
     max_delay_s: oldest-request age that forces a flush.
@@ -62,7 +66,8 @@ class ServeConfig:
     factor_cache_bytes: int = 256 << 20
 
     def __post_init__(self):
-        for name in ("buckets", "rows_buckets", "nrhs_buckets"):
+        for name in ("buckets", "rows_buckets", "nrhs_buckets", "nblocks_buckets",
+                     "block_buckets", "border_buckets"):
             ladder = getattr(self, name)
             if (not isinstance(ladder, tuple) or not ladder
                     or not all(isinstance(v, int) and v >= 1 for v in ladder)):
@@ -78,3 +83,10 @@ class ServeConfig:
                 f"unknown small_n_impl {self.small_n_impl!r}: expected one "
                 f"of {batched_small.IMPLS}"
             )
+        if self.blocktri_impl not in blocktri.ALGORITHMS:
+            raise ValueError(
+                f"unknown blocktri_impl {self.blocktri_impl!r}: expected one of "
+                f"{blocktri.ALGORITHMS}"
+            )
+        if not isinstance(self.blocktri_partitions, int) or self.blocktri_partitions < 0:
+            raise ValueError(f"blocktri_partitions must be >= 0, got {self.blocktri_partitions!r}")

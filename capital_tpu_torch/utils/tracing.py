@@ -1,6 +1,7 @@
 """Phase scopes and the analytic cost model (the subset of
 capital_tpu/utils/tracing.py that single-device cholinv, CholeskyQR2, the
-small-N batched solves, rectri and TRSM call).
+small-N batched solves, rectri, TRSM and the block-tridiagonal chain
+solvers call).
 
 Phase tags keep the reference's critter symbol names (``CI::trsm`` ...) so
 phase tables compare across the two packages.  `scope` pushes the tag for
@@ -43,6 +44,13 @@ PHASE_REGISTRY: tuple[str, ...] = (
     # wraps the standalone potrf/potrs kernels, SV::fused_* the fused
     # factor+solve kernels (one phase: the factor never leaves the block)
     "OP::batched_small", "SV::fused_posv", "SV::fused_lstsq",
+    # block-tridiagonal chain (models/blocktri.py): BT::factor wraps the
+    # factor scan (the fused forward sweep included for posv), BT::solve
+    # the substitution sweeps, BT::partition / BT::reduce the Spike
+    # driver's interiors and reduced chain, UP::extend the appended-block
+    # factor; the arrowhead completion (models/arrowhead.py)
+    "BT::factor", "BT::solve", "BT::partition", "BT::reduce", "UP::extend",
+    "AH::schur", "AH::border",
 )
 _PHASE_SET: set[str] = set(PHASE_REGISTRY)
 
@@ -252,3 +260,63 @@ def fused_lstsq_flops(m: int, n: int, k: int) -> float:
         + 4.0 * batched_trsm_flops(n, k)
         + 2.0 * n**3
     )
+
+
+# -- block-tridiagonal chain and arrowhead pricing (models/blocktri.py,
+# models/arrowhead.py), copied unchanged from the JAX package: executed
+# flops of the TPU sweeps, like the batched-small prices above.
+
+
+def blocktri_chol_flops(nblocks: int, b: int) -> float:
+    """Block-tridiagonal factor chain, per problem (BT::factor): per chain
+    block one sweep Cholesky of the (b, b) Schur complement, one forward
+    sweep for Wt = L⁻¹·Cᵀ at k = b, the identity-contraction transpose of C
+    (2b³) and the Wtᵀ·Wt Schur update (2b³).  The useful count is
+    nblocks·(b³/3 + 3b³)."""
+    return nblocks * (batched_chol_flops(b) + batched_trsm_flops(b, b)
+                      + 4.0 * b**3)
+
+
+def blocktri_solve_flops(nblocks: int, b: int, k: int) -> float:
+    """ONE block-bidiagonal substitution sweep (forward or backward), per
+    problem (BT::solve): per chain block one (b, b) triangular sweep at
+    width k plus the 2b²k coupling product."""
+    return nblocks * (batched_trsm_flops(b, k) + 2.0 * b**2 * k)
+
+
+def blocktri_partition_flops(nblocks: int, b: int, k: int,
+                             partitions: int) -> float:
+    """Per-partition side of the partitioned (Spike) chain solve, per
+    problem (BT::partition): the nblocks − P interior blocks factor once
+    and run both sweeps at the widened k + 2b columns, and the
+    back-substitution applies the two (b, b) spike blocks to each interior
+    solution (4b²k per block)."""
+    interior = nblocks - partitions
+    return (blocktri_chol_flops(interior, b)
+            + 2.0 * blocktri_solve_flops(interior, b, k + 2 * b)
+            + 4.0 * interior * b**2 * k)
+
+
+def blocktri_reduce_flops(partitions: int, b: int, k: int) -> float:
+    """Reduced interface system of the partitioned chain solve, per
+    problem (BT::reduce): per separator the Schur assembly products (6b³
+    plus 4b²k), then the P-block reduced chain's factor and both sweeps."""
+    asm = partitions * (6.0 * b**3 + 4.0 * b**2 * k)
+    return (asm + blocktri_chol_flops(partitions, b)
+            + 2.0 * blocktri_solve_flops(partitions, b, k))
+
+
+def arrowhead_schur_flops(nblocks: int, b: int, s: int) -> float:
+    """Schur-complement completion of the arrowhead corner, per problem
+    (AH::schur): the border reduction B·Z_B over the chain (2·nblocks·b·s²)
+    plus the dense corner Cholesky (s³/3)."""
+    return 2.0 * nblocks * b * s * s + s**3 / 3.0
+
+
+def arrowhead_border_flops(nblocks: int, b: int, s: int, k: int) -> float:
+    """Corner solve and chain back-substitution of the arrowhead
+    completion, per problem (AH::border): the corner RHS correction
+    (2·n·s·k), the two (s, s) triangular corner solves (2s²k) and
+    x_T = Z_rhs − Z_B·x_S (2·n·s·k)."""
+    n = nblocks * b
+    return 4.0 * n * s * k + 2.0 * s * s * k

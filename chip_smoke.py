@@ -64,10 +64,29 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 12. drives `ops/tsqr.tsqr(impl='auto')` at 2,097,152 x 128 f32 (14 panel
     kernel launches; orthogonality, residual, R against the library
     route's up to row signs; timed beside that route);
-13. prints the `kernels` JSON line, the nvidia-smi line, and last
-    {"ok": true, "device": {...}}.
+13. holds the four block-tridiagonal scan-step kernels (fused_forward,
+    factor, forward_solve, solve_backward) against their plain versions:
+    chain blocks of 128 with seg = 8 at k = 1, 64, 33 (the arrowhead's
+    k + s) and 257 (the Spike interiors' k + 2b), b = 16 at the Spike
+    flagship's k + 2b = 34, 8 and 264 problems, f32 and bf16; timed beside
+    bound, plain version and the library route; NaN, −inf and indefinite
+    blocks injected into one problem;
+14. drives the structured path through its entry points: blocktri.posv at
+    the flagship (64 blocks of 128, f32, one problem, one RHS) under
+    'pallas', 'auto' (partitioned) and 'xla' (one run profiled by BT::
+    phase), factor / solve / extend / contract there, 128 such problems
+    (pallas and xla), arrowhead.posv at s = 32 (pallas and auto), the
+    Spike flagship (64 blocks of 16, two problems, two RHS),
+    banded.solveh_banded at n = 8192, u = 128 (profiled by BT:: phase),
+    and the serve ops posv_blocktri and posv_arrowhead (ragged requests
+    through bucketing, auto / pallas / vmap, f64 buckets, a poisoned
+    problem) — each with the drivers' residual gates;
+15. prints the `kernels` JSON line (each bt.* kernel's launches from the
+    main path's own run: the flagship 'pallas' posv for fused_forward and
+    solve_backward, the factor for factor, the solve for forward_solve),
+    the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
-Phases 3, 5, 7 and 9–12 set every launch counter to 0 just before
+Phases 3, 5, 7, 9–12 and 14 set every launch counter to 0 just before
 their runs and check the counts just after against the plan.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -95,6 +114,27 @@ QR_KERNELS = ("qr.gram_blocked", "qr.scale_gram", "qr.scale_blocked")
 SMALL_KERNELS = ("small.potrf", "small.potrs", "small.posv", "small.lstsq")
 #: the triangular-inversion slice's kernels
 INV_KERNELS = ("write_diag_blocks", "fused_tail", "small.trsm", "tsqr.panel_qr")
+#: the block-tridiagonal slice's kernels
+BT_KERNELS = ("bt.fused_forward", "bt.factor", "bt.forward_solve", "bt.solve_backward")
+DTYPE_BY_NAME = {"f32": torch.float32, "bf16": torch.bfloat16}
+#: phase 13's scan steps (batch, seg, b, k, dtypes, timed): chain blocks of
+#: 128 with seg = 8 at k = 1 (the flagship posv's step, 8 problems), k = 64
+#: (posv_blocktri's top nrhs rung), k + s = 33 (the arrowhead flagship's
+#: widened RHS) and k + 2b = 257 (Spike interiors at b = 128); the Spike
+#: flagship's interiors (2 problems x 8 partitions of 7 blocks of 16, k + 2b
+#: = 34); and 264 = 132·2 problems
+BT_GEOMS = ((8, 8, 128, 1, ("f32", "bf16"), True), (8, 8, 128, 64, ("f32", "bf16"), False),
+            (8, 8, 128, 33, ("f32",), False), (8, 8, 128, 257, ("f32", "bf16"), True),
+            (16, 7, 16, 34, ("f32", "bf16"), True), (264, 8, 128, 1, ("f32", "bf16"), False),
+            (264, 8, 128, 33, ("f32",), True))
+#: phase 14: the blocktri flagship (nblocks, b, batch, nrhs) of Makefile:63,
+#: its throughput batch, the arrowhead flagship's border (Makefile:83), the
+#: Spike flagship (Makefile:100) and the banded solve (n, u)
+BT_FLAGSHIP = (64, 128, 1, 1)
+BT_THROUGHPUT = 128
+BT_BORDER = 32
+BT_SPIKE = (64, 16, 2, 2)
+BT_BANDED = (8192, 128)
 #: the small-N shapes, (batch, m, n, k): the serve latency bucket
 #: (ServeConfig.max_batch problems) and the throughput batches (A is
 #: 537 MB either way; lstsq at the bench drivers' m = 4n)
@@ -346,23 +386,27 @@ def predicted_counts(leaves: int) -> dict:
         "tri_matmul.dense": 0, "transpose": leaves, "transpose_pair": leaves,
         "zeros_dead_lower": 2, **dict.fromkeys(QR_KERNELS, 0),
         **dict.fromkeys(SMALL_KERNELS, 0), **dict.fromkeys(INV_KERNELS, 0),
+        **dict.fromkeys(BT_KERNELS, 0),
     }
 
 
+HOPPER_WRAPPERS = ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower",
+                   "write_diag_blocks", "fused_tail")
+BT_WRAPPERS = ("fused_forward_step", "factor_step", "forward_solve_step", "solve_backward_step")
+
+
 @contextmanager
-def plain_versions(hopper):
-    """Route the factor through the plain versions (for the comparison run
+def plain_versions(module, names=HOPPER_WRAPPERS):
+    """Route a path through the plain versions (for the comparison run
     only): swap the wrappers in the module namespace and restore them."""
-    names = ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower",
-             "write_diag_blocks", "fused_tail")
-    saved = {n: getattr(hopper, n) for n in names}
+    saved = {n: getattr(module, n) for n in names}
     try:
         for n in names:
-            setattr(hopper, n, getattr(hopper, n + "_plain"))
+            setattr(module, n, getattr(module, n + "_plain"))
         yield
     finally:
         for n, f in saved.items():
-            setattr(hopper, n, f)
+            setattr(module, n, f)
 
 
 def drive(cholesky, hopper, grid, n, dtype, bc, precision):
@@ -1304,6 +1348,513 @@ def tsqr_phase(hopper, dev) -> dict:
     return out
 
 
+# ---- the block-tridiagonal slice (phases 13-14) ----------------------------
+
+
+def bt_operands(batch, seg, b, k, dtype, seed, dev):
+    """One scan step's operands, made on the card from a seed: SPD diagonal
+    blocks (gram/b + 3I), couplings at 0.3/√b, a Gaussian RHS, a carried
+    factor with a dominant diagonal and a Gaussian carried solution."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((batch, seg, b, b), generator=gen, device=dev)
+    D = (G @ G.mT / b + 3.0 * torch.eye(b, device=dev)).to(dtype)
+    del G
+    C = (0.3 / math.sqrt(b) * torch.randn((batch, seg, b, b), generator=gen, device=dev)).to(dtype)
+    B = torch.randn((batch, seg, b, k), generator=gen, device=dev).to(dtype)
+    Lc = (torch.tril(0.2 * torch.randn((batch, b, b), generator=gen, device=dev), -1)
+          + 2.0 * torch.eye(b, device=dev)).to(dtype)
+    yc = torch.randn((batch, b, k), generator=gen, device=dev).to(dtype)
+    return D, C, B, Lc, yc
+
+
+def bt_bytes(name: str, seg: int, b: int, k: int, item: int) -> float:
+    """Bytes of one problem of a scan step: the carried factor's live
+    triangle read, the full tiles of D, C, B, L, Wt and y moved once each,
+    info 4 bytes per block."""
+    tri = b * (b + 1) / 2.0
+    if name == "bt.fused_forward":
+        return (seg * (4.0 * b * b + 2.0 * b * k) + tri + b * k) * item + 4.0 * seg
+    if name == "bt.factor":
+        return (seg * 4.0 * b * b + tri) * item + 4.0 * seg
+    return (seg * (tri + b * b + 2.0 * b * k) + b * k) * item  # the two sweeps
+
+
+def bt_flops(name: str, seg: int, b: int, k: int) -> float:
+    """Useful f32 operations of one problem: per chain block the factor
+    recurrence 7b³/3 (Wt = L⁻¹Cᵀ b³, the symmetric Wtᵀ·Wt b³, Cholesky
+    b³/3) and a sweep 3b²k (the coupling product 2b²k, the triangular solve
+    b²k)."""
+    fac, sweep = 7.0 * b**3 / 3.0, 3.0 * b * b * k
+    return seg * {"bt.fused_forward": fac + sweep, "bt.factor": fac}.get(name, sweep)
+
+
+def bt_library_step(blocktri, name, D, C, B, Lc, L, Wt):
+    """The library route (models/blocktri's xla loop: batched torch.linalg
+    per chain block) over the same `seg` blocks — the library column: no
+    single PyTorch call computes a scan step."""
+    if name == "bt.fused_forward":
+        Lx, Wx, _ = blocktri._xla_factor_scan(D, C, Lc)
+        return blocktri._xla_forward_scan(Lx, Wx, B)
+    if name == "bt.factor":
+        return blocktri._xla_factor_scan(D, C, Lc)
+    if name == "bt.forward_solve":
+        return blocktri._xla_forward_scan(L, Wt, B)
+    return blocktri._xla_backward_scan(L, Wt, B)
+
+
+def bt_rel(got, want) -> float:
+    g, w = got.double(), want.double()
+    return float(torch.linalg.norm((g - w).flatten()) / torch.linalg.norm(w.flatten()))
+
+
+def bt_kernel_phase(blocktri_small, blocktri, dev) -> dict:
+    """Phase 13: the four scan-step kernels against their plain versions at
+    BT_GEOMS, timed beside bound, plain version and the library route; then
+    injected faults, whose per-block info must equal the plain version's."""
+    res = {}
+    for gi, (batch, seg, b, k, dts, timed) in enumerate(BT_GEOMS):
+        for dtn in dts:
+            dtype = DTYPE_BY_NAME[dtn]
+            item = torch.tensor([], dtype=dtype).element_size()
+            D, C, B, Lc, yc = bt_operands(batch, seg, b, k, dtype, 60 + gi, dev)
+            L, Wt, _, _ = blocktri_small.fused_forward_step_plain(D, C, B, Lc, yc)
+            steps = {"bt.fused_forward": (blocktri_small.fused_forward_step, (D, C, B, Lc, yc)),
+                     "bt.factor": (blocktri_small.factor_step, (D, C, Lc)),
+                     "bt.forward_solve": (blocktri_small.forward_solve_step, (L, Wt, B, yc)),
+                     "bt.solve_backward": (blocktri_small.solve_backward_step, (L, Wt, B, yc))}
+            tol = 1e-5 if dtype == torch.float32 else 2e-2
+            for name, (fn, args) in steps.items():
+                plain = getattr(blocktri_small, fn.__name__ + "_plain")
+                got, want = fn(*args), plain(*args)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                err = 0.0
+                for g, w in zip(got, want):
+                    if w.dtype == torch.int32:
+                        check(torch.equal(g, w) and not bool(g.any()), f"{name} {dtn}: info {g.tolist()}")
+                        continue
+                    rel = bt_rel(g, w)
+                    check(rel <= tol and bool(torch.isfinite(g).all()),
+                          f"{name} {batch}x{seg}x{b}x{k} {dtn}: kernel vs plain {rel} > {tol}")
+                    err = max(err, float((g.double() - w.double()).abs().max()))
+                row = dict(max_abs_err=err, shape=f"batch {batch} seg {seg} b {b} k {k} {dtn}")
+                if timed:
+                    row.update(
+                        ms=time_ms(lambda: fn(*args), 5), plain_ms=time_budget_ms(lambda: plain(*args), 200, 2),
+                        library_ms=time_budget_ms(lambda: bt_library_step(blocktri, name, D, C, B, Lc, L, Wt),
+                                                  200, 3),
+                        bound=bound_ms(batch * bt_bytes(name, seg, b, k, item), batch * bt_flops(name, seg, b, k),
+                                       torch.float32))
+                res[f"{name} {batch}x{seg}x{b}x{k} {dtn}"] = row
+            del D, C, B, Lc, yc, L, Wt
+        torch.cuda.empty_cache()
+
+    # faults in problem 3, chain block 2 of 8: per-block info equal to the
+    # plain version's, the global pivot (`blocktri._combine`) too, and no
+    # other problem flagged
+    faults = {}
+    for dtn in ("f32", "bf16"):
+        D, C, B, _, yc = bt_operands(8, 8, 128, 2, DTYPE_BY_NAME[dtn], 70, dev)
+        Lc = torch.eye(128, device=dev, dtype=D.dtype).expand(8, 128, 128).contiguous()
+        for fault in ("nan", "-inf", "indefinite"):
+            Df, Cf = D.clone(), C.clone()
+            if fault == "nan":
+                Df[3, 2, 5, 7] = float("nan")
+            elif fault == "-inf":
+                Df[3, 2, 0, 0] = -float("inf")
+            else:
+                Df[3, 2] = torch.diag(torch.tensor([1.0] * 40 + [-5.0] + [1.0] * 87, device=dev))
+                Cf[3, 2] = 0
+            ik = blocktri_small.fused_forward_step(Df, Cf, B, Lc, yc)[3]
+            ip = blocktri_small.fused_forward_step_plain(Df, Cf, B, Lc, yc)[3]
+            gk, gp = blocktri._combine(ik, 8, 128), blocktri._combine(ip, 8, 128)
+            check(torch.equal(ik, ip) and torch.equal(gk, gp),
+                  f"fault {fault} {dtn}: info {ik[3].tolist()} vs plain {ip[3].tolist()}")
+            others = [i for i in range(8) if i != 3]
+            check(int(gk[3]) > 2 * 128 and not bool(gk[others].any()), f"fault {fault} {dtn}: pivots {gk.tolist()}")
+            faults[f"{fault} {dtn}"] = int(gk[3])
+        del D, C, B, yc, Lc
+    res["faults_global_pivot"] = faults
+    print(json.dumps({"blocktri faults": faults}), flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def chain_operands(batch, nblocks, b, k, seed, dev):
+    """The bench drivers' chain (capital_tpu/bench/drivers.py
+    `_blocktri_batch`), made on the card from a seed in f32: D_i =
+    G·Gᵀ/b + 3I, couplings at 0.3/√b with C[:, 0] = 0, a Gaussian RHS."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((batch, nblocks, b, b), generator=gen, device=dev)
+    D = G @ G.mT / b + 3.0 * torch.eye(b, device=dev)
+    del G
+    C = 0.3 / math.sqrt(b) * torch.randn((batch, nblocks, b, b), generator=gen, device=dev)
+    C[:, 0] = 0
+    B = torch.randn((batch, nblocks, b, k), generator=gen, device=dev)
+    return D, C, B
+
+
+def chain_matvec(D, C, X):
+    """A·X blockwise in f64: D_i·x_i + C_i·x_{i−1} + C_{i+1}ᵀ·x_{i+1}."""
+    D, C, X = D.double(), C.double(), X.double()
+    Y = D @ X
+    Y[:, 1:] += C[:, 1:] @ X[:, :-1]
+    Y[:, :-1] += C[:, 1:].mT @ X[:, 1:]
+    return Y
+
+
+def chain_residual(D, C, B, X) -> float:
+    """The drivers' solve gate: worst ‖A·X − B‖/‖B‖ over the batch, in f64
+    on the card."""
+    R = chain_matvec(D, C, X) - B.double()
+    return float((R.flatten(1).norm(dim=1) / B.double().flatten(1).norm(dim=1)).max())
+
+
+def factor_residual(D, C, L, Wt) -> float:
+    """The drivers' factor gate: ‖A − L̃·L̃ᵀ‖_F/‖A‖_F blockwise in f64
+    (A_ii = L_i·L_iᵀ + W_i·W_iᵀ, A_{i,i−1} = W_i·L_{i−1}ᵀ)."""
+    L, W, D, C = L.double(), Wt.double().mT, D.double(), C.double()
+    diag = L @ L.mT
+    diag[:, 1:] += W[:, 1:] @ W[:, 1:].mT
+    off = W[:, 1:] @ L[:, :-1].mT
+    num = (diag - D).square().sum() + 2.0 * (off - C[:, 1:]).square().sum()
+    den = D.square().sum() + 2.0 * C[:, 1:].square().sum()
+    return float((num / den).sqrt())
+
+
+def bt_posv_plan(blocktri, nblocks: int, algorithm: str) -> dict:
+    """Launches of one blocktri.posv on the kernel route: 'scan' runs
+    nblocks/seg fused forward steps and as many backward steps;
+    'partitioned' runs the P interiors of m − 1 blocks (one batch) and the
+    P-block reduced chain, each a fused + backward loop."""
+    if algorithm == "xla":
+        return {}
+    if algorithm == "scan":
+        n = nblocks // blocktri.resolve_seg(nblocks)
+    else:
+        P = blocktri.resolve_partitions(nblocks)
+        m = nblocks // P
+        n = (m - 1) // blocktri.resolve_seg(m - 1) + P // blocktri.resolve_seg(P)
+    return {"bt.fused_forward": n, "bt.solve_backward": n}
+
+
+def arrowhead_operands(batch, nblocks, b, s, k, seed, dev):
+    """The drivers' arrowhead (`_arrowhead_batch`): the chain above, a
+    border at 0.3/√(nblocks·b), a corner S0·S0ᵀ/s + 5I, Gaussian RHS."""
+    D, C, B = chain_operands(batch, nblocks, b, k, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1000)
+    F = 0.3 / math.sqrt(nblocks * b) * torch.randn((batch, nblocks, s, b), generator=gen, device=dev)
+    S0 = torch.randn((batch, s, s), generator=gen, device=dev)
+    S = S0 @ S0.mT / s + 5.0 * torch.eye(s, device=dev)
+    Bs = torch.randn((batch, s, k), generator=gen, device=dev)
+    return D, C, F, S, B, Bs
+
+
+def arrowhead_residual(D, C, F, S, B, Bs, X, Xs) -> float:
+    """The arrowhead driver's solve gate (drivers.arrowhead), blockwise f64:
+    chain rows A_T·x + Fᵀ·x_s − b, corner rows Σ F_i·x_i + S·x_s − b_s."""
+    F, S, Bs, Xs = F.double(), S.double(), Bs.double(), Xs.double()
+    Rc = chain_matvec(D, C, X) - B.double() + torch.einsum("znsb,zsk->znbk", F, Xs)
+    Rs = torch.einsum("znsb,znbk->zsk", F, X.double()) + S @ Xs - Bs
+    num = Rc.flatten(1).square().sum(1) + Rs.flatten(1).square().sum(1)
+    den = B.double().flatten(1).square().sum(1) + Bs.flatten(1).square().sum(1)
+    return float((num / den).sqrt().max())
+
+
+def bt_serve_requests(op, count, dtype, seed):
+    """Ragged chain requests made on the host from a seed: nblocks in {5, 8,
+    20, 32}, b in {24, 32, 50, 64}, k in {1, 3, 8}, border s in {4, 8, 20}
+    (posv_arrowhead's packed tail operand)."""
+    from capital_tpu_torch.models import arrowhead
+
+    gen = torch.Generator().manual_seed(seed)
+    pick = lambda xs: xs[int(torch.randint(len(xs), (1,), generator=gen))]  # noqa: E731
+    reqs = []
+    for _ in range(count):
+        nblocks, b, k = pick((5, 8, 20, 32)), pick((24, 32, 50, 64)), pick((1, 3, 8))
+        G = torch.randn((nblocks, b, b), generator=gen, dtype=torch.float64)
+        D = G @ G.mT / b + 3.0 * torch.eye(b, dtype=torch.float64)
+        C = 0.3 / math.sqrt(b) * torch.randn((nblocks, b, b), generator=gen, dtype=torch.float64)
+        C[0] = 0
+        A = torch.stack([D, C])
+        B = torch.randn((nblocks, b, k), generator=gen, dtype=torch.float64)
+        if op == "posv_arrowhead":
+            s = pick((4, 8, 20))
+            F = 0.3 / math.sqrt(nblocks * b) * torch.randn((1, nblocks, s, b), generator=gen,
+                                                          dtype=torch.float64)
+            S0 = torch.randn((1, s, s), generator=gen, dtype=torch.float64)
+            S = S0 @ S0.mT / s + 5.0 * torch.eye(s, dtype=torch.float64)
+            Bs = torch.randn((1, s, k), generator=gen, dtype=torch.float64)
+            B = arrowhead.pack(F, S, B[None], Bs)[0]
+        reqs.append((A.to(dtype), B.to(dtype)))
+    return reqs
+
+
+def bt_serve_residual(op, A, B, X, Xs=None) -> float:
+    """One request's residual in f64 on its own (unpadded) operands."""
+    from capital_tpu_torch.models import arrowhead
+
+    D, C = A[0][None], A[1][None]
+    if op == "posv_blocktri":
+        return chain_residual(D, C, B[None], X[None])
+    nblocks, b = A.shape[1], A.shape[2]
+    F, S, Bc, Bs = arrowhead.unpack(B[None], nblocks, b)
+    return arrowhead_residual(D, C, F, S, Bc, Bs, X[None], Xs[None])
+
+
+def bt_serve_phase(hopper, dev) -> dict:
+    """The structured serve path, request to response: ragged posv_blocktri
+    and posv_arrowhead requests through bucket_for -> pad_operands ->
+    assemble -> api.batched -> crop under impl auto, pallas and vmap, and
+    one f64 bucket each (the library route), with the counters set to 0
+    just before each call and checked just after; the drivers' residual
+    gates, pallas against vmap, exact pads and fills, one poisoned problem."""
+    from capital_tpu_torch.models import blocktri
+    from capital_tpu_torch.serve import api, batching
+    from capital_tpu_torch.serve.engine import ServeConfig
+
+    cfg = ServeConfig()  # the default ladders: nblocks 8/32/64, b 32/64/128, s 8/16/32, nrhs 1/8/64
+    out = {"calls": 0, "worst_residual": {}, "pallas_vs_vmap": {}}
+    for op in ("posv_blocktri", "posv_arrowhead"):
+        for dtype in (torch.float32, torch.float64):
+            reqs = bt_serve_requests(op, 10 if dtype == torch.float32 else 2, dtype, seed=len(op))
+            groups: dict = {}
+            for A, B in reqs:
+                bk = batching.bucket_for(op, tuple(A.shape), tuple(B.shape), str(dtype).replace("torch.", ""),
+                                         cfg)
+                check(bk is not None, f"serve {op}: request {tuple(A.shape)} has no bucket")
+                groups.setdefault(bk, []).append((A.to(dev), B.to(dev)))
+            impls = ("auto", "pallas", "vmap") if dtype == torch.float32 else ("pallas",)
+            tol = 5e-5 if dtype == torch.float32 else 1e-13
+            worst, agree = 0.0, 0.0
+            for bk, members in groups.items():
+                chunk = members[:bk.capacity]
+                padded = [batching.pad_operands(op, A, B, bk) for A, B in chunk]
+                Ab, Bb, _ = batching.assemble([p[0] for p in padded], [p[1] for p in padded], bk, device=dev)
+                results = {}
+                for impl in impls:
+                    algo = "xla" if impl == "vmap" or dtype != torch.float32 else (
+                        blocktri.posv_algorithm(bk.a_shape[1], dtype) if impl == "auto" else "scan")
+                    want = bt_posv_plan(blocktri, bk.a_shape[1], algo)
+                    got, _, _ = drive_counted(hopper, lambda: api.batched(op, "highest", impl)(Ab, Bb), want,
+                                              f"serve {op} {impl} {bk.a_shape}")
+                    out["calls"] += 1
+                    X, info = got[0], got[-1]
+                    check(not bool(info.any()), f"serve {op} {impl}: info {info.tolist()}")
+                    for i, (A, B) in enumerate(chunk):
+                        xi = batching.crop(op, X[i], tuple(A.shape), tuple(B.shape))
+                        Xs = None
+                        if op == "posv_arrowhead":
+                            s = B.shape[0] - A.shape[1] * A.shape[2]
+                            Xs = got[1][i][:s, :xi.shape[-1]]
+                            tail_s = got[1][i].clone()
+                            tail_s[:s, :xi.shape[-1]] = 0
+                            check(not bool(tail_s.any()), f"serve {op} {impl}: padded corner rows not zero")
+                        r = bt_serve_residual(op, A, B, xi, Xs)
+                        check(r < tol, f"serve {op} {impl} {dtype}: residual {r} >= {tol}")
+                        worst = max(worst, r)
+                        tail = X[i].clone()
+                        tail[:xi.shape[0], :xi.shape[1], :xi.shape[2]] = 0
+                        check(not bool(tail.any()), f"serve {op} {impl}: padded chain rows not zero")
+                    for part in got[:-1]:
+                        check(not bool(part[len(chunk):].any()), f"serve {op} {impl}: fill slots not zero")
+                    results[impl] = X
+                if "vmap" in results:
+                    for impl in ("auto", "pallas"):
+                        d = bt_rel(results[impl], results["vmap"])
+                        check(d < 1e-4, f"serve {op} {impl}: against vmap {d}")
+                        agree = max(agree, d)
+            out["worst_residual"][f"{op} {dtype}"] = worst
+            out["pallas_vs_vmap"][f"{op} {dtype}"] = agree
+
+    # containment: a NaN in problem 1 of a full posv_blocktri bucket
+    reqs = bt_serve_requests("posv_blocktri", 8, torch.float32, seed=99)
+    bk = batching.bucket_for("posv_blocktri", (2, 32, 64, 64), (32, 64, 8), "float32", cfg)
+    padded = [batching.pad_operands("posv_blocktri", A.to(dev), B.to(dev), bk) for A, B in reqs]
+    Ab, Bb, _ = batching.assemble([p[0] for p in padded], [p[1] for p in padded], bk, device=dev)
+    plan = bt_posv_plan(blocktri, bk.a_shape[1], "scan")
+    run = api.batched("posv_blocktri", "highest", "pallas")
+    (Xc, ic), _, _ = drive_counted(hopper, lambda: run(Ab, Bb), plan, "containment")
+    Ap = Ab.clone()
+    Ap[1, 0, 3, 10, 10] = float("nan")
+    (Xn, inn), _, _ = drive_counted(hopper, lambda: run(Ap, Bb), plan, "containment poisoned")
+    others = [i for i in range(8) if i != 1]
+    check(int(inn[1]) != 0 and not bool(inn[others].any()) and not bool(ic.any()),
+          f"serve containment: info {inn.tolist()}")
+    check(all(torch.equal(Xn[i], Xc[i]) for i in others), "serve containment: a neighbour changed")
+    out["containment_info"] = inn.tolist()
+    return out
+
+
+def structured_phase(hopper, dev) -> dict:
+    """Phase 14: the structured solvers through their entry points at full
+    width, every run counted against its plan and gated."""
+    from capital_tpu_torch.models import arrowhead, banded, blocktri
+    from capital_tpu_torch.ops import blocktri_small
+
+    out = {}
+    tol = 5e-5  # bench/drivers.py:_tolerance, f32
+
+    def bt_counts(counts):
+        return {k: counts[k] for k in BT_KERNELS if counts[k]}
+
+    # -- the blocktri.posv flagship (Makefile:63): three routes ---------------
+    nblocks, b, batch, k = BT_FLAGSHIP
+    D, C, B = chain_operands(batch, nblocks, b, k, 5, dev)
+    flag, Xs = {}, {}
+    for impl, algo in (("pallas", "scan"), ("auto", "partitioned"), ("xla", "xla")):
+        (X, info), counts, secs = drive_counted(hopper, lambda: blocktri.posv(D, C, B, impl=impl),
+                                                bt_posv_plan(blocktri, nblocks, algo), f"blocktri posv {impl}")
+        r = chain_residual(D, C, B, X)
+        check(not bool(info.any()) and r < tol, f"blocktri posv {impl}: info {info.tolist()}, residual {r}")
+        flag[impl] = dict(seconds=timed_s(lambda: blocktri.posv(D, C, B, impl=impl), 3), seconds_first=secs,
+                          residual=r, counts=bt_counts(counts))
+        Xs[impl] = X
+    with plain_versions(blocktri_small, BT_WRAPPERS):
+        Xq, _ = blocktri.posv(D, C, B, impl="pallas")
+    flag["pallas_vs_plain"] = bt_rel(Xs["pallas"], Xq)
+    flag["auto_vs_xla"] = bt_rel(Xs["auto"], Xs["xla"])
+    flag["pallas_vs_xla"] = bt_rel(Xs["pallas"], Xs["xla"])
+    check(flag["pallas_vs_plain"] < 1e-5 and flag["auto_vs_xla"] < 1e-4 and flag["pallas_vs_xla"] < 1e-4,
+          f"blocktri posv flagship: routes disagree {flag}")
+    out["posv_flagship"] = flag
+    print(json.dumps({"blocktri": "posv nblocks=64 b=128 f32 batch 1", **flag}), flush=True)
+    out["profile"] = profile(lambda: blocktri.posv(D, C, B, impl="pallas"), "BT::")
+    print(json.dumps({"profile": "blocktri posv pallas", **out["profile"]}), flush=True)
+
+    # -- factor + solve + extend + contract at the same geometry --------------
+    fs = {}
+    (L, Wt, info), counts, secs = drive_counted(hopper, lambda: blocktri.factor(D, C, impl="pallas"),
+                                                {"bt.factor": 8}, "blocktri factor")
+    fs["counts"] = bt_counts(counts)
+    fs["factor_residual"] = factor_residual(D, C, L, Wt)
+    check(not bool(info.any()) and fs["factor_residual"] < tol, f"factor: residual {fs['factor_residual']}")
+    fs["factor_seconds"] = timed_s(lambda: blocktri.factor(D, C, impl="pallas"), 3)
+    X, counts, _ = drive_counted(hopper, lambda: blocktri.solve(L, Wt, B, impl="pallas"),
+                                 {"bt.forward_solve": 8, "bt.solve_backward": 8}, "blocktri solve")
+    fs["solve_counts"] = bt_counts(counts)
+    fs["solve_residual"] = chain_residual(D, C, B, X)
+    check(fs["solve_residual"] < tol, f"solve: residual {fs['solve_residual']}")
+    fs["solve_seconds"] = timed_s(lambda: blocktri.solve(L, Wt, B, impl="pallas"), 3)
+    fs["solve_seconds_xla"] = timed_s(lambda: blocktri.solve(L, Wt, B, impl="xla"), 3)
+    D2, C2, _ = chain_operands(batch, nblocks, b, k, 6, dev)
+    C2[:, 0] = 0.3 / math.sqrt(b) * torch.randn((batch, b, b), generator=torch.Generator(device=dev).manual_seed(7),
+                                                device=dev)  # live: couples to the prefix's tail
+    (L2, Wt2, info2), _, _ = drive_counted(hopper, lambda: blocktri.extend(D2, C2, L[:, -1], impl="pallas"),
+                                           {"bt.factor": 8}, "blocktri extend")
+    Lf, Wtf, _ = blocktri.factor(torch.cat([D, D2], 1), torch.cat([C, C2], 1), impl="pallas")
+    fs["extend_bitwise"] = bool(torch.equal(torch.cat([L, L2], 1), Lf) and torch.equal(torch.cat([Wt, Wt2], 1), Wtf))
+    check(fs["extend_bitwise"] and not bool(info2.any()), "extend: not bitwise the full refactor")
+    del Lf, Wtf, L2, Wt2, D2, C2
+    Lk, Wtk = blocktri.contract(L, Wt, 16)
+    Xk, _, _ = drive_counted(hopper, lambda: blocktri.solve(Lk, Wtk, B[:, 16:], impl="pallas"),
+                             {"bt.forward_solve": 6, "bt.solve_backward": 6}, "blocktri contract + solve")
+    Dm, Cm = D[:, 16:].clone(), C[:, 16:].clone()
+    Dm[:, 0] = L[:, 16] @ L[:, 16].mT  # the marginal window's head
+    Cm[:, 0] = 0
+    fs["contract_residual"] = chain_residual(Dm, Cm, B[:, 16:], Xk)
+    check(fs["contract_residual"] < tol, f"contract: residual {fs['contract_residual']}")
+    out["factor_solve"] = fs
+    print(json.dumps({"blocktri": "factor/solve/extend/contract", **fs}), flush=True)
+    del L, Wt, X, Xk, Dm, Cm, D, C, B, Xs, Xq
+    torch.cuda.empty_cache()
+
+    # -- the throughput batch: 128 problems of the flagship geometry ----------
+    D, C, B = chain_operands(BT_THROUGHPUT, nblocks, b, k, 8, dev)
+    tp = {}
+    for impl, algo in (("pallas", "scan"), ("xla", "xla")):
+        (X, info), counts, secs = drive_counted(hopper, lambda: blocktri.posv(D, C, B, impl=impl),
+                                                bt_posv_plan(blocktri, nblocks, algo), f"throughput posv {impl}")
+        r = chain_residual(D, C, B, X)
+        check(not bool(info.any()) and r < tol, f"throughput {impl}: residual {r}")
+        tp[impl] = dict(seconds=timed_s(lambda: blocktri.posv(D, C, B, impl=impl), 2), residual=r,
+                        counts=bt_counts(counts))
+        tp[impl + "_X"] = X
+    tp["pallas_vs_xla"] = bt_rel(tp.pop("pallas_X"), tp.pop("xla_X"))
+    check(tp["pallas_vs_xla"] < 1e-4, f"throughput: pallas vs xla {tp['pallas_vs_xla']}")
+    out["throughput"] = dict(batch=BT_THROUGHPUT, **tp)
+    print(json.dumps({"blocktri": f"posv throughput batch {BT_THROUGHPUT}", **out["throughput"]}), flush=True)
+    del D, C, B, X
+    torch.cuda.empty_cache()
+
+    # -- the arrowhead flagship (Makefile:83) ---------------------------------
+    s = BT_BORDER
+    D, C, F, S, B, Bs = arrowhead_operands(batch, nblocks, b, s, k, 9, dev)
+    ah = {}
+    for impl, algo in (("pallas", "scan"), ("auto", "partitioned")):
+        (X, Xsol, info), counts, secs = drive_counted(hopper, lambda: arrowhead.posv(D, C, F, S, B, Bs, impl=impl),
+                                                      bt_posv_plan(blocktri, nblocks, algo), f"arrowhead posv {impl}")
+        r = arrowhead_residual(D, C, F, S, B, Bs, X, Xsol)
+        check(not bool(info.any()) and r < tol, f"arrowhead {impl}: residual {r}")
+        ah[impl] = dict(seconds=timed_s(lambda: arrowhead.posv(D, C, F, S, B, Bs, impl=impl), 3),
+                        seconds_first=secs, residual=r, counts=bt_counts(counts))
+    (_, _, Ls, info), _, _ = drive_counted(hopper, lambda: arrowhead.schur(D, C, F, S, impl="pallas"),
+                                           bt_posv_plan(blocktri, nblocks, "scan"), "arrowhead schur")
+    Zb, _ = blocktri.posv(D.double(), C.double(), F.mT.double(), impl="xla")  # f64 reference chain solve
+    St = S.double() - torch.einsum("znsb,znbt->zst", F.double(), Zb)
+    Lsd = Ls.double()
+    ah["factor_residual"] = float(torch.linalg.norm((Lsd @ Lsd.mT - St).flatten()) / torch.linalg.norm(St.flatten()))
+    check(not bool(info.any()) and ah["factor_residual"] < tol, f"arrowhead factor gate {ah['factor_residual']}")
+    ah["seconds_xla"] = timed_s(lambda: arrowhead.posv(D, C, F, S, B, Bs, impl="xla"), 3)
+    out["arrowhead"] = ah
+    print(json.dumps({"arrowhead": "nblocks=64 b=128 s=32 f32", **ah}), flush=True)
+    del D, C, F, S, B, Bs, X, Xsol, Zb, St
+    torch.cuda.empty_cache()
+
+    # -- the Spike flagship (Makefile:100): nblocks 64, b 16, batch 2, nrhs 2 --
+    sn, sb, sbatch, sk = BT_SPIKE
+    D, C, B = chain_operands(sbatch, sn, sb, sk, 10, dev)
+    sp = {}
+    for impl, algo in (("partitioned", "partitioned"), ("pallas", "scan"), ("xla", "xla")):
+        (X, info), counts, secs = drive_counted(hopper, lambda: blocktri.posv(D, C, B, impl=impl),
+                                                bt_posv_plan(blocktri, sn, algo), f"spike posv {impl}")
+        r = chain_residual(D, C, B, X)
+        check(not bool(info.any()) and r < tol, f"spike {impl}: residual {r}")
+        sp[impl] = dict(seconds=timed_s(lambda: blocktri.posv(D, C, B, impl=impl), 5), residual=r,
+                        counts=bt_counts(counts))
+    depth = (sum(sp["pallas"]["counts"].values()) / sum(sp["partitioned"]["counts"].values()))
+    check(depth >= 4, f"spike: launch-depth reduction {depth} < 4")
+    sp["launch_depth_reduction"] = depth
+    out["spike"] = sp
+    print(json.dumps({"blocktri": "spike nblocks=64 b=16 batch 2 nrhs 2", **sp}), flush=True)
+
+    # -- banded.solveh_banded at n = 8192, u = 128 ----------------------------
+    n, u = BT_BANDED
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ab = torch.rand((u + 1, n), generator=gen, device=dev) * 2.0 - 1.0
+    ab[0] = 2.0 * u + 2.0 + torch.rand(n, generator=gen, device=dev)  # diagonally dominant: SPD
+    for d in range(1, u + 1):
+        ab[d, n - d:] = 0
+    rhs = torch.randn((n, 2), generator=gen, device=dev)
+    plan = bt_posv_plan(blocktri, n // u, blocktri.posv_algorithm(n // u, torch.float32))
+    x, counts, secs = drive_counted(hopper, lambda: banded.solveh_banded(ab, rhs, lower=True), plan,
+                                    "solveh_banded")
+    abd, xd = ab.double(), x.double()
+    Ax = abd[0] * xd.T
+    for d in range(1, u + 1):
+        Ax[:, :n - d] += abd[d, :n - d] * xd.T[:, d:]
+        Ax[:, d:] += abd[d, :n - d] * xd.T[:, :n - d]
+    r = float(torch.linalg.norm(Ax.T - rhs.double()) / torch.linalg.norm(rhs.double()))
+    x64 = banded.solveh_banded(abd, rhs.double(), lower=True)
+    dx = bt_rel(x, x64)
+    check(r < tol and dx < 1e-4, f"solveh_banded: residual {r}, against f64 {dx}")
+    out["banded"] = dict(n=n, u=u, residual=r, vs_f64=dx, seconds_first=secs, counts=bt_counts(counts),
+                         seconds=timed_s(lambda: banded.solveh_banded(ab, rhs, lower=True), 3),
+                         seconds_f64=timed_s(lambda: banded.solveh_banded(abd, rhs.double(), lower=True), 2))
+    print(json.dumps({"banded": "n=8192 u=128 f32", **out["banded"]}), flush=True)
+    out["banded_profile"] = profile(lambda: banded.solveh_banded(ab, rhs, lower=True), "BT::")
+    print(json.dumps({"profile": "solveh_banded f32", **out["banded_profile"]}), flush=True)
+    del ab, abd, rhs, x, x64, Ax, D, C, B
+    torch.cuda.empty_cache()
+
+    # -- the serve ops -----------------------------------------------------------
+    out["serve"] = bt_serve_phase(hopper, dev)
+    print(json.dumps({"serve": "posv_blocktri/posv_arrowhead", **out["serve"]}), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -1478,18 +2029,43 @@ def main(argv=None) -> int:
     missing = [k for k in ("write_diag_blocks", "fused_tail", "tsqr.panel_qr") if inv_counts[k] < 1]
     check(not missing, f"kernels of the inversion paths never launched: {missing}")
 
+    # ---- phase 13: the blocktri scan-step kernels against plain versions --
+    from capital_tpu_torch.models import blocktri
+    from capital_tpu_torch.ops import blocktri_small
+    bt = bt_kernel_phase(blocktri_small, blocktri, dev)
+    for name, r in bt.items():
+        if isinstance(r, dict) and "bound" in r:
+            b, by = r.pop("bound")
+            r.update(bound_ms=b, bound_by=by)
+        print(json.dumps({"kernel": name, **r} if "max_abs_err" in r else {name: r}), flush=True)
+    out["kernels"]["blocktri"] = bt
+
+    # ---- phase 14: the structured path ------------------------------------
+    out["structured"] = structured_phase(hopper, dev)
+    # each kernel's launches on the main path's own counted run: the
+    # flagship 'pallas' posv, the factor, the solve from that factor
+    st = out["structured"]
+    bt_counts = {"bt.fused_forward": st["posv_flagship"]["pallas"]["counts"].get("bt.fused_forward", 0),
+                 "bt.factor": st["factor_solve"]["counts"].get("bt.factor", 0),
+                 "bt.forward_solve": st["factor_solve"]["solve_counts"].get("bt.forward_solve", 0),
+                 "bt.solve_backward": st["posv_flagship"]["pallas"]["counts"].get("bt.solve_backward", 0)}
+    missing = [k for k in BT_KERNELS if bt_counts[k] < 1]
+    check(not missing, f"kernels of the structured path never launched: {missing}")
+
     bf = out["kernels"][str(torch.bfloat16)]
-    # the small-N kernels report their f32 throughput batch
-    measured = {**bf, **small[f"throughput {torch.float32}"], **inv}
+    # the small-N kernels report their f32 throughput batch; the blocktri
+    # steps the flagship's step (8 problems, seg 8, b 128, k 1, f32)
+    measured = {**bf, **small[f"throughput {torch.float32}"], **inv,
+                **{k: bt[f"{k} 8x8x128x1 f32"] for k in BT_KERNELS}}
     launches = {**{k: path_counts[k] for k in PATH_KERNELS}, **{k: qr_counts[k] for k in QR_KERNELS},
-                **serve_counts, **inv_counts}
+                **serve_counts, **inv_counts, **bt_counts}
     line = {"kernels": [
         {"name": k, "route": hopper.KERNELS[k].route, "source": hopper.KERNELS[k].source,
          "replaces": hopper.KERNELS[k].replaces, "launches": launches[k],
          "max_abs_err": measured[k]["max_abs_err"], "ms": measured[k]["ms"],
          "plain_ms": measured[k]["plain_ms"], "bound_ms": measured[k]["bound_ms"],
          "bound_by": measured[k]["bound_by"], "library_ms": measured[k]["library_ms"]}
-        for k in PATH_KERNELS + QR_KERNELS + SMALL_KERNELS + INV_KERNELS
+        for k in PATH_KERNELS + QR_KERNELS + SMALL_KERNELS + INV_KERNELS + BT_KERNELS
     ]}
     if args.out:
         with open(args.out, "w") as f:

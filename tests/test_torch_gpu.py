@@ -14,8 +14,8 @@ import pytest
 import torch
 
 from capital_tpu_torch import Grid
-from capital_tpu_torch.models import cholesky, inverse, qr
-from capital_tpu_torch.ops import batched_small, hopper, qr_fused, tsqr
+from capital_tpu_torch.models import arrowhead, blocktri, cholesky, inverse, qr
+from capital_tpu_torch.ops import batched_small, blocktri_small, hopper, qr_fused, tsqr
 from capital_tpu_torch.serve import api
 from capital_tpu_torch.utils import residual
 
@@ -159,6 +159,7 @@ def test_factor_kernels_vs_plain(cuda, monkeypatch, dt):
         "qr.gram_blocked": 0, "qr.scale_gram": 0, "qr.scale_blocked": 0,
         "small.potrf": 0, "small.potrs": 0, "small.posv": 0, "small.lstsq": 0,
         "write_diag_blocks": 0, "fused_tail": 0, "small.trsm": 0, "tsqr.panel_qr": 0,
+        "bt.fused_forward": 0, "bt.factor": 0, "bt.forward_solve": 0, "bt.solve_backward": 0,
     }
     for name in ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower"):
         monkeypatch.setattr(hopper, name, getattr(hopper, name + "_plain"))
@@ -574,3 +575,165 @@ def test_inversion_counters_move_only_on_launch(cuda):
     c = hopper.counts()
     assert (c["write_diag_blocks"], c["small.trsm"], c["tsqr.panel_qr"]) == (1, 1, 1)
     assert sum(c.values()) == 3
+
+
+# ---------------------------------------------------------------------------
+# the block-tridiagonal slice: the four scan-step kernels and the chain paths
+# that launch them
+# ---------------------------------------------------------------------------
+
+BT_STEPS = ("fused_forward_step", "factor_step", "forward_solve_step", "solve_backward_step")
+#: (batch, seg, b, k): the flagship block with one and 64 right-hand sides,
+#: the Spike widths k + 2b (257 streams through the 32-column stage), and b 16
+BT_SHAPES = [(8, 8, 128, 1), (8, 8, 128, 64), (2, 8, 128, 257), (4, 7, 16, 34), (3, 5, 37, 3)]
+
+
+def _bt_operands(seed, batch, seg, b, k, dt, dev):
+    D = _spd_batch(seed, batch * seg, b, dt, dev).reshape(batch, seg, b, b)
+    C = (0.3 / np.sqrt(b) * _rand(seed + 1, (batch, seg, b, b), "f32", dev)).to(DTYPES[dt])
+    B = _rand(seed + 2, (batch, seg, b, k), dt, dev)
+    Lc = (torch.tril(0.2 * _rand(seed + 3, (batch, b, b), "f32", dev), -1)
+          + 2 * torch.eye(b, device=dev)).to(DTYPES[dt])
+    yc = _rand(seed + 4, (batch, b, k), dt, dev)
+    return D, C, B, Lc, yc
+
+
+def _bt_args(name, D, C, B, Lc, yc, L, Wt):
+    return {"fused_forward_step": (D, C, B, Lc, yc), "factor_step": (D, C, Lc),
+            "forward_solve_step": (L, Wt, B, yc), "solve_backward_step": (L, Wt, B, yc)}[name]
+
+
+def _bt_close(got, want, dt):
+    got, want = got.double().cpu(), want.double().cpu()
+    assert bool(torch.isfinite(got).all())
+    tol = {"f32": 1e-5, "bf16": 2e-2}[dt]
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", BT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_blocktri_kernels_vs_plain(cuda, shape, dt):
+    D, C, B, Lc, yc = _bt_operands(50, *shape, dt, cuda)
+    L, Wt, _, _ = blocktri_small.fused_forward_step_plain(D, C, B, Lc, yc)
+    hopper.reset_counts()
+    for name in BT_STEPS:
+        args = _bt_args(name, D, C, B, Lc, yc, L, Wt)
+        got = getattr(blocktri_small, name)(*args)
+        want = getattr(blocktri_small, name + "_plain")(*args)
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            if w.dtype == torch.int32:
+                assert torch.equal(g, w) and not g.any()
+            else:
+                _bt_close(g, w, dt)
+    c = hopper.counts()
+    assert {k: c[k] for k in c if k.startswith("bt.")} == {
+        "bt.fused_forward": 1, "bt.factor": 1, "bt.forward_solve": 1, "bt.solve_backward": 1}
+
+
+@pytest.mark.parametrize("fault", ["nan", "-inf", "indefinite", "nan_coupling"])
+def test_blocktri_info_matches_plain(cuda, fault):
+    D, C, B, Lc, yc = _bt_operands(51, 8, 8, 128, 2, "f32", cuda)
+    Lc = torch.eye(128, device=cuda).expand(8, 128, 128).contiguous()
+    if fault == "nan":
+        D[3, 2, 5, 7] = float("nan")
+    elif fault == "-inf":
+        D[3, 2, 0, 0] = -float("inf")
+    elif fault == "indefinite":
+        D[3, 2] = torch.diag(torch.tensor([1.0] * 40 + [-5.0] + [1.0] * 87, device=cuda))
+        C[3, 2] = 0
+    else:
+        C[3, 2, 9, 4] = float("nan")
+    _, _, _, info = blocktri_small.fused_forward_step(D, C, B, Lc, yc)
+    _, _, _, infop = blocktri_small.fused_forward_step_plain(D, C, B, Lc, yc)
+    assert torch.equal(info, infop)
+    assert info[3].any() and not info[3, :2].any() and not info[[0, 1, 2, 4, 5, 6, 7]].any()
+    if fault == "indefinite":
+        assert int(info[3, 2]) == 41
+    assert torch.equal(blocktri_small.factor_step(D, C, Lc)[2], info)
+
+
+def test_blocktri_identity_chain_is_exact(cuda):
+    b, seg = 128, 8
+    eye = torch.eye(b, device=cuda).expand(2, seg, b, b).contiguous()
+    zero = torch.zeros_like(eye)
+    B = torch.zeros(2, seg, b, 3, device=cuda)
+    L, Wt, y, info = blocktri_small.fused_forward_step(eye, zero, B, eye[:, 0], B[:, 0])
+    assert torch.equal(L, eye) and not Wt.any() and not y.any() and not info.any()
+    assert not blocktri_small.solve_backward_step(L, Wt, B, B[:, 0]).any()
+
+
+def test_blocktri_counters_move_only_on_launch(cuda):
+    D, C, B, Lc, yc = _bt_operands(52, 2, 4, 16, 2, "f32", cuda)
+    hopper.reset_counts()
+    blocktri_small.fused_forward_step_plain(D, C, B, Lc, yc)
+    blocktri_small.factor_step(D.cpu(), C.cpu(), Lc.cpu())
+    assert not any(hopper.counts().values())
+    blocktri_small.factor_step(D, C, Lc)
+    assert hopper.counts()["bt.factor"] == 1 and sum(hopper.counts().values()) == 1
+
+
+def test_blocktri_wrappers_refuse(cuda):
+    D, C, B, Lc, yc = _bt_operands(53, 1, 2, 16, 1, "f32", cuda)
+    with pytest.raises(TypeError):
+        blocktri_small.factor_step(D.double(), C.double(), Lc.double())
+    Db = _spd_batch(54, 1, 140, "f32", cuda).reshape(1, 1, 140, 140)
+    with pytest.raises(ValueError, match="shared memory"):
+        blocktri_small.factor_step(Db, Db, Db[:, 0])
+
+
+def _bt_chain(seed, batch, nblocks, b, k, dev):
+    D, C, B, _, _ = _bt_operands(seed, batch, nblocks, b, k, "f32", dev)
+    C[:, 0] = 0
+    return D, C, B
+
+
+def _chain_residual(D, C, B, X):
+    """‖A·X − B‖/‖B‖ blockwise in f64, worst over the batch."""
+    D, C, B, X = (t.double() for t in (D, C, B, X))
+    R = D @ X - B
+    R[:, 1:] += C[:, 1:] @ X[:, :-1]
+    R[:, :-1] += C[:, 1:].mT @ X[:, 1:]
+    return float((R.flatten(1).norm(dim=1) / B.flatten(1).norm(dim=1)).max())
+
+
+@pytest.mark.parametrize("impl,want", [
+    ("pallas", {"bt.fused_forward": 8, "bt.solve_backward": 8}),
+    ("auto", {"bt.fused_forward": 2, "bt.solve_backward": 2}),
+    ("xla", {}),
+])
+def test_blocktri_posv_launches_per_plan(cuda, impl, want):
+    D, C, B = _bt_chain(55, 2, 64, 16, 2, cuda)
+    hopper.reset_counts()
+    X, info = blocktri.posv(D, C, B, impl=impl)
+    c = hopper.counts()
+    assert c == {**dict.fromkeys(c, 0), **want}
+    assert not info.any() and _chain_residual(D, C, B, X) < 5e-5
+
+
+def test_blocktri_factor_solve_extend_launch_per_plan(cuda):
+    D, C, B = _bt_chain(56, 2, 64, 16, 2, cuda)
+    hopper.reset_counts()
+    L, Wt, info = blocktri.factor(D, C)
+    X = blocktri.solve(L, Wt, B)
+    assert hopper.counts()["bt.factor"] == 8 and hopper.counts()["bt.forward_solve"] == 8
+    assert hopper.counts()["bt.solve_backward"] == 8
+    assert not info.any() and _chain_residual(D, C, B, X) < 5e-5
+    L1, Wt1, _ = blocktri.factor(D[:, :32], C[:, :32])
+    hopper.reset_counts()
+    L2, Wt2, _ = blocktri.extend(D[:, 32:], C[:, 32:], L1[:, -1])
+    assert hopper.counts()["bt.factor"] == 4 and sum(hopper.counts().values()) == 4
+    assert torch.equal(torch.cat([L1, L2], 1), L) and torch.equal(torch.cat([Wt1, Wt2], 1), Wt)
+
+
+def test_arrowhead_posv_on_the_card(cuda):
+    D, C, B = _bt_chain(57, 2, 16, 16, 1, cuda)
+    g = torch.Generator(device="cpu").manual_seed(58)
+    F = (0.3 / 16 * torch.randn((2, 16, 4, 16), generator=g)).to(cuda)
+    S0 = torch.randn((2, 4, 4), generator=g)
+    S = (S0 @ S0.mT / 4 + 5 * torch.eye(4)).to(cuda)
+    Bs = torch.randn((2, 4, 1), generator=g).to(cuda)
+    X, Xs, info = arrowhead.posv(D, C, F, S, B, Bs, impl="pallas")
+    Xq, Xsq, infoq = arrowhead.posv(D, C, F, S, B, Bs, impl="xla")
+    assert not info.any() and not infoq.any()
+    assert float((X - Xq).abs().max() / Xq.abs().max()) < 1e-4
+    assert float((Xs - Xsq).abs().max() / Xsq.abs().max()) < 1e-4

@@ -41,6 +41,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import capital_tpu_torch.ops.batched_small, capital_tpu_torch.serve.api\n"
         "import capital_tpu_torch.serve.batching, capital_tpu_torch.serve.engine\n"
         "import capital_tpu_torch.models.inverse, capital_tpu_torch.models.trsm\n"
+        "import capital_tpu_torch.models.blocktri, capital_tpu_torch.models.arrowhead\n"
+        "import capital_tpu_torch.models.banded, capital_tpu_torch.ops.blocktri_small\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'capital_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'capital_tpu.')))\n"
         "print(','.join(bad))\n"

@@ -112,10 +112,10 @@ def test_unknown_impl_message_matches_reference():
     assert str(p.value) == str(r.value)
 
 
-@pytest.mark.parametrize("op", ["posv_blocktri", "posv_arrowhead", "chol_update",
+@pytest.mark.parametrize("op", ["session_extend", "blocktri_extend", "chol_update",
                                 "posv_cached", "posv_cached_miss", "session_solve"])
 def test_later_ops_name_their_roadmap_item(op):
-    item = "item 8" if op in ("chol_update", "posv_cached", "posv_cached_miss") else "item 6"
+    item = "item 8"  # the factor-residency and session ops wait for the serve tier
     with pytest.raises(NotImplementedError, match=item):
         api.batched(op)
     with pytest.raises(NotImplementedError, match=item):
@@ -251,8 +251,8 @@ def test_single_matches_reference(op):
     (X, info), (Xp, infop) = rf(*args_r), pf(*args_p)
     assert _rel(Xp.numpy(), np.asarray(X)) <= TOL[op]
     assert int(infop) == int(info) == 0
-    with pytest.raises(NotImplementedError, match="item 6"):
-        api.single("posv_blocktri", Grid.square(device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        api.single("session_solve", Grid.square(device="cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +269,158 @@ def test_serve_config_crosses_from_the_reference():
 
 @pytest.mark.parametrize("bad", [dict(buckets=()), dict(rows_buckets=(0,)), dict(nrhs_buckets=[1]),
                                  dict(max_batch=0), dict(precision="fp8"),
-                                 dict(small_n_impl="cuda")])
+                                 dict(small_n_impl="cuda"), dict(nblocks_buckets=()),
+                                 dict(block_buckets=(0, 8)), dict(border_buckets=[4]),
+                                 dict(blocktri_impl="spike"), dict(blocktri_partitions=-1)])
 def test_serve_config_validates_what_the_slice_reads(bad):
     with pytest.raises(ValueError):
         ServeConfig(**bad)
+
+
+# ---------------------------------------------------------------------------
+# the structured ops: posv_blocktri and posv_arrowhead
+# ---------------------------------------------------------------------------
+
+
+SCFG = dict(buckets=(8, 16), rows_buckets=(32,), nrhs_buckets=(1, 4), max_batch=3,
+            nblocks_buckets=(2, 4), block_buckets=(4, 8), border_buckets=(2, 4))
+#: (op, a_shape, b_shape) requests; arrowhead B is the packed tail operand
+SREQ = [("posv_blocktri", (2, 3, 4, 4), (3, 4, 1)), ("posv_blocktri", (2, 4, 3, 3), (4, 3, 2)),
+        ("posv_blocktri", (2, 2, 4, 4), (2, 4, 3)), ("posv_blocktri", (2, 5, 4, 4), (5, 4, 1)),
+        ("posv_blocktri", (2, 3, 9, 9), (3, 9, 1)), ("posv_blocktri", (2, 3, 4, 4), (3, 4, 5)),
+        ("posv_arrowhead", (2, 3, 4, 4), (14, 3)), ("posv_arrowhead", (2, 4, 3, 3), (13, 2)),
+        ("posv_arrowhead", (2, 2, 4, 4), (11, 4)), ("posv_arrowhead", (2, 3, 4, 4), (17, 1))]
+
+
+def _structured_request(op, a_shape, b_shape, rng):
+    """A chain pack A = [D; C] (gram/b + 3I diagonals, 0.3/√b couplings) and
+    the RHS — for posv_arrowhead the packed tail [Bᵀ | b_T; S | b_S]."""
+    _, nblocks, b, _ = a_shape
+    G = rng.standard_normal((nblocks, b, b))
+    D = G @ G.transpose(0, 2, 1) / b + 3.0 * np.eye(b)
+    C = 0.3 / np.sqrt(b) * rng.standard_normal((nblocks, b, b))
+    C[0] = 0.0
+    A = np.stack([D, C])
+    if op == "posv_blocktri":
+        return A, rng.standard_normal(b_shape)
+    s = b_shape[0] - nblocks * b
+    k = b_shape[1] - s
+    F = 0.3 / np.sqrt(nblocks * b) * rng.standard_normal((nblocks, s, b))
+    S0 = rng.standard_normal((s, s))
+    S = S0 @ S0.T / s + 5.0 * np.eye(s)
+    top = np.concatenate([F.transpose(0, 2, 1).reshape(nblocks * b, s),
+                          rng.standard_normal((nblocks * b, k))], axis=1)
+    return A, np.concatenate([top, np.concatenate([S, rng.standard_normal((s, k))], axis=1)])
+
+
+def test_structured_bucket_for_matches_reference():
+    cfg, pcfg = reng.ServeConfig(**SCFG), ServeConfig(**SCFG)
+    for op, a, b in SREQ:
+        rb = rbat.bucket_for(op, a, b, "float32", cfg)
+        pb = batching.bucket_for(op, a, b, "float32", pcfg)
+        assert (rb is None) == (pb is None), (op, a, b)
+        if rb is not None:
+            assert pb.key == rb.key and batching.bucket_label(pb) == rbat.bucket_label(rb)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_structured(op, impl, blocktri_impl="auto"):
+    return jax.jit(rapi.batched(op, "highest", impl, blocktri_impl=blocktri_impl))
+
+
+def _structured_batch(op, dtype, seed):
+    """The requests of SREQ that share the bucket of the op's first one,
+    padded by both packages (bitwise equal) and assembled."""
+    cfg, pcfg = reng.ServeConfig(**SCFG), ServeConfig(**SCFG)
+    rng = np.random.default_rng(seed)
+    first = next(r for r in SREQ if r[0] == op)
+    rb = rbat.bucket_for(op, first[1], first[2], dtype, cfg)
+    pb = batching.bucket_for(op, first[1], first[2], dtype, pcfg)
+    reqs = [r for r in SREQ if r[0] == op and rbat.bucket_for(op, r[1], r[2], dtype, cfg) == rb]
+    ra, rbb, pa, pbb, shapes = [], [], [], [], []
+    for _, a_shape, b_shape in reqs:
+        A, B = (x.astype(dtype) for x in _structured_request(op, a_shape, b_shape, rng))
+        x, y = rbat.pad_operands(op, jnp.asarray(A), jnp.asarray(B), rb)
+        u, v = batching.pad_operands(op, torch.from_numpy(A), torch.from_numpy(B), pb)
+        assert np.array_equal(u.numpy(), np.asarray(x)) and np.array_equal(v.numpy(), np.asarray(y))
+        ra.append(x), rbb.append(y), pa.append(u), pbb.append(v), shapes.append((a_shape, b_shape))
+    Ar, Br, occ_r = rbat.assemble(ra, rbb, rb)
+    Ap, Bp, occ_p = batching.assemble(pa, pbb, pb, device="cpu")
+    assert occ_p == occ_r and np.array_equal(Ap.numpy(), np.asarray(Ar))
+    assert np.array_equal(Bp.numpy(), np.asarray(Br))
+    return Ar, Br, Ap, Bp, shapes
+
+
+@pytest.mark.parametrize("impl,blocktri_impl", [("auto", "auto"), ("pallas", "auto"),
+                                                ("pallas_split", "auto"), ("vmap", "auto"),
+                                                ("auto", "scan"), ("auto", "partitioned"),
+                                                ("pallas", "partitioned")])
+@pytest.mark.parametrize("op", ["posv_blocktri", "posv_arrowhead"])
+def test_structured_batched_matches_reference(op, impl, blocktri_impl):
+    Ar, Br, Ap, Bp, shapes = _structured_batch(op, "float32", seed=5)
+    want = _ref_structured(op, impl, blocktri_impl)(Ar, Br)
+    got = api.batched(op, "highest", impl, blocktri_impl=blocktri_impl)(Ap, Bp)
+    assert len(got) == len(want) == (3 if op == "posv_arrowhead" else 2)
+    for g, w in zip(got[:-1], want[:-1]):
+        assert g.shape == w.shape and _rel(g.numpy(), np.asarray(w)) <= 1e-5
+    assert np.array_equal(got[-1].numpy(), np.asarray(want[-1]).astype(np.int32))
+    assert not got[-1].any()
+    X = got[0]
+    for i, (a_shape, b_shape) in enumerate(shapes):
+        cp = batching.crop(op, X[i], a_shape, b_shape)
+        cr = rbat.crop(op, np.asarray(want[0])[i], a_shape, b_shape)
+        assert cp.shape == cr.shape and _rel(cp.numpy(), cr) <= 1e-5
+        # the identity tail: padded rows and columns of the chain half are exact zeros
+        tail = X[i].clone()
+        tail[: cp.shape[0], : cp.shape[1], : cp.shape[2]] = 0
+        assert not tail.any()
+    # fill slots solve to exact zeros
+    assert len(shapes) < X.shape[0] and not X[len(shapes):].any()
+    if op == "posv_arrowhead":
+        assert not got[1][len(shapes):].any()
+
+
+@pytest.mark.parametrize("op", ["posv_blocktri", "posv_arrowhead"])
+def test_structured_f64_bucket_takes_the_library_route(op):
+    Ar, Br, Ap, Bp, _ = _structured_batch(op, "float64", seed=6)
+    for impl in ("pallas", "auto"):
+        want = _ref_structured(op, impl)(Ar, Br)
+        got = api.batched(op, "highest", impl)(Ap, Bp)
+        assert got[0].dtype == torch.float64
+        for g, w in zip(got[:-1], want[:-1]):
+            assert _rel(g.numpy(), np.asarray(w)) <= 1e-10
+        assert np.array_equal(got[-1].numpy(), np.asarray(want[-1]).astype(np.int32))
+
+
+@pytest.mark.parametrize("op", ["posv_blocktri", "posv_arrowhead"])
+def test_structured_fill_and_poison(op):
+    pb = batching.bucket_for(op, SREQ[0][1] if op == "posv_blocktri" else SREQ[6][1],
+                             SREQ[0][2] if op == "posv_blocktri" else SREQ[6][2], "float32",
+                             ServeConfig(**SCFG))
+    fa, fb = batching.fill_problem(pb, device="cpu")
+    fr, fbr = rbat.fill_problem(rbat.Bucket(*pb.key))
+    assert np.array_equal(fa.numpy(), np.asarray(fr)) and np.array_equal(fb.numpy(), np.asarray(fbr))
+    Ar, Br, Ap, Bp, shapes = _structured_batch(op, "float32", seed=7)
+    f = api.batched(op, "highest", "pallas")
+    clean = f(Ap, Bp)
+    Ap[0, 0, 1, 0, 0] = float("nan")
+    Ar = Ar.at[0, 0, 1, 0, 0].set(jnp.nan)
+    got = f(Ap, Bp)
+    want = _ref_structured(op, "pallas")(Ar, Br)
+    assert np.array_equal(got[-1].numpy(), np.asarray(want[-1]).astype(np.int32))
+    assert got[-1][0] != 0 and not got[-1][1:].any()
+    for g, c in zip(got[:-1], clean[:-1]):
+        assert torch.equal(g[1:], c[1:])
+
+
+@pytest.mark.parametrize("op", ["posv_blocktri", "posv_arrowhead"])
+def test_structured_single_matches_reference(op):
+    rng = np.random.default_rng(8)
+    a_shape, b_shape = ((2, 3, 4, 4), (3, 4, 2)) if op == "posv_blocktri" else ((2, 3, 4, 4), (15, 5))
+    A, B = (x.astype(np.float32) for x in _structured_request(op, a_shape, b_shape, rng))
+    jgrid = JGrid.square(c=1, devices=jax.devices()[:1])
+    X, info = rapi.single(op, jgrid, "highest")(jnp.asarray(A), jnp.asarray(B))
+    Xp, infop = api.single(op, Grid.square(device="cpu"), "highest")(torch.from_numpy(A),
+                                                                      torch.from_numpy(B))
+    assert Xp.shape == X.shape and _rel(Xp.numpy(), np.asarray(X)) <= 1e-5
+    assert int(infop) == int(info) == 0
