@@ -11,11 +11,14 @@ Ported so far: single-device cholinv (`models/cholesky.factor`, with the
 fused tail), single-device CholeskyQR2 (`models/qr.factor`), triangular
 inversion and TRSM (`models/inverse.rectri` / `newton`,
 `models/trsm.solve`), TSQR (`ops/tsqr.tsqr`), the small-N batched
-solves of serve's bucket programs (`serve/api.batched`) and the
+solves of serve's bucket programs (`serve/api.batched`), the
 block-tridiagonal chain solvers (`models/blocktri`, `models/arrowhead`,
-`models/banded`), with their hand-written kernels (ops/hopper.py,
-ops/qr_fused.py, ops/batched_small.py, ops/tsqr.py, ops/blocktri_small.py,
-ops/csrc/).  `KERNELS` holds every kernel's launch counter.
+`models/banded`), the rank-k Cholesky update / downdate
+(`ops/update_small`) and mixed-precision iterative refinement
+(`robust/refine`, serve's 'fast' and 'guaranteed' tiers), with their
+hand-written kernels (ops/hopper.py, ops/qr_fused.py, ops/batched_small.py,
+ops/tsqr.py, ops/blocktri_small.py, ops/update_small.py, ops/csrc/).
+`KERNELS` holds every kernel's launch counter.
 """
 
 from capital_tpu_torch.models import arrowhead, banded, blocktri, cholesky, inverse, qr, trsm

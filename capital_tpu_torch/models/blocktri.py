@@ -209,23 +209,11 @@ def _tri_solve(L, R, transpose: bool = False):
 
 def _chol_block(s):
     """Library Cholesky of a (batch, b, b) Schur complement with the
-    reference's symmetrised input ((S + Sᵀ)/2) and the reference's
-    breakdown rule: a non-positive pivot NaN-fills the whole factor, but a
-    NaN pivot does not stop the reference's potrf (NaN fails its `<= 0`
-    test), so its factor keeps the leading columns and is NaN in the
-    trailing triangle from that pivot on.  torch reports both as breakdown
-    and leaves the NaN on the failed pivot; rebuilding that pattern (lower
-    triangle only, as the reference's) gives `detect.factor_info` the
-    reference's pivot index.  The fill covers the lower entries of columns
-    >= t: t = b on a clean factor, the pivot on a NaN pivot, 0 otherwise."""
-    L, info = torch.linalg.cholesky_ex(((s + s.mT) / 2).to(lapack._compute_dtype(s.dtype)))
-    b = L.shape[-1]
-    j = (info.long()[..., None] - 1).clamp(min=0)
-    nan_pivot = torch.diagonal(L, dim1=-2, dim2=-1).gather(-1, j).isnan()
-    t = torch.where(info[..., None] == 0, b, torch.where(nan_pivot, j, 0))
-    idx = torch.arange(b, device=L.device)
-    fill = (idx[:, None] >= idx) & (idx >= t[..., None])
-    return L.masked_fill(fill, float("nan")).to(s.dtype)
+    reference's symmetrised input ((S + Sᵀ)/2, at S's dtype) and its
+    breakdown rule (`lapack.cholesky_lower`), so `detect.factor_info`
+    reports the reference's pivot index."""
+    ct = lapack._compute_dtype(s.dtype)
+    return lapack.cholesky_lower(((s + s.mT) / 2).to(ct)).to(s.dtype)
 
 
 def _xla_factor_scan(D, C, carry0=None):

@@ -3,7 +3,7 @@ capital_tpu/ops/pallas_tpu.py), and the one launch-counter registry of every
 kernel of the port (`KERNELS`; the CholeskyQR2 kernels' wrappers live in
 ops/qr_fused.py, the small-N batched solves' in ops/batched_small.py, the
 TSQR panel kernel's in ops/tsqr.py, the block-tridiagonal scan steps' in
-ops/blocktri_small.py).
+ops/blocktri_small.py, the rank-k update sweep's in ops/update_small.py).
 
 Each kernel sits here as three things side by side:
 
@@ -98,6 +98,9 @@ KERNELS: dict[str, Kernel] = {
         Kernel("bt.factor", _CSRC + "blocktri_small.cu", _BT + "229)"),
         Kernel("bt.forward_solve", _CSRC + "blocktri_small.cu", _BT + "266)"),
         Kernel("bt.solve_backward", _CSRC + "blocktri_small.cu", _BT + "304)"),
+        # the rank-k update / downdate rotation sweep; wrapper in ops/update_small.py
+        Kernel("up.sweep", _CSRC + "update_small.cu",
+               "capital_tpu/ops/batched_small.py:358 (def capital_tpu/ops/update_small.py:158)"),
     )
 }
 

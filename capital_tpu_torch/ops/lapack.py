@@ -5,9 +5,9 @@ The JAX package maps this seam onto `lax.linalg`, a library call; the port
 maps it onto `torch.linalg`.  Sub-f32 inputs (bf16/f16) are upcast to f32
 for the factorization and cast back once, as in the reference.
 
-A breakdown NaN-fills the factor, as `lax.linalg.cholesky` does, so that
-`robust/detect.factor_info` reports it the same way in both packages
-(`torch.linalg.cholesky` would raise instead).  Every routine also takes a
+A breakdown leaves the reference's NaN pattern in the factor
+(`cholesky_lower`), so that `robust/detect.factor_info` reports it the
+same way in both packages (`torch.linalg.cholesky` would raise instead).  Every routine also takes a
 stack of matrices (leading batch dimensions), as `torch.linalg` does: the
 serve tier's vmap route writes its batch axis out this way.
 
@@ -28,12 +28,32 @@ def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype.itemsize < 4 else dtype
 
 
-def cholesky_lower(P: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor reading only the lower triangle of P; the whole
-    factor is NaN on breakdown (lax.linalg.cholesky semantics), per matrix
-    of a stack."""
+def cholesky_lower(P: torch.Tensor, *, symmetrize: bool = False) -> torch.Tensor:
+    """Lower Cholesky factor of P, per matrix of a stack, with the
+    reference's breakdown rule (the JAX package's CPU potrf): a
+    non-positive pivot NaN-fills the whole factor, as `lax.linalg.cholesky`
+    does; a NaN pivot does not stop that potrf (NaN fails its `<= 0`
+    test), so its factor keeps the leading columns and is NaN in the
+    trailing triangle from that pivot on.  torch reports both as breakdown
+    and leaves the NaN on the failed pivot; rebuilding the pattern gives
+    `robust/detect.factor_info` the reference's pivot index.  The fill
+    covers the lower entries of columns >= t: t = n on a clean factor, the
+    pivot on a NaN pivot, 0 otherwise.  The strict upper triangle stays
+    zero.
+
+    Reads the lower triangle of P, or of (P + Pᵀ)/2 under `symmetrize`
+    (`lax.linalg.cholesky`'s and `jnp.linalg.cholesky`'s default; the
+    reference's `symmetrize_input=False` callers read the lower one)."""
+    if symmetrize:
+        P = (P + P.mT) / 2
     L, info = torch.linalg.cholesky_ex(P)
-    return torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
+    n = L.shape[-1]
+    j = (info.long()[..., None] - 1).clamp(min=0)
+    nan_pivot = torch.diagonal(L, dim1=-2, dim2=-1).gather(-1, j).isnan()
+    t = torch.where(info[..., None] == 0, n, torch.where(nan_pivot, j, 0))
+    idx = torch.arange(n, device=L.device)
+    fill = (idx[:, None] >= idx) & (idx >= t[..., None])
+    return L.masked_fill(fill, float("nan"))
 
 
 def _eye(n: int, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -44,7 +64,7 @@ def potrf(A: torch.Tensor, uplo: str = "U", with_info: bool = False):
     """Cholesky factor of SPD A: upper R with A = RᵀR (uplo='U') or lower L
     with A = LLᵀ (uplo='L')."""
     A = faultinject.tap(A)
-    L = cholesky_lower(A.to(_compute_dtype(A.dtype))).to(A.dtype)
+    L = cholesky_lower(A.to(_compute_dtype(A.dtype)), symmetrize=True).to(A.dtype)
     T = L.mT if uplo == "U" else L
     return (T, detect.factor_info(T)) if with_info else T
 
@@ -79,7 +99,7 @@ def potrf_trtri(A: torch.Tensor, uplo: str = "U", with_info: bool = False):
     compute dtype between the two steps."""
     A = faultinject.tap(A)
     ct = _compute_dtype(A.dtype)
-    L = cholesky_lower(A.to(ct))
+    L = cholesky_lower(A.to(ct), symmetrize=True)
     T = L.mT if uplo == "U" else L
     Tinv = torch.linalg.solve_triangular(
         T, _eye(A.shape[-1], A, ct), upper=(uplo == "U")

@@ -37,12 +37,21 @@ capital_tpu/serve/api.py).
   the Spike driver, 'scan' pins the sequential loop, 'auto' leaves the
   choice to blocktri.  posv_arrowhead returns (X_chain, X_corner, info).
 
+  chol_update / chol_downdate run ops/update_small on (resident factor,
+  rank-k panel) batches and return (R', info); 'vmap' is its panel scan,
+  'pallas' / 'pallas_split' its sweep kernel (f64 always the panel scan).
+
+  `tier` (robust/refine.TIERS) reaches posv, lstsq and posv_blocktri:
+  'fast' runs the program with the factor dtype one notch down and casts
+  the answer back; 'guaranteed' runs the refinement program
+  (`_batched_refine`), five outputs (X, iters, converged, resid, info).
+
 * **single** — a request beyond every ladder runs unbatched through the
   models: cholesky.solve, qr.factor + apply_QT + a triangular solve,
   cholesky.factor + summa.gemm, and the chain ops as a batch of one.
 
-The other serve ops wait for their slices (ROADMAP Queue A items 7-8) and
-raise NotImplementedError naming the item.
+The residency and session ops wait for the serve tier (ROADMAP Queue A
+item 8) and raise NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -50,8 +59,9 @@ from __future__ import annotations
 import torch
 
 from capital_tpu_torch.models import arrowhead, blocktri, cholesky, qr
-from capital_tpu_torch.ops import batched_small, blocktri_small, lapack
+from capital_tpu_torch.ops import batched_small, blocktri_small, lapack, update_small
 from capital_tpu_torch.parallel import summa
+from capital_tpu_torch.robust import refine
 from capital_tpu_torch.serve import batching
 from capital_tpu_torch.utils import tracing
 
@@ -152,8 +162,8 @@ def _host_side(a) -> bool:
     return a.device.type != "cuda"
 
 
-#: serve-wide impl vocabulary -> blocktri's ('vmap' is the library route;
-#: the chain has no split form)
+#: serve-wide impl vocabulary -> the two-impl modules' own ('vmap' is the
+#: library route; neither the update sweep nor the chain has a split form)
 _TWO_IMPL_MAP = {"auto": "auto", "pallas": "pallas", "pallas_split": "pallas", "vmap": "xla"}
 
 
@@ -210,6 +220,46 @@ def _batched_arrowhead(precision, impl: str, blocktri_impl: str = "auto", partit
     return f
 
 
+def _batched_update(op: str, precision, impl: str):
+    """chol_update / chol_downdate bucket program: (factor batch, rank-k
+    panel batch) -> (R', info); update_small resolves the route (f64
+    always the panel scan)."""
+    mapped = _TWO_IMPL_MAP[impl]
+    fn = update_small.chol_update if op == "chol_update" else update_small.chol_downdate
+
+    def f(r, v):
+        return fn(r, v, precision=precision, impl=mapped)
+
+    return f
+
+
+def _batched_refine(op: str, precision, impl: str, tier: str):
+    """The guaranteed-tier bucket program: mixed-precision iterative
+    refinement (robust/refine) over the solve, five outputs (X, iters,
+    converged, resid, info).  The dtypes resolve from the operand dtype
+    alone (`refine.plan`)."""
+
+    def f(a, b):
+        p = refine.plan(tier, a.dtype)
+        kw = dict(factor_dtype=p.factor_dtype, correction_dtype=p.correction_dtype,
+                  max_iters=p.max_iters, impl=impl, precision=precision)
+        if op == "posv":
+            X, info, ri = refine.posv(a, b, **kw)
+        elif op == "lstsq":
+            X, info, ri = refine.lstsq(a, b, **kw)
+        else:  # posv_blocktri (bucket packing: a[:, 0] = D, a[:, 1] = C)
+            X, info, ri = refine.posv_blocktri(a[:, 0], a[:, 1], b, **kw)
+        return X, ri.iters, ri.converged, ri.resid, info
+
+    return f
+
+
+#: the ops the accuracy-tier vocabulary applies to (session_solve's
+#: guaranteed tier waits for ROADMAP Queue A item 8); every other op
+#: refuses a tier other than 'balanced'
+TIER_OPS = ("posv", "lstsq", "posv_blocktri", "session_solve")
+
+
 def batched(op: str, precision: str | None = "highest",
             impl: str = "auto", *, blocktri_impl: str = "auto",
             blocktri_partitions: int = 0, tier: str = "balanced"):
@@ -217,14 +267,35 @@ def batched(op: str, precision: str | None = "highest",
     batch through the solve, returning (X, info) stacks.  `impl` picks the
     batch program ('vmap', 'pallas', 'pallas_split' or 'auto', resolved per
     bucket from the batch shapes); `blocktri_impl` / `blocktri_partitions`
-    reach only the chain programs; `tier` must be 'balanced'."""
+    reach only the chain programs.  `tier` ('balanced', 'fast' or
+    'guaranteed', TIER_OPS only): 'fast' runs the program at the factor
+    dtype one notch down (no refinement) and casts X back to the request's
+    dtype; 'guaranteed' returns the five-output refinement program."""
     if impl not in batched_small.IMPLS:
         raise ValueError(
             f"unknown batched impl {impl!r}: expected one of "
             f"{batched_small.IMPLS}"
         )
-    batching.check_op(op)
-    batching._check_tier(tier)
+    batching._check_bucket_op(op)
+    if tier != "balanced":
+        batching._check_tier(tier)
+        if op not in TIER_OPS:
+            raise ValueError(
+                f"accuracy_tier={tier!r} applies only to {TIER_OPS}; "
+                f"op {op!r} serves the balanced program only")
+        if tier == "guaranteed":
+            return _batched_refine(op, precision, impl, tier)
+        inner = batched(op, precision, impl, blocktri_impl=blocktri_impl,
+                        blocktri_partitions=blocktri_partitions)
+
+        def fast(a, b):
+            fd = refine.plan("fast", a.dtype).factor_dtype
+            X, info = inner(a.to(fd), b.to(fd))
+            return X.to(a.dtype), info
+
+        return fast
+    if op in batching.UPDATE_OPS:
+        return _batched_update(op, precision, impl)
     if op == "posv_blocktri":
         return _batched_blocktri(precision, impl, blocktri_impl, blocktri_partitions)
     if op == "posv_arrowhead":

@@ -19,10 +19,18 @@ unpadded one.  posv_arrowhead adds one packed tail operand
 (models/arrowhead.pack) whose border columns zero-pad and whose corner
 embeds as diag(S, I); the border width s has its own ladder.
 
-The session ops and the factor-residency ops wait for ROADMAP Queue A item
-8 and accuracy tiers other than 'balanced' for item 7: each raises
-NotImplementedError naming its item.  Functions that create tensors take
-`device=`, which defaults to the CUDA card and raises without one.
+chol_update / chol_downdate bucket the engine-composed operands (the
+resident factor R (n, n), the rank-k panel V (n, k)) on `buckets` x
+`nrhs_buckets`; the pad is diag(R, I) with zero V rows and columns, a fixed
+point of the sweep, and the crop is the (n, n) principal window.  A bucket
+carries the accuracy tier ('balanced', 'fast', 'guaranteed'): tiers change
+the program, not the padded shapes.
+
+The engine path (`check_op`) still refuses the factor-residency and session
+ops, which wait for ROADMAP Queue A item 8 (the session solve's tiers with
+them); each raises NotImplementedError naming its item.  Functions
+that create tensors take `device=`, which defaults to the CUDA card and
+raises without one.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import dataclasses
 import torch
 
 from capital_tpu_torch.ops import masking
+from capital_tpu_torch.robust import refine
 from capital_tpu_torch.utils import tracing
 
 OPS = ("posv", "lstsq", "inv", "posv_blocktri", "posv_arrowhead",
@@ -53,6 +62,10 @@ DENSE_OPS = ("posv", "lstsq", "inv")
 #: the block-tridiagonal chain ops (models/blocktri, models/arrowhead)
 STRUCTURED_OPS = ("posv_blocktri", "posv_arrowhead")
 
+#: the rank-k update ops: their bucket programs (api.batched) are served,
+#: the engine's residency protocol around them is not (Queue A item 8)
+UPDATE_OPS = ("chol_update", "chol_downdate")
+
 
 def check_op(op: str) -> None:
     """Raise for an op the port does not serve yet: NotImplementedError
@@ -68,12 +81,16 @@ def check_op(op: str) -> None:
     raise NotImplementedError(f"serve op {op!r} is not ported yet (ROADMAP {item})")
 
 
+def _check_bucket_op(op: str) -> None:
+    """Raise for an op without a bucket program in the port (`check_op`'s
+    rule, with the update ops' programs let through)."""
+    if op not in UPDATE_OPS:
+        check_op(op)
+
+
 def _check_tier(tier: str) -> None:
-    if tier != "balanced":
-        raise NotImplementedError(
-            f"accuracy_tier={tier!r} is not ported yet (ROADMAP Queue A item 7, "
-            "refinement); only 'balanced' is served"
-        )
+    if tier not in refine.TIERS:
+        raise ValueError(f"accuracy_tier must be one of {refine.TIERS}, got {tier!r}")
 
 
 def _device(device) -> torch.device:
@@ -143,9 +160,20 @@ def bucket_for(op: str, a_shape, b_shape, dtype: str, cfg,
     appended row (masking.embed_identity_tail).  posv_blocktri buckets
     nblocks and b on cfg.nblocks_buckets / cfg.block_buckets and nrhs on
     the dense ladder; posv_arrowhead's tail operand (nblocks·b + s, s + k)
-    buckets to (nbb·bb + sb, sb + kb), s on cfg.border_buckets."""
-    check_op(op)
+    buckets to (nbb·bb + sb, sb + kb), s on cfg.border_buckets;
+    chol_update / chol_downdate bucket (R (n, n), V (n, k)) to
+    ((nb, nb), (nb, kb)).  `tier` is stamped into the bucket."""
     _check_tier(tier)
+    if tier != "balanced":
+        b = bucket_for(op, a_shape, b_shape, dtype, cfg)
+        return None if b is None else dataclasses.replace(b, tier=tier)
+    _check_bucket_op(op)
+    if op in UPDATE_OPS:
+        nb = _pick(cfg.buckets, a_shape[0])
+        kb = _pick(cfg.nrhs_buckets, b_shape[1])
+        if nb is None or kb is None:
+            return None
+        return Bucket(op, dtype, (nb, nb), (nb, kb), cfg.max_batch)
     if op == "posv_blocktri":
         _, nblocks, b, _ = a_shape
         nbb = _pick(cfg.nblocks_buckets, nblocks)
@@ -190,8 +218,10 @@ def bucket_for(op: str, a_shape, b_shape, dtype: str, cfg,
 def pad_operands(op: str, A, B, bucket: Bucket):
     """Pad one request's operands to the bucket's per-problem shapes:
     identity-tail embed for the factored operand, zero-fill for the RHS
-    (on A's device)."""
-    check_op(op)
+    (on A's device).  For the update ops diag(R, I) stays a valid upper
+    factor and the zero V rows and columns make every padded rotation a
+    t = 0 no-op: the pad is a fixed point of the sweep."""
+    _check_bucket_op(op)
     with tracing.scope("serve::pad"):
         if op == "posv_blocktri":
             return _pad_blocktri(A, B, bucket)
@@ -262,7 +292,7 @@ def fill_problem(bucket: Bucket, *, device=None):
     against a zero RHS.  For posv_blocktri the identity chain (identity
     diagonal blocks, zero couplings); for posv_arrowhead that chain coupled
     to an identity corner through a zero border (the whole matrix is I)."""
-    check_op(bucket.op)
+    _check_bucket_op(bucket.op)
     dev, dt = _device(device), _dtype(bucket.dtype)
     if bucket.op in STRUCTURED_OPS:
         _, nbb, bb, _ = bucket.a_shape
@@ -310,5 +340,5 @@ def crop(op: str, X, a_shape, b_shape):
         nblocks, b = a_shape[1], a_shape[2]
         s = b_shape[0] - nblocks * b
         return X[:nblocks, :b, : b_shape[1] - s]
-    check_op(op)
-    return X[: a_shape[0], : a_shape[0]]  # inv
+    _check_bucket_op(op)
+    return X[: a_shape[0], : a_shape[0]]  # inv, chol_update, chol_downdate

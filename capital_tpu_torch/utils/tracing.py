@@ -51,6 +51,10 @@ PHASE_REGISTRY: tuple[str, ...] = (
     # factor; the arrowhead completion (models/arrowhead.py)
     "BT::factor", "BT::solve", "BT::partition", "BT::reduce", "UP::extend",
     "AH::schur", "AH::border",
+    # rank-k Cholesky update / downdate (ops/update_small.py) and the
+    # refinement sweeps (robust/refine.py): IR::residual wraps the
+    # high-precision residual product, IR::correct the correction solve
+    "UP::update", "UP::downdate", "IR::residual", "IR::correct",
 )
 _PHASE_SET: set[str] = set(PHASE_REGISTRY)
 
@@ -320,3 +324,25 @@ def arrowhead_border_flops(nblocks: int, b: int, s: int, k: int) -> float:
     x_T = Z_rhs − Z_B·x_S (2·n·s·k)."""
     n = nblocks * b
     return 4.0 * n * s * k + 2.0 * s * s * k
+
+
+def chol_update_flops(n: int, k: int) -> float:
+    """Rank-k Cholesky update/downdate sweep, per problem (UP::update /
+    UP::downdate): the reference's executed count on its masked one-hot
+    sweep, 4kn³ (the useful count is ~4.5kn², the rotation recurrence's;
+    chip_smoke's bound uses that one)."""
+    return 4.0 * k * n**3
+
+
+def refine_sweep_flops(n: int, k: int) -> float:
+    """One iterative-refinement sweep over a dense SPD solve, per problem
+    (IR::residual + IR::correct): the residual product r = B − A·X (2n²k),
+    the two triangular correction sweeps and the X += d axpy."""
+    return 2.0 * n * n * k + 2.0 * batched_trsm_flops(n, k) + 2.0 * n * k
+
+
+def refine_lstsq_sweep_flops(m: int, n: int, k: int) -> float:
+    """One semi-normal-equation refinement sweep over lstsq, per problem:
+    r = B − A·X (2mnk), g = Aᵀr (2mnk), the two triangular sweeps of
+    d = R⁻¹R⁻ᵀg and the update axpy."""
+    return 4.0 * m * n * k + 2.0 * batched_trsm_flops(n, k) + 2.0 * n * k

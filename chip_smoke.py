@@ -81,12 +81,28 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     and the serve ops posv_blocktri and posv_arrowhead (ragged requests
     through bucketing, auto / pallas / vmap, f64 buckets, a poisoned
     problem) — each with the drivers' residual gates;
-15. prints the `kernels` JSON line (each bt.* kernel's launches from the
+15. holds the rank-k update's rotation-sweep kernel against its plain
+    version: update and downdate, f32 and bf16, at (8, 128, k) for k = 1,
+    8, 64 and (8192, 128, 8), with the f64 residual gate of bench update,
+    timed beside bound, plain version and the refactor from the resident
+    state; NaN / ±inf on R's diagonal, in its dead lower triangle and in V,
+    and an infeasible downdate, each in one problem of eight;
+16. drives the update and refinement paths: the bench-update flagship
+    (n = 1024, k = 16, batch 2, f32: the panel scan, no kernel) against
+    the refactor, `api.batched("chol_update" | "chol_downdate")` at
+    (8, 128, 8) f32 on 'auto', 'pallas', 'vmap' and f64 (plus a padded
+    bucket cropped), the bench-refine flagship (batch 4, n = 1024, nrhs 4,
+    f64 at cond 1e5, tier 'guaranteed' against the straight f64 solve;
+    profiled by IR:: phase), guaranteed posv and lstsq and the fast tier
+    at the serve bucket, and guaranteed posv_blocktri on the scan route;
+17. prints the `kernels` JSON line (each bt.* kernel's launches from the
     main path's own run: the flagship 'pallas' posv for fused_forward and
-    solve_backward, the factor for factor, the solve for forward_solve),
-    the nvidia-smi line, and last {"ok": true, "device": {...}}.
+    solve_backward, the factor for factor, the solve for forward_solve;
+    up.sweep's from the api.batched("chol_update") 'auto' call; the dense
+    tri_matmul, on no path, with 0), the nvidia-smi line, and last
+    {"ok": true, "device": {...}}.
 
-Phases 3, 5, 7, 9–12 and 14 set every launch counter to 0 just before
+Phases 3, 5, 7, 9–12, 14 and 16 set every launch counter to 0 just before
 their runs and check the counts just after against the plan.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -116,7 +132,22 @@ SMALL_KERNELS = ("small.potrf", "small.potrs", "small.posv", "small.lstsq")
 INV_KERNELS = ("write_diag_blocks", "fused_tail", "small.trsm", "tsqr.panel_qr")
 #: the block-tridiagonal slice's kernels
 BT_KERNELS = ("bt.fused_forward", "bt.factor", "bt.forward_solve", "bt.solve_backward")
+#: the update / refinement slice's kernel
+UP_KERNELS = ("up.sweep",)
 DTYPE_BY_NAME = {"f32": torch.float32, "bf16": torch.bfloat16}
+#: phase 15's sweeps (batch, n, k): the serve bucket's largest small-N n
+#: over the nrhs_buckets rungs, and the throughput batch
+UP_SHAPES = ((8, 128, 1), (8, 128, 8), (8, 128, 64), (8192, 128, 8))
+#: phase 15's faults, each in problem 3 of (8, 128, 8) f32: (operand,
+#: index, value, sign); 'infeasible' scales that problem's V by 40
+UP_FAULTS = {"nan_diag": ("R", (40, 40), float("nan"), 1.0), "inf_diag": ("R", (7, 7), float("inf"), 1.0),
+             "-inf_diag": ("R", (90, 90), float("-inf"), 1.0), "nan_lower": ("R", (100, 3), float("nan"), 1.0),
+             "inf_lower": ("R", (127, 64), float("inf"), 1.0), "nan_V": ("V", (55, 2), float("nan"), 1.0),
+             "-inf_V": ("V", (0, 7), float("-inf"), -1.0), "infeasible": ("V", None, None, -1.0)}
+#: phase 16: the bench-update flagship (n, k, batch; Makefile:117-121) and
+#: the bench-refine flagship (batch, n, nrhs; Makefile:142-147)
+UP_FLAGSHIP = (1024, 16, 2)
+REFINE_FLAGSHIP = (4, 1024, 4)
 #: phase 13's scan steps (batch, seg, b, k, dtypes, timed): chain blocks of
 #: 128 with seg = 8 at k = 1 (the flagship posv's step, 8 problems), k = 64
 #: (posv_blocktri's top nrhs rung), k + s = 33 (the arrowhead flagship's
@@ -386,7 +417,7 @@ def predicted_counts(leaves: int) -> dict:
         "tri_matmul.dense": 0, "transpose": leaves, "transpose_pair": leaves,
         "zeros_dead_lower": 2, **dict.fromkeys(QR_KERNELS, 0),
         **dict.fromkeys(SMALL_KERNELS, 0), **dict.fromkeys(INV_KERNELS, 0),
-        **dict.fromkeys(BT_KERNELS, 0),
+        **dict.fromkeys(BT_KERNELS, 0), **dict.fromkeys(UP_KERNELS, 0),
     }
 
 
@@ -1855,6 +1886,282 @@ def structured_phase(hopper, dev) -> dict:
     return out
 
 
+# ---- the update / refinement slice (phases 15-16) --------------------------
+
+
+def up_operands(batch, n, k, dtype, down, seed, dev):
+    """Upper factors of G·Gᵀ/n + 3I and a rank-k panel, made on the card
+    from a seed; a downdate's V is scaled to 0.1/√n so A − VVᵀ stays SPD
+    (tests/test_update.py).  Returns (A f64, R, V) with R, V at `dtype`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((batch, n, n), generator=gen, device=dev, dtype=torch.float64)
+    A = G @ G.mT / n + 3.0 * torch.eye(n, device=dev, dtype=torch.float64)
+    del G
+    R = torch.linalg.cholesky(A).mT.contiguous().to(dtype)
+    V = (torch.randn((batch, n, k), generator=gen, device=dev, dtype=torch.float64)
+         * ((0.1 / math.sqrt(n)) if down else 0.3)).to(dtype)
+    return A, R, V
+
+
+def up_residual(R, V, R1, sign) -> float:
+    """max over problems of ‖R′ᵀR′ − (RᵀR ± VVᵀ)‖_F / ‖RᵀR ± VVᵀ‖_F in f64
+    (the bench-update gate), from the factor as stored."""
+    R, V, R1 = R.double(), V.double(), R1.double()
+    A1 = R.mT @ R + sign * (V @ V.mT)
+    return float((torch.linalg.norm(R1.mT @ R1 - A1, dim=(1, 2)) / torch.linalg.norm(A1, dim=(1, 2))).max())
+
+
+def up_refactor(R, V):
+    """The library alternative to a rank-k update (bench update's
+    baseline): refactor from the resident state, S = RᵀR + VVᵀ, then
+    cholesky_ex."""
+    return torch.linalg.cholesky_ex(R.mT @ R + V @ V.mT)
+
+
+def up_kernel_phase(update_small, dev) -> dict:
+    """Phase 15: the rotation-sweep kernel against its plain version at the
+    serve latency bucket's n = 128 over the nrhs rungs k = 1, 8, 64 and at
+    the throughput batch (8192 problems, k = 8), update and downdate, f32
+    and bf16; timed beside bound, plain version and the refactor; then the
+    fault cases, each poisoning one problem of eight."""
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        item = torch.tensor([], dtype=dtype).element_size()
+        for batch, n, k in UP_SHAPES:
+            for op, sign in (("update", 1.0), ("downdate", -1.0)):
+                _, R, V = up_operands(batch, n, k, dtype, sign < 0, 31 + k, dev)
+                Rk, ik = update_small.sweep(R, V, sign)
+                Rp, ip = update_small.sweep_plain(R, V, sign)
+                torch.cuda.synchronize()
+                check(torch.equal(ik, ip) and not bool(ik.any()), f"up.sweep {op} {dtype}: info {ik.tolist()[:8]}")
+                err = small_close("up.sweep", Rk, Rp, dtype)
+                r = up_residual(R, V, Rk, sign)
+                gate = 5e-5 if dtype == torch.float32 else 1e-2
+                check(r < gate, f"up.sweep {op} {dtype} {batch}x{n}x{k}: residual {r} >= {gate}")
+                key = f"{op} {batch}x{n}x{k} {'f32' if dtype == torch.float32 else 'bf16'}"
+                # the plain version is launch-bound (~1 ms a column step): time it
+                # for the f32 update at the serve bucket and the throughput batch
+                timed = dtype == torch.float32 and op == "update" and k == 8
+                row = dict(max_abs_err=err, residual=r,
+                           ms=time_ms(lambda: update_small.sweep(R, V, sign), 10 if batch == 8 else 3),
+                           bound=bound_ms(batch * (2.0 * n * n + n * k) * item, batch * 4.5 * k * n * n,
+                                          torch.float32))
+                if timed:
+                    row["plain_ms"] = time_budget_ms(lambda: update_small.sweep_plain(R, V, sign), most=3)
+                    row["library_ms"] = time_budget_ms(lambda: up_refactor(R, V))
+                res[key] = row
+                del R, V, Rk, Rp
+    torch.cuda.empty_cache()
+
+    # faults: one problem of eight poisoned; info, NaN and inf patterns
+    # equal to the plain version's, and only that problem flagged
+    faults = {}
+    for case, (where, idx, val, sign) in UP_FAULTS.items():
+        _, R, V = up_operands(8, 128, 8, torch.float32, sign < 0, 41, dev)
+        if case == "infeasible":
+            V[3] *= 40.0
+        else:
+            (R if where == "R" else V)[(3, *idx)] = val
+        Rk, ik = update_small.sweep(R, V, sign)
+        Rp, ip = update_small.sweep_plain(R, V, sign)
+        same = (torch.equal(ik, ip) and torch.equal(Rk.isnan(), Rp.isnan())
+                and torch.equal(Rk.isinf(), Rp.isinf()))
+        others = [i for i in range(8) if i != 3]
+        check(same and int(ik[3]) != 0 and not bool(ik[others].any()),
+              f"up.sweep fault {case}: info {ik.tolist()} vs plain {ip.tolist()}")
+        fin = torch.isfinite(Rk) & torch.isfinite(Rp)
+        faults[case] = dict(info=int(ik[3]), max_abs_err=float((Rk[fin] - Rp[fin]).abs().max()))
+    res["faults"] = faults
+    return res
+
+
+def update_refine_phase(hopper, dev) -> dict:
+    """Phase 16: the slice's paths through their entry points at full width,
+    every run counted against its plan (PERF.md §3) and gated."""
+    from capital_tpu_torch.models import blocktri
+    from capital_tpu_torch.ops import batched_small, lapack, update_small
+    from capital_tpu_torch.robust import refine
+    from capital_tpu_torch.serve import api, batching
+    from capital_tpu_torch.serve.engine import ServeConfig
+
+    out = {}
+    tol = 5e-5  # bench/drivers.py:_tolerance, f32
+
+    # -- the bench-update flagship (Makefile:117-121): 'auto' takes the panel scan
+    n, k, batch = UP_FLAGSHIP
+    A, R, V = up_operands(batch, n, k, torch.float32, True, 11, dev)
+    (R1, i1), _, secs = drive_counted(hopper, lambda: update_small.chol_update(R, V), {}, "chol_update n=1024")
+    (R2, i2), _, _ = drive_counted(hopper, lambda: update_small.chol_downdate(R1, V), {}, "chol_downdate n=1024")
+    ru, rd = up_residual(R, V, R1, 1.0), up_residual(R1, V, R2, -1.0)
+    check(not bool(i1.any()) and not bool(i2.any()) and ru < tol and rd < tol,
+          f"update flagship: info {i1.tolist()} {i2.tolist()}, residuals {ru}, {rd}")
+    t_up = time_ms(lambda: update_small.chol_update(R, V), 5)
+    t_ref = time_ms(lambda: up_refactor(R, V), 5)
+    out["update_flagship"] = dict(
+        n=n, k=k, batch=batch, route=update_small.default_impl(n, k, torch.float32, interpret=False),
+        kernels="none (the panel scan is library work)", update_residual=ru, downdate_residual=rd,
+        ms_per_problem=t_up / batch, refactor_ms_per_problem=t_ref / batch, refactor_over_update=t_ref / t_up,
+        seconds_first=secs)
+    print(json.dumps({"update": "flagship n=1024 k=16 batch 2 f32", **out["update_flagship"]}), flush=True)
+    del A, R, V, R1, R2
+
+    # -- api.batched chol_update / chol_downdate at the serve bucket (8, 128, 8)
+    cfg = ServeConfig(buckets=(32, 64, 128), nrhs_buckets=(1, 8, 64), max_batch=8)
+    srv = {}
+    for op, sign in (("chol_update", 1.0), ("chol_downdate", -1.0)):
+        _, R, V = up_operands(8, 128, 8, torch.float32, sign < 0, 12, dev)
+        got = {}
+        for impl in ("auto", "pallas", "vmap"):
+            want = {"up.sweep": 1} if impl != "vmap" else {}
+            (Rx, ix), counts, _ = drive_counted(hopper, lambda: api.batched(op, "highest", impl)(R, V), want,
+                                                f"{op} {impl}")
+            check(not bool(ix.any()) and up_residual(R, V, Rx, sign) < tol, f"{op} {impl}: info {ix.tolist()}")
+            got[impl] = Rx
+            if op == "chol_update" and impl == "auto":
+                up_launches = counts["up.sweep"]  # the kernels line's count
+        d = bt_rel(got["auto"], got["vmap"])
+        check(d < 1e-4, f"{op}: sweep vs panel scan {d}")
+        R64, V64 = R.double(), V.double()
+        drive_counted(hopper, lambda: api.batched(op, "highest", "auto")(R64, V64), {}, f"{op} f64")
+        # a ragged request padded to the bucket crops bitwise to the unpadded sweep
+        nr, kr = 100, 5
+        Rr = R[0, :nr, :nr].contiguous()  # the factor of A's leading block
+        Vr = V[0, :nr, :kr].contiguous()
+        bk = batching.bucket_for(op, (nr, nr), (nr, kr), "float32", cfg)
+        pr, pv = batching.pad_operands(op, Rr, Vr, bk)
+        Ab, Vb, _ = batching.assemble([pr], [pv], bk, device=dev)
+        Rb, ib = api.batched(op, "highest", "auto")(Ab, Vb)
+        R1u, _ = api.batched(op, "highest", "auto")(Rr[None], Vr[None])
+        check(torch.equal(batching.crop(op, Rb[0], (nr, nr), (nr, kr)), R1u[0]) and not bool(ib.any()),
+              f"{op}: padded bucket does not crop to the unpadded answer")
+        lat = []
+        f = api.batched(op, "highest", "auto")
+        for _ in range(30):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f(R, V)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        lat.sort()
+        srv[op] = dict(auto_vs_vmap=d, p50_ms=lat[15], vmap_ms=time_ms(lambda: api.batched(op, "highest", "vmap")(R, V), 10))
+    out["serve_update"] = srv
+    out["up_launches"] = up_launches
+    print(json.dumps({"serve": "chol_update/chol_downdate 8x128x8 f32", **srv}), flush=True)
+
+    # -- the bench-refine flagship (Makefile:142-147): f64 request, cond ~1e5
+    batch, n, nrhs = REFINE_FLAGSHIP
+    gen = torch.Generator(device=dev).manual_seed(17)
+    Q, _ = torch.linalg.qr(torch.randn((batch, n, n), generator=gen, device=dev, dtype=torch.float64))
+    eigs = torch.logspace(0.0, -5.0, n, device=dev, dtype=torch.float64)
+    A = (Q * eigs) @ Q.mT
+    A = 0.5 * (A + A.mT)
+    B = torch.randn((batch, n, nrhs), generator=gen, device=dev, dtype=torch.float64)
+    del Q
+    base = api.batched("posv", "highest", "vmap")
+    guar = api.batched("posv", "highest", "vmap", tier="guaranteed")
+    (Xb, ib), _, _ = drive_counted(hopper, lambda: base(A, B), {}, "refine flagship f64 base")
+    (Xr, it, conv, resid, ir), _, _ = drive_counted(hopper, lambda: guar(A, B), {}, "refine flagship guaranteed")
+
+    def bwerr(X):
+        r = A @ X.double() - B
+        den = torch.linalg.norm(A, dim=(1, 2)) * torch.linalg.norm(X.double(), dim=(1, 2)) \
+            + torch.linalg.norm(B, dim=(1, 2))
+        return float((torch.linalg.norm(r, dim=(1, 2)) / den).max())
+
+    eb, er = bwerr(Xb), bwerr(Xr)
+    tol64 = refine.tolerance(n, torch.float64)
+    # the gate is the tier's contract: every problem converged to the f64
+    # tolerance 0.5·sqrt(n)·u.  The refined/straight ratio is reported, not
+    # gated: a problem freezes at its first sweep under the tolerance, and
+    # on this card's f32 factor the second sweep lands on either side of it
+    # (3.3e-15 to 4.0e-15 against 3.55e-15), so the ratio is ~1 or ~130 by
+    # which side — the reference's loop, exactly (PERF.md §6).
+    check(bool(conv.all()) and not bool(ir.any()) and not bool(ib.any()) and er <= tol64,
+          f"refine flagship: converged {conv.tolist()}, refined {er} vs f64 {eb}, tolerance {tol64}")
+    A32 = A.float()
+    t_f64 = time_ms(lambda: lapack.potrf(A, uplo="U", with_info=True), 5)
+    t_f32 = time_ms(lambda: lapack.potrf(A32, uplo="U", with_info=True), 5)
+    out["refine_flagship"] = dict(
+        batch=batch, n=n, nrhs=nrhs, kernels="none (library factor and sweeps)", iters=it.tolist(),
+        resid=resid.tolist(), refined_backward_error=er, f64_backward_error=eb, refined_over_f64=er / eb,
+        tolerance=tol64,
+        factor_ms_f32=t_f32, factor_ms_f64=t_f64, factor_f64_over_f32=t_f64 / t_f32,
+        guaranteed_ms=time_ms(lambda: guar(A, B), 3), f64_posv_ms=time_ms(lambda: base(A, B), 3))
+    print(json.dumps({"refine": "flagship batch 4 n=1024 nrhs 4 f64 cond 1e5", **out["refine_flagship"]}),
+          flush=True)
+    out["refine_profile"] = profile(lambda: guar(A, B), ("IR::", "serve::"))
+    print(json.dumps({"profile": "refine flagship guaranteed", **out["refine_profile"]}), flush=True)
+    del A, A32, B, Xb, Xr
+
+    # -- guaranteed posv at the serve bucket (8, 128, 8), f32 request
+    sweeps = 1 + refine.DEFAULT_MAX_ITERS
+    gen = torch.Generator(device=dev).manual_seed(18)
+    X = torch.randn((8, 128, 128), generator=gen, device=dev)
+    A = X @ X.mT / 128 + 3.0 * torch.eye(128, device=dev)
+    B = torch.randn((8, 128, 8), generator=gen, device=dev)
+    guar = api.batched("posv", "highest", "auto", tier="guaranteed")
+    (Xg, itg, cg, _, ig), _, _ = drive_counted(hopper, lambda: guar(A, B),
+                                               {"small.potrf": 1, "small.potrs": sweeps}, "guaranteed posv")
+    with plain_versions(batched_small, ("potrf", "potrs")):
+        Xq, itq, cq, _, _ = guar(A, B)
+    d = bt_rel(Xg, Xq)
+    check(Xg.dtype == torch.float32 and d < 1e-6 and torch.equal(itg, itq) and torch.equal(cg, cq)
+          and bool(cg.all()) and not bool(ig.any()), f"guaranteed posv: kernel vs plain {d}, iters {itg.tolist()}")
+    lat = []
+    for _ in range(30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        guar(A, B)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+    out["guaranteed_posv"] = dict(iters=itg.tolist(), kernel_vs_plain=d, p50_ms=lat[15],
+                                  residual=serve_residual("posv", A[0], B[0], Xg[0]))
+
+    # -- the fast tier at the same bucket: the bf16 kernel, answers back in f32
+    fast = api.batched("posv", "highest", "auto", tier="fast")
+    (Xf, if_), _, _ = drive_counted(hopper, lambda: fast(A, B), {"small.posv": 1}, "fast posv")
+    rf = max(serve_residual("posv", A[i], B[i], Xf[i]) for i in range(8))
+    check(Xf.dtype == torch.float32 and not bool(if_.any()) and rf < 5e-2, f"fast posv: residual {rf}")
+    out["fast_posv"] = dict(residual=rf, ms=time_ms(lambda: fast(A, B), 10))
+
+    # -- guaranteed lstsq (8, 512, 128, 8): library gram, small.* factor and sweeps
+    At = torch.randn((8, 512, 128), generator=gen, device=dev)
+    Bt = torch.randn((8, 512, 8), generator=gen, device=dev)
+    gl = api.batched("lstsq", "highest", "auto", tier="guaranteed")
+    (Xl, itl, cl, _, il), _, _ = drive_counted(hopper, lambda: gl(At, Bt),
+                                               {"small.potrf": 1, "small.potrs": sweeps}, "guaranteed lstsq")
+    rl = max(serve_residual("lstsq", At[i], Bt[i], Xl[i]) for i in range(8))
+    check(bool(cl.all()) and not bool(il.any()) and rl < tol, f"guaranteed lstsq: residual {rl}")
+    out["guaranteed_lstsq"] = dict(iters=itl.tolist(), residual=rl, ms=time_ms(lambda: gl(At, Bt), 5))
+    print(json.dumps({"refine": "serve bucket tiers", **{k: out[k] for k in
+                                                           ("guaranteed_posv", "fast_posv", "guaranteed_lstsq")}}),
+          flush=True)
+    del A, B, At, Bt, X
+
+    # -- guaranteed posv_blocktri: 64 blocks of 128, f32, the scan route
+    nblocks, b, batch, k = BT_FLAGSHIP
+    D, C, B = chain_operands(batch, nblocks, b, k, 19, dev)
+    seg = blocktri.resolve_seg(nblocks)
+    kw = dict(factor_dtype=torch.float32, correction_dtype=torch.float64)
+    want = {"bt.factor": nblocks // seg, "bt.forward_solve": sweeps * nblocks // seg,
+            "bt.solve_backward": sweeps * nblocks // seg}
+    (Xc, ic, ri), _, _ = drive_counted(hopper, lambda: refine.posv_blocktri(D, C, B, impl="pallas", **kw), want,
+                                       "guaranteed posv_blocktri")
+    Xv, _, riv = refine.posv_blocktri(D, C, B, impl="xla", **kw)
+    d = bt_rel(Xc, Xv)
+    r = chain_residual(D, C, B, Xc)
+    check(bool(ri.converged.all()) and not bool(ic.any()) and d < 1e-6 and r < tol,
+          f"guaranteed posv_blocktri: converged {ri.converged.tolist()}, pallas vs xla {d}, residual {r}")
+    out["guaranteed_blocktri"] = dict(iters=ri.iters.tolist(), xla_iters=riv.iters.tolist(), pallas_vs_xla=d,
+                                      residual=r,
+                                      seconds=timed_s(lambda: refine.posv_blocktri(D, C, B, impl="pallas", **kw), 2))
+    print(json.dumps({"refine": "posv_blocktri 64x128 f32", **out["guaranteed_blocktri"]}), flush=True)
+    del D, C, B
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -2052,21 +2359,44 @@ def main(argv=None) -> int:
     missing = [k for k in BT_KERNELS if bt_counts[k] < 1]
     check(not missing, f"kernels of the structured path never launched: {missing}")
 
+    # ---- phase 15: the rotation-sweep kernel against its plain version ---
+    from capital_tpu_torch.ops import update_small
+
+    up = up_kernel_phase(update_small, dev)
+    for name, r in up.items():
+        if "bound" in r:
+            b, by = r.pop("bound")
+            r.update(bound_ms=b, bound_by=by)
+        print(json.dumps({"kernel": "up.sweep", "case": name, **r}), flush=True)
+    out["kernels"]["update"] = up
+
+    # ---- phase 16: the update and refinement paths -------------------------
+    out["update_refine"] = update_refine_phase(hopper, dev)
+    up_counts = {"up.sweep": out["update_refine"]["up_launches"]}
+    check(up_counts["up.sweep"] >= 1, "the sweep kernel never launched on api.batched('chol_update')")
+
     bf = out["kernels"][str(torch.bfloat16)]
     # the small-N kernels report their f32 throughput batch; the blocktri
-    # steps the flagship's step (8 problems, seg 8, b 128, k 1, f32)
+    # steps the flagship's step (8 problems, seg 8, b 128, k 1, f32); the
+    # sweep its f32 update throughput batch
     measured = {**bf, **small[f"throughput {torch.float32}"], **inv,
-                **{k: bt[f"{k} 8x8x128x1 f32"] for k in BT_KERNELS}}
-    launches = {**{k: path_counts[k] for k in PATH_KERNELS}, **{k: qr_counts[k] for k in QR_KERNELS},
-                **serve_counts, **inv_counts, **bt_counts}
+                **{k: bt[f"{k} 8x8x128x1 f32"] for k in BT_KERNELS},
+                "up.sweep": up["update 8192x128x8 f32"]}
+    # tri_matmul.dense is on no path: 0 in the cholinv path's counted run
+    launches = {**{k: path_counts[k] for k in PATH_KERNELS + ("tri_matmul.dense",)},
+                **{k: qr_counts[k] for k in QR_KERNELS},
+                **serve_counts, **inv_counts, **bt_counts, **up_counts}
     line = {"kernels": [
         {"name": k, "route": hopper.KERNELS[k].route, "source": hopper.KERNELS[k].source,
          "replaces": hopper.KERNELS[k].replaces, "launches": launches[k],
          "max_abs_err": measured[k]["max_abs_err"], "ms": measured[k]["ms"],
          "plain_ms": measured[k]["plain_ms"], "bound_ms": measured[k]["bound_ms"],
          "bound_by": measured[k]["bound_by"], "library_ms": measured[k]["library_ms"]}
-        for k in PATH_KERNELS + QR_KERNELS + SMALL_KERNELS + INV_KERNELS + BT_KERNELS
+        for k in PATH_KERNELS + ("tri_matmul.dense",) + QR_KERNELS + SMALL_KERNELS + INV_KERNELS
+        + BT_KERNELS + UP_KERNELS
     ]}
+    check(sorted(e["name"] for e in line["kernels"]) == sorted(hopper.KERNELS),
+          "the kernels line does not cover every registered kernel")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1, default=str)

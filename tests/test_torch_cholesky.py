@@ -181,6 +181,20 @@ def test_robust_info_matches_jax(jgrid, tgrid, where, dt):
     assert int(info0) == 0
 
 
+@pytest.mark.parametrize("mode", ["xla", "pallas"])
+@pytest.mark.parametrize("where", [5, 40])
+def test_robust_info_on_a_nan_pivot_matches_jax(jgrid, tgrid, where, mode):
+    """A NaN pivot does not stop the reference's potrf: its factor stays
+    finite before the pivot, so info names the pivot (6, 41), not the
+    leaf's first row."""
+    A = _spd(64, "f32", seed=9)
+    A[where, where] = np.nan
+    _, _, jinfo = _jax_factor(jgrid, A, base_case_dim=16, mode=mode, robust=JRobust())
+    _, _, info = tchol.factor(tgrid, tensor_from_numpy(A),
+                              _port_cfg(base_case_dim=16, mode=mode, robust=RobustConfig()))
+    assert int(info) == int(jinfo) == where + 1
+
+
 @pytest.mark.parametrize("dt", ["f64", "f32"])
 def test_solve_and_spd_inverse(jgrid, tgrid, dt):
     A = _spd(384, dt, seed=9)

@@ -15,7 +15,8 @@ import torch
 
 from capital_tpu_torch import Grid
 from capital_tpu_torch.models import arrowhead, blocktri, cholesky, inverse, qr
-from capital_tpu_torch.ops import batched_small, blocktri_small, hopper, qr_fused, tsqr
+from capital_tpu_torch.ops import batched_small, blocktri_small, hopper, qr_fused, tsqr, update_small
+from capital_tpu_torch.robust import refine
 from capital_tpu_torch.serve import api
 from capital_tpu_torch.utils import residual
 
@@ -160,6 +161,7 @@ def test_factor_kernels_vs_plain(cuda, monkeypatch, dt):
         "small.potrf": 0, "small.potrs": 0, "small.posv": 0, "small.lstsq": 0,
         "write_diag_blocks": 0, "fused_tail": 0, "small.trsm": 0, "tsqr.panel_qr": 0,
         "bt.fused_forward": 0, "bt.factor": 0, "bt.forward_solve": 0, "bt.solve_backward": 0,
+        "up.sweep": 0,
     }
     for name in ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower"):
         monkeypatch.setattr(hopper, name, getattr(hopper, name + "_plain"))
@@ -737,3 +739,88 @@ def test_arrowhead_posv_on_the_card(cuda):
     assert not info.any() and not infoq.any()
     assert float((X - Xq).abs().max() / Xq.abs().max()) < 1e-4
     assert float((Xs - Xsq).abs().max() / Xsq.abs().max()) < 1e-4
+
+
+# ---- the rank-k update sweep and refinement --------------------------------
+
+
+def _up_operands(seed, batch, n, k, dt, down, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    G = torch.randn((batch, n, n), generator=g, dtype=torch.float64)
+    R = torch.linalg.cholesky(G @ G.mT / n + 3 * torch.eye(n, dtype=torch.float64)).mT
+    V = torch.randn((batch, n, k), generator=g, dtype=torch.float64) * ((0.1 / n**0.5) if down else 0.3)
+    return R.to(DTYPES[dt]).contiguous().to(dev), V.to(DTYPES[dt]).to(dev)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("shape", [(8, 128, 1), (8, 128, 8), (8, 128, 64), (1024, 128, 8), (3, 37, 5)])
+def test_update_sweep_kernel_vs_plain(cuda, shape, sign, dt):
+    """The kernel repeats the plain version's IEEE-rounded arithmetic, so
+    the two agree bitwise."""
+    R, V = _up_operands(60, *shape, dt, sign < 0, cuda)
+    Rk, ik = update_small.sweep(R, V, sign)
+    Rp, ip = update_small.sweep_plain(R, V, sign)
+    assert torch.equal(ik, ip) and not ik.any()
+    assert torch.equal(Rk, Rp)
+    assert torch.equal(torch.tril(Rk, -1), torch.zeros_like(Rk))
+
+
+@pytest.mark.parametrize("case", ["nan_diag", "inf_diag", "-inf_diag", "nan_lower", "inf_lower",
+                                  "nan_upper", "nan_V", "-inf_V", "infeasible"])
+def test_update_sweep_faults_match_plain(cuda, case):
+    sign = -1.0 if case in ("infeasible", "-inf_V") else 1.0
+    R, V = _up_operands(61, 8, 128, 8, "f32", sign < 0, cuda)
+    where, idx, val = {"nan_diag": ("R", (40, 40), float("nan")), "inf_diag": ("R", (7, 7), float("inf")),
+                       "-inf_diag": ("R", (90, 90), float("-inf")), "nan_lower": ("R", (100, 3), float("nan")),
+                       "inf_lower": ("R", (127, 64), float("inf")), "nan_upper": ("R", (3, 100), float("nan")),
+                       "nan_V": ("V", (55, 2), float("nan")), "-inf_V": ("V", (0, 7), float("-inf")),
+                       "infeasible": ("V", None, None)}[case]
+    if idx is None:
+        V[3] *= 40.0
+    else:
+        (R if where == "R" else V)[(3, *idx)] = val
+    Rk, ik = update_small.sweep(R, V, sign)
+    Rp, ip = update_small.sweep_plain(R, V, sign)
+    assert torch.equal(ik, ip) and int(ik[3]) != 0 and not ik[[0, 1, 2, 4, 5, 6, 7]].any()
+    assert torch.equal(Rk.isnan(), Rp.isnan()) and torch.equal(Rk.isinf(), Rp.isinf())
+    fin = torch.isfinite(Rp)
+    assert torch.equal(Rk[fin], Rp[fin])
+
+
+def test_update_sweep_refuses(cuda):
+    R, V = _up_operands(62, 2, 16, 2, "f32", False, cuda)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        update_small.sweep(R.double(), V.double(), 1.0)
+    with pytest.raises(TypeError, match="one dtype"):
+        update_small.sweep(R, V.bfloat16(), 1.0)
+    big = torch.eye(240, device=cuda)[None]
+    with pytest.raises(ValueError, match="shared"):
+        update_small.sweep(big, torch.zeros((1, 240, 1), device=cuda), 1.0)
+
+
+@pytest.mark.parametrize("impl,want", [("auto", 1), ("pallas", 1), ("pallas_split", 1), ("vmap", 0)])
+def test_batched_update_launches_per_plan(cuda, impl, want):
+    R, V = _up_operands(63, 8, 128, 8, "f32", False, cuda)
+    hopper.reset_counts()
+    R1, info = api.batched("chol_update", "highest", impl)(R, V)
+    c = hopper.counts()
+    assert c == {**dict.fromkeys(c, 0), "up.sweep": want} and not info.any()
+    hopper.reset_counts()
+    api.batched("chol_update", "highest", impl)(R.double(), V.double())
+    assert not any(hopper.counts().values())
+
+
+def test_guaranteed_posv_launches_per_plan(cuda):
+    g = torch.Generator(device="cpu").manual_seed(64)
+    X = torch.randn((8, 128, 128), generator=g)
+    A = (X @ X.mT / 128 + 3 * torch.eye(128)).to(cuda)
+    B = torch.randn((8, 128, 8), generator=g).to(cuda)
+    hopper.reset_counts()
+    Xg, iters, conv, resid, info = api.batched("posv", "highest", "auto", tier="guaranteed")(A, B)
+    c = hopper.counts()
+    want = {"small.potrf": 1, "small.potrs": 1 + refine.DEFAULT_MAX_ITERS}
+    assert c == {**dict.fromkeys(c, 0), **want}
+    assert Xg.dtype == torch.float32 and conv.all() and not info.any()
+    r = (A.double() @ Xg.double() - B.double()).flatten(1).norm(dim=1) / B.double().flatten(1).norm(dim=1)
+    assert float(r.max()) < 1e-6

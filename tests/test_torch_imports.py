@@ -43,6 +43,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import capital_tpu_torch.models.inverse, capital_tpu_torch.models.trsm\n"
         "import capital_tpu_torch.models.blocktri, capital_tpu_torch.models.arrowhead\n"
         "import capital_tpu_torch.models.banded, capital_tpu_torch.ops.blocktri_small\n"
+        "import capital_tpu_torch.ops.update_small, capital_tpu_torch.robust.refine\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'capital_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'capital_tpu.')))\n"
         "print(','.join(bad))\n"
@@ -83,6 +84,12 @@ def test_inversion_slice_files_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for f in ("models/inverse.py", "models/trsm.py", "ops/tsqr.py", "ops/lapack.py",
               "ops/hopper.py", "ops/sweeps.py", "utils/interop.py"):
+        assert "capital_tpu_torch/" + f in names
+
+
+def test_update_and_refine_slice_files_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("ops/update_small.py", "robust/refine.py", "ops/lapack.py", "serve/api.py"):
         assert "capital_tpu_torch/" + f in names
 
 

@@ -117,6 +117,12 @@ def test_unknown_impl_message_matches_reference():
 def test_later_ops_name_their_roadmap_item(op):
     item = "item 8"  # the factor-residency and session ops wait for the serve tier
     with pytest.raises(NotImplementedError, match=item):
+        batching.check_op(op)  # the engine path refuses every one of them
+    if op in batching.UPDATE_OPS:
+        # the update's bucket program itself is served (tests/test_torch_update.py)
+        assert callable(api.batched(op))
+        return
+    with pytest.raises(NotImplementedError, match=item):
         api.batched(op)
     with pytest.raises(NotImplementedError, match=item):
         batching.bucket_for(op, (2, 4, 8, 8), (4, 8, 1), "float32", ServeConfig(**CFG))
@@ -124,10 +130,39 @@ def test_later_ops_name_their_roadmap_item(op):
 
 @pytest.mark.parametrize("tier", ["fast", "guaranteed"])
 def test_tiers_beyond_balanced_name_their_roadmap_item(tier):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        api.batched("posv", tier=tier)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        batching.bucket_for("posv", (8, 8), (8, 1), "float32", ServeConfig(**CFG), tier=tier)
+    """The tiers are served for posv, lstsq and posv_blocktri (tests/
+    test_torch_refine.py); the session solve's waits for the serve tier
+    (item 8); inv refuses a tier as the reference does."""
+    with pytest.raises(NotImplementedError, match="item 8"):
+        api.batched("session_solve", tier=tier)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        batching.bucket_for("session_solve", (4, 4, 8, 8), (4, 8, 1), "float32",
+                            ServeConfig(**CFG), tier=tier)
+    with pytest.raises(ValueError) as r:
+        rapi.batched("inv", tier=tier)
+    with pytest.raises(ValueError) as p:
+        api.batched("inv", tier=tier)
+    assert str(p.value) == str(r.value)
+    for op, a, b in (("posv", (8, 8), (8, 1)), ("lstsq", (20, 6), (20, 2)),
+                     ("chol_update", (7, 7), (7, 3))):
+        want = rbat.bucket_for(op, a, b, "float32", reng.ServeConfig(**CFG), tier=tier)
+        got = batching.bucket_for(op, a, b, "float32", ServeConfig(**CFG), tier=tier)
+        assert got.key == want.key and got.tier == tier
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+@pytest.mark.parametrize("op", ["posv", "inv"])
+def test_vmap_nan_pivot_info_matches_reference(op, dt):
+    """A NaN pivot on the library route: the reference's potrf runs on
+    through it, so info names the pivot (6), not row 1."""
+    rng = np.random.default_rng(11)
+    X = rng.standard_normal((3, 8, 8))
+    A = (X @ X.transpose(0, 2, 1) / 8 + 3.0 * np.eye(8)).astype(dt)
+    A[1, 5, 5] = np.nan
+    B = None if op == "inv" else rng.standard_normal((3, 8, 2)).astype(dt)
+    _, info, _, infop = _run_both(op, "vmap", A, B)
+    assert info.tolist() == [0, 6, 0]
+    assert np.array_equal(infop.numpy(), info.astype(np.int32))
 
 
 def test_nan_is_contained_to_its_problem():
