@@ -15,7 +15,9 @@ solves of serve's bucket programs (`serve/api.batched`), the
 block-tridiagonal chain solvers (`models/blocktri`, `models/arrowhead`,
 `models/banded`), the rank-k Cholesky update / downdate
 (`ops/update_small`) and mixed-precision iterative refinement
-(`robust/refine`, serve's 'fast' and 'guaranteed' tiers), with their
+(`robust/refine`, serve's 'fast' and 'guaranteed' tiers), and cholinv and
+rectri on a d x d x c mesh of ranks that share one device (the explicit
+SUMMA schedule, parallel/summa.py over parallel/mesh.py), with their
 hand-written kernels (ops/hopper.py, ops/qr_fused.py, ops/batched_small.py,
 ops/tsqr.py, ops/blocktri_small.py, ops/update_small.py, ops/csrc/).
 `KERNELS` holds every kernel's launch counter.

@@ -1,5 +1,5 @@
-"""cholinv: recursive Cholesky + triangular inverse on one device
-(counterpart of capital_tpu/models/cholesky.py).
+"""cholinv: recursive Cholesky + triangular inverse (counterpart of
+capital_tpu/models/cholesky.py), on one device or on a d x d x c mesh.
 
 For SPD A it computes the upper factor R (A = RᵀR) and R⁻¹ together, by the
 reference's recursion (cholinv.hpp:87-165):
@@ -13,8 +13,12 @@ reference's recursion (cholinv.hpp:87-165):
 
 `plan` fixes the schedule on the host; `factor` runs it eagerly against two
 p x p buffers (R and R⁻¹) that every phase reads and writes through windows,
-in place.  On a CUDA device each phase launches the hand-written kernels of
-ops/hopper.py; on the CPU the same calls run their plain versions.
+in place.  On one CUDA device each phase launches the hand-written kernels
+of ops/hopper.py; on the CPU the same calls run their plain versions.  On a
+mesh (parallel/topology.py) the phases run through parallel/summa.py's
+materialising route — with mode 'explicit' every trmm whose shards tile
+takes the per-rank `hopper.sched_matmul` kernel — and each leaf panel is
+factored by the ranks its base-case policy names (`_scoped_base_factor`).
 
 With `tail_fuse_depth > 0` a subtree whose window passes `_tail_fusible`
 runs as one `hopper.fused_tail` launch (CI::tail_fused) in place of its
@@ -24,8 +28,9 @@ windows only (`hopper.tail_eligible`).
 In-place semantics are real here (the JAX package returns new arrays):
 `out_buffers` are written into, and `schur_in_place=True` overwrites the
 trailing windows of the operand — the caller's A itself when no padding is
-needed.  Not ported yet: `balance != 'block'` (ROADMAP Queue A item 10,
-multi-device), which raises NotImplementedError.
+needed.  Not ported yet: `balance != 'block'` (the tile-cyclic and
+persistent layouts, ROADMAP Queue A item 10), which raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,8 +40,8 @@ from typing import Optional
 
 import torch
 
-from capital_tpu_torch.ops import batched_small, hopper, lapack
-from capital_tpu_torch.parallel import summa
+from capital_tpu_torch.ops import batched_small, hopper, lapack, masking
+from capital_tpu_torch.parallel import mesh, summa
 from capital_tpu_torch.parallel.summa import SyrkArgs, TrmmArgs
 from capital_tpu_torch.parallel.topology import Grid
 from capital_tpu_torch.robust import detect
@@ -53,13 +58,15 @@ class CholinvConfig:
         block of R⁻¹ zero (False).
     split: the top window is n >> split.
     base_case_dim: recursion bottoms out at windows <= this size.
-    policy: base-case replication policy (one device: all coincide).
+    policy: base-case replication policy: which ranks factor each leaf
+        panel on a mesh (one device: all coincide).
     mode: 'pallas' (the hand-written kernels), 'explicit' (the same route
-        on one device) or 'xla' (masked torch.matmul).
+        on one device; the explicit SUMMA schedule on a mesh) or 'xla'
+        (masked torch.matmul).
     base_case_dtype: dtype of the leaf potrf/trtri; None means f32 for
         inputs narrower than f32, else the input dtype.
     precision: accepted for parity; f32 products are always IEEE f32.
-    balance: 'block' only (the balanced schedules are multi-device).
+    balance: 'block' only (the balanced layouts are not ported).
     schur_in_place: write each Schur complement into the operand's own
         trailing window instead of a fresh buffer (peak memory ~3n² instead
         of ~3.35n²).  MODIFIES the operand — the caller's A when p == n.
@@ -153,20 +160,38 @@ def _check_config(cfg: CholinvConfig) -> None:
     if cfg.balance != "block":
         raise NotImplementedError(
             f"balance={cfg.balance!r} is not ported yet (ROADMAP Queue A item 10, "
-            "multi-device schedules)"
+            "the tile-cyclic and persistent layouts)"
         )
 
 
 def _base_case_into(grid, buf, off, n, dest, cfg, Rp, RIp):
     """Leaf: read the window (off, off, n, n) of `buf` (upper triangle
-    valid) as a lower panel, factor and invert it, and write triu(Lᵀ) /
-    triu(Linvᵀ) into Rp / RIp at (dest, dest)."""
+    valid), factor and invert it, and write triu(R) / triu(R⁻¹) into Rp /
+    RIp at (dest, dest).  One device: through the transpose kernels as a
+    lower panel.  A mesh: the window is materialised (it is replicated to
+    every rank) and factored by the ranks of the policy's scope."""
     bc_dtype = cfg.base_case_dtype
     if bc_dtype is None:
         bc_dtype = buf.dtype if buf.dtype.itemsize >= 4 else torch.float32
     with tracing.scope("CI::factor_diag"):
+        scope_ = cfg.policy.compute_scope
         comm, ncoll = tracing.replicate_cost(grid, n, n, bc_dtype)
+        if grid.num_devices > 1 and scope_ != "all":
+            # result broadcast: psum of the masked pair over 'z' (layer) or
+            # the whole mesh (root)
+            p = grid.c if scope_ == "layer" else grid.num_devices
+            bcomm, bcoll = tracing.allreduce_cost(
+                grid, n, n, bc_dtype, axes="z" if scope_ == "layer" else "all"
+            )
+            if p > 1:
+                comm, ncoll = comm + 2 * bcomm, ncoll + 2 * bcoll
         tracing.emit(flops=tracing.potrf_trtri_flops(n), comm_bytes=comm, collectives=ncoll)
+        if grid.num_devices > 1:
+            window = buf[off:off + n, off:off + n].to(bc_dtype)
+            R, Rinv = _scoped_base_factor(grid, window, scope_)
+            Rp[dest:dest + n, dest:dest + n] = R
+            RIp[dest:dest + n, dest:dest + n] = Rinv
+            return Rp, RIp
         P_low = hopper.transpose(buf, in_view=(off, off, n, n), out_uplo="L", out_dtype=bc_dtype)
         # torch.linalg hands back column-major factors; the write-back
         # kernels read row-major panels (a bc x bc copy each)
@@ -178,6 +203,35 @@ def _base_case_into(grid, buf, off, n, dest, cfg, Rp, RIp):
         Rp = hopper.transpose(L, out_uplo="U", out=Rp, out_off=(dest, dest))
         RIp = hopper.transpose(Linv, out_uplo="U", out=RIp, out_off=(dest, dest))
         return Rp, RIp
+
+
+def _scoped_base_factor(grid, window, scope_):
+    """potrf + trtri of a replicated panel on a mesh, run by the ranks the
+    policy names (reference cholinv policy.h:160-514):
+
+      'all'   — every rank factors the replicated panel (global code, no
+                collective; 'layer' on a c == 1 grid is the same)
+      'layer' — only the z = 0 ranks factor; the pair reaches the other
+                layers as a psum over 'z' of the layer-masked value
+      'root'  — only rank (0, 0, 0) factors; the pair is summed over the
+                whole mesh
+    """
+    def factor(w):
+        return lapack.potrf_trtri(masking.symmetrize_from(w, "U"), uplo="U")
+
+    if scope_ == "all" or (scope_ == "layer" and grid.c == 1):
+        return factor(window)
+    axes = ("z",) if scope_ == "layer" else ("x", "y", "z")
+    Rs, Rinvs = [], []
+    for r in range(grid.num_devices):
+        if all(mesh.axis_index(grid, r, a) == 0 for a in axes):
+            R, Rinv = factor(window)
+        else:
+            R = Rinv = torch.zeros_like(window)
+        Rs.append(R)
+        Rinvs.append(Rinv)
+    return (mesh.replicated(grid, mesh.psum(grid, Rs, axes)),
+            mesh.replicated(grid, mesh.psum(grid, Rinvs, axes)))
 
 
 def _tail_fusible(grid, buf, off, node, cfg, top, Rp) -> bool:

@@ -1,5 +1,5 @@
-"""Triangular inversion (rectri) and Newton–Schulz inversion on one device
-(counterpart of capital_tpu/models/inverse.py).
+"""Triangular inversion (rectri) and Newton–Schulz inversion (counterpart
+of capital_tpu/models/inverse.py).
 
 * ``rectri`` — recursive inverse of a lower-triangular L over one flat
   output buffer:
@@ -14,15 +14,19 @@
   recursion node then merges its two children with two triangular
   products through `summa.trmm` (side R, then side L in place into the
   buffer) — the `tri_matmul` kernel in mode 'pallas', masked
-  `torch.matmul` in mode 'xla'.  uplo 'U' transposes in and out.
+  `torch.matmul` in mode 'xla'.  uplo 'U' transposes in and out.  On a
+  mesh (parallel/topology.py) there is no batched prefix: each leaf is
+  inverted on its replicated window, the buffer is padded to the full
+  bc·2^k chain, and with mode 'explicit' both merge trmms run the explicit
+  SUMMA schedule, whose per-rank products are `hopper.sched_matmul`
+  launches where the shards tile.
 * ``newton`` — X ← X(2I − AX) from X₀ = Aᵀ/(‖A‖₁‖A‖∞), two products per
   step on `torch.matmul`, exiting when ‖I − AX‖_F/√n <= tol.  The JAX
   package's lax.while_loop becomes a host loop: each step reads the
   residual on the host once to decide whether to go on.
 
-One device only.  The balanced schedule (`balance='tile_cyclic'`) and a
-mesh wait for the port's multi-device item (ROADMAP Queue A item 10) and
-raise NotImplementedError.
+The balanced schedule (`balance='tile_cyclic'`) and newton on a mesh wait
+for ROADMAP Queue A item 10 and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ class RectriConfig:
         only the base cases up front (t = bc), 0 turns the prefix off, > 0
         also runs batched dense merge levels for windows up to it (clamped
         up to bc; levels above bc need a power-of-two block count).
-    balance: 'block' only here ('tile_cyclic' is multi-device).
+    balance: 'block' only here ('tile_cyclic' is not ported).
     precision: accepted for parity; f32 products are IEEE f32.
     """
 
@@ -59,13 +63,13 @@ class RectriConfig:
     batch_below: int = -1
 
 
-def _check_single(grid: Grid, balance: str, who: str) -> None:
+def _check_balance(balance: str, who: str) -> None:
     if balance not in ("block", "tile_cyclic"):
         raise ValueError(f"unknown balance {balance!r}")
-    if balance != "block" or grid.num_devices != 1:
+    if balance != "block":
         raise NotImplementedError(
-            f"{who}: balance={balance!r} and multi-device grids are not ported yet "
-            "(ROADMAP Queue A item 10, multi-device schedules)"
+            f"{who}: balance={balance!r} is not ported yet (ROADMAP Queue A item 10, "
+            "the tile-cyclic layout)"
         )
 
 
@@ -146,21 +150,24 @@ def rectri(grid: Grid, T: torch.Tensor, uplo: str = "L",
            cfg: RectriConfig = RectriConfig()) -> torch.Tensor:
     """Inverse of triangular T (uplo names its stored triangle; the other
     one is never read).  The result is a new tensor whose dead triangle is
-    exactly zero.  One device only (see the module docstring)."""
+    exactly zero."""
     if uplo not in ("L", "U"):
         raise ValueError(f"uplo must be 'L' or 'U', got {uplo!r}")
     if T.dim() != 2 or T.shape[0] != T.shape[1]:
         raise ValueError(f"triangular operand must be square, got {tuple(T.shape)}")
     if T.device.type != grid.device.type:
         raise ValueError(f"T is on {T.device}, the grid on {grid.device}")
-    _check_single(grid, cfg.balance, "rectri")
+    _check_balance(cfg.balance, "rectri")
     if uplo == "U":
         # U⁻¹ = (L⁻¹)ᵀ with L = Uᵀ
         return summa.transpose(grid, rectri(grid, summa.transpose(grid, T), "L", cfg))
     n = T.shape[0]
-    # pad to the smaller of the bc·2^k chain and 256-alignment: the
-    # recursion handles odd halving; diag(T, I) inverts to diag(T⁻¹, I)
-    p = min(padded_dim(n, cfg.base_case_dim), -(-n // 256) * 256)
+    # one device pads to the smaller of the bc·2^k chain and 256-alignment
+    # (the recursion handles odd halving); a mesh pads the full chain, so
+    # every window divides the face.  diag(T, I) inverts to diag(T⁻¹, I)
+    p = padded_dim(n, cfg.base_case_dim)
+    if grid.num_devices == 1:
+        p = min(p, -(-n // 256) * 256)
     Tp = pad_embed_identity(T, n, p)
     t = _batched_prefix_size(grid, p, cfg)
     if t:
@@ -196,7 +203,10 @@ def newton(grid: Grid, A: torch.Tensor, cfg: NewtonConfig = NewtonConfig()):
     The loop runs on the host: after each step the residual is read back
     once (one device synchronisation per iteration) to decide whether to
     stop, as the JAX package's lax.while_loop decides on the device."""
-    _check_single(grid, "block", "newton")
+    if grid.num_devices != 1:
+        raise NotImplementedError(
+            "newton: multi-device grids are not ported yet (ROADMAP Queue A item 10)"
+        )
     n = A.shape[0]
     tol = cfg.tol
     if tol is None:

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tri_matmul.cu", "transpose.cu", "zeros_dead.cu", "qr_fused.cu", "batched_small.cu",
-           "write_diag.cu", "fused_tail.cu", "tsqr.cu", "blocktri_small.cu", "update_small.cu")
+           "write_diag.cu", "fused_tail.cu", "tsqr.cu", "blocktri_small.cu", "update_small.cu",
+           "sched_matmul.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -73,6 +74,9 @@ SIGNATURES = {
         "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
     "capital_up_sweep": ("update_small.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _D, _P]),
+    "capital_sched_matmul": (
+        "sched_matmul.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 

@@ -18,18 +18,14 @@
 // thousands wide, far above the H100's ~295 flop/byte balance point.  The
 // design answers with tensor cores for bf16 (WMMA m16n16k16, f32
 // accumulate, 128x128 tiles) and register-tiled FMA for f32/f64 (64x64
-// tiles, 4x4 per thread).  Loads are plain coalesced element loads into
+// tiles, 4x4 per thread) — the tile loops of mm_tiles.cuh.  Loads are plain coalesced element loads into
 // shared memory; cp.async/TMA and wgmma are later work.
 //
 // The sequential (tile, k) pair axis of the TPU grid becomes the k loop
 // inside one thread block: blocks own disjoint output tiles, so nothing is
 // carried between blocks.
 
-#include <mma.h>
-
-#include <type_traits>
-
-#include "common.cuh"
+#include "mm_tiles.cuh"
 
 using namespace nvcuda;
 
@@ -130,8 +126,6 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
 
 // flush one element: alpha, out_uplo mask (select), + beta * C, one cast.
 // Explicit _rn operations keep the compiler from contracting the epilogue
@@ -158,7 +152,7 @@ __device__ inline void zero_tile(const MM& p, T* O, int i0, int j0, int bm, int 
 // ---- f32 / f64: register-tiled FMA -----------------------------------------
 template <typename T, bool AT, bool BT>
 __global__ void __launch_bounds__(256) mm_simt(MM p) {
-  constexpr int BM = 64, BN = 64, BK = 16;
+  constexpr int BM = mmt::S_BM, BN = mmt::S_BN, BK = mmt::S_BK;
   typedef typename AccOf<T>::type A_t;
   __shared__ T As[BK][BM + 1];
   __shared__ T Bs[BK][BN + 1];
@@ -175,10 +169,7 @@ __global__ void __launch_bounds__(256) mm_simt(MM p) {
   const T* B = (const T*)p.B;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   A_t acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = A_t(0);
+  mmt::simt_zero<T>(acc);
   int kb, ke;
   k_range(p, AT, BT, i0, j0, BM, BN, BK, kb, ke);
   for (int k0 = kb; k0 < ke; k0 += BK) {
@@ -191,18 +182,7 @@ __global__ void __launch_bounds__(256) mm_simt(MM p) {
       Bs[kk][jj] = load_b<T, BT>(p, B, k0 + kk, j0 + jj);
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      A_t a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = widen(As[kk][ty + 16 * r]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = widen(Bs[kk][tx + 16 * c]);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fma_(a[r], b[c], acc[r][c]);
-    }
+    mmt::simt_step<T>(As, Bs, tx, ty, acc);
     __syncthreads();
   }
   const T* C = (const T*)p.C;
@@ -219,11 +199,11 @@ __global__ void __launch_bounds__(256) mm_simt(MM p) {
 // contiguous across a warp.
 template <bool AT, bool BT>
 __global__ void __launch_bounds__(256) mm_wmma(MM p) {
-  constexpr int BM = 128, BN = 128, BK = 32;
-  constexpr int LDA = AT ? BM + 8 : BK + 8;  // As[k][i] if AT else As[i][k]
-  constexpr int LDB = BT ? BK + 8 : BN + 8;  // Bs[j][k] if BT else Bs[k][j]
-  __shared__ __align__(32) bf16 As[AT ? BK * LDA : BM * LDA];
-  __shared__ __align__(32) bf16 Bs[BT ? BN * LDB : BK * LDB];
+  constexpr int BM = mmt::W_BM, BN = mmt::W_BN, BK = mmt::W_BK;
+  constexpr int LDA = mmt::WmmaA<AT>::LD;  // As[k][i] if AT else As[i][k]
+  constexpr int LDB = mmt::WmmaB<BT>::LD;  // Bs[j][k] if BT else Bs[k][j]
+  __shared__ __align__(32) bf16 As[mmt::WmmaA<AT>::SIZE];
+  __shared__ __align__(32) bf16 Bs[mmt::WmmaB<BT>::SIZE];
   __shared__ __align__(32) float scratch[8][16 * 16];
   int ti, tj;
   bool live;
@@ -238,13 +218,8 @@ __global__ void __launch_bounds__(256) mm_wmma(MM p) {
   const bf16* B = (const bf16*)p.B;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wr = warp / 2, wc = warp % 2;
-  typedef typename std::conditional<AT, wmma::col_major, wmma::row_major>::type LayA;
-  typedef typename std::conditional<BT, wmma::col_major, wmma::row_major>::type LayB;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) wmma::fill_fragment(acc[r][c], 0.0f);
+  mmt::AccFrag acc[2][4];
+  mmt::wmma_zero(acc);
   int kb, ke;
   k_range(p, AT, BT, i0, j0, BM, BN, BK, kb, ke);
   for (int k0 = kb; k0 < ke; k0 += BK) {
@@ -267,27 +242,7 @@ __global__ void __launch_bounds__(256) mm_wmma(MM p) {
       }
     }
     __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> b[4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        int row = wr * 32 + r * 16;
-        const bf16* src = AT ? As + ks * LDA + row : As + row * LDA + ks;
-        wmma::load_matrix_sync(a[r], src, LDA);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        int col = wc * 64 + c * 16;
-        const bf16* src = BT ? Bs + col * LDB + ks : Bs + ks * LDB + col;
-        wmma::load_matrix_sync(b[c], src, LDB);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) wmma::mma_sync(acc[r][c], a[r], b[c], acc[r][c]);
-    }
+    mmt::wmma_step<AT, BT>(As, Bs, wr, wc, acc);
     __syncthreads();
   }
   const bf16* C = (const bf16*)p.C;

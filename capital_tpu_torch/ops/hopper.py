@@ -1,4 +1,5 @@
-"""The cholinv and rectri paths' kernels on Hopper (counterpart of
+"""The cholinv and rectri paths' kernels on Hopper, single-device and on
+the mesh (counterpart of
 capital_tpu/ops/pallas_tpu.py), and the one launch-counter registry of every
 kernel of the port (`KERNELS`; the CholeskyQR2 kernels' wrappers live in
 ops/qr_fused.py, the small-N batched solves' in ops/batched_small.py, the
@@ -8,7 +9,8 @@ ops/blocktri_small.py, the rank-k update sweep's in ops/update_small.py).
 Each kernel sits here as three things side by side:
 
 * the **wrapper** (`tri_matmul`, `transpose`, `transpose_pair`,
-  `zeros_dead_lower`, `write_diag_blocks`, `fused_tail`): it validates its
+  `zeros_dead_lower`, `write_diag_blocks`, `fused_tail`, `sched_matmul`):
+  it validates its
   arguments, then launches the
   hand-written CUDA kernel (ops/csrc/*.cu) when its tensors lie on a CUDA
   device, or runs the plain version when they lie on the CPU.  There is no
@@ -101,6 +103,8 @@ KERNELS: dict[str, Kernel] = {
         # the rank-k update / downdate rotation sweep; wrapper in ops/update_small.py
         Kernel("up.sweep", _CSRC + "update_small.cu",
                "capital_tpu/ops/batched_small.py:358 (def capital_tpu/ops/update_small.py:158)"),
+        # the per-rank tile-skipping product of the explicit mesh schedule
+        Kernel("sched_matmul", _CSRC + "sched_matmul.cu", _PALLAS + "505"),
     )
 }
 
@@ -705,3 +709,104 @@ def fused_tail(buf, Rp, RIp, *, off: int, n: int, dest: int, block: int = 0,
     )
     _launched(rc, KERNELS["fused_tail"])
     return Rp, RIp, info
+
+
+# --------------------------------------------------------------------------
+# sched_matmul
+# --------------------------------------------------------------------------
+
+#: (rows, cols, depth) of one CUDA block's tile: WMMA for bf16, FMA otherwise
+_SCHED_TILE = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16),
+               torch.float64: (64, 64, 16)}
+#: most schedule entries one launch takes (the grid's second dimension)
+SCHED_MAX_PAIRS = 65535
+
+
+def _sched_spec(A, B, to, ko, first, last, tri_side, blocks):
+    if tri_side not in ("a", "b"):
+        raise ValueError(f"tri_side must be 'a' or 'b', got {tri_side!r}")
+    if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[0]:
+        raise ValueError(f"sched_matmul: cannot multiply {tuple(A.shape)} by {tuple(B.shape)}")
+    (M, K), N = A.shape, B.shape[1]
+    bm, bn, bk = blocks
+    if min(blocks) < 1 or M % bm or N % bn or K % bk:
+        raise ValueError(f"sched_matmul: blocks {tuple(blocks)} must tile (M, K, N) = {(M, K, N)}")
+    for x in (to, ko, first, last):
+        if x.dtype != torch.int32 or x.dim() != 1 or x.shape != to.shape or not x.is_contiguous():
+            raise ValueError(
+                "sched_matmul: to, ko, first and last must be contiguous 1-D int32 "
+                "arrays of one length"
+            )
+        if x.device != A.device:
+            raise ValueError(f"sched_matmul: the schedule is on {x.device}, A on {A.device}")
+    if to.numel() == 0:
+        raise ValueError("sched_matmul: empty schedule")
+    return M, N, K
+
+
+def sched_matmul_plain(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=None):
+    """Plain PyTorch version of `sched_matmul`: the Pallas body's pair loop
+    written out, with the outer (dense-side) axis done in one product per
+    pair.  Tiles that no pair lists are NaN (undefined by contract)."""
+    M, N, _ = _sched_spec(A, B, to, ko, first, last, tri_side, blocks)
+    del precision  # f32 is always full IEEE f32 here
+    bm, bn, bk = blocks
+    acc_dt = _acc_dtype(A.dtype, B.dtype)
+    out = torch.full((M, N), float("nan"), dtype=torch.promote_types(A.dtype, B.dtype),
+                     device=A.device)
+    acc = None
+    for t, k, fi, la in zip(to.tolist(), ko.tolist(), first.tolist(), last.tolist()):
+        ks = slice(k * bk, (k + 1) * bk)
+        if tri_side == "a":
+            prod = A[t * bm:(t + 1) * bm, ks].to(acc_dt) @ B[ks].to(acc_dt)
+        else:
+            prod = A[:, ks].to(acc_dt) @ B[ks, t * bn:(t + 1) * bn].to(acc_dt)
+        acc = prod if fi == 1 or acc is None else acc + prod
+        if la == 1:
+            if tri_side == "a":
+                out[t * bm:(t + 1) * bm] = acc.to(out.dtype)
+            else:
+                out[:, t * bn:(t + 1) * bn] = acc.to(out.dtype)
+    return out
+
+
+def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=None):
+    """C = A @ B visiting only the (tile, k-tile) pairs listed in the int32
+    schedule arrays (ops/csrc/sched_matmul.cu; pallas_tpu.sched_matmul).
+
+    tri_side='a': pair p is (row tile to[p] of A and C, k-tile ko[p]), the
+    side-L trmm shape; 'b': (column tile of B and C, k-tile), side R.
+    first[p] / last[p] mark each tile's first and last live k-step; pad
+    entries repeat the final pair with first = last = 0 and write nothing.
+    blocks = (bm, bn, bk) tile M, N and K.  The operands are pre-masked: no
+    mask is applied inside a tile.  Output tiles that no pair lists are
+    undefined.  The kernel takes row-major contiguous A and B of one dtype
+    (bf16, f32 or f64), blocks that its CUDA tile divides (128 x 128 x 32
+    for bf16, 64 x 64 x 16 otherwise), accumulates in f32 (f64 for f64) and
+    writes the operands' dtype."""
+    M, N, K = _sched_spec(A, B, to, ko, first, last, tri_side, blocks)
+    if not _on_card(A, B, to, ko, first, last):
+        return sched_matmul_plain(A, B, to, ko, first, last, tri_side=tri_side, blocks=blocks)
+    for X, what in ((A, "A"), (B, "B")):
+        _kernel_operand(X, what)
+        if not X.is_contiguous():
+            raise ValueError(f"sched_matmul kernel: {what} must be contiguous")
+    if B.dtype != A.dtype:
+        raise TypeError(f"sched_matmul kernel: B is {B.dtype}, A is {A.dtype}")
+    tm, tn, tk = _SCHED_TILE[A.dtype]
+    bm, bn, bk = blocks
+    if bm % tm or bn % tn or bk % tk:
+        raise ValueError(
+            f"sched_matmul kernel: blocks {tuple(blocks)} must be multiples of the "
+            f"{A.dtype} tile {(tm, tn, tk)}"
+        )
+    if to.numel() > SCHED_MAX_PAIRS:
+        raise ValueError(f"sched_matmul kernel: {to.numel()} pairs, at most {SCHED_MAX_PAIRS}")
+    res = torch.empty((M, N), dtype=A.dtype, device=A.device)
+    rc = _build.entry("capital_sched_matmul")(
+        _DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(), res.data_ptr(),
+        to.data_ptr(), ko.data_ptr(), first.data_ptr(), last.data_ptr(),
+        to.numel(), M, N, K, bm, bn, bk, int(tri_side == "a"), _stream(),
+    )
+    _launched(rc, KERNELS["sched_matmul"])
+    return res

@@ -1,1 +1,1 @@
-"""Device topology and the single-device SUMMA routes."""
+"""Device topology, the in-process mesh and the SUMMA schedules."""

@@ -1,29 +1,37 @@
-"""Single-device routes of SUMMA (counterpart of
-capital_tpu/parallel/summa.py: GemmArgs/TrmmArgs/SyrkArgs, trmm, syrk,
-gemm).
+"""SUMMA on the device grid (counterpart of capital_tpu/parallel/summa.py:
+GemmArgs/TrmmArgs/SyrkArgs, gemm, trmm, syrk, transpose and the explicit
+d x d x c schedule).
 
-* mode 'pallas' (and 'explicit', whose single-device schedule is the same
-  copy-free kernel route in the JAX package) runs trmm/syrk through the
-  hand-written kernels of ops/hopper.py: dead triangular tiles are never
-  visited, windows are read in place, results are written in place.
-* mode 'xla' masks the triangle and leaves the product to `torch.matmul`,
-  as the JAX package leaves it to XLA.
-* gemm is a plain product outside any kernel: `torch.matmul` in every mode.
-* transpose is a plain `A.T`, made contiguous (the windowed kernels take
-  row-major buffers only).
+* One device, modes 'pallas' and 'explicit' (whose one-device schedule is
+  the same copy-free kernel route in the JAX package): trmm/syrk run
+  through the hand-written kernels of ops/hopper.py — dead triangular tiles
+  are never visited, windows are read and written in place.
+* Every other call materialises its windows and the triangle mask and goes
+  through `_matmul`: mode 'xla' (and 'pallas' on a mesh) leaves the product
+  to `torch.matmul`, as the JAX package leaves it to XLA; mode 'explicit'
+  runs the SUMMA schedule rank by rank on the in-process mesh
+  (`_explicit_matmul`, parallel/mesh.py).  On a d x d x 1 mesh a trmm whose
+  shards tile by 128 takes the sched route: each rank runs the
+  `hopper.sched_matmul` kernel over its own live (tile, k-tile) pairs.
+* transpose is a plain `A.T`, made contiguous (the kernels take row-major
+  buffers only).
 
 Windowed writes (`out`, syrk `in_place`) mutate the passed buffer and
-return it.  The distributed schedules and the balanced layouts wait for the
-port's multi-device item (ROADMAP Queue A item 10).
+return it.  The balanced layouts (balance='tile_cyclic',
+'tile_cyclic_persistent', the second route into sched_matmul) wait for
+ROADMAP Queue A item 10 and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from capital_tpu_torch.ops import hopper, masking
+from capital_tpu_torch.parallel import mesh
 from capital_tpu_torch.parallel.topology import Grid
 from capital_tpu_torch.utils import tracing
 
@@ -64,16 +72,14 @@ class SyrkArgs:
     precision: str | None = None
 
 
-def _check(grid: Grid, mode: str, balance: str, who: str) -> None:
+def _check(mode: str, balance: str, who: str) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown summa mode {mode!r}")
     if balance != "block":
         raise NotImplementedError(
-            f"{who}: balance={balance!r} is not ported yet (ROADMAP Queue A "
-            "item 10, multi-device schedules)"
+            f"{who}: balance={balance!r} is not ported yet (ROADMAP Queue A item 10, "
+            "the tile-cyclic and persistent layouts)"
         )
-    if grid.num_devices != 1:
-        raise NotImplementedError(f"{who}: multi-device grids are not ported yet")
 
 
 def _window(X: torch.Tensor, view) -> torch.Tensor:
@@ -83,14 +89,361 @@ def _window(X: torch.Tensor, view) -> torch.Tensor:
     return X[r0:r0 + rows, c0:c0 + cols]
 
 
-def _kernel_route(mode: str, flops: float) -> None:
-    """Cost attribution of the kernel route: the executed flops are half
-    the dense count (dead tiles skipped)."""
-    if mode == "explicit":
-        tracing.note("explicit::copy_free")
-        tracing.emit(flops=flops, flops_vol=flops / 2, flops_max=flops / 2)
+def _copy_bytes_of(*terms) -> float:
+    """Sum of (factor, tensor) copy prices: factor counts reads + writes of
+    the moved tensor (2.0 = one read + one write)."""
+    return float(sum(f * t.numel() * t.element_size() for f, t in terms))
+
+
+# --------------------------------------------------------------------------
+# the explicit schedule's liveness, gates and tile schedules
+# --------------------------------------------------------------------------
+
+
+def _seg_live_a_global(xi, s, ch, mb, lk, w, a_uplo):
+    # A columns of (segment s, chunk ch): [s*lk + ch*w, +w); rows of this
+    # rank's block: [xi*mb, +mb).  Live = intersects the stored triangle.
+    lo = s * lk + ch * w
+    if a_uplo == "U":
+        return xi * mb < lo + w  # ∃ row <= col
+    return (xi + 1) * mb - 1 >= lo  # 'L': ∃ row >= col
+
+
+def _seg_live_b_global(yi, s, ch, nb, lk, w, b_uplo):
+    # B rows of (segment s, chunk ch); cols of this block: [yi*nb, +nb)
+    lo = s * lk + ch * w
+    if b_uplo == "U":
+        return lo < (yi + 1) * nb
+    return lo + w - 1 >= yi * nb
+
+
+def _out_live(xi, yi, mb, nb, out_uplo):
+    """Does rank (xi, yi)'s C block touch the stored triangle?"""
+    if out_uplo == "U":
+        return xi * mb < (yi + 1) * nb
+    return (xi + 1) * mb - 1 >= yi * nb
+
+
+def tri_fractions(grid: Grid, M: int, K: int, N: int, a_uplo: str | None = None,
+                  b_uplo: str | None = None, out_uplo: str | None = None) -> tuple[float, float]:
+    """(mean_frac, max_frac) of the dense per-rank contraction that the
+    explicit schedule's K-segment route executes under dead-segment and
+    dead-output skipping, from the same liveness predicates: mean is the
+    volumetric view, max the critical-path rank (the fullest block row runs
+    every segment under block distribution)."""
+    d, c = grid.dx, grid.c
+    if grid.num_devices == 1 or (a_uplo is None and b_uplo is None and out_uplo is None):
+        return 1.0, 1.0
+    if grid.dy != d or d % max(1, c) or M % d or K % d or N % d:
+        return 1.0, 1.0  # shapes the explicit schedule would reject: dense model
+    q = max(1, grid.num_chunks)
+    lk = K // d
+    if lk % q:
+        return 1.0, 1.0
+    w = lk // q
+    mb, nb = M // d, N // d
+    spl = d // c
+    fracs = []
+    for zi in range(c):
+        segs = range(d) if c == 1 else [zi * spl + i for i in range(spl)]
+        denom = len(segs) * q
+        for xi in range(d):
+            for yi in range(d):
+                if out_uplo is not None and not _out_live(xi, yi, mb, nb, out_uplo):
+                    fracs.append(0.0)
+                    continue
+                live = 0
+                for s in segs:
+                    for ch in range(q):
+                        la = a_uplo is None or _seg_live_a_global(xi, s, ch, mb, lk, w, a_uplo)
+                        lb = b_uplo is None or _seg_live_b_global(yi, s, ch, nb, lk, w, b_uplo)
+                        live += bool(la and lb)
+                fracs.append(live / denom)
+    return sum(fracs) / len(fracs), max(fracs)
+
+
+def _shard_kernels_gate(grid: Grid, M: int, K: int, N: int, a_uplo, b_uplo, out_uplo) -> bool:
+    """Does the explicit schedule run its local compute through the
+    live-tile `tri_matmul` kernel per shard?  A 1 x 1 x 1 grid, unchunked,
+    with 128-aligned blocks and a triangular operand or output.  Shared by
+    the router and the cost model."""
+    d, c = grid.dx, grid.c
+    q = max(1, grid.num_chunks)
+    structured = a_uplo is not None or b_uplo is not None or out_uplo is not None
+    if not (structured and d == 1 and grid.dy == 1 and c == 1 and q == 1):
+        return False
+    return M % 128 == 0 and N % 128 == 0 and K % 128 == 0
+
+
+def _sched_blocks(mb: int, K: int, nb: int) -> tuple[int, int, int]:
+    """(bm, bk, bn) for the sched route: the largest of 512/256/128 dividing
+    the extent AND leaving >= 4 tiles, else the smallest divisor, else 0
+    (cannot tile)."""
+
+    def pick(x: int) -> int:
+        for b in (512, 256, 128):
+            if x % b == 0 and x // b >= 4:
+                return b
+        for b in (128, 256, 512):
+            if x % b == 0:
+                return b
+        return 0
+
+    return pick(mb), pick(K), pick(nb)
+
+
+def _sched_host(d: int, M: int, K: int, N: int, a_uplo, b_uplo):
+    """The per-rank tile schedules as (d, L) int32 numpy arrays (TO, KO,
+    FI, LA) — rank i's live (tile, k-tile) pairs, padded to the longest by
+    repeating its last pair with first = last = 0 — with the executed
+    fraction L/(nt·nk) and the blocks (bm, bn, bk); None when the shapes do
+    not tile or nothing is skippable."""
+    mb, nb = M // d, N // d
+    bm, bk, bn = _sched_blocks(mb, K, nb)
+    if not (bm and bk and bn):
+        return None
+    uplo = a_uplo if a_uplo is not None else b_uplo
+    a_side = a_uplo is not None
+    bt = bm if a_side else bn
+    nt, nk = (mb if a_side else nb) // bt, K // bk
+    per_dev = []
+    for xi in range(d):
+        pairs = []
+        for t in range(nt):
+            r0 = xi * (mb if a_side else nb) + t * bt
+            for k in range(nk):
+                c0 = k * bk
+                if a_side:  # A (M, K) triangular: row-tile origin r0, K origin c0
+                    live = (c0 < r0 + bt) if uplo == "L" else (c0 + bk > r0)
+                else:  # B (K, N) triangular: K origin c0 (rows), col origin r0
+                    live = (c0 + bk > r0) if uplo == "L" else (c0 < r0 + bt)
+                if live:
+                    pairs.append((t, k))
+        if not pairs:
+            return None
+        per_dev.append(pairs)
+    L = max(len(p) for p in per_dev)
+    TO, KO, FI, LA = (np.zeros((d, L), np.int32) for _ in range(4))
+    for xi, pairs in enumerate(per_dev):
+        for idx, (t, k) in enumerate(pairs):
+            TO[xi, idx], KO[xi, idx] = t, k
+            FI[xi, idx] = 1 if idx == 0 or pairs[idx - 1][0] != t else 0
+            LA[xi, idx] = 1 if idx == len(pairs) - 1 or pairs[idx + 1][0] != t else 0
+        TO[xi, len(pairs):], KO[xi, len(pairs):] = pairs[-1]
+    frac = L / float(nt * nk)
+    if frac >= 1.0:
+        # nothing skippable at this tiling: stay on the segment route
+        return None
+    return (TO, KO, FI, LA), frac, (bm, bn, bk)
+
+
+@functools.lru_cache(maxsize=256)
+def _sched_pairs(grid: Grid, M: int, K: int, N: int, a_uplo, b_uplo):
+    """_sched_host's schedule with the arrays on the grid's device (built
+    once per shape: a recursion reuses each level's shapes)."""
+    sched = _sched_host(grid.dx, M, K, N, a_uplo, b_uplo)
+    if sched is None:
+        return None
+    arrays, frac, blocks = sched
+    return tuple(torch.from_numpy(a).to(grid.device) for a in arrays), frac, blocks
+
+
+def _shard_sched_gate(grid: Grid, M: int, K: int, N: int, a_uplo, b_uplo, out_uplo):
+    """The sched route's schedule, or None: d > 1 square face, c == 1,
+    unchunked, exactly one triangular operand, and tileable shards.
+    Shared by the router and the cost model."""
+    d, c = grid.dx, grid.c
+    q = max(1, grid.num_chunks)
+    if not (d > 1 and grid.dy == d and c == 1 and q == 1):
+        return None
+    if (a_uplo is None) == (b_uplo is None) or out_uplo is not None:
+        return None
+    if M % d or K % d or N % d:
+        return None
+    return _sched_pairs(grid, M, K, N, a_uplo, b_uplo)
+
+
+# --------------------------------------------------------------------------
+# the explicit schedule
+# --------------------------------------------------------------------------
+
+
+def _explicit_matmul(grid: Grid, A: torch.Tensor, B: torch.Tensor, precision: str | None = None,
+                     a_uplo: str | None = None, b_uplo: str | None = None,
+                     out_uplo: str | None = None, sched=None) -> torch.Tensor:
+    """C = A @ B with the explicit SUMMA schedule on the d x d x c grid,
+    rank by rank on the in-process mesh; `sched` forwards `_matmul`'s
+    schedule.  Per rank (x, y, z), on its P('x', 'y') blocks a, b:
+
+      c == 1:  a_row = all_gather(a, 'y'); b_col = all_gather(b, 'x')
+               acc += a_row @ b_col, per K-segment, skipping the segments
+               dead for this block (a_uplo / b_uplo) and every segment of a
+               dead output block (out_uplo)
+      c  > 1:  for each of this layer's d/c K-steps k:
+                 a_panel = psum(a if y == k else 0, 'y')
+                 b_panel = psum(b if x == k else 0, 'x')
+                 acc += a_panel @ b_panel   (dead panels skipped)
+               C = psum(acc, 'z'), in num_chunks column slices
+
+    The sched route (trmm shapes on d x d x 1, see _shard_sched_gate)
+    instead runs `hopper.sched_matmul` on the gathered slabs with the
+    rank's own tile schedule.  num_chunks = q > 1 splits each gather into
+    q K-slices.  Local products accumulate in f32 (f64 for f64) through
+    `torch.matmul`; each rank's partial is cast back to the operands'
+    dtype before the depth collect."""
+    d, c = grid.dx, grid.c
+    if grid.dy != d:
+        raise ValueError("explicit SUMMA requires a square grid face")
+    if d % c != 0:
+        raise ValueError(f"depth c={c} must divide face d={d}")
+    (M, K), (K2, N) = A.shape, B.shape
+    if K != K2:
+        raise ValueError(f"inner dims mismatch: {tuple(A.shape)} @ {tuple(B.shape)}")
+    if M % d or K % d or N % d:
+        raise ValueError(f"global dims {(M, K, N)} must be divisible by d={d}")
+    spl = d // c  # K-segments owned by each depth layer
+    q = max(1, grid.num_chunks)
+    lk = K // d  # local K extent
+    if lk % q:
+        raise ValueError(f"num_chunks={q} must divide the local K extent {lk}")
+    w = lk // q
+    mb, nb = M // d, N // d
+    wire = torch.promote_types(A.dtype, B.dtype)
+    acc_dt = torch.promote_types(wire, torch.float32)
+    ranks = range(grid.num_devices)
+    xs = [mesh.axis_index(grid, r, "x") for r in ranks]
+    ys = [mesh.axis_index(grid, r, "y") for r in ranks]
+    zs = [mesh.axis_index(grid, r, "z") for r in ranks]
+    a_blk, b_blk = mesh.blocks(grid, A), mesh.blocks(grid, B)
+
+    shard_kernels = _shard_kernels_gate(grid, M, K, N, a_uplo, b_uplo, out_uplo)
+    if shard_kernels:
+        tracing.note("explicit::shard_kernels")
+        sched = None
+    elif sched is None:  # direct callers: build what _matmul forwards
+        sched = _shard_sched_gate(grid, M, K, N, a_uplo, b_uplo, out_uplo)
+    if sched is not None:
+        tracing.note("explicit::shard_sched")
+
+    if shard_kernels or sched is not None:
+        a_ch = mesh.all_gather(grid, a_blk, "y", 1)
+        b_ch = mesh.all_gather(grid, b_blk, "x", 0)
+        parts = []
+        for r in ranks:
+            if shard_kernels:
+                tri = dict(out_uplo=out_uplo) if out_uplo else dict(a_uplo=a_uplo, b_uplo=b_uplo)
+                part = hopper.tri_matmul(a_ch[r], b_ch[r], precision=precision, **tri)
+            else:
+                # each rank runs ITS OWN row of the stacked schedule
+                (TO, KO, FI, LA), _, blocks = sched
+                sel = xs[r] if a_uplo is not None else ys[r]
+                part = hopper.sched_matmul(
+                    a_ch[r], b_ch[r], TO[sel], KO[sel], FI[sel], LA[sel],
+                    tri_side="a" if a_uplo is not None else "b", blocks=blocks,
+                    precision=precision,
+                )
+            parts.append(part.to(wire))
+        return mesh.assemble(grid, parts)
+
+    out_live = [None] * len(ranks)
+    if out_uplo is not None:
+        out_live = [_out_live(xs[r], ys[r], mb, nb, out_uplo) for r in ranks]
+    accs: list = [None] * len(ranks)
+
+    def accumulate(r, live, a_op, b_op):
+        # a dead term's matmul is skipped (the reference's zero branch)
+        if live is None or live:
+            prod = torch.matmul(a_op.to(acc_dt), b_op.to(acc_dt))
+            accs[r] = prod if accs[r] is None else accs[r] + prod
+
+    def seg_live(r, s, ch):
+        live = None
+        if a_uplo is not None:
+            live = _seg_live_a_global(xs[r], s, ch, mb, lk, w, a_uplo)
+        if b_uplo is not None:
+            lb = _seg_live_b_global(ys[r], s, ch, nb, lk, w, b_uplo)
+            live = lb if live is None else (live and lb)
+        if out_live[r] is not None:
+            live = out_live[r] if live is None else (live and out_live[r])
+        return live
+
+    if c == 1:
+        for ch in range(q):
+            # gathered chunk: segment s holds global K-range [s*lk + ch*w, +w)
+            a_ch = mesh.all_gather(grid, [a[:, ch * w:(ch + 1) * w] for a in a_blk], "y", 1)
+            b_ch = mesh.all_gather(grid, [b[ch * w:(ch + 1) * w] for b in b_blk], "x", 0)
+            for r in ranks:
+                if a_uplo is None and b_uplo is None:
+                    accumulate(r, out_live[r], a_ch[r], b_ch[r])
+                    continue
+                for s in range(d):
+                    accumulate(r, seg_live(r, s, ch), a_ch[r][:, s * w:(s + 1) * w],
+                               b_ch[r][s * w:(s + 1) * w])
     else:
-        tracing.emit(flops=flops / 2)
+        # per-step masked-psum broadcast of this layer's own d/c panels;
+        # the broadcast is unconditional, only dead matmuls are skipped
+        for i in range(spl):
+            ks = [zs[r] * spl + i for r in ranks]  # each rank's global K-step
+            for ch in range(q):
+                a_sl = [a[:, ch * w:(ch + 1) * w] for a in a_blk]
+                b_sl = [b[ch * w:(ch + 1) * w] for b in b_blk]
+                a_pan = mesh.psum(grid, [a_sl[r] if ys[r] == ks[r] else torch.zeros_like(a_sl[r])
+                                         for r in ranks], ("y",))
+                b_pan = mesh.psum(grid, [b_sl[r] if xs[r] == ks[r] else torch.zeros_like(b_sl[r])
+                                         for r in ranks], ("x",))
+                for r in ranks:
+                    accumulate(r, seg_live(r, ks[r], ch), a_pan[r], b_pan[r])
+
+    parts = [
+        (acc if acc is not None else torch.zeros((mb, nb), dtype=acc_dt, device=A.device)).to(wire)
+        for acc in accs
+    ]
+    if c > 1:
+        # chunked depth collect: q psums over column slices (uneven widths
+        # when q does not divide the block; zero-width tails skipped)
+        widths = [nb // q + (1 if j < nb % q else 0) for j in range(q)]
+        pieces, off = [], 0
+        for wd in widths:
+            if wd:
+                pieces.append(mesh.psum(grid, [p[:, off:off + wd] for p in parts], ("z",)))
+                off += wd
+        parts = [torch.cat([pc[r] for pc in pieces], 1) if len(pieces) > 1 else pieces[0][r]
+                 for r in ranks]
+    return mesh.assemble(grid, parts)
+
+
+def _matmul(grid: Grid, A: torch.Tensor, B: torch.Tensor, mode: str,
+            precision: str | None = None, a_uplo: str | None = None,
+            b_uplo: str | None = None, out_uplo: str | None = None) -> torch.Tensor:
+    """A @ B in `mode`.  The uplo flags describe triangular structure of the
+    (already masked) operands or the result; only mode 'explicit' exploits
+    them.  The model count `flops` stays dense; flops_vol / flops_max carry
+    the skipping (tri_fractions, or the sched route's executed fraction)."""
+    M, K, N = A.shape[0], A.shape[1], B.shape[1]
+    flops, comm, ncoll = tracing.gemm_cost(grid, M, N, K, torch.promote_types(A.dtype, B.dtype))
+    sched = None
+    if mode == "explicit":
+        if _shard_kernels_gate(grid, M, K, N, a_uplo, b_uplo, out_uplo):
+            mean_f = max_f = 0.5  # per-shard live-tile kernels
+        elif (sched := _shard_sched_gate(grid, M, K, N, a_uplo, b_uplo, out_uplo)) is not None:
+            # every rank runs the padded maximum schedule: mean == max
+            mean_f = max_f = sched[1]
+        else:
+            mean_f, max_f = tri_fractions(grid, M, K, N, a_uplo, b_uplo, out_uplo)
+    else:
+        mean_f = max_f = 1.0  # dense + mask executes the full contraction
+    tracing.emit(flops=flops, comm_bytes=comm, collectives=ncoll,
+                 flops_vol=flops * mean_f, flops_max=flops * max_f)
+    if mode in ("xla", "pallas"):
+        return torch.matmul(A, B)
+    if mode == "explicit":
+        return _explicit_matmul(grid, A, B, precision, a_uplo, b_uplo, out_uplo, sched=sched)
+    raise ValueError(f"unknown summa mode {mode!r}")
+
+
+# --------------------------------------------------------------------------
+# public ops
+# --------------------------------------------------------------------------
 
 
 def gemm(
@@ -101,21 +454,31 @@ def gemm(
     args: GemmArgs = GemmArgs(),
     mode: str = "xla",
 ) -> torch.Tensor:
-    """C = alpha · op(A) @ op(B) + beta · C — a dense product with no dead
-    blocks, so `torch.matmul` in every mode."""
-    _check(grid, mode, "block", "gemm")
+    """C = alpha · op(A) @ op(B) + beta · C (reference summa.hpp:7-44) — a
+    dense product with no dead blocks."""
+    _check(mode, "block", "gemm")
     if args.beta != 0.0 and C is None:
         raise ValueError("beta != 0 requires the accumulate operand C")
     Aop = A.T if args.trans_a else A
     Bop = B.T if args.trans_b else B
-    flops, _, _ = tracing.gemm_cost(grid, Aop.shape[0], Bop.shape[1], Aop.shape[1], A.dtype)
-    tracing.emit(flops=flops)
-    out = Aop @ Bop
+    out = _matmul(grid, Aop, Bop, mode, args.precision)
     if args.alpha != 1.0:
         out = args.alpha * out
     if args.beta != 0.0:
         out = out + args.beta * C
     return out
+
+
+def _kernel_route(grid: Grid, mode: str, M: int, N: int, K: int, dtype) -> None:
+    """Cost attribution of the one-device kernel route: the executed flops
+    are half the dense count (dead tiles skipped)."""
+    flops, comm, ncoll = tracing.gemm_cost(grid, M, N, K, dtype)
+    if mode == "explicit":
+        tracing.note("explicit::copy_free")
+        tracing.emit(flops=flops, comm_bytes=comm, collectives=ncoll,
+                     flops_vol=flops / 2, flops_max=flops / 2)
+    else:
+        tracing.emit(flops=flops / 2, comm_bytes=comm, collectives=ncoll)
 
 
 def trmm(
@@ -132,16 +495,16 @@ def trmm(
     balance: str = "block",
 ) -> torch.Tensor:
     """alpha · op(tri(A)) @ B (side 'L') or alpha · B @ op(tri(A)) (side
-    'R').  With `out` the result is written into `out` at out_off in place
-    and `out` is returned."""
-    _check(grid, mode, balance, "trmm")
+    'R') — reference summa.hpp:47-83.  With `out` the result is written into
+    `out` at out_off in place and `out` is returned."""
+    _check(mode, balance, "trmm")
     if args.side not in ("L", "R"):
         raise ValueError(f"side must be 'L' or 'R', got {args.side!r}")
     a_dims = (a_view[2], a_view[3]) if a_view is not None else tuple(A.shape)
     b_dims = (b_view[2], b_view[3]) if b_view is not None else tuple(B.shape)
-    flops, _, _ = tracing.gemm_cost(grid, b_dims[0], b_dims[1], a_dims[0], A.dtype)
-    if mode in ("pallas", "explicit") and args.diag != "U":
-        _kernel_route(mode, flops)
+    if mode in ("pallas", "explicit") and grid.num_devices == 1 and args.diag != "U":
+        _kernel_route(grid, mode, b_dims[0], b_dims[1], a_dims[0],
+                      torch.promote_types(A.dtype, B.dtype))
         if args.side == "L":
             return hopper.tri_matmul(
                 A, B, a_uplo=args.uplo, a_trans=args.trans_a, alpha=args.alpha,
@@ -153,17 +516,37 @@ def trmm(
             precision=args.precision, a_view=b_view, b_view=a_view,
             out=out, out_off=out_off,
         )
-    tracing.emit(flops=flops)
-    T = masking.take_triangle(_window(A, a_view), args.uplo)
+    # the materialising route: windows, triangle mask, _matmul, write-back
+    Aw, Bw = _window(A, a_view), _window(B, b_view)
+    T = masking.take_triangle(Aw, args.uplo)
     if args.diag == "U":
         T = masking.with_unit_diagonal(T)
     Top = T.T if args.trans_a else T
-    Bw = _window(B, b_view)
-    res = Top @ Bw if args.side == "L" else Bw @ Top
+    # transposing a triangular operand flips its triangle; explicit mode
+    # skips dead K-segments / tiles by it
+    eff_uplo = args.uplo if not args.trans_a else ("L" if args.uplo == "U" else "U")
+    if args.side == "L":
+        res = _matmul(grid, Top, Bw, mode, args.precision, a_uplo=eff_uplo)
+    else:
+        res = _matmul(grid, Bw, Top, mode, args.precision, b_uplo=eff_uplo)
     if args.alpha != 1.0:
         res = args.alpha * res
+    # copy-bytes attribution of this route, per device: triangle mask,
+    # window slices, unit diagonal, transpose, write-back round-trip
+    cb = _copy_bytes_of((2.0, T))
+    if a_view is not None:
+        cb += _copy_bytes_of((2.0, T))
+    if args.diag == "U":
+        cb += _copy_bytes_of((2.0, T))
+    if args.trans_a:
+        cb += _copy_bytes_of((2.0, T))
+    if b_view is not None:
+        cb += _copy_bytes_of((2.0, Bw))
     if out is None:
+        tracing.emit(copy_bytes=cb / grid.num_devices)
         return res
+    cb += _copy_bytes_of((2.0, out))
+    tracing.emit(copy_bytes=cb / grid.num_devices)
     _window(out, (out_off[0], out_off[1], *res.shape)).copy_(res)
     return out
 
@@ -182,22 +565,23 @@ def syrk(
 ) -> torch.Tensor:
     """C = alpha·AᵀA + beta·C (trans) or alpha·AAᵀ + beta·C.
 
-    mode 'pallas'/'explicit' computes only the args.uplo triangle: with
-    beta == 0 the other half is zero, with beta != 0 it is UNDEFINED, so
-    callers read only args.uplo.  mode 'xla' computes the full symmetric
-    result.  in_place (beta != 0 and C given) writes the update into C's
-    c_view window and returns C itself — the caller's C is modified."""
-    _check(grid, mode, balance, "syrk")
+    mode 'pallas'/'explicit' on one device computes only the args.uplo
+    triangle: with beta == 0 the other half is zero, with beta != 0 it is
+    UNDEFINED, so callers read only args.uplo.  Elsewhere the full
+    symmetric result is computed ('explicit' on a mesh computes the
+    args.uplo blocks and symmetrizes with one grid transpose).  in_place
+    (beta != 0 and C given) writes the update into C's c_view window and
+    returns C itself — the caller's C is modified."""
+    _check(mode, balance, "syrk")
     if args.beta != 0.0 and C is None:
         raise ValueError("beta != 0 requires the accumulate operand C")
     if in_place and (args.beta == 0.0 or C is None):
         raise ValueError("in_place syrk requires the accumulate operand C")
-    a_dims = (a_view[2], a_view[3]) if a_view is not None else tuple(A.shape)
-    n_out = a_dims[1] if args.trans else a_dims[0]
-    k_in = a_dims[0] if args.trans else a_dims[1]
-    flops, _, _ = tracing.gemm_cost(grid, n_out, n_out, k_in, A.dtype)
-    if mode in ("pallas", "explicit"):
-        _kernel_route(mode, flops)
+    if mode in ("pallas", "explicit") and grid.num_devices == 1:
+        a_dims = (a_view[2], a_view[3]) if a_view is not None else tuple(A.shape)
+        n_out = a_dims[1] if args.trans else a_dims[0]
+        k_in = a_dims[0] if args.trans else a_dims[1]
+        _kernel_route(grid, mode, n_out, n_out, k_in, A.dtype)
         out_kw = {}
         if in_place:
             out_kw = dict(out=C, out_off=(c_view[0], c_view[1]) if c_view is not None else (0, 0))
@@ -206,22 +590,43 @@ def syrk(
             alpha=args.alpha, precision=args.precision, a_view=a_view, b_view=a_view,
             c=C, c_view=c_view, beta=args.beta, **out_kw,
         )
-    tracing.emit(flops=flops)
     Aw = _window(A, a_view)
-    out = Aw.T @ Aw if args.trans else Aw @ Aw.T
+    Aop = (Aw.T, Aw) if args.trans else (Aw, Aw.T)
+    if mode == "explicit":
+        D = _matmul(grid, Aop[0], Aop[1], mode, args.precision, out_uplo=args.uplo)
+        if args.uplo == "U":
+            out = torch.triu(D) + transpose(grid, torch.triu(D, 1))
+        else:
+            out = torch.tril(D) + transpose(grid, torch.tril(D, -1))
+    else:
+        out = _matmul(grid, Aop[0], Aop[1], mode, args.precision)
     if args.alpha != 1.0:
         out = args.alpha * out
+    # copy-bytes attribution (see trmm): the .T operand, window slices, the
+    # symmetrize's two triangle masks, the write-back round-trip
+    cb = _copy_bytes_of((2.0, Aw))
+    if a_view is not None:
+        cb += _copy_bytes_of((2.0, Aw))
+    if mode == "explicit":
+        cb += _copy_bytes_of((4.0, out))
     if args.beta != 0.0:
-        out = out + args.beta * _window(C, c_view)
-    if in_place:
-        _window(C, c_view).copy_(out)
-        return C
-    return out
+        Cw = _window(C, c_view)
+        out = out + args.beta * Cw
+        if c_view is not None:
+            cb += _copy_bytes_of((2.0, Cw))
+    if not in_place:
+        tracing.emit(copy_bytes=cb / grid.num_devices)
+        return out
+    cb += _copy_bytes_of((2.0, C))
+    tracing.emit(copy_bytes=cb / grid.num_devices)
+    off = (c_view[0], c_view[1]) if c_view is not None else (0, 0)
+    _window(C, (off[0], off[1], *out.shape)).copy_(out)
+    return C
 
 
 def transpose(grid: Grid, A: torch.Tensor) -> torch.Tensor:
-    """Aᵀ as a new row-major tensor (the JAX package's summa.transpose: a
-    plain transpose, no kernel).  One device has no grid transpose to
-    price, so nothing is emitted."""
-    _check(grid, "xla", "block", "transpose")
+    """Aᵀ as a new row-major tensor: the grid transpose (each rank swaps its
+    block with the mirrored rank), priced by tracing.transpose_cost."""
+    comm, ncoll = tracing.transpose_cost(grid, A.shape[0], A.shape[1], A.dtype)
+    tracing.emit(comm_bytes=comm, collectives=ncoll)
     return A.T.contiguous()

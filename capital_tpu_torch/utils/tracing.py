@@ -1,7 +1,7 @@
 """Phase scopes and the analytic cost model (the subset of
-capital_tpu/utils/tracing.py that single-device cholinv, CholeskyQR2, the
-small-N batched solves, rectri, TRSM and the block-tridiagonal chain
-solvers call).
+capital_tpu/utils/tracing.py that cholinv, CholeskyQR2, the small-N batched
+solves, rectri, TRSM, the block-tridiagonal chain solvers and the mesh
+schedule call).
 
 Phase tags keep the reference's critter symbol names (``CI::trsm`` ...) so
 phase tables compare across the two packages.  `scope` pushes the tag for
@@ -187,25 +187,72 @@ class Recorder:
         return t
 
 
+def _ring_bytes(block_bytes: float, p: int) -> float:
+    """Bytes per device for a ring broadcast/allgather of `block_bytes` over
+    an axis of p devices: (p-1)/p * total."""
+    return block_bytes * (p - 1) / p if p > 1 else 0.0
+
+
+def _allreduce_bytes(block_bytes: float, p: int) -> float:
+    """Ring allreduce: 2(p-1)/p * bytes (reduce-scatter + allgather)."""
+    return 2.0 * block_bytes * (p - 1) / p if p > 1 else 0.0
+
+
 def gemm_cost(grid, M: int, N: int, K: int, dtype) -> tuple[float, float, int]:
     """(flops, comm_bytes, collectives) per device for C[M,N] = A[M,K] @
-    B[K,N].  One device moves no collective bytes."""
-    del dtype
-    return 2.0 * M * N * K / grid.num_devices, 0.0, 0
+    B[K,N] under the explicit SUMMA schedule on a dx x dy x c grid
+    (parallel/summa.py:_explicit_matmul).  c == 1: a ring all_gather of the
+    A block row over 'y' and of the B block column over 'x'.  c > 1:
+    per-step masked-psum broadcasts of this layer's d/c panels, plus a ring
+    allreduce of the C block over depth.  num_chunks splits each into that
+    many collectives (same bytes).  The model prices what a mesh would
+    move; the virtual mesh (parallel/mesh.py) moves it inside one device."""
+    dx, dy, c = grid.dx, grid.dy, grid.c
+    item = dtype.itemsize
+    p = dx * dy * c
+    flops = 2.0 * M * N * K / p
+    q = max(1, getattr(grid, "num_chunks", 0))
+    d = max(dx, dy)
+    c_blk = (M / dx) * (N / dy) * item
+    if c == 1:
+        a_row = (M / dx) * K * item  # gathered block row per device
+        b_col = K * (N / dy) * item  # gathered block column per device
+        comm = _ring_bytes(a_row, dy) + _ring_bytes(b_col, dx)
+        ncoll = (q if dy > 1 else 0) + (q if dx > 1 else 0)
+    else:
+        steps = max(1, d // c)  # this layer's K-steps
+        a_pan = (M / dx) * (K / d) * item
+        b_pan = (K / d) * (N / dy) * item
+        comm = steps * (_allreduce_bytes(a_pan, dy) + _allreduce_bytes(b_pan, dx))
+        ncoll = steps * ((q if dy > 1 else 0) + (q if dx > 1 else 0))
+    comm += _allreduce_bytes(c_blk, c)
+    # the collect splits into q column slices, never more than the block
+    # has columns (zero-width tails are skipped by the schedule)
+    ncoll += min(q, max(1, int(N // max(1, dy)))) if c > 1 else 0
+    return flops, comm, ncoll
+
+
+def transpose_cost(grid, m: int, n: int, dtype) -> tuple[float, int]:
+    """(comm_bytes, collectives) per device for a grid transpose: each
+    device exchanges its (m/dx, n/dy) block with the mirrored coordinate."""
+    dx, dy = grid.dx, grid.dy
+    if dx == 1 and dy == 1:
+        return 0.0, 0
+    return (m / dx) * (n / dy) * dtype.itemsize, 1
 
 
 def replicate_cost(grid, m: int, n: int, dtype) -> tuple[float, int]:
-    """(comm_bytes, collectives) to replicate an m x n panel: zero on one
-    device."""
-    del grid, m, n, dtype
-    return 0.0, 0
+    """(comm_bytes, collectives) to replicate an m x n panel to every device
+    (all_gather over the whole mesh) — the base-case gather."""
+    p = grid.num_devices
+    return _ring_bytes(m * n * dtype.itemsize, p), 1 if p > 1 else 0
 
 
 def allreduce_cost(grid, m: int, n: int, dtype, axes: str = "all") -> tuple[float, int]:
-    """(comm_bytes, collectives) for a sum over devices: zero on one
-    device."""
-    del grid, m, n, dtype, axes
-    return 0.0, 0
+    """(comm_bytes, collectives) for psum of an m x n value over the whole
+    mesh (axes='all') or over depth (axes='z')."""
+    p = grid.num_devices if axes == "all" else grid.c
+    return _allreduce_bytes(m * n * dtype.itemsize, p), 1 if p > 1 else 0
 
 
 def potrf_trtri_flops(n: int) -> float:

@@ -95,15 +95,34 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     f64 at cond 1e5, tier 'guaranteed' against the straight f64 solve;
     profiled by IR:: phase), guaranteed posv and lstsq and the fast tier
     at the serve bucket, and guaranteed posv_blocktri on the scan route;
-17. prints the `kernels` JSON line (each bt.* kernel's launches from the
+17. holds the mesh schedule's per-rank kernel, sched_matmul, against its
+    plain version: the cholinv flagship's top-node slabs of one rank of a
+    2x2x1 mesh (4096 x 8192 @ 8192 x 4096, blocks 512³) and a 128-block
+    case (256 x 512 @ 512 x 256), bf16, f32 and f64, tri_side 'a' and 'b',
+    the padded rank and the full one; timed (the full rank) beside its
+    bound, the plain version and one torch.matmul of the pre-masked slabs;
+18. drives the mesh path on a 2x2x1 in-process mesh of the card
+    (`Grid.rect(2, 2, 1, devices=[cuda] * 4)`, mode 'explicit'; its
+    collectives are copies and sums inside the one card, so no
+    communication is measured): (a) cholinv n=16384 bf16 bc=512 (BASELINE
+    row "2x2 MPI grid, N=16384": residual gates, against the single-device
+    factor, timed beside it, peak memory, one run profiled by CI::
+    phase), (b)
+    cholinv n=8192 f32 bc=256 against the same factor through the plain
+    versions, (c) rectri n=16384 bf16 bc=512, and (d) cholinv n=2048 f32
+    on a 2x2x2 mesh (the c > 1 route, no kernel) — each with the counters
+    set to 0 just before and checked just after: sched_matmul launches
+    d² = 4 per trmm that the sched gate routes, every other kernel 0;
+19. prints the `kernels` JSON line (each bt.* kernel's launches from the
     main path's own run: the flagship 'pallas' posv for fused_forward and
     solve_backward, the factor for factor, the solve for forward_solve;
-    up.sweep's from the api.batched("chol_update") 'auto' call; the dense
-    tri_matmul, on no path, with 0), the nvidia-smi line, and last
+    up.sweep's from the api.batched("chol_update") 'auto' call;
+    sched_matmul's from phase 18a's counted run; the dense tri_matmul, on
+    no path, with 0), the nvidia-smi line, and last
     {"ok": true, "device": {...}}.
 
-Phases 3, 5, 7, 9–12, 14 and 16 set every launch counter to 0 just before
-their runs and check the counts just after against the plan.
+Phases 3, 5, 7, 9–12, 14, 16 and 18 set every launch counter to 0 just
+before their runs and check the counts just after against the plan.
 
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA or a directory without the package.
@@ -123,7 +142,8 @@ from contextlib import contextmanager
 import torch
 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 FMA
+# dense bf16 tensor / f32 FMA / f64 tensor-core rate (NVIDIA's H100 SXM data sheet)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.float64: 67e12}
 PATH_KERNELS = ("tri_matmul.trmm", "tri_matmul.syrk", "transpose", "transpose_pair",
                 "zeros_dead_lower")
 QR_KERNELS = ("qr.gram_blocked", "qr.scale_gram", "qr.scale_blocked")
@@ -134,6 +154,8 @@ INV_KERNELS = ("write_diag_blocks", "fused_tail", "small.trsm", "tsqr.panel_qr")
 BT_KERNELS = ("bt.fused_forward", "bt.factor", "bt.forward_solve", "bt.solve_backward")
 #: the update / refinement slice's kernel
 UP_KERNELS = ("up.sweep",)
+#: the mesh slice's kernel
+MESH_KERNELS = ("sched_matmul",)
 DTYPE_BY_NAME = {"f32": torch.float32, "bf16": torch.bfloat16}
 #: phase 15's sweeps (batch, n, k): the serve bucket's largest small-N n
 #: over the nrhs_buckets rungs, and the throughput batch
@@ -242,10 +264,11 @@ def spd_hash(n: int, dtype, salt: int, device) -> torch.Tensor:
 def check_close(name, got, want, dtype, mask=None) -> float:
     """Kernel against plain version.  Tolerance: bf16, one bf16 ulp of each
     entry plus 1e-5 of the largest (both accumulate in f32 and round once);
-    f32, 3e-5 of the largest entry (8192-long IEEE sums in another order).
+    f32, 3e-5 of the largest entry (8192-long IEEE sums in another order);
+    f64, 1e-12 of the largest entry.
     The QR kernels' Q is held the same way; their gram G by relative
     Frobenius (`check_gram`)."""
-    g, w = got.float(), want.float()
+    g, w = (got.double(), want.double()) if dtype == torch.float64 else (got.float(), want.float())
     if mask is not None:
         g, w = g[mask], w[mask]
     err = (g - w).abs()
@@ -253,7 +276,7 @@ def check_close(name, got, want, dtype, mask=None) -> float:
     if dtype == torch.bfloat16:
         ok = bool((err <= 2.0**-7 * w.abs() + 1e-5 * scale).all())
     else:
-        ok = float(err.max()) <= 3e-5 * scale
+        ok = float(err.max()) <= (1e-12 if dtype == torch.float64 else 3e-5) * scale
     worst = float(err.max())
     check(ok and math.isfinite(worst), f"{name} {dtype}: kernel vs plain max err {worst} (scale {scale})")
     return worst
@@ -418,11 +441,12 @@ def predicted_counts(leaves: int) -> dict:
         "zeros_dead_lower": 2, **dict.fromkeys(QR_KERNELS, 0),
         **dict.fromkeys(SMALL_KERNELS, 0), **dict.fromkeys(INV_KERNELS, 0),
         **dict.fromkeys(BT_KERNELS, 0), **dict.fromkeys(UP_KERNELS, 0),
+        **dict.fromkeys(MESH_KERNELS, 0),
     }
 
 
 HOPPER_WRAPPERS = ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower",
-                   "write_diag_blocks", "fused_tail")
+                   "write_diag_blocks", "fused_tail", "sched_matmul")
 BT_WRAPPERS = ("fused_forward_step", "factor_step", "forward_solve_step", "solve_backward_step")
 
 
@@ -2162,6 +2186,217 @@ def update_refine_phase(hopper, dev) -> dict:
     return out
 
 
+# ---- the mesh slice (phases 17-18) -----------------------------------------
+
+#: phase 17's cases: the per-rank slabs (mb, K, nb) of a 2x2x1 trmm — the
+#: n=16384 cholinv flagship's top node (blocks 512³) and a 128-block case
+SCHED_SHAPES = {"flagship": (4096, 8192, 4096), "b128": (256, 512, 256)}
+#: phase 18's runs: (n, dtype, bc) on 2x2x1, the rectri one, the 2x2x2 one
+MESH_RUNS = {"cholinv": (16384, torch.bfloat16, 512), "cholinv_f32": (8192, torch.float32, 256),
+             "rectri": (16384, torch.bfloat16, 512), "cholinv_c2": (2048, torch.float32, 256)}
+
+
+def sched_operands(mb, K, nb, side, dtype, dev, seed):
+    """Both ranks' slabs of a d = 2 trmm: the triangular operand masked
+    ('L' for side 'a', 'U' for side 'b', as the recursion's trsm and
+    completion trmms pass them) and cut into rank rows / columns."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=dev, dtype=torch.float32).to(dtype)
+    if side == "a":
+        T = torch.tril(rnd(2 * mb, K))
+        return [T[r * mb:(r + 1) * mb].contiguous() for r in range(2)], [rnd(K, nb)] * 2
+    T = torch.triu(rnd(K, 2 * nb))
+    return [rnd(mb, K)] * 2, [T[:, r * nb:(r + 1) * nb].contiguous() for r in range(2)]
+
+
+def sched_work(sched_row, blocks, mb, K, nb, side, item) -> tuple[float, float]:
+    """(bytes, flops) one rank's launch needs: each executed pair's
+    2·bm·bn·bk over the dense side's tiles; every listed tile of the
+    triangular operand read once, the dense operand's listed k-tiles read
+    once, the output written once."""
+    to, ko, fi, la = (x.tolist() for x in sched_row)
+    bm, bn, bk = blocks
+    run, pairs = False, 0
+    for f, l in zip(fi, la):
+        run = run or f == 1
+        pairs += run
+        run = run and l != 1
+    outer = nb // bn if side == "a" else mb // bm
+    flops = 2.0 * bm * bn * bk * pairs * outer
+    dense = (bk * nb) if side == "a" else (mb * bk)
+    nbytes = (pairs * (bm if side == "a" else bn) * bk + len(set(ko)) * dense + mb * nb) * item
+    return nbytes, flops
+
+
+def sched_kernel_phase(hopper, summa, dev) -> dict:
+    """Phase 17: sched_matmul against its plain version (see the module
+    docstring).  The padded rank is checked; the full rank is checked and
+    timed — it is the one a mesh step waits for."""
+    res = {}
+    for name, (mb, K, nb) in SCHED_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32, torch.float64):
+            item = torch.tensor([], dtype=dtype).element_size()
+            for side, uplo in (("a", "L"), ("b", "U")):
+                au, bu = (uplo, None) if side == "a" else (None, uplo)
+                (TO, KO, FI, LA), _, blocks = summa._sched_host(2, 2 * mb, K, 2 * nb, au, bu)
+                As, Bs = sched_operands(mb, K, nb, side, dtype, dev, seed=17)
+                rows = [[torch.from_numpy(x[r].copy()).to(dev) for x in (TO, KO, FI, LA)]
+                        for r in range(2)]
+                check(int(FI[0, -1]) == 0 and int(LA[0, -1]) == 0, f"sched {name}: rank 0 has no pads")
+                err = 0.0
+                for r in range(2):
+                    kw = dict(tri_side=side, blocks=blocks)
+                    got = hopper.sched_matmul(As[r], Bs[r], *rows[r], **kw)
+                    want = hopper.sched_matmul_plain(As[r], Bs[r], *rows[r], **kw)
+                    torch.cuda.synchronize()
+                    err = max(err, check_close(f"sched_matmul {name} {side} rank {r}", got, want, dtype))
+                    del got, want
+                A, B, row = As[1], Bs[1], rows[1]
+                nbytes, flops = sched_work(row, blocks, mb, K, nb, side, item)
+                iters = 5 if name == "flagship" else 50
+                key = f"{name} {side} {str(dtype).split('.')[-1]}"
+                res[key] = dict(
+                    max_abs_err=err, blocks=list(blocks), runs=[int(FI[r].sum()) for r in range(2)],
+                    ms=time_ms(lambda: hopper.sched_matmul(A, B, *row, tri_side=side, blocks=blocks),
+                               iters),
+                    plain_ms=time_ms(lambda: hopper.sched_matmul_plain(A, B, *row, tri_side=side,
+                                                                       blocks=blocks), 2),
+                    library_ms=time_ms(lambda: torch.matmul(A, B), iters),
+                    shape=f"{mb}x{K} @ {K}x{nb}",
+                    bound=bound_ms(nbytes, flops, dtype),
+                )
+                del As, Bs, A, B
+            torch.cuda.empty_cache()
+    return res
+
+
+def mesh_plan(summa, cholesky, grid, n: int, bc: int, rectri: bool = False) -> int:
+    """sched_matmul launches of one cholinv (complete_inv) or rectri on
+    `grid`: d² for every trmm of the plan that the sched gate routes (both
+    recursions halve a padded bc·2^k window alike)."""
+    d2 = grid.dx * grid.dy
+    routed = 0
+
+    def walk(node):
+        nonlocal routed
+        if node.is_base:
+            return
+        n1, n2 = node.top[0].n, node.top[1].n
+        if rectri:  # side R (n2 x n1 @ tri n1), then side L (tri n2 @ n2 x n1)
+            shapes = [(n2, n1, n1, None, "L"), (n2, n2, n1, "L", None)]
+        else:  # trsm, then the two completion trmms
+            shapes = [(n1, n1, n2, "L", None), (n1, n1, n2, "U", None), (n1, n2, n2, None, "U")]
+        for M, K, N, au, bu in shapes:
+            routed += summa._shard_sched_gate(grid, M, K, N, au, bu, None) is not None
+        walk(node.top[0])
+        walk(node.top[1])
+
+    walk(cholesky.plan(cholesky.padded_dim(n, bc), cholesky.CholinvConfig(base_case_dim=bc)))
+    return d2 * routed
+
+
+def mesh_phase(hopper, dev) -> dict:
+    """Phase 18: the mesh path (see the module docstring)."""
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.models import cholesky, inverse
+    from capital_tpu_torch.parallel import summa
+    from capital_tpu_torch.utils import residual
+
+    out = {}
+    mesh = Grid.rect(2, 2, 1, devices=[dev] * 4)
+    single = Grid.square(device=dev)
+
+    # (a) cholinv at BASELINE's 2x2 width, n=16384 bf16
+    n, dtype, bc = MESH_RUNS["cholinv"]
+    cfg = cholesky.CholinvConfig(mode="explicit", base_case_dim=bc, precision=None)
+    plan = mesh_plan(summa, cholesky, mesh, n, bc)
+    A = spd_hash(n, dtype, salt=1, device=dev)
+    (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(mesh, A, cfg),
+                                          {"sched_matmul": plan}, "mesh cholinv n=16384 bf16")
+    Af = A.float()
+    res_r = float(residual.cholesky_residual(Af, R.float()))
+    res_i = float(residual.cholesky_inverse_residual(R.float(), Ri.float()))
+    del Af
+    check(res_r < 1e-2 and res_i < 1e-2, f"mesh n=16384 bf16 residuals {res_r}, {res_i}")
+    cfg1 = cholesky.CholinvConfig(mode="pallas", base_case_dim=bc, precision=None)
+    R1, Ri1 = cholesky.factor(single, A, cfg1)
+    dR = float(residual.rel_fro(R.float() - R1.float(), R1.float()))
+    dRi = float(residual.rel_fro(Ri.float() - Ri1.float(), Ri1.float()))
+    check(dR < 2e-2 and dRi < 2e-2, f"mesh n=16384 bf16 vs the single-device factor: {dR}, {dRi}")
+    del R, Ri, R1, Ri1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = timed_s(lambda: cholesky.factor(mesh, A, cfg), 2)
+    peak = torch.cuda.max_memory_allocated()
+    t1 = timed_s(lambda: cholesky.factor(single, A, cfg1), 2)  # the same A on one device
+    out["cholinv"] = dict(n=n, bc=bc, dtype="bfloat16", grid="2x2x1", seconds=t,
+                          seconds_single_device=t1,
+                          tflops=(2 * n**3 / 3) / t / 1e12, peak_bytes=peak, seconds_first=secs,
+                          residual=res_r, inverse_residual=res_i, vs_single_device=[dR, dRi],
+                          plan=plan, counts=counts)
+    print(json.dumps({"mesh": "cholinv n=16384 bf16", **out["cholinv"]}), flush=True)
+    out["profile"] = profile(lambda: cholesky.factor(mesh, A, cfg), "CI::")
+    print(json.dumps({"profile": "mesh cholinv", **out["profile"]}), flush=True)
+    del A
+    torch.cuda.empty_cache()
+
+    # (b) n=8192 f32: kernels against the plain versions through the path
+    n, dtype, bc = MESH_RUNS["cholinv_f32"]
+    cfg = cholesky.CholinvConfig(mode="explicit", base_case_dim=bc, precision="highest")
+    plan = mesh_plan(summa, cholesky, mesh, n, bc)
+    A = spd_hash(n, dtype, salt=2, device=dev)
+    (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(mesh, A, cfg),
+                                          {"sched_matmul": plan}, "mesh cholinv n=8192 f32")
+    with plain_versions(hopper):
+        Rq, Riq = cholesky.factor(mesh, A, cfg)
+    d = max(float(residual.rel_fro(R - Rq, Rq)), float(residual.rel_fro(Ri - Riq, Riq)))
+    res_r = float(residual.cholesky_residual(A, R))
+    res_i = float(residual.cholesky_inverse_residual(R, Ri))
+    # f32: the kernel and torch.matmul sum in other orders; gates as phase 3b
+    check(d < 1e-5 and res_r < 5e-6 and res_i < 5e-6,
+          f"mesh n=8192 f32: vs plain {d}, residuals {res_r}, {res_i}")
+    out["cholinv_f32"] = dict(n=n, bc=bc, plan=plan, counts=counts, seconds_first=secs, vs_plain=d,
+                              residual=res_r, inverse_residual=res_i)
+    print(json.dumps({"mesh": "cholinv n=8192 f32", **out["cholinv_f32"]}), flush=True)
+    del A, R, Ri, Rq, Riq
+    torch.cuda.empty_cache()
+
+    # (c) rectri n=16384 bf16
+    n, dtype, bc = MESH_RUNS["rectri"]
+    rcfg = inverse.RectriConfig(base_case_dim=bc, mode="explicit", precision=None)
+    plan = mesh_plan(summa, cholesky, mesh, n, bc, rectri=True)
+    L = tri_operand(n, dtype, 2, dev)
+    Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(mesh, L, "L", rcfg),
+                                     {"sched_matmul": plan}, "mesh rectri n=16384 bf16")
+    gate = float(residual.inverse_residual_blocked(L, Li))
+    check(gate < 5e-2, f"mesh rectri: inverse residual {gate} >= 5e-2")
+    del Li
+    t = timed_s(lambda: inverse.rectri(mesh, L, "L", rcfg), 2)
+    out["rectri"] = dict(n=n, bc=bc, dtype="bfloat16", grid="2x2x1", seconds=t,
+                         tflops=n**3 / 3.0 / t / 1e12, inverse_residual=gate, seconds_first=secs,
+                         plan=plan, counts=counts)
+    print(json.dumps({"mesh": "rectri n=16384 bf16", **out["rectri"]}), flush=True)
+    del L
+    torch.cuda.empty_cache()
+
+    # (d) the c > 1 route on 2x2x2: masked-psum panels, no kernel
+    n, dtype, bc = MESH_RUNS["cholinv_c2"]
+    cube = Grid.square(c=2, devices=[dev] * 8)
+    cfg = cholesky.CholinvConfig(mode="explicit", base_case_dim=bc, precision="highest")
+    A = spd_hash(n, dtype, salt=3, device=dev)
+    (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(cube, A, cfg), {},
+                                          "mesh cholinv 2x2x2")
+    res_r = float(residual.cholesky_residual(A, R))
+    res_i = float(residual.cholesky_inverse_residual(R, Ri))
+    check(res_r < 5e-6 and res_i < 5e-6, f"2x2x2 cholinv residuals {res_r}, {res_i}")
+    out["cholinv_c2"] = dict(n=n, bc=bc, grid="2x2x2", seconds_first=secs, residual=res_r,
+                             inverse_residual=res_i)
+    print(json.dumps({"mesh": "cholinv n=2048 f32 2x2x2", **out["cholinv_c2"]}), flush=True)
+    del A, R, Ri
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -2375,17 +2610,33 @@ def main(argv=None) -> int:
     up_counts = {"up.sweep": out["update_refine"]["up_launches"]}
     check(up_counts["up.sweep"] >= 1, "the sweep kernel never launched on api.batched('chol_update')")
 
+    # ---- phase 17: the mesh schedule's kernel against its plain version --
+    from capital_tpu_torch.parallel import summa
+
+    sched = sched_kernel_phase(hopper, summa, dev)
+    for name, r in sched.items():
+        b, by = r.pop("bound")
+        r.update(bound_ms=b, bound_by=by)
+        print(json.dumps({"kernel": "sched_matmul", "case": name, **r}), flush=True)
+    out["kernels"]["sched"] = sched
+
+    # ---- phase 18: the mesh path -----------------------------------------
+    out["mesh"] = mesh_phase(hopper, dev)
+    mesh_counts = {"sched_matmul": out["mesh"]["cholinv"]["counts"]["sched_matmul"]}
+    check(mesh_counts["sched_matmul"] >= 1, "sched_matmul never launched on the mesh cholinv")
+
     bf = out["kernels"][str(torch.bfloat16)]
     # the small-N kernels report their f32 throughput batch; the blocktri
     # steps the flagship's step (8 problems, seg 8, b 128, k 1, f32); the
     # sweep its f32 update throughput batch
     measured = {**bf, **small[f"throughput {torch.float32}"], **inv,
                 **{k: bt[f"{k} 8x8x128x1 f32"] for k in BT_KERNELS},
-                "up.sweep": up["update 8192x128x8 f32"]}
+                "up.sweep": up["update 8192x128x8 f32"],
+                "sched_matmul": sched["flagship a bfloat16"]}
     # tri_matmul.dense is on no path: 0 in the cholinv path's counted run
     launches = {**{k: path_counts[k] for k in PATH_KERNELS + ("tri_matmul.dense",)},
                 **{k: qr_counts[k] for k in QR_KERNELS},
-                **serve_counts, **inv_counts, **bt_counts, **up_counts}
+                **serve_counts, **inv_counts, **bt_counts, **up_counts, **mesh_counts}
     line = {"kernels": [
         {"name": k, "route": hopper.KERNELS[k].route, "source": hopper.KERNELS[k].source,
          "replaces": hopper.KERNELS[k].replaces, "launches": launches[k],
@@ -2393,7 +2644,7 @@ def main(argv=None) -> int:
          "plain_ms": measured[k]["plain_ms"], "bound_ms": measured[k]["bound_ms"],
          "bound_by": measured[k]["bound_by"], "library_ms": measured[k]["library_ms"]}
         for k in PATH_KERNELS + ("tri_matmul.dense",) + QR_KERNELS + SMALL_KERNELS + INV_KERNELS
-        + BT_KERNELS + UP_KERNELS
+        + BT_KERNELS + UP_KERNELS + MESH_KERNELS
     ]}
     check(sorted(e["name"] for e in line["kernels"]) == sorted(hopper.KERNELS),
           "the kernels line does not cover every registered kernel")

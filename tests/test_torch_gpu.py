@@ -16,6 +16,7 @@ import torch
 from capital_tpu_torch import Grid
 from capital_tpu_torch.models import arrowhead, blocktri, cholesky, inverse, qr
 from capital_tpu_torch.ops import batched_small, blocktri_small, hopper, qr_fused, tsqr, update_small
+from capital_tpu_torch.parallel import summa
 from capital_tpu_torch.robust import refine
 from capital_tpu_torch.serve import api
 from capital_tpu_torch.utils import residual
@@ -161,7 +162,7 @@ def test_factor_kernels_vs_plain(cuda, monkeypatch, dt):
         "small.potrf": 0, "small.potrs": 0, "small.posv": 0, "small.lstsq": 0,
         "write_diag_blocks": 0, "fused_tail": 0, "small.trsm": 0, "tsqr.panel_qr": 0,
         "bt.fused_forward": 0, "bt.factor": 0, "bt.forward_solve": 0, "bt.solve_backward": 0,
-        "up.sweep": 0,
+        "up.sweep": 0, "sched_matmul": 0,
     }
     for name in ("tri_matmul", "transpose", "transpose_pair", "zeros_dead_lower"):
         monkeypatch.setattr(hopper, name, getattr(hopper, name + "_plain"))
@@ -824,3 +825,66 @@ def test_guaranteed_posv_launches_per_plan(cuda):
     assert Xg.dtype == torch.float32 and conv.all() and not info.any()
     r = (A.double() @ Xg.double() - B.double()).flatten(1).norm(dim=1) / B.double().flatten(1).norm(dim=1)
     assert float(r.max()) < 1e-6
+
+
+# ---- the mesh schedule's per-rank product (sched_matmul) ------------------
+# Tolerances as at the top of the file: the kernel against its plain version
+# at one rank's slabs of a d = 2 trmm, with the rank's stacked-schedule row
+# (rank 0 of a lower operand carries pad entries).
+
+SCHED_CASES = [(512, 1024, 512, "a", "L", 0), (512, 1024, 512, "a", "U", 1),
+               (512, 1024, 512, "b", "L", 1), (512, 1024, 512, "b", "U", 0),
+               (1024, 2048, 512, "a", "L", 0)]
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("case", range(len(SCHED_CASES)))
+def test_sched_matmul_kernel_vs_plain(cuda, case, dt):
+    mb, K, nb, side, uplo, rank = SCHED_CASES[case]
+    au, bu = (uplo, None) if side == "a" else (None, uplo)
+    (TO, KO, FI, LA), _, blocks = summa._sched_host(2, 2 * mb, K, 2 * nb, au, bu)
+    sched = [torch.from_numpy(x[rank].copy()).to(cuda) for x in (TO, KO, FI, LA)]
+    A, B = _rand(30 + case, (mb, K), dt, cuda), _rand(40 + case, (K, nb), dt, cuda)
+    hopper.reset_counts()
+    got = hopper.sched_matmul(A, B, *sched, tri_side=side, blocks=blocks)
+    assert hopper.counts()["sched_matmul"] == 1
+    want = hopper.sched_matmul_plain(A, B, *sched, tri_side=side, blocks=blocks)
+    torch.cuda.synchronize()
+    _close(got, want, dt)
+
+
+def test_sched_matmul_wrapper_refuses(cuda):
+    A = torch.ones(256, 256, device=cuda)
+    s = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiples"):
+        hopper.sched_matmul(A.bfloat16(), A.bfloat16(), s, s, s + 1, s + 1, blocks=(64, 64, 64))
+    with pytest.raises(TypeError, match="B is"):
+        hopper.sched_matmul(A, A.double(), s, s, s + 1, s + 1, blocks=(128, 128, 128))
+    with pytest.raises(ValueError, match="schedule is on"):
+        hopper.sched_matmul(A, A, s.cpu(), s, s + 1, s + 1, blocks=(128, 128, 128))
+    with pytest.raises(ValueError, match="row-major"):
+        hopper.sched_matmul(A.T, A, s, s, s + 1, s + 1, blocks=(128, 128, 128))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_mesh_factor_launches_the_plan(cuda, monkeypatch, dt):
+    """cholinv on a 2x2x1 mesh of the card, mode 'explicit': 4 sched_matmul
+    launches per routed trmm (3 at n = 1024, bc = 256: the top node) and no
+    other kernel; the same factor through the plain version agrees."""
+    n, bc = 1024, 256
+    g = np.random.default_rng(12).standard_normal((n, n))
+    A = torch.from_numpy(g @ g.T / n + 3 * np.eye(n)).to(DTYPES[dt]).to(cuda)
+    grid = Grid.rect(2, 2, 1, devices=[cuda] * 4)
+    cfg = cholesky.CholinvConfig(mode="explicit", base_case_dim=bc)
+    hopper.reset_counts()
+    R, Ri = cholesky.factor(grid, A, cfg)
+    c = hopper.counts()
+    assert c == {**dict.fromkeys(c, 0), "sched_matmul": 4 * 3}
+    monkeypatch.setattr(hopper, "sched_matmul", hopper.sched_matmul_plain)
+    Rq, Riq = cholesky.factor(grid, A, cfg)
+    tol = {"f32": 1e-5, "bf16": 2e-2}[dt]
+    assert float(residual.rel_fro(R.double() - Rq.double(), Rq.double())) < tol
+    assert float(residual.rel_fro(Ri.double() - Riq.double(), Riq.double())) < tol
+    gate = {"f32": 2e-6, "bf16": 1e-2}[dt]
+    assert float(residual.cholesky_residual(A.double(), R.double())) < gate
+    assert float(residual.cholesky_inverse_residual(R.double(), Ri.double())) < gate

@@ -44,6 +44,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import capital_tpu_torch.models.blocktri, capital_tpu_torch.models.arrowhead\n"
         "import capital_tpu_torch.models.banded, capital_tpu_torch.ops.blocktri_small\n"
         "import capital_tpu_torch.ops.update_small, capital_tpu_torch.robust.refine\n"
+        "import capital_tpu_torch.parallel.mesh\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'capital_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'capital_tpu.')))\n"
         "print(','.join(bad))\n"
@@ -100,7 +101,8 @@ def test_grid_without_device_needs_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Grid.square()
     assert Grid.square(device="cpu").platform == "cpu"
-    with pytest.raises(NotImplementedError):
+    # one device cannot form a d x d x 2 grid: the reference's error
+    with pytest.raises(ValueError, match="num_devices=1 not divisible by c=2"):
         Grid.square(c=2, device="cpu")
 
 
