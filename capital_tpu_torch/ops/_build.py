@@ -40,7 +40,7 @@ SIGNATURES = {
     "capital_tri_matmul": (
         "tri_matmul.cu",
         [_I, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _D, _D, _I, _I, _I,
-         _I, _I, _I, _I, _I, _I, _I, _P],
+         _I, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "capital_transpose": ("transpose.cu", [_I, _I, _P, _LL, _P, _LL, _I, _I, _I, _P]),
     "capital_transpose_pair": (
@@ -75,7 +75,7 @@ SIGNATURES = {
     ),
     "capital_up_sweep": ("update_small.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _D, _P]),
     "capital_sched_matmul": (
-        "sched_matmul.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "sched_matmul.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
 }
 

@@ -1,8 +1,19 @@
-// The tile loops shared by tri_matmul.cu and sched_matmul.cu: one k-slice
-// of a block's output tile, staged in shared memory, multiplied into the
-// block's accumulator.  Each kernel stages its own operands (masked
-// windows in tri_matmul, plain row-major slabs in sched_matmul) and
-// flushes its own way.
+// The tile loops of the unaligned bf16 route and the f32 / f64 routes shared
+// by tri_matmul.cu and sched_matmul.cu: one k-slice of a block's output
+// tile, staged in shared memory by element loads, multiplied into the
+// block's accumulator.  Each kernel stages its own operands (masked windows
+// in tri_matmul, plain row-major slabs in sched_matmul) and flushes its own
+// way.
+//
+// Which window takes which loop: bf16 windows that TMA can read (16-byte
+// aligned origins and leading dimensions) go to the TMA + wgmma ring of
+// wgmma_tiles.cuh; the other bf16 windows to the WMMA loop below, and f32
+// and f64 to the register-tiled FMA loop.  What bounds these loops on the
+// card: the loads and the single buffer, not the multiply — every element
+// is loaded and predicated on its own, and two __syncthreads per k-slice
+// keep a load and a multiply from overlapping; WMMA compiles to mma.sync,
+// which cannot reach the tensor cores' full rate.  They stay as the routes
+// for windows the wgmma ring does not take.
 #pragma once
 
 #include <mma.h>

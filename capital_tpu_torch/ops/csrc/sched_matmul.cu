@@ -21,13 +21,20 @@
 //
 // What bounds it on the card: operations.  The flagship's top node per
 // rank is 4096 x 8192 @ 8192 x 4096 in 512-blocks, far above the H100's
-// ~295 flop/byte balance point.  The design answers with the tile loops of
-// mm_tiles.cuh: WMMA m16n16k16 tensor-core tiles of 128 x 128 for bf16,
-// register-tiled FMA tiles of 64 x 64 for f32/f64.  Loads are plain
-// coalesced element loads into shared memory; cp.async/TMA, wgmma and a
-// persistent schedule that balances runs of unequal length are later work.
+// ~295 flop/byte balance point.  Three routes, chosen by the wrapper
+// (ops/hopper.py) before the launch:
+//   * wgmma (bf16 with 16-byte-aligned operands and 64-multiple k-blocks):
+//     sched_wgmma, the TMA + wgmma ring of wgmma_tiles.cuh on 128 x 128
+//     sub-tiles; its producer thread walks the run's k-tiles ko[q]·bk ...
+//     + bk, reading ko and last from device memory;
+//   * wmma (other bf16): sched_wmma, WMMA m16n16k16 128 x 128 tiles with
+//     element loads into one shared buffer;
+//   * simt (f32 and f64): sched_simt, register-tiled FMA 64 x 64 tiles.
+// Runs of unequal length (9–16 k-blocks on the flagship) still leave SMs
+// idle at the tail; a persistent walk that balances them is later work.
 
 #include "mm_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 using namespace nvcuda;
 
@@ -150,18 +157,74 @@ __global__ void __launch_bounds__(256) sched_wmma(SP p) {
     }
 }
 
+// ta maps A (M x K, K-major), tb maps B (K x N, MN-major)
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    sched_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, SP p) {
+  const int pos = blockIdx.y;
+  if (p.fi[pos] != 1) return;
+  extern __shared__ uint8_t smem[];
+  int i0, j0;
+  sub_origin(p, pos, wg::BM, wg::BN, i0, j0);
+  int pairs = 0;
+  for (int q = pos; q < p.L; ++q) {
+    ++pairs;
+    if (p.la[q] == 1) break;
+  }
+  const int per = p.bk / wg::BK, nk = pairs * per;
+  const wg::Ring r = wg::make_ring(smem);
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) {
+      wg::produce<false, false>(r, &ta, &tb, i0, j0, nk, [&](int t) {
+        return p.ko[pos + t / per] * p.bk + (t % per) * wg::BK;
+      }, [](int) { return false; });
+    }
+  } else {
+    wg::consumer_regs();
+    const int ctid = threadIdx.x - 128;
+    float d[64];
+    wg::consume<false, false>(r, nk, ctid, d);
+    int r0, c0;
+    wg::acc_origin(ctid, r0, c0);
+    bf16* O = (bf16*)p.O;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long i = i0 + r0 + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(O + i * p.N + j0 + c0 + 8 * j) =
+            __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+static int launch_sched_wgmma(const SP& p, dim3 grid, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  if (!wg::make_map(&ta, p.A, p.M, p.K, p.K, wg::BM) ||
+      !wg::make_map(&tb, p.B, p.K, p.N, p.N, wg::BN / 2))
+    return -2;
+  static bool sized[wg::MAX_DEVICES] = {};
+  const cudaError_t e = wg::size_smem(sched_wgmma, sized);
+  if (e != cudaSuccess) return (int)e;
+  sched_wgmma<<<grid, wg::THREADS, wg::SMEM_BYTES, s>>>(ta, tb, p);
+  return (int)cudaGetLastError();
+}
+
 // Returns the cudaError_t of the launch (0 = launched); -1 for a bad dtype
-// or blocks that the CUDA tiles do not divide.
+// or route, or blocks that the CUDA tiles do not divide; -2 when a tensor
+// map cannot be encoded.  use_wgmma picks the bf16 wgmma route (the caller
+// has checked TMA's alignment).
 extern "C" int capital_sched_matmul(int dtype, const void* A, const void* B, void* O,
                                     const int* to, const int* ko, const int* fi, const int* la,
                                     int L, int M, int N, int K, int bm, int bn, int bk,
-                                    int tri_a, void* stream) {
+                                    int tri_a, int use_wgmma, void* stream) {
   SP p;
   p.A = A; p.B = B; p.O = O; p.to = to; p.ko = ko; p.fi = fi; p.la = la;
   p.L = L; p.M = M; p.N = N; p.K = K; p.bm = bm; p.bn = bn; p.bk = bk; p.tri_a = tri_a;
+  if (use_wgmma && dtype != DT_BF16) return -1;
   const int BMc = dtype == DT_BF16 ? mmt::W_BM : mmt::S_BM;
   const int BNc = dtype == DT_BF16 ? mmt::W_BN : mmt::S_BN;
-  const int BKc = dtype == DT_BF16 ? mmt::W_BK : mmt::S_BK;
+  const int BKc = use_wgmma ? wg::BK : dtype == DT_BF16 ? mmt::W_BK : mmt::S_BK;
   if (bm % BMc || bn % BNc || bk % BKc || M % bm || N % bn || K % bk) return -1;
   p.sub = tri_a ? bm / BMc : bn / BNc;
   const long long dense = tri_a ? N / BNc : M / BMc;
@@ -171,6 +234,7 @@ extern "C" int capital_sched_matmul(int dtype, const void* A, const void* B, voi
   }
   dim3 grid((unsigned)gx, (unsigned)L);
   cudaStream_t s = (cudaStream_t)stream;
+  if (use_wgmma) return launch_sched_wgmma(p, grid, s);
   switch (dtype) {
     case DT_BF16: sched_wmma<<<grid, 256, 0, s>>>(p); break;
     case DT_F32: sched_simt<float><<<grid, 256, 0, s>>>(p); break;

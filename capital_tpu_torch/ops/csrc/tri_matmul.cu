@@ -15,17 +15,28 @@
 //     type, then one cast.  Accumulation is f32 for bf16/f32 and f64 for f64;
 //     f32 is IEEE FMA (no TF32).
 // What bounds it on the card: operations.  cholinv's trmm/syrk windows are
-// thousands wide, far above the H100's ~295 flop/byte balance point.  The
-// design answers with tensor cores for bf16 (WMMA m16n16k16, f32
-// accumulate, 128x128 tiles) and register-tiled FMA for f32/f64 (64x64
-// tiles, 4x4 per thread) — the tile loops of mm_tiles.cuh.  Loads are plain coalesced element loads into
-// shared memory; cp.async/TMA and wgmma are later work.
+// thousands wide, far above the H100's ~295 flop/byte balance point.
+//
+// Three routes, chosen by the wrapper (ops/hopper.py) before the launch:
+//   * wgmma (bf16 windows whose A and B origins and leading dimensions are
+//     16-byte aligned, as TMA needs): mm_wgmma, the TMA + wgmma ring of
+//     wgmma_tiles.cuh.  128 x 128 tiles, k-tile 64; k_range still bounds
+//     each tile's k loop, and the at most two k-tiles that straddle the
+//     diagonal are zeroed by select in shared memory (by the producer
+//     warpgroup's spare warps) before any wgmma reads them.  The epilogue
+//     flushes the accumulators, staged as f32 in shared memory, in 16-byte
+//     row segments.  Tiles launch longest k-range first, so the short tiles
+//     fill the last wave;
+//   * wmma (bf16 windows that TMA cannot take): mm_wmma, WMMA m16n16k16
+//     128 x 128 tiles with element loads into one shared buffer;
+//   * simt (f32 and f64): mm_simt, register-tiled FMA 64 x 64 tiles.
 //
 // The sequential (tile, k) pair axis of the TPU grid becomes the k loop
 // inside one thread block: blocks own disjoint output tiles, so nothing is
 // carried between blocks.
 
 #include "mm_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 using namespace nvcuda;
 
@@ -260,6 +271,137 @@ __global__ void __launch_bounds__(256) mm_wmma(MM p) {
     }
 }
 
+// ---- bf16, the wgmma route: TMA ring + wgmma (wgmma_tiles.cuh) --------------
+
+// The wgmma route's two launch options, passed beside MM (whose layout the
+// wmma and simt kernels keep: a larger MM changes their register
+// allocation, and the wmma kernel ran 2.6x slower with it)
+struct WgOpts {
+  int order;  // block -> tile order: bit 0 reversed, bit 1 column-major
+  int vec;    // O and C rows take 16-byte loads and stores
+};
+
+// block -> tile for the wgmma route: the longest k-ranges first
+__device__ inline int ordered_bid(const MM& p, int order, int bid) {
+  if (order == 0 || !(p.out_uplo == UPLO_NONE || p.all_tiles)) return bid;
+  const int b = (order & 1) ? p.ntm * p.ntn - 1 - bid : bid;
+  return (order & 2) ? (b % p.ntm) * p.ntn + b / p.ntm : b;
+}
+
+// flush() for the 8 columns j .. j + 7 of row i, read from the staged f32
+// tile: the same operations, in 16-byte loads of C and stores of the
+// result where the row holds all 8 and both are aligned (vec)
+__device__ __forceinline__ void flush_seg(const MM& p, bool vec, bf16* O, const bf16* C, int i,
+                                          int j, const float* acc) {
+  if (i >= p.M || j >= p.N) return;
+  if (!(vec && j + 8 <= p.N)) {
+    for (int x = 0; x < 8; ++x) flush(p, O, C, i, j + x, acc[x]);
+    return;
+  }
+  const float4 a0 = *reinterpret_cast<const float4*>(acc);
+  const float4 a1 = *reinterpret_cast<const float4*>(acc + 4);
+  float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+  uint4 c = make_uint4(0, 0, 0, 0);
+  if (p.fused_c) c = *reinterpret_cast<const uint4*>(C + (long long)i * p.ldc + j);
+  const __nv_bfloat162* cp = reinterpret_cast<const __nv_bfloat162*>(&c);
+  uint4 out;
+  __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    v[x] = __fmul_rn((float)p.alpha, v[x]);
+    if (!in_tri(p.out_uplo, i, j + x)) v[x] = 0.0f;
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    if (p.fused_c) {
+      const float2 cx = __bfloat1622float2(cp[x]);
+      v[2 * x] = __fadd_rn(v[2 * x], __fmul_rn((float)p.beta, cx.x));
+      v[2 * x + 1] = __fadd_rn(v[2 * x + 1], __fmul_rn((float)p.beta, cx.y));
+    }
+    op[x] = __floats2bfloat162_rn(v[2 * x], v[2 * x + 1]);
+  }
+  *reinterpret_cast<uint4*>(O + (long long)i * p.ldo + j) = out;
+}
+
+// ta / tb map the A and B windows as stored (AT: A is K x M; BT: B is N x K)
+template <bool AT, bool BT>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    mm_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, MM p,
+             WgOpts o) {
+  constexpr int BM = wg::BM, BN = wg::BN, BK = wg::BK;
+  extern __shared__ uint8_t smem[];
+  int ti, tj;
+  bool live;
+  tile_of(p, ordered_bid(p, o.order, blockIdx.x), ti, tj, live);
+  const int i0 = ti * BM, j0 = tj * BN;
+  bf16* O = (bf16*)p.O;
+  if (!live) {
+    zero_tile(p, O, i0, j0, BM, BN);
+    return;
+  }
+  int kb, ke;
+  k_range(p, AT, BT, i0, j0, BM, BN, BK, kb, ke);
+  const int nk = ke > kb ? (ke - kb + BK - 1) / BK : 0;
+  const wg::Ring r = wg::make_ring(smem);
+  // a k-tile is fully live when every (i, k) or (k, j) of it is inside the
+  // triangle of op(A) / op(B); only the others are masked
+  const bool a_up = p.a_tri && ((p.a_tri == UPLO_U) != AT);
+  const bool b_up = p.b_tri && ((p.b_tri == UPLO_U) != BT);
+  auto need = [&](int t) -> bool {
+    const int k0 = kb + t * BK;
+    if (p.a_tri) return !(a_up ? k0 >= i0 + BM - 1 : k0 + BK - 1 <= i0);
+    if (p.b_tri) return !(b_up ? k0 + BK - 1 <= j0 : k0 >= j0 + BN - 1);
+    return false;
+  };
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) {
+      wg::produce<AT, BT>(r, &ta, &tb, i0, j0, nk, [&](int t) { return kb + t * BK; }, need);
+    } else if (threadIdx.x >= 32) {
+      const int mtid = threadIdx.x - 32;
+      wg::mask_loop(r, nk, mtid, need, [&](int t, int s) {
+        const int k0 = kb + t * BK;
+        if (p.a_tri) {
+          wg::mask_tile<!AT>(r.a(s), mtid, [&](int mn, int k) {
+            const int i = i0 + mn, kk = k0 + k;
+            return in_tri(p.a_tri, AT ? kk : i, AT ? i : kk);
+          });
+        } else {
+          wg::mask_tile<BT>(r.b(s), mtid, [&](int mn, int k) {
+            const int j = j0 + mn, kk = k0 + k;
+            return in_tri(p.b_tri, BT ? j : kk, BT ? kk : j);
+          });
+        }
+      });
+    }
+  } else {
+    wg::consumer_regs();
+    const int ctid = threadIdx.x - 128;
+    float d[64];
+    wg::consume<AT, BT>(r, nk, ctid, d);
+    const float* acc = wg::stage_acc(r, ctid, d);
+    const bf16* C = (const bf16*)p.C;
+    for (int e = ctid; e < BM * BN / 8; e += 256) {
+      const int row = e / (BN / 8), col = (e % (BN / 8)) * 8;
+      flush_seg(p, o.vec, O, C, i0 + row, j0 + col, acc + row * wg::EPI_LD + col);
+    }
+  }
+}
+
+template <bool AT, bool BT>
+static int launch_wgmma(const MM& p, WgOpts o, dim3 grid, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  const bool ok =
+      wg::make_map(&ta, p.A, AT ? p.K : p.M, AT ? p.M : p.K, p.lda, AT ? wg::BM / 2 : wg::BM) &&
+      wg::make_map(&tb, p.B, BT ? p.N : p.K, BT ? p.K : p.N, p.ldb, BT ? wg::BN : wg::BN / 2);
+  if (!ok) return -2;
+  static bool sized[wg::MAX_DEVICES] = {};  // per instantiation
+  const cudaError_t e = wg::size_smem(mm_wgmma<AT, BT>, sized);
+  if (e != cudaSuccess) return (int)e;
+  mm_wgmma<AT, BT><<<grid, wg::THREADS, wg::SMEM_BYTES, s>>>(ta, tb, p, o);
+  return (int)cudaGetLastError();
+}
+
 static long long count_blocks(const MM& p) {
   if (p.out_uplo == UPLO_NONE || p.all_tiles) return (long long)p.ntm * p.ntn;
   long long total = 0;
@@ -279,12 +421,16 @@ static long long count_blocks(const MM& p) {
     else KERNEL<__VA_ARGS__ false, false><<<grid, 256, 0, s>>>(p);        \
   } while (0)
 
-// Returns the cudaError_t of the launch (0 = launched); -1 for a bad dtype.
+// Returns the cudaError_t of the launch (0 = launched); -1 for a bad dtype
+// or route, -2 when a tensor map cannot be encoded.  use_wgmma picks the
+// bf16 wgmma route (the caller has checked TMA's alignment), which launches
+// its tiles longest k-range first.
 extern "C" int capital_tri_matmul(int dtype, const void* A, long long lda, const void* B,
                                   long long ldb, void* O, long long ldo, const void* C,
                                   long long ldc, double alpha, double beta, int M, int N,
                                   int K, int a_trans, int b_trans, int a_tri, int b_tri,
-                                  int out_uplo, int fused_c, int all_tiles, void* stream) {
+                                  int out_uplo, int fused_c, int all_tiles, int use_wgmma,
+                                  void* stream) {
   MM p;
   p.A = A; p.lda = lda; p.B = B; p.ldb = ldb; p.O = O; p.ldo = ldo; p.C = C; p.ldc = ldc;
   p.alpha = alpha; p.beta = beta; p.M = M; p.N = N; p.K = K;
@@ -298,6 +444,21 @@ extern "C" int capital_tri_matmul(int dtype, const void* A, long long lda, const
   dim3 grid((unsigned)blocks);
   cudaStream_t s = (cudaStream_t)stream;
   bool at = a_trans != 0, bt = b_trans != 0;
+  if (use_wgmma) {
+    if (dtype != DT_BF16) return -1;
+    // op(A) upper: short tiles at the bottom; lower: at the top.  op(B)
+    // upper: short tiles at the left; lower: at the right.
+    WgOpts o;
+    o.order = 0;
+    if (a_tri) o.order = ((a_tri == UPLO_U) != at) ? 0 : 1;
+    if (b_tri) o.order = ((b_tri == UPLO_U) != bt) ? 3 : 2;
+    o.vec = (uintptr_t)O % 16 == 0 && ldo % 8 == 0 &&
+            (!fused_c || ((uintptr_t)C % 16 == 0 && ldc % 8 == 0));
+    if (at && bt) return launch_wgmma<true, true>(p, o, grid, s);
+    if (at) return launch_wgmma<true, false>(p, o, grid, s);
+    if (bt) return launch_wgmma<false, true>(p, o, grid, s);
+    return launch_wgmma<false, false>(p, o, grid, s);
+  }
   switch (dtype) {
     case DT_BF16: CAPITAL_MM_DISPATCH(mm_wmma, ); break;
     case DT_F32: CAPITAL_MM_DISPATCH(mm_simt, float,); break;

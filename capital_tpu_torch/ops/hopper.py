@@ -18,7 +18,11 @@ Each kernel sits here as three things side by side:
 * the **plain version** (`*_plain`): the same function in plain PyTorch, used
   for CPU tensors and, on the card, as the reference a kernel is held to.
 * the **launch counter** (`KERNELS`): each wrapper adds one where it
-  launches its kernel, and nowhere else.
+  launches its kernel, and nowhere else.  `tri_matmul` and `sched_matmul`
+  also tally each launch by route (`route_counts`): 'wgmma' for bf16
+  windows that TMA can read (`_tma_ok`), 'wmma' for the other bf16 windows,
+  'simt' for f32 and f64.  The route is chosen before the launch and never
+  changes after a failure.
 
 Unlike the JAX package, where "consumed" buffers are a promise to XLA,
 writes here are real mutation: `out` windows are written in place and the
@@ -67,6 +71,8 @@ class Kernel:
     replaces: str  # the Pallas kernel's pallas_call, file:line
     route: str = "cuda"
     launches: int = 0
+    #: launches by kernel route inside the CUDA source (tri_matmul, sched_matmul)
+    by_route: dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 #: every kernel of this module, by name
@@ -110,14 +116,21 @@ KERNELS: dict[str, Kernel] = {
 
 
 def reset_counts() -> None:
-    """Set every launch counter to 0."""
+    """Set every launch counter (and route tally) to 0."""
     for k in KERNELS.values():
         k.launches = 0
+        k.by_route.clear()
 
 
 def counts() -> dict[str, int]:
     """Launch count of every kernel, by name."""
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def route_counts() -> dict[str, dict[str, int]]:
+    """Launches of each kernel that has routes, by route ('wgmma', 'wmma',
+    'simt'); kernels not launched since the last reset are left out."""
+    return {name: dict(k.by_route) for name, k in KERNELS.items() if k.by_route}
 
 
 # --------------------------------------------------------------------------
@@ -187,10 +200,42 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _launched(rc: int, kernel: Kernel) -> None:
+def _launched(rc: int, kernel: Kernel, route: str | None = None) -> None:
+    if rc == -2:
+        raise RuntimeError(f"{kernel.name}: TMA tensor-map encode failed")
     if rc != 0:
         raise RuntimeError(f"{kernel.name}: CUDA launch failed (error {rc})")
     kernel.launches += 1
+    if route is not None:
+        kernel.by_route[route] = kernel.by_route.get(route, 0) + 1
+
+
+def _tma_ok(X: torch.Tensor, view) -> bool:
+    """Can TMA read window `view` of X: its origin 16-byte aligned and its
+    leading dimension a multiple of 16 bytes (for bf16, a column offset and
+    a row stride that are multiples of 8 on an aligned buffer)."""
+    return _ptr(X, view[0], view[1]) % 16 == 0 and X.stride(0) * X.element_size() % 16 == 0
+
+
+#: the kernel routes a caller may ask for by name (chip_smoke.py and the GPU
+#: tests pit the two bf16 routes against each other)
+_ROUTES = (None, "wgmma", "wmma")
+
+
+def _pick_route(dtype, aligned: bool, route: str | None, what: str) -> str:
+    """The route a launch takes: 'simt' for f32 / f64; for bf16 'wgmma' when
+    TMA can read the operands, else 'wmma' — or the route asked for, which
+    must be possible."""
+    if route not in _ROUTES:
+        raise ValueError(f"{what}: unknown route {route!r}")
+    if dtype != torch.bfloat16:
+        if route is not None:
+            raise ValueError(f"{what}: only bf16 has the {route} route, got {dtype}")
+        return "simt"
+    if route == "wgmma" and not aligned:
+        raise ValueError(f"{what}: the wgmma route cannot take these operands (TMA reads "
+                         "16-byte-aligned windows; sched_matmul's k-blocks are multiples of 64)")
+    return route or ("wgmma" if aligned else "wmma")
 
 
 # --------------------------------------------------------------------------
@@ -314,6 +359,7 @@ def tri_matmul(
     A, B, *, a_uplo=None, a_trans=False, b_uplo=None, b_trans=False,
     out_uplo=None, alpha=1.0, precision=None, a_view=None, b_view=None,
     out=None, out_off=(0, 0), c=None, c_view=None, beta=0.0,
+    _route=None,
 ):
     """C = alpha · op(A) · op(B) with dead triangular tiles never visited
     (ops/csrc/tri_matmul.cu; the JAX package's pallas_tpu.tri_matmul).
@@ -332,7 +378,11 @@ def tri_matmul(
         (the reference's 'highest'; 'high' is never less precise this way).
 
     The kernel takes A, B, C and out of one dtype (bf16, f32 or f64) and
-    accumulates in f32 (f64 for f64)."""
+    accumulates in f32 (f64 for f64).  bf16 windows whose A and B origins
+    and row strides TMA can read take the wgmma route, the others the wmma
+    route; `_route` names one ('wgmma' raises where TMA cannot read), for
+    measuring the routes against each other.  The wgmma route launches its
+    tiles longest k-range first."""
     s = _mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view,
                  b_view, out, out_off, c, c_view, beta)
     cc = c if s.fused_c else None
@@ -361,6 +411,7 @@ def tri_matmul(
     else:
         c_ptr, ldc = None, 0
     all_tiles = out_uplo is not None and not s.fused_c
+    route = _pick_route(A.dtype, _tma_ok(A, s.av) and _tma_ok(B, s.bv), _route, "tri_matmul")
     rc = _build.entry("capital_tri_matmul")(
         _DTYPE_CODE[A.dtype],
         _ptr(A, s.av[0], s.av[1]), A.stride(0),
@@ -369,9 +420,10 @@ def tri_matmul(
         float(alpha), float(beta), s.M, s.N, s.K,
         int(bool(a_trans)), int(bool(b_trans)),
         _UPLO[a_uplo], _UPLO[b_uplo], _UPLO[out_uplo],
-        int(s.fused_c), int(all_tiles), _stream(),
+        int(s.fused_c), int(all_tiles), int(route == "wgmma"),
+        _stream(),
     )
-    _launched(rc, KERNELS["tri_matmul." + s.form])
+    _launched(rc, KERNELS["tri_matmul." + s.form], route)
     return res
 
 
@@ -716,8 +768,10 @@ def fused_tail(buf, Rp, RIp, *, off: int, n: int, dest: int, block: int = 0,
 # --------------------------------------------------------------------------
 
 #: (rows, cols, depth) of one CUDA block's tile: WMMA for bf16, FMA otherwise
+#: (the wgmma route's k-tile is _WGMMA_BK deep)
 _SCHED_TILE = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16),
                torch.float64: (64, 64, 16)}
+_WGMMA_BK = 64
 #: most schedule entries one launch takes (the grid's second dimension)
 SCHED_MAX_PAIRS = 65535
 
@@ -770,7 +824,8 @@ def sched_matmul_plain(A, B, to, ko, first, last, *, tri_side="a", blocks, preci
     return out
 
 
-def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=None):
+def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=None,
+                 _route=None):
     """C = A @ B visiting only the (tile, k-tile) pairs listed in the int32
     schedule arrays (ops/csrc/sched_matmul.cu; pallas_tpu.sched_matmul).
 
@@ -783,7 +838,9 @@ def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=N
     undefined.  The kernel takes row-major contiguous A and B of one dtype
     (bf16, f32 or f64), blocks that its CUDA tile divides (128 x 128 x 32
     for bf16, 64 x 64 x 16 otherwise), accumulates in f32 (f64 for f64) and
-    writes the operands' dtype."""
+    writes the operands' dtype.  bf16 operands that TMA can read, with
+    k-blocks a multiple of 64, take the wgmma route, the others the wmma
+    route; `_route` names one, as in `tri_matmul`."""
     M, N, K = _sched_spec(A, B, to, ko, first, last, tri_side, blocks)
     if not _on_card(A, B, to, ko, first, last):
         return sched_matmul_plain(A, B, to, ko, first, last, tri_side=tri_side, blocks=blocks)
@@ -802,11 +859,13 @@ def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=N
         )
     if to.numel() > SCHED_MAX_PAIRS:
         raise ValueError(f"sched_matmul kernel: {to.numel()} pairs, at most {SCHED_MAX_PAIRS}")
+    aligned = _tma_ok(A, (0, 0)) and _tma_ok(B, (0, 0)) and bk % _WGMMA_BK == 0
+    route = _pick_route(A.dtype, aligned, _route, "sched_matmul")
     res = torch.empty((M, N), dtype=A.dtype, device=A.device)
     rc = _build.entry("capital_sched_matmul")(
         _DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(), res.data_ptr(),
         to.data_ptr(), ko.data_ptr(), first.data_ptr(), last.data_ptr(),
-        to.numel(), M, N, K, bm, bn, bk, int(tri_side == "a"), _stream(),
+        to.numel(), M, N, K, bm, bn, bk, int(tri_side == "a"), int(route == "wgmma"), _stream(),
     )
-    _launched(rc, KERNELS["sched_matmul"])
+    _launched(rc, KERNELS["sched_matmul"], route)
     return res

@@ -12,7 +12,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    on the card, at the path's shapes (n=16384, bc=512: 8192-wide trmm/syrk
    windows, 512-wide leaves), in bf16 and f32, and times kernel, plain
    version and the nearest single PyTorch call with CUDA events beside the
-   kernel's bound;
+   kernel's bound — tri_matmul in each call the path makes (CI::trsm in
+   place, CI::inv's two steps, the second side R in place, CI::tmu's syrk)
+   and in its dense form, bf16 on both routes (wgmma and wmma) in the same
+   run, interleaved; then NaN in the dead triangles on the wgmma route and
+   an unaligned window, which must take the wmma route;
 3. drives the cholinv path, `models/cholesky.factor` in mode 'pallas':
    n=16384 bf16 (against the same factor through the plain versions, plus
    residual gates), n=8192 f32 (residual gates), and the n=49152 bf16
@@ -98,9 +102,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 17. holds the mesh schedule's per-rank kernel, sched_matmul, against its
     plain version: the cholinv flagship's top-node slabs of one rank of a
     2x2x1 mesh (4096 x 8192 @ 8192 x 4096, blocks 512³) and a 128-block
-    case (256 x 512 @ 512 x 256), bf16, f32 and f64, tri_side 'a' and 'b',
-    the padded rank and the full one; timed (the full rank) beside its
-    bound, the plain version and one torch.matmul of the pre-masked slabs;
+    case (256 x 512 @ 512 x 256), bf16 (both routes), f32 and f64, tri_side
+    'a' and 'b', the padded rank and the full one; timed (the full rank;
+    bf16 on both routes, interleaved) beside its bound, the plain version
+    and one torch.matmul of the pre-masked slabs;
 18. drives the mesh path on a 2x2x1 in-process mesh of the card
     (`Grid.rect(2, 2, 1, devices=[cuda] * 4)`, mode 'explicit'; its
     collectives are copies and sums inside the one card, so no
@@ -122,7 +127,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     {"ok": true, "device": {...}}.
 
 Phases 3, 5, 7, 9–12, 14, 16 and 18 set every launch counter to 0 just
-before their runs and check the counts just after against the plan.
+before their runs and check the counts just after against the plan;
+phases 3, 9, 17 and 18 also check that every tri_matmul and sched_matmul
+launch took its dtype's route (bf16: wgmma, f32 / f64: simt).
 
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA or a directory without the package.
@@ -156,6 +163,10 @@ BT_KERNELS = ("bt.fused_forward", "bt.factor", "bt.forward_solve", "bt.solve_bac
 UP_KERNELS = ("up.sweep",)
 #: the mesh slice's kernel
 MESH_KERNELS = ("sched_matmul",)
+#: kernels whose launches are tallied by route, and the route each dtype's
+#: aligned windows take
+ROUTED = ("tri_matmul.trmm", "tri_matmul.syrk", "tri_matmul.dense", "sched_matmul")
+ROUTE_OF = {torch.bfloat16: "wgmma", torch.float32: "simt", torch.float64: "simt"}
 DTYPE_BY_NAME = {"f32": torch.float32, "bf16": torch.bfloat16}
 #: phase 15's sweeps (batch, n, k): the serve bucket's largest small-N n
 #: over the nrhs_buckets rungs, and the throughput batch
@@ -297,6 +308,152 @@ def check_gram(name, got, want, dtype, g) -> float:
     return float((got - want).abs().max())
 
 
+def mm_calls(RIp, Rp, buf, T, W: int) -> dict:
+    """The main path's tri_matmul calls at the top window W of n = 2W, as
+    (A, B, keywords, where the result goes): CI::trsm in place into Rp,
+    CI::inv step one into a fresh T, CI::inv step two (side R) in place into
+    RIp, CI::tmu (the syrk form, fused beta*C), and the dense form (off the
+    path) at W/2."""
+    D = W // 2
+    return {
+        "tri_matmul.trmm": (RIp, buf, dict(a_uplo="U", a_trans=True, a_view=(0, 0, W, W),
+                                           b_view=(0, W, W, W), out_off=(0, W)), "Rp"),
+        "tri_matmul.trmm inv1": (RIp, Rp, dict(a_uplo="U", a_view=(0, 0, W, W), b_view=(0, W, W, W)), None),
+        "tri_matmul.trmm side R": (T, RIp, dict(b_uplo="U", alpha=-1.0, b_view=(W, W, W, W),
+                                                out_off=(0, W)), "B"),
+        "tri_matmul.syrk": (Rp, Rp, dict(a_trans=True, out_uplo="U", alpha=-1.0, beta=1.0,
+                                         a_view=(0, W, W, W), b_view=(0, W, W, W), c=buf,
+                                         c_view=(W, W, W, W)), None),
+        "tri_matmul.dense": (buf, Rp, dict(b_trans=True, a_view=(0, 0, D, D), b_view=(D, 0, D, D)), None),
+    }
+
+
+def mm_library(name, A, B, kw, W):
+    """One PyTorch call computing the same function on the same windows."""
+    D = W // 2
+    if name == "tri_matmul.trmm":
+        A11t = torch.triu(A[:W, :W]).t().contiguous()
+        B12 = B[:W, W:].contiguous()
+        return lambda: torch.matmul(A11t, B12)
+    if name == "tri_matmul.trmm inv1":
+        A11 = torch.triu(A[:W, :W]).contiguous()
+        B12 = B[:W, W:].contiguous()
+        return lambda: torch.matmul(A11, B12)
+    if name == "tri_matmul.trmm side R":
+        U = torch.triu(B[W:, W:]).contiguous()
+        return lambda: torch.addmm(A, A, U, beta=0.0, alpha=-1.0)
+    if name == "tri_matmul.syrk":
+        R12 = A[:W, W:].contiguous()
+        C22 = kw["c"][W:, W:].contiguous()
+        return lambda: torch.addmm(C22, R12.t(), R12, beta=1.0, alpha=-1.0)
+    Ad, Bd = A[:D, :D].contiguous(), B[D:2 * D, :D].contiguous()
+    return lambda: torch.matmul(Ad, Bd.t())
+
+
+def mm_work(name, W, item) -> tuple[float, float]:
+    """(bytes, flops) of one call: a W-wide triangle times a W x W operand
+    (trmm), the upper half of a W x W product with fused C (syrk), W/2
+    cubed (dense)."""
+    if name == "tri_matmul.dense":
+        D = W // 2
+        return 3 * D * D * item, 2.0 * D**3
+    if name == "tri_matmul.syrk":
+        return (W * W + W * (W + 1)) * item, W * W * (W + 1)
+    return (W * (W + 1) / 2 + 2 * W * W) * item, W * W * (W + 1)
+
+
+def mm_phase(hopper, dtype, dev, RIp, Rp, buf, W: int) -> dict:
+    """Every tri_matmul call of the path against its plain version and timed
+    beside its bound and library call.  bf16 runs each on both routes, in
+    the same run and interleaved (wgmma, wmma, wmma, wgmma); then NaN in
+    the dead triangles on the wgmma route, and an unaligned window, which
+    must take the wmma route."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    g = torch.Generator(device=dev).manual_seed(8)
+    T = torch.randn(W, W, generator=g, device=dev, dtype=torch.float32).to(dtype)
+    bf16 = dtype == torch.bfloat16
+    routes = ("wgmma", "wmma") if bf16 else (None,)
+    live = torch.triu(torch.ones(W, W, dtype=torch.bool, device=dev))
+    res = {}
+    for name, (A, B, kw, where) in mm_calls(RIp, Rp, buf, T, W).items():
+        outs = {"Rp": Rp, "B": B}
+
+        def run(route, out=None):
+            return hopper.tri_matmul(A, B if where != "B" else out, out=out, _route=route, **kw)
+
+        def fresh():  # the in-place call's buffer, as the path hands it over
+            return outs[where].clone() if where else None
+
+        want = fresh()
+        want = hopper.tri_matmul_plain(A, B if where != "B" else want, out=want, **kw)
+        mask = live if "syrk" in name else None
+        err = 0.0
+        for route in routes:
+            got = fresh()
+            got = run(route, out=got)
+            torch.cuda.synchronize()
+            err = max(err, check_close(f"{name} {route or 'simt'}", got, want, dtype, mask))
+            del got
+        del want
+        out = fresh()
+        iters = 3 if bf16 else 2
+        if bf16:  # interleaved: wgmma, wmma, wmma, wgmma
+            t = {r: [] for r in routes}
+            for r in ("wgmma", "wmma", "wmma", "wgmma"):
+                t[r].append(time_ms(lambda: run(r, out=out), iters))
+            ms, extra = sum(t["wgmma"]) / 2, dict(wmma_ms=sum(t["wmma"]) / 2)
+        else:
+            ms, extra = time_ms(lambda: run(None, out=out), iters), {}
+        plain_out = fresh()
+        res[name] = dict(
+            max_abs_err=err, ms=ms, **extra,
+            plain_ms=time_ms(lambda: hopper.tri_matmul_plain(
+                A, B if where != "B" else plain_out, out=plain_out, **kw), 2),
+            library_ms=time_ms(mm_library(name, A, B, kw, W), 5),
+            shape=f"window {W}" if name != "tri_matmul.dense" else f"{W // 2}^3",
+            bound=bound_ms(*mm_work(name, W, item), dtype),
+        )
+        del out, plain_out
+    del T
+    if bf16:
+        res["nan_dead_triangle"] = nan_and_unaligned(hopper, dtype, dev, RIp, buf, W)
+    return res
+
+
+def nan_and_unaligned(hopper, dtype, dev, RIp, buf, W: int) -> dict:
+    """NaN in the dead triangle of the trsm and side-R operands, on the wgmma
+    route, against the plain version; then a window at an odd column offset,
+    which TMA cannot read: it must take the wmma route."""
+    tri = RIp.clone()
+    lower = torch.tril(torch.ones(W, W, dtype=torch.bool, device=dev), -1)
+    for off in (0, W):
+        tri[off:off + W, off:off + W].masked_fill_(lower, float("nan"))
+    out = {}
+    for label, (A, B, kw, where) in (
+        ("trsm", (tri, buf, dict(a_uplo="U", a_trans=True, a_view=(0, 0, W, W),
+                                 b_view=(0, W, W, W), out_off=(0, W)), "buf")),
+        ("side R", (buf, tri, dict(b_uplo="U", alpha=-1.0, a_view=(0, 0, W, W), b_view=(W, W, W, W)), None)),
+    ):
+        o1, o2 = (buf.clone(), buf.clone()) if where else (None, None)
+        hopper.reset_counts()
+        got = hopper.tri_matmul(A, B, out=o1, **kw)
+        rc = hopper.route_counts()
+        check(rc == {"tri_matmul.trmm": {"wgmma": 1}}, f"NaN {label}: route {rc}")
+        want = hopper.tri_matmul_plain(A, B, out=o2, **kw)
+        torch.cuda.synchronize()
+        out[label] = check_close(f"trmm NaN dead triangle {label}", got, want, dtype)
+        del o1, o2, got, want
+    del tri
+    kw = dict(a_uplo="L", a_view=(3, 5, 300, 300), b_view=(8, 16, 300, 200))
+    hopper.reset_counts()
+    got = hopper.tri_matmul(buf, buf, **kw)
+    rc = hopper.route_counts()
+    check(rc == {"tri_matmul.trmm": {"wmma": 1}}, f"unaligned window: route {rc}")
+    out["unaligned"] = check_close("trmm unaligned window", got, hopper.tri_matmul_plain(buf, buf, **kw), dtype)
+    print(json.dumps({"kernel": "tri_matmul NaN / unaligned", **out}), flush=True)
+    return out
+
+
 def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
     """Every kernel against its plain version at the main path's shapes
     (the top-level window W and the leaf bc of n=16384, bc=512)."""
@@ -305,72 +462,7 @@ def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
     g = torch.Generator(device=dev).manual_seed(7)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev, dtype=torch.float32).to(dtype)
     RIp, Rp, buf = rnd(p, p), rnd(p, p), rnd(p, p)
-    res = {}
-
-    # trmm form, the TRSM shape: R12 = triu(RIp11)ᵀ · A12 into Rp
-    kw = dict(a_uplo="U", a_trans=True, a_view=(0, 0, W, W), b_view=(0, W, W, W),
-              out_off=(0, W))
-    out_k, out_p = Rp.clone(), Rp.clone()
-    hopper.tri_matmul(RIp, buf, out=out_k, **kw)
-    hopper.tri_matmul_plain(RIp, buf, out=out_p, **kw)
-    err = check_close("trmm", out_k, out_p, dtype)
-    # the side-R inverse-completion shape, in the triangular operand's buffer
-    T = rnd(W, W)
-    kwr = dict(b_uplo="U", alpha=-1.0, b_view=(W, W, W, W), out_off=(0, W))
-    rk, rp = RIp.clone(), RIp.clone()
-    hopper.tri_matmul(T, rk, out=rk, **kwr)
-    hopper.tri_matmul_plain(T, rp, out=rp, **kwr)
-    err = max(err, check_close("trmm side R", rk, rp, dtype))
-    del rk, rp
-    A11t = torch.triu(RIp[:W, :W]).t().contiguous()
-    B12 = buf[:W, W:].contiguous()
-    flops = W * W * (W + 1)
-    nbytes = (W * (W + 1) / 2 + 2 * W * W) * item
-    res["tri_matmul.trmm"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: hopper.tri_matmul(RIp, buf, out=out_k, **kw), 5),
-        plain_ms=time_ms(lambda: hopper.tri_matmul_plain(RIp, buf, out=out_p, **kw), 5),
-        library_ms=time_ms(lambda: torch.matmul(A11t, B12), 5),
-        shape=f"trsm window {W}x{W} tri x {W}x{W}",
-        bound=bound_ms(nbytes, flops, dtype),
-    )
-    del out_k, out_p, A11t, B12, T
-
-    # syrk form, the Schur shape: S = −R12ᵀR12 + A22, upper tiles only
-    kw = dict(a_trans=True, b_trans=False, out_uplo="U", alpha=-1.0, beta=1.0,
-              a_view=(0, W, W, W), b_view=(0, W, W, W), c=buf, c_view=(W, W, W, W))
-    sk = hopper.tri_matmul(Rp, Rp, **kw)
-    sp = hopper.tri_matmul_plain(Rp, Rp, **kw)
-    live = torch.triu(torch.ones(W, W, dtype=torch.bool, device=dev))
-    err = check_close("syrk", sk, sp, dtype, live)
-    del sk, sp, live
-    R12 = Rp[:W, W:].contiguous()
-    C22 = buf[W:, W:].contiguous()
-    res["tri_matmul.syrk"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: hopper.tri_matmul(Rp, Rp, **kw), 5),
-        plain_ms=time_ms(lambda: hopper.tri_matmul_plain(Rp, Rp, **kw), 5),
-        library_ms=time_ms(lambda: torch.addmm(C22, R12.t(), R12, beta=1.0, alpha=-1.0), 5),
-        shape=f"schur {W}x{W} upper, K={W}, fused beta*C",
-        bound=bound_ms((W * W + W * (W + 1)) * item, W * W * (W + 1), dtype),
-    )
-    del R12, C22
-
-    # dense form (off the cholinv path; the same CUDA kernel)
-    D = W // 2
-    kw = dict(b_trans=True, a_view=(0, 0, D, D), b_view=(D, 0, D, D))
-    err = check_close("dense", hopper.tri_matmul(buf, Rp, **kw),
-                      hopper.tri_matmul_plain(buf, Rp, **kw), dtype)
-    Ad, Bd = buf[:D, :D].contiguous(), Rp[D:2 * D, :D].contiguous()
-    res["tri_matmul.dense"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: hopper.tri_matmul(buf, Rp, **kw), 5),
-        plain_ms=time_ms(lambda: hopper.tri_matmul_plain(buf, Rp, **kw), 5),
-        library_ms=time_ms(lambda: torch.matmul(Ad, Bd.t()), 5),
-        shape=f"{D}x{D}x{D}",
-        bound=bound_ms(3 * D * D * item, 2.0 * D**3, dtype),
-    )
-    del Ad, Bd
+    res = mm_phase(hopper, dtype, dev, RIp, Rp, buf, W)
 
     # transpose, the leaf read: window -> lower f32 panel
     kw = dict(in_view=(bc, bc, bc, bc), out_uplo="L", out_dtype=torch.float32)
@@ -433,6 +525,14 @@ def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
     return res
 
 
+def check_routes(hopper, counts: dict, route: str, label: str) -> dict:
+    """Every counted launch of a routed kernel took `route`."""
+    got = hopper.route_counts()
+    want = {k: {route: counts[k]} for k in ROUTED if counts.get(k)}
+    check(got == want, f"{label}: launches by route {got} != {want}")
+    return got
+
+
 def predicted_counts(leaves: int) -> dict:
     """Launches of one cholinv factor with split=1 and `leaves` leaves."""
     return {
@@ -478,6 +578,7 @@ def drive(cholesky, hopper, grid, n, dtype, bc, precision):
     counts = hopper.counts()
     want = predicted_counts(cholesky.padded_dim(n, bc) // bc)
     check(counts == want, f"n={n} launch counts {counts} != predicted {want}")
+    check_routes(hopper, counts, ROUTE_OF[dtype], f"n={n} {dtype}")
     return R, Ri, A, cfg, counts, secs
 
 
@@ -1180,9 +1281,10 @@ def inv_kernel_phase(hopper, batched_small, tsqr, dev) -> dict:
     return res
 
 
-def drive_counted(hopper, run, want: dict, label: str):
+def drive_counted(hopper, run, want: dict, label: str, route: str | None = None):
     """One call of `run` with the counters set to 0 just before and read
-    just after, held to `want` (every kernel not named there: 0)."""
+    just after, held to `want` (every kernel not named there: 0) and, where
+    `route` is given, every routed launch to that route."""
     torch.cuda.synchronize()
     hopper.reset_counts()
     t0 = time.perf_counter()
@@ -1192,6 +1294,8 @@ def drive_counted(hopper, run, want: dict, label: str):
     counts = hopper.counts()
     full = {**dict.fromkeys(counts, 0), **want}
     check(counts == full, f"{label}: launch counts {counts} != predicted {full}")
+    if route is not None:
+        check_routes(hopper, counts, route, label)
     return out, counts, secs
 
 
@@ -1221,7 +1325,7 @@ def rectri_phase(hopper, grid, dev) -> dict:
     L = tri_operand(n, torch.bfloat16, 0, dev)
     cfg = inverse.RectriConfig(base_case_dim=bc, mode="pallas", precision=None)
     Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(grid, L, "L", cfg), want,
-                                     "rectri flagship")
+                                     "rectri flagship", "wgmma")
     gate = float(residual.inverse_residual_blocked(L, Li))
     check(gate < 5e-2, f"rectri flagship: inverse residual {gate} >= 5e-2")
     del Li
@@ -1240,7 +1344,8 @@ def rectri_phase(hopper, grid, dev) -> dict:
     want = {"zeros_dead_lower": 1, "write_diag_blocks": 1, "tri_matmul.trmm": 2 * (n // bc - 1)}
     L = tri_operand(n, torch.float32, 1, dev)
     cfg = inverse.RectriConfig(base_case_dim=bc, mode="pallas", precision="highest")
-    Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(grid, L, "L", cfg), want, "rectri f32")
+    Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(grid, L, "L", cfg), want, "rectri f32",
+                                     "simt")
     with plain_versions(hopper):
         Lq = inverse.rectri(grid, L, "L", cfg)
     d = float(residual.rel_fro(Li - Lq, Lq))
@@ -1248,7 +1353,8 @@ def rectri_phase(hopper, grid, dev) -> dict:
     # f32: the kernel and torch.matmul sum in other orders; 1e-5
     check(d < 1e-5 and gate < 5e-5, f"rectri f32: vs plain {d}, inverse residual {gate}")
     U = L.T.contiguous()
-    Ui, ucounts, _ = drive_counted(hopper, lambda: inverse.rectri(grid, U, "U", cfg), want, "rectri U")
+    Ui, ucounts, _ = drive_counted(hopper, lambda: inverse.rectri(grid, U, "U", cfg), want, "rectri U",
+                                   "simt")
     ugate = float(residual.inverse_residual(U, Ui))
     check(ugate < 5e-5 and float(torch.tril(Ui, -1).abs().max()) == 0.0, f"rectri U: residual {ugate}")
     out["f32"] = dict(n=n, bc=bc, counts=counts, seconds_first=secs, vs_plain=d, inverse_residual=gate,
@@ -2244,21 +2350,31 @@ def sched_kernel_phase(hopper, summa, dev) -> dict:
                         for r in range(2)]
                 check(int(FI[0, -1]) == 0 and int(LA[0, -1]) == 0, f"sched {name}: rank 0 has no pads")
                 err = 0.0
+                routes = ("wgmma", "wmma") if dtype == torch.bfloat16 else (None,)
                 for r in range(2):
                     kw = dict(tri_side=side, blocks=blocks)
-                    got = hopper.sched_matmul(As[r], Bs[r], *rows[r], **kw)
                     want = hopper.sched_matmul_plain(As[r], Bs[r], *rows[r], **kw)
-                    torch.cuda.synchronize()
-                    err = max(err, check_close(f"sched_matmul {name} {side} rank {r}", got, want, dtype))
-                    del got, want
+                    for route in routes:
+                        hopper.reset_counts()
+                        got = hopper.sched_matmul(As[r], Bs[r], *rows[r], _route=route, **kw)
+                        check_routes(hopper, hopper.counts(), route or "simt", f"sched_matmul {name}")
+                        torch.cuda.synchronize()
+                        err = max(err, check_close(f"sched_matmul {name} {side} rank {r} {route}", got,
+                                                   want, dtype))
+                        del got
+                    del want
                 A, B, row = As[1], Bs[1], rows[1]
                 nbytes, flops = sched_work(row, blocks, mb, K, nb, side, item)
                 iters = 5 if name == "flagship" else 50
                 key = f"{name} {side} {str(dtype).split('.')[-1]}"
+                t = {r: [] for r in routes}
+                for r in routes + routes[::-1]:  # interleaved: wgmma, wmma, wmma, wgmma
+                    t[r].append(time_ms(lambda: hopper.sched_matmul(A, B, *row, tri_side=side,
+                                                                    blocks=blocks, _route=r), iters))
+                extra = {"wmma_ms": sum(t["wmma"]) / 2} if "wmma" in t else {}
                 res[key] = dict(
                     max_abs_err=err, blocks=list(blocks), runs=[int(FI[r].sum()) for r in range(2)],
-                    ms=time_ms(lambda: hopper.sched_matmul(A, B, *row, tri_side=side, blocks=blocks),
-                               iters),
+                    ms=sum(t[routes[0]]) / len(t[routes[0]]), **extra,
                     plain_ms=time_ms(lambda: hopper.sched_matmul_plain(A, B, *row, tri_side=side,
                                                                        blocks=blocks), 2),
                     library_ms=time_ms(lambda: torch.matmul(A, B), iters),
@@ -2312,7 +2428,7 @@ def mesh_phase(hopper, dev) -> dict:
     plan = mesh_plan(summa, cholesky, mesh, n, bc)
     A = spd_hash(n, dtype, salt=1, device=dev)
     (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(mesh, A, cfg),
-                                          {"sched_matmul": plan}, "mesh cholinv n=16384 bf16")
+                                          {"sched_matmul": plan}, "mesh cholinv n=16384 bf16", "wgmma")
     Af = A.float()
     res_r = float(residual.cholesky_residual(Af, R.float()))
     res_i = float(residual.cholesky_inverse_residual(R.float(), Ri.float()))
@@ -2346,7 +2462,7 @@ def mesh_phase(hopper, dev) -> dict:
     plan = mesh_plan(summa, cholesky, mesh, n, bc)
     A = spd_hash(n, dtype, salt=2, device=dev)
     (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(mesh, A, cfg),
-                                          {"sched_matmul": plan}, "mesh cholinv n=8192 f32")
+                                          {"sched_matmul": plan}, "mesh cholinv n=8192 f32", "simt")
     with plain_versions(hopper):
         Rq, Riq = cholesky.factor(mesh, A, cfg)
     d = max(float(residual.rel_fro(R - Rq, Rq)), float(residual.rel_fro(Ri - Riq, Riq)))
@@ -2367,7 +2483,7 @@ def mesh_phase(hopper, dev) -> dict:
     plan = mesh_plan(summa, cholesky, mesh, n, bc, rectri=True)
     L = tri_operand(n, dtype, 2, dev)
     Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(mesh, L, "L", rcfg),
-                                     {"sched_matmul": plan}, "mesh rectri n=16384 bf16")
+                                     {"sched_matmul": plan}, "mesh rectri n=16384 bf16", "wgmma")
     gate = float(residual.inverse_residual_blocked(L, Li))
     check(gate < 5e-2, f"mesh rectri: inverse residual {gate} >= 5e-2")
     del Li
@@ -2432,9 +2548,10 @@ def main(argv=None) -> int:
     for dtype in (torch.bfloat16, torch.float32):
         res = kernel_phase(hopper, dtype, dev)
         for name, r in res.items():
-            b, by = r.pop("bound")
-            r.update(bound_ms=b, bound_by=by)
-            print(json.dumps({"kernel": name, "dtype": str(dtype), **r}), flush=True)
+            if "bound" in r:
+                b, by = r.pop("bound")
+                r.update(bound_ms=b, bound_by=by)
+                print(json.dumps({"kernel": name, "dtype": str(dtype), **r}), flush=True)
         out["kernels"][str(dtype)] = res
 
     grid = Grid.square()

@@ -888,3 +888,195 @@ def test_mesh_factor_launches_the_plan(cuda, monkeypatch, dt):
     gate = {"f32": 2e-6, "bf16": 1e-2}[dt]
     assert float(residual.cholesky_residual(A.double(), R.double())) < gate
     assert float(residual.cholesky_inverse_residual(R.double(), Ri.double())) < gate
+
+
+# ---- the bf16 wgmma route (TMA ring + wgmma) of tri_matmul and sched_matmul
+# Each case forces the route and is held to the plain version with the bf16
+# tolerance at the top of the file.  Operands are non-symmetric, so a
+# transposed layout cannot pass by symmetry; triangular windows carry NaN in
+# their dead half, which must never reach the sum.
+
+WG_P = 2048
+#: (M, N, K) and the window origin (row, column) inside 2048 x 2048 buffers:
+#: ragged in every dimension, origins aligned for TMA
+WG_SHAPES = [((256, 384, 192), (128, 64)), ((1000, 520, 777), (8, 16))]
+
+
+def _wg_run(fn, A, B, **kw):
+    if fn is hopper.tri_matmul:
+        return hopper.tri_matmul(A, B, _route="wgmma", **kw)
+    return hopper.tri_matmul_plain(A, B, **kw)
+
+
+def _nan_dead(X, view, uplo):
+    """X with NaN in the dead triangle of window `view` (uplo kept)."""
+    X = X.clone()
+    r0, c0, rows, cols = view
+    r = torch.arange(rows, device=X.device)[:, None]
+    c = torch.arange(cols, device=X.device)[None, :]
+    dead = (r > c) if uplo == "U" else (r < c)
+    X[r0:r0 + rows, c0:c0 + cols].masked_fill_(dead, float("nan"))
+    return X
+
+
+@pytest.mark.parametrize("shape", range(len(WG_SHAPES)))
+@pytest.mark.parametrize("b_trans", [False, True])
+@pytest.mark.parametrize("a_trans", [False, True])
+def test_wgmma_dense_vs_plain(cuda, a_trans, b_trans, shape):
+    (M, N, K), (r0, c0) = WG_SHAPES[shape]
+    A, B = _rand(70, (WG_P, WG_P), "bf16", cuda), _rand(71, (WG_P, WG_P), "bf16", cuda)
+    kw = dict(a_trans=a_trans, b_trans=b_trans,
+              a_view=(r0, c0, K, M) if a_trans else (r0, c0, M, K),
+              b_view=(c0, r0, N, K) if b_trans else (c0, r0, K, N))
+    hopper.reset_counts()
+    got = _wg_run(hopper.tri_matmul, A, B, **kw)
+    assert hopper.route_counts() == {"tri_matmul.dense": {"wgmma": 1}}
+    torch.cuda.synchronize()
+    _close(got, _wg_run(None, A, B, **kw), "bf16")
+
+
+@pytest.mark.parametrize("b_trans", [False, True])
+@pytest.mark.parametrize("a_trans", [False, True])
+@pytest.mark.parametrize("uplo", ["U", "L"])
+@pytest.mark.parametrize("side", ["a", "b"])
+def test_wgmma_trmm_vs_plain(cuda, side, uplo, a_trans, b_trans):
+    """A triangular operand with NaN in its dead half, every orientation;
+    the dense operand ragged (777 wide), the result written in place at an
+    offset of a third buffer."""
+    n, m = 520, 777
+    A, B = _rand(72, (WG_P, WG_P), "bf16", cuda), _rand(73, (WG_P, WG_P), "bf16", cuda)
+    if side == "a":
+        av, bv = (64, 128, n, n), ((8, 256, m, n) if b_trans else (8, 256, n, m))
+        A = _nan_dead(A, av, uplo)
+        tri = dict(a_uplo=uplo)
+    else:
+        av, bv = ((16, 8, n, m) if a_trans else (16, 8, m, n)), (256, 64, n, n)
+        B = _nan_dead(B, bv, uplo)
+        tri = dict(b_uplo=uplo)
+    kw = dict(a_trans=a_trans, b_trans=b_trans, a_view=av, b_view=bv, alpha=-0.5, out_off=(1024, 512), **tri)
+    C = _rand(74, (WG_P, WG_P), "bf16", cuda)
+    outs = [_wg_run(fn, A, B, out=C.clone(), **kw) for fn in (hopper.tri_matmul, None)]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs[0]).all())
+    _close(outs[0], outs[1], "bf16")
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("b_trans", [False, True])
+@pytest.mark.parametrize("a_trans", [False, True])
+@pytest.mark.parametrize("out_uplo", ["U", "L"])
+def test_wgmma_syrk_vs_plain(cuda, out_uplo, a_trans, b_trans, in_place):
+    """The triangular-output form: fused beta*C read-modify-write in place,
+    or beta = 0 with the dead half zeroed (every tile launched)."""
+    n, k = 648, 520
+    A, B = _rand(75, (WG_P, WG_P), "bf16", cuda), _rand(76, (WG_P, WG_P), "bf16", cuda)
+    C = _rand(77, (WG_P, WG_P), "bf16", cuda)
+    kw = dict(a_trans=a_trans, b_trans=b_trans, out_uplo=out_uplo,
+              a_view=(0, 64, k, n) if a_trans else (0, 64, n, k),
+              b_view=(128, 0, n, k) if b_trans else (128, 0, k, n))
+    r = torch.arange(n)[:, None]
+    q = torch.arange(n)[None, :]
+    live = (r <= q) if out_uplo == "U" else (r >= q)
+    if in_place:
+        kw.update(alpha=-1.0, beta=1.0, c_view=(1024, 1024, n, n), out_off=(1024, 1024))
+        outs = []
+        for fn in (hopper.tri_matmul, None):
+            c = C.clone()
+            outs.append(_wg_run(fn, A, B, c=c, out=c, **kw))
+        torch.cuda.synchronize()
+        mask = torch.zeros(WG_P, WG_P, dtype=torch.bool)
+        mask[1024:1024 + n, 1024:1024 + n] = live
+        _close(outs[0], outs[1], "bf16", mask)
+        outside = torch.ones(WG_P, WG_P, dtype=torch.bool)
+        outside[1024:1024 + n, 1024:1024 + n] = False
+        assert torch.equal(outs[0].cpu()[outside], C.cpu()[outside])
+    else:
+        got = _wg_run(hopper.tri_matmul, A, B, **kw)
+        torch.cuda.synchronize()
+        _close(got, _wg_run(None, A, B, **kw), "bf16")
+        assert bool((got.cpu()[~live] == 0).all())
+
+
+def test_wgmma_route_tally(cuda):
+    """Aligned bf16 windows take wgmma, an odd column offset wmma, f32 simt;
+    counts() keeps its keys and its sums; reset clears the tally."""
+    A = _rand(78, (512, 512), "bf16", cuda)
+    hopper.reset_counts()
+    hopper.tri_matmul(A, A, a_uplo="U", a_view=(0, 0, 256, 256), b_view=(0, 256, 256, 256))
+    hopper.tri_matmul(A, A, a_uplo="U", a_view=(0, 3, 256, 256), b_view=(0, 256, 256, 256))
+    hopper.tri_matmul(A.float(), A.float(), out_uplo="U", a_trans=True)
+    hopper.tri_matmul(A, A, a_view=(0, 0, 256, 256), b_view=(0, 256, 256, 256), _route="wmma")
+    assert hopper.route_counts() == {"tri_matmul.trmm": {"wgmma": 1, "wmma": 1},
+                                     "tri_matmul.syrk": {"simt": 1}, "tri_matmul.dense": {"wmma": 1}}
+    c = hopper.counts()
+    assert set(c) == set(hopper.KERNELS)
+    assert (c["tri_matmul.trmm"], c["tri_matmul.syrk"], c["tri_matmul.dense"]) == (2, 1, 1)
+    with pytest.raises(ValueError, match="wgmma route cannot"):
+        hopper.tri_matmul(A, A, a_view=(0, 3, 256, 256), b_view=(0, 256, 256, 256), _route="wgmma")
+    with pytest.raises(ValueError, match="only bf16"):
+        hopper.tri_matmul(A.float(), A.float(), _route="wgmma")
+    hopper.reset_counts()
+    assert hopper.route_counts() == {}
+
+
+@pytest.mark.parametrize("case", range(len(SCHED_CASES)))
+def test_sched_matmul_wgmma_vs_plain(cuda, case):
+    """Every schedule case on the wgmma route, rank 0 (pads when the operand
+    is lower) and rank 1; the schedules hold runs of one pair and of many."""
+    mb, K, nb, side, uplo, _ = SCHED_CASES[case]
+    au, bu = (uplo, None) if side == "a" else (None, uplo)
+    (TO, KO, FI, LA), _, blocks = summa._sched_host(2, 2 * mb, K, 2 * nb, au, bu)
+    A, B = _rand(80 + case, (mb, K), "bf16", cuda), _rand(90 + case, (K, nb), "bf16", cuda)
+    lengths = []
+    for rank in range(2):
+        sched = [torch.from_numpy(x[rank].copy()).to(cuda) for x in (TO, KO, FI, LA)]
+        starts = np.flatnonzero(FI[rank] == 1)
+        ends = np.flatnonzero(LA[rank] == 1)
+        lengths += list(ends - starts + 1)
+        hopper.reset_counts()
+        got = hopper.sched_matmul(A, B, *sched, tri_side=side, blocks=blocks)
+        assert hopper.route_counts() == {"sched_matmul": {"wgmma": 1}}
+        want = hopper.sched_matmul_plain(A, B, *sched, tri_side=side, blocks=blocks)
+        torch.cuda.synchronize()
+        written = ~torch.isnan(want)
+        _close(got, want, "bf16", written.cpu())
+    assert min(lengths) == 1 and max(lengths) > 1
+
+
+def test_sched_matmul_wmma_route_stays(cuda):
+    """k-blocks that are not a multiple of 64 keep the wmma route; asking
+    for wgmma there raises."""
+    mb, K, nb = 256, 384, 256
+    A, B = _rand(95, (mb, K), "bf16", cuda), _rand(96, (K, nb), "bf16", cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    sched = [one * 0, one * 0, one, one]
+    blocks = (128, 128, 96)
+    hopper.reset_counts()
+    got = hopper.sched_matmul(A, B, *sched, tri_side="a", blocks=blocks)
+    assert hopper.route_counts() == {"sched_matmul": {"wmma": 1}}
+    want = hopper.sched_matmul_plain(A, B, *sched, tri_side="a", blocks=blocks)
+    torch.cuda.synchronize()
+    _close(got, want, "bf16", (~torch.isnan(want)).cpu())
+    with pytest.raises(ValueError, match="wgmma route cannot"):
+        hopper.sched_matmul(A, B, *sched, tri_side="a", blocks=blocks, _route="wgmma")
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_mesh_and_rectri_routes(cuda, dt):
+    """Every tri_matmul launch of a cholinv and a rectri, and every
+    sched_matmul launch of a mesh factor, takes its dtype's route."""
+    route = {"f32": "simt", "bf16": "wgmma"}[dt]
+    n = 1024
+    g = np.random.default_rng(13).standard_normal((n, n))
+    A = torch.from_numpy(g @ g.T / n + 3 * np.eye(n)).to(DTYPES[dt]).to(cuda)
+    hopper.reset_counts()
+    R, _ = cholesky.factor(Grid.square(device=cuda), A, cholesky.CholinvConfig(mode="pallas", base_case_dim=128))
+    inverse.rectri(Grid.square(device=cuda), R.T.contiguous(), "L",
+                   inverse.RectriConfig(base_case_dim=128, mode="pallas"))
+    c = hopper.counts()
+    assert hopper.route_counts() == {
+        "tri_matmul.trmm": {route: c["tri_matmul.trmm"]}, "tri_matmul.syrk": {route: c["tri_matmul.syrk"]}}
+    hopper.reset_counts()
+    cholesky.factor(Grid.rect(2, 2, 1, devices=[cuda] * 4), A,
+                    cholesky.CholinvConfig(mode="explicit", base_case_dim=256))
+    assert hopper.route_counts() == {"sched_matmul": {route: 12}}
