@@ -14,12 +14,12 @@
 //     by contract.
 //   * scale_gram: the scale, then the gram of the ROUNDED Q.
 // What bounds them on the card: at the 2,097,152 x 1024 bf16 QR flagship the
-// gram and the scale_gram are bound by operations (the tensor cores), the
-// scale by bytes (A read, Q written).  The design answers with tensor cores
-// for bf16 (WMMA m16n16k16, f32 accumulate, 128 x 128 tiles) and register-
-// tiled FMA for f32/f64 (64 x 64 tiles, 4 x 4 per thread, IEEE FMA, no
-// TF32); operand tiles move as 16-byte loads, the next k-step's loads in
-// flight while the current one multiplies.  wgmma/TMA are later work.
+// gram is bound by operations (the tensor cores), the scale sits at the
+// balance point (A read and Q written take as long as its products).  bf16
+// runs on the TMA + wgmma ring of wgmma_tiles.cuh (128 x 128 tiles, f32
+// accumulate); f32 / f64 on register-tiled FMA (64 x 64 tiles, 4 x 4 per
+// thread, IEEE FMA, no TF32), operand tiles moving as 16-byte loads with the
+// next k-step's loads in flight while the current one multiplies.
 //
 // The TPU kernel carries the f32 (n, n) gram in VMEM across its sequential
 // row-block grid.  Here blocks run in no order and an SM holds 227 KB, so the
@@ -32,11 +32,7 @@
 //
 // Every linear index into A or Q is 64-bit: at the flagship m·n = 2^31.
 
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "wgmma_tiles.cuh"
 
 constexpr int NTHREADS = 256;
 
@@ -77,69 +73,74 @@ struct GramArgs {
   int splits;
 };
 
-// ---- gram, bf16: WMMA on the tensor cores, f32 accumulate -----------------
+// ---- gram, bf16: TMA + wgmma, f32 accumulate ------------------------------
 // Output tile (ti, tj) = Σ_r A[r, ti·T + a] · A[r, tj·T + b] over this
-// block's row split.  Both operands are 32-row slabs of A, T wide, stored
-// k-major in shared memory: the left one is read as a col_major fragment
-// (Aᵀ), the right one as row_major.  8 warps as 4 (rows) x 2 (cols), each
-// 32 x 64 = 2 x 4 fragments.
-__global__ void __launch_bounds__(NTHREADS) gram_wmma(GramArgs p) {
-  constexpr int T = 128, BK = 32, LD = T + 8, CH = 8;  // CH bf16 per 16 bytes
-  __shared__ __align__(128) bf16 Xs[BK * LD];
-  __shared__ __align__(128) bf16 Ys[BK * LD];
+// block's row split: the ring's <AT = true, BT = false> orientation, both
+// operands MN-major 64-row slabs of A read through one tensor map (boxes of
+// 64 rows x 64 columns).  Split q of S takes the 64-row k-tiles
+// [q·K/S, (q+1)·K/S) of the K = ceil(m/64): whole k-tiles whose counts
+// differ by at most one (gram_split_rows in ops/qr_fused.py is the same
+// rule on the host).  T = 128 divides c, so no tile needs masking.  The
+// blocks of one split run side by side (blockIdx.x is the tile), so the
+// slabs they share come from L2.
+//
+// Two-level sums: wgmma's f32 accumulation does not round to nearest, and
+// its error grows with the chain (a split's chain is ~3,000 k-tiles at the
+// flagship: ~1e-3 relative on the diagonal).  So wgmma sums chains of
+// GRAM_CHAIN k-tiles (restarting with scale-d 0, the accumulator registers
+// never written by other instructions), and each chain is added in IEEE f32
+// to a second register sum once its products are done, as the TPU kernel
+// adds each row block's product to its f32 scratch.
+constexpr int GRAM_CHAIN = 32;
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    gram_wgmma(const __grid_constant__ CUtensorMap ta, GramArgs p) {
+  extern __shared__ uint8_t smem[];
   int ti, tj;
-  live_tile(blockIdx.x, p.n / T, T, p.c, ti, tj);
-  const long long rows = p.m / p.splits, r0 = (long long)blockIdx.y * rows;
-  const bf16* A = (const bf16*)p.A;
-  const int tid = threadIdx.x, warp = tid / 32, wr = warp / 2, wc = warp % 2;
-  uint4 rx[2], ry[2];  // this thread's chunks of the next k-step
-  auto load = [&](long long k0) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      int q = tid + NTHREADS * u, row = q / (T / CH), col = (q % (T / CH)) * CH;
-      const bf16* src = A + (r0 + k0 + row) * p.lda;
-      rx[u] = *(const uint4*)(src + ti * T + col);
-      ry[u] = *(const uint4*)(src + tj * T + col);
+  live_tile(blockIdx.x, p.n / wg::BM, wg::BM, p.c, ti, tj);
+  const long long kt = (p.m + wg::BK - 1) / wg::BK;
+  const int t0 = (int)(blockIdx.y * kt / p.splits);
+  const int nk = (int)((blockIdx.y + 1) * kt / p.splits) - t0;
+  const wg::Ring r = wg::make_ring(smem);
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) {
+      wg::produce<true, false>(r, &ta, &ta, ti * wg::BM, tj * wg::BN, nk,
+                               [&](int t) { return (t0 + t) * wg::BK; }, [](int) { return false; });
     }
-  };
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  } else {
+    wg::consumer_regs();
+    const int ctid = threadIdx.x - 128, wgi = ctid >> 7;
+    float d[64], sum[64];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+    for (int i = 0; i < 64; ++i) d[i] = sum[i] = 0.0f;
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % wg::STAGES;
+      wg::bar_wait(r.full(s), (t / wg::STAGES) & 1);
+      wg::fence_acc(d);
+      wg::wgmma_fence();
+      wg::mma_stage<true, false>(r, s, wgi, d, t % GRAM_CHAIN != 0);
+      wg::wgmma_commit();
+      wg::fence_acc(d);
+      if (t % GRAM_CHAIN == GRAM_CHAIN - 1 || t == nk - 1) {
+        wg::wgmma_wait<0>();
+        wg::fence_acc(d);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) wmma::fill_fragment(acc[r][c], 0.0f);
-  load(0);
-  for (long long k0 = 0; k0 < rows; k0 += BK) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      int q = tid + NTHREADS * u, row = q / (T / CH), col = (q % (T / CH)) * CH;
-      *(uint4*)(Xs + row * LD + col) = rx[u];
-      *(uint4*)(Ys + row * LD + col) = ry[u];
+        for (int i = 0; i < 64; ++i) sum[i] += d[i];
+      } else {
+        wg::wgmma_wait<1>();
+        wg::fence_acc(d);
+      }
+      if (t > 0 && (ctid & 127) == 0) wg::bar_arrive(r.empty((t - 1) % wg::STAGES));
     }
-    __syncthreads();
-    if (k0 + BK < rows) load(k0 + BK);
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) wmma::load_matrix_sync(a[r], Xs + ks * LD + wr * 32 + r * 16, LD);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) wmma::load_matrix_sync(b[c], Ys + ks * LD + wc * 64 + c * 16, LD);
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) wmma::mma_sync(acc[r][c], a[r], b[c], acc[r][c]);
+    const float* acc = wg::stage_acc(r, ctid, sum);
+    float* out = (float*)p.out + (long long)blockIdx.y * p.n * p.n;
+    for (int e = ctid; e < wg::BM * wg::BN / 4; e += 256) {
+      const int row = e / (wg::BN / 4), col = (e % (wg::BN / 4)) * 4;
+      *reinterpret_cast<float4*>(out + (long long)(ti * wg::BM + row) * p.n + tj * wg::BN + col) =
+          *reinterpret_cast<const float4*>(acc + row * wg::EPI_LD + col);
     }
-    __syncthreads();
   }
-  float* out = (float*)p.out + (long long)blockIdx.y * p.n * p.n;
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      long long i = ti * T + wr * 32 + r * 16, j = tj * T + wc * 64 + c * 16;
-      wmma::store_matrix_sync(out + i * p.n + j, acc[r][c], p.n, wmma::mem_row_major);
-    }
 }
 
 // ---- gram, f32 / f64: register-tiled FMA ----------------------------------
@@ -219,17 +220,34 @@ __global__ void gram_finalize(A_t* G, const A_t* W, int n, int c, int splits) {
   }
 }
 
+static int gram_wgmma_launch(const GramArgs& p, dim3 grid, cudaStream_t s) {
+  CUtensorMap ta;
+  if (!wg::make_map(&ta, p.A, p.m, p.n, p.lda, wg::BM / 2)) return -2;
+  static bool sized[wg::MAX_DEVICES] = {};
+  const cudaError_t e = wg::size_smem(gram_wgmma, sized);
+  if (e != cudaSuccess) return (int)e;
+  gram_wgmma<<<grid, wg::THREADS, wg::SMEM_BYTES, s>>>(ta, p);
+  return (int)cudaGetLastError();
+}
+
+// bf16 splits are whole 64-row k-tiles of any count up to K; the f32 / f64
+// kernel's splits are equal and whole 16-row steps
 template <typename T>
 static int gram_launch(const GramArgs& p, void* G, cudaStream_t s) {
   typedef typename AccOf<T>::type A_t;
-  constexpr int tile = sizeof(T) == 2 ? 128 : 64;
-  constexpr int bk = sizeof(T) == 2 ? 32 : 16;
-  if (p.n % tile || p.c % tile || p.splits < 1 || p.m % ((long long)p.splits * bk))
+  constexpr bool wide = sizeof(T) == 2;
+  constexpr int tile = wide ? wg::BM : 64;
+  if (p.n % tile || p.c % tile || p.splits < 1 || p.m < 1 ||
+      (wide ? p.splits > (p.m + wg::BK - 1) / wg::BK : p.m % ((long long)p.splits * 16) != 0))
     return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)live_tiles(p.n, tile, p.c), (unsigned)p.splits);
-  if constexpr (sizeof(T) == 2) gram_wmma<<<grid, NTHREADS, 0, s>>>(p);
-  else gram_simt<T><<<grid, NTHREADS, 0, s>>>(p);
-  int rc = (int)cudaGetLastError();
+  int rc;
+  if constexpr (wide) {
+    rc = gram_wgmma_launch(p, grid, s);
+  } else {
+    gram_simt<T><<<grid, NTHREADS, 0, s>>>(p);
+    rc = (int)cudaGetLastError();
+  }
   if (rc) return rc;
   long long total = (long long)p.n * p.n;
   unsigned blocks = (unsigned)((total + NTHREADS - 1) / NTHREADS);
@@ -264,83 +282,128 @@ struct ScaleArgs {
   int n;
 };
 
-// bf16: 128 x 128 output tiles, WMMA, the f32 sum rounded once to bf16.
-// Blocks walk a row panel's column tiles consecutively, so the panel of A
-// is read from device memory about once and from L2 by its neighbours.
-__global__ void __launch_bounds__(NTHREADS) scale_wmma(ScaleArgs p) {
-  constexpr int TM = 128, TN = 128, BK = 32, LDA = BK + 8, LDB = TN + 8, CH = 8;
-  __shared__ __align__(128) bf16 As[TM * LDA];
-  __shared__ __align__(128) bf16 Bs[BK * LDB];
-  __shared__ __align__(128) float scratch[8][16 * 16];
-  const int ntn = p.n / TN;
-  const long long i0 = (long long)(blockIdx.x / ntn) * TM;
-  const int j0 = (blockIdx.x % ntn) * TN, kend = j0 + TN;  // rows of R⁻¹ past kend are zero
-  const bf16* A = (const bf16*)p.A;
-  const bf16* R = (const bf16*)p.R;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, wr = warp / 2, wc = warp % 2;
-  uint4 ra[2], rb[2];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      int q = tid + NTHREADS * u;
-      int arow = q / (BK / CH), acol = (q % (BK / CH)) * CH;
-      ra[u] = *(const uint4*)(A + (i0 + arow) * p.lda + k0 + acol);
-      int brow = q / (TN / CH), bcol = (q % (TN / CH)) * CH;
-      rb[u] = *(const uint4*)(R + (long long)(k0 + brow) * p.ldr + j0 + bcol);
-    }
-  };
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) wmma::fill_fragment(acc[r][c], 0.0f);
-  load(0);
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      int q = tid + NTHREADS * u;
-      *(uint4*)(As + (q / (BK / CH)) * LDA + (q % (BK / CH)) * CH) = ra[u];
-      *(uint4*)(Bs + (q / (TN / CH)) * LDB + (q % (TN / CH)) * CH) = rb[u];
-    }
-    __syncthreads();
-    if (k0 + BK < kend) load(k0 + BK);
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) wmma::load_matrix_sync(a[r], As + (wr * 32 + r * 16) * LDA + ks, LDA);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) wmma::load_matrix_sync(b[c], Bs + ks * LDB + wc * 64 + c * 16, LDB);
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) wmma::mma_sync(acc[r][c], a[r], b[c], acc[r][c]);
-    }
-    __syncthreads();
-  }
-  // epilogue: each fragment through the warp's f32 scratch, then 8 bf16
-  // (16 bytes) per lane: row lane/2, columns (lane%2)·8 ...+8
-  float* sc = scratch[warp];
-  bf16* Q = (bf16*)p.Q;
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      wmma::store_matrix_sync(sc, acc[r][c], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int row = lane / 2, col = (lane % 2) * 8;
-      unsigned w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        __nv_bfloat162 h = __floats2bfloat162_rn(sc[row * 16 + col + 2 * e],
-                                                 sc[row * 16 + col + 2 * e + 1]);
-        w[e] = *reinterpret_cast<unsigned*>(&h);
+// ---- scale, bf16: TMA + wgmma, persistent ----------------------------------
+// Q tile (i0, j0) = A[i0:i0+128, :j0+128] · R⁻¹[:j0+128, j0:j0+128]: the
+// ring's <false, false> orientation, A K-major (boxes of 128 rows x 64),
+// R⁻¹ MN-major (two boxes of 64 k-rows x 64).  The tile's k-range stops at
+// its last column (the rows of R⁻¹ below are zero by contract), so no
+// k-tile is masked.
+//
+// One block per SM walks tiles b = blockIdx.x, + gridDim.x, ...: the ring
+// runs on across tiles (one k-tile counter for stage and phase), so the
+// producer loads the next tile while the consumers round and store this
+// one.  Tile b is row panel b / ntn and column tile (b + b / ntn) % ntn:
+// the column tiles of a panel are neighbours in b (the panel is read from
+// device memory about once and then from L2), and the rotation hands every
+// block every column tile in turn (their k-ranges differ up to ntn-fold).
+// Each consumer warpgroup rounds its 64 rows to bf16 once into its own
+// staging rows beside the ring and stores them as 16-byte row segments.
+constexpr int SCALE_LD = wg::BN + 8;  // bf16 pitch of a staging row: 4 banks apart
+constexpr int SCALE_STAGE_OFF = wg::STAGES * wg::STAGE_BYTES + 3 * wg::STAGES * 8;
+constexpr int SCALE_SMEM = wg::SMEM_BYTES + wg::BM * SCALE_LD * 2;
+
+__device__ __forceinline__ void scale_tile(long long b, int ntn, long long& i0, int& j0) {
+  const long long panel = b / ntn;
+  i0 = panel * wg::BM;
+  j0 = (int)((b + panel) % ntn) * wg::BN;
+}
+
+// the 128 threads of consumer warpgroup wgi (named barriers 3 and 4)
+__device__ __forceinline__ void warpgroup_sync(int wgi) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wgi) : "memory");
+}
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    scale_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tr,
+                ScaleArgs p) {
+  extern __shared__ uint8_t smem[];
+  const wg::Ring r = wg::make_ring(smem);
+  const int ntn = p.n / wg::BN;
+  const long long tiles = (p.m / wg::BM) * ntn;
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x != 0) return;
+    uint32_t g = 0;  // k-tiles loaded so far
+    for (long long b = blockIdx.x; b < tiles; b += gridDim.x) {
+      long long i0;
+      int j0;
+      scale_tile(b, ntn, i0, j0);
+      const int nk = (j0 + wg::BN) / wg::BK;
+      for (int t = 0; t < nk; ++t, ++g) {
+        const int s = g % wg::STAGES;
+        wg::bar_wait(r.empty(s), ((g / wg::STAGES) & 1) ^ 1);  // round 0 passes at once
+        const uint32_t fb = r.full(s), sb = wg::saddr(r.b(s));
+        wg::bar_expect_tx(fb, wg::STAGE_BYTES);
+        wg::tma_load(wg::saddr(r.a(s)), &ta, fb, t * wg::BK, (int)i0);
+        wg::tma_load(sb, &tr, fb, j0, t * wg::BK);
+        wg::tma_load(sb + wg::B_BYTES / 2, &tr, fb, j0 + wg::BN / 2, t * wg::BK);
       }
-      long long qi = i0 + wr * 32 + r * 16 + row;
-      *(uint4*)(Q + qi * p.ldq + j0 + wc * 64 + c * 16 + col) = make_uint4(w[0], w[1], w[2], w[3]);
-      __syncwarp();
     }
+    return;
+  }
+  wg::consumer_regs();
+  const int ctid = threadIdx.x - 128, wgi = ctid >> 7, wtid = ctid & 127;
+  bf16* stage = reinterpret_cast<bf16*>(r.base + SCALE_STAGE_OFF) + wgi * (wg::BM / 2) * SCALE_LD;
+  int r0, c0;
+  wg::acc_origin(ctid, r0, c0);
+  r0 -= wgi * (wg::BM / 2);  // row within this warpgroup's 64
+  bf16* Q = (bf16*)p.Q;
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+  uint32_t g = 0;  // k-tiles consumed so far
+  for (long long b = blockIdx.x; b < tiles; b += gridDim.x) {
+    long long i0;
+    int j0;
+    scale_tile(b, ntn, i0, j0);
+    const int nk = (j0 + wg::BN) / wg::BK;
+    for (int t = 0; t < nk; ++t, ++g) {
+      const int s = g % wg::STAGES;
+      wg::bar_wait(r.full(s), (g / wg::STAGES) & 1);
+      wg::fence_acc(d);
+      wg::wgmma_fence();
+      wg::mma_stage<false, false>(r, s, wgi, d, t > 0);
+      wg::wgmma_commit();
+      wg::fence_acc(d);
+      wg::wgmma_wait<1>();
+      wg::fence_acc(d);
+      if (t > 0 && wtid == 0) wg::bar_arrive(r.empty((g - 1) % wg::STAGES));
+    }
+    wg::wgmma_wait<0>();
+    wg::fence_acc(d);
+    if (wtid == 0) wg::bar_arrive(r.empty((g - 1) % wg::STAGES));
+    warpgroup_sync(wgi);  // the previous tile's staging rows are stored
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(stage + (r0 + 8 * h) * SCALE_LD + c0 + 8 * j) =
+            __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+    warpgroup_sync(wgi);
+    const long long row0 = i0 + wgi * (wg::BM / 2);
+    for (int e = wtid; e < (wg::BM / 2) * (wg::BN / 8); e += 128) {
+      const int row = e / (wg::BN / 8), col = (e % (wg::BN / 8)) * 8;
+      *reinterpret_cast<uint4*>(Q + (row0 + row) * p.ldq + j0 + col) =
+          *reinterpret_cast<const uint4*>(stage + row * SCALE_LD + col);
+    }
+  }
+}
+
+static int scale_wgmma_launch(const ScaleArgs& p, long long tiles, cudaStream_t s) {
+  CUtensorMap ta, tr;
+  if (!wg::make_map(&ta, p.A, p.m, p.n, p.lda, wg::BM) ||
+      !wg::make_map(&tr, p.R, p.n, p.n, p.ldr, wg::BN / 2))
+    return -2;
+  static bool sized[wg::MAX_DEVICES] = {};
+  cudaError_t e = wg::size_smem(scale_wgmma, sized, SCALE_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const unsigned blocks = (unsigned)(tiles < sms ? tiles : sms);
+  scale_wgmma<<<blocks, wg::THREADS, SCALE_SMEM, s>>>(ta, tr, p);
+  return (int)cudaGetLastError();
 }
 
 // f32 / f64: 64 x 64 output tiles, 4 x 4 FMA per thread.
@@ -409,7 +472,7 @@ static int scale_pass(int dtype, const ScaleArgs& p, cudaStream_t s) {
   long long blocks = (p.m / tile) * (p.n / tile);
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   switch (dtype) {
-    case DT_BF16: scale_wmma<<<(unsigned)blocks, NTHREADS, 0, s>>>(p); break;
+    case DT_BF16: return scale_wgmma_launch(p, blocks, s);
     case DT_F32: scale_simt<float><<<(unsigned)blocks, NTHREADS, 0, s>>>(p); break;
     case DT_F64: scale_simt<double><<<(unsigned)blocks, NTHREADS, 0, s>>>(p); break;
     default: return -1;

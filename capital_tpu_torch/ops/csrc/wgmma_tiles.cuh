@@ -1,11 +1,12 @@
-// The Hopper main loop shared by the bf16 routes of tri_matmul.cu and
-// sched_matmul.cu: TMA loads into a ring of shared-memory stages, one
-// producer thread, two consumer warpgroups on wgmma, f32 accumulators in
-// registers.  Written as inline PTX (no CUTLASS device code).
+// The Hopper main loop shared by the bf16 routes of tri_matmul.cu,
+// sched_matmul.cu and qr_fused.cu: TMA loads into a ring of shared-memory
+// stages, one producer thread, two consumer warpgroups on wgmma, f32
+// accumulators in registers.  Written as inline PTX (no CUTLASS device code).
 //
-// What bounds both clients on the card: operations (their windows are
-// thousands wide, far above the H100's ~295 flop/byte balance point), so
-// the design is the shape that reaches the tensor cores' rate:
+// What bounds the clients on the card: operations (their windows are
+// thousands wide, far above the H100's ~295 flop/byte balance point; the QR
+// scale sits at the balance point), so the design is the shape that reaches
+// the tensor cores' rate:
 //   * CTA tile 128 x 128, k-tile 64 bf16 = 128 bytes, so every operand tile
 //     is rows of 128 bytes under the 128-byte swizzle that both TMA and
 //     wgmma understand;
@@ -96,17 +97,17 @@ static bool make_map(CUtensorMap* m, const void* ptr, long long rows, long long 
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Raises `kernel`'s dynamic shared-memory limit to SMEM_BYTES on the current
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
 // device (the one the launch goes to), once per device: a function attribute
 // belongs to each device's context.  `sized` is the kernel's own flag array.
 constexpr int MAX_DEVICES = 64;
 template <typename Kernel>
-static cudaError_t size_smem(Kernel kernel, bool (&sized)[MAX_DEVICES]) {
+static cudaError_t size_smem(Kernel kernel, bool (&sized)[MAX_DEVICES], int bytes = SMEM_BYTES) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < MAX_DEVICES && sized[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess && dev < MAX_DEVICES) sized[dev] = true;
   return e;
 }
@@ -192,10 +193,11 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// d += A (64 x 16) · B (16 x 128); TA / TB = 1 for an MN-major operand
+// d = A (64 x 16) · B (16 x 128) + (scale_d ? d : 0); TA / TB = 1 for an
+// MN-major operand
 template <int TA, int TB>
-__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  const int scale_d = 1;
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                               int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -339,15 +341,18 @@ __device__ __forceinline__ void mask_loop(const Ring& r, int nk, int mtid, Need 
 
 // ---- consumers (two warpgroups, ctid 0..255) --------------------------------
 
-// d += this warpgroup's 64 rows of A (stage s) · B (stage s), k = 64
+// d += this warpgroup's 64 rows of A (stage s) · B (stage s), k = 64; with
+// accumulate false the first product overwrites d instead (a new tile's
+// first k-tile, without zeroing the accumulator registers in the loop)
 template <bool AT, bool BT>
-__device__ __forceinline__ void mma_stage(const Ring& r, int s, int wgi, float (&d)[64]) {
+__device__ __forceinline__ void mma_stage(const Ring& r, int s, int wgi, float (&d)[64],
+                                          bool accumulate = true) {
   const uint32_t sa = saddr(r.a(s)) + wgi * (A_BYTES / 2), sb = saddr(r.b(s));
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint64_t da = AT ? desc(sa + kk * 2048, MN_LBO, MN_SBO) : desc(sa + kk * 32, 16, 1024);
     const uint64_t db = BT ? desc(sb + kk * 32, 16, 1024) : desc(sb + kk * 2048, MN_LBO, MN_SBO);
-    mma_m64n128k16<AT ? 1 : 0, BT ? 0 : 1>(d, da, db);
+    mma_m64n128k16<AT ? 1 : 0, BT ? 0 : 1>(d, da, db, (kk > 0 || accumulate) ? 1 : 0);
   }
 }
 

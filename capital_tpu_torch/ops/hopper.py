@@ -21,8 +21,9 @@ Each kernel sits here as three things side by side:
   launches its kernel, and nowhere else.  `tri_matmul` and `sched_matmul`
   also tally each launch by route (`route_counts`): 'wgmma' for bf16
   windows that TMA can read (`_tma_ok`), 'wmma' for the other bf16 windows,
-  'simt' for f32 and f64.  The route is chosen before the launch and never
-  changes after a failure.
+  'simt' for f32 and f64; the CholeskyQR2 kernels 'wgmma' for bf16 (their
+  operands are always TMA-aligned) and 'simt' otherwise.  The route is
+  chosen before the launch and never changes after a failure.
 
 Unlike the JAX package, where "consumed" buffers are a promise to XLA,
 writes here are real mutation: `out` windows are written in place and the
@@ -71,7 +72,7 @@ class Kernel:
     replaces: str  # the Pallas kernel's pallas_call, file:line
     route: str = "cuda"
     launches: int = 0
-    #: launches by kernel route inside the CUDA source (tri_matmul, sched_matmul)
+    #: launches by kernel route inside the CUDA source (tri_matmul, sched_matmul, qr.*)
     by_route: dict[str, int] = dataclasses.field(default_factory=dict)
 
 

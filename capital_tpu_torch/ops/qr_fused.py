@@ -16,7 +16,9 @@ Each is a wrapper, a plain version and a launch counter, as in ops/hopper.py:
 the wrapper validates its arguments with the JAX package's rule
 (`_shape_gate`, same message), launches the hand-written kernel
 (ops/csrc/qr_fused.cu) for CUDA tensors and runs the plain version for CPU
-tensors — no other route.  The counters are `hopper.KERNELS["qr.*"]`.  The
+tensors — no other route.  The counters are `hopper.KERNELS["qr.*"]`, with
+each launch tallied by route: 'wgmma' for bf16 (the TMA + wgmma ring of
+ops/csrc/wgmma_tiles.cuh), 'simt' for f32 and f64.  The
 plain versions follow the JAX kernels' block structure: row blocks of `bm`
 accumulated in turn into the gram, g column blocks, the zero block
 triangle.  The gram accumulates in f32 (f64 for f64).
@@ -24,14 +26,20 @@ triangle.  The gram accumulates in f32 (f64 for f64).
 
 from __future__ import annotations
 
+from fractions import Fraction
+
 import torch
 
 from capital_tpu_torch.ops import _build, hopper
 
 #: output tile edge of the gram kernel per dtype (ops/csrc/qr_fused.cu)
 _GRAM_TILE = {torch.bfloat16: 128, torch.float32: 64, torch.float64: 64}
-#: gram blocks that fill the card a few times over (4 waves of 132 SMs)
-_FILL_BLOCKS = 4 * 132
+#: SMs of the H100: one bf16 gram block (128 KB ring) fills one
+_SMS = 132
+#: rows per k-tile of the bf16 gram (ops/csrc/wgmma_tiles.cuh BK)
+_GRAM_KTILE = 64
+#: f32 / f64 gram blocks that fill the card a few times over (4 waves)
+_FILL_BLOCKS = 4 * _SMS
 _MAX_SPLITS = 16
 #: rows per step of the plain scale (values do not depend on it)
 _PLAIN_SCALE_ROWS = 1 << 16
@@ -194,17 +202,45 @@ def scale_gram_plain(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
 # --------------------------------------------------------------------------
 
 
-def gram_splits(m: int, n: int, g: int, dtype: torch.dtype) -> int:
-    """Row splits of the gram kernel: double them (up to 16) until live
-    output tiles x splits fill the card a few times over, keeping every
-    split a whole number of 32-row k-steps."""
+def gram_tiles(n: int, g: int, dtype: torch.dtype) -> list[tuple[int, int]]:
+    """The gram kernel's live output tiles (tile row, tile column) in the
+    order of its blocks (`live_tile` in ops/csrc/qr_fused.cu): tile row i
+    from the first column of its block row to the last."""
     T = _GRAM_TILE[dtype]
     c, nt = n // g, n // T
-    live = sum(nt - (i * T // c) * (c // T) for i in range(nt))
+    return [(i, j) for i in range(nt) for j in range((i * T // c) * (c // T), nt)]
+
+
+def gram_split_rows(m: int, splits: int) -> list[tuple[int, int]]:
+    """Rows [r0, r1) of each split of the bf16 gram: split q takes the
+    64-row k-tiles [q·K/S, (q+1)·K/S) of the K = ceil(m/64), whole k-tiles
+    whose counts differ by at most one (the rule of `gram_wgmma`)."""
+    kt = -(-m // _GRAM_KTILE)
+    return [(min(m, q * kt // splits * _GRAM_KTILE), min(m, (q + 1) * kt // splits * _GRAM_KTILE))
+            for q in range(splits)]
+
+
+def gram_splits(m: int, n: int, g: int, dtype: torch.dtype) -> int:
+    """Row splits of the gram kernel.
+
+    bf16 (one block per SM): the fewest splits, at most 16 and at most one
+    per 64-row k-tile, whose blocks need the fewest waves of 132 per split
+    (live tiles x splits in whole waves where that is possible: 36 x 11 =
+    396 = 3 waves at the QR flagship).  f32 / f64: double them (up to 16)
+    until the blocks fill the card four times over, keeping every split a
+    whole number of 32-row steps."""
+    live = len(gram_tiles(n, g, dtype))
+    if dtype == torch.bfloat16:
+        most = min(_MAX_SPLITS, -(-m // _GRAM_KTILE))
+        return min(range(1, most + 1), key=lambda s: (Fraction(-(-live * s // _SMS), s), s))
     s = 1
     while s < _MAX_SPLITS and live * s < _FILL_BLOCKS and m % (2 * s * 32) == 0:
         s *= 2
     return s
+
+
+def _route(A: torch.Tensor) -> str:
+    return "wgmma" if A.dtype == torch.bfloat16 else "simt"
 
 
 def _kernel_args(A: torch.Tensor, what: str) -> None:
@@ -244,7 +280,7 @@ def gram_blocked(A, *, bm: int = 1024, g: int = 2, precision=None):
         G.data_ptr(), work.data_ptr() if work is not None else None, splits,
         hopper._stream(),
     )
-    hopper._launched(rc, hopper.KERNELS["qr.gram_blocked"])
+    hopper._launched(rc, hopper.KERNELS["qr.gram_blocked"], _route(A))
     return G
 
 
@@ -266,7 +302,7 @@ def scale_gram(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
         Rinv.stride(0), Q.data_ptr(), Q.stride(0), m, n, g, G.data_ptr(),
         work.data_ptr() if work is not None else None, splits, hopper._stream(),
     )
-    hopper._launched(rc, hopper.KERNELS["qr.scale_gram"])
+    hopper._launched(rc, hopper.KERNELS["qr.scale_gram"], _route(A))
     return Q, G
 
 
@@ -284,5 +320,5 @@ def scale_blocked(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
         hopper._DTYPE_CODE[A.dtype], A.data_ptr(), A.stride(0), Rinv.data_ptr(),
         Rinv.stride(0), Q.data_ptr(), Q.stride(0), m, n, hopper._stream(),
     )
-    hopper._launched(rc, hopper.KERNELS["qr.scale_blocked"])
+    hopper._launched(rc, hopper.KERNELS["qr.scale_blocked"], _route(A))
     return Q

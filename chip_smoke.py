@@ -26,9 +26,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    just after against what the plan predicts;
 4. holds the CholeskyQR2 kernels (gram_blocked, scale_gram, scale_blocked)
    against their plain versions at the 2,097,152 x 1024 bf16 QR flagship and
-   at 65536 x 512 f32, timed beside their bounds and library calls;
+   at 65536 x 512 f32, timed beside their bounds and library calls, every
+   launch on its dtype's route (bf16 wgmma, f32 simt);
 5. drives the CholeskyQR2 path, `models/qr.factor` in mode 'pallas': the
-   2,097,152 x 1024 bf16 flagship (timed, profiled, gated), 65536 x 512 f32
+   2,097,152 x 1024 bf16 flagship (timed, gated, and profiled: the trace's
+   launches of the gram and scale kernels must equal the counted run's),
+   65536 x 512 f32
    (also against the same factor through the plain versions), 65536 x 4096
    bf16 (both grams through cholinv at bc=128), CQR1 at 65536 x 1024 bf16,
    and a robust f32 run with a rank-deficient gram injected — each with
@@ -128,8 +131,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 
 Phases 3, 5, 7, 9–12, 14, 16 and 18 set every launch counter to 0 just
 before their runs and check the counts just after against the plan;
-phases 3, 9, 17 and 18 also check that every tri_matmul and sched_matmul
-launch took its dtype's route (bf16: wgmma, f32 / f64: simt).
+phases 3, 4, 5, 9, 17 and 18 also check that every tri_matmul, sched_matmul
+and qr_fused launch took its dtype's route (bf16: wgmma, f32 / f64: simt).
 
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA or a directory without the package.
@@ -165,7 +168,7 @@ UP_KERNELS = ("up.sweep",)
 MESH_KERNELS = ("sched_matmul",)
 #: kernels whose launches are tallied by route, and the route each dtype's
 #: aligned windows take
-ROUTED = ("tri_matmul.trmm", "tri_matmul.syrk", "tri_matmul.dense", "sched_matmul")
+ROUTED = ("tri_matmul.trmm", "tri_matmul.syrk", "tri_matmul.dense", "sched_matmul") + QR_KERNELS
 ROUTE_OF = {torch.bfloat16: "wgmma", torch.float32: "simt", torch.float64: "simt"}
 DTYPE_BY_NAME = {"f32": torch.float32, "bf16": torch.bfloat16}
 #: phase 15's sweeps (batch, n, k): the serve bucket's largest small-N n
@@ -583,20 +586,27 @@ def drive(cholesky, hopper, grid, n, dtype, bc, precision):
 
 
 def profile(run, prefix: str) -> dict:
-    """One call of `run` under torch.profiler: wall time, device time by
-    kernel name and by phase (scopes whose tag starts with `prefix`), and
-    the share of the wall the device was idle (no kernel running)."""
+    """One call of `run` under torch.profiler: wall time, device time and
+    launches (trace events) by kernel name and device time by phase (scopes
+    whose tag starts with `prefix`), and the share of the wall the device
+    was idle (no kernel running)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    from capital_tpu_torch.ops import hopper
     from capital_tpu_torch.utils import tracing
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch_profile(activities=acts) as prof:
-        # a trace loses its first kernel: spend it on a tiny one (its few
-        # microseconds count as busy, outside the timed window)
+        # a trace drops the kernels that start in its first few milliseconds
+        # (none of them, or all three warm-ups, in one run): spend that on
+        # tiny warm-ups, one the port's own, and start the timed call 50 ms
+        # later (their microseconds count as busy, outside the timed
+        # window; `launches` and `first_kernels` show which the trace kept)
         torch.ones(1, device="cuda").add_(1)
+        hopper.zeros_dead_lower(256, torch.float32, 128, device="cuda")
         torch.cuda.synchronize()
+        time.sleep(0.05)
         t0 = time.perf_counter()
         res = run()
         torch.cuda.synchronize()
@@ -608,6 +618,7 @@ def profile(run, prefix: str) -> dict:
         for evt in prof.key_averages() if evt.key.startswith(prefix)
     }
     kernels: dict[str, float] = {}
+    launches: dict[str, int] = {}
     spans = []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA or e.time_range.end <= e.time_range.start:
@@ -615,11 +626,15 @@ def profile(run, prefix: str) -> dict:
         if getattr(e, "is_user_annotation", False) or e.name in tracing.PHASE_REGISTRY:
             continue  # a scope's range on the device timeline, not a kernel
         kernels[e.name[:80]] = kernels.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
-        spans.append((e.time_range.start, e.time_range.end))
+        launches[e.name[:80]] = launches.get(e.name[:80], 0) + 1
+        spans.append((e.time_range.start, e.time_range.end, e.name[:40]))
     spans.sort()
+    # the trace's earliest kernels and their start (ms after the trace's):
+    # which warm-ups it kept
+    first = [[name, s / 1e3] for s, _, name in spans[:3]]
     # busy time: the union of kernel intervals on the device timeline
     busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
+    for s, e, _ in spans:
         if cur_e is None or s > cur_e:
             if cur_e is not None:
                 busy += cur_e - cur_s
@@ -631,7 +646,21 @@ def profile(run, prefix: str) -> dict:
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
                 idle_share=max(0.0, 1.0 - busy / 1e3 / (wall * 1e3)),
-                phases_device_ms=phases, top_kernels_device_ms=top)
+                phases_device_ms=phases, top_kernels_device_ms=top, launches=launches,
+                first_kernels=first)
+
+
+def check_qr_trace(prof: dict, counts: dict) -> dict:
+    """The QR profile saw every launch of the tall-pass kernels that one
+    factor makes (`counts`, the counted run's): each gram_blocked and
+    scale_gram runs the gram kernel and its finalize, each scale_gram and
+    scale_blocked the scale kernel."""
+    grams = counts["qr.gram_blocked"] + counts["qr.scale_gram"]
+    want = {"gram_wgmma": grams, "gram_finalize": grams,
+            "scale_wgmma": counts["qr.scale_gram"] + counts["qr.scale_blocked"]}
+    got = {k: sum(v for name, v in prof["launches"].items() if k in name) for k in want}
+    check(got == want, f"QR profile: trace launches {got} != counted {want}")
+    return got
 
 
 def tall_randn(m: int, n: int, dtype, seed: int, device) -> torch.Tensor:
@@ -641,9 +670,11 @@ def tall_randn(m: int, n: int, dtype, seed: int, device) -> torch.Tensor:
     return torch.randn((m, n), generator=gen, device=device, dtype=dtype)
 
 
-def qr_kernel_phase(qr_fused, m: int, n: int, dtype, dev) -> dict:
+def qr_kernel_phase(qr_fused, hopper, m: int, n: int, dtype, dev) -> dict:
     """The three CholeskyQR2 kernels against their plain versions at (m, n)
-    and its column split, timed beside bound and library call."""
+    and its column split, timed beside bound and library call; every launch
+    on the dtype's route (bf16: wgmma, f32: simt)."""
+    hopper.reset_counts()
     g = qr_fused.pick_g(n)
     live = qr_fused.live_fraction(g)
     item = torch.tensor([], dtype=dtype).element_size()
@@ -694,6 +725,10 @@ def qr_kernel_phase(qr_fused, m: int, n: int, dtype, dev) -> dict:
     )
     del A, Rinv
     torch.cuda.empty_cache()
+    routes = hopper.route_counts()
+    check(set(routes) == set(QR_KERNELS) and all(set(v) == {ROUTE_OF[dtype]} for v in routes.values()),
+          f"QR kernels {m}x{n} {dtype}: launches by route {routes}")
+    print(json.dumps({"qr_routes": f"{m}x{n} {dtype} g={g}", **routes}), flush=True)
     return res
 
 
@@ -741,7 +776,8 @@ def qr_gates(residual, A, Q, R, label) -> dict:
 
 def drive_qr(qr, hopper, grid, A, cfg, want, label):
     """One qr.factor with the counters set to 0 just before and read just
-    after, held to the plan's launch counts."""
+    after, held to the plan's launch counts, every routed launch on A's
+    dtype's route (the grams are factored in A's dtype)."""
     torch.cuda.synchronize()
     hopper.reset_counts()
     t0 = time.perf_counter()
@@ -752,6 +788,7 @@ def drive_qr(qr, hopper, grid, A, cfg, want, label):
     if callable(want):
         want = want(out)
     check(counts == want, f"{label}: launch counts {counts} != predicted {want}")
+    check_routes(hopper, counts, ROUTE_OF[A.dtype], label)
     return out, counts, secs
 
 
@@ -796,6 +833,7 @@ def qr_path(hopper, dev, grid) -> dict:
                            seconds_first=secs, counts=counts, **gates)
     print(json.dumps({"qr": "flagship", **out["flagship"]}), flush=True)
     out["profile"] = profile(lambda: qr.factor(grid, A, cfg), "CQR::")
+    out["profile"]["trace_vs_counts"] = check_qr_trace(out["profile"], counts)
     print(json.dumps({"profile": "QR flagship", **out["profile"]}), flush=True)
     del A
     torch.cuda.empty_cache()
@@ -2629,7 +2667,7 @@ def main(argv=None) -> int:
 
     for run, dtype in (("flagship", torch.bfloat16), ("f32", torch.float32)):
         m, n = QR_SHAPES[run]
-        res = qr_kernel_phase(qr_fused, m, n, dtype, dev)
+        res = qr_kernel_phase(qr_fused, hopper, m, n, dtype, dev)
         for name, r in res.items():
             b, by = r.pop("bound")
             r.update(bound_ms=b, bound_by=by)

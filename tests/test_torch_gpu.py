@@ -270,6 +270,34 @@ def test_cqr2_kernels_vs_plain(cuda, monkeypatch, dt):
     assert float(residual.rel_fro(R.double() - Rp.double(), Rp.double())) < tol
 
 
+# the bf16 wgmma route: the flagship's g = 8 split at 65536 rows (11 splits
+# of unequal whole k-tiles), the wide n = 4096 at g = 32 (528 tiles, one
+# split) and 8320 rows (130 k-tiles over 11 splits, no multiple of 1024)
+WG_QR_SHAPES = [(65536, 1024, 8), (8192, 4096, 32), (8192 + 128, 1024, 8)]
+
+
+@pytest.mark.parametrize("shape", WG_QR_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_qr_wgmma_vs_plain(cuda, shape):
+    m, n, g = shape
+    A, Rinv = _tall(27, m, n, "bf16", cuda), _rinv(28, n, "bf16", cuda)
+    hopper.reset_counts()
+    G = qr_fused.gram_blocked(A, g=g)
+    Q = qr_fused.scale_blocked(A, Rinv, g=g)
+    Qg, Gg = qr_fused.scale_gram(A, Rinv, g=g)
+    torch.cuda.synchronize()
+    assert hopper.route_counts() == {k: {"wgmma": 1} for k in
+                                     ("qr.gram_blocked", "qr.scale_gram", "qr.scale_blocked")}
+    assert _g_rel(G, qr_fused.gram_blocked_plain(A, g=g)) <= 1e-5  # exact products, f32 sums
+    _close(Q, qr_fused.scale_blocked_plain(A, Rinv, g=g), "bf16")
+    assert torch.equal(Q, Qg)  # one scale kernel behind both entries
+    assert _g_rel(Gg, qr_fused.gram_blocked_plain(Qg, g=g)) <= 1e-5  # the gram of the rounded Q
+    dead = _dead_block_triangle(n, g)
+    assert bool((G.cpu()[dead] == 0).all()) and bool((Gg.cpu()[dead] == 0).all())
+    # no atomics, no order that varies: the same bits on every call
+    assert torch.equal(G, qr_fused.gram_blocked(A, g=g))
+    assert torch.equal(Q, qr_fused.scale_blocked(A, Rinv, g=g))
+
+
 def test_cqr1_runs_the_trmm_kernel(cuda):
     A = _tall(26, 8192, 1024, "bf16", cuda)
     hopper.reset_counts()

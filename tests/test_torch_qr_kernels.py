@@ -185,15 +185,49 @@ def test_assemble_sym_agrees():
 
 
 @pytest.mark.parametrize("m,n,g,dt,want", [
-    (1 << 21, 1024, 8, torch.bfloat16, 16),  # 36 live 128-tiles: fill with 16 splits
-    (65536, 4096, 32, torch.bfloat16, 1),  # 528 live tiles fill the card alone
+    (1 << 21, 1024, 8, torch.bfloat16, 11),  # 36 live 128-tiles x 11 = 3 whole waves of 132
+    (65536, 4096, 32, torch.bfloat16, 1),  # 528 live tiles are 4 whole waves alone
+    (2048, 512, 2, torch.bfloat16, 11),  # 12 tiles x 11 = one wave; splits of 2 and 3 k-tiles
+    (256, 512, 4, torch.bfloat16, 4),  # capped at one split per 64-row k-tile
     (65536, 512, 4, torch.float32, 16),
     (65536, 1024, 8, torch.float32, 4),
     (128, 512, 4, torch.float32, 4),  # capped where a split would drop under 32 rows
 ])
 def test_gram_splits(m, n, g, dt, want):
     s = tq.gram_splits(m, n, g, dt)
-    assert s == want and m % (s * 32) == 0
+    assert s == want
+    if dt == torch.bfloat16:  # whole 64-row k-tiles, none empty
+        assert all(r1 > r0 and r0 % 64 == 0 for r0, r1 in tq.gram_split_rows(m, s))
+    else:  # equal splits of whole 32-row steps
+        assert m % (s * 32) == 0
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,g", [(512, 2), (512, 4), (1024, 8), (2048, 4), (4096, 32)])
+def test_gram_tiles_visit_every_live_tile_once(n, g, dt):
+    """The gram grid's tiles are exactly the tiles of the upper block-row
+    form, each once: a tile is live iff its columns start at or after its
+    block row's first column."""
+    T = tq._GRAM_TILE[dt]
+    tiles = tq.gram_tiles(n, g, dt)
+    assert len(tiles) == len(set(tiles))
+    live = np.zeros((n, n), bool)
+    for i, j in tiles:
+        live[i * T:(i + 1) * T, j * T:(j + 1) * T] = True
+    assert np.array_equal(live, ~_dead(n, g))
+    assert tiles == sorted(tiles)  # row by row: the kernel's block order
+
+
+@pytest.mark.parametrize("m,splits", [(128, 1), (128, 2), (2048, 11), (8192 + 128, 11), (8192 + 128, 13),
+                                      (65536, 11), (65536, 16), (1 << 21, 11), (1 << 21, 16)])
+def test_gram_split_rows_cover_every_row_once(m, splits):
+    """Every row of A in exactly one split, splits in row order, each a run
+    of whole 64-row k-tiles whose counts differ by at most one."""
+    rows = tq.gram_split_rows(m, splits)
+    assert rows[0][0] == 0 and rows[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    sizes = [r1 - r0 for r0, r1 in rows]
+    assert all(r0 % 64 == 0 for r0, _ in rows) and max(sizes) - min(sizes) <= 64 and min(sizes) > 0
 
 
 def test_cpu_wrappers_take_plain_versions_and_count_nothing():
