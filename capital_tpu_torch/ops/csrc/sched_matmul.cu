@@ -16,12 +16,13 @@
 // pairs (first .. last) becomes one block: the grid is (dense-side
 // sub-tiles x sub-tiles of a schedule tile, schedule position p); a block
 // whose first[p] != 1 exits at once, the others walk p, p+1, ... to the
-// run's last pair, accumulating in registers, and write their sub-tile
-// once.  Every block reads its indices from device memory: no host sync.
+// run's last pair (fma: the k-th of them takes the k-th longest run,
+// pick_run), accumulating in registers, and write their sub-tile once.
+// Every block reads its indices from device memory: no host sync.
 //
 // What bounds it on the card: operations.  The flagship's top node per
 // rank is 4096 x 8192 @ 8192 x 4096 in 512-blocks, far above the H100's
-// ~295 flop/byte balance point.  Three routes, chosen by the wrapper
+// ~295 flop/byte balance point.  Five routes, chosen by the wrapper
 // (ops/hopper.py) before the launch:
 //   * wgmma (bf16 with 16-byte-aligned operands and 64-multiple k-blocks):
 //     sched_wgmma, the TMA + wgmma ring of wgmma_tiles.cuh on 128 x 128
@@ -29,9 +30,17 @@
 //     + bk, reading ko and last from device memory;
 //   * wmma (other bf16): sched_wmma, WMMA m16n16k16 128 x 128 tiles with
 //     element loads into one shared buffer;
-//   * simt (f32 and f64): sched_simt, register-tiled FMA 64 x 64 tiles.
-// Runs of unequal length (9–16 k-blocks on the flagship) still leave SMs
-// idle at the tail; a persistent walk that balances them is later work.
+//   * dmma (f64 with 16-byte-aligned operands): sched_dmma, the DMMA loop
+//     of mm_tiles.cuh (FP64 tensor cores, 3-stage cp.async ring) on 128 x 128
+//     sub-tiles, its k-tiles walked the same way;
+//   * fma (f32 with 16-byte-aligned operands): sched_fma, the pipelined
+//     IEEE-FMA loop of mm_tiles.cuh on 128 x 128 sub-tiles;
+//   * simt (the other f32 and f64): sched_simt, register-tiled FMA 64 x 64
+//     tiles.
+// Runs of unequal length (9–16 k-blocks on the flagship) leave SMs idle at
+// the tail: the fma blocks take the runs longest first
+// (pick_run; two blocks an SM put several runs in a wave), the other routes
+// in schedule order; a persistent walk that balances them is later work.
 
 #include "mm_tiles.cuh"
 #include "wgmma_tiles.cuh"
@@ -157,6 +166,141 @@ __global__ void __launch_bounds__(256) sched_wmma(SP p) {
     }
 }
 
+// pairs in the run that starts at pos (first[pos] == 1 .. the next last == 1)
+__device__ __forceinline__ int run_pairs(const SP& p, int pos) {
+  int pairs = 0;
+  for (int q = pos; q < p.L; ++q) {
+    ++pairs;
+    if (p.la[q] == 1) break;
+  }
+  return pairs;
+}
+
+// The run an fma block computes.  Blocks at a run's first pair
+// (first[y] == 1) work, the others exit at once, as on the other routes;
+// the k-th working block in dispatch order (the k-th run start) takes the
+// k-th longest run (ties in schedule order), so a launch dispatches its
+// longest runs first and the short ones fill its last wave (the schedule
+// lists a lower operand's runs shortest first).  Every working block ranks
+// the runs itself from first / last in shared memory: no host sync.
+// Schedules of more than RANK_MAX_L entries or RANK_MAX_RUNS runs keep
+// schedule order.  Returns false when the block has no run.
+constexpr int RANK_MAX_L = 4096, RANK_MAX_RUNS = 512;
+
+__device__ bool pick_run(const SP& p, int& pos, int& pairs) {
+  __shared__ unsigned char flags[RANK_MAX_L];  // bit 0 first, bit 1 last
+  __shared__ int start[RANK_MAX_RUNS], len[RANK_MAX_RUNS];
+  __shared__ int nruns, pick_pos, pick_len;
+  const int y = blockIdx.y;
+  if (p.fi[y] != 1) return false;
+  if (p.L <= RANK_MAX_L) {
+    if (threadIdx.x == 0) {
+      nruns = 0;
+      pick_pos = -1;
+      pick_len = 0;
+    }
+    for (int q = threadIdx.x; q < p.L; q += blockDim.x)
+      flags[q] = (unsigned char)((p.fi[q] == 1) | ((p.la[q] == 1) << 1));
+    __syncthreads();
+    for (int q = threadIdx.x; q < p.L; q += blockDim.x) {
+      if (!(flags[q] & 1)) continue;
+      int r = q;
+      while (r + 1 < p.L && !(flags[r] & 2)) ++r;
+      const int k = atomicAdd(&nruns, 1);
+      if (k < RANK_MAX_RUNS) {
+        start[k] = q;
+        len[k] = r - q + 1;
+      }
+    }
+    __syncthreads();
+    const int R = nruns;
+    if (R <= RANK_MAX_RUNS) {
+      int k = 0;  // run starts before this block's
+      for (int j = 0; j < R; ++j) k += start[j] < y;
+      for (int i = threadIdx.x; i < R; i += blockDim.x) {
+        int rank = 0;
+        for (int j = 0; j < R; ++j) rank += len[j] > len[i] || (len[j] == len[i] && start[j] < start[i]);
+        if (rank == k) {
+          pick_pos = start[i];
+          pick_len = len[i];
+        }
+      }
+      __syncthreads();
+      pos = pick_pos;
+      pairs = pick_len;
+      return pos >= 0;
+    }
+  }
+  pos = y;
+  pairs = run_pairs(p, y);
+  return true;
+}
+
+template <typename T>
+__device__ __forceinline__ void sched_windows(const SP& p, mmt::Win<T>& wa, mmt::Win<T>& wb) {
+  wa.p = (const T*)p.A;
+  wa.ld = p.K;
+  wa.rows = p.M;
+  wa.cols = p.K;
+  wb.p = (const T*)p.B;
+  wb.ld = p.N;
+  wb.rows = p.K;
+  wb.cols = p.N;
+}
+
+// one block an SM: each run of the flagship's schedule is about one wave,
+// so the runs keep schedule order (ranking them, as sched_fma does,
+// measured 7 % slower here: probes/dmma_tiles.py)
+__global__ void __launch_bounds__(mmt::D_THREADS, mmt::D_MINB) sched_dmma(SP p) {
+  constexpr int BK = mmt::D_BK;
+  const int pos = blockIdx.y;
+  if (p.fi[pos] != 1) return;
+  extern __shared__ __align__(16) uint8_t dmma_smem[];
+  int i0, j0;
+  sub_origin(p, pos, mmt::D_BM, mmt::D_BN, i0, j0);
+  const int per = p.bk / BK, nk = run_pairs(p, pos) * per;
+  mmt::Win<double> wa, wb;
+  sched_windows<double>(p, wa, wb);
+  double acc[mmt::D_MI][mmt::D_NI][4];
+  const auto none = [](int, int) { return true; };
+  mmt::dmma_loop<false, false>(
+      reinterpret_cast<double*>(dmma_smem), wa, wb, i0, j0, nk,
+      [&](int t) { return p.ko[pos + t / per] * p.bk + (t % per) * BK; }, [](int) { return 0; },
+      none, none, acc);
+  double* O = (double*)p.O;
+#pragma unroll
+  for (int mi = 0; mi < mmt::D_MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < mmt::D_NI; ++ni)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        O[(long long)(i0 + mmt::dmma_row(mi, x)) * p.N + j0 + mmt::dmma_col(ni, x)] = acc[mi][ni][x];
+}
+
+__global__ void __launch_bounds__(mmt::F_THREADS, 2) sched_fma(SP p) {
+  constexpr int BK = mmt::F_BK;
+  int pos, pairs;
+  if (!pick_run(p, pos, pairs)) return;
+  __shared__ __align__(16) mmt::FmaSmem sm;
+  int i0, j0;
+  sub_origin(p, pos, mmt::F_BM, mmt::F_BN, i0, j0);
+  const int per = p.bk / BK, nk = pairs * per;
+  mmt::Win<float> wa, wb;
+  sched_windows<float>(p, wa, wb);
+  float acc[8][8];
+  const auto none = [](int, int) { return true; };
+  mmt::fma_loop<false, false>(
+      sm, wa, wb, i0, j0, nk, [&](int t) { return p.ko[pos + t / per] * p.bk + (t % per) * BK; },
+      [](int) { return 0; }, none, none, acc);
+  float* O = (float*)p.O;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = O + (long long)(i0 + mmt::fma_row(i)) * p.N + j0;
+    *reinterpret_cast<float4*>(row + mmt::fma_col(0)) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + mmt::fma_col(4)) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
 // ta maps A (M x K, K-major), tb maps B (K x N, MN-major)
 __global__ void __launch_bounds__(wg::THREADS, 1)
     sched_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, SP p) {
@@ -165,12 +309,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   extern __shared__ uint8_t smem[];
   int i0, j0;
   sub_origin(p, pos, wg::BM, wg::BN, i0, j0);
-  int pairs = 0;
-  for (int q = pos; q < p.L; ++q) {
-    ++pairs;
-    if (p.la[q] == 1) break;
-  }
-  const int per = p.bk / wg::BK, nk = pairs * per;
+  const int per = p.bk / wg::BK, nk = run_pairs(p, pos) * per;
   const wg::Ring r = wg::make_ring(smem);
   if (threadIdx.x < 128) {
     wg::producer_regs();
@@ -210,21 +349,39 @@ static int launch_sched_wgmma(const SP& p, dim3 grid, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// route codes as capital_tri_matmul's: 0 the element-load loop (wmma for
+// bf16, simt for f32 / f64), 1 wgmma (bf16), 2 dmma (f64), 3 fma (f32)
+enum Route : int { R_ELEM = 0, R_WGMMA = 1, R_DMMA = 2, R_FMA = 3 };
+
 // Returns the cudaError_t of the launch (0 = launched); -1 for a bad dtype
 // or route, or blocks that the CUDA tiles do not divide; -2 when a tensor
-// map cannot be encoded.  use_wgmma picks the bf16 wgmma route (the caller
-// has checked TMA's alignment).
+// map cannot be encoded.  The caller has checked the route's alignment
+// (16-byte operands for wgmma, dmma and fma; k-blocks of 64 for wgmma).
 extern "C" int capital_sched_matmul(int dtype, const void* A, const void* B, void* O,
                                     const int* to, const int* ko, const int* fi, const int* la,
                                     int L, int M, int N, int K, int bm, int bn, int bk,
-                                    int tri_a, int use_wgmma, void* stream) {
+                                    int tri_a, int route, void* stream) {
   SP p;
   p.A = A; p.B = B; p.O = O; p.to = to; p.ko = ko; p.fi = fi; p.la = la;
   p.L = L; p.M = M; p.N = N; p.K = K; p.bm = bm; p.bn = bn; p.bk = bk; p.tri_a = tri_a;
-  if (use_wgmma && dtype != DT_BF16) return -1;
-  const int BMc = dtype == DT_BF16 ? mmt::W_BM : mmt::S_BM;
-  const int BNc = dtype == DT_BF16 ? mmt::W_BN : mmt::S_BN;
-  const int BKc = use_wgmma ? wg::BK : dtype == DT_BF16 ? mmt::W_BK : mmt::S_BK;
+  const bool ok = route == R_ELEM || (route == R_WGMMA && dtype == DT_BF16) ||
+                  (route == R_DMMA && dtype == DT_F64) || (route == R_FMA && dtype == DT_F32);
+  if (!ok) return -1;
+  // the CUDA sub-tile (rows, cols, depth) of each route
+  int BMc = mmt::S_BM, BNc = mmt::S_BN, BKc = mmt::S_BK;
+  if (dtype == DT_BF16) {
+    BMc = mmt::W_BM;
+    BNc = mmt::W_BN;
+    BKc = route == R_WGMMA ? wg::BK : mmt::W_BK;
+  } else if (route == R_DMMA) {
+    BMc = mmt::D_BM;
+    BNc = mmt::D_BN;
+    BKc = mmt::D_BK;
+  } else if (route == R_FMA) {
+    BMc = mmt::F_BM;
+    BNc = mmt::F_BN;
+    BKc = mmt::F_BK;
+  }
   if (bm % BMc || bn % BNc || bk % BKc || M % bm || N % bn || K % bk) return -1;
   p.sub = tri_a ? bm / BMc : bn / BNc;
   const long long dense = tri_a ? N / BNc : M / BMc;
@@ -234,7 +391,19 @@ extern "C" int capital_sched_matmul(int dtype, const void* A, const void* B, voi
   }
   dim3 grid((unsigned)gx, (unsigned)L);
   cudaStream_t s = (cudaStream_t)stream;
-  if (use_wgmma) return launch_sched_wgmma(p, grid, s);
+  if (route == R_WGMMA) return launch_sched_wgmma(p, grid, s);
+  if (route == R_DMMA) {
+    constexpr int bytes = mmt::dmma_smem_bytes<false, false>();
+    static bool sized[wg::MAX_DEVICES] = {};
+    const cudaError_t e = wg::size_smem(sched_dmma, sized, bytes);
+    if (e != cudaSuccess) return (int)e;
+    sched_dmma<<<grid, mmt::D_THREADS, bytes, s>>>(p);
+    return (int)cudaGetLastError();
+  }
+  if (route == R_FMA) {
+    sched_fma<<<grid, mmt::F_THREADS, 0, s>>>(p);
+    return (int)cudaGetLastError();
+  }
   switch (dtype) {
     case DT_BF16: sched_wmma<<<grid, 256, 0, s>>>(p); break;
     case DT_F32: sched_simt<float><<<grid, 256, 0, s>>>(p); break;

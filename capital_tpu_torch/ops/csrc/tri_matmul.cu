@@ -17,7 +17,7 @@
 // What bounds it on the card: operations.  cholinv's trmm/syrk windows are
 // thousands wide, far above the H100's ~295 flop/byte balance point.
 //
-// Three routes, chosen by the wrapper (ops/hopper.py) before the launch:
+// Five routes, chosen by the wrapper (ops/hopper.py) before the launch:
 //   * wgmma (bf16 windows whose A and B origins and leading dimensions are
 //     16-byte aligned, as TMA needs): mm_wgmma, the TMA + wgmma ring of
 //     wgmma_tiles.cuh.  128 x 128 tiles, k-tile 64; k_range still bounds
@@ -29,7 +29,17 @@
 //     fill the last wave;
 //   * wmma (bf16 windows that TMA cannot take): mm_wmma, WMMA m16n16k16
 //     128 x 128 tiles with element loads into one shared buffer;
-//   * simt (f32 and f64): mm_simt, register-tiled FMA 64 x 64 tiles.
+//   * dmma (f64 windows with the same 16-byte alignment): mm_dmma, the
+//     DMMA loop of mm_tiles.cuh on the FP64 tensor cores — 128 x 128 tiles,
+//     a 3-stage cp.async ring, the straddling k-tiles masked in shared
+//     memory; every multiply-add in f64, only the order of the sums differs
+//     from the plain version;
+//   * fma (f32 windows with that alignment): mm_fma, the pipelined IEEE-FMA
+//     loop of mm_tiles.cuh — 128 x 128 tiles, 8 x 8 outputs a thread, the
+//     next k-slice in flight during the FMAs;
+//   * simt (unaligned f32 and f64 windows): mm_simt, register-tiled FMA
+//     64 x 64 tiles with element loads.
+// dmma and fma launch their tiles longest k-range first, as wgmma does.
 //
 // The sequential (tile, k) pair axis of the TPU grid becomes the k loop
 // inside one thread block: blocks own disjoint output tiles, so nothing is
@@ -273,15 +283,31 @@ __global__ void __launch_bounds__(256) mm_wmma(MM p) {
 
 // ---- bf16, the wgmma route: TMA ring + wgmma (wgmma_tiles.cuh) --------------
 
-// The wgmma route's two launch options, passed beside MM (whose layout the
-// wmma and simt kernels keep: a larger MM changes their register
-// allocation, and the wmma kernel ran 2.6x slower with it)
-struct WgOpts {
+// which operand's k-tile at k0 crosses its triangle's diagonal inside the
+// output tile at (i0, j0): bit 0 A, bit 1 B (a tile wholly inside the
+// triangle needs no mask; k_range has dropped the wholly dead ones)
+__device__ __forceinline__ int straddles(const MM& p, bool at, bool bt, int i0, int j0, int bm,
+                                         int bn, int bk, int k0) {
+  if (p.a_tri) {
+    const bool up = (p.a_tri == UPLO_U) != at;  // op(A)(i, k) != 0 needs k >= i
+    return (up ? k0 >= i0 + bm - 1 : k0 + bk - 1 <= i0) ? 0 : 1;
+  }
+  if (p.b_tri) {
+    const bool up = (p.b_tri == UPLO_U) != bt;  // op(B)(k, j) != 0 needs k <= j
+    return (up ? k0 + bk - 1 <= j0 : k0 >= j0 + bn - 1) ? 0 : 2;
+  }
+  return 0;
+}
+
+// The launch options of the wgmma, dmma and fma routes, passed beside MM
+// (whose layout the wmma and simt kernels keep: a larger MM changes their
+// register allocation, and the wmma kernel ran 2.6x slower with it)
+struct TileOpts {
   int order;  // block -> tile order: bit 0 reversed, bit 1 column-major
   int vec;    // O and C rows take 16-byte loads and stores
 };
 
-// block -> tile for the wgmma route: the longest k-ranges first
+// block -> tile for the wgmma, dmma and fma routes: the longest k-ranges first
 __device__ inline int ordered_bid(const MM& p, int order, int bid) {
   if (order == 0 || !(p.out_uplo == UPLO_NONE || p.all_tiles)) return bid;
   const int b = (order & 1) ? p.ntm * p.ntn - 1 - bid : bid;
@@ -327,7 +353,7 @@ __device__ __forceinline__ void flush_seg(const MM& p, bool vec, bf16* O, const 
 template <bool AT, bool BT>
 __global__ void __launch_bounds__(wg::THREADS, 1)
     mm_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, MM p,
-             WgOpts o) {
+             TileOpts o) {
   constexpr int BM = wg::BM, BN = wg::BN, BK = wg::BK;
   extern __shared__ uint8_t smem[];
   int ti, tj;
@@ -343,15 +369,9 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   k_range(p, AT, BT, i0, j0, BM, BN, BK, kb, ke);
   const int nk = ke > kb ? (ke - kb + BK - 1) / BK : 0;
   const wg::Ring r = wg::make_ring(smem);
-  // a k-tile is fully live when every (i, k) or (k, j) of it is inside the
-  // triangle of op(A) / op(B); only the others are masked
-  const bool a_up = p.a_tri && ((p.a_tri == UPLO_U) != AT);
-  const bool b_up = p.b_tri && ((p.b_tri == UPLO_U) != BT);
+  // only the k-tiles that cross a triangle's diagonal are masked
   auto need = [&](int t) -> bool {
-    const int k0 = kb + t * BK;
-    if (p.a_tri) return !(a_up ? k0 >= i0 + BM - 1 : k0 + BK - 1 <= i0);
-    if (p.b_tri) return !(b_up ? k0 + BK - 1 <= j0 : k0 >= j0 + BN - 1);
-    return false;
+    return straddles(p, AT, BT, i0, j0, BM, BN, BK, kb + t * BK) != 0;
   };
   if (threadIdx.x < 128) {
     wg::producer_regs();
@@ -389,7 +409,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 }
 
 template <bool AT, bool BT>
-static int launch_wgmma(const MM& p, WgOpts o, dim3 grid, cudaStream_t s) {
+static int launch_wgmma(const MM& p, TileOpts o, dim3 grid, cudaStream_t s) {
   CUtensorMap ta, tb;
   const bool ok =
       wg::make_map(&ta, p.A, AT ? p.K : p.M, AT ? p.M : p.K, p.lda, AT ? wg::BM / 2 : wg::BM) &&
@@ -399,6 +419,96 @@ static int launch_wgmma(const MM& p, WgOpts o, dim3 grid, cudaStream_t s) {
   const cudaError_t e = wg::size_smem(mm_wgmma<AT, BT>, sized);
   if (e != cudaSuccess) return (int)e;
   mm_wgmma<AT, BT><<<grid, wg::THREADS, wg::SMEM_BYTES, s>>>(ta, tb, p, o);
+  return (int)cudaGetLastError();
+}
+
+// ---- f64, the dmma route; f32, the fma route (mm_tiles.cuh) -----------------
+
+// the A and B windows as stored (AT: A is K x M; BT: B is N x K)
+template <typename T, bool AT, bool BT>
+__device__ __forceinline__ void windows(const MM& p, mmt::Win<T>& wa, mmt::Win<T>& wb) {
+  wa.p = (const T*)p.A;
+  wa.ld = p.lda;
+  wa.rows = AT ? p.K : p.M;
+  wa.cols = AT ? p.M : p.K;
+  wb.p = (const T*)p.B;
+  wb.ld = p.ldb;
+  wb.rows = BT ? p.N : p.K;
+  wb.cols = BT ? p.K : p.N;
+}
+
+template <bool AT, bool BT>
+__global__ void __launch_bounds__(mmt::D_THREADS, mmt::D_MINB) mm_dmma(MM p, TileOpts o) {
+  constexpr int BM = mmt::D_BM, BN = mmt::D_BN, BK = mmt::D_BK;
+  extern __shared__ __align__(16) uint8_t dmma_smem[];
+  int ti, tj;
+  bool live;
+  tile_of(p, ordered_bid(p, o.order, blockIdx.x), ti, tj, live);
+  const int i0 = ti * BM, j0 = tj * BN;
+  double* O = (double*)p.O;
+  if (!live) {
+    zero_tile(p, O, i0, j0, BM, BN);
+    return;
+  }
+  int kb, ke;
+  k_range(p, AT, BT, i0, j0, BM, BN, BK, kb, ke);
+  const int nk = ke > kb ? (ke - kb + BK - 1) / BK : 0;
+  mmt::Win<double> wa, wb;
+  windows<double, AT, BT>(p, wa, wb);
+  double acc[mmt::D_MI][mmt::D_NI][4];
+  mmt::dmma_loop<AT, BT>(
+      reinterpret_cast<double*>(dmma_smem), wa, wb, i0, j0, nk, [&](int t) { return kb + t * BK; },
+      [&](int t) { return straddles(p, AT, BT, i0, j0, BM, BN, BK, kb + t * BK); },
+      [&](int r, int c) { return in_tri(p.a_tri, r, c); },
+      [&](int r, int c) { return in_tri(p.b_tri, r, c); }, acc);
+  const double* C = (const double*)p.C;
+#pragma unroll
+  for (int mi = 0; mi < mmt::D_MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < mmt::D_NI; ++ni)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        flush(p, O, C, i0 + mmt::dmma_row(mi, x), j0 + mmt::dmma_col(ni, x), acc[mi][ni][x]);
+}
+
+template <bool AT, bool BT>
+__global__ void __launch_bounds__(mmt::F_THREADS, 2) mm_fma(MM p, TileOpts o) {
+  constexpr int BM = mmt::F_BM, BN = mmt::F_BN, BK = mmt::F_BK;
+  __shared__ __align__(16) mmt::FmaSmem sm;
+  int ti, tj;
+  bool live;
+  tile_of(p, ordered_bid(p, o.order, blockIdx.x), ti, tj, live);
+  const int i0 = ti * BM, j0 = tj * BN;
+  float* O = (float*)p.O;
+  if (!live) {
+    zero_tile(p, O, i0, j0, BM, BN);
+    return;
+  }
+  int kb, ke;
+  k_range(p, AT, BT, i0, j0, BM, BN, BK, kb, ke);
+  const int nk = ke > kb ? (ke - kb + BK - 1) / BK : 0;
+  mmt::Win<float> wa, wb;
+  windows<float, AT, BT>(p, wa, wb);
+  float acc[8][8];
+  mmt::fma_loop<AT, BT>(
+      sm, wa, wb, i0, j0, nk, [&](int t) { return kb + t * BK; },
+      [&](int t) { return straddles(p, AT, BT, i0, j0, BM, BN, BK, kb + t * BK); },
+      [&](int r, int c) { return in_tri(p.a_tri, r, c); },
+      [&](int r, int c) { return in_tri(p.b_tri, r, c); }, acc);
+  const float* C = (const float*)p.C;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) flush(p, O, C, i0 + mmt::fma_row(i), j0 + mmt::fma_col(j), acc[i][j]);
+}
+
+template <bool AT, bool BT>
+static int launch_dmma(const MM& p, TileOpts o, dim3 grid, cudaStream_t s) {
+  constexpr int bytes = mmt::dmma_smem_bytes<AT, BT>();
+  static bool sized[wg::MAX_DEVICES] = {};  // per instantiation
+  const cudaError_t e = wg::size_smem(mm_dmma<AT, BT>, sized, bytes);
+  if (e != cudaSuccess) return (int)e;
+  mm_dmma<AT, BT><<<grid, mmt::D_THREADS, bytes, s>>>(p, o);
   return (int)cudaGetLastError();
 }
 
@@ -421,22 +531,34 @@ static long long count_blocks(const MM& p) {
     else KERNEL<__VA_ARGS__ false, false><<<grid, 256, 0, s>>>(p);        \
   } while (0)
 
+// route codes (ops/hopper.py:_ROUTE_CODE): 0 the element-load loop (wmma for
+// bf16, simt for f32 / f64), 1 wgmma (bf16), 2 dmma (f64), 3 fma (f32)
+enum Route : int { R_ELEM = 0, R_WGMMA = 1, R_DMMA = 2, R_FMA = 3 };
+
 // Returns the cudaError_t of the launch (0 = launched); -1 for a bad dtype
-// or route, -2 when a tensor map cannot be encoded.  use_wgmma picks the
-// bf16 wgmma route (the caller has checked TMA's alignment), which launches
-// its tiles longest k-range first.
+// or route, -2 when a tensor map cannot be encoded.  The caller has checked
+// the route's alignment (16-byte origins and leading dimensions of A and B
+// for wgmma, dmma and fma); those three launch their tiles longest k-range
+// first.
 extern "C" int capital_tri_matmul(int dtype, const void* A, long long lda, const void* B,
                                   long long ldb, void* O, long long ldo, const void* C,
                                   long long ldc, double alpha, double beta, int M, int N,
                                   int K, int a_trans, int b_trans, int a_tri, int b_tri,
-                                  int out_uplo, int fused_c, int all_tiles, int use_wgmma,
+                                  int out_uplo, int fused_c, int all_tiles, int route,
                                   void* stream) {
+  const bool ok = route == R_ELEM || (route == R_WGMMA && dtype == DT_BF16) ||
+                  (route == R_DMMA && dtype == DT_F64) || (route == R_FMA && dtype == DT_F32);
+  if (!ok || dtype < DT_BF16 || dtype > DT_F64) return -1;
   MM p;
   p.A = A; p.lda = lda; p.B = B; p.ldb = ldb; p.O = O; p.ldo = ldo; p.C = C; p.ldc = ldc;
   p.alpha = alpha; p.beta = beta; p.M = M; p.N = N; p.K = K;
   p.a_tri = a_tri; p.b_tri = b_tri; p.out_uplo = out_uplo; p.fused_c = fused_c;
   p.all_tiles = all_tiles;
-  p.bm = p.bn = dtype == DT_BF16 ? 128 : 64;
+  p.bm = p.bn = dtype == DT_BF16 || route == R_FMA ? 128 : 64;
+  if (route == R_DMMA) {
+    p.bm = mmt::D_BM;
+    p.bn = mmt::D_BN;
+  }
   p.ntm = (M + p.bm - 1) / p.bm;
   p.ntn = (N + p.bn - 1) / p.bn;
   long long blocks = count_blocks(p);
@@ -444,20 +566,32 @@ extern "C" int capital_tri_matmul(int dtype, const void* A, long long lda, const
   dim3 grid((unsigned)blocks);
   cudaStream_t s = (cudaStream_t)stream;
   bool at = a_trans != 0, bt = b_trans != 0;
-  if (use_wgmma) {
-    if (dtype != DT_BF16) return -1;
+  if (route != R_ELEM) {
     // op(A) upper: short tiles at the bottom; lower: at the top.  op(B)
     // upper: short tiles at the left; lower: at the right.
-    WgOpts o;
+    TileOpts o;
     o.order = 0;
     if (a_tri) o.order = ((a_tri == UPLO_U) != at) ? 0 : 1;
     if (b_tri) o.order = ((b_tri == UPLO_U) != bt) ? 3 : 2;
     o.vec = (uintptr_t)O % 16 == 0 && ldo % 8 == 0 &&
             (!fused_c || ((uintptr_t)C % 16 == 0 && ldc % 8 == 0));
-    if (at && bt) return launch_wgmma<true, true>(p, o, grid, s);
-    if (at) return launch_wgmma<true, false>(p, o, grid, s);
-    if (bt) return launch_wgmma<false, true>(p, o, grid, s);
-    return launch_wgmma<false, false>(p, o, grid, s);
+    if (route == R_WGMMA) {
+      if (at && bt) return launch_wgmma<true, true>(p, o, grid, s);
+      if (at) return launch_wgmma<true, false>(p, o, grid, s);
+      if (bt) return launch_wgmma<false, true>(p, o, grid, s);
+      return launch_wgmma<false, false>(p, o, grid, s);
+    }
+    if (route == R_DMMA) {
+      if (at && bt) return launch_dmma<true, true>(p, o, grid, s);
+      if (at) return launch_dmma<true, false>(p, o, grid, s);
+      if (bt) return launch_dmma<false, true>(p, o, grid, s);
+      return launch_dmma<false, false>(p, o, grid, s);
+    }
+    if (at && bt) mm_fma<true, true><<<grid, mmt::F_THREADS, 0, s>>>(p, o);
+    else if (at) mm_fma<true, false><<<grid, mmt::F_THREADS, 0, s>>>(p, o);
+    else if (bt) mm_fma<false, true><<<grid, mmt::F_THREADS, 0, s>>>(p, o);
+    else mm_fma<false, false><<<grid, mmt::F_THREADS, 0, s>>>(p, o);
+    return (int)cudaGetLastError();
   }
   switch (dtype) {
     case DT_BF16: CAPITAL_MM_DISPATCH(mm_wmma, ); break;

@@ -19,11 +19,15 @@ Each kernel sits here as three things side by side:
   for CPU tensors and, on the card, as the reference a kernel is held to.
 * the **launch counter** (`KERNELS`): each wrapper adds one where it
   launches its kernel, and nowhere else.  `tri_matmul` and `sched_matmul`
-  also tally each launch by route (`route_counts`): 'wgmma' for bf16
-  windows that TMA can read (`_tma_ok`), 'wmma' for the other bf16 windows,
-  'simt' for f32 and f64; the CholeskyQR2 kernels 'wgmma' for bf16 (their
-  operands are always TMA-aligned) and 'simt' otherwise.  The route is
-  chosen before the launch and never changes after a failure.
+  also tally each launch by route (`route_counts`).  Windows whose A and B
+  origins and leading dimensions are 16-byte aligned (`_tma_ok`; sched
+  also needs blocks that the route's tile divides) take the dtype's fast
+  route: 'wgmma' for bf16 (TMA + wgmma), 'dmma' for f64 (mma.sync on the
+  FP64 tensor cores), 'fma' for f32 (pipelined IEEE FMA); the others take
+  the element-load loop, 'wmma' for bf16 and 'simt' for f32 / f64.  The
+  CholeskyQR2 kernels tally 'wgmma' for bf16 (their operands are always
+  TMA-aligned) and 'simt' otherwise.  The route is chosen before the launch
+  and never changes after a failure.
 
 Unlike the JAX package, where "consumed" buffers are a promise to XLA,
 writes here are real mutation: `out` windows are written in place and the
@@ -214,29 +218,39 @@ def _launched(rc: int, kernel: Kernel, route: str | None = None) -> None:
 def _tma_ok(X: torch.Tensor, view) -> bool:
     """Can TMA read window `view` of X: its origin 16-byte aligned and its
     leading dimension a multiple of 16 bytes (for bf16, a column offset and
-    a row stride that are multiples of 8 on an aligned buffer)."""
+    a row stride that are multiples of 8 on an aligned buffer).  The dmma
+    and fma loops' 16-byte copies need the same of their f64 / f32 windows."""
     return _ptr(X, view[0], view[1]) % 16 == 0 and X.stride(0) * X.element_size() % 16 == 0
 
 
-#: the kernel routes a caller may ask for by name (chip_smoke.py and the GPU
-#: tests pit the two bf16 routes against each other)
-_ROUTES = (None, "wgmma", "wmma")
+#: each dtype's routes: the fast route for 16-byte-aligned windows first,
+#: then the element-load loop that takes any window.  A caller may ask for
+#: one by name (chip_smoke.py and the GPU tests pit them against each other)
+_ROUTES = {torch.bfloat16: ("wgmma", "wmma"), torch.float32: ("fma", "simt"),
+           torch.float64: ("dmma", "simt")}
+#: the C entry points' route codes (csrc/tri_matmul.cu, sched_matmul.cu)
+_ROUTE_CODE = {"wmma": 0, "simt": 0, "wgmma": 1, "dmma": 2, "fma": 3}
+_DT_NAME = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64"}
 
 
 def _pick_route(dtype, aligned: bool, route: str | None, what: str) -> str:
-    """The route a launch takes: 'simt' for f32 / f64; for bf16 'wgmma' when
-    TMA can read the operands, else 'wmma' — or the route asked for, which
-    must be possible."""
-    if route not in _ROUTES:
+    """The route a launch takes: the dtype's fast route ('wgmma' bf16,
+    'dmma' f64, 'fma' f32) when `aligned` says its loop takes the
+    operands, else its element-load loop ('wmma' bf16, 'simt' f32 / f64) —
+    or the route asked for, which must be the dtype's and possible."""
+    if route is not None and route not in _ROUTE_CODE:
         raise ValueError(f"{what}: unknown route {route!r}")
-    if dtype != torch.bfloat16:
-        if route is not None:
-            raise ValueError(f"{what}: only bf16 has the {route} route, got {dtype}")
-        return "simt"
-    if route == "wgmma" and not aligned:
-        raise ValueError(f"{what}: the wgmma route cannot take these operands (TMA reads "
-                         "16-byte-aligned windows; sched_matmul's k-blocks are multiples of 64)")
-    return route or ("wgmma" if aligned else "wmma")
+    fast, elem = _ROUTES[dtype]
+    if route is None:
+        return fast if aligned else elem
+    if route not in (fast, elem):
+        owners = " and ".join(_DT_NAME[d] for d, rs in _ROUTES.items() if route in rs)
+        raise ValueError(f"{what}: only {owners} has the {route} route, got {dtype}")
+    if route == fast and not aligned:
+        raise ValueError(f"{what}: the {route} route cannot take these operands (it reads "
+                         "16-byte-aligned windows; sched_matmul's blocks must be multiples of "
+                         "its tile)")
+    return route
 
 
 # --------------------------------------------------------------------------
@@ -379,11 +393,12 @@ def tri_matmul(
         (the reference's 'highest'; 'high' is never less precise this way).
 
     The kernel takes A, B, C and out of one dtype (bf16, f32 or f64) and
-    accumulates in f32 (f64 for f64).  bf16 windows whose A and B origins
-    and row strides TMA can read take the wgmma route, the others the wmma
-    route; `_route` names one ('wgmma' raises where TMA cannot read), for
-    measuring the routes against each other.  The wgmma route launches its
-    tiles longest k-range first."""
+    accumulates in f32 (f64 for f64).  Windows whose A and B origins and
+    row strides are 16-byte aligned take the dtype's fast route (bf16
+    'wgmma', f64 'dmma', f32 'fma'), the others its element-load loop (bf16
+    'wmma', f32 / f64 'simt'); `_route` names one (a fast route raises where
+    the alignment is missing), for measuring the routes against each other.
+    The fast routes launch their tiles longest k-range first."""
     s = _mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view,
                  b_view, out, out_off, c, c_view, beta)
     cc = c if s.fused_c else None
@@ -421,7 +436,7 @@ def tri_matmul(
         float(alpha), float(beta), s.M, s.N, s.K,
         int(bool(a_trans)), int(bool(b_trans)),
         _UPLO[a_uplo], _UPLO[b_uplo], _UPLO[out_uplo],
-        int(s.fused_c), int(all_tiles), int(route == "wgmma"),
+        int(s.fused_c), int(all_tiles), _ROUTE_CODE[route],
         _stream(),
     )
     _launched(rc, KERNELS["tri_matmul." + s.form], route)
@@ -768,13 +783,18 @@ def fused_tail(buf, Rp, RIp, *, off: int, n: int, dest: int, block: int = 0,
 # sched_matmul
 # --------------------------------------------------------------------------
 
-#: (rows, cols, depth) of one CUDA block's tile: WMMA for bf16, FMA otherwise
-#: (the wgmma route's k-tile is _WGMMA_BK deep)
-_SCHED_TILE = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16),
-               torch.float64: (64, 64, 16)}
+#: (rows, cols, depth) of one CUDA block's tile on each route: the blocks
+#: must be multiples of it
 _WGMMA_BK = 64
+_SCHED_TILE = {"wgmma": (128, 128, _WGMMA_BK), "wmma": (128, 128, 32), "dmma": (128, 128, 32),
+               "fma": (128, 128, 8), "simt": (64, 64, 16)}
 #: most schedule entries one launch takes (the grid's second dimension)
 SCHED_MAX_PAIRS = 65535
+
+
+def _sched_fits(route: str, blocks) -> bool:
+    """Does the route's CUDA tile divide the schedule's blocks?"""
+    return all(b % t == 0 for b, t in zip(blocks, _SCHED_TILE[route]))
 
 
 def _sched_spec(A, B, to, ko, first, last, tri_side, blocks):
@@ -837,11 +857,12 @@ def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=N
     blocks = (bm, bn, bk) tile M, N and K.  The operands are pre-masked: no
     mask is applied inside a tile.  Output tiles that no pair lists are
     undefined.  The kernel takes row-major contiguous A and B of one dtype
-    (bf16, f32 or f64), blocks that its CUDA tile divides (128 x 128 x 32
-    for bf16, 64 x 64 x 16 otherwise), accumulates in f32 (f64 for f64) and
-    writes the operands' dtype.  bf16 operands that TMA can read, with
-    k-blocks a multiple of 64, take the wgmma route, the others the wmma
-    route; `_route` names one, as in `tri_matmul`."""
+    (bf16, f32 or f64), blocks that its route's CUDA tile divides
+    (`_SCHED_TILE`), accumulates in f32 (f64 for f64) and writes the
+    operands' dtype.  16-byte-aligned operands whose blocks the fast
+    route's tile divides take that route (bf16 'wgmma', f64 'dmma', f32
+    'fma'), the others the element-load loop ('wmma', 'simt'); `_route`
+    names one, as in `tri_matmul`."""
     M, N, K = _sched_spec(A, B, to, ko, first, last, tri_side, blocks)
     if not _on_card(A, B, to, ko, first, last):
         return sched_matmul_plain(A, B, to, ko, first, last, tri_side=tri_side, blocks=blocks)
@@ -851,22 +872,21 @@ def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=N
             raise ValueError(f"sched_matmul kernel: {what} must be contiguous")
     if B.dtype != A.dtype:
         raise TypeError(f"sched_matmul kernel: B is {B.dtype}, A is {A.dtype}")
-    tm, tn, tk = _SCHED_TILE[A.dtype]
-    bm, bn, bk = blocks
-    if bm % tm or bn % tn or bk % tk:
-        raise ValueError(
-            f"sched_matmul kernel: blocks {tuple(blocks)} must be multiples of the "
-            f"{A.dtype} tile {(tm, tn, tk)}"
-        )
     if to.numel() > SCHED_MAX_PAIRS:
         raise ValueError(f"sched_matmul kernel: {to.numel()} pairs, at most {SCHED_MAX_PAIRS}")
-    aligned = _tma_ok(A, (0, 0)) and _tma_ok(B, (0, 0)) and bk % _WGMMA_BK == 0
+    aligned = (_tma_ok(A, (0, 0)) and _tma_ok(B, (0, 0))
+               and _sched_fits(_ROUTES[A.dtype][0], blocks))
     route = _pick_route(A.dtype, aligned, _route, "sched_matmul")
+    if not _sched_fits(route, blocks):
+        raise ValueError(
+            f"sched_matmul kernel: blocks {tuple(blocks)} must be multiples of the "
+            f"{route} tile {_SCHED_TILE[route]}"
+        )
     res = torch.empty((M, N), dtype=A.dtype, device=A.device)
     rc = _build.entry("capital_sched_matmul")(
         _DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(), res.data_ptr(),
         to.data_ptr(), ko.data_ptr(), first.data_ptr(), last.data_ptr(),
-        to.numel(), M, N, K, bm, bn, bk, int(tri_side == "a"), int(route == "wgmma"), _stream(),
+        to.numel(), M, N, K, *blocks, int(tri_side == "a"), _ROUTE_CODE[route], _stream(),
     )
     _launched(rc, KERNELS["sched_matmul"], route)
     return res

@@ -10,20 +10,24 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    CUDA versions and the build time;
 2. holds every kernel of the cholinv path against its plain PyTorch version
    on the card, at the path's shapes (n=16384, bc=512: 8192-wide trmm/syrk
-   windows, 512-wide leaves), in bf16 and f32, and times kernel, plain
-   version and the nearest single PyTorch call with CUDA events beside the
-   kernel's bound — tri_matmul in each call the path makes (CI::trsm in
-   place, CI::inv's two steps, the second side R in place, CI::tmu's syrk)
-   and in its dense form, bf16 on both routes (wgmma and wmma) in the same
-   run, interleaved; then NaN in the dead triangles on the wgmma route and
+   windows, 512-wide leaves), in bf16 and f32 (f64: tri_matmul only), and
+   times kernel, plain version and the nearest single PyTorch call with
+   CUDA events beside the kernel's bound — tri_matmul in each call the path
+   makes (CI::trsm in place, CI::inv's two steps, the second side R in
+   place, CI::tmu's syrk) and in its dense form, each dtype on both its
+   routes in the same run, interleaved (bf16 wgmma / wmma, f32 fma / simt,
+   f64 dmma / simt); then NaN in the dead triangles on the wgmma route and
    an unaligned window, which must take the wmma route;
 3. drives the cholinv path, `models/cholesky.factor` in mode 'pallas':
    n=16384 bf16 (against the same factor through the plain versions, plus
-   residual gates), n=8192 f32 (residual gates), and the n=49152 bf16
+   residual gates), n=8192 f32 (residual gates, timed), the n=49152 bf16
    flagship with bc=384 (timed, probe-vector residual gates, and one factor
    traced with torch.profiler: device time by CI:: phase and kernel, idle
-   share) — each with the launch counters set to 0 just before and checked
-   just after against what the plan predicts;
+   share), and (3d) n=16384 f64 bc=512, the reference's own precision
+   (residual gates 1e-13, against the same factor through the plain
+   versions, timed, profiled by CI:: phase) — each with the launch counters
+   set to 0 just before and checked just after against what the plan
+   predicts;
 4. holds the CholeskyQR2 kernels (gram_blocked, scale_gram, scale_blocked)
    against their plain versions at the 2,097,152 x 1024 bf16 QR flagship and
    at 65536 x 512 f32, timed beside their bounds and library calls, every
@@ -105,10 +109,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 17. holds the mesh schedule's per-rank kernel, sched_matmul, against its
     plain version: the cholinv flagship's top-node slabs of one rank of a
     2x2x1 mesh (4096 x 8192 @ 8192 x 4096, blocks 512³) and a 128-block
-    case (256 x 512 @ 512 x 256), bf16 (both routes), f32 and f64, tri_side
-    'a' and 'b', the padded rank and the full one; timed (the full rank;
-    bf16 on both routes, interleaved) beside its bound, the plain version
-    and one torch.matmul of the pre-masked slabs;
+    case (256 x 512 @ 512 x 256), bf16, f32 and f64 each on both its routes,
+    tri_side 'a' and 'b', the padded rank and the full one; timed (the full
+    rank; both routes, interleaved) beside its bound, the plain version and
+    one torch.matmul of the pre-masked slabs;
 18. drives the mesh path on a 2x2x1 in-process mesh of the card
     (`Grid.rect(2, 2, 1, devices=[cuda] * 4)`, mode 'explicit'; its
     collectives are copies and sums inside the one card, so no
@@ -117,10 +121,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     factor, timed beside it, peak memory, one run profiled by CI::
     phase), (b)
     cholinv n=8192 f32 bc=256 against the same factor through the plain
-    versions, (c) rectri n=16384 bf16 bc=512, and (d) cholinv n=2048 f32
-    on a 2x2x2 mesh (the c > 1 route, no kernel) — each with the counters
-    set to 0 just before and checked just after: sched_matmul launches
-    d² = 4 per trmm that the sched gate routes, every other kernel 0;
+    versions, (c) rectri n=16384 bf16 bc=512, (d) cholinv n=2048 f32 on a
+    2x2x2 mesh (the c > 1 route, no kernel), and (e) cholinv n=16384 f64
+    bc=512 (residual gates 1e-13, against the single-device f64 factor,
+    timed beside it) — each with the counters set to 0 just before and
+    checked just after: sched_matmul launches d² = 4 per trmm that the
+    sched gate routes, every other kernel 0;
 19. prints the `kernels` JSON line (each bt.* kernel's launches from the
     main path's own run: the flagship 'pallas' posv for fused_forward and
     solve_backward, the factor for factor, the solve for forward_solve;
@@ -131,8 +137,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 
 Phases 3, 5, 7, 9–12, 14, 16 and 18 set every launch counter to 0 just
 before their runs and check the counts just after against the plan;
-phases 3, 4, 5, 9, 17 and 18 also check that every tri_matmul, sched_matmul
-and qr_fused launch took its dtype's route (bf16: wgmma, f32 / f64: simt).
+phases 3, 4, 5, 9, 17 and 18 also check that every tri_matmul and
+sched_matmul launch took its dtype's route (bf16 wgmma, f32 fma, f64
+dmma) and every qr_fused launch its own (bf16 wgmma, f32 simt).
 
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA or a directory without the package.
@@ -166,10 +173,13 @@ BT_KERNELS = ("bt.fused_forward", "bt.factor", "bt.forward_solve", "bt.solve_bac
 UP_KERNELS = ("up.sweep",)
 #: the mesh slice's kernel
 MESH_KERNELS = ("sched_matmul",)
-#: kernels whose launches are tallied by route, and the route each dtype's
-#: aligned windows take
+#: kernels whose launches are tallied by route; the route each dtype's
+#: aligned windows take in tri_matmul and sched_matmul, the element-load
+#: loop each dtype's other windows take, and the CholeskyQR2 kernels' routes
 ROUTED = ("tri_matmul.trmm", "tri_matmul.syrk", "tri_matmul.dense", "sched_matmul") + QR_KERNELS
-ROUTE_OF = {torch.bfloat16: "wgmma", torch.float32: "simt", torch.float64: "simt"}
+ROUTE_OF = {torch.bfloat16: "wgmma", torch.float32: "fma", torch.float64: "dmma"}
+ELEM_OF = {torch.bfloat16: "wmma", torch.float32: "simt", torch.float64: "simt"}
+QR_ROUTE_OF = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 DTYPE_BY_NAME = {"f32": torch.float32, "bf16": torch.bfloat16}
 #: phase 15's sweeps (batch, n, k): the serve bucket's largest small-N n
 #: over the nrhs_buckets rungs, and the throughput batch
@@ -367,15 +377,16 @@ def mm_work(name, W, item) -> tuple[float, float]:
 
 def mm_phase(hopper, dtype, dev, RIp, Rp, buf, W: int) -> dict:
     """Every tri_matmul call of the path against its plain version and timed
-    beside its bound and library call.  bf16 runs each on both routes, in
-    the same run and interleaved (wgmma, wmma, wmma, wgmma); then NaN in
+    beside its bound and library call, on both of the dtype's routes in the
+    same run and interleaved (fast, element-load, element-load, fast: bf16
+    wgmma / wmma, f32 fma / simt, f64 dmma / simt); then, for bf16, NaN in
     the dead triangles on the wgmma route, and an unaligned window, which
     must take the wmma route."""
     item = torch.tensor([], dtype=dtype).element_size()
     g = torch.Generator(device=dev).manual_seed(8)
     T = torch.randn(W, W, generator=g, device=dev, dtype=torch.float32).to(dtype)
     bf16 = dtype == torch.bfloat16
-    routes = ("wgmma", "wmma") if bf16 else (None,)
+    routes = (ROUTE_OF[dtype], ELEM_OF[dtype])
     live = torch.triu(torch.ones(W, W, dtype=torch.bool, device=dev))
     res = {}
     for name, (A, B, kw, where) in mm_calls(RIp, Rp, buf, T, W).items():
@@ -395,18 +406,15 @@ def mm_phase(hopper, dtype, dev, RIp, Rp, buf, W: int) -> dict:
             got = fresh()
             got = run(route, out=got)
             torch.cuda.synchronize()
-            err = max(err, check_close(f"{name} {route or 'simt'}", got, want, dtype, mask))
+            err = max(err, check_close(f"{name} {route}", got, want, dtype, mask))
             del got
         del want
         out = fresh()
         iters = 3 if bf16 else 2
-        if bf16:  # interleaved: wgmma, wmma, wmma, wgmma
-            t = {r: [] for r in routes}
-            for r in ("wgmma", "wmma", "wmma", "wgmma"):
-                t[r].append(time_ms(lambda: run(r, out=out), iters))
-            ms, extra = sum(t["wgmma"]) / 2, dict(wmma_ms=sum(t["wmma"]) / 2)
-        else:
-            ms, extra = time_ms(lambda: run(None, out=out), iters), {}
+        t = {r: [] for r in routes}
+        for r in routes + routes[::-1]:  # interleaved: fast, element-load, element-load, fast
+            t[r].append(time_ms(lambda: run(r, out=out), iters))
+        ms, extra = sum(t[routes[0]]) / 2, {f"{routes[1]}_ms": sum(t[routes[1]]) / 2}
         plain_out = fresh()
         res[name] = dict(
             max_abs_err=err, ms=ms, **extra,
@@ -459,13 +467,19 @@ def nan_and_unaligned(hopper, dtype, dev, RIp, buf, W: int) -> dict:
 
 def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
     """Every kernel against its plain version at the main path's shapes
-    (the top-level window W and the leaf bc of n=16384, bc=512)."""
+    (the top-level window W and the leaf bc of n=16384, bc=512); f64 the
+    tri_matmul calls only (its leaves' transposes run in phase 3d's factor,
+    which is held to the same factor through the plain versions)."""
     p = 2 * W
     item = torch.tensor([], dtype=dtype).element_size()
     g = torch.Generator(device=dev).manual_seed(7)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev, dtype=torch.float32).to(dtype)
     RIp, Rp, buf = rnd(p, p), rnd(p, p), rnd(p, p)
     res = mm_phase(hopper, dtype, dev, RIp, Rp, buf, W)
+    if dtype == torch.float64:
+        del RIp, Rp, buf
+        torch.cuda.empty_cache()
+        return res
 
     # transpose, the leaf read: window -> lower f32 panel
     kw = dict(in_view=(bc, bc, bc, bc), out_uplo="L", out_dtype=torch.float32)
@@ -528,10 +542,17 @@ def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
     return res
 
 
-def check_routes(hopper, counts: dict, route: str, label: str) -> dict:
-    """Every counted launch of a routed kernel took `route`."""
+def check_routes(hopper, counts: dict, route, label: str) -> dict:
+    """Every counted launch of a routed kernel took its route: `route`
+    names one for all of them, or is a dtype (tri_matmul and sched_matmul
+    on ROUTE_OF, the CholeskyQR2 kernels on QR_ROUTE_OF)."""
+    def of(k):
+        if isinstance(route, str):
+            return route
+        return (QR_ROUTE_OF if k in QR_KERNELS else ROUTE_OF)[route]
+
     got = hopper.route_counts()
-    want = {k: {route: counts[k]} for k in ROUTED if counts.get(k)}
+    want = {k: {of(k): counts[k]} for k in ROUTED if counts.get(k)}
     check(got == want, f"{label}: launches by route {got} != {want}")
     return got
 
@@ -581,8 +602,44 @@ def drive(cholesky, hopper, grid, n, dtype, bc, precision):
     counts = hopper.counts()
     want = predicted_counts(cholesky.padded_dim(n, bc) // bc)
     check(counts == want, f"n={n} launch counts {counts} != predicted {want}")
-    check_routes(hopper, counts, ROUTE_OF[dtype], f"n={n} {dtype}")
+    check_routes(hopper, counts, dtype, f"n={n} {dtype}")
     return R, Ri, A, cfg, counts, secs
+
+
+#: phase 3d and 18e: the reference's N=16384 row in f64, its own precision
+F64_FACTOR = (16384, 512)
+
+
+def f64_factor_phase(cholesky, hopper, grid, residual) -> dict:
+    """Phase 3d: cholinv n=16384 f64 bc=512 — every tri_matmul launch on
+    dmma, residual and inverse residual <= 1e-13 (the bench drivers' f64
+    gate, `drivers._tolerance`), against the same factor through the plain
+    versions, timed by CUDA events after the counted run, and profiled by
+    CI:: phase."""
+    n, bc = F64_FACTOR
+    R, Ri, A, cfg, counts, secs = drive(cholesky, hopper, grid, n, torch.float64, bc, None)
+    res_r = float(residual.cholesky_residual(A, R))
+    res_i = float(residual.cholesky_inverse_residual(R, Ri))
+    check(res_r <= 1e-13 and res_i <= 1e-13, f"n={n} f64 residuals {res_r}, {res_i}")
+    with plain_versions(hopper):
+        Rq, Riq = cholesky.factor(grid, A, cfg)
+    dR = float(residual.rel_fro(R - Rq, Rq))
+    dRi = float(residual.rel_fro(Ri - Riq, Riq))
+    # f64: the kernels and torch.matmul sum in other orders; 1e-12 relative
+    check(dR < 1e-12 and dRi < 1e-12, f"n={n} f64 kernels vs plain: {dR}, {dRi}")
+    del R, Ri, Rq, Riq
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = timed_s(lambda: cholesky.factor(grid, A, cfg), 2)
+    res = dict(n=n, bc=bc, dtype="float64", seconds=t, tflops=(2 * n**3 / 3) / t / 1e12,
+               peak_bytes=torch.cuda.max_memory_allocated(), seconds_first=secs, counts=counts,
+               vs_plain=[dR, dRi], residual=res_r, inverse_residual=res_i)
+    print(json.dumps({"factor": f"n={n} f64 bc={bc}", **res}), flush=True)
+    res["profile"] = profile(lambda: cholesky.factor(grid, A, cfg), "CI::")
+    print(json.dumps({"profile": f"n={n} f64", **res["profile"]}), flush=True)
+    del A
+    torch.cuda.empty_cache()
+    return res
 
 
 def profile(run, prefix: str) -> dict:
@@ -726,7 +783,7 @@ def qr_kernel_phase(qr_fused, hopper, m: int, n: int, dtype, dev) -> dict:
     del A, Rinv
     torch.cuda.empty_cache()
     routes = hopper.route_counts()
-    check(set(routes) == set(QR_KERNELS) and all(set(v) == {ROUTE_OF[dtype]} for v in routes.values()),
+    check(set(routes) == set(QR_KERNELS) and all(set(v) == {QR_ROUTE_OF[dtype]} for v in routes.values()),
           f"QR kernels {m}x{n} {dtype}: launches by route {routes}")
     print(json.dumps({"qr_routes": f"{m}x{n} {dtype} g={g}", **routes}), flush=True)
     return res
@@ -788,7 +845,7 @@ def drive_qr(qr, hopper, grid, A, cfg, want, label):
     if callable(want):
         want = want(out)
     check(counts == want, f"{label}: launch counts {counts} != predicted {want}")
-    check_routes(hopper, counts, ROUTE_OF[A.dtype], label)
+    check_routes(hopper, counts, A.dtype, label)
     return out, counts, secs
 
 
@@ -1319,10 +1376,11 @@ def inv_kernel_phase(hopper, batched_small, tsqr, dev) -> dict:
     return res
 
 
-def drive_counted(hopper, run, want: dict, label: str, route: str | None = None):
+def drive_counted(hopper, run, want: dict, label: str, route=None):
     """One call of `run` with the counters set to 0 just before and read
     just after, held to `want` (every kernel not named there: 0) and, where
-    `route` is given, every routed launch to that route."""
+    `route` (a route or a dtype, as `check_routes` takes) is given, every
+    routed launch to its route."""
     torch.cuda.synchronize()
     hopper.reset_counts()
     t0 = time.perf_counter()
@@ -1383,7 +1441,7 @@ def rectri_phase(hopper, grid, dev) -> dict:
     L = tri_operand(n, torch.float32, 1, dev)
     cfg = inverse.RectriConfig(base_case_dim=bc, mode="pallas", precision="highest")
     Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(grid, L, "L", cfg), want, "rectri f32",
-                                     "simt")
+                                     torch.float32)
     with plain_versions(hopper):
         Lq = inverse.rectri(grid, L, "L", cfg)
     d = float(residual.rel_fro(Li - Lq, Lq))
@@ -1392,7 +1450,7 @@ def rectri_phase(hopper, grid, dev) -> dict:
     check(d < 1e-5 and gate < 5e-5, f"rectri f32: vs plain {d}, inverse residual {gate}")
     U = L.T.contiguous()
     Ui, ucounts, _ = drive_counted(hopper, lambda: inverse.rectri(grid, U, "U", cfg), want, "rectri U",
-                                   "simt")
+                                   torch.float32)
     ugate = float(residual.inverse_residual(U, Ui))
     check(ugate < 5e-5 and float(torch.tril(Ui, -1).abs().max()) == 0.0, f"rectri U: residual {ugate}")
     out["f32"] = dict(n=n, bc=bc, counts=counts, seconds_first=secs, vs_plain=d, inverse_residual=gate,
@@ -2337,7 +2395,8 @@ def update_refine_phase(hopper, dev) -> dict:
 SCHED_SHAPES = {"flagship": (4096, 8192, 4096), "b128": (256, 512, 256)}
 #: phase 18's runs: (n, dtype, bc) on 2x2x1, the rectri one, the 2x2x2 one
 MESH_RUNS = {"cholinv": (16384, torch.bfloat16, 512), "cholinv_f32": (8192, torch.float32, 256),
-             "rectri": (16384, torch.bfloat16, 512), "cholinv_c2": (2048, torch.float32, 256)}
+             "rectri": (16384, torch.bfloat16, 512), "cholinv_c2": (2048, torch.float32, 256),
+             "cholinv_f64": (16384, torch.float64, 512)}
 
 
 def sched_operands(mb, K, nb, side, dtype, dev, seed):
@@ -2388,14 +2447,14 @@ def sched_kernel_phase(hopper, summa, dev) -> dict:
                         for r in range(2)]
                 check(int(FI[0, -1]) == 0 and int(LA[0, -1]) == 0, f"sched {name}: rank 0 has no pads")
                 err = 0.0
-                routes = ("wgmma", "wmma") if dtype == torch.bfloat16 else (None,)
+                routes = (ROUTE_OF[dtype], ELEM_OF[dtype])
                 for r in range(2):
                     kw = dict(tri_side=side, blocks=blocks)
                     want = hopper.sched_matmul_plain(As[r], Bs[r], *rows[r], **kw)
                     for route in routes:
                         hopper.reset_counts()
                         got = hopper.sched_matmul(As[r], Bs[r], *rows[r], _route=route, **kw)
-                        check_routes(hopper, hopper.counts(), route or "simt", f"sched_matmul {name}")
+                        check_routes(hopper, hopper.counts(), route, f"sched_matmul {name}")
                         torch.cuda.synchronize()
                         err = max(err, check_close(f"sched_matmul {name} {side} rank {r} {route}", got,
                                                    want, dtype))
@@ -2406,13 +2465,13 @@ def sched_kernel_phase(hopper, summa, dev) -> dict:
                 iters = 5 if name == "flagship" else 50
                 key = f"{name} {side} {str(dtype).split('.')[-1]}"
                 t = {r: [] for r in routes}
-                for r in routes + routes[::-1]:  # interleaved: wgmma, wmma, wmma, wgmma
+                for r in routes + routes[::-1]:  # interleaved: fast, element-load, element-load, fast
                     t[r].append(time_ms(lambda: hopper.sched_matmul(A, B, *row, tri_side=side,
                                                                     blocks=blocks, _route=r), iters))
-                extra = {"wmma_ms": sum(t["wmma"]) / 2} if "wmma" in t else {}
+                extra = {f"{routes[1]}_ms": sum(t[routes[1]]) / 2}
                 res[key] = dict(
                     max_abs_err=err, blocks=list(blocks), runs=[int(FI[r].sum()) for r in range(2)],
-                    ms=sum(t[routes[0]]) / len(t[routes[0]]), **extra,
+                    ms=sum(t[routes[0]]) / 2, **extra,
                     plain_ms=time_ms(lambda: hopper.sched_matmul_plain(A, B, *row, tri_side=side,
                                                                        blocks=blocks), 2),
                     library_ms=time_ms(lambda: torch.matmul(A, B), iters),
@@ -2500,7 +2559,7 @@ def mesh_phase(hopper, dev) -> dict:
     plan = mesh_plan(summa, cholesky, mesh, n, bc)
     A = spd_hash(n, dtype, salt=2, device=dev)
     (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(mesh, A, cfg),
-                                          {"sched_matmul": plan}, "mesh cholinv n=8192 f32", "simt")
+                                          {"sched_matmul": plan}, "mesh cholinv n=8192 f32", torch.float32)
     with plain_versions(hopper):
         Rq, Riq = cholesky.factor(mesh, A, cfg)
     d = max(float(residual.rel_fro(R - Rq, Rq)), float(residual.rel_fro(Ri - Riq, Riq)))
@@ -2548,6 +2607,38 @@ def mesh_phase(hopper, dev) -> dict:
     print(json.dumps({"mesh": "cholinv n=2048 f32 2x2x2", **out["cholinv_c2"]}), flush=True)
     del A, R, Ri
     torch.cuda.empty_cache()
+
+    # (e) cholinv n=16384 f64 bc=512: every sched_matmul launch on dmma
+    n, dtype, bc = MESH_RUNS["cholinv_f64"]
+    cfg = cholesky.CholinvConfig(mode="explicit", base_case_dim=bc, precision=None)
+    plan = mesh_plan(summa, cholesky, mesh, n, bc)
+    A = spd_hash(n, dtype, salt=1, device=dev)
+    (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(mesh, A, cfg),
+                                          {"sched_matmul": plan}, "mesh cholinv n=16384 f64", dtype)
+    res_r = float(residual.cholesky_residual(A, R))
+    res_i = float(residual.cholesky_inverse_residual(R, Ri))
+    check(res_r <= 1e-13 and res_i <= 1e-13, f"mesh n=16384 f64 residuals {res_r}, {res_i}")
+    cfg1 = cholesky.CholinvConfig(mode="pallas", base_case_dim=bc, precision=None)
+    R1, Ri1 = cholesky.factor(single, A, cfg1)
+    dR = float(residual.rel_fro(R - R1, R1))
+    dRi = float(residual.rel_fro(Ri - Ri1, Ri1))
+    # f64: the mesh's per-rank products and the single device's sum in
+    # other orders; 1e-12 relative
+    check(dR < 1e-12 and dRi < 1e-12, f"mesh n=16384 f64 vs the single-device factor: {dR}, {dRi}")
+    del R, Ri, R1, Ri1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = timed_s(lambda: cholesky.factor(mesh, A, cfg), 2)
+    peak = torch.cuda.max_memory_allocated()
+    t1 = timed_s(lambda: cholesky.factor(single, A, cfg1), 2)
+    out["cholinv_f64"] = dict(n=n, bc=bc, dtype="float64", grid="2x2x1", seconds=t,
+                              seconds_single_device=t1, tflops=(2 * n**3 / 3) / t / 1e12,
+                              peak_bytes=peak, seconds_first=secs, residual=res_r,
+                              inverse_residual=res_i, vs_single_device=[dR, dRi], plan=plan,
+                              counts=counts)
+    print(json.dumps({"mesh": "cholinv n=16384 f64", **out["cholinv_f64"]}), flush=True)
+    del A
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2583,7 +2674,7 @@ def main(argv=None) -> int:
     out = {"env": smi, "build_s": build_s, "kernels": {}, "factor": {}}
 
     # ---- phase 2: kernels against their plain versions -------------------
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
         res = kernel_phase(hopper, dtype, dev)
         for name, r in res.items():
             if "bound" in r:
@@ -2616,16 +2707,19 @@ def main(argv=None) -> int:
     del R, Ri, A
     torch.cuda.empty_cache()
 
-    # ---- phase 3b: n=8192 f32 -------------------------------------------
-    R, Ri, A, cfg, counts, secs = drive(cholesky, hopper, grid, 8192, torch.float32, 256, "highest")
+    # ---- phase 3b: n=8192 f32, every tri_matmul launch on fma ------------
+    n = 8192
+    R, Ri, A, cfg, counts, secs = drive(cholesky, hopper, grid, n, torch.float32, 256, "highest")
     res_r = float(residual.cholesky_residual(A, R))
     res_i = float(residual.cholesky_inverse_residual(R, Ri))
     # f32 gates (the reference's f32 class, ~1e-6), with room for n=8192
     check(res_r < 5e-6 and res_i < 5e-6, f"n=8192 f32 residuals {res_r}, {res_i}")
-    out["factor"]["n8192_f32"] = dict(counts=counts, seconds_first=secs,
-                                      residual=res_r, inverse_residual=res_i)
+    del R, Ri
+    t = timed_s(lambda: cholesky.factor(grid, A, cfg), 2)
+    out["factor"]["n8192_f32"] = dict(counts=counts, seconds=t, tflops=(2 * n**3 / 3) / t / 1e12,
+                                      seconds_first=secs, residual=res_r, inverse_residual=res_i)
     print(json.dumps({"factor": "n=8192 f32 bc=256", **out["factor"]["n8192_f32"]}), flush=True)
-    del R, Ri, A
+    del A
     torch.cuda.empty_cache()
 
     # ---- phase 3c: the n=49152 bf16 flagship, bc=384 ---------------------
@@ -2661,6 +2755,9 @@ def main(argv=None) -> int:
 
     missing = [k for k in PATH_KERNELS if path_counts.get(k, 0) < 1]
     check(not missing, f"kernels of the path never launched: {missing}")
+
+    # ---- phase 3d: n=16384 f64 bc=512, the reference's own precision -------
+    out["factor"]["n16384_f64"] = f64_factor_phase(cholesky, hopper, grid, residual)
 
     # ---- phase 4: the CholeskyQR2 kernels against their plain versions ----
     from capital_tpu_torch.ops import qr_fused

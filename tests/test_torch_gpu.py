@@ -1026,8 +1026,8 @@ def test_wgmma_syrk_vs_plain(cuda, out_uplo, a_trans, b_trans, in_place):
 
 
 def test_wgmma_route_tally(cuda):
-    """Aligned bf16 windows take wgmma, an odd column offset wmma, f32 simt;
-    counts() keeps its keys and its sums; reset clears the tally."""
+    """Aligned bf16 windows take wgmma, an odd column offset wmma, aligned
+    f32 fma; counts() keeps its keys and its sums; reset clears the tally."""
     A = _rand(78, (512, 512), "bf16", cuda)
     hopper.reset_counts()
     hopper.tri_matmul(A, A, a_uplo="U", a_view=(0, 0, 256, 256), b_view=(0, 256, 256, 256))
@@ -1035,7 +1035,7 @@ def test_wgmma_route_tally(cuda):
     hopper.tri_matmul(A.float(), A.float(), out_uplo="U", a_trans=True)
     hopper.tri_matmul(A, A, a_view=(0, 0, 256, 256), b_view=(0, 256, 256, 256), _route="wmma")
     assert hopper.route_counts() == {"tri_matmul.trmm": {"wgmma": 1, "wmma": 1},
-                                     "tri_matmul.syrk": {"simt": 1}, "tri_matmul.dense": {"wmma": 1}}
+                                     "tri_matmul.syrk": {"fma": 1}, "tri_matmul.dense": {"wmma": 1}}
     c = hopper.counts()
     assert set(c) == set(hopper.KERNELS)
     assert (c["tri_matmul.trmm"], c["tri_matmul.syrk"], c["tri_matmul.dense"]) == (2, 1, 1)
@@ -1089,11 +1089,11 @@ def test_sched_matmul_wmma_route_stays(cuda):
         hopper.sched_matmul(A, B, *sched, tri_side="a", blocks=blocks, _route="wgmma")
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f64"])
 def test_mesh_and_rectri_routes(cuda, dt):
     """Every tri_matmul launch of a cholinv and a rectri, and every
     sched_matmul launch of a mesh factor, takes its dtype's route."""
-    route = {"f32": "simt", "bf16": "wgmma"}[dt]
+    route = {"f32": "fma", "bf16": "wgmma", "f64": "dmma"}[dt]
     n = 1024
     g = np.random.default_rng(13).standard_normal((n, n))
     A = torch.from_numpy(g @ g.T / n + 3 * np.eye(n)).to(DTYPES[dt]).to(cuda)
@@ -1108,3 +1108,167 @@ def test_mesh_and_rectri_routes(cuda, dt):
     cholesky.factor(Grid.rect(2, 2, 1, devices=[cuda] * 4), A,
                     cholesky.CholinvConfig(mode="explicit", base_case_dim=256))
     assert hopper.route_counts() == {"sched_matmul": {route: 12}}
+
+
+# ---- the f64 dmma and f32 fma routes of tri_matmul and sched_matmul --------
+# Each case forces the dtype's fast route (f64 'dmma', f32 'fma') and is held
+# to the plain version with the tolerances at the top of the file; windows
+# are ragged in every dimension (not multiples of the 128 x 64 / 128 x 128
+# tiles) at 16-byte-aligned origins, triangular windows carry NaN in their
+# dead half, and the routes are held to the simt loop on the same operands.
+
+FP_FAST = {"f64": "dmma", "f32": "fma"}
+
+
+def _fp_run(fn, A, B, dt, **kw):
+    if fn is hopper.tri_matmul:
+        return hopper.tri_matmul(A, B, _route=FP_FAST[dt], **kw)
+    return hopper.tri_matmul_plain(A, B, **kw)
+
+
+@pytest.mark.parametrize("shape", range(len(WG_SHAPES)))
+@pytest.mark.parametrize("b_trans", [False, True])
+@pytest.mark.parametrize("a_trans", [False, True])
+@pytest.mark.parametrize("dt", list(FP_FAST))
+def test_dmma_fma_dense_vs_plain(cuda, dt, a_trans, b_trans, shape):
+    (M, N, K), (r0, c0) = WG_SHAPES[shape]
+    A, B = _rand(100, (WG_P, WG_P), dt, cuda), _rand(101, (WG_P, WG_P), dt, cuda)
+    kw = dict(a_trans=a_trans, b_trans=b_trans,
+              a_view=(r0, c0, K, M) if a_trans else (r0, c0, M, K),
+              b_view=(c0, r0, N, K) if b_trans else (c0, r0, K, N))
+    hopper.reset_counts()
+    got = _fp_run(hopper.tri_matmul, A, B, dt, **kw)
+    assert hopper.route_counts() == {"tri_matmul.dense": {FP_FAST[dt]: 1}}
+    torch.cuda.synchronize()
+    _close(got, _fp_run(None, A, B, dt, **kw), dt)
+
+
+@pytest.mark.parametrize("b_trans", [False, True])
+@pytest.mark.parametrize("a_trans", [False, True])
+@pytest.mark.parametrize("uplo", ["U", "L"])
+@pytest.mark.parametrize("side", ["a", "b"])
+@pytest.mark.parametrize("dt", list(FP_FAST))
+def test_dmma_fma_trmm_vs_plain(cuda, dt, side, uplo, a_trans, b_trans):
+    """A triangular operand with NaN in its dead half, every orientation;
+    the dense operand ragged (777 wide), the result written in place at an
+    offset of a third buffer."""
+    n, m = 520, 777
+    A, B = _rand(102, (WG_P, WG_P), dt, cuda), _rand(103, (WG_P, WG_P), dt, cuda)
+    if side == "a":
+        av, bv = (64, 128, n, n), ((8, 256, m, n) if b_trans else (8, 256, n, m))
+        A = _nan_dead(A, av, uplo)
+        tri = dict(a_uplo=uplo)
+    else:
+        av, bv = ((16, 8, n, m) if a_trans else (16, 8, m, n)), (256, 64, n, n)
+        B = _nan_dead(B, bv, uplo)
+        tri = dict(b_uplo=uplo)
+    kw = dict(a_trans=a_trans, b_trans=b_trans, a_view=av, b_view=bv, alpha=-0.5, out_off=(1024, 512), **tri)
+    C = _rand(104, (WG_P, WG_P), dt, cuda)
+    hopper.reset_counts()
+    outs = [_fp_run(fn, A, B, dt, out=C.clone(), **kw) for fn in (hopper.tri_matmul, None)]
+    assert hopper.route_counts() == {"tri_matmul.trmm": {FP_FAST[dt]: 1}}
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs[0]).all())
+    _close(outs[0], outs[1], dt)
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("b_trans", [False, True])
+@pytest.mark.parametrize("a_trans", [False, True])
+@pytest.mark.parametrize("out_uplo", ["U", "L"])
+@pytest.mark.parametrize("dt", list(FP_FAST))
+def test_dmma_fma_syrk_vs_plain(cuda, dt, out_uplo, a_trans, b_trans, in_place):
+    """The triangular-output form: fused beta*C read-modify-write in place,
+    or beta = 0 with the dead half zeroed (every tile launched)."""
+    n, k = 648, 520
+    A, B = _rand(105, (WG_P, WG_P), dt, cuda), _rand(106, (WG_P, WG_P), dt, cuda)
+    C = _rand(107, (WG_P, WG_P), dt, cuda)
+    kw = dict(a_trans=a_trans, b_trans=b_trans, out_uplo=out_uplo,
+              a_view=(0, 64, k, n) if a_trans else (0, 64, n, k),
+              b_view=(128, 0, n, k) if b_trans else (128, 0, k, n))
+    r = torch.arange(n)[:, None]
+    q = torch.arange(n)[None, :]
+    live = (r <= q) if out_uplo == "U" else (r >= q)
+    if in_place:
+        kw.update(alpha=-1.0, beta=1.0, c_view=(1024, 1024, n, n), out_off=(1024, 1024))
+        outs = []
+        for fn in (hopper.tri_matmul, None):
+            c = C.clone()
+            outs.append(_fp_run(fn, A, B, dt, c=c, out=c, **kw))
+        torch.cuda.synchronize()
+        mask = torch.zeros(WG_P, WG_P, dtype=torch.bool)
+        mask[1024:1024 + n, 1024:1024 + n] = live
+        _close(outs[0], outs[1], dt, mask)
+        outside = torch.ones(WG_P, WG_P, dtype=torch.bool)
+        outside[1024:1024 + n, 1024:1024 + n] = False
+        assert torch.equal(outs[0].cpu()[outside], C.cpu()[outside])
+    else:
+        got = _fp_run(hopper.tri_matmul, A, B, dt, **kw)
+        torch.cuda.synchronize()
+        _close(got, _fp_run(None, A, B, dt, **kw), dt)
+        assert bool((got.cpu()[~live] == 0).all())
+
+
+@pytest.mark.parametrize("dt", list(FP_FAST))
+def test_dmma_fma_against_simt(cuda, dt):
+    """The fast route and the simt loop on the same operands: a trmm with
+    NaN in the dead half and a ragged dense product agree within the
+    dtype's tolerance (both are IEEE sums of the same products in another
+    order)."""
+    A, B = _rand(108, (WG_P, WG_P), dt, cuda), _rand(109, (WG_P, WG_P), dt, cuda)
+    A = _nan_dead(A, (64, 128, 520, 520), "L")
+    for kw in (dict(a_uplo="L", a_trans=True, a_view=(64, 128, 520, 520), b_view=(8, 256, 520, 777)),
+               dict(b_trans=True, a_view=(1024, 0, 1000, 777), b_view=(8, 16, 520, 777))):
+        hopper.reset_counts()
+        fast = hopper.tri_matmul(A, B, _route=FP_FAST[dt], **kw)
+        simt = hopper.tri_matmul(A, B, _route="simt", **kw)
+        form = "tri_matmul.trmm" if "a_uplo" in kw else "tri_matmul.dense"
+        assert hopper.route_counts() == {form: {FP_FAST[dt]: 1, "simt": 1}}
+        torch.cuda.synchronize()
+        _close(fast, simt, dt)
+
+
+@pytest.mark.parametrize("case", range(len(SCHED_CASES)))
+@pytest.mark.parametrize("dt", list(FP_FAST))
+def test_sched_matmul_dmma_fma_vs_plain(cuda, dt, case):
+    """Every schedule case on the dtype's fast route, rank 0 (pads when the
+    operand is lower) and rank 1, and against the simt loop."""
+    mb, K, nb, side, uplo, _ = SCHED_CASES[case]
+    au, bu = (uplo, None) if side == "a" else (None, uplo)
+    (TO, KO, FI, LA), _, blocks = summa._sched_host(2, 2 * mb, K, 2 * nb, au, bu)
+    A, B = _rand(110 + case, (mb, K), dt, cuda), _rand(120 + case, (K, nb), dt, cuda)
+    for rank in range(2):
+        sched = [torch.from_numpy(x[rank].copy()).to(cuda) for x in (TO, KO, FI, LA)]
+        hopper.reset_counts()
+        got = hopper.sched_matmul(A, B, *sched, tri_side=side, blocks=blocks)
+        assert hopper.route_counts() == {"sched_matmul": {FP_FAST[dt]: 1}}
+        simt = hopper.sched_matmul(A, B, *sched, tri_side=side, blocks=blocks, _route="simt")
+        want = hopper.sched_matmul_plain(A, B, *sched, tri_side=side, blocks=blocks)
+        torch.cuda.synchronize()
+        written = (~torch.isnan(want)).cpu()
+        _close(got, want, dt, written)
+        _close(got, simt, dt, written)
+
+
+def test_dmma_fma_routes_refuse(cuda):
+    """A fast route where its 16-byte copies cannot read the window, or a
+    route of another dtype, raises before any launch."""
+    A = _rand(111, (512, 512), "f64", cuda)
+    hopper.reset_counts()
+    with pytest.raises(ValueError, match="dmma route cannot"):
+        hopper.tri_matmul(A, A, a_view=(0, 1, 256, 256), b_view=(0, 256, 256, 256), _route="dmma")
+    with pytest.raises(ValueError, match="only f32"):
+        hopper.tri_matmul(A, A, _route="fma")
+    with pytest.raises(ValueError, match="only bf16"):
+        hopper.tri_matmul(A.float(), A.float(), _route="wmma")
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    odd = torch.zeros(1 + 256 * 384, device=cuda)[1:].view(256, 384)  # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="fma route cannot"):
+        hopper.sched_matmul(odd, A.float()[:384, :256].contiguous(), one * 0, one * 0, one, one,
+                            tri_side="a", blocks=(128, 128, 128), _route="fma")
+    assert hopper.route_counts() == {}
+    # an unaligned f64 window takes the simt loop by itself
+    got = hopper.tri_matmul(A, A, a_view=(0, 1, 256, 256), b_view=(0, 256, 256, 256))
+    assert hopper.route_counts() == {"tri_matmul.dense": {"simt": 1}}
+    torch.cuda.synchronize()
+    _close(got, hopper.tri_matmul_plain(A, A, a_view=(0, 1, 256, 256), b_view=(0, 256, 256, 256)), "f64")

@@ -109,7 +109,7 @@ def test_tma_ok_reads_the_row_stride(cols, ok):
 @pytest.mark.parametrize("dtype,aligned,asked,want", [
     (torch.bfloat16, True, None, "wgmma"), (torch.bfloat16, False, None, "wmma"),
     (torch.bfloat16, True, "wmma", "wmma"), (torch.bfloat16, False, "wmma", "wmma"),
-    (torch.float32, True, None, "simt"), (torch.float64, False, None, "simt"),
+    (torch.float32, True, None, "fma"), (torch.float64, False, None, "simt"),
 ])
 def test_route_choice(dtype, aligned, asked, want):
     assert hopper._pick_route(dtype, aligned, asked, "tri_matmul") == want
