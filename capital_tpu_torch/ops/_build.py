@@ -117,6 +117,8 @@ class _Kernels:
         self.libs: dict[str, ctypes.CDLL] = {}
         self.build_seconds: float | None = None
         self.logs: dict[str, str] = {}
+        #: resolved entry points, by name (argtypes set once, in `build`)
+        self.fns: dict[str, ctypes._CFuncPtr] = {}
 
 
 _STATE = _Kernels()
@@ -166,10 +168,14 @@ def build() -> float:
 
 
 def entry(name: str):
-    """The ctypes function `name`, building the libraries on first use."""
-    if not _STATE.libs:
-        build()
-    return getattr(_STATE.libs[SIGNATURES[name][0]], name)
+    """The ctypes function `name` (argtypes declared), building the libraries
+    on first use.  Resolved once: a launch pays one dict lookup here."""
+    fn = _STATE.fns.get(name)
+    if fn is None:
+        if not _STATE.libs:
+            build()
+        fn = _STATE.fns[name] = getattr(_STATE.libs[SIGNATURES[name][0]], name)
+    return fn
 
 
 def build_logs() -> dict[str, str]:

@@ -15,7 +15,7 @@ outputs and info: the serve fault-containment contract) — and fuse:
   Cholesky sweeps, the R1⁻ᵀ·G·R1⁻¹ correction, the RHS sweeps and the
   back-substitution through R2·R1) in one block.
 * ``potrf`` / ``potrs``: the unfused factor and solve (the `pallas_split`
-  route, and the resident-factor solve).
+  route, and the resident-factor solve); potrf runs a blocked factor.
 * ``trsm``: one triangular sweep, op(T)·X = B, for every uplo × trans (no
   serve program calls it).
 
@@ -78,13 +78,22 @@ def _resolve_block(n: int, block: int) -> int:
     return max(b, 1)
 
 
+def _potrf_ld(n: int) -> int:
+    """Leading dimension of the potrf kernel's tile (csrc potrf_ld): round4(n)
+    floats (16-byte rows), plus 4 when that makes it 4 mod 8 and still fits."""
+    n4 = (n + 3) // 4 * 4
+    ld = n4 if (n4 // 4) % 2 else n4 + 4
+    return ld if 4 * n4 * ld <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE else n4
+
+
 def smem_bytes(op: str, n: int, k: int) -> int:
     """Dynamic shared memory of one block of the `op` kernel for one problem
     of order n with k right-hand sides: f32 matrices with an odd leading
     dimension ld (n + 1 for even n) so column walks are free of bank
-    conflicts.
+    conflicts; potrf's blocked factor wants 16-byte rows instead, round4(n)
+    of them, `_potrf_ld(n)` floats each.
 
-    potrf              4·n·ld                       (the working matrix)
+    potrf              4·round4(n)·_potrf_ld(n)     (the working matrix)
     trsm, potrs, posv  4·(n·ld + n·k)               (factor, right-hand sides)
     lstsq              4·(2·n·ld + n·k + 16·(n+k))  (R1, the G→V→G2→R2→R
                                                      buffer, AᵀB, a 16-row
@@ -92,7 +101,7 @@ def smem_bytes(op: str, n: int, k: int) -> int:
     """
     ld = n + 1 if n % 2 == 0 else n
     if op == "potrf":
-        return 4 * n * ld
+        return 4 * ((n + 3) // 4 * 4) * _potrf_ld(n)
     if op in ("trsm", "potrs", "posv"):
         return 4 * (n * ld + n * k)
     if op == "lstsq":
@@ -268,7 +277,12 @@ def lstsq_plain(A, B, *, block: int = 0, precision=None):
 def potrf(A, *, uplo: str = "U", block: int = 0, precision: str | None = "highest"):
     """Batched Cholesky: (batch, n, n) symmetric SPD -> (R, info), R
     triangular per `uplo` with its dead triangle exactly zero, info (batch,)
-    int32 in the potrf convention.  One launch (ops/csrc/batched_small.cu)."""
+    int32 in the potrf convention.  One launch (ops/csrc/batched_small.cu):
+    the blocked factor (csrc chol_blocked: 16-column panels, the diagonal
+    block in one warp's registers, 4 x 4 register tiles for the trailing
+    update), bitwise the column sweep's factor; a problem whose input,
+    pivots or factor show a fault is factored again by the column sweep in
+    the same launch, so `info` is the reference's on every input."""
     _check_batched(A, op="batched potrf")
     _check_uplo(uplo)
     _check_dtype("batched potrf", A)

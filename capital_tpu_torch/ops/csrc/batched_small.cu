@@ -19,9 +19,19 @@
 // division (see batched_small.cuh).  Not done yet: a warp per problem at
 // small n, several blocks or a cluster per problem, tensor-core updates.
 //
-// Shared memory per block (f32; ld = odd_ld(n)), as
-// capital_tpu_torch/ops/batched_small.smem_bytes computes it:
-//   potrf        n·ld
+// potrf runs the blocked factor (chol_blocked, batched_small.cuh): three
+// barriers a 16-column panel instead of two or three a column, the
+// diagonal block in one warp's registers, the trailing update as 4 x 4
+// register tiles fed by 16-byte shared loads; rows move as 4-entry vectors
+// (16 bytes of f32, 8 of bf16) when n % 4 == 0.  256 threads a block, one
+// problem a block: ptxas gives potrf_kernel 80 registers a thread (f32 and
+// bf16, no spills; _build.build_logs()) and 192 B of static shared memory,
+// and at n = 128 the tile is 128 x 132 f32 (67,584 B dynamic), so three
+// blocks share an SM and the 8192-problem batch runs in 21 waves.
+//
+// Shared memory per block (f32; ld = odd_ld(n), potrf ld = potrf_ld(n)),
+// as capital_tpu_torch/ops/batched_small.smem_bytes computes it:
+//   potrf        round4(n)·ld
 //   trsm, potrs, posv  n·ld + n·k
 //   lstsq        2·n·ld + n·k + LSTSQ_ROWS·(n+k)
 // Above 48 KB it is dynamic shared memory, enabled per kernel with
@@ -55,22 +65,113 @@ __device__ void store_tile(T* dst, const float* src, int lds, int rows, int cols
   }
 }
 
+// four consecutive entries, widened to f32 / rounded once from f32
+__device__ __forceinline__ void load4(const float* p, float* v) { unpack4(v, *reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ void load4(const bf16* p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const bf16* h = reinterpret_cast<const bf16*>(&t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = __bfloat162float(h[i]);
+}
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(bf16* p, const float* v) {
+  uint2 t;
+  bf16* h = reinterpret_cast<bf16*>(&t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __float2bfloat16_rn(v[i]);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// whether an n x n problem at p can move in 4-entry vectors
 template <typename T>
-__global__ void __launch_bounds__(NT) potrf_kernel(const T* A, T* R, int* info, int n, int upper) {
-  extern __shared__ float smem[];
-  const int ld = odd_ld(n);
-  const long long off = (long long)blockIdx.x * n * n;
-  load_tile(smem, ld, A + off, n, n);
-  __syncthreads();
-  const int inf = chol_sweep(smem, ld, n);
-  T* r = R + off;
-  for (int e = threadIdx.x; e < n * n; e += NT) {
-    const int i = e / n, c = e - i * n;
-    float v;
-    if (upper) v = (c >= i) ? smem[c * ld + i] : 0.f;  // R = Lᵀ, dead triangle zero
-    else v = (c <= i) ? smem[i * ld + c] : 0.f;
-    r[e] = Cast<T>::from(v);
+__device__ __forceinline__ bool rows_vec4(const T* p, int n) {
+  return n % 4 == 0 && reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
+}
+
+// one problem into the tile, a warp a row (coalesced), four rows' loads in
+// flight a thread before their stores; returns whether this thread loaded
+// a non-finite entry
+template <typename T>
+__device__ bool load_rows(float* __restrict__ S, int ld, const T* __restrict__ src, int n) {
+  constexpr int ROWS = 4;
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bool bad = false;
+  if (rows_vec4(src, n)) {
+    for (int c = 4 * lane; c < n; c += 128)
+      for (int r0 = wid; r0 < n; r0 += ROWS * WARPS) {
+        float v[ROWS][4];
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b)
+          if (r0 + b * WARPS < n) load4(src + (r0 + b * WARPS) * n + c, v[b]);
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b)
+          if (r0 + b * WARPS < n) {
+#pragma unroll
+            for (int t = 0; t < 4; ++t) bad |= !isfinite(v[b][t]);
+            store4(S + (r0 + b * WARPS) * ld + c, v[b]);
+          }
+      }
+  } else {
+    for (int r = wid; r < n; r += WARPS)
+      for (int c = lane; c < n; c += 32) {
+        const float v = widen(src[r * n + c]);
+        bad |= !isfinite(v);
+        S[r * ld + c] = v;
+      }
   }
+  return bad;
+}
+
+// the factor from the tile's rows: R = Lᵀ (the strict upper triangle holds
+// Lᵀ) or L, the dead triangle exactly zero
+template <typename T>
+__device__ void store_factor(T* dst, const float* S, int ld, int n, int upper) {
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (rows_vec4(dst, n)) {
+    for (int r = wid; r < n; r += WARPS)
+      for (int c = 4 * lane; c < n; c += 128) {
+        float v[4];
+        unpack4(v, *reinterpret_cast<const float4*>(S + r * ld + c));
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (upper ? c + t < r : c + t > r) v[t] = 0.f;
+        store4(dst + r * n + c, v);
+      }
+  } else {
+    for (int r = wid; r < n; r += WARPS)
+      for (int c = lane; c < n; c += 32) {
+        const bool live = upper ? c >= r : c <= r;
+        dst[r * n + c] = Cast<T>::from(live ? S[r * ld + c] : 0.f);
+      }
+  }
+}
+
+// One problem a block: the input scanned as it loads, chol_blocked on the
+// tile (ld from potrf_ld), and on a fault the column sweep on the input,
+// whose info is the reference's; its lower triangle is then mirrored so
+// both store rows.
+template <typename T>
+__global__ void __launch_bounds__(NT) potrf_kernel(const T* A, T* R, int* info, int n, int ld, int upper) {
+  extern __shared__ float4 smem4[];
+  float* S = reinterpret_cast<float*>(smem4);
+  const long long off = (long long)blockIdx.x * n * n;
+  const bool finite = !__syncthreads_or(load_rows(S, ld, A + off, n));
+  int inf = finite ? chol_blocked(S, ld, n) : -1;
+  if (inf < 0) {
+    if (finite) {  // chol_blocked wrote the tile
+      load_rows(S, ld, A + off, n);
+      __syncthreads();
+    }
+    inf = chol_sweep(S, ld, n);
+    for (int e = threadIdx.x; e < n * n; e += NT) {
+      const int i = e / n, c = e - i * n;
+      if (c > i) S[i * ld + c] = S[c * ld + i];
+    }
+    __syncthreads();
+  }
+  store_factor(R + off, S, ld, n, upper);
   if (threadIdx.x == 0) info[blockIdx.x] = inf;
 }
 
@@ -223,14 +324,24 @@ static int run(int batch, size_t smem, void* stream, Args... args) {
 
 static size_t tile_bytes(int n) { return sizeof(float) * (size_t)n * odd_ld(n); }
 
+// The potrf tile's leading dimension: round4(n) (16-byte rows), plus 4 when
+// that makes ld ≡ 4 (mod 8) and still fits, so the 16-byte row loads of
+// eight lanes on eight consecutive rows hit distinct banks.  Shared memory
+// is round4(n)·ld floats (ops/batched_small.smem_bytes): n <= 240 fits.
+static int potrf_ld(int n) {
+  const int n4 = round4(n), ld = (n4 / 4) % 2 ? n4 : n4 + 4;
+  return sizeof(float) * (size_t)n4 * ld <= SMEM_MAX ? ld : n4;
+}
+
 extern "C" int capital_small_potrf(int dtype, const void* A, void* R, void* info, int batch, int n,
                                    int upper, void* stream) {
   if (n < 1) return -1;
-  const size_t smem = tile_bytes(n);
+  const int ld = potrf_ld(n);
+  const size_t smem = sizeof(float) * (size_t)round4(n) * ld;
   if (dtype == DT_F32)
-    return run<potrf_kernel<float>>(batch, smem, stream, (const float*)A, (float*)R, (int*)info, n, upper);
+    return run<potrf_kernel<float>>(batch, smem, stream, (const float*)A, (float*)R, (int*)info, n, ld, upper);
   if (dtype == DT_BF16)
-    return run<potrf_kernel<bf16>>(batch, smem, stream, (const bf16*)A, (bf16*)R, (int*)info, n, upper);
+    return run<potrf_kernel<bf16>>(batch, smem, stream, (const bf16*)A, (bf16*)R, (int*)info, n, ld, upper);
   return -1;
 }
 

@@ -6,9 +6,10 @@
 // (_chol :198, _fwd_solve :249, _bwd_solve :275, _rsolve_upper :298).  The
 // TPU sweeps were one-hot contractions over the whole matrix (~6n³ executed
 // flops for a Cholesky); these do the useful work only (n³/3), with one or
-// two block barriers per column.  Every function is called by all threads
-// of the block, expects its operands ready in shared memory (after a
-// barrier) and ends with a barrier, so calls chain.
+// two block barriers per column (chol_blocked: three per panel).  Every
+// function but chol_blocked's three panel steps is called by all threads of
+// the block, expects its operands ready in shared memory (after a barrier)
+// and ends with a barrier, so calls chain.
 //
 // A triangular factor is kept in one of two layouts, named by
 // `upper_stored`: L in the lower triangle (L(r, c) = S[r·ld + c]) or Lᵀ in
@@ -102,6 +103,224 @@ __device__ int chol_sweep(float* S, int ld, int n) {
   }
   if (__syncthreads_or(ob) && info == 0) info = n + 1;
   return info;
+}
+
+// ---------------------------------------------------------------------------
+// chol_blocked: the same factor as chol_sweep, blocked right-looking with a
+// panel of NB columns, on a tile laid out for 16-byte shared loads.  Each
+// panel takes three block barriers (chol_sweep takes two or three a column):
+//   1. warp 0 factors the NB x NB diagonal block in registers (lane i holds
+//      row i; the pivot reaches the lanes by a shuffle, each column's scaled
+//      entries through a small shared buffer) with no block barrier, and
+//      checks the pivots there; it publishes the pivots' square roots and
+//      writes L11 into the lower triangle and L11ᵀ into the upper one;
+//   2. one thread per row below the block solves its row against L11 in
+//      registers (L21 = A21·L11⁻ᵀ) and writes it back, and its transpose
+//      into the strict upper triangle: the panel, k-major;
+//   3. every thread takes 4 x 4 tiles of the trailing lower triangle (live
+//      tiles only) and applies S -= L21·L21ᵀ in registers, reading the
+//      k-major panel with two 16-byte loads per 16 FMAs.
+//
+// Arithmetic: every entry of the working matrix receives the operations
+// chol_sweep applies to it, in the same order — v ← fma(−L[l][c], L[m][c], v)
+// for c ascending (chol_sweep's `row[m] − ul·S[m][j]`, contracted), then
+// v / sqrtf(d), or d / sqrtf(d) on the diagonal (IEEE sqrt and division) —
+// so the factor is the column sweep's bit for bit; only the time at which
+// an entry receives each update changes.
+//
+// info: the function certifies info 0 or gives up; it never computes a
+// nonzero info.  The column sweep's info depends on the step at which a
+// non-finite value reaches the working matrix, and the deferred trailing
+// update moves that step (an overflow born in a trailing entry by column c
+// shows at the panel's end, not at column c + 1).  But with a finite input
+// every non-finite entry of L lies in some row l and, through
+// S[l][l] −= L[l][c]², makes pivot l non-finite (fma, division and sqrt keep
+// a non-finite value non-finite), while a column sweep with info 0 meets
+// finite positive pivots only.  So the caller scans the whole input (both
+// triangles) as it loads it and calls this on a finite one only; the
+// function checks every pivot (and, as a second line, every entry of L it
+// writes), and on any fault returns −1: the caller then factors the input
+// again with chol_sweep, whose info is the reference's (`sweeps.chol_plain`).
+// A return of 0 is the column sweep's info too, on the same factor.
+//
+// Size: n <= NB + NT (272), one thread a row below the diagonal block (a
+// loop over the rows instead took potrf_kernel from 80 registers to 105,
+// three blocks an SM to two); a larger n returns −1 before touching S, and
+// the caller's column sweep factors it.  potrf's tile stops at n = 240.
+//
+// Layout: S 16-byte aligned, ld % 4 == 0, round4(n) rows of ld >= round4(n)
+// floats (the trailing tiles run over the padding, which is never read back
+// into a live entry).  On return 0 the lower triangle holds L and the
+// strict upper triangle Lᵀ, so either factor is a row walk.  All NT threads
+// call it after a barrier; it ends with one.
+// ---------------------------------------------------------------------------
+
+// panel width (at most 32: the diagonal block is one warp's rows): 16 beat
+// 32 at the throughput batch (32 needs 102 registers a thread, two blocks an
+// SM; 16 needs 80, three) and lost a little at the latency batch
+// (probes/potrf_nb.py builds and times both)
+constexpr int NB = 16;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+__device__ __forceinline__ void unpack4(float* v, const float4 t) {
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+// Panel step 1, warp 0: the w x w diagonal block at (k0, k0).  Lane i keeps
+// row i's live entries (c <= i) in registers, zeros above the diagonal.
+// Per column: the pivot by one shuffle, the scaled column through shared
+// memory (one store a lane, broadcast 16-byte loads), the update in
+// registers.  The columns are fully unrolled with no runtime condition
+// around a warp-wide operation (a branch there, even a uniform one, made
+// each of them wait on the warp's reconvergence, at several times the
+// column's arithmetic); columns past w (the last, narrow panel) run on the
+// zero padding and are ignored.  Returns, to every lane, whether a pivot was bad or an entry of
+// L11 non-finite.
+__device__ __forceinline__ bool chol_diag_block(float* S, int ld, int k0, int w, float* sq) {
+  __shared__ __align__(16) float xs[2][NB];  // column j's scaled entries
+  const int lane = threadIdx.x & 31, w4 = round4(w);
+  float r[NB];
+#pragma unroll
+  for (int c = 0; c < NB; ++c) r[c] = 0.f;
+  float* row = S + (k0 + lane) * ld + k0;
+  if (lane < w) {
+#pragma unroll
+    for (int q = 0; q < NB / 4; ++q)
+      if (4 * q < w4) unpack4(r + 4 * q, *reinterpret_cast<const float4*>(row + 4 * q));
+  }
+#pragma unroll
+  for (int c = 0; c < NB; ++c) r[c] = (c <= lane && c < w) ? r[c] : 0.f;
+  bool bad = false;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float d = __shfl_sync(FULL_MASK, r[j], j);
+    const bool good = isfinite(d) && d > 0.f;
+    bad |= !good && j < w;
+    const float s = sqrtf(good ? d : 1.f);
+    if (lane == 0) sq[j] = s;
+    // L[i][j] on lanes i > j, d / s on lane j; the other lanes divide s by
+    // itself (a quotient nobody reads) so no lane takes the division's
+    // slow path on a zero
+    const bool live = j <= lane && lane < w;
+    const float x = (live ? r[j] : s) / s;
+    r[j] = live ? x : 0.f;
+    if (lane < NB) xs[j & 1][lane] = x;  // two buffers: the next column's
+    __syncwarp();                        // stores wait for no reader
+#pragma unroll
+    for (int q = (j + 1) / 4; q < NB / 4; ++q) {
+      float v[4];
+      unpack4(v, *reinterpret_cast<const float4*>(&xs[j & 1][4 * q]));
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (4 * q + t > j) r[4 * q + t] = (4 * q + t <= lane) ? fmaf(-x, v[t], r[4 * q + t]) : r[4 * q + t];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+    if (c <= lane && lane < w) bad |= !isfinite(r[c]);
+  bad = __any_sync(FULL_MASK, bad);
+  // row i of the block (zeros above its diagonal, which the mirror
+  // overwrites), then L11ᵀ into the block's upper triangle
+  if (lane < w) {
+#pragma unroll
+    for (int q = 0; q < NB / 4; ++q)
+      if (4 * q < w4)
+        *reinterpret_cast<float4*>(row + 4 * q) = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+  }
+  __syncwarp();
+  if (lane < w) {
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      if (c < lane) S[(k0 + c) * ld + k0 + lane] = r[c];
+  }
+  return bad;
+}
+
+// Panel step 2: row l = k0 + NB + threadIdx.x of the rows below the block
+// (one a thread: chol_blocked takes n <= NB + NT only), scaled and updated
+// column by column as chol_sweep does it; L11 is read from its transpose
+// (row c of the block's upper triangle: L11[m][c], m > c) with broadcast
+// 16-byte loads.  Returns whether an entry is non-finite.
+__device__ __forceinline__ bool chol_panel_row(float* S, int ld, int n, int k0, const float* sq) {
+  const int l = k0 + NB + threadIdx.x;
+  if (l >= n) return false;
+  float x[NB];
+  float* row = S + l * ld + k0;
+#pragma unroll
+  for (int q = 0; q < NB / 4; ++q) unpack4(x + 4 * q, *reinterpret_cast<const float4*>(row + 4 * q));
+  const float* Lt = S + k0 * ld + k0;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    x[c] = x[c] / sq[c];
+#pragma unroll
+    for (int q = (c + 1) / 4; q < NB / 4; ++q) {
+      float v[4];
+      unpack4(v, *reinterpret_cast<const float4*>(Lt + c * ld + 4 * q));
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (4 * q + t > c) x[4 * q + t] = fmaf(-x[c], v[t], x[4 * q + t]);
+    }
+  }
+  bool bad = false;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) bad |= !isfinite(x[c]);
+#pragma unroll
+  for (int q = 0; q < NB / 4; ++q)
+    *reinterpret_cast<float4*>(row + 4 * q) = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+#pragma unroll
+  for (int c = 0; c < NB; ++c) S[(k0 + c) * ld + l] = x[c];
+  return bad;
+}
+
+// Panel step 3: S[l][m] −= Σ_c L[l][k0+c]·L[m][k0+c], c ascending, over the
+// trailing lower triangle l >= m >= k0 + NB in 4 x 4 tiles (tile e of the
+// packed lower triangle of tiles to thread e mod NT), the panel read from
+// its transpose P[c·ld + l] = L[l][k0 + c].
+__device__ __forceinline__ void chol_trailing(float* S, int ld, int n, int k0) {
+  const int t0 = k0 + NB, T = (round4(n) - t0) / 4, tiles = T * (T + 1) / 2;
+  const float* P = S + k0 * ld;
+  for (int e = threadIdx.x; e < tiles; e += NT) {
+    int ti = (int)((sqrtf(8.f * e + 1.f) - 1.f) * 0.5f);
+    while (ti * (ti + 1) / 2 > e) --ti;
+    while ((ti + 1) * (ti + 2) / 2 <= e) ++ti;
+    const int l0 = t0 + 4 * ti, m0 = t0 + 4 * (e - ti * (ti + 1) / 2);
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) unpack4(acc[r], *reinterpret_cast<const float4*>(S + (l0 + r) * ld + m0));
+#pragma unroll 4
+    for (int c = 0; c < NB; ++c) {
+      float a[4], b[4];
+      unpack4(a, *reinterpret_cast<const float4*>(P + c * ld + l0));
+      unpack4(b, *reinterpret_cast<const float4*>(P + c * ld + m0));
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(-a[r], b[q], acc[r][q]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float4*>(S + (l0 + r) * ld + m0) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+}
+
+__device__ int chol_blocked(float* S, int ld, int n) {
+  __shared__ float sq[NB];  // the current panel's sqrtf(pivot)
+  const int wid = threadIdx.x / 32;
+  if (n > NB + NT) return -1;
+  for (int k0 = 0; k0 < n; k0 += NB) {
+    const bool bad = wid == 0 && chol_diag_block(S, ld, k0, min(NB, n - k0), sq);
+    if (__syncthreads_or(bad)) return -1;
+    if (k0 + NB >= n) break;
+    if (__syncthreads_or(chol_panel_row(S, ld, n, k0, sq))) return -1;
+    chol_trailing(S, ld, n, k0);
+    __syncthreads();
+  }
+  return 0;
 }
 
 // Forward substitution L·Y = B in place on Y (n x k, leading dimension ldy).

@@ -21,7 +21,7 @@
 // Shared memory (f32): the symmetrised window with an odd leading
 // dimension ld = odd_ld(n), then the n x n identity that becomes R⁻¹:
 // 4·(n·ld + n²) bytes, which reaches n = 169 in the 227 KB of one block
-// (capital_tpu_torch/ops/batched_small.tail_eligible).  The cholinv gate
+// (capital_tpu_torch/ops/hopper.tail_eligible).  The cholinv gate
 // (_tail_fusible) wants n % 128 == 0, so n = 128 windows fuse on the card.
 
 #include "batched_small.cuh"

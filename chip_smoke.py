@@ -17,7 +17,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    place, CI::tmu's syrk) and in its dense form, each dtype on both its
    routes in the same run, interleaved (bf16 wgmma / wmma, f32 fma / simt,
    f64 dmma / simt); then NaN in the dead triangles on the wgmma route and
-   an unaligned window, which must take the wmma route;
+   an unaligned window, which must take the wmma route; the transposes and
+   `copy_` with the per-call wall of back-to-back calls beside the kernels'
+   own device time from a torch.profiler trace of the same calls;
 3. drives the cholinv path, `models/cholesky.factor` in mode 'pallas':
    n=16384 bf16 (against the same factor through the plain versions, plus
    residual gates), n=8192 f32 (residual gates, timed), the n=49152 bf16
@@ -30,8 +32,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    predicts;
 4. holds the CholeskyQR2 kernels (gram_blocked, scale_gram, scale_blocked)
    against their plain versions at the 2,097,152 x 1024 bf16 QR flagship and
-   at 65536 x 512 f32, timed beside their bounds and library calls, every
-   launch on its dtype's route (bf16 wgmma, f32 simt);
+   at 65536 x 512 f32 and f64, timed beside their bounds and library calls,
+   every launch on its dtype's route (bf16 wgmma, f32 / f64 simt);
 5. drives the CholeskyQR2 path, `models/qr.factor` in mode 'pallas': the
    2,097,152 x 1024 bf16 flagship (timed, gated, and profiled: the trace's
    launches of the gram and scale kernels must equal the counted run's),
@@ -45,7 +47,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    their plain versions, timed beside their bounds and library calls, at
    the serve latency bucket (8 problems, n=128, 8 right-hand sides, f32)
    and at a throughput batch (8192 problems of n=128; lstsq 2048 of
-   512 x 128), f32 and bf16;
+   512 x 128), f32 and bf16; potrf also by its device time from a trace,
+   beside cholesky_ex's;
 7. drives the small-N serve path: ragged posv / lstsq / inv requests
    through `batching.bucket_for` -> `pad_operands` -> `assemble` ->
    `api.batched` -> `crop` under impl auto, pallas and pallas_split (and
@@ -103,7 +106,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     the refactor, `api.batched("chol_update" | "chol_downdate")` at
     (8, 128, 8) f32 on 'auto', 'pallas', 'vmap' and f64 (plus a padded
     bucket cropped), the bench-refine flagship (batch 4, n = 1024, nrhs 4,
-    f64 at cond 1e5, tier 'guaranteed' against the straight f64 solve;
+    f64 at cond 1e5, tier 'guaranteed' against the straight f64 solve,
+    each problem's backward error also recomputed in NumPy on the host;
     profiled by IR:: phase), guaranteed posv and lstsq and the fast tier
     at the serve bucket, and guaranteed posv_blocktri on the scan route;
 17. holds the mesh schedule's per-rank kernel, sched_matmul, against its
@@ -139,7 +143,7 @@ Phases 3, 5, 7, 9–12, 14, 16 and 18 set every launch counter to 0 just
 before their runs and check the counts just after against the plan;
 phases 3, 4, 5, 9, 17 and 18 also check that every tri_matmul and
 sched_matmul launch took its dtype's route (bf16 wgmma, f32 fma, f64
-dmma) and every qr_fused launch its own (bf16 wgmma, f32 simt).
+dmma) and every qr_fused launch its own (bf16 wgmma, f32 / f64 simt).
 
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA or a directory without the package.
@@ -179,7 +183,7 @@ MESH_KERNELS = ("sched_matmul",)
 ROUTED = ("tri_matmul.trmm", "tri_matmul.syrk", "tri_matmul.dense", "sched_matmul") + QR_KERNELS
 ROUTE_OF = {torch.bfloat16: "wgmma", torch.float32: "fma", torch.float64: "dmma"}
 ELEM_OF = {torch.bfloat16: "wmma", torch.float32: "simt", torch.float64: "simt"}
-QR_ROUTE_OF = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+QR_ROUTE_OF = {torch.bfloat16: "wgmma", torch.float32: "simt", torch.float64: "simt"}
 DTYPE_BY_NAME = {"f32": torch.float32, "bf16": torch.bfloat16}
 #: phase 15's sweeps (batch, n, k): the serve bucket's largest small-N n
 #: over the nrhs_buckets rungs, and the throughput batch
@@ -309,11 +313,11 @@ def check_close(name, got, want, dtype, mask=None) -> float:
 def check_gram(name, got, want, dtype, g) -> float:
     """Gram kernel against plain version: relative Frobenius <= 1e-3 from
     bf16 input (scale_gram's two grams are of two Qs that may differ by an
-    ulp), 1e-5 from f32 input (long IEEE sums in another order); the strictly
-    lower block triangle must be exactly zero."""
+    ulp), 1e-5 from f32 input and 1e-12 from f64 input (long IEEE sums in
+    another order); the strictly lower block triangle must be exactly zero."""
     n = got.shape[0]
     rel = float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double()))
-    tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    tol = {torch.bfloat16: 1e-3, torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
     check(rel <= tol, f"{name} {dtype}: gram kernel vs plain relative Frobenius {rel} > {tol}")
     t = torch.arange(n, device=got.device) // (n // g)
     check(bool((got[t[:, None] > t[None, :]] == 0).all()), f"{name} {dtype}: dead block triangle not zero")
@@ -487,11 +491,16 @@ def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
           f"transpose {dtype}: kernel differs from plain")
     panel = torch.empty((bc, bc), dtype=torch.float32, device=dev)
     win = buf[bc:2 * bc, bc:2 * bc]
+    # ms / library_ms: per-call wall of 200 back-to-back calls (host and
+    # device); device_ms / library_device_ms: the kernels' own time in a
+    # trace of 50 such calls
     res["transpose"] = dict(
         max_abs_err=0.0,
         ms=time_ms(lambda: hopper.transpose(buf, **kw), 200),
         plain_ms=time_ms(lambda: hopper.transpose_plain(buf, **kw), 200),
         library_ms=time_ms(lambda: panel.copy_(win.t()), 200),
+        device_ms=device_ms(lambda: hopper.transpose(buf, **kw), 50),
+        library_device_ms=device_ms(lambda: panel.copy_(win.t()), 50),
         shape=f"{bc}x{bc} {dtype} -> f32 lower",
         bound=bound_ms((bc * (bc + 1) / 2) * item + bc * bc * 4, 0.0, dtype),
     )
@@ -508,6 +517,7 @@ def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
         max_abs_err=0.0,
         ms=time_ms(lambda: hopper.transpose_pair(L, Li, Rp, RIp, dest=bc), 200),
         plain_ms=time_ms(lambda: hopper.transpose_pair_plain(L, Li, Rp, RIp, dest=bc), 200),
+        device_ms=device_ms(lambda: hopper.transpose_pair(L, Li, Rp, RIp, dest=bc), 50),
         library_ms=None,
         shape=f"2 x {bc}x{bc} f32 -> {dtype} upper",
         bound=bound_ms(2 * (bc * (bc + 1) / 2 * 4 + bc * bc * item), 0.0, dtype),
@@ -705,6 +715,15 @@ def profile(run, prefix: str) -> dict:
                 idle_share=max(0.0, 1.0 - busy / 1e3 / (wall * 1e3)),
                 phases_device_ms=phases, top_kernels_device_ms=top, launches=launches,
                 first_kernels=first)
+
+
+def device_ms(run, iters: int) -> float:
+    """Device time per call of the kernels `run` launches, from a
+    torch.profiler trace of `iters` back-to-back calls (`profile`): the
+    kernels the trace saw at least `iters` times, summed, over `iters` (the
+    trace's one-off warm-ups fall out)."""
+    prof = profile(lambda: [run() for _ in range(iters)], "\0")
+    return sum(ms for k, ms in prof["top_kernels_device_ms"].items() if prof["launches"][k] >= iters) / iters
 
 
 def check_qr_trace(prof: dict, counts: dict) -> dict:
@@ -1039,9 +1058,13 @@ def small_kernel_phase(batched_small, size: str, dtype, dev, names=SMALL_KERNELS
         R, info = batched_small.potrf(A)
         Rp, infop = batched_small.potrf_plain(A)
         Af = A.float()
+        chol_ex = (lambda: torch.linalg.cholesky_ex(Af, upper=True)) if f32 else None
         record("small.potrf", R, Rp, info, infop, lambda: batched_small.potrf(A),
-               lambda: batched_small.potrf_plain(A),
-               (lambda: torch.linalg.cholesky_ex(Af, upper=True)) if f32 else None, (b, n, n, k))
+               lambda: batched_small.potrf_plain(A), chol_ex, (b, n, n, k))
+        res["small.potrf"]["device_ms"] = device_ms(lambda: batched_small.potrf(A), iters)
+        if chol_ex is not None:
+            res["small.potrf"]["library_device_ms"] = device_ms(chol_ex, iters)
+            res["small.potrf"]["ms_over_library_ms"] = res["small.potrf"]["ms"] / res["small.potrf"]["library_ms"]
         del Rp
         Xk = batched_small.potrs(R, B)
         Xp = batched_small.potrs_plain(R, B)
@@ -2296,6 +2319,15 @@ def update_refine_phase(hopper, dev) -> dict:
 
     eb, er = bwerr(Xb), bwerr(Xr)
     tol64 = refine.tolerance(n, torch.float64)
+    # ROADMAP Queue C item 3: each problem's backward error recomputed on the
+    # host in NumPy (f64, the host BLAS's summation order) from the X the
+    # card returns, beside the loop's own f32 reading and the tolerance
+    import numpy as np
+
+    An, Bn, Xn = (t.double().cpu().numpy() for t in (A, B, Xr))
+    host = [float(np.linalg.norm(Bn[i] - An[i] @ Xn[i])
+                  / (np.linalg.norm(An[i]) * np.linalg.norm(Xn[i]) + np.linalg.norm(Bn[i])))
+            for i in range(batch)]
     # the gate is the tier's contract: every problem converged to the f64
     # tolerance 0.5·sqrt(n)·u.  The refined/straight ratio is reported, not
     # gated: a problem freezes at its first sweep under the tolerance, and
@@ -2310,7 +2342,7 @@ def update_refine_phase(hopper, dev) -> dict:
     out["refine_flagship"] = dict(
         batch=batch, n=n, nrhs=nrhs, kernels="none (library factor and sweeps)", iters=it.tolist(),
         resid=resid.tolist(), refined_backward_error=er, f64_backward_error=eb, refined_over_f64=er / eb,
-        tolerance=tol64,
+        tolerance=tol64, host_backward_error=host, host_within_tolerance=[h <= tol64 for h in host],
         factor_ms_f32=t_f32, factor_ms_f64=t_f64, factor_f64_over_f32=t_f64 / t_f32,
         guaranteed_ms=time_ms(lambda: guar(A, B), 3), f64_posv_ms=time_ms(lambda: base(A, B), 3))
     print(json.dumps({"refine": "flagship batch 4 n=1024 nrhs 4 f64 cond 1e5", **out["refine_flagship"]}),
@@ -2762,7 +2794,7 @@ def main(argv=None) -> int:
     # ---- phase 4: the CholeskyQR2 kernels against their plain versions ----
     from capital_tpu_torch.ops import qr_fused
 
-    for run, dtype in (("flagship", torch.bfloat16), ("f32", torch.float32)):
+    for run, dtype in (("flagship", torch.bfloat16), ("f32", torch.float32), ("f32", torch.float64)):
         m, n = QR_SHAPES[run]
         res = qr_kernel_phase(qr_fused, hopper, m, n, dtype, dev)
         for name, r in res.items():

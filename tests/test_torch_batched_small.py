@@ -200,6 +200,63 @@ def test_info_over_every_fault_position(val):
     assert np.array_equal(_info(infop), _info(info))
 
 
+#: n = 40 spans three panels of the card's blocked factor (16 columns each);
+#: the faults sit where blocked and column order could disagree
+MP_N = 40
+MP_FAULTS = {
+    # (row, col) positions: the diagonal in each panel, row 0, below the
+    # diagonal in the first panel, across the panel edges at 16 and 32, in
+    # the last panel, the upper triangle only (the lower half the factor
+    # reads clean)
+    "positions": [(5, 5), (36, 36), (0, 9), (20, 7), (17, 14), (33, 30), (38, 35), (7, 20), (3, 38)],
+    # a negative pivot in the first panel and in the later one
+    "pivots": [(4, 4, -1.0), (35, 35, -50.0)],
+}
+
+
+def _mp_faults(group):
+    """10 n = 40 problems of one fault group (clean problems fill the rest)."""
+    A = _spd(40, batch=10, n=MP_N)
+    if group in ("nan", "inf", "-inf"):
+        for p, (i, j) in enumerate(MP_FAULTS["positions"]):
+            A[p, i, j] = {"nan": np.nan, "inf": np.inf, "-inf": -np.inf}[group]
+    else:
+        for p, (i, j, v) in enumerate(MP_FAULTS["pivots"]):
+            A[p, i, j] = v
+        # finite entries near 1e20 in column 2: L[35][2]·L[35][2] overflows
+        # in the trailing update, past the panel of the column that made it
+        for i in (35, 37):
+            A[2, i, 2] = A[2, 2, i] = 1e20
+    return A
+
+
+@pytest.mark.parametrize("group", ["nan", "inf", "-inf", "pivots_and_overflow"])
+def test_potrf_info_multi_panel_faults(group):
+    A = _mp_faults(group)
+    _, info = _ref("potrf")(jnp.asarray(A))
+    _, infop = bs.potrf(_t(A))
+    assert np.array_equal(_info(infop), _info(info))
+    k = len(MP_FAULTS["positions"]) if group != "pivots_and_overflow" else 3
+    assert np.all(_info(infop)[:k] > 0) and not np.any(_info(infop)[k:])
+    if group == "pivots_and_overflow":  # born at column 2, seen at 3: 2 + 3
+        assert list(_info(infop)[:3]) == [5, 36, 5]
+
+
+def test_potrf_envelope_unchanged():
+    """The blocked kernel's tile (round4(n) rows of 16-byte-aligned
+    leading dimension) takes every n the column sweep's did: 1..240."""
+    e = functools.partial(bs.eligible, dtype=torch.float32, interpret=False)
+    limit = 232448 - 1024
+    for n in range(1, 300):
+        n4 = (n + 3) // 4 * 4
+        ld = bs._potrf_ld(n)
+        assert ld % 4 == 0 and ld >= n4
+        assert bs.smem_bytes("potrf", n, n) == 4 * n4 * ld
+        assert e("potrf", (8, n, n), None) == (n <= 240) == (bs.smem_bytes("potrf", n, n) <= limit)
+    assert bs.smem_bytes("potrf", 128, 128) == 4 * 128 * 132  # ld = 4 mod 8 where it fits
+    assert bs._potrf_ld(240) == 240
+
+
 # ---------------------------------------------------------------------------
 # identity-tail exactness (bucket padding)
 # ---------------------------------------------------------------------------

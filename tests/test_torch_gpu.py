@@ -388,6 +388,130 @@ def test_small_counters_move_only_on_launch(cuda):
     assert hopper.counts()["small.posv"] == 1 and sum(hopper.counts().values()) == 1
 
 
+# the blocked potrf (csrc chol_blocked): panel edges at 16 and 32, the padded tile
+# (n % 4), a single panel, the largest n the tile takes
+POTRF_N = [1, 7, 16, 31, 33, 64, 100, 128, 129, 240]
+
+
+def potrf_faults(n, dev):
+    """(problems, n, n) f32 SPD problems with one fault each: NaN / +inf /
+    -inf on the diagonal, in row 0, below the diagonal in the first panel,
+    across the panel edges at 16 and 32, in a later panel and in the upper triangle
+    only; a negative pivot in the first panel and in a later one; and
+    finite entries near 1e20 whose product overflows in the trailing update
+    (deferred past its panel by the blocked factor)."""
+    pos = [(5, 5), (n - 4, n - 4), (0, 9), (20, 7), (17, 14), (33, 30), (n - 2, n - 5), (7, 20), (3, n - 2)]
+    A = _spd_batch(60 + n, 3 * len(pos) + 3, n, "f32", dev)
+    for v, val in enumerate((float("nan"), float("inf"), -float("inf"))):
+        for q, (i, j) in enumerate(pos):
+            A[v * len(pos) + q, i, j] = val
+    e = 3 * len(pos)
+    A[e, 4, 4] = -1.0
+    A[e + 1, n - 3, n - 3] = -50.0
+    for i in (n - 5, n - 3):
+        A[e + 2, i, 2] = A[e + 2, 2, i] = 1e20
+    return A
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", POTRF_N)
+def test_potrf_blocked_vs_plain(cuda, n, dt):
+    A = _spd_batch(50 + n, 3, n, dt, cuda)
+    for uplo in ("U", "L"):
+        R, info = batched_small.potrf(A, uplo=uplo)
+        Rp, infop = batched_small.potrf_plain(A, uplo=uplo)
+        _close(R, Rp, dt)
+        assert torch.equal(info, infop) and not info.any()
+        assert torch.equal(R == 0, Rp == 0)  # the dead triangle, and only it
+
+
+@pytest.mark.parametrize("n", [40, 128])
+def test_potrf_blocked_info_matches_plain(cuda, n):
+    A = potrf_faults(n, cuda)
+    for uplo in ("U", "L"):
+        info, want = batched_small.potrf(A, uplo=uplo)[1], batched_small.potrf_plain(A, uplo=uplo)[1]
+        assert torch.equal(info, want), (info.tolist(), want.tolist())
+    assert bool((info > 0).all())
+    # the overflow is born in the trailing update of panel 0 at column 2:
+    # the column sweep's info (the reference's rule) is 2 + 3
+    assert int(info[-1]) == 5
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_potrf_identity_problems_exact(cuda, dt):
+    for n in (16, 40, 128):
+        A = torch.eye(n, dtype=DTYPES[dt], device=cuda).expand(3, n, n)
+        for uplo in ("U", "L"):
+            R, info = batched_small.potrf(A, uplo=uplo)
+            assert torch.equal(R, A) and not info.any()
+
+
+@pytest.mark.parametrize("n", [40, 128])
+def test_potrf_blocked_is_the_column_sweep_bitwise(cuda, n):
+    """The blocked factor applies chol_sweep's operations in chol_sweep's
+    order to every entry: equal bits to fused_tail's factor, which is the
+    column sweep on the symmetrised window."""
+    S = torch.triu(_spd_batch(70 + n, 1, n, "f32", cuda)[0])
+    S = S + torch.triu(S, 1).T  # exactly symmetric: both read the same values
+    R, info = batched_small.potrf(S[None], uplo="U")
+    Rt, _, tinfo = hopper.fused_tail(S.clone(), torch.zeros_like(S), torch.zeros_like(S), off=0, n=n, dest=0)
+    assert torch.equal(R[0], Rt) and int(info[0]) == int(tinfo) == 0
+
+
+def test_potrf_counter_moves_only_on_launch(cuda):
+    A = _spd_batch(58, 4, 40, "f32", cuda)
+    hopper.reset_counts()
+    batched_small.potrf_plain(A)
+    batched_small.potrf(A.cpu())
+    assert not any(hopper.counts().values()) and not hopper.route_counts()
+    batched_small.potrf(A, uplo="L")
+    batched_small.potrf(potrf_faults(40, cuda))  # the fault path is the same launch
+    assert hopper.counts()["small.potrf"] == 2 and sum(hopper.counts().values()) == 2
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_transpose_launch_path_bitwise(cuda, dt):
+    """The leaf read and write-back, as cholinv calls them, through the
+    trimmed launch path: bitwise the plain versions, counted once each."""
+    buf = _rand(61, (1024, 1024), dt, cuda)
+    hopper.reset_counts()
+    for kw in (dict(in_view=(512, 512, 512, 512), out_uplo="L", out_dtype=torch.float32),
+               dict(in_view=(3, 5, 200, 130), out_uplo="U"), dict()):
+        assert torch.equal(hopper.transpose(buf, **kw), hopper.transpose_plain(buf, **kw))
+    L = torch.tril(_rand(62, (384, 384), "f32", cuda))
+    Li = torch.tril(_rand(63, (384, 384), "f32", cuda))
+    outs = [f(L, Li, buf.clone(), buf.clone(), dest=384)
+            for f in (hopper.transpose_pair, hopper.transpose_pair_plain)]
+    assert all(torch.equal(g, w) for g, w in zip(*outs))
+    out = buf.clone()
+    got = hopper.transpose(L, out_uplo="U", out=out, out_off=(128, 0))
+    assert got is out
+    assert torch.equal(out, hopper.transpose_plain(L, out_uplo="U", out=buf.clone(), out_off=(128, 0)))
+    assert hopper.counts()["transpose"] == 4 and hopper.counts()["transpose_pair"] == 1
+
+
+def test_transpose_kernel_guards_raise(cuda):
+    X = _rand(64, (256, 256), "f32", cuda)
+    with pytest.raises(ValueError, match="row-major"):
+        hopper.transpose(X.t())
+    with pytest.raises(TypeError, match="bf16, f32 or f64"):
+        hopper.transpose(X.half())
+    with pytest.raises(TypeError, match="bf16, f32 or f64"):
+        hopper.transpose(X, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="overlaps"):
+        hopper.transpose(X, in_view=(0, 0, 128, 128), out=X, out_off=(64, 64))
+    with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
+        hopper.transpose(X, out=torch.zeros(256, 256))
+    L = torch.tril(_rand(65, (64, 64), "f32", cuda))
+    Rp = torch.zeros((256, 256), device=cuda)
+    with pytest.raises(TypeError, match="one dtype and layout"):
+        hopper.transpose_pair(L, L.double(), Rp, Rp.clone(), dest=64)
+    with pytest.raises(TypeError, match="one dtype and layout"):
+        hopper.transpose_pair(L, L, Rp, Rp.clone().bfloat16(), dest=64)
+    with pytest.raises(ValueError, match="overlap"):
+        hopper.transpose_pair(L, L, Rp, Rp, dest=64)
+
+
 def test_small_wrappers_refuse(cuda):
     A64 = _spd_batch(40, 2, 16, "f64", cuda)
     with pytest.raises(TypeError):

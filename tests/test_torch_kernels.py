@@ -225,6 +225,74 @@ def test_transpose_pair_bitwise_two_transposes(dt):
     assert np.array_equal(_f64(got[1]), _f64(jRI))
 
 
+def _x(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+#: every guard of the transpose wrappers, by the exception and message it
+#: raises; `card` ones sit on the kernel side (dtype, layout) and are reached
+#: by pretending the operands lie on the card
+TRANSPOSE_GUARDS = {
+    "out_uplo": (False, ValueError, "out_uplo", lambda: hopper.transpose(_x(8, 8), out_uplo="X")),
+    "3-D input": (False, ValueError, "2-D", lambda: hopper.transpose(_x(2, 8, 8))),
+    "in_view outside": (False, ValueError, "outside", lambda: hopper.transpose(_x(8, 8), in_view=(4, 0, 5, 8))),
+    "out window outside": (False, ValueError, "outside",
+                           lambda: hopper.transpose(_x(8, 4), out=_x(8, 8), out_off=(6, 0))),
+    "in-place overlap": (False, ValueError, "overlaps",
+                         lambda: (lambda X: hopper.transpose(X, in_view=(0, 0, 4, 4), out=X, out_off=(2, 2)))(
+                             _x(8, 8))),
+    "mixed devices": (False, ValueError, "one CUDA device or all on the CPU",
+                      lambda: hopper.transpose(_x(8, 8), out=torch.zeros((8, 8), device="meta"))),
+    "column-major input": (True, ValueError, "row-major", lambda: hopper.transpose(_x(8, 6).T)),
+    "f16 input": (True, TypeError, "bf16, f32 or f64", lambda: hopper.transpose(_x(8, 8, dtype=torch.float16))),
+    "f16 result": (True, TypeError, "bf16, f32 or f64",
+                   lambda: hopper.transpose(_x(8, 8), out_dtype=torch.float16)),
+    "column-major out": (True, ValueError, "row-major", lambda: hopper.transpose(_x(8, 8), out=_x(8, 8).T)),
+    "pair not square": (False, ValueError, "square panels",
+                        lambda: hopper.transpose_pair(_x(8, 4), _x(8, 4), _x(16, 16), _x(16, 16), dest=0)),
+    "pair buffers differ": (False, ValueError, "square panels",
+                            lambda: hopper.transpose_pair(_x(8, 8), _x(8, 8), _x(16, 16), _x(16, 8), dest=0)),
+    "pair window outside": (False, ValueError, "outside",
+                            lambda: hopper.transpose_pair(_x(8, 8), _x(8, 8), _x(16, 16), _x(16, 16), dest=12)),
+    "pair outputs overlap": (False, ValueError, "Rp and RIp windows overlap",
+                             lambda: (lambda R: hopper.transpose_pair(_x(8, 8), _x(8, 8), R, R, dest=8))(
+                                 _x(16, 16))),
+    "pair output overlaps input": (False, ValueError, "overlaps an input",
+                                   lambda: (lambda R: hopper.transpose_pair(R[4:12, 4:12], _x(8, 8), R,
+                                                                            _x(16, 16), dest=8))(_x(16, 16))),
+    "pair inputs' dtypes": (True, TypeError, "one dtype and layout",
+                            lambda: hopper.transpose_pair(_x(8, 8), _x(8, 8, dtype=torch.float64), _x(16, 16),
+                                                          _x(16, 16), dest=8)),
+    "pair outputs' layouts": (True, TypeError, "one dtype and layout",
+                              lambda: hopper.transpose_pair(_x(8, 8), _x(8, 8), _x(16, 16), _x(16, 32)[:, :16],
+                                                            dest=8)),
+    "pair column-major input": (True, ValueError, "row-major",
+                                lambda: hopper.transpose_pair(_x(8, 8).T, _x(8, 8), _x(16, 16), _x(16, 16),
+                                                              dest=8)),
+}
+
+
+@pytest.mark.parametrize("case", list(TRANSPOSE_GUARDS))
+def test_transpose_guards_raise(monkeypatch, case):
+    """Every guard raises on CPU operands after the launch-path trim; the
+    kernel-side ones before any launch (a missing one would reach the build
+    and fail there instead)."""
+    card, exc, match, call = TRANSPOSE_GUARDS[case]
+    if card:
+        monkeypatch.setattr(hopper, "_on_card", lambda *t: True)
+    with pytest.raises(exc, match=match):
+        call()
+
+
+def test_on_card_decides_by_every_operand():
+    cpu = torch.zeros(2, 2)
+    assert not hopper._on_card(cpu, None, cpu)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        hopper._on_card(cpu, torch.zeros((2, 2), device="meta"))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        hopper._on_card(None, None)
+
+
 @pytest.mark.parametrize("dt", list(DTYPES))
 @pytest.mark.parametrize("dead", ["lower", "upper"])
 def test_zeros_dead_lower(dead, dt):
