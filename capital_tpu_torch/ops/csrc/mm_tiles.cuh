@@ -1,8 +1,10 @@
 // The tile loops of tri_matmul.cu and sched_matmul.cu for every window the
-// TMA + wgmma ring (wgmma_tiles.cuh) does not take: a block's output tile
-// accumulated over its k loop.  Each kernel stages its own operands (masked
-// windows in tri_matmul, plain row-major slabs in sched_matmul) and flushes
-// its own way.
+// TMA + wgmma ring (wgmma_tiles.cuh) does not take, and of the f32 / f64
+// CholeskyQR2 passes in qr_fused.cu (the DMMA and FMA loops): a block's
+// output tile accumulated over its k loop.  Each kernel stages its own
+// operands (masked windows in tri_matmul, plain row-major slabs in
+// sched_matmul, unmasked slabs of A and R⁻¹ in qr_fused) and flushes its
+// own way.
 //
 // Which window takes which loop (the wrapper in ops/hopper.py decides):
 //   * bf16 windows that TMA can read: the wgmma ring; the other bf16
@@ -330,6 +332,7 @@ __device__ __forceinline__ void dmma_loop(double* smem, const Win<double>& wa,
 // stored k-contiguous) after them, into the other of two buffers.
 constexpr int F_BM = 128, F_BN = 128, F_BK = 8, F_LD = 128 + 4;
 constexpr int F_THREADS = 256;
+constexpr int F_MINB = 2;  // blocks an SM (__launch_bounds__)
 
 struct FmaSmem {
   float a[2][F_BK][F_LD];  // op(A)ᵀ: [k][i]

@@ -13,13 +13,13 @@
 //     block bound, and the same values, because the skipped terms are zero
 //     by contract.
 //   * scale_gram: the scale, then the gram of the ROUNDED Q.
-// What bounds them on the card: at the 2,097,152 x 1024 bf16 QR flagship the
-// gram is bound by operations (the tensor cores), the scale sits at the
-// balance point (A read and Q written take as long as its products).  bf16
-// runs on the TMA + wgmma ring of wgmma_tiles.cuh (128 x 128 tiles, f32
-// accumulate); f32 / f64 on register-tiled FMA (64 x 64 tiles, 4 x 4 per
-// thread, IEEE FMA, no TF32), operand tiles moving as 16-byte loads with the
-// next k-step's loads in flight while the current one multiplies.
+// What bounds them on the card: operations, in every dtype (the bf16
+// flagship's scale sits at the balance point: A read and Q written take as
+// long as its products).  Every dtype runs 128 x 128 output tiles: bf16 on
+// the TMA + wgmma ring of wgmma_tiles.cuh (f32 accumulate), f64 on the DMMA
+// loop of mm_tiles.cuh (mma.sync m16n8k8 on the FP64 tensor cores, every
+// multiply-add f64), f32 on its FMA loop (IEEE fmaf, no TF32).  The
+// wrapper's shape rule makes 128 divide n, c and m, so no tile is masked.
 //
 // The TPU kernel carries the f32 (n, n) gram in VMEM across its sequential
 // row-block grid.  Here blocks run in no order and an SM holds 227 KB, so the
@@ -32,12 +32,17 @@
 //
 // Every linear index into A or Q is 64-bit: at the flagship m·n = 2^31.
 
+#include <climits>
+
+#include "mm_tiles.cuh"
 #include "wgmma_tiles.cuh"
 
-constexpr int NTHREADS = 256;
-
-__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
+// output tile edge of every gram and scale kernel
+constexpr int TILE = 128;
+static_assert(wg::BM == TILE && wg::BN == TILE && mmt::D_BM == TILE && mmt::D_BN == TILE &&
+                  mmt::F_BM == TILE && mmt::F_BN == TILE,
+              "the three loops share one output tile");
+constexpr int FIN_THREADS = 256;  // gram_finalize's blocks
 
 // ---- tiles of the gram grid ----------------------------------------------
 
@@ -64,6 +69,20 @@ __device__ inline void live_tile(int bid, int nt, int T, int c, int& ti, int& tj
   ti = tj = 0;  // not reached: the grid holds exactly the live tiles
 }
 
+// Row split q of S: the SPLIT_ROWS-row k-tiles [q·K/S, (q+1)·K/S) of the
+// K = ceil(m/SPLIT_ROWS), whole k-tiles whose counts differ by at most one
+// (gram_split_rows in ops/qr_fused.py is the same rule on the host).  Every
+// loop's k-tile divides SPLIT_ROWS, so a split is whole k-tiles of each.
+constexpr int SPLIT_ROWS = 64;
+static_assert(wg::BK == SPLIT_ROWS && SPLIT_ROWS % mmt::D_BK == 0 && SPLIT_ROWS % mmt::F_BK == 0,
+              "a split is whole k-tiles of every loop");
+
+__device__ __forceinline__ void split_rows(long long m, int q, int S, long long& r0, long long& r1) {
+  const long long K = (m + SPLIT_ROWS - 1) / SPLIT_ROWS;
+  r0 = q * K / S * SPLIT_ROWS;
+  r1 = min(m, (q + 1) * K / S * SPLIT_ROWS);
+}
+
 struct GramArgs {
   const void* A;
   long long lda;
@@ -77,11 +96,8 @@ struct GramArgs {
 // Output tile (ti, tj) = Σ_r A[r, ti·T + a] · A[r, tj·T + b] over this
 // block's row split: the ring's <AT = true, BT = false> orientation, both
 // operands MN-major 64-row slabs of A read through one tensor map (boxes of
-// 64 rows x 64 columns).  Split q of S takes the 64-row k-tiles
-// [q·K/S, (q+1)·K/S) of the K = ceil(m/64): whole k-tiles whose counts
-// differ by at most one (gram_split_rows in ops/qr_fused.py is the same
-// rule on the host).  T = 128 divides c, so no tile needs masking.  The
-// blocks of one split run side by side (blockIdx.x is the tile), so the
+// 64 rows x 64 columns), over the rows of split blockIdx.y (`split_rows`).
+// The blocks of one split run side by side (blockIdx.x is the tile), so the
 // slabs they share come from L2.
 //
 // Two-level sums: wgmma's f32 accumulation does not round to nearest, and
@@ -98,15 +114,15 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   extern __shared__ uint8_t smem[];
   int ti, tj;
   live_tile(blockIdx.x, p.n / wg::BM, wg::BM, p.c, ti, tj);
-  const long long kt = (p.m + wg::BK - 1) / wg::BK;
-  const int t0 = (int)(blockIdx.y * kt / p.splits);
-  const int nk = (int)((blockIdx.y + 1) * kt / p.splits) - t0;
+  long long r0, r1;
+  split_rows(p.m, blockIdx.y, p.splits, r0, r1);
+  const int nk = (int)((r1 - r0 + wg::BK - 1) / wg::BK), k0 = (int)r0;
   const wg::Ring r = wg::make_ring(smem);
   if (threadIdx.x < 128) {
     wg::producer_regs();
     if (threadIdx.x == 0) {
       wg::produce<true, false>(r, &ta, &ta, ti * wg::BM, tj * wg::BN, nk,
-                               [&](int t) { return (t0 + t) * wg::BK; }, [](int) { return false; });
+                               [&](int t) { return k0 + t * wg::BK; }, [](int) { return false; });
     }
   } else {
     wg::consumer_regs();
@@ -143,62 +159,71 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   }
 }
 
-// ---- gram, f32 / f64: register-tiled FMA ----------------------------------
+// ---- gram, f64 / f32: the DMMA and FMA loops of mm_tiles.cuh ---------------
+// The same tile and split as gram_wgmma: operand a is A[split rows, ti·128 :
+// +128], operand b is A[split rows, tj·128 : +128], both stored k-major (the
+// loops' <AT = true, BT = false> orientation, one window over all of A).
+// Every 128-tile is wholly live, so no k-tile is masked; rows past m (a
+// ragged last split) are zero-filled by the loops' loads.  A diagonal tile
+// (ti == tj) reads its slab twice, the second time from L2.
+
+// the window, tile origin and k-tiles of this block's (tile, split)
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS) gram_simt(GramArgs p) {
-  constexpr int TT = 64, BK = 16, CH = 16 / sizeof(T), NCH = BK * TT / CH / NTHREADS;
-  __shared__ __align__(16) T Xs[BK][TT];
-  __shared__ __align__(16) T Ys[BK][TT];
+__device__ __forceinline__ void gram_block(const GramArgs& p, int bk, mmt::Win<T>& w, int& i0,
+                                           int& j0, int& k0, int& nk) {
   int ti, tj;
-  live_tile(blockIdx.x, p.n / TT, TT, p.c, ti, tj);
-  const long long rows = p.m / p.splits, r0 = (long long)blockIdx.y * rows;
-  const T* A = (const T*)p.A;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  uint4 rx[NCH], ry[NCH];
-  auto load = [&](long long k0) {
+  live_tile(blockIdx.x, p.n / TILE, TILE, p.c, ti, tj);
+  long long r0, r1;
+  split_rows(p.m, blockIdx.y, p.splits, r0, r1);
+  w = {(const T*)p.A, p.lda, (int)p.m, p.n};
+  i0 = ti * TILE;
+  j0 = tj * TILE;
+  k0 = (int)r0;
+  nk = (int)((r1 - r0 + bk - 1) / bk);
+}
+
+// this block's partial: tile (i0, j0) of plane blockIdx.y
+template <typename A_t>
+__device__ __forceinline__ A_t* gram_partial(const GramArgs& p, int i0, int j0) {
+  return (A_t*)p.out + (long long)blockIdx.y * p.n * p.n + (long long)i0 * p.n + j0;
+}
+
+__global__ void __launch_bounds__(mmt::D_THREADS, mmt::D_MINB) gram_dmma(GramArgs p) {
+  extern __shared__ __align__(16) uint8_t dmma_smem[];
+  mmt::Win<double> w;
+  int i0, j0, k0, nk;
+  gram_block(p, mmt::D_BK, w, i0, j0, k0, nk);
+  double acc[mmt::D_MI][mmt::D_NI][4];
+  const auto all = [](int, int) { return true; };
+  mmt::dmma_loop<true, false>(
+      reinterpret_cast<double*>(dmma_smem), w, w, i0, j0, nk,
+      [&](int t) { return k0 + t * mmt::D_BK; }, [](int) { return 0; }, all, all, acc);
+  double* out = gram_partial<double>(p, i0, j0);
 #pragma unroll
-    for (int u = 0; u < NCH; ++u) {
-      int q = tid + NTHREADS * u, row = q / (TT / CH), col = (q % (TT / CH)) * CH;
-      const T* src = A + (r0 + k0 + row) * p.lda;
-      rx[u] = *(const uint4*)(src + ti * TT + col);
-      ry[u] = *(const uint4*)(src + tj * TT + col);
-    }
-  };
-  T acc[4][4];
+  for (int mi = 0; mi < mmt::D_MI; ++mi)
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int ni = 0; ni < mmt::D_NI; ++ni)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = T(0);
-  load(0);
-  for (long long k0 = 0; k0 < rows; k0 += BK) {
+      for (int x = 0; x < 4; ++x)
+        out[(long long)mmt::dmma_row(mi, x) * p.n + mmt::dmma_col(ni, x)] = acc[mi][ni][x];
+}
+
+__global__ void __launch_bounds__(mmt::F_THREADS, mmt::F_MINB) gram_fma(GramArgs p) {
+  __shared__ __align__(16) mmt::FmaSmem sm;
+  mmt::Win<float> w;
+  int i0, j0, k0, nk;
+  gram_block(p, mmt::F_BK, w, i0, j0, k0, nk);
+  float acc[8][8];
+  const auto all = [](int, int) { return true; };
+  mmt::fma_loop<true, false>(sm, w, w, i0, j0, nk, [&](int t) { return k0 + t * mmt::F_BK; },
+                             [](int) { return 0; }, all, all, acc);
+  float* out = gram_partial<float>(p, i0, j0);
 #pragma unroll
-    for (int u = 0; u < NCH; ++u) {
-      int q = tid + NTHREADS * u, row = q / (TT / CH), col = (q % (TT / CH)) * CH;
-      *(uint4*)(&Xs[row][col]) = rx[u];
-      *(uint4*)(&Ys[row][col]) = ry[u];
-    }
-    __syncthreads();
-    if (k0 + BK < rows) load(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      T a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = Xs[kk][ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = Ys[kk][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fma_(a[r], b[c], acc[r][c]);
-    }
-    __syncthreads();
+  for (int i = 0; i < 8; ++i) {
+    float* row = out + (long long)mmt::fma_row(i) * p.n;
+    *reinterpret_cast<float4*>(row + mmt::fma_col(0)) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + mmt::fma_col(4)) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
-  T* out = (T*)p.out + (long long)blockIdx.y * p.n * p.n;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      out[(long long)(ti * TT + ty + 16 * r) * p.n + tj * TT + tx + 16 * c] = acc[r][c];
 }
 
 // Sum the row-split partials in split order and zero the dead block
@@ -230,28 +255,40 @@ static int gram_wgmma_launch(const GramArgs& p, dim3 grid, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// bf16 splits are whole 64-row k-tiles of any count up to K; the f32 / f64
-// kernel's splits are equal and whole 16-row steps
+// Raises a DMMA kernel's dynamic shared memory to what its orientation's
+// ring takes (once per device) and launches it.
+template <bool AT, typename Args>
+static int dmma_launch(void (*kernel)(Args), bool (&sized)[wg::MAX_DEVICES], dim3 grid,
+                       const Args& p, cudaStream_t s) {
+  constexpr int bytes = mmt::dmma_smem_bytes<AT, false>();
+  const cudaError_t e = wg::size_smem(kernel, sized, bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, mmt::D_THREADS, bytes, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// one split rule for every dtype: any count up to ceil(m / SPLIT_ROWS)
 template <typename T>
 static int gram_launch(const GramArgs& p, void* G, cudaStream_t s) {
   typedef typename AccOf<T>::type A_t;
-  constexpr bool wide = sizeof(T) == 2;
-  constexpr int tile = wide ? wg::BM : 64;
-  if (p.n % tile || p.c % tile || p.splits < 1 || p.m < 1 ||
-      (wide ? p.splits > (p.m + wg::BK - 1) / wg::BK : p.m % ((long long)p.splits * 16) != 0))
+  if (p.n % TILE || p.c % TILE || p.splits < 1 || p.m < 1 || p.m > INT_MAX ||
+      p.splits > (p.m + SPLIT_ROWS - 1) / SPLIT_ROWS)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)live_tiles(p.n, tile, p.c), (unsigned)p.splits);
+  const dim3 grid((unsigned)live_tiles(p.n, TILE, p.c), (unsigned)p.splits);
   int rc;
-  if constexpr (wide) {
+  if constexpr (sizeof(T) == 2) {
     rc = gram_wgmma_launch(p, grid, s);
+  } else if constexpr (sizeof(T) == 8) {
+    static bool sized[wg::MAX_DEVICES] = {};
+    rc = dmma_launch<true>(gram_dmma, sized, grid, p, s);
   } else {
-    gram_simt<T><<<grid, NTHREADS, 0, s>>>(p);
+    gram_fma<<<grid, mmt::F_THREADS, 0, s>>>(p);
     rc = (int)cudaGetLastError();
   }
   if (rc) return rc;
   long long total = (long long)p.n * p.n;
-  unsigned blocks = (unsigned)((total + NTHREADS - 1) / NTHREADS);
-  gram_finalize<A_t><<<blocks, NTHREADS, 0, s>>>((A_t*)G, (const A_t*)p.out, p.n, p.c, p.splits);
+  unsigned blocks = (unsigned)((total + FIN_THREADS - 1) / FIN_THREADS);
+  gram_finalize<A_t><<<blocks, FIN_THREADS, 0, s>>>((A_t*)G, (const A_t*)p.out, p.n, p.c, p.splits);
   return (int)cudaGetLastError();
 }
 
@@ -304,8 +341,8 @@ constexpr int SCALE_SMEM = wg::SMEM_BYTES + wg::BM * SCALE_LD * 2;
 
 __device__ __forceinline__ void scale_tile(long long b, int ntn, long long& i0, int& j0) {
   const long long panel = b / ntn;
-  i0 = panel * wg::BM;
-  j0 = (int)((b + panel) % ntn) * wg::BN;
+  i0 = panel * TILE;
+  j0 = (int)((b + panel) % ntn) * TILE;
 }
 
 // the 128 threads of consumer warpgroup wgi (named barriers 3 and 4)
@@ -406,75 +443,80 @@ static int scale_wgmma_launch(const ScaleArgs& p, long long tiles, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
-// f32 / f64: 64 x 64 output tiles, 4 x 4 FMA per thread.
+// ---- scale, f64 / f32: the DMMA and FMA loops of mm_tiles.cuh --------------
+// Q tile (i0, j0) = A[i0:i0+128, :j0+128] · R⁻¹[:j0+128, j0:j0+128], the
+// loops' <false, false> orientation; as in scale_wgmma the k-range stops at
+// the tile's last column, so no k-tile is masked.  One block a tile, tile
+// `scale_tile32(blockIdx.x)`: a panel's column tiles are neighbours in the
+// grid, so the panel comes from device memory about once and then from L2,
+// and the hardware hands each SM its next tile as one ends, which evens out
+// the k-ranges (up to ntn-fold apart).  scale_tile32 is scale_tile's map in
+// 32-bit arithmetic (scale_pass keeps the grid and m below 2^31): with the
+// 64-bit map scale_fma spilled 16 bytes at its 128-register cap.
+__device__ __forceinline__ void scale_tile32(unsigned b, unsigned ntn, int& i0, int& j0) {
+  const unsigned panel = b / ntn;
+  i0 = (int)(panel * TILE);
+  j0 = (int)((b + panel) % ntn) * TILE;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS) scale_simt(ScaleArgs p) {
-  constexpr int TM = 64, TN = 64, BK = 16, CH = 16 / sizeof(T);
-  constexpr int NCH = TM * BK / CH / NTHREADS;  // A and R⁻¹ chunks per thread
-  __shared__ __align__(16) T As[TM][BK];
-  __shared__ __align__(16) T Bs[BK][TN];
-  const int ntn = p.n / TN;
-  const long long i0 = (long long)(blockIdx.x / ntn) * TM;
-  const int j0 = (blockIdx.x % ntn) * TN, kend = j0 + TN;
-  const T* A = (const T*)p.A;
-  const T* R = (const T*)p.R;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  uint4 ra[NCH], rb[NCH];
-  auto load = [&](int k0) {
+__device__ __forceinline__ void scale_windows(const ScaleArgs& p, mmt::Win<T>& wa, mmt::Win<T>& wr) {
+  wa = {(const T*)p.A, p.lda, (int)p.m, p.n};
+  wr = {(const T*)p.R, p.ldr, p.n, p.n};
+}
+
+__global__ void __launch_bounds__(mmt::D_THREADS, mmt::D_MINB) scale_dmma(ScaleArgs p) {
+  extern __shared__ __align__(16) uint8_t dmma_smem[];
+  mmt::Win<double> wa, wr;
+  scale_windows(p, wa, wr);
+  int i0, j0;
+  scale_tile32(blockIdx.x, p.n / TILE, i0, j0);
+  const auto all = [](int, int) { return true; };
+  double acc[mmt::D_MI][mmt::D_NI][4];
+  mmt::dmma_loop<false, false>(
+      reinterpret_cast<double*>(dmma_smem), wa, wr, i0, j0, (j0 + TILE) / mmt::D_BK,
+      [](int t) { return t * mmt::D_BK; }, [](int) { return 0; }, all, all, acc);
+  double* Q = (double*)p.Q + (long long)i0 * p.ldq + j0;
 #pragma unroll
-    for (int u = 0; u < NCH; ++u) {
-      int q = tid + NTHREADS * u;
-      int arow = q / (BK / CH), acol = (q % (BK / CH)) * CH;
-      ra[u] = *(const uint4*)(A + (i0 + arow) * p.lda + k0 + acol);
-      int brow = q / (TN / CH), bcol = (q % (TN / CH)) * CH;
-      rb[u] = *(const uint4*)(R + (long long)(k0 + brow) * p.ldr + j0 + bcol);
-    }
-  };
-  T acc[4][4];
+  for (int mi = 0; mi < mmt::D_MI; ++mi)
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int ni = 0; ni < mmt::D_NI; ++ni)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = T(0);
-  load(0);
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+      for (int x = 0; x < 4; ++x)
+        Q[(long long)mmt::dmma_row(mi, x) * p.ldq + mmt::dmma_col(ni, x)] = acc[mi][ni][x];
+}
+
+__global__ void __launch_bounds__(mmt::F_THREADS, mmt::F_MINB) scale_fma(ScaleArgs p) {
+  __shared__ __align__(16) mmt::FmaSmem sm;
+  mmt::Win<float> wa, wr;
+  scale_windows(p, wa, wr);
+  int i0, j0;
+  scale_tile32(blockIdx.x, p.n / TILE, i0, j0);
+  const auto all = [](int, int) { return true; };
+  float acc[8][8];
+  mmt::fma_loop<false, false>(sm, wa, wr, i0, j0, (j0 + TILE) / mmt::F_BK,
+                              [](int t) { return t * mmt::F_BK; }, [](int) { return 0; }, all,
+                              all, acc);
+  float* Q = (float*)p.Q + (long long)i0 * p.ldq + j0;
 #pragma unroll
-    for (int u = 0; u < NCH; ++u) {
-      int q = tid + NTHREADS * u;
-      *(uint4*)(&As[q / (BK / CH)][(q % (BK / CH)) * CH]) = ra[u];
-      *(uint4*)(&Bs[q / (TN / CH)][(q % (TN / CH)) * CH]) = rb[u];
-    }
-    __syncthreads();
-    if (k0 + BK < kend) load(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      T a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[ty + 16 * r][kk];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = Bs[kk][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fma_(a[r], b[c], acc[r][c]);
-    }
-    __syncthreads();
+  for (int i = 0; i < 8; ++i) {
+    float* row = Q + (long long)mmt::fma_row(i) * p.ldq;
+    *reinterpret_cast<float4*>(row + mmt::fma_col(0)) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + mmt::fma_col(4)) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
   }
-  T* Q = (T*)p.Q;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) Q[(i0 + ty + 16 * r) * p.ldq + j0 + tx + 16 * c] = acc[r][c];
 }
 
 static int scale_pass(int dtype, const ScaleArgs& p, cudaStream_t s) {
-  const int tile = dtype == DT_BF16 ? 128 : 64;
-  if (p.n % tile || p.m % tile) return (int)cudaErrorInvalidValue;
-  long long blocks = (p.m / tile) * (p.n / tile);
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (p.n % TILE || p.m % TILE || p.m > INT_MAX) return (int)cudaErrorInvalidValue;
+  const long long tiles = (p.m / TILE) * (p.n / TILE);
+  if (tiles <= 0 || tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   switch (dtype) {
-    case DT_BF16: return scale_wgmma_launch(p, blocks, s);
-    case DT_F32: scale_simt<float><<<(unsigned)blocks, NTHREADS, 0, s>>>(p); break;
-    case DT_F64: scale_simt<double><<<(unsigned)blocks, NTHREADS, 0, s>>>(p); break;
+    case DT_BF16: return scale_wgmma_launch(p, tiles, s);
+    case DT_F32: scale_fma<<<(unsigned)tiles, mmt::F_THREADS, 0, s>>>(p); break;
+    case DT_F64: {
+      static bool sized[wg::MAX_DEVICES] = {};
+      return dmma_launch<false>(scale_dmma, sized, dim3((unsigned)tiles), p, s);
+    }
     default: return -1;
   }
   return (int)cudaGetLastError();

@@ -277,7 +277,7 @@ __global__ void __launch_bounds__(mmt::D_THREADS, mmt::D_MINB) sched_dmma(SP p) 
         O[(long long)(i0 + mmt::dmma_row(mi, x)) * p.N + j0 + mmt::dmma_col(ni, x)] = acc[mi][ni][x];
 }
 
-__global__ void __launch_bounds__(mmt::F_THREADS, 2) sched_fma(SP p) {
+__global__ void __launch_bounds__(mmt::F_THREADS, mmt::F_MINB) sched_fma(SP p) {
   constexpr int BK = mmt::F_BK;
   int pos, pairs;
   if (!pick_run(p, pos, pairs)) return;

@@ -472,7 +472,7 @@ __global__ void __launch_bounds__(mmt::D_THREADS, mmt::D_MINB) mm_dmma(MM p, Til
 }
 
 template <bool AT, bool BT>
-__global__ void __launch_bounds__(mmt::F_THREADS, 2) mm_fma(MM p, TileOpts o) {
+__global__ void __launch_bounds__(mmt::F_THREADS, mmt::F_MINB) mm_fma(MM p, TileOpts o) {
   constexpr int BM = mmt::F_BM, BN = mmt::F_BN, BK = mmt::F_BK;
   __shared__ __align__(16) mmt::FmaSmem sm;
   int ti, tj;

@@ -17,11 +17,13 @@ the wrapper validates its arguments with the JAX package's rule
 (`_shape_gate`, same message), launches the hand-written kernel
 (ops/csrc/qr_fused.cu) for CUDA tensors and runs the plain version for CPU
 tensors — no other route.  The counters are `hopper.KERNELS["qr.*"]`, with
-each launch tallied by route: 'wgmma' for bf16 (the TMA + wgmma ring of
-ops/csrc/wgmma_tiles.cuh), 'simt' for f32 and f64.  The
-plain versions follow the JAX kernels' block structure: row blocks of `bm`
-accumulated in turn into the gram, g column blocks, the zero block
-triangle.  The gram accumulates in f32 (f64 for f64).
+each launch tallied by route, as `hopper._ROUTES` names each dtype's fast
+route: 'wgmma' for bf16 (the TMA + wgmma ring of ops/csrc/wgmma_tiles.cuh),
+'dmma' for f64 and 'fma' for f32 (the DMMA and FMA loops of
+ops/csrc/mm_tiles.cuh).  The plain versions follow the JAX kernels' block
+structure: row blocks of `bm` accumulated in turn into the gram, g column
+blocks, the zero block triangle.  The gram accumulates in f32 (f64 for
+f64).
 """
 
 from __future__ import annotations
@@ -32,15 +34,19 @@ import torch
 
 from capital_tpu_torch.ops import _build, hopper
 
-#: output tile edge of the gram kernel per dtype (ops/csrc/qr_fused.cu)
-_GRAM_TILE = {torch.bfloat16: 128, torch.float32: 64, torch.float64: 64}
-#: SMs of the H100: one bf16 gram block (128 KB ring) fills one
+#: output tile edge of every gram and scale kernel (ops/csrc/qr_fused.cu TILE)
+_GRAM_TILE = 128
+#: SMs of the H100
 _SMS = 132
-#: rows per k-tile of the bf16 gram (ops/csrc/wgmma_tiles.cuh BK)
-_GRAM_KTILE = 64
-#: f32 / f64 gram blocks that fill the card a few times over (4 waves)
-_FILL_BLOCKS = 4 * _SMS
-_MAX_SPLITS = 16
+#: gram blocks an SM holds: the bf16 wgmma ring (128 KB) and the f64 DMMA
+#: ring (198 KB) one, the f32 FMA loop two — each gram kernel's
+#: `__launch_bounds__` minimum (ops/csrc/mm_tiles.cuh D_MINB / F_MINB), which
+#: tests/test_torch_qr_kernels.py reads from the sources
+_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 2, torch.float64: 1}
+#: rows of the k-tiles a row split is made of (ops/csrc/qr_fused.cu SPLIT_ROWS)
+_SPLIT_ROWS = 64
+#: most row splits: each is an n x n partial for the finalize to sum
+_MAX_SPLITS = 32
 #: rows per step of the plain scale (values do not depend on it)
 _PLAIN_SCALE_ROWS = 1 << 16
 
@@ -202,45 +208,41 @@ def scale_gram_plain(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
 # --------------------------------------------------------------------------
 
 
-def gram_tiles(n: int, g: int, dtype: torch.dtype) -> list[tuple[int, int]]:
+def gram_tiles(n: int, g: int) -> list[tuple[int, int]]:
     """The gram kernel's live output tiles (tile row, tile column) in the
     order of its blocks (`live_tile` in ops/csrc/qr_fused.cu): tile row i
     from the first column of its block row to the last."""
-    T = _GRAM_TILE[dtype]
+    T = _GRAM_TILE
     c, nt = n // g, n // T
     return [(i, j) for i in range(nt) for j in range((i * T // c) * (c // T), nt)]
 
 
 def gram_split_rows(m: int, splits: int) -> list[tuple[int, int]]:
-    """Rows [r0, r1) of each split of the bf16 gram: split q takes the
+    """Rows [r0, r1) of each row split of the gram: split q takes the
     64-row k-tiles [q·K/S, (q+1)·K/S) of the K = ceil(m/64), whole k-tiles
-    whose counts differ by at most one (the rule of `gram_wgmma`)."""
-    kt = -(-m // _GRAM_KTILE)
-    return [(min(m, q * kt // splits * _GRAM_KTILE), min(m, (q + 1) * kt // splits * _GRAM_KTILE))
+    whose counts differ by at most one (`split_rows` in
+    ops/csrc/qr_fused.cu, every dtype)."""
+    kt = -(-m // _SPLIT_ROWS)
+    return [(min(m, q * kt // splits * _SPLIT_ROWS), min(m, (q + 1) * kt // splits * _SPLIT_ROWS))
             for q in range(splits)]
 
 
 def gram_splits(m: int, n: int, g: int, dtype: torch.dtype) -> int:
-    """Row splits of the gram kernel.
-
-    bf16 (one block per SM): the fewest splits, at most 16 and at most one
-    per 64-row k-tile, whose blocks need the fewest waves of 132 per split
-    (live tiles x splits in whole waves where that is possible: 36 x 11 =
-    396 = 3 waves at the QR flagship).  f32 / f64: double them (up to 16)
-    until the blocks fill the card four times over, keeping every split a
-    whole number of 32-row steps."""
-    live = len(gram_tiles(n, g, dtype))
-    if dtype == torch.bfloat16:
-        most = min(_MAX_SPLITS, -(-m // _GRAM_KTILE))
-        return min(range(1, most + 1), key=lambda s: (Fraction(-(-live * s // _SMS), s), s))
-    s = 1
-    while s < _MAX_SPLITS and live * s < _FILL_BLOCKS and m % (2 * s * 32) == 0:
-        s *= 2
-    return s
+    """Row splits of the gram kernel: the fewest splits, at most 32 and at
+    most one per 64-row k-tile, whose blocks need the fewest waves of the
+    card's block slots (132 SMs x `_BLOCKS_PER_SM`) per split.  At 65536 x
+    512, g=4 (10 live tiles): f64 13 splits (130 blocks, one wave of 132),
+    f32 26 (260 of 264 slots); the bf16 QR flagship 11 (36 x 11 = 396 = 3
+    whole waves)."""
+    live = len(gram_tiles(n, g))
+    slots = _SMS * _BLOCKS_PER_SM[dtype]
+    most = min(_MAX_SPLITS, -(-m // _SPLIT_ROWS))
+    return min(range(1, most + 1), key=lambda s: (Fraction(-(-live * s // slots), s), s))
 
 
 def _route(A: torch.Tensor) -> str:
-    return "wgmma" if A.dtype == torch.bfloat16 else "simt"
+    """The route every launch of A's dtype takes (its fast route)."""
+    return hopper._ROUTES[A.dtype][0]
 
 
 def _kernel_args(A: torch.Tensor, what: str) -> None:

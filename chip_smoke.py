@@ -31,18 +31,22 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    set to 0 just before and checked just after against what the plan
    predicts;
 4. holds the CholeskyQR2 kernels (gram_blocked, scale_gram, scale_blocked)
-   against their plain versions at the 2,097,152 x 1024 bf16 QR flagship and
-   at 65536 x 512 f32 and f64, timed beside their bounds and library calls,
-   every launch on its dtype's route (bf16 wgmma, f32 / f64 simt);
+   against their plain versions at the 2,097,152 x 1024 QR flagship (bf16
+   and f64) and at 65536 x 512 f32 and f64, timed beside their bounds and
+   library calls (at 65536 x 512: kernel and library call timed twice, in
+   turns), every launch on its dtype's route (bf16 wgmma, f32 fma, f64
+   dmma);
 5. drives the CholeskyQR2 path, `models/qr.factor` in mode 'pallas': the
    2,097,152 x 1024 bf16 flagship (timed, gated, and profiled: the trace's
    launches of the gram and scale kernels must equal the counted run's),
-   65536 x 512 f32
-   (also against the same factor through the plain versions), 65536 x 4096
-   bf16 (both grams through cholinv at bc=128), CQR1 at 65536 x 1024 bf16,
-   and a robust f32 run with a rank-deficient gram injected — each with
-   the counters set to 0 just before and checked just after against the
-   plan, and the orthogonality and residual gates of bench/drivers.py;
+   65536 x 512 f32 and f64 (also against the same factor through the
+   plain versions), 2,097,152 x 1024 f64 (the reference's precision at
+   the flagship's shape: timed, peak memory, profiled by CQR:: phase),
+   65536 x 4096 bf16 (both grams through cholinv at bc=128), CQR1 at
+   65536 x 1024 bf16, and a robust f32 run with a rank-deficient gram
+   injected — each with the counters set to 0 just before and checked just
+   after against the plan, and the orthogonality and residual gates of
+   bench/drivers.py (5e-2 bf16, 5e-5 f32, 1e-13 f64);
 6. holds the small-N batched kernels (potrf, potrs, posv, lstsq) against
    their plain versions, timed beside their bounds and library calls, at
    the serve latency bucket (8 problems, n=128, 8 right-hand sides, f32)
@@ -142,8 +146,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 Phases 3, 5, 7, 9–12, 14, 16 and 18 set every launch counter to 0 just
 before their runs and check the counts just after against the plan;
 phases 3, 4, 5, 9, 17 and 18 also check that every tri_matmul and
-sched_matmul launch took its dtype's route (bf16 wgmma, f32 fma, f64
-dmma) and every qr_fused launch its own (bf16 wgmma, f32 / f64 simt).
+sched_matmul and qr_fused launch took its dtype's route (bf16 wgmma, f32
+fma, f64 dmma).
 
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA or a directory without the package.
@@ -178,12 +182,12 @@ UP_KERNELS = ("up.sweep",)
 #: the mesh slice's kernel
 MESH_KERNELS = ("sched_matmul",)
 #: kernels whose launches are tallied by route; the route each dtype's
-#: aligned windows take in tri_matmul and sched_matmul, the element-load
-#: loop each dtype's other windows take, and the CholeskyQR2 kernels' routes
+#: aligned windows take in tri_matmul and sched_matmul (and every launch of
+#: the CholeskyQR2 kernels), and the element-load loop each dtype's other
+#: tri_matmul and sched_matmul windows take
 ROUTED = ("tri_matmul.trmm", "tri_matmul.syrk", "tri_matmul.dense", "sched_matmul") + QR_KERNELS
 ROUTE_OF = {torch.bfloat16: "wgmma", torch.float32: "fma", torch.float64: "dmma"}
 ELEM_OF = {torch.bfloat16: "wmma", torch.float32: "simt", torch.float64: "simt"}
-QR_ROUTE_OF = {torch.bfloat16: "wgmma", torch.float32: "simt", torch.float64: "simt"}
 DTYPE_BY_NAME = {"f32": torch.float32, "bf16": torch.bfloat16}
 #: phase 15's sweeps (batch, n, k): the serve bucket's largest small-N n
 #: over the nrhs_buckets rungs, and the throughput batch
@@ -224,9 +228,10 @@ SMALL_SHAPES = {
     "throughput": {"square": (8192, 128, 128, 8), "tall": (2048, 512, 128, 8)},
 }
 #: (m, n) of each CholeskyQR2 run: the BASELINE.md "CAQR2 ... 2M x 1024"
-#: flagship (bf16), the f32 row (65536 x 512), a wide gram whose factor goes
-#: through cholinv (n=4096, bc=128), CQR1 and the robust run (n=1024)
-QR_SHAPES = {"flagship": (2_097_152, 1024), "f32": (65536, 512), "wide": (65536, 4096),
+#: flagship (bf16 and f64), its single-rank 65536 x 512 row (f32 and f64),
+#: a wide gram whose factor goes through cholinv (n=4096, bc=128), CQR1 and
+#: the robust run (n=1024)
+QR_SHAPES = {"flagship": (2_097_152, 1024), "single_rank": (65536, 512), "wide": (65536, 4096),
              "cqr1": (65536, 1024)}
 #: the inversion slice's shapes: write_diag_blocks (count, s) as the rectri
 #: flagship writes them; the fused_tail window (n, off, dest, buffer edge);
@@ -296,16 +301,25 @@ def check_close(name, got, want, dtype, mask=None) -> float:
     f64, 1e-12 of the largest entry.
     The QR kernels' Q is held the same way; their gram G by relative
     Frobenius (`check_gram`)."""
-    g, w = (got.double(), want.double()) if dtype == torch.float64 else (got.float(), want.float())
+    up = torch.float64 if dtype == torch.float64 else torch.float32
     if mask is not None:
-        g, w = g[mask], w[mask]
-    err = (g - w).abs()
-    scale = float(w.abs().max())
-    if dtype == torch.bfloat16:
-        ok = bool((err <= 2.0**-7 * w.abs() + 1e-5 * scale).all())
-    else:
-        ok = float(err.max()) <= (1e-12 if dtype == torch.float64 else 3e-5) * scale
-    worst = float(err.max())
+        got, want = got[mask], want[mask]
+    # in slices of 2^26 entries: a 2,097,152 x 1024 f64 Q is 17.2 GB, and the
+    # card holds A and both Qs beside the differences only a slice at a time
+    got, want = got.reshape(-1), want.reshape(-1)
+    step = 1 << 26
+    parts = range(0, want.numel(), step)
+    scale = float(torch.stack([want[i:i + step].to(up).abs().max() for i in parts]).max())
+    ok, worst = True, []
+    for i in parts:
+        g, w = got[i:i + step].to(up), want[i:i + step].to(up)
+        err = (g - w).abs()
+        worst.append(err.max())
+        if dtype == torch.bfloat16:
+            ok &= bool((err <= 2.0**-7 * w.abs() + 1e-5 * scale).all())
+    worst = float(torch.stack(worst).max())
+    if dtype != torch.bfloat16:
+        ok = worst <= (1e-12 if dtype == torch.float64 else 3e-5) * scale
     check(ok and math.isfinite(worst), f"{name} {dtype}: kernel vs plain max err {worst} (scale {scale})")
     return worst
 
@@ -554,15 +568,10 @@ def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
 
 def check_routes(hopper, counts: dict, route, label: str) -> dict:
     """Every counted launch of a routed kernel took its route: `route`
-    names one for all of them, or is a dtype (tri_matmul and sched_matmul
-    on ROUTE_OF, the CholeskyQR2 kernels on QR_ROUTE_OF)."""
-    def of(k):
-        if isinstance(route, str):
-            return route
-        return (QR_ROUTE_OF if k in QR_KERNELS else ROUTE_OF)[route]
-
+    names one for all of them, or is a dtype (its ROUTE_OF)."""
+    name = route if isinstance(route, str) else ROUTE_OF[route]
     got = hopper.route_counts()
-    want = {k: {of(k): counts[k]} for k in ROUTED if counts.get(k)}
+    want = {k: {name: counts[k]} for k in ROUTED if counts.get(k)}
     check(got == want, f"{label}: launches by route {got} != {want}")
     return got
 
@@ -726,14 +735,16 @@ def device_ms(run, iters: int) -> float:
     return sum(ms for k, ms in prof["top_kernels_device_ms"].items() if prof["launches"][k] >= iters) / iters
 
 
-def check_qr_trace(prof: dict, counts: dict) -> dict:
+def check_qr_trace(prof: dict, counts: dict, dtype) -> dict:
     """The QR profile saw every launch of the tall-pass kernels that one
     factor makes (`counts`, the counted run's): each gram_blocked and
-    scale_gram runs the gram kernel and its finalize, each scale_gram and
-    scale_blocked the scale kernel."""
+    scale_gram runs the gram kernel of the dtype's route (gram_wgmma,
+    gram_fma, gram_dmma) and its finalize, each scale_gram and
+    scale_blocked the scale kernel of that route."""
     grams = counts["qr.gram_blocked"] + counts["qr.scale_gram"]
-    want = {"gram_wgmma": grams, "gram_finalize": grams,
-            "scale_wgmma": counts["qr.scale_gram"] + counts["qr.scale_blocked"]}
+    route = ROUTE_OF[dtype]
+    want = {f"gram_{route}": grams, "gram_finalize": grams,
+            f"scale_{route}": counts["qr.scale_gram"] + counts["qr.scale_blocked"]}
     got = {k: sum(v for name, v in prof["launches"].items() if k in name) for k in want}
     check(got == want, f"QR profile: trace launches {got} != counted {want}")
     return got
@@ -749,7 +760,11 @@ def tall_randn(m: int, n: int, dtype, seed: int, device) -> torch.Tensor:
 def qr_kernel_phase(qr_fused, hopper, m: int, n: int, dtype, dev) -> dict:
     """The three CholeskyQR2 kernels against their plain versions at (m, n)
     and its column split, timed beside bound and library call; every launch
-    on the dtype's route (bf16: wgmma, f32: simt)."""
+    on the dtype's route (bf16 wgmma, f32 fma, f64 dmma).  Below the
+    flagship's size, where library calls swing ±20 % between runs, the
+    gram and scale are timed twice beside their library calls, in turns
+    (`pairs`: [kernel ms, library ms] each turn; `ms` and `library_ms` their
+    means)."""
     hopper.reset_counts()
     g = qr_fused.pick_g(n)
     live = qr_fused.live_fraction(g)
@@ -759,19 +774,25 @@ def qr_kernel_phase(qr_fused, hopper, m: int, n: int, dtype, dev) -> dict:
     Rinv = torch.triu(torch.randn((n, n), generator=gen, device=dev) * (0.1 / math.sqrt(n))
                       + torch.eye(n, device=dev)).to(dtype)
     flops = 2.0 * m * n * n * live
-    res, iters = {}, 3
-    pi = 1 if m * n > 1 << 28 else 3  # the plain versions loop over row blocks
+    big = m * n > 1 << 28
+    res, iters = {}, 3 if big else 10
+    pi = 1 if big else 3  # the plain versions loop over row blocks
+    acc_item = 8 if dtype == torch.float64 else 4  # G's element
+
+    def timed(kernel, library) -> dict:
+        pairs = [[time_ms(kernel, iters), time_ms(library, iters)] for _ in range(1 if big else 2)]
+        return dict(ms=sum(p[0] for p in pairs) / len(pairs),
+                    library_ms=sum(p[1] for p in pairs) / len(pairs), pairs=pairs)
 
     Gk, Gp = qr_fused.gram_blocked(A, g=g), qr_fused.gram_blocked_plain(A, g=g)
     err = check_gram("gram_blocked", Gk, Gp, dtype, g)
     del Gk, Gp
     res["qr.gram_blocked"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: qr_fused.gram_blocked(A, g=g), iters),
+        **timed(lambda: qr_fused.gram_blocked(A, g=g), lambda: torch.mm(A.t(), A)),
         plain_ms=time_ms(lambda: qr_fused.gram_blocked_plain(A, g=g), pi, warmup=1),
-        library_ms=time_ms(lambda: torch.mm(A.t(), A), iters),
-        shape=f"{m}x{n} {dtype} g={g}",
-        bound=bound_ms(m * n * item + 4.0 * n * n, flops, dtype),
+        shape=f"{m}x{n} {dtype} g={g}", splits=qr_fused.gram_splits(m, n, g, dtype),
+        bound=bound_ms(m * n * item + acc_item * n * n, flops, dtype),
     )
 
     Qk, Qp = qr_fused.scale_blocked(A, Rinv, g=g), qr_fused.scale_blocked_plain(A, Rinv, g=g)
@@ -780,9 +801,8 @@ def qr_kernel_phase(qr_fused, hopper, m: int, n: int, dtype, dev) -> dict:
     Rt = torch.triu(Rinv)
     res["qr.scale_blocked"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: qr_fused.scale_blocked(A, Rinv, g=g), iters),
+        **timed(lambda: qr_fused.scale_blocked(A, Rinv, g=g), lambda: A @ Rt),
         plain_ms=time_ms(lambda: qr_fused.scale_blocked_plain(A, Rinv, g=g), pi, warmup=1),
-        library_ms=time_ms(lambda: A @ Rt, iters),
         shape=f"{m}x{n} {dtype} g={g}",
         bound=bound_ms(2.0 * m * n * item + n * n * item, flops, dtype),
     )
@@ -797,12 +817,12 @@ def qr_kernel_phase(qr_fused, hopper, m: int, n: int, dtype, dev) -> dict:
         plain_ms=time_ms(lambda: qr_fused.scale_gram_plain(A, Rinv, g=g), pi, warmup=1),
         library_ms=None,  # no single PyTorch call computes it
         shape=f"{m}x{n} {dtype} g={g}",
-        bound=bound_ms(2.0 * m * n * item + n * n * item + 4.0 * n * n, 2 * flops, dtype),
+        bound=bound_ms(2.0 * m * n * item + n * n * item + acc_item * n * n, 2 * flops, dtype),
     )
     del A, Rinv
     torch.cuda.empty_cache()
     routes = hopper.route_counts()
-    check(set(routes) == set(QR_KERNELS) and all(set(v) == {QR_ROUTE_OF[dtype]} for v in routes.values()),
+    check(set(routes) == set(QR_KERNELS) and all(set(v) == {ROUTE_OF[dtype]} for v in routes.values()),
           f"QR kernels {m}x{n} {dtype}: launches by route {routes}")
     print(json.dumps({"qr_routes": f"{m}x{n} {dtype} g={g}", **routes}), flush=True)
     return res
@@ -841,9 +861,10 @@ def plain_qr_versions(hopper, qr_fused):
 
 
 def qr_gates(residual, A, Q, R, label) -> dict:
-    """The gates of capital_tpu/bench/drivers.py (`_tolerance`):
-    ‖I − QᵀQ‖ and the row-blocked ‖A − QR‖/‖A‖ < 5e-2 (bf16), 5e-5 (f32)."""
-    tol = 5e-2 if A.dtype == torch.bfloat16 else 5e-5
+    """The gates of capital_tpu/bench/drivers.py (`_tolerance`, by element
+    size): ‖I − QᵀQ‖ and the row-blocked ‖A − QR‖/‖A‖ < 5e-2 (bf16), 5e-5
+    (f32), 1e-13 (f64)."""
+    tol = {2: 5e-2, 4: 5e-5, 8: 1e-13}[A.element_size()]
     orth = float(residual.qr_orthogonality(Q))
     res = float(residual.qr_residual_blocked(A, Q, R))
     check(orth < tol and res < tol, f"{label}: orthogonality {orth}, residual {res} (tol {tol})")
@@ -909,27 +930,58 @@ def qr_path(hopper, dev, grid) -> dict:
                            seconds_first=secs, counts=counts, **gates)
     print(json.dumps({"qr": "flagship", **out["flagship"]}), flush=True)
     out["profile"] = profile(lambda: qr.factor(grid, A, cfg), "CQR::")
-    out["profile"]["trace_vs_counts"] = check_qr_trace(out["profile"], counts)
+    out["profile"]["trace_vs_counts"] = check_qr_trace(out["profile"], counts, torch.bfloat16)
     print(json.dumps({"profile": "QR flagship", **out["profile"]}), flush=True)
     del A
     torch.cuda.empty_cache()
 
-    # ---- 65536 x 512 f32, precision 'highest', g=4: also vs plain ---------
-    m, n = QR_SHAPES["f32"]
-    A = tall_randn(m, n, torch.float32, 2, dev)
-    cfg = cfg_for(torch.float32)
+    # ---- 65536 x 512 f32 (precision 'highest') and f64, g=4: also vs plain
+    for key, dtype, seed in (("f32", torch.float32, 2), ("f64", torch.float64, 6)):
+        m, n = QR_SHAPES["single_rank"]
+        A = tall_randn(m, n, dtype, seed, dev)
+        cfg = cfg_for(dtype)
+        (Q, R), counts, secs = drive_qr(qr, hopper, grid, A, cfg, predicted_qr_counts(n, 128, 2),
+                                        f"QR {key}")
+        gates = qr_gates(residual, A, Q, R, f"QR {key}")
+        t = timed_s(lambda: qr.factor(grid, A, cfg), 5)
+        with plain_qr_versions(hopper, qr_fused):
+            Qp, Rp = qr.factor(grid, A, cfg)
+        dQ = float(residual.rel_fro(Q - Qp, Qp))
+        dR = float(residual.rel_fro(R - Rp, Rp))
+        # the kernels and the plain versions sum in other orders: 1e-5 in
+        # f32, 1e-12 in f64 (the kernel gates of check_close / check_gram)
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        check(dQ < tol and dR < tol, f"QR {key} kernels vs plain: Q {dQ}, R {dR}")
+        out[key] = dict(m=m, n=n, counts=counts, seconds=t, tflops=2.0 * m * n * n * 2 / t / 1e12,
+                        seconds_first=secs, vs_plain=[dQ, dR], **gates)
+        print(json.dumps({"qr": f"{m}x{n} {key}", **out[key]}), flush=True)
+        del A, Q, R, Qp, Rp
+
+    # ---- 2,097,152 x 1024 f64: the flagship's shape in the reference's
+    # precision.  No plain factor beside it: with A, Q, R and the plain Q and
+    # R at 17.2 GB an operand the card would need more than its 80 GB (phase
+    # 4 holds each kernel against its plain version at this shape) --------
+    m, n = QR_SHAPES["flagship"]
+    A = tall_randn(m, n, torch.float64, 7, dev)
+    cfg = cfg_for(torch.float64)
     (Q, R), counts, secs = drive_qr(qr, hopper, grid, A, cfg, predicted_qr_counts(n, 128, 2),
-                                    "QR f32")
-    gates = qr_gates(residual, A, Q, R, "QR f32")
-    with plain_qr_versions(hopper, qr_fused):
-        Qp, Rp = qr.factor(grid, A, cfg)
-    dQ = float(residual.rel_fro(Q - Qp, Qp))
-    dR = float(residual.rel_fro(R - Rp, Rp))
-    # f32: the kernels and the plain versions sum in other orders; 1e-5
-    check(dQ < 1e-5 and dR < 1e-5, f"QR f32 kernels vs plain: Q {dQ}, R {dR}")
-    out["f32"] = dict(m=m, n=n, counts=counts, seconds_first=secs, vs_plain=[dQ, dR], **gates)
-    print(json.dumps({"qr": "65536x512 f32", **out["f32"]}), flush=True)
-    del A, Q, R, Qp, Rp
+                                    "QR flagship f64")
+    gates = qr_gates(residual, A, Q, R, "QR flagship f64")
+    del Q, R
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = timed_s(lambda: qr.factor(grid, A, cfg), 3)  # peak memory of one factor
+    peak = torch.cuda.max_memory_allocated()
+    out["flagship_f64"] = dict(m=m, n=n, dtype="float64", g=qr_fused.pick_g(n), plan="full",
+                               seconds=t, tflops=2.0 * m * n * n * 2 / t / 1e12, peak_bytes=peak,
+                               seconds_first=secs, counts=counts, **gates)
+    print(json.dumps({"qr": "flagship f64", **out["flagship_f64"]}), flush=True)
+    prof = profile(lambda: qr.factor(grid, A, cfg), "CQR::")
+    prof["trace_vs_counts"] = check_qr_trace(prof, counts, torch.float64)
+    out["flagship_f64"]["profile"] = prof
+    print(json.dumps({"profile": "QR flagship f64", **prof}), flush=True)
+    del A
+    torch.cuda.empty_cache()
 
     # ---- 65536 x 4096 bf16: both grams through cholinv at bc=128 ----------
     (m, n), bc = QR_SHAPES["wide"], 128
@@ -2794,14 +2846,16 @@ def main(argv=None) -> int:
     # ---- phase 4: the CholeskyQR2 kernels against their plain versions ----
     from capital_tpu_torch.ops import qr_fused
 
-    for run, dtype in (("flagship", torch.bfloat16), ("f32", torch.float32), ("f32", torch.float64)):
+    qr_kernels = out["kernels"]["qr"] = {}
+    for run, dtype in (("flagship", torch.bfloat16), ("single_rank", torch.float32),
+                       ("single_rank", torch.float64), ("flagship", torch.float64)):
         m, n = QR_SHAPES[run]
         res = qr_kernel_phase(qr_fused, hopper, m, n, dtype, dev)
         for name, r in res.items():
             b, by = r.pop("bound")
             r.update(bound_ms=b, bound_by=by)
             print(json.dumps({"kernel": name, "dtype": str(dtype), **r}), flush=True)
-        out["kernels"][str(dtype)].update(res)
+        qr_kernels[f"{run} {dtype}"] = res
 
     # ---- phase 5: the CholeskyQR2 path ------------------------------------
     out["qr"] = qr_path(hopper, dev, grid)
@@ -2913,7 +2967,7 @@ def main(argv=None) -> int:
     # the small-N kernels report their f32 throughput batch; the blocktri
     # steps the flagship's step (8 problems, seg 8, b 128, k 1, f32); the
     # sweep its f32 update throughput batch
-    measured = {**bf, **small[f"throughput {torch.float32}"], **inv,
+    measured = {**bf, **out["kernels"]["qr"][f"flagship {torch.bfloat16}"], **small[f"throughput {torch.float32}"], **inv,
                 **{k: bt[f"{k} 8x8x128x1 f32"] for k in BT_KERNELS},
                 "up.sweep": up["update 8192x128x8 f32"],
                 "sched_matmul": sched["flagship a bfloat16"]}

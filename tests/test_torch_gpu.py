@@ -183,6 +183,8 @@ def test_factor_kernels_vs_plain(cuda, monkeypatch, dt):
 
 QR_SHAPES = [(2048, 512, 2), (4096, 512, 4), (8192, 1024, 8)]
 G_REL = {"f64": 1e-12, "f32": 1e-5, "bf16": 1e-3}
+#: the route every qr_fused launch of a dtype takes
+QR_ROUTE = {"f64": "dmma", "f32": "fma", "bf16": "wgmma"}
 
 
 def _tall(seed, m, n, dt, dev):
@@ -215,6 +217,7 @@ def test_gram_blocked_kernel_vs_plain(cuda, shape, dt):
     want = qr_fused.gram_blocked_plain(A, g=g)
     torch.cuda.synchronize()
     assert hopper.counts()["qr.gram_blocked"] == 1
+    assert hopper.route_counts() == {"qr.gram_blocked": {QR_ROUTE[dt]: 1}}
     assert got.dtype == want.dtype
     assert _g_rel(got, want) <= (1e-12 if dt == "f64" else 1e-5)  # exact products, f32 sums
     assert bool((got.cpu()[_dead_block_triangle(n, g)] == 0).all())
@@ -232,6 +235,7 @@ def test_scale_kernels_vs_plain(cuda, shape, dt):
     Qp, Gp = qr_fused.scale_gram_plain(A, Rinv, g=g)
     torch.cuda.synchronize()
     assert hopper.counts()["qr.scale_blocked"] == 1 and hopper.counts()["qr.scale_gram"] == 1
+    assert hopper.route_counts() == {k: {QR_ROUTE[dt]: 1} for k in ("qr.scale_blocked", "qr.scale_gram")}
     assert torch.equal(Q, Qg)  # one scale kernel behind both entries
     _close(Q, Qp, dt)
     assert _g_rel(G, Gp) <= G_REL[dt]
@@ -248,7 +252,7 @@ def test_qr_kernels_refuse_bad_operands(cuda):
         qr_fused.gram_blocked(A.t().contiguous().t(), g=2)
 
 
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f64"])
 def test_cqr2_kernels_vs_plain(cuda, monkeypatch, dt):
     m, n = 8192, 1024
     A = _tall(25, m, n, dt, cuda)
@@ -258,14 +262,16 @@ def test_cqr2_kernels_vs_plain(cuda, monkeypatch, dt):
     Q, R = qr.factor(grid, A, cfg)
     c = hopper.counts()
     assert (c["qr.gram_blocked"], c["qr.scale_gram"], c["qr.scale_blocked"]) == (1, 1, 1)
-    gate = {"f32": 5e-5, "bf16": 5e-2}[dt]
+    routes = hopper.route_counts()
+    assert all(routes[k] == {QR_ROUTE[dt]: 1} for k in ("qr.gram_blocked", "qr.scale_gram", "qr.scale_blocked"))
+    gate = {"f64": 1e-13, "f32": 5e-5, "bf16": 5e-2}[dt]  # bench/drivers.py _tolerance
     assert float(residual.qr_orthogonality(Q)) < gate
     assert float(residual.qr_residual(A, Q, R)) < gate
     for name in ("gram_blocked", "scale_gram", "scale_blocked"):
         monkeypatch.setattr(qr_fused, name, getattr(qr_fused, name + "_plain"))
     monkeypatch.setattr(hopper, "transpose", hopper.transpose_plain)
     Qp, Rp = qr.factor(grid, A, cfg)
-    tol = {"f32": 1e-5, "bf16": 2e-2}[dt]
+    tol = {"f64": 1e-12, "f32": 1e-5, "bf16": 2e-2}[dt]
     assert float(residual.rel_fro(Q.double() - Qp.double(), Qp.double())) < tol
     assert float(residual.rel_fro(R.double() - Rp.double(), Rp.double())) < tol
 
@@ -294,6 +300,31 @@ def test_qr_wgmma_vs_plain(cuda, shape):
     dead = _dead_block_triangle(n, g)
     assert bool((G.cpu()[dead] == 0).all()) and bool((Gg.cpu()[dead] == 0).all())
     # no atomics, no order that varies: the same bits on every call
+    assert torch.equal(G, qr_fused.gram_blocked(A, g=g))
+    assert torch.equal(Q, qr_fused.scale_blocked(A, Rinv, g=g))
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_fp_gram_scale_ragged_splits_vs_plain(cuda, dt):
+    """8320 rows are 130 k-tiles of 64: the f32 gram's 22 splits and the
+    f64 gram's 11 take 5 or 6 and 11 or 12 of them (unequal splits of whole
+    k-tiles), and the scale's 65 row panels do not divide among the blocks."""
+    m, n, g = 8192 + 128, 1024, 8
+    A, Rinv = _tall(29, m, n, dt, cuda), _rinv(30, n, dt, cuda)
+    assert len({r1 - r0 for r0, r1 in qr_fused.gram_split_rows(m, qr_fused.gram_splits(m, n, g, DTYPES[dt]))}) == 2
+    hopper.reset_counts()
+    G = qr_fused.gram_blocked(A, g=g)
+    Q = qr_fused.scale_blocked(A, Rinv, g=g)
+    Qg, Gg = qr_fused.scale_gram(A, Rinv, g=g)
+    torch.cuda.synchronize()
+    assert hopper.route_counts() == {k: {QR_ROUTE[dt]: 1} for k in
+                                     ("qr.gram_blocked", "qr.scale_gram", "qr.scale_blocked")}
+    assert _g_rel(G, qr_fused.gram_blocked_plain(A, g=g)) <= G_REL[dt]
+    _close(Q, qr_fused.scale_blocked_plain(A, Rinv, g=g), dt)
+    assert torch.equal(Q, Qg)
+    assert _g_rel(Gg, qr_fused.gram_blocked_plain(Qg, g=g)) <= G_REL[dt]
+    dead = _dead_block_triangle(n, g)
+    assert bool((G.cpu()[dead] == 0).all()) and bool((Gg.cpu()[dead] == 0).all())
     assert torch.equal(G, qr_fused.gram_blocked(A, g=g))
     assert torch.equal(Q, qr_fused.scale_blocked(A, Rinv, g=g))
 

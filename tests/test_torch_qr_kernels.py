@@ -17,6 +17,8 @@ Tolerances, relative to the largest |reference| entry unless stated:
   differ by an ulp).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +28,7 @@ import torch
 from capital_tpu.ops import qr_fused as jq
 from capital_tpu.parallel.topology import Grid as JGrid
 from capital_tpu_torch import Grid
-from capital_tpu_torch.ops import hopper
+from capital_tpu_torch.ops import _build, hopper
 from capital_tpu_torch.ops import qr_fused as tq
 from capital_tpu_torch.utils.interop import tensor_from_numpy
 
@@ -189,45 +191,92 @@ def test_assemble_sym_agrees():
     (65536, 4096, 32, torch.bfloat16, 1),  # 528 live tiles are 4 whole waves alone
     (2048, 512, 2, torch.bfloat16, 11),  # 12 tiles x 11 = one wave; splits of 2 and 3 k-tiles
     (256, 512, 4, torch.bfloat16, 4),  # capped at one split per 64-row k-tile
-    (65536, 512, 4, torch.float32, 16),
-    (65536, 1024, 8, torch.float32, 4),
-    (128, 512, 4, torch.float32, 4),  # capped where a split would drop under 32 rows
+    (65536, 512, 4, torch.float32, 26),  # 10 tiles x 26 = 260 of the FMA loop's 264 slots
+    (65536, 1024, 8, torch.float32, 22),  # 36 x 22 = 792 = 3 whole waves of 264
+    (128, 512, 4, torch.float32, 2),  # capped at one split per 64-row k-tile
+    (2048, 512, 2, torch.float32, 22),  # 12 x 22 = one wave of 264
+    (65536, 512, 4, torch.float64, 13),  # 10 x 13 = 130: one wave of the DMMA loop's 132
+    (1 << 21, 1024, 8, torch.float64, 11),  # 3 whole waves of 132, as bf16
+    (128, 512, 4, torch.float64, 2),
 ])
 def test_gram_splits(m, n, g, dt, want):
+    """One split rule for every dtype: whole non-empty 64-row k-tiles, the
+    fewest waves of the dtype's block slots per split."""
     s = tq.gram_splits(m, n, g, dt)
     assert s == want
-    if dt == torch.bfloat16:  # whole 64-row k-tiles, none empty
-        assert all(r1 > r0 and r0 % 64 == 0 for r0, r1 in tq.gram_split_rows(m, s))
-    else:  # equal splits of whole 32-row steps
-        assert m % (s * 32) == 0
+    assert all(r1 > r0 and r0 % 64 == 0 for r0, r1 in tq.gram_split_rows(m, s))
 
 
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32, torch.float64])
 @pytest.mark.parametrize("n,g", [(512, 2), (512, 4), (1024, 8), (2048, 4), (4096, 32)])
 def test_gram_tiles_visit_every_live_tile_once(n, g, dt):
     """The gram grid's tiles are exactly the tiles of the upper block-row
     form, each once: a tile is live iff its columns start at or after its
-    block row's first column."""
-    T = tq._GRAM_TILE[dt]
-    tiles = tq.gram_tiles(n, g, dt)
+    block row's first column.  With the dtype's row splits at m = 65536, the
+    (tile, split) grid sums every live tile over every row of A once."""
+    T = tq._GRAM_TILE
+    tiles = tq.gram_tiles(n, g)
     assert len(tiles) == len(set(tiles))
     live = np.zeros((n, n), bool)
     for i, j in tiles:
         live[i * T:(i + 1) * T, j * T:(j + 1) * T] = True
     assert np.array_equal(live, ~_dead(n, g))
     assert tiles == sorted(tiles)  # row by row: the kernel's block order
+    m = 65536
+    rows = np.zeros((n // T, n // T), np.int64)
+    for r0, r1 in tq.gram_split_rows(m, tq.gram_splits(m, n, g, dt)):
+        for i, j in tiles:
+            rows[i, j] += r1 - r0
+    assert np.array_equal(rows, np.where(live[::T, ::T], m, 0))
 
 
 @pytest.mark.parametrize("m,splits", [(128, 1), (128, 2), (2048, 11), (8192 + 128, 11), (8192 + 128, 13),
-                                      (65536, 11), (65536, 16), (1 << 21, 11), (1 << 21, 16)])
+                                      (65536, 11), (65536, 16), (1 << 21, 11), (1 << 21, 16),
+                                      (65536, 13), (65536, 26), (8192 + 128, 22), (1 << 21, 22)])
 def test_gram_split_rows_cover_every_row_once(m, splits):
     """Every row of A in exactly one split, splits in row order, each a run
-    of whole 64-row k-tiles whose counts differ by at most one."""
+    of whole 64-row k-tiles whose counts differ by at most one (the rule of
+    every dtype's gram kernel)."""
     rows = tq.gram_split_rows(m, splits)
     assert rows[0][0] == 0 and rows[-1][1] == m
     assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
     sizes = [r1 - r0 for r0, r1 in rows]
     assert all(r0 % 64 == 0 for r0, _ in rows) and max(sizes) - min(sizes) <= 64 and min(sizes) > 0
+
+
+@pytest.mark.parametrize("dt,want", [(torch.bfloat16, "wgmma"), (torch.float32, "fma"),
+                                     (torch.float64, "dmma")])
+def test_route_is_the_dtype_fast_route(dt, want):
+    """Every launch of a dtype is tallied on its fast route: the wgmma ring
+    (bf16), the FMA loop (f32), the DMMA loop (f64)."""
+    assert tq._route(torch.empty((128, 128), dtype=dt)) == want == hopper._ROUTES[dt][0]
+
+
+def _csrc_int(name: str, src: str) -> int:
+    """The integer a `constexpr int` names in ops/csrc/<src>."""
+    m = re.search(r"constexpr int (?:\w+ = \w+, )*" + name + r" = (\d+)", (_build.CSRC / src).read_text())
+    assert m, (name, src)
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("dt,kernel", [(torch.bfloat16, "gram_wgmma"), (torch.float32, "gram_fma"),
+                                       (torch.float64, "gram_dmma")])
+def test_blocks_per_sm_mirror_the_gram_kernels_launch_bounds(dt, kernel):
+    """The split rule's block slots an SM are the gram kernel's own
+    `__launch_bounds__` minimum (a literal, or mm_tiles.cuh's D_MINB /
+    F_MINB): the split count is chosen for the occupancy the kernel has."""
+    text = (_build.CSRC / "qr_fused.cu").read_text()
+    m = re.search(r"__launch_bounds__\([\w:]+, ([\w:]+)\)\s+" + kernel + r"\(", text)
+    assert m, kernel
+    minb = m.group(1)
+    want = int(minb) if minb.isdigit() else _csrc_int(minb.removeprefix("mmt::"), "mm_tiles.cuh")
+    assert tq._BLOCKS_PER_SM[dt] == want
+
+
+@pytest.mark.parametrize("mirror,name", [("_GRAM_TILE", "TILE"), ("_SPLIT_ROWS", "SPLIT_ROWS")])
+def test_host_mirrors_match_the_kernel_constants(mirror, name):
+    """The host's tile edge and split k-tile rows are the kernel file's."""
+    assert getattr(tq, mirror) == _csrc_int(name, "qr_fused.cu")
 
 
 def test_cpu_wrappers_take_plain_versions_and_count_nothing():
