@@ -57,8 +57,10 @@ SMALL_N_MAX = 128
 
 IMPLS = ("auto", "vmap", "pallas", "pallas_split")
 
-#: rows of A and B staged per chunk by the lstsq kernel (csrc LSTSQ_ROWS)
-LSTSQ_ROWS = 16
+#: rows of [A | B] a stage of the lstsq kernel holds at most (csrc
+#: LSTSQ_ROWS); fewer when a stage would hold more than 8 groups of 4
+#: entries a thread of 256 (csrc lstsq_stage_rows)
+LSTSQ_ROWS = 32
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -86,18 +88,33 @@ def _potrf_ld(n: int) -> int:
     return ld if 4 * n4 * ld <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE else n4
 
 
+def _lstsq_floats(n: int, k: int) -> int:
+    """csrc lstsq_floats: the stage or G's copy, the G -> V -> G2 -> R tile,
+    AᵀB and a panel of G2."""
+    n4, k4 = (n + 3) // 4 * 4, (k + 3) // 4 * 4
+    ld = n4 if (n4 // 4) % 2 else n4 + 4
+    rows = max(1, min(LSTSQ_ROWS, 8 * 256 // ((n + 3) // 4 + (k + 3) // 4)))
+    stage = 2 * rows * (-(-n // 32) * 32 + -(-k // 16) * 16)
+    return max(n4 * ld, stage) + n4 * ld + n4 * k4 + 16 * n4
+
+
 def smem_bytes(op: str, n: int, k: int) -> int:
     """Dynamic shared memory of one block of the `op` kernel for one problem
-    of order n with k right-hand sides: f32 matrices with an odd leading
-    dimension ld (n + 1 for even n) so column walks are free of bank
-    conflicts; potrf's blocked factor wants 16-byte rows instead, round4(n)
-    of them, `_potrf_ld(n)` floats each.
+    of order n with k right-hand sides.  The sweep kernels keep f32
+    matrices with an odd leading dimension ld (n + 1 for even n) so column
+    walks are free of bank conflicts; the blocked ones (potrf, lstsq) want
+    16-byte rows instead: round4(n) rows of round4(n) floats, plus 4 when
+    that is 0 mod 8 (`_potrf_ld` for potrf).
 
-    potrf              4·round4(n)·_potrf_ld(n)     (the working matrix)
-    trsm, potrs, posv  4·(n·ld + n·k)               (factor, right-hand sides)
-    lstsq              4·(2·n·ld + n·k + 16·(n+k))  (R1, the G→V→G2→R2→R
-                                                     buffer, AᵀB, a 16-row
-                                                     stage of A|B)
+    potrf              4·round4(n)·_potrf_ld(n)   (the working matrix)
+    trsm, potrs, posv  4·(n·ld + n·k)             (factor, right-hand sides)
+    lstsq              4·(max(tile, stage) + tile + round4(n)·round4(k)
+                       + 16·round4(n))            (G's copy and R1 or the
+                                                   [A|B] stage, the
+                                                   G→V→G2→R2→R tile, AᵀB,
+                                                   a 16-column panel of G2)
+    with tile = round4(n)·ld and stage = 2·rows·(round32(n) + round16(k)),
+    rows = min(LSTSQ_ROWS, 2048 // (ceil(n/4) + ceil(k/4))).
     """
     ld = n + 1 if n % 2 == 0 else n
     if op == "potrf":
@@ -105,7 +122,7 @@ def smem_bytes(op: str, n: int, k: int) -> int:
     if op in ("trsm", "potrs", "posv"):
         return 4 * (n * ld + n * k)
     if op == "lstsq":
-        return 4 * (2 * n * ld + n * k + LSTSQ_ROWS * (n + k))
+        return 4 * _lstsq_floats(n, k)
     raise ValueError(f"unknown batched_small op {op!r}")
 
 
@@ -113,13 +130,13 @@ def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype, *, interpret
     """Whether the kernel takes ONE problem of these BATCHED (batch, m, n) /
     (batch, n, k) shapes: its working set (`smem_bytes`) must fit the
     shared memory of one block, 232,448 bytes less a 1,024-byte reserve.
-    m does not enter (lstsq streams A and B through a 16-row stage); the
-    batch axis lives on the launch grid.  `op` is 'posv' (also 'potrs', and
-    serve's inv as posv with k = n), 'lstsq' or 'potrf'; b_shape None means
-    k = n.
+    m does not enter (lstsq streams A and B through a stage of at most
+    LSTSQ_ROWS rows); the batch axis lives on the launch grid.  `op` is
+    'posv' (also 'potrs', and serve's inv as posv with k = n), 'lstsq' or
+    'potrf'; b_shape None means k = n.
 
     Edges at f32 and bf16 alike (shared memory holds f32): n = 128 takes
-    posv up to k = 323 and lstsq up to k = 158; n = 160 takes posv up to
+    posv up to k = 323 and lstsq up to k = 172; n = 160 takes posv up to
     k = 200; potrf takes n up to 240.  Every bucket the 'auto' rule routes
     here (n <= 128, posv/inv with k <= n, lstsq with k <= n) is eligible,
     so 'auto' resolves as the JAX package does there.
@@ -390,10 +407,13 @@ def posv(A, B, *, uplo: str = "U", block: int = 0, precision: str | None = "high
 
 def lstsq(A, B, *, block: int = 0, precision: str | None = "highest"):
     """FUSED batched CholeskyQR2 least squares in one launch: G = AᵀA and
-    C = AᵀB from A and B streamed once, then R1 = chol(G),
-    G2 = R1⁻ᵀ·G·R1⁻¹, R2 = chol(G2), X = (R2·R1)⁻¹·R2⁻ᵀ·R1⁻ᵀ·C on (n, n)
-    state in shared memory.  Returns (X, info): X (batch, n, k), info =
-    max(info1, info2)."""
+    C = AᵀB from A and B streamed once (accumulated in registers), then
+    R1 = chol(G), G2 = R1⁻ᵀ·G·R1⁻¹, R2 = chol(G2),
+    X = (R2·R1)⁻¹·R2⁻ᵀ·R1⁻ᵀ·C on (n, n) state in shared memory, with the
+    blocked factor (csrc chol_blocked) and blocked triangular solves; a
+    problem whose gram, G2 or factors show a fault runs the column sweeps
+    in the same launch, so `info` is the reference's.  Returns (X, info):
+    X (batch, n, k), info = max(info1, info2)."""
     _check_lstsq(A, B)
     _resolve_block(A.shape[-1], block)
     batch, m, n = A.shape

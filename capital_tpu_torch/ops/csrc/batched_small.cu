@@ -9,15 +9,16 @@
 // What bounds them on the card: at the throughput batch (8192 problems of
 // order 128, 8 right-hand sides) potrf, potrs and posv are bound by bytes
 // (the operand is read once, ~1 useful flop per byte); lstsq at m = 512 by
-// f32 operations (the gram, 2·m·n² flops per problem).  At the serve
-// latency batch (8 problems) only 8 of the 132 SMs work and the time is the
-// dependent column sweep: n steps with one or two block barriers each.
-// What the design does about it: each problem is loaded into shared memory
-// once (upcast to f32) and every phase runs there; the factor of posv and
-// the whole CholeskyQR2 state of lstsq never reach device memory; outputs
-// are rounded once on store.  Sweeps are CUDA-core f32 with IEEE sqrt and
-// division (see batched_small.cuh).  Not done yet: a warp per problem at
-// small n, several blocks or a cluster per problem, tensor-core updates.
+// f32 operations (the gram, 2·m·n² flops per problem; IEEE f32, the
+// reference's "highest" — TF32 is never used).  At the serve latency batch
+// (8 problems) only 8 of the 132 SMs work and the time is the dependent
+// chain of each factor and solve.  What the design does about it: each
+// problem is loaded into shared memory once (upcast to f32) and every phase
+// runs there; the factor of posv and the whole CholeskyQR2 state of lstsq
+// never reach device memory; outputs are rounded once on store.  Sweeps are
+// CUDA-core f32 with IEEE sqrt and division (see batched_small.cuh).  Not
+// done yet: posv and potrs on the blocked factor and solves, several blocks
+// or a cluster per problem, tensor-core updates.
 //
 // potrf runs the blocked factor (chol_blocked, batched_small.cuh): three
 // barriers a 16-column panel instead of two or three a column, the
@@ -29,24 +30,46 @@
 // and at n = 128 the tile is 128 x 132 f32 (67,584 B dynamic), so three
 // blocks share an SM and the 8192-problem batch runs in 21 waves.
 //
-// Shared memory per block (f32; ld = odd_ld(n), potrf ld = potrf_ld(n)),
-// as capital_tpu_torch/ops/batched_small.smem_bytes computes it:
+// lstsq, one problem a block, every phase on register tiles:
+//   * the gram: [A | B] streams once through a double-buffered stage of
+//     LSTSQ_ROWS rows (the next stage's 16-byte cp.async copies land while
+//     the block works on this one, one barrier a stage); each warp keeps
+//     three blocks of 32 4 x 4 tiles of G's lower triangle or of C = AᵀB in
+//     registers for the whole m loop (two 16-byte shared loads per 16 FMAs)
+//     and writes G and C to shared memory once;
+//   * R1 and R2 by chol_blocked, V = R1⁻ᵀ·G (with t1 = R1⁻ᵀ·C in the same
+//     solve) and G2 = V·R1⁻¹ by blocked solves (the 16 x 16 diagonal block
+//     in registers, then a register-tiled trailing update: two barriers a
+//     panel, not one a column), t2 and the back-substitution the same way,
+//     and R = R2·R1 as 4 x 4 tiles of the upper triangle dealt out longest
+//     first;
+//   * each factor and solve applies its column sweep's operations in the
+//     sweep's order, so the fast path computes what the sweeps compute; a
+//     non-finite G or G2 or a factor chol_blocked does not certify runs the
+//     column sweeps instead (G streamed again when G2 has replaced it),
+//     whose info is the reference's.
+// At n = 128, k = 8 the block needs 147,456 B: one block an SM, 16 waves of
+// the 2048-problem batch.  ptxas: 167 registers (f32; bf16 153), no spill,
+// under __launch_bounds__(NT, 1); left to itself it chose 128 and spilled.
+//
+// Shared memory per block (f32; ld = odd_ld(n), potrf ld = potrf_ld(n),
+// lstsq ld = lstsq_ld(n)), as capital_tpu_torch/ops/batched_small.smem_bytes
+// computes it:
 //   potrf        round4(n)·ld
 //   trsm, potrs, posv  n·ld + n·k
-//   lstsq        2·n·ld + n·k + LSTSQ_ROWS·(n+k)
+//   lstsq        max(tile, stage) + tile + round4(n)·round4(k) + NB·round4(n),
+//                tile = round4(n)·ld, stage = 2·rows·(round32(n) + round16(k))
 // Above 48 KB it is dynamic shared memory, enabled per kernel with
-// cudaFuncSetAttribute.  lstsq streams A and B through a LSTSQ_ROWS-row
-// stage (A at 512 x 128 f32 is 256 KB and cannot be resident); its n x n
-// state is two tiles reused in place: R1 in one, G -> V -> G2 -> R2 -> R
-// in the other (R = R2·R1 goes into the free upper triangle beside R2's
-// lower one, so the back-substitution runs through R = R2·R1 as the JAX
-// kernel does).
+// cudaFuncSetAttribute.  lstsq's state: the stage, then G's copy and R1 (L1
+// and L1ᵀ) in one tile; G -> V -> G2 -> R2 (L2 and L2ᵀ) -> R in the other
+// (R = R2·R1 replaces L2ᵀ above the diagonal, L2 stays below); C -> t1 ->
+// t2 -> X; a 16-column panel of G2 transposed.
 
 #include "batched_small.cuh"
 
 using namespace small;
 
-constexpr int LSTSQ_ROWS = 16;
+constexpr int LSTSQ_ROWS = 32;
 constexpr size_t SMEM_MAX = 232448 - 1024;
 
 template <typename T>
@@ -227,81 +250,466 @@ __global__ void __launch_bounds__(NT) posv_kernel(const T* A, const T* B, T* X, 
   if (threadIdx.x == 0) info[b] = inf;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) lstsq_kernel(const T* A, const T* B, T* X, int* info, int m, int n, int k) {
-  extern __shared__ float smem[];
-  const int ld = odd_ld(n), lds = n + k;
-  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
-  float* P = smem;           // G's copy, then L1 (R1 = L1ᵀ) in its lower triangle
-  float* Q = P + n * ld;     // G -> V -> G2 -> L2 (lower) and R = R2·R1 (upper)
-  float* C = Q + n * ld;     // AᵀB -> t1 -> t2 -> X
-  float* st = C + n * k;     // LSTSQ_ROWS x (n + k) stage of [A | B] rows
-  const long long b = blockIdx.x;
-  const T* a = A + b * m * n;
-  const T* bb = B + b * m * k;
+// ---------------------------------------------------------------------------
+// lstsq: the gram streamed into registers, the blocked factor, blocked solves
+// ---------------------------------------------------------------------------
 
-  for (int e = tid; e < n * ld; e += NT) Q[e] = 0.f;
-  for (int e = tid; e < n * k; e += NT) C[e] = 0.f;
-  for (int r0 = 0; r0 < m; r0 += LSTSQ_ROWS) {
-    const int rows = min(LSTSQ_ROWS, m - r0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int e = tid; e < LSTSQ_ROWS * lds; e += NT) {
-      const int r = e / lds, c = e - r * lds;
-      float v = 0.f;
-      if (r < rows) v = c < n ? widen(a[(long long)(r0 + r) * n + c]) : widen(bb[(long long)(r0 + r) * k + c - n]);
-      st[e] = v;
+constexpr int GRAM_SLOTS = 3;    // gram blocks of 32 4 x 4 tiles a warp accumulates in one pass over A
+constexpr int STAGE_UNITS = 8;   // 4-entry groups of a stage a thread copies, at most
+
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+// the n x n tiles' leading dimension: 16-byte rows, 4 mod 8 (potrf_ld's rule)
+__host__ __device__ __forceinline__ int lstsq_ld(int n) {
+  const int n4 = round4(n);
+  return (n4 / 4) % 2 ? n4 : n4 + 4;
+}
+// rows of [A | B] a stage holds: LSTSQ_ROWS, fewer when a stage would
+// hold more than STAGE_UNITS groups of 4 entries a thread
+__host__ __device__ __forceinline__ int lstsq_stage_rows(int n, int k) {
+  const int rows = STAGE_UNITS * NT / ((n + 3) / 4 + (k + 3) / 4);
+  return rows < 1 ? 1 : (rows < LSTSQ_ROWS ? rows : LSTSQ_ROWS);
+}
+// a stage row: A's columns padded to 32, then B's padded to 16
+__host__ __device__ __forceinline__ int lstsq_stage_ld(int n, int k) { return round_up(n, 32) + round_up(k, 16); }
+
+// gram blocks covering G's lower triangle: 16 rows x 32 columns of G, a
+// lane 4 x 4 (lanes 8 a row of tiles)
+__device__ __forceinline__ int gram_blocks_g(int n) {
+  int cnt = 0;
+  for (int R = 0; 16 * R < n; ++R) cnt += min((16 * R + 15) / 32, (n - 1) / 32) + 1;
+  return cnt;
+}
+
+// Gram block e as this lane's tile: i0 the row of G (or C), j0 the stage
+// column of its second factor (A's for a G block, B's for a C block of 32
+// rows x 16 columns).  False past the last block.
+__device__ __forceinline__ bool gram_block(int e, int n, int k, int nA, int lane, int& i0, int& j0) {
+  for (int R = 0; 16 * R < n; ++R) {
+    const int c = min((16 * R + 15) / 32, (n - 1) / 32) + 1;
+    if (e < c) {
+      i0 = 16 * R + 4 * (lane / 8);
+      j0 = 32 * e + 4 * (lane % 8);
+      return true;
+    }
+    e -= c;
+  }
+  const int kc = (k + 15) / 16;
+  if (kc == 0 || e >= (n + 31) / 32 * kc) return false;
+  i0 = 32 * (e / kc) + 4 * (lane / 4);
+  j0 = nA + 16 * (e % kc) + 4 * (lane % 4);
+  return true;
+}
+
+// Stage rows r0 .. r0 + sr − 1 of [A | B] into `st` (rows of lds entries
+// of T: A's columns from 0, B's from nA), zero past m.  Rows that start on
+// 16-byte boundaries (`async`) move as 16-byte cp.async copies that land
+// while the block works on the other buffer; others entry by entry.
+template <typename T>
+__device__ __forceinline__ void stage_fill(T* st, int lds, int nA, const T* a, const T* bm, int m, int n, int k,
+                                           int r0, int sr, bool async) {
+  constexpr int V = 16 / sizeof(T);
+  if (async) {
+    const int ga = n / V, gu = ga + k / V;
+    for (int u = threadIdx.x; u < sr * gu; u += NT) {
+      const int r = u / gu, q = u - r * gu, row = r0 + r;
+      T* dst = st + r * lds + (q < ga ? V * q : nA + V * (q - ga));
+      if (row >= m) *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      else if (q < ga) cp_async16(dst, a + (long long)row * n + V * q);
+      else cp_async16(dst, bm + (long long)row * k + V * (q - ga));
+    }
+    cp_async_commit();
+  } else {
+    const int w = n + k;
+    for (int u = threadIdx.x; u < sr * w; u += NT) {
+      const int r = u / w, c = u - r * w, row = r0 + r;
+      T v = Cast<T>::from(0.f);
+      if (row < m) v = c < n ? a[(long long)row * n + c] : bm[(long long)row * k + c - n];
+      st[r * lds + (c < n ? c : nA + c - n)] = v;
+    }
+  }
+}
+
+// G = AᵀA into Q (both triangles, rows and columns < n) and C = AᵀB into C,
+// from [A | B] streamed once per pass through a double-buffered stage `st`
+// (2 x sr rows of lds entries of T, zero-initialised: its padding is never
+// written).  Each warp keeps GRAM_SLOTS blocks of 32 register tiles for
+// the whole pass (every FMA of the m loop in registers, two 16-byte shared
+// loads per 16 FMAs, bf16 widened as it is read); the next stage's
+// cp.async copies land while the block works on this one, one barrier a
+// stage.  More blocks than 8 x GRAM_SLOTS (k > 16 at n = 128) take more
+// passes.  Returns whether this thread wrote a non-finite entry of G.
+template <typename T>
+__device__ bool gram_stream(const T* a, const T* bm, int m, int n, int k, T* st, int sr, int lds, float* Q, int ld,
+                            float* C, int ldc) {
+  constexpr int V = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nA = round_up(n, 32);
+  const bool async = n % V == 0 && k % V == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(bm) % 16 == 0;
+  const int nblk = gram_blocks_g(n) + (n + 31) / 32 * ((k + 15) / 16), nst = (m + sr - 1) / sr;
+  bool bad = false;
+  for (int pass = 0; pass * GRAM_SLOTS * WARPS < nblk; ++pass) {
+    int i0[GRAM_SLOTS], j0[GRAM_SLOTS];
+    bool act[GRAM_SLOTS];
+    float acc[GRAM_SLOTS][4][4];
+#pragma unroll
+    for (int s = 0; s < GRAM_SLOTS; ++s) {
+      i0[s] = j0[s] = 0;  // a slot past the last block reads column 0 and is never written
+      act[s] = gram_block((pass * GRAM_SLOTS + s) * WARPS + warp, n, k, nA, lane, i0[s], j0[s]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[s][i][j] = 0.f;
+    }
+    stage_fill(st, lds, nA, a, bm, m, n, k, 0, sr, async);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int s = 0; s < nst; ++s) {
+      if (s + 1 < nst) stage_fill(st + ((s + 1) & 1) * sr * lds, lds, nA, a, bm, m, n, k, (s + 1) * sr, sr, async);
+      const T* buf = st + (s & 1) * sr * lds;
+      const int rows = min(sr, m - s * sr);
+#pragma unroll 2
+      for (int r = 0; r < rows; ++r) {
+        const T* row = buf + r * lds;
+#pragma unroll
+        for (int q = 0; q < GRAM_SLOTS; ++q) {
+          float x[4], y[4];
+          load4(row + i0[q], x);
+          load4(row + j0[q], y);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[q][i][j] = fmaf(x[i], y[j], acc[q][i][j]);
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int q = 0; q < GRAM_SLOTS; ++q) {
+      if (!act[q]) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = i0[q] + i, c = j0[q] + j;
+          const float v = acc[q][i][j];
+          if (c >= nA) {
+            if (r < n && c - nA < k) C[r * ldc + c - nA] = v;
+          } else if (r < n && c <= r) {
+            Q[r * ld + c] = v;
+            Q[c * ld + r] = v;
+            bad |= !isfinite(v);
+          }
+        }
+    }
+  }
+  return bad;
+}
+
+// L·Y = B in place on Y = [Y1 | Y2] (n rows; nc1 columns of leading
+// dimension ld1, then nc2 of ld2; zero past them up to round4), L from a
+// chol_blocked tile S: L in its lower triangle, Lᵀ in its strict upper one,
+// zero outside n.  Panels of NB rows: a thread a column solves the diagonal
+// block in registers (y_j = Y[j]/d_j, then Y[i] −= L[i][j]·y_j, as
+// fwd_sweep), then 4 x 4 register tiles take the rows below:
+// Y[l] −= Σ_j L[l][j]·y_j, j ascending — every entry gets fwd_sweep's
+// operations in fwd_sweep's order.  Two barriers a panel.
+__device__ void fwd_blocked(const float* S, int ld, int n, float* Y1, int ld1, int nc1, float* Y2 = nullptr,
+                            int ld2 = 0, int nc2 = 0) {
+  const int n4 = round4(n), cg1 = round4(nc1) / 4, cg = cg1 + round4(nc2) / 4;
+  for (int k0 = 0; k0 < n; k0 += NB) {
+    const int w = min(NB, n - k0), w4 = round4(w);
+    for (int c = threadIdx.x; c < nc1 + nc2; c += NT) {
+      float* col = c < nc1 ? Y1 + c : Y2 + c - nc1;
+      const int ldy = c < nc1 ? ld1 : ld2;
+      float y[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) y[i] = i < w ? col[(k0 + i) * ldy] : 0.f;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j >= w) break;
+        y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
+        const float* lt = S + (k0 + j) * ld + k0;  // L[k0 + i][k0 + j] at column k0 + i
+#pragma unroll
+        for (int q = (j + 1) / 4; q < NB / 4; ++q) {
+          if (4 * q >= w4) break;
+          float v[4];
+          unpack4(v, ld4(lt + 4 * q));
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            if (4 * q + t > j) y[4 * q + t] = fmaf(-v[t], y[j], y[4 * q + t]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        if (i < w) col[(k0 + i) * ldy] = y[i];
     }
     __syncthreads();
-    for (int i = ty; i < n; i += WARPS) {  // G = AᵀA, lower triangle
-      for (int l = tx; l <= i; l += 32) {
-        float acc = 0.f;
+    const int t0 = k0 + NB;
+    if (t0 >= n4) break;
+    for (int e = threadIdx.x; e < (n4 - t0) / 4 * cg; e += NT) {
+      const int l0 = t0 + 4 * (e / cg), g = e % cg;
+      float* Y = g < cg1 ? Y1 + 4 * g : Y2 + 4 * (g - cg1);
+      const int ldy = g < cg1 ? ld1 : ld2;
+      float acc[4][4];
 #pragma unroll
-        for (int r = 0; r < LSTSQ_ROWS; ++r) acc += st[r * lds + i] * st[r * lds + l];
-        Q[i * ld + l] += acc;
+      for (int i = 0; i < 4; ++i) unpack4(acc[i], ld4(Y + (l0 + i) * ldy));
+#pragma unroll 4
+      for (int j = 0; j < NB; ++j) {
+        float l[4], y[4];
+        unpack4(l, ld4(S + (k0 + j) * ld + l0));
+        unpack4(y, ld4(Y + (k0 + j) * ldy));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(-l[i], y[t], acc[i][t]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st4(Y + (l0 + i) * ldy, acc[i]);
+    }
+    __syncthreads();
+  }
+}
+
+// W·R = V in place on W (round4(n) rows, n columns, ldw), R = Lᵀ of a
+// chol_blocked tile (R's rows are the tile's upper rows).  Panels of NB
+// columns: a thread a row solves the diagonal block in registers
+// (x_j = W[i][j]/d_j, then W[i][l] −= x_j·R[j][l], as rsolve_upper_sweep)
+// and writes x transposed into XT (NB x round4(n)); 4 x 4 register tiles
+// then take the columns right of the panel, j ascending.
+__device__ void rsolve_blocked(const float* S, int ld, int n, float* W, int ldw, float* XT) {
+  const int n4 = round4(n);
+  for (int k0 = 0; k0 < n; k0 += NB) {
+    const int w = min(NB, n - k0), w4 = round4(w);
+    for (int i = threadIdx.x; i < n4; i += NT) {
+      float x[NB];
+#pragma unroll
+      for (int q = 0; q < NB / 4; ++q) {
+        if (4 * q < w4) unpack4(x + 4 * q, ld4(W + i * ldw + k0 + 4 * q));
+        else x[4 * q] = x[4 * q + 1] = x[4 * q + 2] = x[4 * q + 3] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j >= w) break;
+        x[j] = x[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
+        const float* rt = S + (k0 + j) * ld + k0;  // R[k0 + j][k0 + l] at column k0 + l
+#pragma unroll
+        for (int q = (j + 1) / 4; q < NB / 4; ++q) {
+          if (4 * q >= w4) break;
+          float v[4];
+          unpack4(v, ld4(rt + 4 * q));
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            if (4 * q + t > j) x[4 * q + t] = fmaf(-x[j], v[t], x[4 * q + t]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NB / 4; ++q)
+        if (4 * q < w4) st4(W + i * ldw + k0 + 4 * q, x + 4 * q);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) XT[j * n4 + i] = x[j];
+    }
+    __syncthreads();
+    const int t0 = k0 + NB;
+    if (t0 >= n4) break;
+    const int cg = (n4 - t0) / 4;
+    for (int e = threadIdx.x; e < n4 / 4 * cg; e += NT) {
+      const int i0 = 4 * (e / cg), l0 = t0 + 4 * (e % cg);
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) unpack4(acc[i], ld4(W + (i0 + i) * ldw + l0));
+#pragma unroll 4
+      for (int j = 0; j < NB; ++j) {
+        float x[4], r[4];
+        unpack4(x, ld4(XT + j * n4 + i0));
+        unpack4(r, ld4(S + (k0 + j) * ld + l0));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(-x[i], r[t], acc[i][t]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st4(W + (i0 + i) * ldw + l0, acc[i]);
+    }
+    __syncthreads();
+  }
+}
+
+// U·X = Y in place on Y (n rows, nc columns, ldy), U upper triangular in
+// the rows of S (U[i][c] = S[i·ld + c], c >= i).  Panels of NB rows from
+// the bottom: a thread a column solves the diagonal block (j descending, as
+// bwd_sweep), then 4 x 4 register tiles take the rows above it, j
+// descending — bwd_sweep's operations in bwd_sweep's order.
+__device__ void bwd_upper_blocked(const float* S, int ld, int n, float* Y, int ldy, int nc) {
+  const int cg = round4(nc) / 4;
+  for (int k0 = (n - 1) / NB * NB; k0 >= 0; k0 -= NB) {
+    const int w = min(NB, n - k0);
+    for (int c = threadIdx.x; c < nc; c += NT) {
+      float y[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) y[i] = i < w ? Y[(k0 + i) * ldy + c] : 0.f;
+#pragma unroll
+      for (int j = NB - 1; j >= 0; --j) {
+        if (j >= w) continue;
+        y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
+#pragma unroll
+        for (int i = 0; i < j; ++i) y[i] = fmaf(-S[(k0 + i) * ld + k0 + j], y[j], y[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        if (i < w) Y[(k0 + i) * ldy + c] = y[i];
+    }
+    __syncthreads();
+    if (k0 == 0) break;
+    for (int e = threadIdx.x; e < k0 / 4 * cg; e += NT) {
+      const int i0 = 4 * (e / cg), c0 = 4 * (e % cg);
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) unpack4(acc[i], ld4(Y + (i0 + i) * ldy + c0));
+      for (int j = w - 1; j >= 0; --j) {
+        float y[4];
+        unpack4(y, ld4(Y + (k0 + j) * ldy + c0));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float u = S[(i0 + i) * ld + k0 + j];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(-u, y[t], acc[i][t]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st4(Y + (i0 + i) * ldy + c0, acc[i]);
+    }
+    __syncthreads();
+  }
+}
+
+// R = R2·R1 (both upper) into Q's strict upper triangle, then its diagonal:
+// R2[i][l] = L2[l][i] from Q's lower triangle, R1[l][c] from P's upper one
+// (chol_blocked leaves both factors in both triangles), R[i][c] =
+// Σ_{l=i..c} R2[i][l]·R1[l][c], l ascending.  4 x 4 tiles of the upper
+// triangle, longest first (diagonal-major from the far corner), dealt out in
+// a zigzag so every thread gets about the same number of steps.
+__device__ void r2r1_product(float* Q, const float* P, int ld, int n) {
+  const int T = round4(n) / 4, tiles = T * (T + 1) / 2;
+  for (int base = 0; base < tiles; base += NT) {
+    const int e = base + ((base / NT) % 2 ? NT - 1 - (int)threadIdx.x : (int)threadIdx.x);
+    if (e >= tiles) continue;
+    int m = (int)((sqrtf(8.f * e + 1.f) - 1.f) * 0.5f);
+    while (m * (m + 1) / 2 > e) --m;
+    while ((m + 1) * (m + 2) / 2 <= e) ++m;
+    const int ti = e - m * (m + 1) / 2, i0 = 4 * ti, c0 = 4 * (ti + T - 1 - m);
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[i][t] = 0.f;
+    const int hi = min(c0 + 4, n);
+    for (int l = i0; l < hi; ++l) {
+      float a[4], b[4];
+      unpack4(a, ld4(Q + l * ld + i0));  // L2[l][i0 + i]: live for i0 + i <= l
+      unpack4(b, ld4(P + l * ld + c0));  // R1[l][c0 + t]: live for c0 + t >= l
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = i0 + i <= l ? a[i] : 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) b[t] = c0 + t >= l ? b[t] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(a[i], b[t], acc[i][t]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (c0 + t > i0 + i && c0 + t < n) Q[(i0 + i) * ld + c0 + t] = acc[i][t];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += NT) Q[i * ld + i] *= P[i * ld + i];
+  __syncthreads();
+}
+
+// One problem a block.  The fast path: the gram (gram_stream), R1 =
+// chol_blocked(G) on a copy, V = R1⁻ᵀ·G with t1 = R1⁻ᵀ·C in the same
+// blocked solve (fwd_blocked) and G2 = V·R1⁻¹ (rsolve_blocked) in place of
+// G, R2 = chol_blocked(G2), t2 = R2⁻ᵀ·t1, R = R2·R1 and the
+// back-substitution (bwd_upper_blocked):
+// every factor and solve is its column sweep's arithmetic in its order, so
+// the path computes what the sweeps compute.  A non-finite G or G2, or a
+// factor that chol_blocked does not certify, sends the problem through the
+// column sweeps instead (G streamed again when G2 has replaced it), whose
+// info is the reference's.
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) lstsq_kernel(const T* A, const T* B, T* X, int* info, int m, int n, int k) {
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, n4 = round4(n), ld = lstsq_ld(n), ldc = round4(k);
+  const int sr = lstsq_stage_rows(n, k), lds = lstsq_stage_ld(n, k);
+  float* P = reinterpret_cast<float*>(smem4);   // the stage -> G's copy -> L1 (and L1ᵀ)
+  float* Q = P + max(n4 * ld, 2 * sr * lds);    // G -> V -> G2 -> L2, then R = R2·R1 above the diagonal
+  float* C = Q + n4 * ld;                       // AᵀB -> t1 -> t2 -> X
+  float* XT = C + n4 * ldc;                     // a panel of G2, transposed
+  const long long b = blockIdx.x;
+  const T* a = A + b * m * n;
+  const T* bm = B + b * m * k;
+  const int tile = n4 * ld;
+
+  auto stream = [&]() {
+    for (int e = tid; e < tile; e += NT) Q[e] = 0.f;
+    for (int e = tid; e < 2 * sr * lds; e += NT) P[e] = 0.f;
+    __syncthreads();
+    return !__syncthreads_or(gram_stream(a, bm, m, n, k, reinterpret_cast<T*>(P), sr, lds, Q, ld, C, ldc));
+  };
+  auto copy_g = [&]() {  // P = G, padding included
+    for (int e = tid; e < tile; e += NT) P[e] = Q[e];
+    __syncthreads();
+  };
+
+  for (int e = tid; e < n4 * ldc; e += NT) C[e] = 0.f;
+  const bool finite = stream();
+  copy_g();
+  int route = finite ? chol_blocked(P, ld, n) : -1;  // 0: R1 ready
+  if (route == 0) {
+    fwd_blocked(P, ld, n, Q, ld, n, C, ldc, k);  // V = R1⁻ᵀ·G and t1 = R1⁻ᵀ·C
+    rsolve_blocked(P, ld, n, Q, ld, XT);  // G2 = V·R1⁻¹
+    bool nf = false;
+    for (int e = tid; e < n * n; e += NT) {
+      const int r = e / n, c = e - r * n;
+      nf |= !isfinite(Q[r * ld + c]);
+    }
+    route = __syncthreads_or(nf) ? -1 : chol_blocked(Q, ld, n);  // R2
+    if (route != 0) stream();  // G and C again, for the sweeps
+  }
+  int inf = 0;
+  if (route == 0) {
+    fwd_blocked(Q, ld, n, C, ldc, k);  // t2 = R2⁻ᵀ·t1
+    r2r1_product(Q, P, ld, n);
+    bwd_upper_blocked(Q, ld, n, C, ldc, k);  // X = R⁻¹·t2
+  } else {
+    copy_g();
+    const int info1 = chol_sweep(P, ld, n);        // R1
+    fwd_sweep(P, ld, false, Q, ld, n, n);          // V = R1⁻ᵀ·G
+    rsolve_upper_sweep(P, ld, false, Q, ld, n);    // G2 = V·R1⁻¹
+    const int info2 = chol_sweep(Q, ld, n);        // R2
+    fwd_sweep(P, ld, false, C, ldc, n, k);         // t1 = R1⁻ᵀ·C
+    fwd_sweep(Q, ld, false, C, ldc, n, k);         // t2 = R2⁻ᵀ·t1
+    // R = R2·R1 (both upper): R[i][c] = Σ_{l=i..c} L2[l][i]·L1[c][l], into
+    // Q's strict upper triangle (L2 read from its lower one), then the
+    // diagonal
+    const int ty = tid / 32, tx = tid % 32;
+    for (int i = ty; i < n; i += WARPS) {
+      for (int c = i + 1 + tx; c < n; c += 32) {
+        float acc = 0.f;
+        for (int l = i; l <= c; ++l) acc += Q[l * ld + i] * P[c * ld + l];
+        Q[i * ld + c] = acc;
       }
     }
-    for (int e = tid; e < n * k; e += NT) {  // C = AᵀB
-      const int i = e / k, c = e - i * k;
-      float acc = 0.f;
-#pragma unroll
-      for (int r = 0; r < LSTSQ_ROWS; ++r) acc += st[r * lds + i] * st[r * lds + n + c];
-      C[e] += acc;
-    }
+    __syncthreads();
+    for (int i = tid; i < n; i += NT) Q[i * ld + i] *= P[i * ld + i];
+    __syncthreads();
+    bwd_sweep(Q, ld, true, C, ldc, n, k);          // X = R⁻¹·t2
+    inf = max(info1, info2);
   }
-  __syncthreads();
-  for (int e = tid; e < n * n; e += NT) {  // P = G, both triangles
-    const int i = e / n, l = e - i * n;
-    P[i * ld + l] = l <= i ? Q[i * ld + l] : Q[l * ld + i];
-  }
-  __syncthreads();
-  for (int e = tid; e < n * n; e += NT) {  // Q's upper triangle from its lower
-    const int i = e / n, l = e - i * n;
-    if (l > i) Q[i * ld + l] = Q[l * ld + i];
-  }
-  __syncthreads();
-
-  const int info1 = chol_sweep(P, ld, n);         // R1
-  fwd_sweep(P, ld, false, Q, ld, n, n);           // V = R1⁻ᵀ·G
-  rsolve_upper_sweep(P, ld, false, Q, ld, n);     // G2 = V·R1⁻¹
-  const int info2 = chol_sweep(Q, ld, n);         // R2
-  fwd_sweep(P, ld, false, C, k, n, k);            // t1 = R1⁻ᵀ·C
-  fwd_sweep(Q, ld, false, C, k, n, k);            // t2 = R2⁻ᵀ·t1
-  // R = R2·R1 (both upper): R[i][c] = Σ_{l=i..c} L2[l][i]·L1[c][l], written
-  // into Q's strict upper triangle (L2 is read from its lower one), then
-  // the diagonal
-  for (int i = ty; i < n; i += WARPS) {
-    for (int c = i + 1 + tx; c < n; c += 32) {
-      float acc = 0.f;
-      for (int l = i; l <= c; ++l) acc += Q[l * ld + i] * P[c * ld + l];
-      Q[i * ld + c] = acc;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < n; i += NT) Q[i * ld + i] *= P[i * ld + i];
-  __syncthreads();
-  bwd_sweep(Q, ld, true, C, k, n, k);             // X = R⁻¹·t2
-  store_tile(X + b * n * k, C, k, n, k);
-  if (tid == 0) info[b] = max(info1, info2);
+  store_tile(X + b * n * k, C, ldc, n, k);
+  if (tid == 0) info[b] = inf;
 }
 
 // ---------------------------------------------------------------------------
@@ -382,10 +790,18 @@ extern "C" int capital_small_posv(int dtype, const void* A, const void* B, void*
   return -1;
 }
 
+// lstsq's shared memory (floats): the stage or G's copy, G -> ... -> R, C,
+// and a panel of G2 (ops/batched_small.smem_bytes mirrors it)
+static size_t lstsq_floats(int n, int k) {
+  const size_t tile = (size_t)round4(n) * lstsq_ld(n);
+  const size_t stage = 2 * (size_t)lstsq_stage_rows(n, k) * lstsq_stage_ld(n, k);
+  return (tile > stage ? tile : stage) + tile + (size_t)round4(n) * round4(k) + (size_t)NB * round4(n);
+}
+
 extern "C" int capital_small_lstsq(int dtype, const void* A, const void* B, void* X, void* info, int batch,
                                    int m, int n, int k, void* stream) {
-  if (n < 1 || k < 0 || m < n) return -1;
-  const size_t smem = 2 * tile_bytes(n) + sizeof(float) * ((size_t)n * k + (size_t)LSTSQ_ROWS * (n + k));
+  if (n < 1 || k < 0 || m < n || n > NB + NT) return -1;
+  const size_t smem = sizeof(float) * lstsq_floats(n, k);
   if (dtype == DT_F32)
     return run<lstsq_kernel<float>>(batch, smem, stream, (const float*)A, (const float*)B, (float*)X,
                (int*)info, m, n, k);

@@ -48,3 +48,33 @@ template <typename T> __device__ __forceinline__ T zero_of() { return Cast<T>::f
 __device__ __forceinline__ bool in_tri(int uplo, long long r, long long c) {
   return uplo == UPLO_NONE || (uplo == UPLO_U ? r <= c : r >= c);
 }
+
+// 16-byte shared-memory vectors
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// 16 bytes from global to shared memory without passing through registers
+// (cp.async, cached in L2 only); the host pass never runs the fallback
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#else
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+// every copy this thread committed has landed (a barrier then publishes them)
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group 0;\n" ::);
+#endif
+}

@@ -52,22 +52,44 @@ def resolve_leaves(m: int, n: int, panel: int = 0) -> int:
     return 1 << (raw - 1).bit_length()
 
 
+#: the panel kernel's column block (csrc PNB), threads a block (PNT) and
+#: the rows its panel factor keeps in registers at most (32 a row group)
+PANEL_NB = 16
+PANEL_THREADS = 256
+PANEL_MAX_ROWS = 32 * PANEL_THREADS // PANEL_NB
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
 def smem_bytes(rows: int, n: int) -> int:
-    """Dynamic shared memory of one block of the panel kernel: the (rows,
-    n) f32 tile with an odd leading dimension and R's diagonal."""
-    ld = n + 1 if n % 2 == 0 else n
-    return 4 * (rows * ld + n)
+    """Dynamic shared memory of one block of the panel kernel (csrc
+    smem_floats): the (round8(rows), ld) f32 tile, ld = round4(n) plus 4
+    when that is 0 mod 8; the block's reflectors V and V·T (or V·Tᵀ),
+    transposed (PANEL_NB x round8(rows) each); every block's T (PANEL_NB²
+    each); the VᵀW workspace (PANEL_NB x 512); the reduction buffers and
+    R's diagonal."""
+    n4 = _round4(n)
+    ld = n4 if (n4 // 4) % 2 else n4 + 4
+    nb, warps = PANEL_NB, PANEL_THREADS // 32
+    blocks, rows8 = -(-n // nb), (rows + 7) // 8 * 8
+    floats = (rows8 * ld + 2 * nb * rows8 + blocks * nb * nb + nb * 512
+              + 2 * warps * nb + 2 * nb + nb * nb + n4)
+    return 4 * floats
 
 
 def eligible(rows: int, n: int, dtype, *, interpret: bool) -> bool:
     """Whether the panel kernel takes (rows, n) panels: its tile
     (`smem_bytes`) must fit one block's shared memory, 232,448 bytes less a
-    1,024-byte reserve, at f32 and bf16 alike.  n = 128 takes panels up to
-    447 rows, so every panel `tsqr` cuts for n <= 128 (rows max(2n, 128),
+    1,024-byte reserve, at f32 and bf16 alike, and its panel factor holds
+    at most PANEL_MAX_ROWS (512) rows in registers.  n = 128 takes panels up
+    to 280 rows, so every panel `tsqr` cuts for n <= 128 (rows max(2n, 128),
     reduction panels 2n) fits.  interpret=True (the panels lie on the CPU)
     answers True: the plain version has no envelope."""
     del dtype  # the tile is f32 whatever the storage dtype
-    return interpret or smem_bytes(rows, n) <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+    return interpret or (rows <= PANEL_MAX_ROWS
+                         and smem_bytes(rows, n) <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE)
 
 
 def default_impl(rows: int, n: int, dtype: torch.dtype, *, interpret: bool) -> str:
@@ -138,8 +160,9 @@ def panel_qr(P: torch.Tensor, *, block: int = 0, precision: str | None = "highes
     """Batched Householder QR of (batch, p, n) panels, p >= n: (Q, R) with
     Q (batch, p, n) thin and R (batch, n, n) upper triangular, one launch
     with one block per panel (ops/csrc/tsqr.cu; the JAX package's
-    `tsqr._qr_pallas`).  bf16 or f32; computes in f32; the panel must fit
-    the kernel's shared memory (`eligible`, ValueError otherwise)."""
+    `tsqr._qr_pallas`): a blocked compact-WY Householder QR, the same
+    reflectors as the plain version.  bf16 or f32; computes in f32; the
+    panel must fit the kernel (`eligible`, ValueError otherwise)."""
     _check_panels(P)
     batched_small._resolve_block(P.shape[-1], block)
     if not hopper._on_card(P):
@@ -147,8 +170,9 @@ def panel_qr(P: torch.Tensor, *, block: int = 0, precision: str | None = "highes
     batch, p, n = P.shape
     if not eligible(p, n, P.dtype, interpret=False):
         raise ValueError(
-            f"panel_qr: a ({p}, {n}) panel needs {smem_bytes(p, n)} bytes of shared memory, "
-            f"a block has {hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE}"
+            f"panel_qr: a ({p}, {n}) panel needs {smem_bytes(p, n)} bytes of shared memory "
+            f"and at most {PANEL_MAX_ROWS} rows; a block has "
+            f"{hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE} bytes"
         )
     P = P.contiguous()
     Q = torch.empty_like(P)

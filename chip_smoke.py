@@ -661,11 +661,12 @@ def f64_factor_phase(cholesky, hopper, grid, residual) -> dict:
     return res
 
 
-def profile(run, prefix: str) -> dict:
+def profile(run, prefix: str, sequence: bool = False) -> dict:
     """One call of `run` under torch.profiler: wall time, device time and
     launches (trace events) by kernel name and device time by phase (scopes
     whose tag starts with `prefix`), and the share of the wall the device
-    was idle (no kernel running)."""
+    was idle (no kernel running); with `sequence`, every kernel's name and
+    device time in the order the kernels started."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -720,10 +721,13 @@ def profile(run, prefix: str) -> dict:
     if cur_e is not None:
         busy += cur_e - cur_s
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
-    return dict(wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
-                idle_share=max(0.0, 1.0 - busy / 1e3 / (wall * 1e3)),
-                phases_device_ms=phases, top_kernels_device_ms=top, launches=launches,
-                first_kernels=first)
+    out = dict(wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
+               idle_share=max(0.0, 1.0 - busy / 1e3 / (wall * 1e3)),
+               phases_device_ms=phases, top_kernels_device_ms=top, launches=launches,
+               first_kernels=first)
+    if sequence:
+        out["sequence"] = [[name, (e - s) / 1e3] for s, e, name in spans]
+    return out
 
 
 def device_ms(run, iters: int) -> float:
@@ -1671,13 +1675,37 @@ def tsqr_phase(hopper, dev) -> dict:
     del R, Rx
     t = timed_s(lambda: tsqr.tsqr(A, impl="auto"), 3)
     t_xla = timed_s(lambda: tsqr.tsqr(A, impl="xla"), 1)
+    for _ in range(3):  # a trace may drop a launch: up to three tries for one that holds all
+        prof = profile(lambda: tsqr.tsqr(A, impl="auto"), "QR::", sequence=True)
+        seq = prof.pop("sequence")
+        if sum("panel_qr_kernel" in name for name, _ in seq) == leaves.bit_length():
+            break
+    levels = tsqr_levels(seq, leaves.bit_length())
     out = dict(m=m, n=n, leaves=leaves, panel=tsqr.resolve_panel(m, n), counts=counts, seconds_first=secs,
                seconds=t, seconds_xla=t_xla, seconds_first_xla=secs_xla, orthogonality=ortho, residual=res,
-               r_vs_xla=dR)
+               r_vs_xla=dR, profile=prof, levels=levels)
     print(json.dumps({"tsqr": "2097152x128 f32", **out}), flush=True)
     del A
     torch.cuda.empty_cache()
     return out
+
+
+def tsqr_levels(seq: list, want: int) -> list:
+    """The TSQR profile by tree level: level 0 the leaf panels, level i > 0
+    the i-th reduction panels; each level's panel launch, then the kernels
+    up to the next panel launch (its Q-factor stack and the Q accumulators'
+    torch.matmul), summed, with the largest of them named.  The launch
+    count is checked on the counted run; a trace can drop a launch (its
+    first milliseconds), so the levels are aligned from the root, and a
+    level whose panel launch the trace does not hold says so."""
+    starts = [i for i, (name, _) in enumerate(seq) if "panel_qr_kernel" in name][-want:]
+    levels = [dict(level=lv, panel_ms=None, note="not in the trace") for lv in range(want - len(starts))]
+    for k, i in enumerate(starts):
+        rest = seq[i + 1:starts[k + 1]] if k + 1 < len(starts) else seq[i + 1:]
+        big = max(rest, key=lambda kv: kv[1]) if rest else ["", 0.0]
+        levels.append(dict(level=want - len(starts) + k, panel_ms=seq[i][1], other_ms=sum(ms for _, ms in rest),
+                           largest_other=big[0], largest_other_ms=big[1]))
+    return levels
 
 
 # ---- the block-tridiagonal slice (phases 13-14) ----------------------------

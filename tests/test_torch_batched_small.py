@@ -337,8 +337,11 @@ def test_eligible_card_edges_as_documented():
     e = functools.partial(bs.eligible, dtype=torch.float32, interpret=False)
     assert e("posv", (8, 128, 128), (8, 128, 323))
     assert not e("posv", (8, 128, 128), (8, 128, 324))
-    assert e("lstsq", (8, 512, 128), (8, 512, 158))
-    assert not e("lstsq", (8, 512, 128), (8, 512, 159))
+    # lstsq's blocked layout: two 16-byte-row tiles (one doubles as the [A | B]
+    # stage), AᵀB with round4(k) columns, a 16-column panel of G2
+    assert bs.smem_bytes("lstsq", 128, 8) == 4 * (2 * 128 * 132 + 128 * 8 + 16 * 128)
+    assert e("lstsq", (8, 512, 128), (8, 512, 172))
+    assert not e("lstsq", (8, 512, 128), (8, 512, 173))
     assert e("lstsq", (8, 1 << 20, 128), (8, 1 << 20, 8))  # m does not enter
     assert e("posv", (8, 160, 160), (8, 160, 200))
     assert not e("posv", (8, 160, 160), (8, 160, 201))

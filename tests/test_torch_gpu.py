@@ -15,7 +15,7 @@ import torch
 
 from capital_tpu_torch import Grid
 from capital_tpu_torch.models import arrowhead, blocktri, cholesky, inverse, qr
-from capital_tpu_torch.ops import batched_small, blocktri_small, hopper, qr_fused, tsqr, update_small
+from capital_tpu_torch.ops import batched_small, blocktri_small, hopper, qr_fused, sweeps, tsqr, update_small
 from capital_tpu_torch.parallel import summa
 from capital_tpu_torch.robust import refine
 from capital_tpu_torch.serve import api
@@ -406,6 +406,45 @@ def test_small_identity_problems_solve_exactly(cuda):
     assert not info.any() and not X.any()
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [17, 33, 128])
+@pytest.mark.parametrize("k", [1, 8, 128])
+def test_lstsq_kernel_shapes(cuda, n, k, dt):
+    """n off and on the 16-column panel, k from 1 to past n, m = 4n + 5 (not
+    a multiple of the 32-row stage); 1e-4 of scale (the gram squares the
+    condition number)."""
+    m = 4 * n + 5
+    A, B = _rand(70 + n, (3, m, n), dt, cuda), _rand(71 + k, (3, m, k), dt, cuda)
+    hopper.reset_counts()
+    X, info = batched_small.lstsq(A, B)
+    Xp, infop = batched_small.lstsq_plain(A, B)
+    got, want = X.double().cpu(), Xp.double().cpu()
+    scale = float(want.abs().max())
+    tol = 2.0**-7 * want.abs() + 1e-4 * scale if dt == "bf16" else 1e-4 * scale
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+    assert torch.equal(info, infop) and not info.any()
+    assert hopper.counts()["small.lstsq"] == 1
+
+
+def test_lstsq_rank_deficient_info_matches_plain(cuda):
+    """Exactly rank-deficient problems (a zero column of A, either side of a
+    panel boundary and at the ends): G is singular and G2 breaks down too
+    (info2 > 0 in the plain pipeline); info equals the plain version's."""
+    n = 40
+    A, B = _rand(72, (6, 4 * n, n), "f32", cuda), _rand(73, (6, 4 * n, 2), "f32", cuda)
+    for p, col in enumerate((0, 15, 16, 39, 7)):
+        A[p, :, col] = 0
+    G = A.mT @ A
+    R1, _ = sweeps.chol_plain(G, "U")
+    G2 = sweeps.rsolve_upper_plain(R1, sweeps.fwd_solve_plain(R1, G, from_upper=True))
+    assert bool((sweeps.chol_plain(G2, "U")[1][:5] > 0).all())
+    X, info = batched_small.lstsq(A, B)
+    Xp, infop = batched_small.lstsq_plain(A, B)
+    assert torch.equal(info, infop) and not info[5] and bool((info[:5] > 0).all())
+    got, want = X[5].double().cpu(), Xp[5].double().cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 def test_small_counters_move_only_on_launch(cuda):
     A = _spd_batch(38, 4, 16, "f32", cuda)
     B = _rand(39, (4, 16, 2), "f32", cuda)
@@ -674,22 +713,46 @@ def test_small_trsm_kernel_vs_plain(cuda, shape):
     assert hopper.counts()["small.trsm"] == 4
 
 
-def _panels(seed, shape, dev):
+def _panels(seed, shape, dev, dt="f32"):
     P = _rand(seed, shape, "f32", dev)
     P[0, :, 3] = 0  # a zero column: the identity reflector
     P[1] = 0        # a zero panel (tsqr's padding)
-    return P
+    if shape[0] > 2 and shape[2] > tsqr.PANEL_NB:  # zero columns either side of a block boundary
+        P[2, :, tsqr.PANEL_NB - 1] = 0
+        P[2, :, tsqr.PANEL_NB] = 0
+    return P.to(DTYPES[dt])
 
 
-@pytest.mark.parametrize("shape", [(4, 256, 128), (3, 40, 17), (5, 128, 64)])
-def test_panel_qr_kernel_vs_plain(cuda, shape):
-    P = _panels(57, shape, cuda)
+def _panel_check(P, dt):
     Q, R = tsqr.panel_qr(P)
     Qq, Rq = tsqr.panel_qr_plain(P)
-    _close(Q, Qq, "f32")
-    _close(R, Rq, "f32")
+    _close(Q, Qq, dt)
+    _close(R, Rq, dt)
     assert bool((torch.tril(R, -1) == 0).all()) and not bool(R[1].any())
-    assert float((Q.double() @ R.double() - P.double()).abs().max()) < 1e-4
+    if dt == "f32":
+        assert float((Q.double() @ R.double() - P.double()).abs().max()) < 1e-4
+
+
+# leaf panels at the widths tsqr cuts, widths off the 16-column block (17,
+# 40, 100), square panels (p = n) and p past 256 rows
+@pytest.mark.parametrize("shape", [(4, 256, 128), (3, 40, 17), (5, 128, 64), (3, 80, 40), (3, 200, 100),
+                                   (3, 17, 17), (3, 100, 100), (3, 128, 128), (3, 300, 33)])
+def test_panel_qr_kernel_vs_plain(cuda, shape):
+    _panel_check(_panels(57, shape, cuda), "f32")
+
+
+@pytest.mark.parametrize("shape", [(4, 256, 128), (3, 80, 40), (3, 17, 17)])
+def test_panel_qr_bf16_vs_plain(cuda, shape):
+    _panel_check(_panels(59, shape, cuda, "bf16"), "bf16")
+
+
+@pytest.mark.parametrize("n", [128, 40])
+def test_panel_qr_reduction_panels(cuda, n):
+    """tsqr's reduction shape: two stacked upper triangles, (2n, n)."""
+    _, R = tsqr.panel_qr_plain(_panels(60, (8, 3 * n, n), cuda))
+    S = torch.cat([R[0::2], R[1::2]], dim=1)  # the zero panel stacks on a live one
+    S[1] = 0
+    _panel_check(S, "f32")
 
 
 def test_tsqr_launches_the_panel_kernel(cuda):

@@ -84,14 +84,91 @@ def test_default_impl_matches_jax():
                 rows, n, jdt, interpret=True), (rows, n, tdt)
 
 
+def _compact_wy_qr(a, nb):
+    """The panel kernel's algebra (ops/csrc/tsqr.cu) in f32 NumPy: columns in
+    blocks of nb; inside a block ONE reduction a column gives x·x, x·w_c for
+    the later columns and x·v_c for the earlier ones, from which
+    ‖x − α·e_j‖² = 2σ(σ + |x_j|), vᵀw_c and v_cᵀv_j follow; T by larft
+    (forward, τ = 2); the trailing columns by Y = VᵀW, W −= V·(Tᵀ·Y); thin Q
+    by Q[j0:, j0:] −= V·(T·(Vᵀ·Q[j0:, j0:])), blocks descending."""
+    f = np.float32
+    p, n = a.shape
+    W = a.astype(f).copy()
+    rd = np.zeros(n, f)
+    Vs, Ts = [], []
+    for j0 in range(0, n, nb):
+        w = min(nb, n - j0)
+        Z = np.zeros((nb, nb), f)
+        for jj in range(w):
+            j = j0 + jj
+            x = W[j:, j].copy()
+            blk = W[j:, j0:j0 + w]
+            d = x @ blk  # the column's one reduction
+            s, xj = d[jj], x[0]
+            sig = np.sqrt(s)
+            alpha = -sig if xj >= 0 else sig
+            un2 = f(2) * sig * (sig + abs(xj))
+            inv = f(1) / np.sqrt(un2) if un2 > 0 else f(0)
+            t = (d - alpha * blk[0]) * inv
+            v = x * inv
+            v[0] = (xj - alpha) * inv
+            rd[j] = xj - f(2) * v[0] * t[jj]
+            Z[:jj, jj] = t[:jj]
+            W[j:, j + 1:j0 + w] -= f(2) * np.outer(v, t[jj + 1:w])
+            W[j:, j] = v
+        T = np.zeros((nb, nb), f)
+        for i in range(w):
+            T[i, i] = 2
+            T[:i, i] = -f(2) * (T[:i, :i] @ Z[:i, i])
+        V = np.zeros((p, nb), f)
+        for c in range(w):
+            V[j0 + c:, c] = W[j0 + c:, j0 + c]
+        Vs.append(V)
+        Ts.append(T)
+        if j0 + w < n:
+            Y = V[j0:].T @ W[j0:, j0 + w:]
+            W[j0:, j0 + w:] -= V[j0:] @ (T.T @ Y)
+    R = np.triu(W[:n])
+    R[np.arange(n), np.arange(n)] = rd
+    Q = np.eye(p, n, dtype=f)
+    for b in range(len(Vs) - 1, -1, -1):
+        j0, V, T = b * nb, Vs[b], Ts[b]
+        Q[j0:, j0:] -= V[j0:] @ (T @ (V[j0:].T @ Q[j0:, j0:]))
+    return Q, R
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 17), (2, 64, 64)])
+def test_compact_wy_algebra_matches_jax_kernel(shape):
+    """The blocked compact-WY algebra of the card's panel kernel (nb = 16,
+    as built) against the JAX kernel in interpret mode, with a zero column
+    on a block boundary (columns 15 and 16), a zero column inside a block
+    and a zero panel: f32 1e-5 of the largest |reference| entry (sums in
+    another order)."""
+    P = _panels(shape[1] + 1, shape)
+    P[2 % shape[0], :, 15] = 0.0
+    P[2 % shape[0], :, 16] = 0.0
+    Qj, Rj = jtsqr._qr_pallas(jnp.asarray(P), block=0, precision="highest", interpret=True)
+    got = [_compact_wy_qr(P[i], ttsqr.PANEL_NB) for i in range(shape[0])]
+    _close(np.stack([q for q, _ in got]), Qj)
+    _close(np.stack([r for _, r in got]), Rj)
+    assert not np.any(got[1][1])
+
+
 def test_card_envelope_edges():
-    # one f32 tile of rows x odd_ld(n) and R's diagonal in 227 KB
-    assert ttsqr.smem_bytes(256, 128) == 4 * (256 * 129 + 128)
-    assert ttsqr.eligible(447, 128, torch.float32, interpret=False)
-    assert not ttsqr.eligible(448, 128, torch.float32, interpret=False)
+    # the f32 tile (16-byte rows, ld 132), the block's V and V·T transposed,
+    # eight blocks' T, the VᵀW workspace, the reduction buffers and R's
+    # diagonal in 227 KB; the panel factor keeps at most 512 rows in registers
+    assert ttsqr.smem_bytes(256, 128) == 4 * (256 * 132 + 2 * 16 * 256 + 8 * 256 + 16 * 512 + 256 + 32 + 256 + 128)
+    assert ttsqr.eligible(280, 128, torch.float32, interpret=False)
+    assert not ttsqr.eligible(281, 128, torch.float32, interpret=False)
+    assert ttsqr.eligible(512, 8, torch.float32, interpret=False)
+    assert not ttsqr.eligible(513, 8, torch.float32, interpret=False)
     assert ttsqr.default_impl(512, 128, torch.float32, interpret=False) == "xla"
     assert ttsqr.default_impl(256, 128, torch.float32, interpret=False) == "pallas"
     assert ttsqr.eligible(4096, 128, torch.float32, interpret=True)
+    for n in range(1, ttsqr.SMALL_N_MAX + 1):  # every panel tsqr cuts
+        for rows in (ttsqr.resolve_panel(1 << 20, n), 2 * n):
+            assert ttsqr.default_impl(rows, n, torch.float32, interpret=False) == "pallas", (rows, n)
 
 
 def test_panel_qr_refuses():
