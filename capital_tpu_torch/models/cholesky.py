@@ -22,8 +22,9 @@ factored by the ranks its base-case policy names (`_scoped_base_factor`).
 
 With `tail_fuse_depth > 0` a subtree whose window passes `_tail_fusible`
 runs as one `hopper.fused_tail` launch (CI::tail_fused) in place of its
-leaf, trsm, syrk and trmm launches; on the card that admits n = 128
-windows only (`hopper.tail_eligible`).
+leaf, trsm, syrk and trmm launches; on the card that admits windows of
+128 (one block) and of 256, 384 and 512 (a thread-block cluster), and
+larger windows recurse unfused (`hopper.tail_eligible`).
 
 In-place semantics are real here (the JAX package returns new arrays):
 `out_buffers` are written into, and `schur_in_place=True` overwrites the

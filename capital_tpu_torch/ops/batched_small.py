@@ -88,6 +88,18 @@ def _potrf_ld(n: int) -> int:
     return ld if 4 * n4 * ld <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE else n4
 
 
+def _potrs_lds(n: int, k: int) -> tuple[int, int]:
+    """The potrs kernel's tile strides (csrc potrs_lds): round4(n) for the
+    factor and round4(k) for the right-hand sides, each plus 4 when that
+    makes it 4 mod 8 and round4(n) rows of both still fit a block."""
+    n4, k4 = (n + 3) // 4 * 4, (k + 3) // 4 * 4
+    lp = n4 if (n4 // 4) % 2 else n4 + 4
+    yp = k4 if (k4 // 4) % 2 else k4 + 4
+    fit = (hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE) // 4 // n4
+    ld = lp if lp + yp <= fit else n4
+    return ld, yp if ld + yp <= fit else k4
+
+
 def _lstsq_floats(n: int, k: int) -> int:
     """csrc lstsq_floats: the stage or G's copy, the G -> V -> G2 -> R tile,
     AᵀB and a panel of G2."""
@@ -107,7 +119,10 @@ def smem_bytes(op: str, n: int, k: int) -> int:
     that is 0 mod 8 (`_potrf_ld` for potrf).
 
     potrf              4·round4(n)·_potrf_ld(n)   (the working matrix)
-    trsm, potrs, posv  4·(n·ld + n·k)             (factor, right-hand sides)
+    potrs              4·round4(n)·(ld + ldy)     (U = R's rows, the
+                                                   right-hand sides;
+                                                   `_potrs_lds`)
+    trsm, posv         4·(n·ld + n·k)             (factor, right-hand sides)
     lstsq              4·(max(tile, stage) + tile + round4(n)·round4(k)
                        + 16·round4(n))            (G's copy and R1 or the
                                                    [A|B] stage, the
@@ -119,7 +134,9 @@ def smem_bytes(op: str, n: int, k: int) -> int:
     ld = n + 1 if n % 2 == 0 else n
     if op == "potrf":
         return 4 * ((n + 3) // 4 * 4) * _potrf_ld(n)
-    if op in ("trsm", "potrs", "posv"):
+    if op == "potrs":
+        return 4 * ((n + 3) // 4 * 4) * sum(_potrs_lds(n, k))
+    if op in ("trsm", "posv"):
         return 4 * (n * ld + n * k)
     if op == "lstsq":
         return 4 * _lstsq_floats(n, k)
@@ -132,8 +149,11 @@ def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype, *, interpret
     shared memory of one block, 232,448 bytes less a 1,024-byte reserve.
     m does not enter (lstsq streams A and B through a stage of at most
     LSTSQ_ROWS rows); the batch axis lives on the launch grid.  `op` is
-    'posv' (also 'potrs', and serve's inv as posv with k = n), 'lstsq' or
-    'potrf'; b_shape None means k = n.
+    'posv' (also serve's inv as posv with k = n), 'potrs', 'trsm', 'lstsq'
+    or 'potrf'; b_shape None means k = n.  A posv or inv bucket may run as
+    potrf + potrs (`pallas_split`, the refinement loop), so both kernels'
+    working sets must fit for it; they differ only at ragged n near the
+    largest k (potrs' 16-byte rows round n and k up to 4).
 
     Edges at f32 and bf16 alike (shared memory holds f32): n = 128 takes
     posv up to k = 323 and lstsq up to k = 172; n = 160 takes posv up to
@@ -149,8 +169,10 @@ def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype, *, interpret
         return True
     n = a_shape[-1]
     k = b_shape[-1] if b_shape is not None else n
-    kop = "posv" if op in ("posv", "potrs", "inv", "trsm") else op
-    return smem_bytes(kop, n, k) <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+    limit = hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+    if op in ("posv", "inv"):
+        return max(smem_bytes("posv", n, k), smem_bytes("potrs", n, k)) <= limit
+    return smem_bytes(op, n, k) <= limit
 
 
 def dtype_capable(dtype) -> bool:

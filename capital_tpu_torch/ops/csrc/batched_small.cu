@@ -17,8 +17,8 @@
 // runs there; the factor of posv and the whole CholeskyQR2 state of lstsq
 // never reach device memory; outputs are rounded once on store.  Sweeps are
 // CUDA-core f32 with IEEE sqrt and division (see batched_small.cuh).  Not
-// done yet: posv and potrs on the blocked factor and solves, several blocks
-// or a cluster per problem, tensor-core updates.
+// done yet: posv on the blocked factor and solves, several blocks or a
+// cluster per problem, tensor-core updates.
 //
 // potrf runs the blocked factor (chol_blocked, batched_small.cuh): three
 // barriers a 16-column panel instead of two or three a column, the
@@ -29,6 +29,13 @@
 // bf16, no spills; _build.build_logs()) and 192 B of static shared memory,
 // and at n = 128 the tile is 128 x 132 f32 (67,584 B dynamic), so three
 // blocks share an SM and the 8192-problem batch runs in 21 waves.
+//
+// potrs runs lstsq's blocked solves (fwd_blocked, then bwd_upper_blocked)
+// on the factor's live triangle, loaded into both triangles of a
+// 16-byte-row tile (U = R = Lᵀ above, L below, so both solves' tiles read
+// rows): two barriers a 16-row panel of each solve where the sweeps took
+// one or two a column, the panel's rows below (above) it as 4 x 4 register
+// tiles.  At n = 128, k = 8 the block needs 73,728 B (three blocks an SM).
 //
 // lstsq, one problem a block, every phase on register tiles:
 //   * the gram: [A | B] streams once through a double-buffered stage of
@@ -53,10 +60,11 @@
 // under __launch_bounds__(NT, 1); left to itself it chose 128 and spilled.
 //
 // Shared memory per block (f32; ld = odd_ld(n), potrf ld = potrf_ld(n),
-// lstsq ld = lstsq_ld(n)), as capital_tpu_torch/ops/batched_small.smem_bytes
-// computes it:
+// potrs ld, ldy = potrs_lds(n, k), lstsq ld = lstsq_ld(n)), as
+// capital_tpu_torch/ops/batched_small.smem_bytes computes it:
 //   potrf        round4(n)·ld
-//   trsm, potrs, posv  n·ld + n·k
+//   potrs        round4(n)·(ld + ldy)
+//   trsm, posv   n·ld + n·k
 //   lstsq        max(tile, stage) + tile + round4(n)·round4(k) + NB·round4(n),
 //                tile = round4(n)·ld, stage = 2·rows·(round32(n) + round16(k))
 // Above 48 KB it is dynamic shared memory, enabled per kernel with
@@ -196,22 +204,6 @@ __global__ void __launch_bounds__(NT) potrf_kernel(const T* A, T* R, int* info, 
   }
   store_factor(R + off, S, ld, n, upper);
   if (threadIdx.x == 0) info[blockIdx.x] = inf;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) potrs_kernel(const T* Tm, const T* B, T* X, int n, int k, int upper) {
-  extern __shared__ float smem[];
-  const int ld = odd_ld(n);
-  float* S = smem;
-  float* Y = smem + n * ld;
-  const long long b = blockIdx.x;
-  load_tile(S, ld, Tm + b * n * n, n, n);
-  load_tile(Y, k, B + b * n * k, n, k);
-  __syncthreads();
-  // 'U': S holds R = Lᵀ (upper-stored); 'L': S holds L
-  fwd_sweep(S, ld, upper != 0, Y, k, n, k);
-  bwd_sweep(S, ld, upper != 0, Y, k, n, k);
-  store_tile(X + b * n * k, Y, k, n, k);
 }
 
 // op(T)·X = B with one sweep: forward (L = T stored lower, or Tᵀ of a T
@@ -406,6 +398,35 @@ __device__ bool gram_stream(const T* a, const T* bm, int m, int n, int k, T* st,
   return bad;
 }
 
+// fwd_blocked's diagonal step on one column `col` of Y (rows k0 .. k0 + w,
+// stride ldy): y_j = Y[j]/d_j, then Y[i] −= L[i][j]·y_j for i > j, L read
+// from the rows of Lᵀ.  FULL (w == NB) unrolls every bound on w away.
+template <bool FULL>
+__device__ __forceinline__ void fwd_diag_column(const float* S, int ld, int k0, int w, float* col, int ldy) {
+  const int w4 = round4(w);
+  float y[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) y[i] = FULL || i < w ? col[(k0 + i) * ldy] : 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (!FULL && j >= w) break;
+    y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
+    const float* lt = S + (k0 + j) * ld + k0;  // L[k0 + i][k0 + j] at column k0 + i
+#pragma unroll
+    for (int q = (j + 1) / 4; q < NB / 4; ++q) {
+      if (!FULL && 4 * q >= w4) break;
+      float v[4];
+      unpack4(v, ld4(lt + 4 * q));
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (4 * q + t > j) y[4 * q + t] = fmaf(-v[t], y[j], y[4 * q + t]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+    if (FULL || i < w) col[(k0 + i) * ldy] = y[i];
+}
+
 // L·Y = B in place on Y = [Y1 | Y2] (n rows; nc1 columns of leading
 // dimension ld1, then nc2 of ld2; zero past them up to round4), L from a
 // chol_blocked tile S: L in its lower triangle, Lᵀ in its strict upper one,
@@ -414,35 +435,24 @@ __device__ bool gram_stream(const T* a, const T* bm, int m, int n, int k, T* st,
 // fwd_sweep), then 4 x 4 register tiles take the rows below:
 // Y[l] −= Σ_j L[l][j]·y_j, j ascending — every entry gets fwd_sweep's
 // operations in fwd_sweep's order.  Two barriers a panel.
+//
+// `full_panels` gives the full panels (w == NB, all but a narrow last one)
+// their own copy of the diagonal step, with no run-time bound on w inside
+// its unrolled loops: in potrs those bounds cost spills under its
+// three-blocks-an-SM register cap and a third of its time
+// (probes/potrs_variants.py); lstsq, at one block an SM, keeps the single
+// copy, whose second one would take it to 255 registers and spills.
+template <bool full_panels = false>
 __device__ void fwd_blocked(const float* S, int ld, int n, float* Y1, int ld1, int nc1, float* Y2 = nullptr,
                             int ld2 = 0, int nc2 = 0) {
   const int n4 = round4(n), cg1 = round4(nc1) / 4, cg = cg1 + round4(nc2) / 4;
   for (int k0 = 0; k0 < n; k0 += NB) {
-    const int w = min(NB, n - k0), w4 = round4(w);
+    const int w = min(NB, n - k0);
     for (int c = threadIdx.x; c < nc1 + nc2; c += NT) {
       float* col = c < nc1 ? Y1 + c : Y2 + c - nc1;
       const int ldy = c < nc1 ? ld1 : ld2;
-      float y[NB];
-#pragma unroll
-      for (int i = 0; i < NB; ++i) y[i] = i < w ? col[(k0 + i) * ldy] : 0.f;
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        if (j >= w) break;
-        y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
-        const float* lt = S + (k0 + j) * ld + k0;  // L[k0 + i][k0 + j] at column k0 + i
-#pragma unroll
-        for (int q = (j + 1) / 4; q < NB / 4; ++q) {
-          if (4 * q >= w4) break;
-          float v[4];
-          unpack4(v, ld4(lt + 4 * q));
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-            if (4 * q + t > j) y[4 * q + t] = fmaf(-v[t], y[j], y[4 * q + t]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NB; ++i)
-        if (i < w) col[(k0 + i) * ldy] = y[i];
+      if (full_panels && w == NB) fwd_diag_column<true>(S, ld, k0, w, col, ldy);
+      else fwd_diag_column<false>(S, ld, k0, w, col, ldy);
     }
     __syncthreads();
     const int t0 = k0 + NB;
@@ -539,25 +549,18 @@ __device__ void rsolve_blocked(const float* S, int ld, int n, float* W, int ldw,
 // the rows of S (U[i][c] = S[i·ld + c], c >= i).  Panels of NB rows from
 // the bottom: a thread a column solves the diagonal block (j descending, as
 // bwd_sweep), then 4 x 4 register tiles take the rows above it, j
-// descending — bwd_sweep's operations in bwd_sweep's order.
+// descending — bwd_sweep's operations in bwd_sweep's order.  With
+// `lower_rows` S also holds Uᵀ in its lower triangle, and the tiles read a
+// column of U as a 16-byte load of a row of Uᵀ (four scalar loads that
+// share two banks otherwise); `full_panels` as in fwd_blocked.
+template <bool lower_rows = false, bool full_panels = false>
 __device__ void bwd_upper_blocked(const float* S, int ld, int n, float* Y, int ldy, int nc) {
   const int cg = round4(nc) / 4;
   for (int k0 = (n - 1) / NB * NB; k0 >= 0; k0 -= NB) {
     const int w = min(NB, n - k0);
     for (int c = threadIdx.x; c < nc; c += NT) {
-      float y[NB];
-#pragma unroll
-      for (int i = 0; i < NB; ++i) y[i] = i < w ? Y[(k0 + i) * ldy + c] : 0.f;
-#pragma unroll
-      for (int j = NB - 1; j >= 0; --j) {
-        if (j >= w) continue;
-        y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
-#pragma unroll
-        for (int i = 0; i < j; ++i) y[i] = fmaf(-S[(k0 + i) * ld + k0 + j], y[j], y[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < NB; ++i)
-        if (i < w) Y[(k0 + i) * ldy + c] = y[i];
+      if (full_panels && w == NB) bwd_diag_column<true>(S, ld, k0, w, Y + c, ldy);
+      else bwd_diag_column<false>(S, ld, k0, w, Y + c, ldy);
     }
     __syncthreads();
     if (k0 == 0) break;
@@ -567,20 +570,139 @@ __device__ void bwd_upper_blocked(const float* S, int ld, int n, float* Y, int l
 #pragma unroll
       for (int i = 0; i < 4; ++i) unpack4(acc[i], ld4(Y + (i0 + i) * ldy + c0));
       for (int j = w - 1; j >= 0; --j) {
-        float y[4];
+        float y[4], u[4];
         unpack4(y, ld4(Y + (k0 + j) * ldy + c0));
+        if (lower_rows) {
+          unpack4(u, ld4(S + (k0 + j) * ld + i0));
+        } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float u = S[(i0 + i) * ld + k0 + j];
-#pragma unroll
-          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(-u, y[t], acc[i][t]);
+          for (int i = 0; i < 4; ++i) u[i] = S[(i0 + i) * ld + k0 + j];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(-u[i], y[t], acc[i][t]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) st4(Y + (i0 + i) * ldy + c0, acc[i]);
     }
     __syncthreads();
   }
+}
+
+// ---------------------------------------------------------------------------
+// potrs: the blocked solves on the factor's live triangle
+// ---------------------------------------------------------------------------
+
+// The factor's live triangle into both triangles of S — U = R = Lᵀ in the
+// upper one, L in the lower one: T[r][c] to S[r][c] and S[c][r], whatever
+// uplo names — a warp a row, 16 bytes a load where rows allow (four rows'
+// loads in flight a thread before their stores); S's padding (columns
+// n..round4(n), rows n..round4(n)) zeroed.  T's dead triangle is read only
+// where a 16-byte load straddles the diagonal, and never stored.
+template <typename T>
+__device__ void load_factor_both(float* __restrict__ S, int ld, const T* __restrict__ src, int n, int upper) {
+  constexpr int ROWS = 4;
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32, n4 = round4(n), pad = n4 - n;
+  if (rows_vec4(src, n)) {
+    for (int c = 4 * lane; c < n; c += 128)
+      for (int r0 = wid; r0 < n; r0 += ROWS * WARPS) {
+        float v[ROWS][4];
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b) {
+          const int r = r0 + b * WARPS;
+          if (r < n && (upper ? c + 3 >= r : c <= r)) load4(src + r * n + c, v[b]);
+        }
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b) {
+          const int r = r0 + b * WARPS;
+          if (r >= n) continue;
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            if (upper ? c + t >= r : c + t <= r) {
+              S[r * ld + c + t] = v[b][t];
+              S[(c + t) * ld + r] = v[b][t];
+            }
+        }
+      }
+  } else {
+    for (int r = wid; r < n; r += WARPS)
+      for (int c = (upper ? r : 0) + lane; c < (upper ? n : r + 1); c += 32) {
+        const float v = widen(src[r * n + c]);
+        S[r * ld + c] = v;
+        S[c * ld + r] = v;
+      }
+  }
+  for (int e = threadIdx.x; e < n * pad; e += NT) S[(e / pad) * ld + n + e % pad] = 0.f;
+  for (int e = threadIdx.x; e < pad * ld; e += NT) S[n * ld + e] = 0.f;
+}
+
+// whether rows of k entries at p can move in 4-entry vectors
+template <typename T>
+__device__ __forceinline__ bool cols_vec4(const T* p, int k) {
+  return k % 4 == 0 && reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
+}
+
+// B (n x k) into Y (round4(n) rows of ldy), zero padding up to round4(k)
+// columns and round4(n) rows
+template <typename T>
+__device__ void load_rhs(float* Y, int ldy, const T* src, int n, int k) {
+  const int n4 = round4(n), k4 = round4(k), pad = k4 - k;
+  if (cols_vec4(src, k)) {
+    const int q = k / 4;
+    for (int e = threadIdx.x; e < n * q; e += NT) {
+      const int r = e / q, c = 4 * (e - r * q);
+      float v[4];
+      load4(src + r * k + c, v);
+      store4(Y + r * ldy + c, v);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * k; e += NT) {
+      const int r = e / k, c = e - r * k;
+      Y[r * ldy + c] = widen(src[e]);
+    }
+  }
+  for (int e = threadIdx.x; e < n * pad; e += NT) Y[(e / pad) * ldy + k + e % pad] = 0.f;
+  for (int e = threadIdx.x; e < (n4 - n) * k4; e += NT) Y[(n + e / k4) * ldy + e % k4] = 0.f;
+}
+
+// X (n x k) from Y's rows, rounded once
+template <typename T>
+__device__ void store_rhs(T* dst, const float* Y, int ldy, int n, int k) {
+  if (cols_vec4(dst, k)) {
+    const int q = k / 4;
+    for (int e = threadIdx.x; e < n * q; e += NT) {
+      const int r = e / q, c = 4 * (e - r * q);
+      float v[4];
+      unpack4(v, ld4(Y + r * ldy + c));
+      store4(dst + r * k + c, v);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * k; e += NT) {
+      const int r = e / k, c = e - r * k;
+      dst[e] = Cast<T>::from(Y[r * ldy + c]);
+    }
+  }
+}
+
+// One problem a block: the factor into both triangles of S, B into Y,
+// then fwd_blocked (L·Z = B, L read from U's rows) and bwd_upper_blocked
+// (U·X = Z, U's columns read from L's rows) in place on Y — fwd_sweep's and bwd_sweep's operations in
+// their order, so X is the column-sweep kernel's bit for bit; bf16 widened
+// on load, rounded once on store.
+template <typename T>
+__global__ void __launch_bounds__(NT, 3) potrs_kernel(const T* Tm, const T* B, T* X, int n, int k, int upper, int ld,
+                                                   int ldy) {
+  extern __shared__ float4 smem4[];
+  float* S = reinterpret_cast<float*>(smem4);
+  float* Y = S + round4(n) * ld;
+  const long long b = blockIdx.x;
+  load_factor_both(S, ld, Tm + b * n * n, n, upper);
+  load_rhs(Y, ldy, B + b * n * k, n, k);
+  __syncthreads();
+  fwd_blocked<true>(S, ld, n, Y, ldy, k);
+  bwd_upper_blocked<true, true>(S, ld, n, Y, ldy, k);
+  store_rhs(X + b * n * k, Y, ldy, n, k);
 }
 
 // R = R2·R1 (both upper) into Q's strict upper triangle, then its diagonal:
@@ -753,14 +875,29 @@ extern "C" int capital_small_potrf(int dtype, const void* A, void* R, void* info
   return -1;
 }
 
+// potrs' tile strides: round4(n) and round4(k) floats, each plus 4 when
+// that makes it 4 mod 8 and the working set, round4(n) rows of both, still
+// fits (ops/batched_small._potrs_lds mirrors it)
+static void potrs_lds(int n, int k, int* ld, int* ldy) {
+  const int n4 = round4(n), k4 = round4(k);
+  const int lp = (n4 / 4) % 2 ? n4 : n4 + 4, yp = (k4 / 4) % 2 ? k4 : k4 + 4;
+  const size_t fit = SMEM_MAX / sizeof(float) / n4;
+  *ld = lp + yp <= (int)fit ? lp : n4;
+  *ldy = *ld + yp <= (int)fit ? yp : k4;
+}
+
 extern "C" int capital_small_potrs(int dtype, const void* Tm, const void* B, void* X, int batch, int n,
                                    int k, int upper, void* stream) {
   if (n < 1 || k < 0) return -1;
-  const size_t smem = tile_bytes(n) + sizeof(float) * (size_t)n * k;
+  int ld, ldy;
+  potrs_lds(n, k, &ld, &ldy);
+  const size_t smem = sizeof(float) * (size_t)round4(n) * (ld + ldy);
   if (dtype == DT_F32)
-    return run<potrs_kernel<float>>(batch, smem, stream, (const float*)Tm, (const float*)B, (float*)X, n, k, upper);
+    return run<potrs_kernel<float>>(batch, smem, stream, (const float*)Tm, (const float*)B, (float*)X, n, k, upper,
+                                    ld, ldy);
   if (dtype == DT_BF16)
-    return run<potrs_kernel<bf16>>(batch, smem, stream, (const bf16*)Tm, (const bf16*)B, (bf16*)X, n, k, upper);
+    return run<potrs_kernel<bf16>>(batch, smem, stream, (const bf16*)Tm, (const bf16*)B, (bf16*)X, n, k, upper,
+                                   ld, ldy);
   return -1;
 }
 

@@ -171,7 +171,8 @@ __device__ __forceinline__ void unpack4(float* v, const float4 t) {
   v[3] = t.w;
 }
 
-// Panel step 1, warp 0: the w x w diagonal block at (k0, k0).  Lane i keeps
+// Panel step 1, warp 0: the w x w diagonal block whose first entry is at
+// `blk` (row stride ld).  Lane i keeps
 // row i's live entries (c <= i) in registers, zeros above the diagonal.
 // Per column: the pivot by one shuffle, the scaled column through shared
 // memory (one store a lane, broadcast 16-byte loads), the update in
@@ -181,13 +182,13 @@ __device__ __forceinline__ void unpack4(float* v, const float4 t) {
 // column's arithmetic); columns past w (the last, narrow panel) run on the
 // zero padding and are ignored.  Returns, to every lane, whether a pivot was bad or an entry of
 // L11 non-finite.
-__device__ __forceinline__ bool chol_diag_block(float* S, int ld, int k0, int w, float* sq) {
+__device__ __forceinline__ bool chol_diag_block(float* blk, int ld, int w, float* sq) {
   __shared__ __align__(16) float xs[2][NB];  // column j's scaled entries
   const int lane = threadIdx.x & 31, w4 = round4(w);
   float r[NB];
 #pragma unroll
   for (int c = 0; c < NB; ++c) r[c] = 0.f;
-  float* row = S + (k0 + lane) * ld + k0;
+  float* row = blk + lane * ld;
   if (lane < w) {
 #pragma unroll
     for (int q = 0; q < NB / 4; ++q)
@@ -236,7 +237,7 @@ __device__ __forceinline__ bool chol_diag_block(float* S, int ld, int k0, int w,
   if (lane < w) {
 #pragma unroll
     for (int c = 0; c < NB; ++c)
-      if (c < lane) S[(k0 + c) * ld + k0 + lane] = r[c];
+      if (c < lane) blk[c * ld + lane] = r[c];
   }
   return bad;
 }
@@ -313,7 +314,7 @@ __device__ int chol_blocked(float* S, int ld, int n) {
   const int wid = threadIdx.x / 32;
   if (n > NB + NT) return -1;
   for (int k0 = 0; k0 < n; k0 += NB) {
-    const bool bad = wid == 0 && chol_diag_block(S, ld, k0, min(NB, n - k0), sq);
+    const bool bad = wid == 0 && chol_diag_block(S + k0 * ld + k0, ld, min(NB, n - k0), sq);
     if (__syncthreads_or(bad)) return -1;
     if (k0 + NB >= n) break;
     if (__syncthreads_or(chol_panel_row(S, ld, n, k0, sq))) return -1;
@@ -321,6 +322,28 @@ __device__ int chol_blocked(float* S, int ld, int n) {
     __syncthreads();
   }
   return 0;
+}
+
+// The blocked back-substitutions' diagonal step on one column `col` (rows
+// k0 .. k0 + w, stride ldy) against U = S's upper rows: j descending,
+// y_j = Y[j]/d_j, then Y[i] −= U[i][j]·y_j for i < j — bwd_sweep's
+// operations in its order.  FULL (w == NB, every panel but a narrow last
+// one) unrolls every bound on w away (see fwd_blocked's `full_panels`).
+template <bool FULL>
+__device__ __forceinline__ void bwd_diag_column(const float* S, int ld, int k0, int w, float* col, int ldy) {
+  float y[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) y[i] = FULL || i < w ? col[(k0 + i) * ldy] : 0.f;
+#pragma unroll
+  for (int j = NB - 1; j >= 0; --j) {
+    if (!FULL && j >= w) continue;
+    y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
+#pragma unroll
+    for (int i = 0; i < j; ++i) y[i] = fmaf(-S[(k0 + i) * ld + k0 + j], y[j], y[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+    if (FULL || i < w) col[(k0 + i) * ldy] = y[i];
 }
 
 // Forward substitution L·Y = B in place on Y (n x k, leading dimension ldy).

@@ -26,8 +26,9 @@ Each kernel sits here as three things side by side:
   FP64 tensor cores), 'fma' for f32 (pipelined IEEE FMA); the others take
   the element-load loop, 'wmma' for bf16 and 'simt' for f32 / f64.  The
   CholeskyQR2 kernels tally 'wgmma' for bf16 (their operands are always
-  TMA-aligned) and 'simt' otherwise.  The route is chosen before the launch
-  and never changes after a failure.
+  TMA-aligned) and 'simt' otherwise; `fused_tail` tallies 'block' (one
+  block holds the window) or 'cluster' (a thread-block cluster does).  The
+  route is chosen before the launch and never changes after a failure.
 
 Unlike the JAX package, where "consumed" buffers are a promise to XLA,
 writes here are real mutation: `out` windows are written in place and the
@@ -134,7 +135,8 @@ def counts() -> dict[str, int]:
 
 def route_counts() -> dict[str, dict[str, int]]:
     """Launches of each kernel that has routes, by route ('wgmma', 'wmma',
-    'simt'); kernels not launched since the last reset are left out."""
+    'simt', ...; fused_tail 'block' / 'cluster'); kernels not launched
+    since the last reset are left out."""
     return {name: dict(k.by_route) for name, k in KERNELS.items() if k.by_route}
 
 
@@ -696,29 +698,91 @@ def _tail_spec(buf, Rp, RIp, off, n, dest):
             raise ValueError(f"fused_tail: the {what} window overlaps the input window")
 
 
+#: blocks of the cluster route's cluster, by window: the multiples of 128
+#: up to 512 (2, 4 or 8 blocks, each a divisor of n / 16 whose rows fit a
+#: block; probes/tail_cluster.py times every size against the others)
+TAIL_CLUSTER_BLOCKS = {256: 4, 384: 4, 512: 8}
+TAIL_CLUSTER_WINDOWS = tuple(TAIL_CLUSTER_BLOCKS)
+#: rows of a panel of the cluster route (csrc PANEL)
+_TAIL_PANEL = 16
+
+
+def _tail_ld(n: int) -> int:
+    """The block route's tile stride (csrc tail_ld): round4(n) floats
+    (16-byte rows), plus 4 when that makes it 4 mod 8 and both tiles still
+    fit a block."""
+    n4 = (n + 3) // 4 * 4
+    ld = n4 if (n4 // 4) % 2 else n4 + 4
+    return ld if 8 * n4 * ld <= SMEM_PER_BLOCK - SMEM_RESERVE else n4
+
+
+def _square_ld(n: int) -> int:
+    """The cluster route's square stride (csrc square_ld; n a multiple of
+    16): n floats, plus 4 when n is 0 mod 8."""
+    return n if (n // 4) % 2 else n + 4
+
+
 def tail_smem_bytes(n: int) -> int:
-    """Dynamic shared memory of one `fused_tail` block for an (n, n)
-    window: the window, then R⁻¹, both f32 with an odd leading dimension
-    ld (n + 1 for even n) -- 4·(n·ld + n·n)."""
-    ld = n + 1 if n % 2 == 0 else n
-    return 4 * (n * ld + n * n)
+    """Dynamic shared memory of the block route for an (n, n) window: two
+    f32 tiles of round4(n) x _tail_ld(n) (the window, then L and R = Lᵀ;
+    I, then R⁻¹)."""
+    n4 = (n + 3) // 4 * 4
+    return 8 * n4 * _tail_ld(n)
+
+
+def tail_cluster_smem_bytes(n: int, blocks: int) -> int:
+    """Dynamic shared memory of one block of the cluster route (csrc
+    cluster_floats): its n / blocks rows of the n x n f32 square, the
+    16 x n panel, R⁻¹'s diagonal on its rows, L11ᵀ and the pivots' roots
+    copied from the panel's owner, its own roots and a flag."""
+    rows = n // blocks
+    return 4 * (rows * _square_ld(n) + _TAIL_PANEL * n + rows + _TAIL_PANEL * _TAIL_PANEL
+                + 2 * _TAIL_PANEL + 4)
+
+
+def tail_route(n: int) -> str | None:
+    """The route `fused_tail` takes for an (n, n) window on the card:
+    'block' when one block's shared memory holds the window's two f32 tiles
+    (round4(n) <= 168), 'cluster' for the windows of TAIL_CLUSTER_BLOCKS on
+    their cluster, None for any other window (the kernel refuses it)."""
+    room = SMEM_PER_BLOCK - SMEM_RESERVE
+    if n >= 1 and tail_smem_bytes(n) <= room:
+        return "block"
+    if n in TAIL_CLUSTER_BLOCKS and tail_cluster_smem_bytes(n, TAIL_CLUSTER_BLOCKS[n]) <= room:
+        return "cluster"
+    return None
+
+
+#: the cluster route's fault-path scratch (2·n² f32 for the largest window),
+#: one per (device, stream): the kernel writes it only on a fault, and two
+#: streams' faults must not share it
+_TAIL_SCRATCH: dict = {}
+
+
+def _tail_scratch(device, stream: int) -> torch.Tensor:
+    key = (device, stream)
+    scratch = _TAIL_SCRATCH.get(key)
+    if scratch is None:
+        scratch = _TAIL_SCRATCH[key] = torch.empty(2 * max(TAIL_CLUSTER_WINDOWS) ** 2, dtype=torch.float32,
+                                                   device=device)
+    return scratch
 
 
 def tail_eligible(n: int, dtype, *, interpret: bool) -> bool:
-    """Whether `fused_tail` takes an (n, n) window: its working set
-    (`tail_smem_bytes`) must fit one block's shared memory less the
-    reserve, at f32 and bf16 alike.  That reaches n = 169, so with
-    cholinv's `n % 128 == 0` gate only n = 128 windows fuse on the card:
-    with the default base_case_dim=256 nothing fuses there, where the JAX
-    package fused windows up to bc << depth.  A kernel for 256–512 windows
-    (a thread-block cluster, or R⁻¹ streamed to device memory) is
-    ROADMAP's redesign of this one.
+    """Whether `fused_tail` takes an (n, n) window of `dtype`: bf16 or f32
+    (f64 takes the unfused recursion) on one of its routes (`tail_route`):
+    the block route up to n = 168, the cluster route at 256, 384 and 512.
+    With cholinv's `n % 128 == 0` gate, windows of 128 fuse on the block
+    route and of 256–512 on the cluster route; larger windows stay unfused
+    on the card, where the JAX package fuses any window its VMEM budget
+    admits — the unfused recursion computes the same factor.
 
     interpret=True (the caller's buffers lie on the CPU) answers True: the
     plain version has no envelope, as the JAX kernel in interpret mode has
     none."""
-    del dtype  # the working set is f32 whatever the storage dtype
-    return interpret or tail_smem_bytes(n) <= SMEM_PER_BLOCK - SMEM_RESERVE
+    if interpret:
+        return True
+    return dtype in (torch.bfloat16, torch.float32) and tail_route(n) is not None
 
 
 def fused_tail_plain(buf, Rp, RIp, *, off, n, dest, block=0, precision="highest"):
@@ -741,21 +805,29 @@ def fused_tail_plain(buf, Rp, RIp, *, off, n, dest, block=0, precision="highest"
 
 
 def fused_tail(buf, Rp, RIp, *, off: int, n: int, dest: int, block: int = 0,
-               precision: str | None = "highest"):
+               precision: str | None = "highest", _sweep: bool = False):
     """A whole cholinv recursion subtree in one launch (ops/csrc/
     fused_tail.cu; pallas_tpu.fused_tail): read the (off, off, n, n) window
     of `buf` (upper triangle valid; the lower half may hold anything),
-    factor it A = RᵀR by the column sweep of the batched small-N kernels,
-    invert R by back-substituting the identity, and write triu(R) and
-    triu(R⁻¹) into the (dest, dest, n, n) windows of `Rp` and `RIp` in
-    place.  Returns (Rp, RIp, info), info a 0-d int32 tensor in the potrf
-    0/k/n+1 convention of `batched_small.potrf`, computed in the kernel.
+    factor it A = RᵀR, invert R by back-substituting the identity, and
+    write triu(R) and triu(R⁻¹) into the (dest, dest, n, n) windows of `Rp`
+    and `RIp` in place.  Returns (Rp, RIp, info), info a 0-d int32 tensor
+    in the potrf 0/k/n+1 convention of `batched_small.potrf`, computed in
+    the kernel.  R and R⁻¹ are the column sweeps' (`sweeps.chol_plain`,
+    `sweeps.bwd_solve_plain` of I) bit for bit on a healthy window.
 
     off, dest and both dimensions of every buffer must be multiples of n
     (ValueError otherwise, as in the JAX package).  The kernel takes bf16
-    or f32 buffers of one dtype and computes in f32 in shared memory; the
-    window must fit it (`tail_eligible`: n <= 169).  `block` (the JAX
-    kernel's static column unroll) changes nothing here."""
+    or f32 buffers of one dtype and computes in f32 in shared memory, on
+    the route `tail_route` picks before the launch and
+    `route_counts()['fused_tail']` tallies: 'block' (n <= 168, one block)
+    or 'cluster' (n = 256, 384, 512; a thread-block cluster of
+    `TAIL_CLUSTER_BLOCKS[n]` blocks, with an f32 scratch of 2·n², kept per
+    device and stream, for the fault path).  Other windows raise.  `block`
+    (the JAX kernel's static column unroll) changes nothing here.  `_sweep`
+    runs the kernel's column-sweep path (its fault path) on a healthy
+    window, which chip_smoke.py and the GPU tests hold to the blocked path
+    bit for bit."""
     _tail_spec(buf, Rp, RIp, off, n, dest)
     del block
     if not _on_card(buf, Rp, RIp):
@@ -769,18 +841,24 @@ def fused_tail(buf, Rp, RIp, *, off: int, n: int, dest: int, block: int = 0,
             )
     if Rp.stride(0) != RIp.stride(0):
         raise ValueError("fused_tail kernel: Rp and RIp need one layout")
-    if not tail_eligible(n, buf.dtype, interpret=False):
+    route = tail_route(n)
+    if route is None:
         raise ValueError(
-            f"fused_tail: a window of {n} needs {tail_smem_bytes(n)} bytes of shared "
-            f"memory, a block has {SMEM_PER_BLOCK - SMEM_RESERVE}"
+            f"fused_tail: a window of {n} fits neither route: the block route holds n <= 168 in "
+            f"{SMEM_PER_BLOCK - SMEM_RESERVE} bytes of shared memory, the cluster route takes "
+            f"{TAIL_CLUSTER_WINDOWS}"
         )
+    stream = _stream()
+    blocks, scratch = 1, None
+    if route == "cluster":
+        blocks, scratch = TAIL_CLUSTER_BLOCKS[n], _tail_scratch(buf.device, stream).data_ptr()
     info = torch.empty((), dtype=torch.int32, device=buf.device)
     rc = _build.entry("capital_fused_tail")(
         _DTYPE_CODE[buf.dtype], _ptr(buf, off, off), buf.stride(0),
         _ptr(Rp, dest, dest), _ptr(RIp, dest, dest), Rp.stride(0),
-        info.data_ptr(), n, _stream(),
+        info.data_ptr(), scratch, n, blocks, int(_sweep), stream,
     )
-    _launched(rc, KERNELS["fused_tail"])
+    _launched(rc, KERNELS["fused_tail"], route)
     return Rp, RIp, info
 
 

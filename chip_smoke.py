@@ -25,7 +25,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    residual gates), n=8192 f32 (residual gates, timed), the n=49152 bf16
    flagship with bc=384 (timed, probe-vector residual gates, and one factor
    traced with torch.profiler: device time by CI:: phase and kernel, idle
-   share), and (3d) n=16384 f64 bc=512, the reference's own precision
+   share), the same flagship with tail_fuse_depth=1 (its 128 leaves of 384
+   each one fused_tail launch on the cluster route: the plan, the probe
+   gates, within 2e-2 of the unfused factor, timed beside it), and (3d) n=16384 f64 bc=512, the reference's own precision
    (residual gates 1e-13, against the same factor through the plain
    versions, timed, profiled by CI:: phase) — each with the launch counters
    set to 0 just before and checked just after against what the plan
@@ -51,8 +53,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    their plain versions, timed beside their bounds and library calls, at
    the serve latency bucket (8 problems, n=128, 8 right-hand sides, f32)
    and at a throughput batch (8192 problems of n=128; lstsq 2048 of
-   512 x 128), f32 and bf16; potrf also by its device time from a trace,
-   beside cholesky_ex's;
+   512 x 128), f32 and bf16; potrf and potrs also by their device time
+   from a trace, beside cholesky_ex's and cholesky_solve's; potrs also on
+   the lower factor (bit for bit the upper one's answer) and, at the
+   latency batch, with k = n = 128 (serve's inv) on both uplo;
 7. drives the small-N serve path: ragged posv / lstsq / inv requests
    through `batching.bucket_for` -> `pad_operands` -> `assemble` ->
    `api.batched` -> `crop` under impl auto, pallas and pallas_split (and
@@ -64,8 +68,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 8. holds the four kernels of the triangular-inversion slice against their
    plain versions, timed beside their bounds and library calls:
    write_diag_blocks (96 blocks of 512² bf16 into a NaN-filled 49152²
-   buffer), fused_tail (n=128 windows, bf16 and f32, healthy and with
-   faults), batched trsm (8 and 8192 problems of n=128, k=8, f32, every
+   buffer), fused_tail (windows of 128 on the block route and of 256, 384
+   and 512 on the cluster route, bf16 and f32, healthy — bit for bit the
+   kernel's own column-sweep path — and with faults, every launch on its
+   route; timed, also by device time), batched trsm (8 and 8192 problems of n=128, k=8, f32, every
    uplo x trans) and the TSQR panel QR (8192 panels of 256 x 128 f32);
 9. drives the rectri path, `models/inverse.rectri` in mode 'pallas': the
    n=49152 bf16 flagship with bc=512 (timed, row-blocked inverse-residual
@@ -75,10 +81,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     (invert leaves, mode 'xla'; timed, the five gates of bench/drivers.py) and
     `inverse.newton` at n=8192 f32 (iterations, residual gate) — neither
     launches a kernel of the port;
-11. drives cholinv with `tail_fuse_depth=2` at n=16384 bf16, bc=128: the
-    fused tail on every leaf, against the unfused factor, residual gates,
-    and a robust run with a bad pivot planted in one leaf window whose
-    info must equal the unfused factor's;
+11. drives cholinv with the fused tail at n=16384 bf16: bc=128 at depth 2
+    (32 windows of 512 on the cluster route) and bc=64 at depth 1 (128
+    windows of 128 on the block route), each against the unfused factor
+    (bc=128), residual gates, timed beside it, and a robust run with a bad
+    pivot planted in one leaf window whose info must equal the unfused
+    factor's;
 12. drives `ops/tsqr.tsqr(impl='auto')` at 2,097,152 x 128 f32 (14 panel
     kernel launches; orthogonality, residual, R against the library
     route's up to row signs; timed beside that route);
@@ -145,9 +153,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 
 Phases 3, 5, 7, 9–12, 14, 16 and 18 set every launch counter to 0 just
 before their runs and check the counts just after against the plan;
-phases 3, 4, 5, 9, 17 and 18 also check that every tri_matmul and
+phases 3, 4, 5, 9, 11, 17 and 18 also check that every tri_matmul and
 sched_matmul and qr_fused launch took its dtype's route (bf16 wgmma, f32
-fma, f64 dmma).
+fma, f64 dmma), and phases 3, 8 and 11 that every fused_tail launch took
+its window's route (block or cluster).
 
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA or a directory without the package.
@@ -159,6 +168,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -234,12 +244,18 @@ SMALL_SHAPES = {
 QR_SHAPES = {"flagship": (2_097_152, 1024), "single_rank": (65536, 512), "wide": (65536, 4096),
              "cqr1": (65536, 1024)}
 #: the inversion slice's shapes: write_diag_blocks (count, s) as the rectri
-#: flagship writes them; the fused_tail window (n, off, dest, buffer edge);
+#: flagship writes them; the fused_tail windows (n, off, dest, buffer
+#: edge), one per route and cluster window — 128 on the block route (the
+#: leaves of bc=128 depth 0 and of bc=64 depth 1), 256–512 on the cluster
+#: route (384 the flagship's leaves at depth 1, 512 the bc=128 depth-2
+#: windows of phase 11, the main path's);
 #: the TSQR panels (count, rows, n) of the QR flagship's leaves; rectri
 #: (n, bc) — the bench flagship (drivers.pick_bc for rectri: 512) and the
 #: f32 row; trsm (n, nrhs, bc, gate rhs); newton n; the fused-tail factor
 #: (n, bc); tsqr (m, n)
-INV_SHAPES = {"write_diag": (96, 512), "tail": (128, 256, 384, 1024), "panel": (8192, 256, 128),
+INV_SHAPES = {"write_diag": (96, 512),
+              "tail": ((128, 256, 384, 1024), (256, 256, 0, 512), (384, 384, 768, 1536), (512, 512, 0, 1024)),
+              "panel": (8192, 256, 128),
               "rectri": (49152, 512), "rectri_f32": (8192, 512), "trsm": (32768, 8192, 512, 4096),
               "newton": 8192, "tail_factor": (16384, 128), "tsqr": (2_097_152, 128)}
 
@@ -566,12 +582,13 @@ def kernel_phase(hopper, dtype, dev, W: int = 8192, bc: int = 512) -> dict:
     return res
 
 
-def check_routes(hopper, counts: dict, route, label: str) -> dict:
+def check_routes(hopper, counts: dict, route, label: str, extra=None) -> dict:
     """Every counted launch of a routed kernel took its route: `route`
-    names one for all of them, or is a dtype (its ROUTE_OF)."""
+    names one for all of them, or is a dtype (its ROUTE_OF); `extra` gives
+    the tallies of the other kernels with routes (fused_tail's)."""
     name = route if isinstance(route, str) else ROUTE_OF[route]
     got = hopper.route_counts()
-    want = {k: {name: counts[k]} for k in ROUTED if counts.get(k)}
+    want = {**{k: {name: counts[k]} for k in ROUTED if counts.get(k)}, **(extra or {})}
     check(got == want, f"{label}: launches by route {got} != {want}")
     return got
 
@@ -623,6 +640,60 @@ def drive(cholesky, hopper, grid, n, dtype, bc, precision):
     check(counts == want, f"n={n} launch counts {counts} != predicted {want}")
     check_routes(hopper, counts, dtype, f"n={n} {dtype}")
     return R, Ri, A, cfg, counts, secs
+
+
+def rel_fro_rows(X, Y, rows: int = 4096) -> float:
+    """‖X − Y‖_F / ‖Y‖_F in f64 sums, a block of rows at a time (two
+    n = 49152 factors widened whole would need ~30 GB of temporaries)."""
+    num = den = 0.0
+    for r0 in range(0, Y.shape[0], rows):
+        x, y = X[r0:r0 + rows].float(), Y[r0:r0 + rows].float()
+        num += float(torch.linalg.norm(x - y).double() ** 2)
+        den += float(torch.linalg.norm(y).double() ** 2)
+    return math.sqrt(num / den)
+
+
+#: rounds of turns that time the flagship fused and unfused (phase 3c'),
+#: and the fused tail cell's factors (phase 11)
+FLAGSHIP_TURNS = 5
+TAIL_TURNS = 7
+
+
+def fused_flagship(cholesky, hopper, grid, A, cfg, residual) -> dict:
+    """Phase 3c': the flagship with tail_fuse_depth=1 — its 128 leaves of
+    384 each one cluster-route fused_tail launch, nothing above them —
+    counted against the plan, under the flagship's probe-residual gates,
+    within 2e-2 of the unfused factor, timed beside it in turns (medians of
+    FLAGSHIP_TURNS rounds) and profiled once."""
+    import dataclasses
+
+    n, bc = A.shape[0], cfg.base_case_dim
+    cfgf = dataclasses.replace(cfg, tail_fuse_depth=1)
+    leaves = n // bc
+    want = {"fused_tail": leaves, "tri_matmul.trmm": 3 * (leaves - 1), "tri_matmul.syrk": leaves - 1,
+            "zeros_dead_lower": 2}
+    (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(grid, A, cfgf), want,
+                                          "fused flagship", torch.bfloat16,
+                                          extra_routes={"fused_tail": {hopper.tail_route(bc): leaves}})
+    v = torch.randn(n, 4, generator=torch.Generator(device=A.device).manual_seed(3), device=A.device)
+    pr = float(residual.cholesky_probe_residual(A, R, v))
+    pi = float(residual.inverse_probe_residual(R, Ri, v))
+    check(pr < 1e-2 and pi < 1e-2, f"fused flagship probe residuals {pr}, {pi}")
+    R0, Ri0 = cholesky.factor(grid, A, cfg)
+    dR, dRi = rel_fro_rows(R, R0), rel_fro_rows(Ri, Ri0)
+    check(dR < 2e-2 and dRi < 2e-2, f"fused flagship vs unfused: {dR}, {dRi}")
+    del R, Ri, R0, Ri0
+    t = turns_s({"unfused": lambda: cholesky.factor(grid, A, cfg),
+                 "fused": lambda: cholesky.factor(grid, A, cfgf)}, FLAGSHIP_TURNS)
+    fused_s = t["fused"]["median"]
+    res = dict(n=n, bc=bc, tail_fuse_depth=1, counts=counts, seconds_first=secs,
+               seconds=fused_s, seconds_unfused=t["unfused"]["median"], turns=t,
+               tflops=(2 * n**3 / 3) / fused_s / 1e12, probe_residual=pr,
+               probe_inverse_residual=pi, vs_unfused=[dR, dRi],
+               profile=profile(lambda: cholesky.factor(grid, A, cfgf), "CI::"))
+    print(json.dumps({"factor": "flagship fused tail", **res}), flush=True)
+    torch.cuda.empty_cache()
+    return res
 
 
 #: phase 3d and 18e: the reference's N=16384 row in f64, its own precision
@@ -1128,7 +1199,24 @@ def small_kernel_phase(batched_small, size: str, dtype, dev, names=SMALL_KERNELS
         record("small.potrs", Xk, Xp, None, None, lambda: batched_small.potrs(R, B),
                lambda: batched_small.potrs_plain(R, B),
                (lambda: torch.cholesky_solve(Bf, Rf, upper=True)) if f32 else None, (b, n, n, k))
-        del R, Xk, Xp, Rf, Bf, Af
+        res["small.potrs"]["device_ms"] = device_ms(lambda: batched_small.potrs(R, B), iters)
+        if f32:
+            res["small.potrs"]["library_device_ms"] = device_ms(
+                lambda: torch.cholesky_solve(Bf, Rf, upper=True), iters)
+        # the lower factor L = Rᵀ ('L': the same tile after the load, so the
+        # same bits), and k = n right-hand sides (serve's inv) on both uplo
+        Lf = R.mT.contiguous()
+        XL = batched_small.potrs(Lf, B, uplo="L")
+        small_close("small.potrs", XL, batched_small.potrs_plain(Lf, B, uplo="L"), dtype)
+        check(torch.equal(XL, Xk), f"small.potrs {dtype}: 'L' on Rᵀ differs from 'U' on R")
+        if size == "latency":
+            Bn = torch.randn((b, n, n), generator=gen, device=dev).to(dtype)
+            for T, uplo in ((R, "U"), (Lf, "L")):
+                small_close("small.potrs", batched_small.potrs(T, Bn, uplo=uplo),
+                            batched_small.potrs_plain(T, Bn, uplo=uplo), dtype)
+            res["small.potrs"]["k128_ms"] = time_ms(lambda: batched_small.potrs(R, Bn), iters)
+            del Bn
+        del R, Xk, Xp, Rf, Bf, Af, Lf, XL
     if "small.posv" in names:
         Xk, info = batched_small.posv(A, B)
         Xp, infop = batched_small.posv_plain(A, B)
@@ -1359,53 +1447,71 @@ def inv_kernel_phase(hopper, batched_small, tsqr, dev) -> dict:
     del out, blocks, W
     torch.cuda.empty_cache()
 
-    # fused_tail: a 128 window at (256, 256) of a 1024² operand into the
-    # (384, 384) windows of NaN-filled Rp / RIp; healthy, then faults
-    n, off, dest, P = INV_SHAPES["tail"]
-    for dtype in (torch.bfloat16, torch.float32):
-        A = spd_hash(P, torch.float32, salt=5, device=dev)
-        A[off:off + n, off:off + n] = torch.triu(A[off:off + n, off:off + n]) + torch.tril(
-            torch.full((n, n), float("nan"), device=dev), -1)  # the lower half is never read
-        A = A.to(dtype)
-        err = 0.0
-        for fault, want_info in ((None, 0), ((5, 5, -1.0), 6), ((0, 7, float("nan")), 1),
-                                 ((3, 9, float("inf")), 2)):
-            buf = A.clone()
-            if fault is not None:
-                buf[off + fault[0], off + fault[1]] = fault[2]
-            outs = []
-            for fn in (hopper.fused_tail, hopper.fused_tail_plain):
-                Rp = torch.full((P, P), float("nan"), dtype=dtype, device=dev)
-                RIp = torch.full((P, P), float("nan"), dtype=dtype, device=dev)
-                outs.append(fn(buf, Rp, RIp, off=off, n=n, dest=dest))
-            torch.cuda.synchronize()
-            (Rk, RIk, ik), (Rq, RIq, iq) = outs
-            check(int(ik) == int(iq) == want_info,
-                  f"fused_tail {dtype} fault {fault}: info {int(ik)}, plain {int(iq)}, want {want_info}")
-            for X in (Rk, RIk):
-                outside = torch.isnan(X).sum() - (torch.isnan(X[dest:dest + n, dest:dest + n])).sum()
-                check(int(outside) == P * P - n * n, f"fused_tail {dtype}: wrote outside its window")
-            if fault is None:
-                w = (slice(dest, dest + n), slice(dest, dest + n))
-                err = max(check_close("fused_tail R", Rk[w], Rq[w], dtype),
-                          check_close("fused_tail R^-1", RIk[w], RIq[w], dtype))
-        Rp = torch.zeros((P, P), dtype=dtype, device=dev)
-        RIp = torch.zeros((P, P), dtype=dtype, device=dev)
-        item = torch.tensor([], dtype=dtype).element_size()
-        res[f"fused_tail {dtype}"] = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: hopper.fused_tail(A, Rp, RIp, off=off, n=n, dest=dest), 50),
-            plain_ms=time_budget_ms(lambda: hopper.fused_tail_plain(A, Rp, RIp, off=off, n=n, dest=dest)),
-            library_ms=None,  # no single PyTorch call factors and inverts
-            shape=f"window {n} {dtype}",
-            # bytes: the upper half of the window read, triu(R) and triu(R⁻¹)
-            # written as whole windows, info; useful work: potrf n³/3 and the
-            # triangular inverse n³/3, f32
-            bound=bound_ms((n * (n + 1) / 2.0 + 2.0 * n * n) * item + 4, 2.0 * n**3 / 3.0,
-                           torch.float32),
-        )
-        del A, buf, Rp, RIp, outs
-    res["fused_tail"] = res[f"fused_tail {torch.bfloat16}"]
+    # fused_tail: each window of INV_SHAPES["tail"] inside a larger operand
+    # (its lower half NaN: never read) into NaN-filled Rp / RIp, healthy and
+    # with faults; every launch on its route, nothing outside the window
+    # written, the healthy window bit for bit the kernel's column-sweep path
+    for n, off, dest, P in INV_SHAPES["tail"]:
+        route = hopper.tail_route(n)
+        for dtype in (torch.bfloat16, torch.float32):
+            A = spd_hash(P, torch.float32, salt=5, device=dev)
+            A[off:off + n, off:off + n] = torch.triu(A[off:off + n, off:off + n]) + torch.tril(
+                torch.full((n, n), float("nan"), device=dev), -1)
+            A = A.to(dtype)
+            err = 0.0
+            for fault, want_info in ((None, 0), ((5, 5, -1.0), 6), ((0, 7, float("nan")), 1),
+                                     ((3, 9, float("inf")), 2)):
+                buf = A.clone()
+                if fault is not None:
+                    buf[off + fault[0], off + fault[1]] = fault[2]
+                outs = []
+                for fn in (hopper.fused_tail, hopper.fused_tail_plain):
+                    Rp = torch.full((P, P), float("nan"), dtype=dtype, device=dev)
+                    RIp = torch.full((P, P), float("nan"), dtype=dtype, device=dev)
+                    hopper.reset_counts()
+                    outs.append(fn(buf, Rp, RIp, off=off, n=n, dest=dest))
+                    if fn is hopper.fused_tail:
+                        got = hopper.route_counts().get("fused_tail")
+                        check(got == {route: 1}, f"fused_tail {n} {dtype}: launches by route {got}, want {route}")
+                torch.cuda.synchronize()
+                (Rk, RIk, ik), (Rq, RIq, iq) = outs
+                check(int(ik) == int(iq) == want_info,
+                      f"fused_tail {n} {dtype} fault {fault}: info {int(ik)}, plain {int(iq)}, want {want_info}")
+                for X in (Rk, RIk):
+                    outside = torch.isnan(X).sum() - (torch.isnan(X[dest:dest + n, dest:dest + n])).sum()
+                    check(int(outside) == P * P - n * n, f"fused_tail {n} {dtype}: wrote outside its window")
+                if fault is None:
+                    w = (slice(dest, dest + n), slice(dest, dest + n))
+                    err = max(check_close(f"fused_tail {n} R", Rk[w], Rq[w], dtype),
+                              check_close(f"fused_tail {n} R^-1", RIk[w], RIq[w], dtype))
+                    Rs = torch.zeros((P, P), dtype=dtype, device=dev)
+                    RIs = torch.zeros((P, P), dtype=dtype, device=dev)
+                    _, _, i_s = hopper.fused_tail(buf, Rs, RIs, off=off, n=n, dest=dest, _sweep=True)
+                    check(int(i_s) == 0 and torch.equal(Rk[w], Rs[w]) and torch.equal(RIk[w], RIs[w]),
+                          f"fused_tail {n} {dtype}: the blocked path differs from the column sweeps")
+                    del Rs, RIs
+            Rp = torch.zeros((P, P), dtype=dtype, device=dev)
+            RIp = torch.zeros((P, P), dtype=dtype, device=dev)
+            item = torch.tensor([], dtype=dtype).element_size()
+            run = (lambda: hopper.fused_tail(A, Rp, RIp, off=off, n=n, dest=dest))
+            res[f"fused_tail {n} {dtype}"] = dict(
+                max_abs_err=err, route=route,
+                blocks=hopper.TAIL_CLUSTER_BLOCKS.get(n, 1),
+                ms=time_ms(run, 50 if n <= 128 else 20),
+                device_ms=device_ms(run, 20),
+                plain_ms=time_budget_ms(lambda: hopper.fused_tail_plain(A, Rp, RIp, off=off, n=n, dest=dest),
+                                        most=5),
+                library_ms=None,  # no single PyTorch call factors and inverts
+                shape=f"window {n} {dtype}",
+                # bytes: the upper half of the window read, triu(R) and triu(R⁻¹)
+                # written as whole windows, info; useful work: potrf n³/3 and
+                # the triangular inverse n³/3, f32
+                bound=bound_ms((n * (n + 1) / 2.0 + 2.0 * n * n) * item + 4, 2.0 * n**3 / 3.0,
+                               torch.float32),
+            )
+            del A, buf, Rp, RIp, outs
+    # the main path's window: phase 11's bc=128 depth-2 factor fuses 512s
+    res["fused_tail"] = res[f"fused_tail 512 {torch.bfloat16}"]
 
     # batched trsm: the serve latency shape and the throughput shape, f32,
     # every uplo x trans; timed at the throughput shape, uplo 'U'
@@ -1455,11 +1561,12 @@ def inv_kernel_phase(hopper, batched_small, tsqr, dev) -> dict:
     return res
 
 
-def drive_counted(hopper, run, want: dict, label: str, route=None):
+def drive_counted(hopper, run, want: dict, label: str, route=None, extra_routes=None):
     """One call of `run` with the counters set to 0 just before and read
     just after, held to `want` (every kernel not named there: 0) and, where
     `route` (a route or a dtype, as `check_routes` takes) is given, every
-    routed launch to its route."""
+    routed launch to its route (`extra_routes`: the tallies of kernels
+    outside ROUTED, such as fused_tail's)."""
     torch.cuda.synchronize()
     hopper.reset_counts()
     t0 = time.perf_counter()
@@ -1470,7 +1577,7 @@ def drive_counted(hopper, run, want: dict, label: str, route=None):
     full = {**dict.fromkeys(counts, 0), **want}
     check(counts == full, f"{label}: launch counts {counts} != predicted {full}")
     if route is not None:
-        check_routes(hopper, counts, route, label)
+        check_routes(hopper, counts, route, label, extra_routes)
     return out, counts, secs
 
 
@@ -1485,6 +1592,19 @@ def timed_s(run, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1e3 / iters
+
+
+def turns_s(runs: dict, rounds: int, iters: int = 2) -> dict:
+    """Seconds per call of each of `runs` timed in turns (`timed_s`): every
+    run once a round, the order reversed every other round; each run's
+    readings and their median (the host's gaps move a launch-bound factor
+    from one reading to the next)."""
+    names = list(runs)
+    t = {k: [] for k in names}
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            t[k].append(timed_s(runs[k], iters))
+    return {k: dict(median=statistics.median(v), runs=v) for k, v in t.items()}
 
 
 def rectri_phase(hopper, grid, dev) -> dict:
@@ -1599,7 +1719,11 @@ def trsm_newton_phase(hopper, grid, dev) -> dict:
 
 
 def tail_phase(hopper, grid, dev) -> dict:
-    """Phase 11: cholinv with the fused tail at n=16384 bf16, bc=128."""
+    """Phase 11: cholinv with the fused tail at n=16384 bf16 — bc=128 at
+    depth 2 (32 windows of 512 on the cluster route) and bc=64 at depth 1
+    (128 windows of 128 on the block route) — beside the unfused factor at
+    bc=128 and at bc=256 and 512 (512 is `pick_bc`'s base case for this n),
+    timed in turns (medians of TAIL_TURNS rounds) and each profiled once."""
     import dataclasses
 
     from capital_tpu_torch.models import cholesky
@@ -1607,43 +1731,67 @@ def tail_phase(hopper, grid, dev) -> dict:
     from capital_tpu_torch.utils import residual
 
     n, bc = INV_SHAPES["tail_factor"]
-    leaves = n // bc
-    cfg = cholesky.CholinvConfig(mode="pallas", base_case_dim=bc, precision=None, tail_fuse_depth=2)
-    cfg0 = dataclasses.replace(cfg, tail_fuse_depth=0)
+    cfg0 = cholesky.CholinvConfig(mode="pallas", base_case_dim=bc, precision=None)
     A = spd_hash(n, torch.bfloat16, salt=1, device=dev)
-    # only n = 128 windows fit the kernel: every leaf fuses, nothing above
-    want = {"fused_tail": leaves, "tri_matmul.trmm": 3 * (leaves - 1), "tri_matmul.syrk": leaves - 1,
-            "zeros_dead_lower": 2}
-    (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(grid, A, cfg), want,
-                                          "fused-tail factor")
     (R0, Ri0), _, secs0 = drive_counted(
         hopper, lambda: cholesky.factor(grid, A, cfg0),
-        {**predicted_counts(leaves), "zeros_dead_lower": 2}, "unfused factor")
-    dR = float(residual.rel_fro(R.float() - R0.float(), R0.float()))
-    dRi = float(residual.rel_fro(Ri.float() - Ri0.float(), Ri0.float()))
-    check(dR < 2e-2 and dRi < 2e-2, f"fused tail vs unfused: {dR}, {dRi}")
+        {**predicted_counts(n // bc), "zeros_dead_lower": 2}, "unfused factor", torch.bfloat16)
+    cfgs = {"unfused": cfg0}
+    for b in (256, 512):
+        cfgs[f"unfused_bc{b}"] = dataclasses.replace(cfg0, base_case_dim=b)
+        drive_counted(hopper, lambda: cholesky.factor(grid, A, cfgs[f"unfused_bc{b}"]),
+                      {**predicted_counts(n // b), "zeros_dead_lower": 2}, f"unfused factor bc={b}",
+                      torch.bfloat16)
+    out = dict(n=n, dtype="bfloat16", seconds_first_unfused=secs0, bc_unfused=bc)
+    for label, b, depth in (("d2", bc, 2), ("bc64_d1", 64, 1)):
+        cfg = cfgs[label] = dataclasses.replace(cfg0, base_case_dim=b, tail_fuse_depth=depth)
+        win = b << depth
+        windows = n // win
+        route = hopper.tail_route(win)
+        # every window of b << depth fuses on its route; nothing above it
+        want = {"fused_tail": windows, "tri_matmul.trmm": 3 * (windows - 1),
+                "tri_matmul.syrk": windows - 1, "zeros_dead_lower": 2}
+        (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(grid, A, cfg), want,
+                                              f"fused-tail factor {label}", torch.bfloat16,
+                                              extra_routes={"fused_tail": {route: windows}})
+        dR = float(residual.rel_fro(R.float() - R0.float(), R0.float()))
+        dRi = float(residual.rel_fro(Ri.float() - Ri0.float(), Ri0.float()))
+        check(dR < 2e-2 and dRi < 2e-2, f"fused tail {label} vs unfused: {dR}, {dRi}")
+        Af = A.float()
+        res_r = float(residual.cholesky_residual(Af, R.float()))
+        res_i = float(residual.cholesky_inverse_residual(R.float(), Ri.float()))
+        del Af, R, Ri
+        check(res_r < 1e-2 and res_i < 1e-2, f"fused tail {label} residuals {res_r}, {res_i}")
+        out[label] = dict(bc=b, tail_fuse_depth=depth, window=win, route=route, counts=counts,
+                          seconds_first=secs, vs_unfused=[dR, dRi], residual=res_r,
+                          inverse_residual=res_i)
     del R0, Ri0
-    Af = A.float()
-    res_r = float(residual.cholesky_residual(Af, R.float()))
-    res_i = float(residual.cholesky_inverse_residual(R.float(), Ri.float()))
-    del Af, R, Ri
-    check(res_r < 1e-2 and res_i < 1e-2, f"fused tail residuals {res_r}, {res_i}")
-    t = timed_s(lambda: cholesky.factor(grid, A, cfg), 2)
-    t0 = timed_s(lambda: cholesky.factor(grid, A, cfg0), 2)
-    # a bad pivot at the first column of leaf 37: the unfused leaf's
-    # library factor and the fused sweep both report it there
-    j = (37 % leaves) * bc
+    out["counts"] = out["d2"]["counts"]
+    t = turns_s({k: (lambda c=c: cholesky.factor(grid, A, c)) for k, c in cfgs.items()}, TAIL_TURNS)
+    out["turns"] = t
+    out["seconds_unfused"] = t["unfused"]["median"]
+    for label in ("d2", "bc64_d1"):
+        out[label]["seconds"] = t[label]["median"]
+    for b in (256, 512):
+        out[f"seconds_unfused_bc{b}"] = t[f"unfused_bc{b}"]["median"]
+    # wall, device busy time and idle share of one call of each: whether a
+    # factor is held by its kernels or by the host between them
+    out["profiles"] = {k: {f: v for f, v in profile(lambda c=c: cholesky.factor(grid, A, c), "CI::").items()
+                           if f in ("wall_ms", "device_busy_ms", "idle_share", "top_kernels_device_ms")}
+                       for k, c in cfgs.items()}
+    # a bad pivot at the first column of leaf 37: the fused window's sweep
+    # (the cluster route's fault path) and the unfused leaf's library factor
+    # both report it there
+    j = (37 % (n // bc)) * bc
     Ab = A.clone()
     Ab[j, j] = -1.0
     infos = []
-    for c in (cfg, cfg0):
+    for c in (dataclasses.replace(cfg0, tail_fuse_depth=2), cfg0):
         _, _, info = cholesky.factor(grid, Ab, dataclasses.replace(c, robust=RobustConfig()))
         infos.append(int(info))
     check(infos[0] == infos[1] == j + 1, f"fused tail robust info {infos[0]}, unfused {infos[1]}, want {j + 1}")
-    out = dict(n=n, bc=bc, dtype="bfloat16", tail_fuse_depth=2, counts=counts, seconds_first=secs,
-               seconds=t, seconds_unfused=t0, seconds_first_unfused=secs0, vs_unfused=[dR, dRi],
-               residual=res_r, inverse_residual=res_i, robust_info=infos)
-    print(json.dumps({"factor": "fused tail n=16384 bf16 bc=128", **out}), flush=True)
+    out["robust_info"] = infos
+    print(json.dumps({"factor": "fused tail n=16384 bf16", **out}), flush=True)
     del A, Ab
     torch.cuda.empty_cache()
     return out
@@ -2863,6 +3011,7 @@ def main(argv=None) -> int:
     del R, Ri
     out["profile"] = profile(lambda: cholesky.factor(grid, A, cfg), "CI::")
     print(json.dumps({"profile": "flagship", **out["profile"]}), flush=True)
+    out["factor"]["flagship_fused"] = fused_flagship(cholesky, hopper, grid, A, cfg, residual)
     del A
 
     missing = [k for k in PATH_KERNELS if path_counts.get(k, 0) < 1]
@@ -2897,7 +3046,8 @@ def main(argv=None) -> int:
     small = {}
     for size, dtype, names in (("latency", torch.float32, SMALL_KERNELS),
                                ("throughput", torch.float32, SMALL_KERNELS),
-                               ("throughput", torch.bfloat16, ("small.posv", "small.lstsq"))):
+                               ("latency", torch.bfloat16, ("small.potrf",)),
+                               ("throughput", torch.bfloat16, SMALL_KERNELS)):
         res = small_kernel_phase(batched_small, size, dtype, dev, names)
         for name, r in res.items():
             b, by = r.pop("bound")

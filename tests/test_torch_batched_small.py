@@ -257,6 +257,28 @@ def test_potrf_envelope_unchanged():
     assert bs._potrf_ld(240) == 240
 
 
+def test_potrs_working_set_and_envelope():
+    """potrs' blocked solves want 16-byte rows: round4(n) rows of the factor
+    (ld) and of the right-hand sides (ldy), each padded to 4 mod 8 where the
+    pair still fits; a posv or inv bucket, which may run as potrf + potrs,
+    needs both kernels' working sets to fit."""
+    e = functools.partial(bs.eligible, dtype=torch.float32, interpret=False)
+    assert bs._potrs_lds(128, 8) == (132, 12)
+    assert bs._potrs_lds(128, 128) == (132, 132)
+    assert bs._potrs_lds(37, 5) == (44, 12)
+    assert bs.smem_bytes("potrs", 128, 8) == 4 * 128 * (132 + 12)
+    assert bs.smem_bytes("potrs", 128, 324) == 4 * 128 * (128 + 324) == 232448 - 1024
+    assert e("potrs", (8, 128, 128), (8, 128, 324)) and not e("potrs", (8, 128, 128), (8, 128, 325))
+    for n in range(1, 300):
+        for k in (1, 8, n):
+            ld, ldy = bs._potrs_lds(n, k)
+            assert ld % 4 == 0 and ldy % 4 == 0 and ld >= n and ldy >= k
+    # posv alone would take n = 127, k = 325; potrs' rows round n up to 128
+    assert bs.smem_bytes("posv", 127, 325) <= 232448 - 1024 < bs.smem_bytes("potrs", 127, 325)
+    assert not e("posv", (8, 127, 127), (8, 127, 325)) and not e("inv", (8, 325, 325), None)
+    assert e("posv", (8, 128, 128), (8, 128, 323)) and e("inv", (8, 128, 128), None)
+
+
 # ---------------------------------------------------------------------------
 # identity-tail exactness (bucket padding)
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ import torch
 
 from capital_tpu_torch import Grid
 from capital_tpu_torch.models import arrowhead, blocktri, cholesky, inverse, qr
-from capital_tpu_torch.ops import batched_small, blocktri_small, hopper, qr_fused, sweeps, tsqr, update_small
+from capital_tpu_torch.ops import _build, batched_small, blocktri_small, hopper, qr_fused, sweeps, tsqr, update_small
 from capital_tpu_torch.parallel import summa
 from capital_tpu_torch.robust import refine
 from capital_tpu_torch.serve import api
@@ -528,6 +528,30 @@ def test_potrf_blocked_is_the_column_sweep_bitwise(cuda, n):
     assert torch.equal(R[0], Rt) and int(info[0]) == int(tinfo) == 0
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 5, 40, 127, 128])
+@pytest.mark.parametrize("k", [1, 8, 128])
+def test_potrs_blocked_vs_plain(cuda, n, k, dt):
+    """The blocked solves on the factor's live triangle: against the plain
+    version for both uplo, with NaN in the dead triangle (never read), and a
+    NaN in one problem's right-hand side kept to that problem."""
+    A = _spd_batch(80 + n, 3, n, dt, cuda)
+    B = _rand(81 + k, (3, n, k), dt, cuda)
+    for uplo in ("U", "L"):
+        R, _ = batched_small.potrf_plain(A, uplo=uplo)
+        dead = torch.tril(torch.ones(n, n, dtype=torch.bool, device=cuda), -1)
+        dead = dead if uplo == "U" else dead.T
+        Rg = torch.where(dead, torch.full_like(R, float("nan")), R)
+        hopper.reset_counts()
+        X = batched_small.potrs(Rg, B, uplo=uplo)
+        assert hopper.counts()["small.potrs"] == 1
+        _close(X, batched_small.potrs_plain(R, B, uplo=uplo), dt)
+        Bn = B.clone()
+        Bn[0, n // 2, 0] = float("nan")
+        Xn = batched_small.potrs(Rg, Bn, uplo=uplo)
+        assert bool(torch.isnan(Xn[0]).any()) and torch.equal(Xn[1:], X[1:])
+
+
 def test_potrf_counter_moves_only_on_launch(cuda):
     A = _spd_batch(58, 4, 40, "f32", cuda)
     hopper.reset_counts()
@@ -644,11 +668,23 @@ def _tail_operand(seed, n, P, off, dt, dev):
     return torch.from_numpy(A).to(DTYPES[dt]).to(dev)
 
 
+def _tail_pair(buf, n, off, dest, P, dt, dev, **kw):
+    """fused_tail and its plain version into NaN-filled buffers."""
+    outs = []
+    for fn in (hopper.fused_tail, hopper.fused_tail_plain):
+        Rp = torch.full((P, P), float("nan"), dtype=DTYPES[dt], device=dev)
+        RIp = torch.full((P, P), float("nan"), dtype=DTYPES[dt], device=dev)
+        outs.append(fn(buf, Rp, RIp, off=off, n=n, dest=dest, **(kw if fn is hopper.fused_tail else {})))
+    torch.cuda.synchronize()
+    return outs
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("n", [16, 128, 160])
 def test_fused_tail_kernel_vs_plain(cuda, n, dt):
     P, off, dest = 4 * n, n, 2 * n
     buf = _tail_operand(52, n, P, off, dt, cuda)
+    hopper.reset_counts()
     outs = []
     for fn in (hopper.fused_tail, hopper.fused_tail_plain):
         Rp = torch.full((P, P), float("nan"), dtype=DTYPES[dt], device=cuda)
@@ -665,6 +701,93 @@ def test_fused_tail_kernel_vs_plain(cuda, n, dt):
         outside = torch.isnan(X).clone()
         outside[w] = True
         assert bool(outside.all())
+    assert hopper.route_counts()["fused_tail"] == {"block": 1}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [40, 128, 168])
+def test_fused_tail_block_route_is_the_column_sweep_bitwise(cuda, n, dt):
+    """The block route's chol_blocked and blocked inverse apply the column
+    sweeps' operations in their order: equal bits to the kernel's own
+    column-sweep path (`_sweep`)."""
+    buf = _tail_operand(58 + n, n, 2 * n, 0, dt, cuda)
+    R, RI, i = hopper.fused_tail(buf, torch.zeros_like(buf), torch.zeros_like(buf), off=0, n=n, dest=0)
+    Rs, RIs, i_s = hopper.fused_tail(buf, torch.zeros_like(buf), torch.zeros_like(buf), off=0, n=n, dest=0,
+                                     _sweep=True)
+    assert int(i) == int(i_s) == 0
+    assert torch.equal(R, Rs) and torch.equal(RI, RIs)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [256, 384, 512])
+def test_fused_tail_cluster_vs_plain(cuda, n, dt):
+    """The cluster route against the plain version (a window inside a
+    larger NaN-filled buffer: nothing outside it written) and bit for bit
+    against its own column-sweep path."""
+    P, off, dest = 2 * n, n, 0
+    buf = _tail_operand(63 + n, n, P, off, dt, cuda)
+    hopper.reset_counts()
+    (R, RI, info), (Rq, RIq, infoq) = _tail_pair(buf, n, off, dest, P, dt, cuda)
+    assert hopper.route_counts()["fused_tail"] == {"cluster": 1}
+    assert int(info) == int(infoq) == 0
+    w = (slice(dest, dest + n), slice(dest, dest + n))
+    _close(R[w], Rq[w], dt)
+    _close(RI[w], RIq[w], dt)
+    assert bool((torch.tril(R[w], -1) == 0).all()) and bool((torch.tril(RI[w], -1) == 0).all())
+    for X in (R, RI):
+        outside = torch.isnan(X).clone()
+        outside[w] = True
+        assert bool(outside.all())
+    (Rs, RIs, i_s), _ = _tail_pair(buf, n, off, dest, P, dt, cuda, _sweep=True)
+    assert int(i_s) == 0 and torch.equal(R[w], Rs[w]) and torch.equal(RI[w], RIs[w])
+
+
+def _tail_cluster_c(buf, n, blocks):
+    """One cluster-route launch on `blocks` blocks through the kernel's C
+    entry (the wrapper always takes hopper.TAIL_CLUSTER_BLOCKS[n]): its
+    return code and (R, R⁻¹, info)."""
+    Rp, RIp = torch.zeros_like(buf), torch.zeros_like(buf)
+    info = torch.empty((), dtype=torch.int32, device=buf.device)
+    scratch = torch.empty(2 * n * n, dtype=torch.float32, device=buf.device)
+    rc = _build.entry("capital_fused_tail")(
+        hopper._DTYPE_CODE[buf.dtype], buf.data_ptr(), buf.stride(0), Rp.data_ptr(), RIp.data_ptr(),
+        Rp.stride(0), info.data_ptr(), scratch.data_ptr(), n, blocks, 0, hopper._stream())
+    return rc, (Rp, RIp, info)
+
+
+def test_fused_tail_cluster_sizes_agree(cuda):
+    """Every cluster size the kernel takes for a window computes the same
+    bits; the sizes whose rows do not fit a block are refused."""
+    for n in hopper.TAIL_CLUSTER_WINDOWS:
+        buf = _tail_operand(70 + n, n, n, 0, "f32", cuda)
+        outs = {}
+        for b in (2, 4, 8):
+            rc, out = _tail_cluster_c(buf, n, b)
+            assert rc in (0, -1), (n, b, rc)
+            if rc == 0:
+                outs[b] = out
+        assert sorted(outs) == {256: [2, 4, 8], 384: [4, 8], 512: [8]}[n]
+        ref = outs[hopper.TAIL_CLUSTER_BLOCKS[n]]
+        for b, (R, RI, i) in outs.items():
+            assert int(i) == 0 and torch.equal(R, ref[0]) and torch.equal(RI, ref[1]), (n, b)
+    buf = _tail_operand(70, 256, 256, 0, "f32", cuda)
+    assert _tail_cluster_c(buf, 256, 3)[0] == -1 and _tail_cluster_c(buf, 256, 16)[0] == -1
+
+
+@pytest.mark.parametrize("n", [256, 384, 512])
+def test_fused_tail_cluster_info_matches_plain(cuda, n):
+    """Faults send the window through the column sweep in block 0 (device
+    memory scratch): a bad pivot in the first and in the last block's
+    panels, NaN in row 0, +inf and -inf in the upper half past the first
+    panel; info equal to the plain version's, nothing outside the window
+    written."""
+    base = _tail_operand(75 + n, n, n, 0, "f32", cuda)
+    for (r, c, v) in ((5, 5, -1.0), (n - 3, n - 3, -1.0), (0, 7, float("nan")), (3, 9, float("inf")),
+                      (40, n - 20, -float("inf"))):
+        buf = base.clone()
+        buf[r, c] = v
+        (_, _, got), (_, _, want) = _tail_pair(buf, n, 0, 0, n, "f32", cuda)
+        assert int(got) == int(want) and int(got) > 0, (r, c, int(got), int(want))
 
 
 def test_fused_tail_info_matches_plain(cuda):
@@ -691,8 +814,9 @@ def test_fused_tail_refuses(cuda):
     z = torch.zeros_like(buf)
     with pytest.raises(ValueError, match="alignment"):
         hopper.fused_tail(buf, z, z.clone(), off=64, n=128, dest=0)
+    big = _tail_operand(54, 640, 640, 0, "f32", cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        hopper.fused_tail(buf, z, z.clone(), off=0, n=256, dest=0)
+        hopper.fused_tail(big, torch.zeros_like(big), torch.zeros_like(big), off=0, n=640, dest=0)
     with pytest.raises(TypeError):
         hopper.fused_tail(buf.double(), z.double(), z.double(), off=0, n=128, dest=0)
 
@@ -791,17 +915,20 @@ def test_rectri_kernels_vs_plain(cuda, monkeypatch, dt):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_fused_tail_factor_on_the_card(cuda, dt):
-    n, bc = 1024, 128
+@pytest.mark.parametrize("bc,depth,route", [(128, 2, "cluster"), (64, 1, "block")])
+def test_fused_tail_factor_on_the_card(cuda, dt, bc, depth, route):
+    # bc << depth: windows of 512 on the cluster route, of 128 on the block route
+    n = 1024
     g = np.random.default_rng(60).standard_normal((n, n))
     A = torch.from_numpy(g @ g.T / n + 3 * np.eye(n)).to(DTYPES[dt]).to(cuda)
     grid = Grid.square()
-    cfg = cholesky.CholinvConfig(mode="pallas", base_case_dim=bc, tail_fuse_depth=2)
+    cfg = cholesky.CholinvConfig(mode="pallas", base_case_dim=bc, tail_fuse_depth=depth)
     hopper.reset_counts()
     R, Ri = cholesky.factor(grid, A, cfg)
-    L = n // bc
+    L = n // (bc << depth)
     c = hopper.counts()
     assert (c["fused_tail"], c["transpose"], c["transpose_pair"]) == (L, 0, 0)
+    assert hopper.route_counts()["fused_tail"] == {route: L}
     assert (c["tri_matmul.trmm"], c["tri_matmul.syrk"]) == (3 * (L - 1), L - 1)
     R0, Ri0 = cholesky.factor(grid, A, cholesky.CholinvConfig(mode="pallas", base_case_dim=bc))
     tol = {"f32": 1e-5, "bf16": 2e-2}[dt]

@@ -6,7 +6,8 @@ the CPU.
 On the CPU the port's fused_tail runs its plain version, which has no
 shared-memory envelope (`hopper.tail_eligible` answers True for CPU
 buffers, as interpret mode does for the JAX kernel), so the same subtrees
-fuse in both packages; on the card only n = 128 windows fit the kernel
+fuse in both packages; on the card the kernel takes windows up to 168 on
+its block route and of 256, 384 and 512 on its cluster route
 (tests/test_torch_gpu.py and chip_smoke.py hold that).  Operands are SPD
 matrices made with numpy from a seed.
 
@@ -84,7 +85,8 @@ def _both(buf, n, off, dest, P, dt):
     return (jR, jRI, int(jinfo)), (R, RI, int(info))
 
 
-@pytest.mark.parametrize("n,dt", [(128, "f32"), (256, "f32"), (128, "bf16")])
+# 384 and 512: windows the card's cluster route takes
+@pytest.mark.parametrize("n,dt", [(128, "f32"), (256, "f32"), (128, "bf16"), (384, "bf16"), (512, "f32")])
 def test_fused_tail_matches_jax(n, dt):
     P, off, dest = 2 * n, n, 0
     buf = _spd(P, dt, seed=n)
@@ -103,6 +105,13 @@ def test_garbage_lower_half_ignored():
                               off=0, n=128, dest=0) for w in (A, bad)]
     assert int(outs[0][2]) == int(outs[1][2]) == 0
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def test_fused_tail_cluster_window_fault_info_matches_jax():
+    buf = _spd(512, seed=9)
+    buf[300, 300] = -1.0
+    (_, _, ji), (_, _, i) = _both(buf, 512, 0, 0, 512, "f32")
+    assert i == ji == 301
 
 
 @pytest.mark.parametrize("fault", [(40, 40, -1.0), (0, 7, np.nan), (3, 9, np.inf), (5, 5, -np.inf),
@@ -167,6 +176,18 @@ def test_robust_info_matches_jax(jgrid, tgrid, depth, where):
             assert not torch.tril(X, -1).any()
 
 
+def test_factor_fuses_384_windows_like_jax(jgrid, tgrid):
+    # the cluster route's middle window: depth 1 at bc = 384 fuses the two
+    # 384 children of n = 768 (complete_inv=False keeps the root unfused)
+    A = _spd(768, seed=10)
+    with tracing.Recorder() as rec:
+        (jR, jRi), (R, Ri) = _factor_pair(jgrid, tgrid, A, base_case_dim=384, tail_fuse_depth=1,
+                                          complete_inv=False)
+    assert rec.stats["CI::tail_fused"].calls == 2
+    assert rec.stats["CI::tail_fused"].flops == 2 * jtracing.fused_tail_flops(384)
+    assert _rel(R, jR) < 1e-5 and _rel(Ri, jRi) < 1e-5
+
+
 def test_f64_is_gated_out(tgrid):
     A = tensor_from_numpy(_spd(256, "f64", seed=8))
     cfg = tchol.CholinvConfig(mode="pallas", base_case_dim=128, tail_fuse_depth=2)
@@ -178,11 +199,38 @@ def test_f64_is_gated_out(tgrid):
 
 
 def test_tail_eligible_envelope():
-    # the card's shared memory: the window and R⁻¹ in f32 fit up to n = 169
-    for n, ok in ((128, True), (168, True), (169, True), (170, False), (256, False)):
-        assert hopper.tail_eligible(n, torch.float32, interpret=False) == ok, n
+    # the card's routes: one block holds the window's two f32 tiles up to
+    # round4(n) = 168; a cluster takes 256, 384 and 512; f64 stays unfused
+    for n, ok in ((128, True), (168, True), (169, False), (170, False), (256, True), (384, True),
+                  (512, True), (640, False), (1024, False)):
+        for dt in (torch.float32, torch.bfloat16):
+            assert hopper.tail_eligible(n, dt, interpret=False) == ok, (n, dt)
+    for n in (128, 256, 512):
+        assert not hopper.tail_eligible(n, torch.float64, interpret=False)
     assert hopper.tail_eligible(512, torch.bfloat16, interpret=True)
+    assert hopper.tail_eligible(640, torch.float32, interpret=True)
     assert tracing.fused_tail_flops(128) == jtracing.fused_tail_flops(128)
+
+
+def test_tail_route_and_cluster_shape():
+    assert [hopper.tail_route(n) for n in (1, 16, 128, 160, 168, 169, 255, 256, 384, 512, 640)] == [
+        "block", "block", "block", "block", "block", None, None, "cluster", "cluster", "cluster", None]
+    room = hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+    # block route: two tiles of round4(n) rows, 16-byte rows 4 mod 8 where both fit
+    assert hopper.tail_smem_bytes(128) == 2 * 4 * 128 * 132
+    assert hopper.tail_smem_bytes(168) == 2 * 4 * 168 * 172 <= room < hopper.tail_smem_bytes(169)
+    assert hopper.tail_smem_bytes(130) == 2 * 4 * 132 * 132
+    # cluster route: n / blocks rows of the square (ld n + 4 when n is 0 mod 8),
+    # the 16 x n panel, R⁻¹'s diagonal, L11ᵀ, two sets of 16 roots and a flag
+    assert hopper.tail_cluster_smem_bytes(512, 8) == 4 * (64 * 516 + 16 * 512 + 64 + 256 + 32 + 4)
+    assert hopper.tail_cluster_smem_bytes(384, 4) == 4 * (96 * 388 + 16 * 384 + 96 + 256 + 32 + 4)
+    # the cluster sizes the kernel takes (2, 4 or 8 blocks splitting the
+    # 16-row panels evenly, their rows in a block); each window's is one of them
+    fits = {(n, b) for n in (256, 384, 512) for b in (2, 4, 8)
+            if n % (16 * b) == 0 and hopper.tail_cluster_smem_bytes(n, b) <= room}
+    assert fits == {(256, 2), (256, 4), (256, 8), (384, 4), (384, 8), (512, 8)}
+    assert hopper.TAIL_CLUSTER_WINDOWS == (256, 384, 512)
+    assert {(n, b) for n, b in hopper.TAIL_CLUSTER_BLOCKS.items()} <= fits
 
 
 def test_fused_tail_refuses_misaligned_windows():
