@@ -9,8 +9,9 @@ the batch on the launch grid instead — block b owns problem b, so problems
 never read each other's data (a NaN in one problem touches exactly its own
 outputs and info: the serve fault-containment contract) — and fuse:
 
-* ``posv``: the Cholesky factor and both triangular sweeps in one block;
-  the factor lives in shared memory only.
+* ``posv``: the Cholesky factor and both triangular solves in one block
+  (potrf's blocked factor, potrs' blocked solves); the factor lives in
+  shared memory only.
 * ``lstsq``: the whole CholeskyQR2 normal-equations pipeline (gram, two
   Cholesky sweeps, the R1⁻ᵀ·G·R1⁻¹ correction, the RHS sweeps and the
   back-substitution through R2·R1) in one block.
@@ -112,17 +113,18 @@ def _lstsq_floats(n: int, k: int) -> int:
 
 def smem_bytes(op: str, n: int, k: int) -> int:
     """Dynamic shared memory of one block of the `op` kernel for one problem
-    of order n with k right-hand sides.  The sweep kernels keep f32
+    of order n with k right-hand sides.  The sweep kernel (trsm) keeps f32
     matrices with an odd leading dimension ld (n + 1 for even n) so column
-    walks are free of bank conflicts; the blocked ones (potrf, lstsq) want
-    16-byte rows instead: round4(n) rows of round4(n) floats, plus 4 when
-    that is 0 mod 8 (`_potrf_ld` for potrf).
+    walks are free of bank conflicts; the blocked ones (potrf, potrs, posv,
+    lstsq) want 16-byte rows instead: round4(n) rows of round4(n) floats,
+    plus 4 when that is 0 mod 8 (`_potrf_ld` for potrf).
 
     potrf              4·round4(n)·_potrf_ld(n)   (the working matrix)
-    potrs              4·round4(n)·(ld + ldy)     (U = R's rows, the
+    potrs, posv        4·round4(n)·(ld + ldy)     (A, then L and U = Lᵀ in
+                                                   its two triangles; the
                                                    right-hand sides;
                                                    `_potrs_lds`)
-    trsm, posv         4·(n·ld + n·k)             (factor, right-hand sides)
+    trsm               4·(n·ld + n·k)             (factor, right-hand sides)
     lstsq              4·(max(tile, stage) + tile + round4(n)·round4(k)
                        + 16·round4(n))            (G's copy and R1 or the
                                                    [A|B] stage, the
@@ -134,9 +136,9 @@ def smem_bytes(op: str, n: int, k: int) -> int:
     ld = n + 1 if n % 2 == 0 else n
     if op == "potrf":
         return 4 * ((n + 3) // 4 * 4) * _potrf_ld(n)
-    if op == "potrs":
+    if op in ("potrs", "posv"):
         return 4 * ((n + 3) // 4 * 4) * sum(_potrs_lds(n, k))
-    if op in ("trsm", "posv"):
+    if op == "trsm":
         return 4 * (n * ld + n * k)
     if op == "lstsq":
         return 4 * _lstsq_floats(n, k)
@@ -151,9 +153,11 @@ def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype, *, interpret
     LSTSQ_ROWS rows); the batch axis lives on the launch grid.  `op` is
     'posv' (also serve's inv as posv with k = n), 'potrs', 'trsm', 'lstsq'
     or 'potrf'; b_shape None means k = n.  A posv or inv bucket may run as
-    potrf + potrs (`pallas_split`, the refinement loop), so both kernels'
-    working sets must fit for it; they differ only at ragged n near the
-    largest k (potrs' 16-byte rows round n and k up to 4).
+    potrf + potrs (`pallas_split`, the refinement loop); posv shares potrs'
+    working set, and the bucket keeps the edge the column-sweep posv kernel
+    set (n·odd_ld(n) + n·k floats), so no bucket changes route with the
+    kernel's layout (the two differ only at the largest k: n = 128,
+    k = 324 fits the blocked layout and stays refused).
 
     Edges at f32 and bf16 alike (shared memory holds f32): n = 128 takes
     posv up to k = 323 and lstsq up to k = 172; n = 160 takes posv up to
@@ -171,7 +175,8 @@ def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype, *, interpret
     k = b_shape[-1] if b_shape is not None else n
     limit = hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
     if op in ("posv", "inv"):
-        return max(smem_bytes("posv", n, k), smem_bytes("potrs", n, k)) <= limit
+        sweep_edge = 4 * (n * (n + 1 if n % 2 == 0 else n) + n * k)
+        return max(smem_bytes("posv", n, k), sweep_edge) <= limit
     return smem_bytes(op, n, k) <= limit
 
 
@@ -404,9 +409,14 @@ def potrs(T, B, *, uplo: str = "U", block: int = 0, precision: str | None = "hig
 
 
 def posv(A, B, *, uplo: str = "U", block: int = 0, precision: str | None = "highest"):
-    """FUSED batched SPD solve: factor and both substitution sweeps in one
-    launch; the factor never exists in device memory.  Returns (X, info):
-    X (batch, n, k) a new tensor, info (batch,) int32."""
+    """FUSED batched SPD solve: factor and both triangular solves in one
+    launch; the factor never exists in device memory.  The kernel runs
+    potrf's blocked factor (csrc chol_blocked) and potrs' blocked solves on
+    one 16-byte-row tile; a problem whose input or pivots show a fault is
+    factored again by the column sweep in the same launch, so X and `info`
+    are the column sweeps' bit for bit (and `potrs(potrf(A), B)`'s, on f32
+    storage).  Returns (X, info): X (batch, n, k) a new tensor, info
+    (batch,) int32."""
     _check_batched(A, B, op="batched posv")
     _check_uplo(uplo)
     _check_dtype("batched posv", A, B)

@@ -45,6 +45,14 @@ are independent), with the carried y_{i−1} / x_{i+1} kept in f32 in a
 device-memory scratch between blocks.  So every RHS width fits beside the
 tiles, and the envelope is one of b alone.
 
+The factor steps run on one of two routes (`chain_route`, tallied in
+`hopper.route_counts()`): 'blocked' up to b = 136 — 16-byte-row tiles, Wt
+by the blocked forward solve, S −= Wtᵀ·Wt in 4 x 4 register tiles,
+potrf's blocked factor (`chol_blocked`), the column sweep only for a
+faulted block — and 'sweep' (odd-ld tiles and the column sweeps) for
+b = 137 and 138.  Both apply the sweeps' operations in the sweeps' order,
+so they compute the same bits.
+
 `block` (the JAX kernels' static column unroll) is validated and changes
 nothing here; `precision` is IEEE f32 either way.
 """
@@ -61,14 +69,44 @@ _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: resident (b, b) f32 tiles per kernel: the carried factor, Wt and the
 #: Schur complement for the factor steps; L and Wt for the sweeps
 _TILES = {"fused_forward": 3, "factor": 3, "forward_solve": 2, "solve_backward": 2}
+#: the factor steps, which take the blocked route where its tiles fit
+_FACTOR_KERNELS = ("fused_forward", "factor")
+#: the C entries' route codes (csrc/blocktri_small.cu)
+_ROUTE_CODE = {"sweep": 0, "blocked": 1}
 
 
 def _odd_ld(b: int) -> int:
     return b + 1 if b % 2 == 0 else b
 
 
+def _blocked_ld(b: int) -> int:
+    """The blocked route's leading dimension (csrc chain_ld): round4(b)
+    floats (16-byte rows), plus 4 when that makes it 4 mod 8."""
+    b4 = (b + 3) // 4 * 4
+    return b4 if (b4 // 4) % 2 else b4 + 4
+
+
 def _budget() -> int:
     return hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+
+
+def chain_route(b: int) -> str:
+    """The route the factor steps (fused_forward_step, factor_step) take
+    for chain blocks of order b on the card, tallied in
+    `hopper.route_counts()`: 'blocked' (16-byte-row tiles: Wt by
+    fwd_blocked, S −= Wtᵀ·Wt in register tiles, chol_blocked) where its
+    three tiles of round4(b) rows of `_blocked_ld(b)` floats and one staged
+    right-hand-side column fit a block — b <= 136 — else 'sweep' (odd-ld
+    tiles, the column sweeps), which takes b up to 138.  Both compute the
+    same bits."""
+    b4 = (b + 3) // 4 * 4
+    return "blocked" if 4 * (3 * b4 * _blocked_ld(b) + 2 * b) <= _budget() else "sweep"
+
+
+def _tile_floats(kernel: str, b: int) -> int:
+    if kernel in _FACTOR_KERNELS and chain_route(b) == "blocked":
+        return 3 * ((b + 3) // 4 * 4) * _blocked_ld(b)
+    return _TILES[kernel] * b * _odd_ld(b)
 
 
 def stage_cols(kernel: str, b: int, k: int) -> int:
@@ -77,27 +115,33 @@ def stage_cols(kernel: str, b: int, k: int) -> int:
     right-hand side)."""
     if kernel == "factor" or k == 0:
         return 0
-    room = _budget() - 4 * _TILES[kernel] * b * _odd_ld(b)
+    room = _budget() - 4 * _tile_floats(kernel, b)
     return max(0, min(k, room // (8 * b)))
 
 
 def smem_bytes(kernel: str, b: int, k: int) -> int:
     """Dynamic shared memory of one block of `kernel` for chain blocks of
-    order b with k right-hand sides: f32 tiles with an odd leading
-    dimension ld (b + 1 for even b) so column walks are free of bank
-    conflicts, and a two-buffer RHS stage (the chunk being solved and the
-    carried chunk of the neighbouring block) of kc = stage_cols columns.
+    order b with k right-hand sides: the resident f32 tiles and a
+    two-buffer RHS stage (the chunk being solved and the carried chunk of
+    the neighbouring block) of kc = stage_cols columns.  The factor steps
+    on their 'blocked' route (`chain_route`) keep three tiles of round4(b)
+    rows of ld = `_blocked_ld(b)` floats (16-byte rows for register-tiled
+    products); the sweeps, and the factor steps on the 'sweep' route, keep
+    tiles of b rows with an odd ld (b + 1 for even b) so column walks are
+    free of bank conflicts.
 
-    factor          4·3·b·ld              (L_{i−1}, Wt, S → L_i)
-    fused_forward   4·(3·b·ld + 2·b·kc)
-    forward_solve   4·(2·b·ld + 2·b·kc)   (L_i, Wt_i)
-    solve_backward  4·(2·b·ld + 2·b·kc)   (L_i, Wt_{i+1})
+    factor          4·3·round4(b)·ld       (L_{i−1}, Wt, S → L_i; 'sweep':
+                                            4·3·b·odd_ld)
+    fused_forward   the same + 4·2·b·kc
+    forward_solve   4·(2·b·odd_ld + 2·b·kc)   (L_i, Wt_i)
+    solve_backward  4·(2·b·odd_ld + 2·b·kc)   (L_i, Wt_{i+1})
 
-    At b = 128 the three tiles take 198,144 bytes and the stage 32 columns
-    (32,768 bytes); b = 64 takes 354 columns whole."""
+    At b = 128 the factor steps' tiles take 202,752 bytes (ld 132) and the
+    fused step's stage 28 columns (28,672 bytes); b = 64 takes k = 64
+    whole."""
     if kernel not in _TILES:
         raise ValueError(f"unknown blocktri_small kernel {kernel!r}")
-    return 4 * (_TILES[kernel] * b * _odd_ld(b) + 2 * b * stage_cols(kernel, b, k))
+    return 4 * (_tile_floats(kernel, b) + 2 * b * stage_cols(kernel, b, k))
 
 
 def _fits(kernel: str, b: int, k: int) -> bool:
@@ -185,9 +229,13 @@ def _kernel_gate(name: str, kernel: str, b: int, k: int) -> None:
         )
 
 
-def _launch(name: str, *args) -> None:
-    rc = _build.entry("capital_bt_" + name)(*args, hopper._stream())
-    hopper._launched(rc, hopper.KERNELS["bt." + name])
+def _launch(name: str, *args, route: str | None = None) -> None:
+    """Launch capital_bt_<name>; a factor step gets its route's code as
+    the last argument before the stream, and its launch is tallied by
+    route."""
+    code = () if route is None else (_ROUTE_CODE[route],)
+    rc = _build.entry("capital_bt_" + name)(*args, *code, hopper._stream())
+    hopper._launched(rc, hopper.KERNELS["bt." + name], route)
 
 
 # --------------------------------------------------------------------------
@@ -298,7 +346,9 @@ def fused_forward_step(D, C, B, Lc, yc, *, block: int = 0, precision: str | None
     (batch, b, b) carried factor (I before block 1); yc: (batch, b, k)
     carried forward solution (0 before block 1).  Returns (L, Wt, y,
     info): per-block factors, transposed sub-diagonal factors, forward
-    solutions and per-block potrf info (batch, seg) int32."""
+    solutions and per-block potrf info (batch, seg) int32.  On the card the
+    launch takes `chain_route(b)` ('blocked' or 'sweep', the same bits),
+    tallied in `hopper.route_counts()`."""
     batch, seg, b, _ = D.shape
     k = B.shape[-1]
     _check_steps("fused_forward_step", [("D", D), ("C", C)],
@@ -317,14 +367,14 @@ def fused_forward_step(D, C, B, Lc, yc, *, block: int = 0, precision: str | None
         _launch("fused_forward", hopper._DTYPE_CODE[D.dtype], D.data_ptr(), C.data_ptr(),
                 B.data_ptr(), Lc.data_ptr(), yc.data_ptr(), L.data_ptr(), Wt.data_ptr(),
                 y.data_ptr(), info.data_ptr(), scratch.data_ptr(), batch, seg, b, k,
-                stage_cols("fused_forward", b, k))
+                stage_cols("fused_forward", b, k), route=chain_route(b))
     return L, Wt, y, info
 
 
 def factor_step(D, C, Lc, *, block: int = 0, precision: str | None = "highest"):
     """Factor-only scan step: `seg` blocks of the Schur-complement Cholesky
     recurrence from the carried factor Lc.  Returns (L, Wt, info) shaped
-    as in `fused_forward_step`."""
+    as in `fused_forward_step`, on its routes as there."""
     batch, seg, b, _ = D.shape
     _check_steps("factor_step", [("D", D), ("C", C)], [("Lc", Lc, (batch, b, b))], b)
     _check_dtype("factor_step", D, C, Lc)
@@ -337,7 +387,7 @@ def factor_step(D, C, Lc, *, block: int = 0, precision: str | None = "highest"):
     info = torch.empty((batch, seg), dtype=torch.int32, device=D.device)
     if batch and seg:
         _launch("factor", hopper._DTYPE_CODE[D.dtype], D.data_ptr(), C.data_ptr(), Lc.data_ptr(),
-                L.data_ptr(), Wt.data_ptr(), info.data_ptr(), batch, seg, b)
+                L.data_ptr(), Wt.data_ptr(), info.data_ptr(), batch, seg, b, route=chain_route(b))
     return L, Wt, info
 
 

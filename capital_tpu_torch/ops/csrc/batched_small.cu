@@ -17,8 +17,7 @@
 // runs there; the factor of posv and the whole CholeskyQR2 state of lstsq
 // never reach device memory; outputs are rounded once on store.  Sweeps are
 // CUDA-core f32 with IEEE sqrt and division (see batched_small.cuh).  Not
-// done yet: posv on the blocked factor and solves, several blocks or a
-// cluster per problem, tensor-core updates.
+// done yet: several blocks or a cluster per problem, tensor-core updates.
 //
 // potrf runs the blocked factor (chol_blocked, batched_small.cuh): three
 // barriers a 16-column panel instead of two or three a column, the
@@ -36,6 +35,17 @@
 // rows): two barriers a 16-row panel of each solve where the sweeps took
 // one or two a column, the panel's rows below (above) it as 4 x 4 register
 // tiles.  At n = 128, k = 8 the block needs 73,728 B (three blocks an SM).
+//
+// posv is potrf's blocked factor and potrs' blocked solves in one block, on
+// potrs' tile: A loaded by rows and scanned, chol_blocked (which leaves L
+// below the diagonal and Lᵀ above it, the layout the solves read), then
+// fwd_blocked and bwd_upper_blocked; a fault runs chol_sweep on A read again
+// and mirrors its L.  The factor and the solves are two out-of-line
+// functions, so each keeps its own kernel's register allocation (80, three
+// blocks an SM).  X and info are the column sweeps' bit for bit, and
+// potrs(potrf(A), B)'s, without the factor's trip through device memory.
+// 73,728 B at n = 128, k = 8 (three blocks an SM); 135,168 B for serve's inv
+// bucket (k = n = 128, one block an SM).
 //
 // lstsq, one problem a block, every phase on register tiles:
 //   * the gram: [A | B] streams once through a double-buffered stage of
@@ -60,11 +70,11 @@
 // under __launch_bounds__(NT, 1); left to itself it chose 128 and spilled.
 //
 // Shared memory per block (f32; ld = odd_ld(n), potrf ld = potrf_ld(n),
-// potrs ld, ldy = potrs_lds(n, k), lstsq ld = lstsq_ld(n)), as
+// potrs and posv ld, ldy = potrs_lds(n, k), lstsq ld = lstsq_ld(n)), as
 // capital_tpu_torch/ops/batched_small.smem_bytes computes it:
 //   potrf        round4(n)·ld
-//   potrs        round4(n)·(ld + ldy)
-//   trsm, posv   n·ld + n·k
+//   potrs, posv  round4(n)·(ld + ldy)
+//   trsm         n·ld + n·k
 //   lstsq        max(tile, stage) + tile + round4(n)·round4(k) + NB·round4(n),
 //                tile = round4(n)·ld, stage = 2·rows·(round32(n) + round16(k))
 // Above 48 KB it is dynamic shared memory, enabled per kernel with
@@ -94,65 +104,6 @@ __device__ void store_tile(T* dst, const float* src, int lds, int rows, int cols
     const int r = e / cols, c = e - r * cols;
     dst[e] = Cast<T>::from(src[r * lds + c]);
   }
-}
-
-// four consecutive entries, widened to f32 / rounded once from f32
-__device__ __forceinline__ void load4(const float* p, float* v) { unpack4(v, *reinterpret_cast<const float4*>(p)); }
-__device__ __forceinline__ void load4(const bf16* p, float* v) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const bf16* h = reinterpret_cast<const bf16*>(&t);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = __bfloat162float(h[i]);
-}
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(bf16* p, const float* v) {
-  uint2 t;
-  bf16* h = reinterpret_cast<bf16*>(&t);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __float2bfloat16_rn(v[i]);
-  *reinterpret_cast<uint2*>(p) = t;
-}
-
-// whether an n x n problem at p can move in 4-entry vectors
-template <typename T>
-__device__ __forceinline__ bool rows_vec4(const T* p, int n) {
-  return n % 4 == 0 && reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
-}
-
-// one problem into the tile, a warp a row (coalesced), four rows' loads in
-// flight a thread before their stores; returns whether this thread loaded
-// a non-finite entry
-template <typename T>
-__device__ bool load_rows(float* __restrict__ S, int ld, const T* __restrict__ src, int n) {
-  constexpr int ROWS = 4;
-  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
-  bool bad = false;
-  if (rows_vec4(src, n)) {
-    for (int c = 4 * lane; c < n; c += 128)
-      for (int r0 = wid; r0 < n; r0 += ROWS * WARPS) {
-        float v[ROWS][4];
-#pragma unroll
-        for (int b = 0; b < ROWS; ++b)
-          if (r0 + b * WARPS < n) load4(src + (r0 + b * WARPS) * n + c, v[b]);
-#pragma unroll
-        for (int b = 0; b < ROWS; ++b)
-          if (r0 + b * WARPS < n) {
-#pragma unroll
-            for (int t = 0; t < 4; ++t) bad |= !isfinite(v[b][t]);
-            store4(S + (r0 + b * WARPS) * ld + c, v[b]);
-          }
-      }
-  } else {
-    for (int r = wid; r < n; r += WARPS)
-      for (int c = lane; c < n; c += 32) {
-        const float v = widen(src[r * n + c]);
-        bad |= !isfinite(v);
-        S[r * ld + c] = v;
-      }
-  }
-  return bad;
 }
 
 // the factor from the tile's rows: R = Lᵀ (the strict upper triangle holds
@@ -196,11 +147,7 @@ __global__ void __launch_bounds__(NT) potrf_kernel(const T* A, T* R, int* info, 
       __syncthreads();
     }
     inf = chol_sweep(S, ld, n);
-    for (int e = threadIdx.x; e < n * n; e += NT) {
-      const int i = e / n, c = e - i * n;
-      if (c > i) S[i * ld + c] = S[c * ld + i];
-    }
-    __syncthreads();
+    mirror_lower(S, ld, n);
   }
   store_factor(R + off, S, ld, n, upper);
   if (threadIdx.x == 0) info[blockIdx.x] = inf;
@@ -222,24 +169,6 @@ __global__ void __launch_bounds__(NT) trsm_kernel(const T* Tm, const T* B, T* X,
   if (forward) fwd_sweep(S, ld, upper != 0, Y, k, n, k);
   else bwd_sweep(S, ld, upper != 0, Y, k, n, k);
   store_tile(X + b * n * k, Y, k, n, k);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) posv_kernel(const T* A, const T* B, T* X, int* info, int n, int k) {
-  extern __shared__ float smem[];
-  const int ld = odd_ld(n);
-  float* S = smem;
-  float* Y = smem + n * ld;
-  const long long b = blockIdx.x;
-  load_tile(S, ld, A + b * n * n, n, n);
-  load_tile(Y, k, B + b * n * k, n, k);
-  __syncthreads();
-  // both uplo conventions run the same arithmetic: L (lower) = Rᵀ
-  const int inf = chol_sweep(S, ld, n);
-  fwd_sweep(S, ld, false, Y, k, n, k);
-  bwd_sweep(S, ld, false, Y, k, n, k);
-  store_tile(X + b * n * k, Y, k, n, k);
-  if (threadIdx.x == 0) info[b] = inf;
 }
 
 // ---------------------------------------------------------------------------
@@ -398,89 +327,6 @@ __device__ bool gram_stream(const T* a, const T* bm, int m, int n, int k, T* st,
   return bad;
 }
 
-// fwd_blocked's diagonal step on one column `col` of Y (rows k0 .. k0 + w,
-// stride ldy): y_j = Y[j]/d_j, then Y[i] −= L[i][j]·y_j for i > j, L read
-// from the rows of Lᵀ.  FULL (w == NB) unrolls every bound on w away.
-template <bool FULL>
-__device__ __forceinline__ void fwd_diag_column(const float* S, int ld, int k0, int w, float* col, int ldy) {
-  const int w4 = round4(w);
-  float y[NB];
-#pragma unroll
-  for (int i = 0; i < NB; ++i) y[i] = FULL || i < w ? col[(k0 + i) * ldy] : 0.f;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    if (!FULL && j >= w) break;
-    y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
-    const float* lt = S + (k0 + j) * ld + k0;  // L[k0 + i][k0 + j] at column k0 + i
-#pragma unroll
-    for (int q = (j + 1) / 4; q < NB / 4; ++q) {
-      if (!FULL && 4 * q >= w4) break;
-      float v[4];
-      unpack4(v, ld4(lt + 4 * q));
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        if (4 * q + t > j) y[4 * q + t] = fmaf(-v[t], y[j], y[4 * q + t]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NB; ++i)
-    if (FULL || i < w) col[(k0 + i) * ldy] = y[i];
-}
-
-// L·Y = B in place on Y = [Y1 | Y2] (n rows; nc1 columns of leading
-// dimension ld1, then nc2 of ld2; zero past them up to round4), L from a
-// chol_blocked tile S: L in its lower triangle, Lᵀ in its strict upper one,
-// zero outside n.  Panels of NB rows: a thread a column solves the diagonal
-// block in registers (y_j = Y[j]/d_j, then Y[i] −= L[i][j]·y_j, as
-// fwd_sweep), then 4 x 4 register tiles take the rows below:
-// Y[l] −= Σ_j L[l][j]·y_j, j ascending — every entry gets fwd_sweep's
-// operations in fwd_sweep's order.  Two barriers a panel.
-//
-// `full_panels` gives the full panels (w == NB, all but a narrow last one)
-// their own copy of the diagonal step, with no run-time bound on w inside
-// its unrolled loops: in potrs those bounds cost spills under its
-// three-blocks-an-SM register cap and a third of its time
-// (probes/potrs_variants.py); lstsq, at one block an SM, keeps the single
-// copy, whose second one would take it to 255 registers and spills.
-template <bool full_panels = false>
-__device__ void fwd_blocked(const float* S, int ld, int n, float* Y1, int ld1, int nc1, float* Y2 = nullptr,
-                            int ld2 = 0, int nc2 = 0) {
-  const int n4 = round4(n), cg1 = round4(nc1) / 4, cg = cg1 + round4(nc2) / 4;
-  for (int k0 = 0; k0 < n; k0 += NB) {
-    const int w = min(NB, n - k0);
-    for (int c = threadIdx.x; c < nc1 + nc2; c += NT) {
-      float* col = c < nc1 ? Y1 + c : Y2 + c - nc1;
-      const int ldy = c < nc1 ? ld1 : ld2;
-      if (full_panels && w == NB) fwd_diag_column<true>(S, ld, k0, w, col, ldy);
-      else fwd_diag_column<false>(S, ld, k0, w, col, ldy);
-    }
-    __syncthreads();
-    const int t0 = k0 + NB;
-    if (t0 >= n4) break;
-    for (int e = threadIdx.x; e < (n4 - t0) / 4 * cg; e += NT) {
-      const int l0 = t0 + 4 * (e / cg), g = e % cg;
-      float* Y = g < cg1 ? Y1 + 4 * g : Y2 + 4 * (g - cg1);
-      const int ldy = g < cg1 ? ld1 : ld2;
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) unpack4(acc[i], ld4(Y + (l0 + i) * ldy));
-#pragma unroll 4
-      for (int j = 0; j < NB; ++j) {
-        float l[4], y[4];
-        unpack4(l, ld4(S + (k0 + j) * ld + l0));
-        unpack4(y, ld4(Y + (k0 + j) * ldy));
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(-l[i], y[t], acc[i][t]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st4(Y + (l0 + i) * ldy, acc[i]);
-    }
-    __syncthreads();
-  }
-}
-
 // W·R = V in place on W (round4(n) rows, n columns, ldw), R = Lᵀ of a
 // chol_blocked tile (R's rows are the tile's upper rows).  Panels of NB
 // columns: a thread a row solves the diagonal block in registers
@@ -545,97 +391,9 @@ __device__ void rsolve_blocked(const float* S, int ld, int n, float* W, int ldw,
   }
 }
 
-// U·X = Y in place on Y (n rows, nc columns, ldy), U upper triangular in
-// the rows of S (U[i][c] = S[i·ld + c], c >= i).  Panels of NB rows from
-// the bottom: a thread a column solves the diagonal block (j descending, as
-// bwd_sweep), then 4 x 4 register tiles take the rows above it, j
-// descending — bwd_sweep's operations in bwd_sweep's order.  With
-// `lower_rows` S also holds Uᵀ in its lower triangle, and the tiles read a
-// column of U as a 16-byte load of a row of Uᵀ (four scalar loads that
-// share two banks otherwise); `full_panels` as in fwd_blocked.
-template <bool lower_rows = false, bool full_panels = false>
-__device__ void bwd_upper_blocked(const float* S, int ld, int n, float* Y, int ldy, int nc) {
-  const int cg = round4(nc) / 4;
-  for (int k0 = (n - 1) / NB * NB; k0 >= 0; k0 -= NB) {
-    const int w = min(NB, n - k0);
-    for (int c = threadIdx.x; c < nc; c += NT) {
-      if (full_panels && w == NB) bwd_diag_column<true>(S, ld, k0, w, Y + c, ldy);
-      else bwd_diag_column<false>(S, ld, k0, w, Y + c, ldy);
-    }
-    __syncthreads();
-    if (k0 == 0) break;
-    for (int e = threadIdx.x; e < k0 / 4 * cg; e += NT) {
-      const int i0 = 4 * (e / cg), c0 = 4 * (e % cg);
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) unpack4(acc[i], ld4(Y + (i0 + i) * ldy + c0));
-      for (int j = w - 1; j >= 0; --j) {
-        float y[4], u[4];
-        unpack4(y, ld4(Y + (k0 + j) * ldy + c0));
-        if (lower_rows) {
-          unpack4(u, ld4(S + (k0 + j) * ld + i0));
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) u[i] = S[(i0 + i) * ld + k0 + j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(-u[i], y[t], acc[i][t]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st4(Y + (i0 + i) * ldy + c0, acc[i]);
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
-// potrs: the blocked solves on the factor's live triangle
+// potrs and posv: the blocked solves on a tile holding both triangles
 // ---------------------------------------------------------------------------
-
-// The factor's live triangle into both triangles of S — U = R = Lᵀ in the
-// upper one, L in the lower one: T[r][c] to S[r][c] and S[c][r], whatever
-// uplo names — a warp a row, 16 bytes a load where rows allow (four rows'
-// loads in flight a thread before their stores); S's padding (columns
-// n..round4(n), rows n..round4(n)) zeroed.  T's dead triangle is read only
-// where a 16-byte load straddles the diagonal, and never stored.
-template <typename T>
-__device__ void load_factor_both(float* __restrict__ S, int ld, const T* __restrict__ src, int n, int upper) {
-  constexpr int ROWS = 4;
-  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32, n4 = round4(n), pad = n4 - n;
-  if (rows_vec4(src, n)) {
-    for (int c = 4 * lane; c < n; c += 128)
-      for (int r0 = wid; r0 < n; r0 += ROWS * WARPS) {
-        float v[ROWS][4];
-#pragma unroll
-        for (int b = 0; b < ROWS; ++b) {
-          const int r = r0 + b * WARPS;
-          if (r < n && (upper ? c + 3 >= r : c <= r)) load4(src + r * n + c, v[b]);
-        }
-#pragma unroll
-        for (int b = 0; b < ROWS; ++b) {
-          const int r = r0 + b * WARPS;
-          if (r >= n) continue;
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-            if (upper ? c + t >= r : c + t <= r) {
-              S[r * ld + c + t] = v[b][t];
-              S[(c + t) * ld + r] = v[b][t];
-            }
-        }
-      }
-  } else {
-    for (int r = wid; r < n; r += WARPS)
-      for (int c = (upper ? r : 0) + lane; c < (upper ? n : r + 1); c += 32) {
-        const float v = widen(src[r * n + c]);
-        S[r * ld + c] = v;
-        S[c * ld + r] = v;
-      }
-  }
-  for (int e = threadIdx.x; e < n * pad; e += NT) S[(e / pad) * ld + n + e % pad] = 0.f;
-  for (int e = threadIdx.x; e < pad * ld; e += NT) S[n * ld + e] = 0.f;
-}
 
 // whether rows of k entries at p can move in 4-entry vectors
 template <typename T>
@@ -702,6 +460,61 @@ __global__ void __launch_bounds__(NT, 3) potrs_kernel(const T* Tm, const T* B, T
   __syncthreads();
   fwd_blocked<true>(S, ld, n, Y, ldy, k);
   bwd_upper_blocked<true, true>(S, ld, n, Y, ldy, k);
+  store_rhs(X + b * n * k, Y, ldy, n, k);
+}
+
+// posv's two halves, each kept out of line (__noinline__) so that the kernel
+// gets potrf's register allocation around the factor and potrs' around the
+// solves under its three-blocks-an-SM cap (80 registers): inlined into one
+// body they spilled 292 bytes and took 2.33 ms at 8192 x 128 x 8 f32 on the
+// H100, out of line each call saves a few registers once and the kernel took
+// 1.78 (probes/posv_chain.py keeps the one-body kernel as a variant).
+//
+// The factor: A (the block's problem) into the 16-byte-row tile, scanned for
+// non-finite entries as it loads, and chol_blocked, which leaves L below the
+// diagonal and Lᵀ above it; a non-finite input, or a factor chol_blocked does
+// not certify, runs chol_sweep on A read again (its info is the reference's)
+// and mirrors its L.  Returns info.
+template <typename T>
+__device__ __noinline__ int posv_factor(float* S, int ld, const T* a, int n) {
+  const bool finite = !__syncthreads_or(load_rows(S, ld, a, n));
+  int inf = finite ? chol_blocked(S, ld, n) : -1;
+  if (inf < 0) {
+    if (finite) {  // chol_blocked wrote the tile, its padding too
+      zero_pad(S, ld, n);
+      load_rows(S, ld, a, n);
+      __syncthreads();
+    }
+    inf = chol_sweep(S, ld, n);
+    mirror_lower(S, ld, n);
+  }
+  return inf;
+}
+
+// The solves in place on Y, potrs' arithmetic: L·Z = B (L read from the rows
+// of Lᵀ), then Lᵀ·X = Z (U's columns read from L's rows)
+__device__ __noinline__ void posv_solve(const float* S, int ld, int n, float* Y, int ldy, int k) {
+  fwd_blocked<true>(S, ld, n, Y, ldy, k);
+  bwd_upper_blocked<true, true>(S, ld, n, Y, ldy, k);
+}
+
+// One problem a block, the factor never in device memory: potrs' tile
+// (padding zeroed) and the right-hand sides beside it, posv_factor, then
+// posv_solve.  Every part applies its column sweep's operations in the
+// sweep's order, so X and info are the column-sweep kernel's, and
+// potrs(potrf(A), B)'s, bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(NT, 3) posv_kernel(const T* A, const T* B, T* X, int* info, int n, int k, int ld,
+                                                  int ldy) {
+  extern __shared__ float4 smem4[];
+  float* S = reinterpret_cast<float*>(smem4);
+  float* Y = S + round4(n) * ld;
+  const long long b = blockIdx.x;
+  zero_pad(S, ld, n);
+  load_rhs(Y, ldy, B + b * n * k, n, k);
+  const int inf = posv_factor(S, ld, A + b * n * n, n);
+  if (threadIdx.x == 0) info[b] = inf;
+  posv_solve(S, ld, n, Y, ldy, k);
   store_rhs(X + b * n * k, Y, ldy, n, k);
 }
 
@@ -917,13 +730,15 @@ extern "C" int capital_small_trsm(int dtype, const void* Tm, const void* B, void
 extern "C" int capital_small_posv(int dtype, const void* A, const void* B, void* X, void* info, int batch,
                                   int n, int k, void* stream) {
   if (n < 1 || k < 0) return -1;
-  const size_t smem = tile_bytes(n) + sizeof(float) * (size_t)n * k;
+  int ld, ldy;
+  potrs_lds(n, k, &ld, &ldy);
+  const size_t smem = sizeof(float) * (size_t)round4(n) * (ld + ldy);
   if (dtype == DT_F32)
     return run<posv_kernel<float>>(batch, smem, stream, (const float*)A, (const float*)B, (float*)X,
-               (int*)info, n, k);
+               (int*)info, n, k, ld, ldy);
   if (dtype == DT_BF16)
     return run<posv_kernel<bf16>>(batch, smem, stream, (const bf16*)A, (const bf16*)B, (bf16*)X,
-               (int*)info, n, k);
+               (int*)info, n, k, ld, ldy);
   return -1;
 }
 

@@ -1,6 +1,8 @@
-// Shared device functions of the small-N batched kernels: the Cholesky
-// column sweep and the three triangular sweeps, on f32 tiles in shared
-// memory, run by one block of NT threads.
+// Shared device functions of the small-N batched kernels and the chain's
+// factor steps: the Cholesky column sweep and the three triangular sweeps,
+// the blocked factor (chol_blocked), the blocked triangular solves
+// (fwd_blocked, bwd_upper_blocked) and the tile loads, on f32 tiles in
+// shared memory, run by one block of NT threads.
 //
 // These are the in-kernel helpers of capital_tpu/ops/batched_small.py
 // (_chol :198, _fwd_solve :249, _bwd_solve :275, _rsolve_upper :298).  The
@@ -13,8 +15,10 @@
 //
 // A triangular factor is kept in one of two layouts, named by
 // `upper_stored`: L in the lower triangle (L(r, c) = S[r·ld + c]) or Lᵀ in
-// the upper triangle (L(r, c) = S[c·ld + r]).  Leading dimensions of n x n
-// tiles are odd (odd_ld), so a walk down a column hits 32 distinct banks.
+// the upper triangle (L(r, c) = S[c·ld + r]).  The sweeps' n x n tiles have
+// an odd leading dimension (odd_ld), so a walk down a column hits 32
+// distinct banks; the blocked functions' tiles have 16-byte rows (ld ≡ 4
+// mod 8) and hold a factor in both triangles, so their walks are row walks.
 //
 // Exactness: sqrtf and division are IEEE (no fast-math, no rsqrtf), so a
 // pivot of 1 divides by exactly 1 and identity problems solve exactly.
@@ -403,6 +407,260 @@ __device__ void rsolve_upper_sweep(const float* S, int ld, bool upper_stored, fl
     W[i * ldw + j] /= safe_div(S[j * ld + j]);
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// tile loads and the blocked triangular solves (batched_small.cu's potrf,
+// potrs, posv and lstsq; blocktri_small.cu's chain factor)
+// ---------------------------------------------------------------------------
+
+// four consecutive entries, widened to f32 / rounded once from f32
+__device__ __forceinline__ void load4(const float* p, float* v) { unpack4(v, *reinterpret_cast<const float4*>(p)); }
+__device__ __forceinline__ void load4(const bf16* p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const bf16* h = reinterpret_cast<const bf16*>(&t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = __bfloat162float(h[i]);
+}
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(bf16* p, const float* v) {
+  uint2 t;
+  bf16* h = reinterpret_cast<bf16*>(&t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __float2bfloat16_rn(v[i]);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// whether an n x n problem at p can move in 4-entry vectors
+template <typename T>
+__device__ __forceinline__ bool rows_vec4(const T* p, int n) {
+  return n % 4 == 0 && reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
+}
+
+// one problem into the tile, a warp a row (coalesced), four rows' loads in
+// flight a thread before their stores; returns whether this thread loaded
+// a non-finite entry
+template <typename T>
+__device__ bool load_rows(float* __restrict__ S, int ld, const T* __restrict__ src, int n) {
+  constexpr int ROWS = 4;
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bool bad = false;
+  if (rows_vec4(src, n)) {
+    for (int c = 4 * lane; c < n; c += 128)
+      for (int r0 = wid; r0 < n; r0 += ROWS * WARPS) {
+        float v[ROWS][4];
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b)
+          if (r0 + b * WARPS < n) load4(src + (r0 + b * WARPS) * n + c, v[b]);
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b)
+          if (r0 + b * WARPS < n) {
+#pragma unroll
+            for (int t = 0; t < 4; ++t) bad |= !isfinite(v[b][t]);
+            store4(S + (r0 + b * WARPS) * ld + c, v[b]);
+          }
+      }
+  } else {
+    for (int r = wid; r < n; r += WARPS)
+      for (int c = lane; c < n; c += 32) {
+        const float v = widen(src[r * n + c]);
+        bad |= !isfinite(v);
+        S[r * ld + c] = v;
+      }
+  }
+  return bad;
+}
+
+// The factor's live triangle into both triangles of S — U = R = Lᵀ in the
+// upper one, L in the lower one: T[r][c] to S[r][c] and S[c][r], whatever
+// uplo names — a warp a row, 16 bytes a load where rows allow (four rows'
+// loads in flight a thread before their stores); S's padding (columns
+// n..round4(n), rows n..round4(n)) zeroed.  T's dead triangle is read only
+// where a 16-byte load straddles the diagonal, and never stored.
+template <typename T>
+__device__ void load_factor_both(float* __restrict__ S, int ld, const T* __restrict__ src, int n, int upper) {
+  constexpr int ROWS = 4;
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32, n4 = round4(n), pad = n4 - n;
+  if (rows_vec4(src, n)) {
+    for (int c = 4 * lane; c < n; c += 128)
+      for (int r0 = wid; r0 < n; r0 += ROWS * WARPS) {
+        float v[ROWS][4];
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b) {
+          const int r = r0 + b * WARPS;
+          if (r < n && (upper ? c + 3 >= r : c <= r)) load4(src + r * n + c, v[b]);
+        }
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b) {
+          const int r = r0 + b * WARPS;
+          if (r >= n) continue;
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            if (upper ? c + t >= r : c + t <= r) {
+              S[r * ld + c + t] = v[b][t];
+              S[(c + t) * ld + r] = v[b][t];
+            }
+        }
+      }
+  } else {
+    for (int r = wid; r < n; r += WARPS)
+      for (int c = (upper ? r : 0) + lane; c < (upper ? n : r + 1); c += 32) {
+        const float v = widen(src[r * n + c]);
+        S[r * ld + c] = v;
+        S[c * ld + r] = v;
+      }
+  }
+  for (int e = threadIdx.x; e < n * pad; e += NT) S[(e / pad) * ld + n + e % pad] = 0.f;
+  for (int e = threadIdx.x; e < pad * ld; e += NT) S[n * ld + e] = 0.f;
+}
+
+// S's padding zeroed: columns n..round4(n) of rows < n, and rows
+// n..round4(n) whole (ld floats)
+__device__ __forceinline__ void zero_pad(float* S, int ld, int n) {
+  const int pad = round4(n) - n;
+  for (int e = threadIdx.x; e < n * pad; e += NT) S[(e / pad) * ld + n + e % pad] = 0.f;
+  for (int e = threadIdx.x; e < pad * ld; e += NT) S[n * ld + e] = 0.f;
+}
+
+// chol_sweep's L (lower triangle) copied into the strict upper triangle,
+// so the tile holds both triangles as chol_blocked leaves them; ends with a
+// barrier
+__device__ __forceinline__ void mirror_lower(float* S, int ld, int n) {
+  for (int e = threadIdx.x; e < n * n; e += NT) {
+    const int i = e / n, c = e - i * n;
+    if (c > i) S[i * ld + c] = S[c * ld + i];
+  }
+  __syncthreads();
+}
+
+// fwd_blocked's diagonal step on one column `col` of Y (rows k0 .. k0 + w,
+// stride ldy): y_j = Y[j]/d_j, then Y[i] −= L[i][j]·y_j for i > j, L read
+// from the rows of Lᵀ.  FULL (w == NB) unrolls every bound on w away.
+template <bool FULL>
+__device__ __forceinline__ void fwd_diag_column(const float* S, int ld, int k0, int w, float* col, int ldy) {
+  const int w4 = round4(w);
+  float y[NB];
+#pragma unroll
+  for (int i = 0; i < NB; ++i) y[i] = FULL || i < w ? col[(k0 + i) * ldy] : 0.f;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (!FULL && j >= w) break;
+    y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
+    const float* lt = S + (k0 + j) * ld + k0;  // L[k0 + i][k0 + j] at column k0 + i
+#pragma unroll
+    for (int q = (j + 1) / 4; q < NB / 4; ++q) {
+      if (!FULL && 4 * q >= w4) break;
+      float v[4];
+      unpack4(v, ld4(lt + 4 * q));
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (4 * q + t > j) y[4 * q + t] = fmaf(-v[t], y[j], y[4 * q + t]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+    if (FULL || i < w) col[(k0 + i) * ldy] = y[i];
+}
+
+// L·Y = B in place on Y = [Y1 | Y2] (n rows; nc1 columns of leading
+// dimension ld1, then nc2 of ld2; zero past them up to round4), L from a
+// chol_blocked tile S: L in its lower triangle, Lᵀ in its strict upper one,
+// zero outside n.  Panels of NB rows: a thread a column solves the diagonal
+// block in registers (y_j = Y[j]/d_j, then Y[i] −= L[i][j]·y_j, as
+// fwd_sweep), then 4 x 4 register tiles take the rows below:
+// Y[l] −= Σ_j L[l][j]·y_j, j ascending — every entry gets fwd_sweep's
+// operations in fwd_sweep's order.  Two barriers a panel.
+//
+// `full_panels` gives the full panels (w == NB, all but a narrow last one)
+// their own copy of the diagonal step, with no run-time bound on w inside
+// its unrolled loops: in potrs those bounds cost spills under its
+// three-blocks-an-SM register cap and a third of its time
+// (probes/potrs_variants.py); lstsq, at one block an SM, keeps the single
+// copy, whose second one would take it to 255 registers and spills.
+template <bool full_panels = false>
+__device__ void fwd_blocked(const float* S, int ld, int n, float* Y1, int ld1, int nc1, float* Y2 = nullptr,
+                            int ld2 = 0, int nc2 = 0) {
+  const int n4 = round4(n), cg1 = round4(nc1) / 4, cg = cg1 + round4(nc2) / 4;
+  for (int k0 = 0; k0 < n; k0 += NB) {
+    const int w = min(NB, n - k0);
+    for (int c = threadIdx.x; c < nc1 + nc2; c += NT) {
+      float* col = c < nc1 ? Y1 + c : Y2 + c - nc1;
+      const int ldy = c < nc1 ? ld1 : ld2;
+      if (full_panels && w == NB) fwd_diag_column<true>(S, ld, k0, w, col, ldy);
+      else fwd_diag_column<false>(S, ld, k0, w, col, ldy);
+    }
+    __syncthreads();
+    const int t0 = k0 + NB;
+    if (t0 >= n4) break;
+    for (int e = threadIdx.x; e < (n4 - t0) / 4 * cg; e += NT) {
+      const int l0 = t0 + 4 * (e / cg), g = e % cg;
+      float* Y = g < cg1 ? Y1 + 4 * g : Y2 + 4 * (g - cg1);
+      const int ldy = g < cg1 ? ld1 : ld2;
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) unpack4(acc[i], ld4(Y + (l0 + i) * ldy));
+#pragma unroll 4
+      for (int j = 0; j < NB; ++j) {
+        float l[4], y[4];
+        unpack4(l, ld4(S + (k0 + j) * ld + l0));
+        unpack4(y, ld4(Y + (k0 + j) * ldy));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(-l[i], y[t], acc[i][t]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st4(Y + (l0 + i) * ldy, acc[i]);
+    }
+    __syncthreads();
+  }
+}
+
+// U·X = Y in place on Y (n rows, nc columns, ldy), U upper triangular in
+// the rows of S (U[i][c] = S[i·ld + c], c >= i).  Panels of NB rows from
+// the bottom: a thread a column solves the diagonal block (j descending, as
+// bwd_sweep), then 4 x 4 register tiles take the rows above it, j
+// descending — bwd_sweep's operations in bwd_sweep's order.  With
+// `lower_rows` S also holds Uᵀ in its lower triangle, and the tiles read a
+// column of U as a 16-byte load of a row of Uᵀ (four scalar loads that
+// share two banks otherwise); `full_panels` as in fwd_blocked.
+template <bool lower_rows = false, bool full_panels = false>
+__device__ void bwd_upper_blocked(const float* S, int ld, int n, float* Y, int ldy, int nc) {
+  const int cg = round4(nc) / 4;
+  for (int k0 = (n - 1) / NB * NB; k0 >= 0; k0 -= NB) {
+    const int w = min(NB, n - k0);
+    for (int c = threadIdx.x; c < nc; c += NT) {
+      if (full_panels && w == NB) bwd_diag_column<true>(S, ld, k0, w, Y + c, ldy);
+      else bwd_diag_column<false>(S, ld, k0, w, Y + c, ldy);
+    }
+    __syncthreads();
+    if (k0 == 0) break;
+    for (int e = threadIdx.x; e < k0 / 4 * cg; e += NT) {
+      const int i0 = 4 * (e / cg), c0 = 4 * (e % cg);
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) unpack4(acc[i], ld4(Y + (i0 + i) * ldy + c0));
+      for (int j = w - 1; j >= 0; --j) {
+        float y[4], u[4];
+        unpack4(y, ld4(Y + (k0 + j) * ldy + c0));
+        if (lower_rows) {
+          unpack4(u, ld4(S + (k0 + j) * ld + i0));
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) u[i] = S[(i0 + i) * ld + k0 + j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) acc[i][t] = fmaf(-u[i], y[t], acc[i][t]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st4(Y + (i0 + i) * ldy + c0, acc[i]);
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace small

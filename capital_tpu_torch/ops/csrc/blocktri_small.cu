@@ -8,45 +8,67 @@
 // the carried diagonal factor L_{i−1} stays on chip from one chain block to
 // the next inside the launch.
 //
-// Per chain block i (f32, all in shared memory):
-//   Wt = L_{i−1}⁻¹·Cᵀ       Cᵀ is an index read while loading, then fwd_sweep
-//   S  = D − Wtᵀ·Wt         a plain shared-tile product (lower half computed,
-//                           mirrored: the full S feeds chol_sweep's info)
-//   L_i, info = chol(S)     chol_sweep, in place; L masked lower on store
+// Per chain block i (f32, all in shared memory), the factor steps on their
+// two routes (ops/blocktri_small.chain_route picks one before the launch):
+//                      blocked (b <= 136)            sweep (b = 137, 138)
+//   Wt = L_{i−1}⁻¹·Cᵀ  Cᵀ by 4 x 4 register tiles,   Cᵀ an index read,
+//                      fwd_blocked                   fwd_sweep
+//   S  = D − Wtᵀ·Wt    4 x 4 register tiles of the   a dot product a thread
+//                      lower half, mirrored (the full S feeds info)
+//   L_i, info = chol(S) chol_blocked; on a fault      chol_sweep
+//                      chol_sweep, S formed again
 //   y_i = L_i⁻¹(b_i − Wtᵀ·y_{i−1})               (fused, forward_solve)
 //   x_i = L_i⁻ᵀ(y_i − Wt_{i+1}·x_{i+1}), descending      (solve_backward)
-// The sweeps are batched_small.cuh's, so info follows the JAX kernel's
-// convention exactly and identity blocks factor and solve exactly.
+// Both routes apply the column sweeps' operations in the sweeps' order
+// (batched_small.cuh), so their L, Wt and info are bitwise the same, info
+// follows the JAX kernel's convention exactly and identity blocks factor and
+// solve exactly.  The blocked route keeps L_i in both triangles (Lᵀ above
+// the diagonal), so the next block's fwd_blocked reads rows.
 //
 // Shared memory, as capital_tpu_torch/ops/blocktri_small.smem_bytes
-// computes it (ld = odd_ld(b)): three b x b tiles for the factor steps
-// (L_{i−1}, Wt, S → L_i; the L tile and the S tile swap roles after every
-// block), two for the sweeps (L_i, Wt), and a stage of 2·b·kc floats for
-// the right-hand sides: the chunk being solved and the carried chunk of the
+// computes it: three tiles for the factor steps (L_{i−1}, Wt, S → L_i; the
+// L tile and the S tile swap roles after every block) — on the blocked
+// route round4(b) rows of chain_ld(b) floats (16-byte rows, ld ≡ 4 mod 8,
+// zero padding), on the sweep route b rows of odd_ld(b) — two odd-ld tiles
+// for the sweeps (L_i, Wt), and a stage of 2·b·kc floats for the
+// right-hand sides: the chunk being solved and the carried chunk of the
 // neighbouring block.  Right-hand-side columns are independent, so they
 // stream through the stage kc at a time, and the f32 carry between chain
 // blocks lives in a device-memory scratch (batch, b, k) that the wrapper
 // allocates (read back by the same block after a barrier).  At b = 128
-// three tiles take 198,144 bytes and leave room for kc = 32; every width k
-// fits that way.
+// the blocked route's three tiles take 202,752 bytes and leave room for
+// kc = 28; every width k fits that way.
 //
 // What bounds them on the card: at the flagship (batch 1, 64 blocks of 128)
-// one SM walks the chain alone, so the time is the dependent sweeps — per
-// block 128 columns of Wt's forward sweep, 128 of the Cholesky and 128 of
-// the RHS sweep, each with one or two block barriers — far from both the
-// bytes bound (the operands are read once) and the f32 operations bound.
-// A batch of problems (or the partitioned driver's folded interiors)
-// fills more SMs.  Not done yet: tensor cores for Wtᵀ·Wt and the
-// Wt sweep, a cluster per problem.
+// one SM walks the chain alone, so the time is each block's dependent
+// chain — on the blocked route three barriers a 16-column panel of the
+// factor and two of Wt's solve, on the sweep route one or two a column —
+// far from both the bytes bound (the operands are read once) and the f32
+// operations bound.  A batch of problems (or the partitioned driver's
+// folded interiors) fills more SMs.  Not done yet: tensor cores for Wtᵀ·Wt
+// and the Wt solve, a cluster per problem, the RHS sweeps (forward_rhs,
+// the solve steps) on the blocked solves.
 
 #include "batched_small.cuh"
 
 using namespace small;
 
 constexpr size_t SMEM_MAX = 232448 - 1024;
-// largest chain block of the factor steps: three f32 tiles must fit SMEM_MAX
-// (b <= 138); the per-row flags below are static shared memory
+// largest chain block the kernels take (the per-row flags below are static
+// shared memory); the factor steps' sweep route stops at b = 138, where
+// three odd-ld tiles fill SMEM_MAX
 constexpr int MAX_B = 256;
+
+// The factor steps' tile layouts (ops/blocktri_small.chain_route picks
+// one before the launch): the blocked route's tiles are round4(b) rows of
+// 16-byte-aligned floats, ld ≡ 4 (mod 8) — potrf_ld's rule — with their
+// padding rows and columns zero; the sweep route's are b rows of odd_ld(b).
+__host__ __device__ __forceinline__ int chain_ld(int b, bool blocked) {
+  if (!blocked) return odd_ld(b);
+  const int b4 = round4(b);
+  return (b4 / 4) % 2 ? b4 : b4 + 4;
+}
+__host__ __device__ __forceinline__ int chain_rows(int b, bool blocked) { return blocked ? round4(b) : b; }
 
 template <typename T>
 __device__ void load_tile(float* dst, int ld, const T* src, int b) {
@@ -66,6 +88,36 @@ __device__ void load_tile_t(float* dst, int ld, const T* src, int b) {
   }
 }
 
+// dst = srcᵀ on a 16-byte-row tile (live entries only).  Where rows move as
+// 4-entry vectors, a thread takes a 4 x 4 tile of src through registers:
+// four rows' 16-byte loads, then four 16-byte stores into four rows of dst,
+// consecutive threads on consecutive tiles of one column band, so a
+// quarter-warp stores 128 contiguous bytes.  Else entry by entry down src's
+// columns (a strided read, a contiguous write: a column walk of dst would
+// meet 8-way bank conflicts at ld ≡ 4 mod 8).
+template <typename T>
+__device__ void load_tile_t4(float* dst, int ld, const T* src, int b) {
+  if (rows_vec4(src, b)) {
+    const int tb = b / 4;
+    for (int e = threadIdx.x; e < tb * tb; e += NT) {
+      const int r0 = 4 * (e % tb), c0 = 4 * (e / tb);
+      float v[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load4(src + (r0 + i) * b + c0, v[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float t[4] = {v[0][j], v[1][j], v[2][j], v[3][j]};
+        st4(dst + (c0 + j) * ld + r0, t);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < b * b; e += NT) {
+      const int r = e / b, c = e - r * b;
+      dst[r * ld + c] = widen(src[c * b + r]);
+    }
+  }
+}
+
 template <typename T>
 __device__ void store_tile(T* dst, const float* src, int ld, int b, bool lower_only) {
   for (int e = threadIdx.x; e < b * b; e += NT) {
@@ -74,18 +126,46 @@ __device__ void store_tile(T* dst, const float* src, int ld, int b, bool lower_o
   }
 }
 
-// One chain block of the factor recurrence: P holds L_{i−1} (lower), W
-// receives Wt_i, S receives L_i in its lower triangle.  Returns the block's
-// info (all threads).  Ends with a barrier.
+// rowbad[i]: row i of the full b x b S holds a non-finite entry.  Returns,
+// to every thread, whether any row does.
+__device__ int scan_rows(const float* S, int ld, int b, unsigned char* rowbad) {
+  const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
+  bool bad = false;
+  for (int i = ty; i < b; i += WARPS) {
+    bool row = false;
+    for (int l = tx; l < b; l += 32) row |= !isfinite(S[i * ld + l]);
+    row = __any_sync(0xffffffffu, row);
+    if (tx == 0) rowbad[i] = row;
+    bad |= row;
+  }
+  return __syncthreads_or(bad);
+}
+
+// The JAX kernel's spreading of a non-finite Schur complement through its
+// factor (ops/sweeps.chol_plain): column 0 NaN at the rows of S that held a
+// non-finite value, every later column NaN (lower triangle).  Ends with a
+// barrier.
+__device__ void nan_pattern(float* S, int ld, int b, const unsigned char* rowbad) {
+  const float nan = __int_as_float(0x7fc00000);
+  for (int e = threadIdx.x; e < b * b; e += NT) {
+    const int r = e / b, c = e - r * b;
+    if (c <= r && (c > 0 || rowbad[r])) S[r * ld + c] = nan;
+  }
+  __syncthreads();
+}
+
+// One chain block of the factor recurrence on the sweep route (odd-ld
+// tiles): P holds L_{i−1} (lower), W receives Wt_i, S receives L_i in its
+// lower triangle.  Returns the block's info (all threads).  Ends with a
+// barrier.
 //
 // A non-finite Schur complement spreads through the factor as the JAX
-// kernel's one-hot sweep spreads it (ops/sweeps.chol_plain): column 0 is
-// NaN at the rows of S holding a non-finite value, every later column is
-// NaN.  chol_sweep reads the lower triangle only, so that pattern is set
-// here from the rows of the full S; the next chain block's sweeps then see
-// the factor the reference carries, and its info agrees too.
+// kernel's one-hot sweep spreads it.  chol_sweep reads the lower triangle
+// only, so that pattern is set here from the rows of the full S
+// (nan_pattern); the next chain block's sweeps then see the factor the
+// reference carries, and its info agrees too.
 template <typename T>
-__device__ int factor_block(const float* P, float* W, float* S, int ld, const T* d, const T* c, int b) {
+__device__ int factor_block_sweep(const float* P, float* W, float* S, int ld, const T* d, const T* c, int b) {
   __shared__ unsigned char rowbad[MAX_B];
   const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
   load_tile_t(W, ld, c, b);
@@ -101,25 +181,120 @@ __device__ int factor_block(const float* P, float* W, float* S, int ld, const T*
     }
   }
   __syncthreads();
-  bool bad = false;
-  for (int i = ty; i < b; i += WARPS) {
-    bool row = false;
-    for (int l = tx; l < b; l += 32) row |= !isfinite(S[i * ld + l]);
-    row = __any_sync(0xffffffffu, row);
-    if (tx == 0) rowbad[i] = row;
-    bad |= row;
-  }
-  const int anybad = __syncthreads_or(bad);
+  const int anybad = scan_rows(S, ld, b, rowbad);
   const int info = chol_sweep(S, ld, b);
-  if (anybad) {
-    const float nan = __int_as_float(0x7fc00000);
-    for (int e = threadIdx.x; e < b * b; e += NT) {
-      const int r = e / b, cc = e - r * b;
-      if (cc <= r && (cc > 0 || rowbad[r])) S[r * ld + cc] = nan;
+  if (anybad) nan_pattern(S, ld, b, rowbad);
+  return info;
+}
+
+// S −= Wtᵀ·Wt on 16-byte-row tiles: 4 x 4 register tiles of S's lower
+// triangle (tile e of the packed lower triangle of tiles to thread e mod
+// NT), two 16-byte loads of W's rows per 16 FMAs.  Each accumulator starts
+// at 0 and takes fmaf(W[l][i], W[l][j], acc) for l ascending — the sweep
+// route's dot product, contracted — and is subtracted once from the entry
+// and once from its mirror, each from D's own value, as the sweep route
+// does, so S is bitwise the same.  Padding tiles compute zeros (W's
+// padding columns are zero).
+__device__ void schur_update(const float* W, float* S, int ld, int b) {
+  const int T = round4(b) / 4, tiles = T * (T + 1) / 2;
+  for (int e = threadIdx.x; e < tiles; e += NT) {
+    int ti = (int)((sqrtf(8.f * e + 1.f) - 1.f) * 0.5f);
+    while (ti * (ti + 1) / 2 > e) --ti;
+    while ((ti + 1) * (ti + 2) / 2 <= e) ++ti;
+    const int i0 = 4 * ti, j0 = 4 * (e - ti * (ti + 1) / 2);
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+#pragma unroll 4
+    for (int l = 0; l < b; ++l) {
+      float x[4], y[4];
+      unpack4(x, ld4(W + l * ld + i0));
+      unpack4(y, ld4(W + l * ld + j0));
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(x[r], y[q], acc[r][q]);
     }
-    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float v[4];
+      unpack4(v, ld4(S + (i0 + r) * ld + j0));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] -= acc[r][q];
+      st4(S + (i0 + r) * ld + j0, v);
+    }
+    if (i0 == j0) continue;  // the diagonal tile holds its own mirror
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float v[4];
+      unpack4(v, ld4(S + (j0 + q) * ld + i0));
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[r] -= acc[r][q];
+      st4(S + (j0 + q) * ld + i0, v);
+    }
+  }
+}
+
+// One chain block on the blocked route: the tiles hold 16-byte rows with
+// zero padding, P holds L_{i−1} in both triangles (L below the diagonal, Lᵀ
+// above), and so does S on return.
+//   Wt = L_{i−1}⁻¹·Cᵀ     Cᵀ by register tiles (load_tile_t4), fwd_blocked
+//   S  = D − Wtᵀ·Wt       schur_update, the full S (both triangles)
+//   L_i, info = chol(S)   the full S scanned (scan_rows); a finite S goes to
+//                         chol_blocked
+// A non-finite S, or one chol_blocked does not certify (it then wrote the
+// tile: S is formed again from D and W), takes chol_sweep, whose info is
+// the reference's, and nan_pattern; its L is mirrored into the upper
+// triangle for the next block's fwd_blocked.  Every part applies its sweep's
+// operations in the sweep's order, so L_i, Wt_i and info are the sweep
+// route's bit for bit.  Ends with a barrier.
+template <typename T>
+__device__ int factor_block_blocked(const float* P, float* W, float* S, int ld, const T* d, const T* c, int b) {
+  __shared__ unsigned char rowbad[MAX_B];
+  load_tile_t4(W, ld, c, b);
+  load_rows(S, ld, d, b);
+  __syncthreads();
+  fwd_blocked<true>(P, ld, b, W, ld, b);
+  schur_update(W, S, ld, b);
+  __syncthreads();
+  const int anybad = scan_rows(S, ld, b, rowbad);
+  int info = anybad ? -1 : chol_blocked(S, ld, b);
+  if (info < 0) {
+    if (!anybad) {
+      zero_pad(S, ld, b);
+      load_rows(S, ld, d, b);
+      __syncthreads();
+      schur_update(W, S, ld, b);
+      __syncthreads();
+    }
+    info = chol_sweep(S, ld, b);
+    if (anybad) nan_pattern(S, ld, b, rowbad);
+    mirror_lower(S, ld, b);
   }
   return info;
+}
+
+template <typename T, bool BLOCKED>
+__device__ __forceinline__ int factor_block(const float* P, float* W, float* S, int ld, const T* d, const T* c,
+                                            int b) {
+  if constexpr (BLOCKED) return factor_block_blocked(P, W, S, ld, d, c, b);
+  else return factor_block_sweep(P, W, S, ld, d, c, b);
+}
+
+// The carried factor into P, and on the blocked route W and S zeroed (their
+// padding stays zero from here on) and L_c in both triangles of P.
+template <typename T, bool BLOCKED>
+__device__ void load_carry(float* P, int ld, const T* Lc, int b) {
+  if constexpr (BLOCKED) {
+    const int rows = chain_rows(b, true);
+    for (int e = threadIdx.x; e < 2 * rows * ld; e += NT) P[rows * ld + e] = 0.f;
+    load_factor_both(P, ld, Lc, b, 0);
+  } else {
+    load_tile(P, ld, Lc, b);
+  }
+  __syncthreads();
 }
 
 // The forward sweep of one chain block over every RHS column, kc at a time:
@@ -155,23 +330,22 @@ __device__ void forward_rhs(const float* Lt, const float* W, int ld, const T* rh
   }
 }
 
-template <typename T>
+template <typename T, bool BLOCKED>
 __global__ void __launch_bounds__(NT) fused_forward_kernel(const T* D, const T* C, const T* B, const T* Lc,
                                                            const T* yc, T* L, T* Wt, T* y, int* info,
                                                            float* scratch, int seg, int b, int k, int kc) {
-  extern __shared__ float smem[];
-  const int ld = odd_ld(b);
-  float* P = smem;
-  float* W = P + b * ld;
-  float* S = W + b * ld;
-  float* R = S + b * ld;
+  extern __shared__ float4 smem4[];
+  const int ld = chain_ld(b, BLOCKED), rows = chain_rows(b, BLOCKED);
+  float* P = reinterpret_cast<float*>(smem4);
+  float* W = P + rows * ld;
+  float* S = W + rows * ld;
+  float* R = S + rows * ld;
   float* Yp = R + b * kc;
   const long long p = blockIdx.x, bb = (long long)b * b, bk = (long long)b * k;
-  load_tile(P, ld, Lc + p * bb, b);
-  __syncthreads();
+  load_carry<T, BLOCKED>(P, ld, Lc + p * bb, b);
   for (int s = 0; s < seg; ++s) {
     const long long blk = p * seg + s;
-    const int inf = factor_block(P, W, S, ld, D + blk * bb, C + blk * bb, b);
+    const int inf = factor_block<T, BLOCKED>(P, W, S, ld, D + blk * bb, C + blk * bb, b);
     store_tile(L + blk * bb, S, ld, b, true);
     store_tile(Wt + blk * bb, W, ld, b, false);
     if (threadIdx.x == 0) info[blk] = inf;
@@ -184,20 +358,19 @@ __global__ void __launch_bounds__(NT) fused_forward_kernel(const T* D, const T* 
   }
 }
 
-template <typename T>
+template <typename T, bool BLOCKED>
 __global__ void __launch_bounds__(NT) factor_kernel(const T* D, const T* C, const T* Lc, T* L, T* Wt, int* info,
                                                     int seg, int b) {
-  extern __shared__ float smem[];
-  const int ld = odd_ld(b);
-  float* P = smem;
-  float* W = P + b * ld;
-  float* S = W + b * ld;
+  extern __shared__ float4 smem4[];
+  const int ld = chain_ld(b, BLOCKED), rows = chain_rows(b, BLOCKED);
+  float* P = reinterpret_cast<float*>(smem4);
+  float* W = P + rows * ld;
+  float* S = W + rows * ld;
   const long long p = blockIdx.x, bb = (long long)b * b;
-  load_tile(P, ld, Lc + p * bb, b);
-  __syncthreads();
+  load_carry<T, BLOCKED>(P, ld, Lc + p * bb, b);
   for (int s = 0; s < seg; ++s) {
     const long long blk = p * seg + s;
-    const int inf = factor_block(P, W, S, ld, D + blk * bb, C + blk * bb, b);
+    const int inf = factor_block<T, BLOCKED>(P, W, S, ld, D + blk * bb, C + blk * bb, b);
     store_tile(L + blk * bb, S, ld, b, true);
     store_tile(Wt + blk * bb, W, ld, b, false);
     if (threadIdx.x == 0) info[blk] = inf;
@@ -289,37 +462,47 @@ static int run(int batch, size_t smem, void* stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
-static size_t tiles_bytes(int ntiles, int b) { return sizeof(float) * (size_t)ntiles * b * odd_ld(b); }
+static size_t tiles_bytes(int ntiles, int b, bool blocked = false) {
+  return sizeof(float) * (size_t)ntiles * chain_rows(b, blocked) * chain_ld(b, blocked);
+}
 
 static size_t stage_bytes(int b, int kc) { return sizeof(float) * 2 * (size_t)b * kc; }
 
+template <typename T, bool BLOCKED>
+static int fused_forward(const void* D, const void* C, const void* B, const void* Lc, const void* yc, void* L,
+                         void* Wt, void* y, void* info, void* scratch, int batch, int seg, int b, int k, int kc,
+                         void* stream) {
+  return run<fused_forward_kernel<T, BLOCKED>>(
+      batch, tiles_bytes(3, b, BLOCKED) + stage_bytes(b, kc), stream, (const T*)D, (const T*)C, (const T*)B,
+      (const T*)Lc, (const T*)yc, (T*)L, (T*)Wt, (T*)y, (int*)info, (float*)scratch, seg, b, k, kc);
+}
+
+template <typename T, bool BLOCKED>
+static int factor(const void* D, const void* C, const void* Lc, void* L, void* Wt, void* info, int batch, int seg,
+                  int b, void* stream) {
+  return run<factor_kernel<T, BLOCKED>>(batch, tiles_bytes(3, b, BLOCKED), stream, (const T*)D, (const T*)C,
+                                        (const T*)Lc, (T*)L, (T*)Wt, (int*)info, seg, b);
+}
+
+// route: 0 sweep, 1 blocked (ops/blocktri_small.chain_route)
 extern "C" int capital_bt_fused_forward(int dtype, const void* D, const void* C, const void* B, const void* Lc,
                                         const void* yc, void* L, void* Wt, void* y, void* info, void* scratch,
-                                        int batch, int seg, int b, int k, int kc, void* stream) {
-  if (b < 1 || b > MAX_B || seg < 1 || k < 0 || (k > 0 && (kc < 1 || kc > k))) return -1;
-  const size_t smem = tiles_bytes(3, b) + stage_bytes(b, kc);
-  if (dtype == DT_F32)
-    return run<fused_forward_kernel<float>>(batch, smem, stream, (const float*)D, (const float*)C,
-               (const float*)B, (const float*)Lc, (const float*)yc, (float*)L, (float*)Wt, (float*)y,
-               (int*)info, (float*)scratch, seg, b, k, kc);
-  if (dtype == DT_BF16)
-    return run<fused_forward_kernel<bf16>>(batch, smem, stream, (const bf16*)D, (const bf16*)C,
-               (const bf16*)B, (const bf16*)Lc, (const bf16*)yc, (bf16*)L, (bf16*)Wt, (bf16*)y,
-               (int*)info, (float*)scratch, seg, b, k, kc);
-  return -1;
+                                        int batch, int seg, int b, int k, int kc, int route, void* stream) {
+  if (b < 1 || b > MAX_B || seg < 1 || k < 0 || (k > 0 && (kc < 1 || kc > k)) || route < 0 || route > 1)
+    return -1;
+  auto go = dtype == DT_F32    ? (route ? fused_forward<float, true> : fused_forward<float, false>)
+            : dtype == DT_BF16 ? (route ? fused_forward<bf16, true> : fused_forward<bf16, false>)
+                               : nullptr;
+  return go ? go(D, C, B, Lc, yc, L, Wt, y, info, scratch, batch, seg, b, k, kc, stream) : -1;
 }
 
 extern "C" int capital_bt_factor(int dtype, const void* D, const void* C, const void* Lc, void* L, void* Wt,
-                                 void* info, int batch, int seg, int b, void* stream) {
-  if (b < 1 || b > MAX_B || seg < 1) return -1;
-  const size_t smem = tiles_bytes(3, b);
-  if (dtype == DT_F32)
-    return run<factor_kernel<float>>(batch, smem, stream, (const float*)D, (const float*)C, (const float*)Lc,
-               (float*)L, (float*)Wt, (int*)info, seg, b);
-  if (dtype == DT_BF16)
-    return run<factor_kernel<bf16>>(batch, smem, stream, (const bf16*)D, (const bf16*)C, (const bf16*)Lc,
-               (bf16*)L, (bf16*)Wt, (int*)info, seg, b);
-  return -1;
+                                 void* info, int batch, int seg, int b, int route, void* stream) {
+  if (b < 1 || b > MAX_B || seg < 1 || route < 0 || route > 1) return -1;
+  auto go = dtype == DT_F32    ? (route ? factor<float, true> : factor<float, false>)
+            : dtype == DT_BF16 ? (route ? factor<bf16, true> : factor<bf16, false>)
+                               : nullptr;
+  return go ? go(D, C, Lc, L, Wt, info, batch, seg, b, stream) : -1;
 }
 
 extern "C" int capital_bt_forward_solve(int dtype, const void* L, const void* Wt, const void* B, const void* yc,

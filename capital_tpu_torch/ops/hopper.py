@@ -135,8 +135,9 @@ def counts() -> dict[str, int]:
 
 def route_counts() -> dict[str, dict[str, int]]:
     """Launches of each kernel that has routes, by route ('wgmma', 'wmma',
-    'simt', ...; fused_tail 'block' / 'cluster'); kernels not launched
-    since the last reset are left out."""
+    'simt', ...; fused_tail 'block' / 'cluster'; the chain's factor steps
+    'blocked' / 'sweep'); kernels not launched since the last reset are
+    left out."""
     return {name: dict(k.by_route) for name, k in KERNELS.items() if k.by_route}
 
 

@@ -53,10 +53,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    their plain versions, timed beside their bounds and library calls, at
    the serve latency bucket (8 problems, n=128, 8 right-hand sides, f32)
    and at a throughput batch (8192 problems of n=128; lstsq 2048 of
-   512 x 128), f32 and bf16; potrf and potrs also by their device time
-   from a trace, beside cholesky_ex's and cholesky_solve's; potrs also on
-   the lower factor (bit for bit the upper one's answer) and, at the
-   latency batch, with k = n = 128 (serve's inv) on both uplo;
+   512 x 128), f32 and bf16; potrf, potrs and posv also by their device
+   time from a trace, beside cholesky_ex's, cholesky_solve's and
+   linalg.solve's; posv bit for bit potrs(potrf(A), B), timed beside that
+   pair; potrs also on the lower factor (bit for bit the upper one's
+   answer) and, at the latency batch, with k = n = 128 (serve's inv) on
+   both uplo;
 7. drives the small-N serve path: ragged posv / lstsq / inv requests
    through `batching.bucket_for` -> `pad_operands` -> `assemble` ->
    `api.batched` -> `crop` under impl auto, pallas and pallas_split (and
@@ -94,9 +96,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     factor, forward_solve, solve_backward) against their plain versions:
     chain blocks of 128 with seg = 8 at k = 1, 64, 33 (the arrowhead's
     k + s) and 257 (the Spike interiors' k + 2b), b = 16 at the Spike
-    flagship's k + 2b = 34, 8 and 264 problems, f32 and bf16; timed beside
-    bound, plain version and the library route; NaN, −inf and indefinite
-    blocks injected into one problem;
+    flagship's k + 2b = 34, 8 and 264 problems, f32 and bf16, every factor
+    step's launch on its route (`blocktri_small.chain_route`: 'blocked');
+    timed beside bound, plain version and the library route, the factor
+    steps also by device time; NaN, −inf and indefinite blocks injected
+    into one problem, on both routes of the factor steps ('blocked' and
+    'sweep', bit for bit the same);
 14. drives the structured path through its entry points: blocktri.posv at
     the flagship (64 blocks of 128, f32, one problem, one RHS) under
     'pallas', 'auto' (partitioned) and 'xla' (one run profiled by BT::
@@ -106,7 +111,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     banded.solveh_banded at n = 8192, u = 128 (profiled by BT:: phase),
     and the serve ops posv_blocktri and posv_arrowhead (ragged requests
     through bucketing, auto / pallas / vmap, f64 buckets, a poisoned
-    problem) — each with the drivers' residual gates;
+    problem) — each with the drivers' residual gates, every factor step's
+    launch on the blocked route; then the flagship (64 blocks of 128) and
+    the Spike geometry (64 blocks of 16) on the kernel and library routes
+    in turns, each with a profiled call's idle share;
 15. holds the rank-k update's rotation-sweep kernel against its plain
     version: update and downdate, f32 and bf16, at (8, 128, k) for k = 1,
     8, 64 and (8192, 128, 8), with the f64 residual gate of bench update,
@@ -187,6 +195,8 @@ SMALL_KERNELS = ("small.potrf", "small.potrs", "small.posv", "small.lstsq")
 INV_KERNELS = ("write_diag_blocks", "fused_tail", "small.trsm", "tsqr.panel_qr")
 #: the block-tridiagonal slice's kernels
 BT_KERNELS = ("bt.fused_forward", "bt.factor", "bt.forward_solve", "bt.solve_backward")
+#: the chain's factor steps, whose launches take a route (blocked / sweep)
+CHAIN_ROUTED = ("bt.fused_forward", "bt.factor")
 #: the update / refinement slice's kernel
 UP_KERNELS = ("up.sweep",)
 #: the mesh slice's kernel
@@ -217,10 +227,10 @@ REFINE_FLAGSHIP = (4, 1024, 4)
 #: (posv_blocktri's top nrhs rung), k + s = 33 (the arrowhead flagship's
 #: widened RHS) and k + 2b = 257 (Spike interiors at b = 128); the Spike
 #: flagship's interiors (2 problems x 8 partitions of 7 blocks of 16, k + 2b
-#: = 34); and 264 = 132·2 problems
+#: = 34); and 264 = 132·2 problems (the step's full-wave batch)
 BT_GEOMS = ((8, 8, 128, 1, ("f32", "bf16"), True), (8, 8, 128, 64, ("f32", "bf16"), False),
             (8, 8, 128, 33, ("f32",), False), (8, 8, 128, 257, ("f32", "bf16"), True),
-            (16, 7, 16, 34, ("f32", "bf16"), True), (264, 8, 128, 1, ("f32", "bf16"), False),
+            (16, 7, 16, 34, ("f32", "bf16"), True), (264, 8, 128, 1, ("f32", "bf16"), True),
             (264, 8, 128, 33, ("f32",), True))
 #: phase 14: the blocktri flagship (nblocks, b, batch, nrhs) of Makefile:63,
 #: its throughput batch, the arrowhead flagship's border (Makefile:83), the
@@ -263,6 +273,16 @@ INV_SHAPES = {"write_diag": (96, 512),
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError("FAIL: " + msg)
+
+
+def same_bits(got, want) -> bool:
+    """Bitwise equality with the same NaN pattern (a NaN's payload aside):
+    the blocked kernels against the column sweeps they replaced."""
+    nan = torch.isnan(got)
+    if got.dtype != want.dtype or not torch.equal(nan, torch.isnan(want)):
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int32: torch.int32}[got.dtype]
+    return torch.equal(got.masked_fill(nan, 0).view(view), want.masked_fill(nan, 0).view(view))
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -732,12 +752,20 @@ def f64_factor_phase(cholesky, hopper, grid, residual) -> dict:
     return res
 
 
+#: warm-up pairs (a fill and an add) at the start of every trace (`profile`)
+TRACE_PAD = 32
+
+
 def profile(run, prefix: str, sequence: bool = False) -> dict:
     """One call of `run` under torch.profiler: wall time, device time and
     launches (trace events) by kernel name and device time by phase (scopes
     whose tag starts with `prefix`), and the share of the wall the device
     was idle (no kernel running); with `sequence`, every kernel's name and
-    device time in the order the kernels started."""
+    device time in the order the kernels started.  `records_lost`: the
+    timed call's kernel launches on the host that left no kernel record on
+    the device timeline — late in a long process a trace loses the first of
+    its session's device records (PERF.md §6, PR 15); `complete_profile`
+    takes the trace again."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -746,12 +774,14 @@ def profile(run, prefix: str, sequence: bool = False) -> dict:
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch_profile(activities=acts) as prof:
-        # a trace drops the kernels that start in its first few milliseconds
-        # (none of them, or all three warm-ups, in one run): spend that on
-        # tiny warm-ups, one the port's own, and start the timed call 50 ms
-        # later (their microseconds count as busy, outside the timed
-        # window; `launches` and `first_kernels` show which the trace kept)
-        torch.ones(1, device="cuda").add_(1)
+        # a trace loses the first device records of its session, more of
+        # them the more traces the process has taken (up to seven in
+        # chip_smoke's phase 13; PERF.md §6, PR 15): spend them on
+        # 2·TRACE_PAD + 1 tiny warm-ups, one the port's own, and start the
+        # timed call 50 ms later; only records from 25 ms on are counted
+        # (`first_kernels` shows which warm-ups the trace kept)
+        for _ in range(TRACE_PAD):
+            torch.ones(1, device="cuda").add_(1)
         hopper.zeros_dead_lower(256, torch.float32, 128, device="cuda")
         torch.cuda.synchronize()
         time.sleep(0.05)
@@ -768,18 +798,27 @@ def profile(run, prefix: str, sequence: bool = False) -> dict:
     kernels: dict[str, float] = {}
     launches: dict[str, int] = {}
     spans = []
+    api = traced = 0  # kernel launches after the warm-ups: host calls, device records
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.time_range.end <= e.time_range.start:
+        timed = e.time_range.start >= 25e3  # us; the warm-ups end a few ms in
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            api += timed and e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchCooperative"))
+            continue
+        if e.time_range.end <= e.time_range.start:
             continue
         if getattr(e, "is_user_annotation", False) or e.name in tracing.PHASE_REGISTRY:
             continue  # a scope's range on the device timeline, not a kernel
+        spans.append((e.time_range.start, e.time_range.end, e.name[:40], timed))
+        if not timed:
+            continue  # a warm-up
+        traced += not e.name.startswith(("Memcpy", "Memset"))
         kernels[e.name[:80]] = kernels.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
         launches[e.name[:80]] = launches.get(e.name[:80], 0) + 1
-        spans.append((e.time_range.start, e.time_range.end, e.name[:40]))
     spans.sort()
     # the trace's earliest kernels and their start (ms after the trace's):
     # which warm-ups it kept
-    first = [[name, s / 1e3] for s, _, name in spans[:3]]
+    first = [[name, s / 1e3] for s, _, name, _ in spans[:3]]
+    spans = [(s, e, name) for s, e, name, timed in spans if timed]
     # busy time: the union of kernel intervals on the device timeline
     busy, cur_s, cur_e = 0.0, None, None
     for s, e, _ in spans:
@@ -795,19 +834,60 @@ def profile(run, prefix: str, sequence: bool = False) -> dict:
     out = dict(wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
                idle_share=max(0.0, 1.0 - busy / 1e3 / (wall * 1e3)),
                phases_device_ms=phases, top_kernels_device_ms=top, launches=launches,
-               first_kernels=first)
+               first_kernels=first, records_lost=api - traced)
     if sequence:
         out["sequence"] = [[name, (e - s) / 1e3] for s, e, name in spans]
     return out
 
 
-def device_ms(run, iters: int) -> float:
+def complete_profile(run, prefix: str, tries: int = 3) -> dict:
+    """`profile` taken up to `tries` times, until a trace kept a device
+    record of every launch (`records_lost` 0); the last trace otherwise.
+    `tries`: the traces taken."""
+    for n in range(1, tries + 1):
+        prof = profile(run, prefix)
+        if not prof["records_lost"]:
+            break
+    return dict(prof, tries=n)
+
+
+def device_ms(run, iters: int) -> float | None:
     """Device time per call of the kernels `run` launches, from a
-    torch.profiler trace of `iters` back-to-back calls (`profile`): the
-    kernels the trace saw at least `iters` times, summed, over `iters` (the
-    trace's one-off warm-ups fall out)."""
-    prof = profile(lambda: [run() for _ in range(iters)], "\0")
+    torch.profiler trace of `iters` back-to-back calls that kept every
+    launch (`complete_profile`): the kernels the trace saw at least `iters`
+    times, summed, over `iters` (the trace's one-off warm-ups fall out).
+    None (not measured) when no trace kept them all: late in the whole
+    run, phase 13's traces of five chain-step calls kept only the last one
+    to three (PERF.md §6, PR 15), so the chain rows read `queued_ms` too."""
+    prof = complete_profile(lambda: [run() for _ in range(iters)], "\0")
+    if prof["records_lost"]:
+        return None
     return sum(ms for k, ms in prof["top_kernels_device_ms"].items() if prof["launches"][k] >= iters) / iters
+
+
+def queued_ms(run, iters: int) -> float:
+    """Device time per call of `run` without a trace: CUDA events around
+    `iters` calls queued behind a spin kernel (`torch.cuda._sleep`) that
+    outlasts their launch on the host, so the events read the device's
+    span from the first kernel's start to the last one's end — the host's
+    launch gaps hidden, the short gaps between queued kernels counted.  For
+    a `run` that waits on the device inside (a library call reading info
+    back), the gaps after the wait count too."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)  # twice the host's time at <= 2 GHz
+    start.record()
+    for _ in range(iters):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def check_qr_trace(prof: dict, counts: dict, dtype) -> dict:
@@ -1223,6 +1303,15 @@ def small_kernel_phase(batched_small, size: str, dtype, dev, names=SMALL_KERNELS
         record("small.posv", Xk, Xp, info, infop, lambda: batched_small.posv(A, B),
                lambda: batched_small.posv_plain(A, B),
                (lambda: torch.linalg.solve(A, B)) if f32 else None, (b, n, n, k))
+        # the blocked factor and solves in one block: potrs(potrf(A), B) bit
+        # for bit (bf16 through the f32 factor posv keeps), and its time
+        split = lambda: batched_small.potrs(batched_small.potrf(A.float())[0], B.float())  # noqa: E731
+        check(same_bits(Xk, split().to(dtype)), f"small.posv {dtype}: not potrs(potrf(A), B) bit for bit")
+        res["small.posv"]["device_ms"] = device_ms(lambda: batched_small.posv(A, B), iters)
+        res["small.posv"]["queued_ms"] = queued_ms(lambda: batched_small.posv(A, B), iters)
+        if f32:
+            res["small.posv"]["potrf_potrs_ms"] = time_ms(split, iters)
+            res["small.posv"]["library_device_ms"] = device_ms(lambda: torch.linalg.solve(A, B), iters)
         if size == "throughput" and f32:
             res["small.posv"]["profile"] = profile(lambda: batched_small.posv(A, B), "SV::")
         del Xk, Xp
@@ -1578,6 +1667,11 @@ def drive_counted(hopper, run, want: dict, label: str, route=None, extra_routes=
     check(counts == full, f"{label}: launch counts {counts} != predicted {full}")
     if route is not None:
         check_routes(hopper, counts, route, label, extra_routes)
+    # every chain this script drives has blocks of at most 128: the factor
+    # steps' blocked route (blocktri_small.chain_route)
+    chain = {k: {"blocked": counts[k]} for k in CHAIN_ROUTED if counts[k]}
+    got = {k: v for k, v in hopper.route_counts().items() if k in CHAIN_ROUTED}
+    check(got == chain, f"{label}: chain launches by route {got} != {chain}")
     return out, counts, secs
 
 
@@ -1915,7 +2009,36 @@ def bt_rel(got, want) -> float:
     return float(torch.linalg.norm((g - w).flatten()) / torch.linalg.norm(w.flatten()))
 
 
-def bt_kernel_phase(blocktri_small, blocktri, dev) -> dict:
+def bt_sweep_route(name: str, args):
+    """A factor step on its 'sweep' route (route code 0) through the C entry
+    (the wrapper always takes `chain_route(b)`), uncounted: the wrapper's
+    outputs from the wrapper's arguments ((D, C, B, Lc, yc) or (D, C, Lc))."""
+    from capital_tpu_torch.ops import _build, blocktri_small, hopper
+
+    D, C = args[0], args[1]
+    batch, seg, b, _ = D.shape
+    L, Wt = torch.empty_like(D), torch.empty_like(D)
+    info = torch.empty((batch, seg), dtype=torch.int32, device=D.device)
+    dt = hopper._DTYPE_CODE[D.dtype]
+    if name == "bt.factor":
+        rc = _build.entry("capital_bt_factor")(dt, D.data_ptr(), C.data_ptr(), args[2].data_ptr(), L.data_ptr(),
+                                               Wt.data_ptr(), info.data_ptr(), batch, seg, b, 0,
+                                               hopper._stream())
+        check(rc == 0, f"{name} sweep route: rc {rc}")
+        return L, Wt, info
+    B, Lc, yc = args[2:]
+    k = B.shape[-1]
+    y = torch.empty_like(B)
+    scratch = torch.empty((batch, b, k), dtype=torch.float32, device=D.device)
+    rc = _build.entry("capital_bt_fused_forward")(
+        dt, D.data_ptr(), C.data_ptr(), B.data_ptr(), Lc.data_ptr(), yc.data_ptr(), L.data_ptr(), Wt.data_ptr(),
+        y.data_ptr(), info.data_ptr(), scratch.data_ptr(), batch, seg, b, k,
+        blocktri_small.stage_cols("fused_forward", b, k), 0, hopper._stream())
+    check(rc == 0, f"{name} sweep route: rc {rc}")
+    return L, Wt, y, info
+
+
+def bt_kernel_phase(hopper, blocktri_small, blocktri, dev) -> dict:
     """Phase 13: the four scan-step kernels against their plain versions at
     BT_GEOMS, timed beside bound, plain version and the library route; then
     injected faults, whose per-block info must equal the plain version's."""
@@ -1933,8 +2056,15 @@ def bt_kernel_phase(blocktri_small, blocktri, dev) -> dict:
             tol = 1e-5 if dtype == torch.float32 else 2e-2
             for name, (fn, args) in steps.items():
                 plain = getattr(blocktri_small, fn.__name__ + "_plain")
+                hopper.reset_counts()
                 got, want = fn(*args), plain(*args)
                 torch.cuda.synchronize()
+                if name in CHAIN_ROUTED:
+                    check(hopper.route_counts() == {name: {blocktri_small.chain_route(b): 1}},
+                          f"{name} b={b}: launched by route {hopper.route_counts()}")
+                    swept = bt_sweep_route(name, args)
+                    check(all(same_bits(x, y) for x, y in zip(got, swept)),
+                          f"{name} {batch}x{seg}x{b}x{k} {dtn}: the blocked and sweep routes differ")
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
                 err = 0.0
@@ -1954,13 +2084,16 @@ def bt_kernel_phase(blocktri_small, blocktri, dev) -> dict:
                                                   200, 3),
                         bound=bound_ms(batch * bt_bytes(name, seg, b, k, item), batch * bt_flops(name, seg, b, k),
                                        torch.float32))
+                    if name in CHAIN_ROUTED:
+                        row["device_ms"] = device_ms(lambda: fn(*args), 5)
+                        row["queued_ms"] = queued_ms(lambda: fn(*args), 5)
                 res[f"{name} {batch}x{seg}x{b}x{k} {dtn}"] = row
             del D, C, B, Lc, yc, L, Wt
         torch.cuda.empty_cache()
 
     # faults in problem 3, chain block 2 of 8: per-block info equal to the
     # plain version's, the global pivot (`blocktri._combine`) too, and no
-    # other problem flagged
+    # other problem flagged; L, Wt, y and info the same bits on both routes
     faults = {}
     for dtn in ("f32", "bf16"):
         D, C, B, _, yc = bt_operands(8, 8, 128, 2, DTYPE_BY_NAME[dtn], 70, dev)
@@ -1974,7 +2107,11 @@ def bt_kernel_phase(blocktri_small, blocktri, dev) -> dict:
             else:
                 Df[3, 2] = torch.diag(torch.tensor([1.0] * 40 + [-5.0] + [1.0] * 87, device=dev))
                 Cf[3, 2] = 0
-            ik = blocktri_small.fused_forward_step(Df, Cf, B, Lc, yc)[3]
+            out = blocktri_small.fused_forward_step(Df, Cf, B, Lc, yc)
+            swept = bt_sweep_route("bt.fused_forward", (Df, Cf, B, Lc, yc))
+            check(all(same_bits(x, y) for x, y in zip(out, swept)),
+                  f"fault {fault} {dtn}: the blocked and sweep routes differ")
+            ik = out[3]
             ip = blocktri_small.fused_forward_step_plain(Df, Cf, B, Lc, yc)[3]
             gk, gp = blocktri._combine(ik, 8, 128), blocktri._combine(ip, 8, 128)
             check(torch.equal(ik, ip) and torch.equal(gk, gp),
@@ -2354,6 +2491,25 @@ def structured_phase(hopper, dev) -> dict:
     out["banded_profile"] = profile(lambda: banded.solveh_banded(ab, rhs, lower=True), "BT::")
     print(json.dumps({"profile": "solveh_banded f32", **out["banded_profile"]}), flush=True)
     del ab, abd, rhs, x, x64, Ax, D, C, B
+    torch.cuda.empty_cache()
+
+    # -- the flagship and the Spike geometry on the kernel and library routes,
+    #    in turns, each with one profiled call's idle share ------------------
+    turns = {}
+    for label, (nb, bb, bt, kk) in (("b128", BT_FLAGSHIP), ("b16", BT_SPIKE)):
+        D, C, B = chain_operands(bt, nb, bb, kk, 12, dev)
+        impls = ("pallas", "auto", "xla") if bb == 128 else ("pallas", "partitioned", "xla")
+        runs = {impl: (lambda impl=impl: blocktri.posv(D, C, B, impl=impl)) for impl in impls}
+        t = turns_s(runs, 5, 3)
+        for impl in impls:
+            prof = complete_profile(runs[impl], "BT::")
+            t[impl].update(idle_share=prof["idle_share"], wall_ms=prof["wall_ms"],
+                           device_busy_ms=prof["device_busy_ms"], records_lost=prof["records_lost"],
+                           tries=prof["tries"])
+        turns[label] = dict(nblocks=nb, b=bb, batch=bt, nrhs=kk, **t)
+        del D, C, B
+    out["routes_in_turns"] = turns
+    print(json.dumps({"blocktri": "flagship routes in turns", **turns}), flush=True)
     torch.cuda.empty_cache()
 
     # -- the serve ops -----------------------------------------------------------
@@ -3090,7 +3246,7 @@ def main(argv=None) -> int:
     # ---- phase 13: the blocktri scan-step kernels against plain versions --
     from capital_tpu_torch.models import blocktri
     from capital_tpu_torch.ops import blocktri_small
-    bt = bt_kernel_phase(blocktri_small, blocktri, dev)
+    bt = bt_kernel_phase(hopper, blocktri_small, blocktri, dev)
     for name, r in bt.items():
         if isinstance(r, dict) and "bound" in r:
             b, by = r.pop("bound")

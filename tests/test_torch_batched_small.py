@@ -273,10 +273,30 @@ def test_potrs_working_set_and_envelope():
         for k in (1, 8, n):
             ld, ldy = bs._potrs_lds(n, k)
             assert ld % 4 == 0 and ldy % 4 == 0 and ld >= n and ldy >= k
-    # posv alone would take n = 127, k = 325; potrs' rows round n up to 128
-    assert bs.smem_bytes("posv", 127, 325) <= 232448 - 1024 < bs.smem_bytes("potrs", 127, 325)
+    # posv runs on potrs' tile; the column-sweep posv kernel would have taken
+    # n = 127, k = 325 (n·odd_ld(n) + n·k floats), potrs' rows round n up to 128
+    assert bs.smem_bytes("posv", 127, 325) == bs.smem_bytes("potrs", 127, 325) > 232448 - 1024
+    assert 4 * (127 * 127 + 127 * 325) <= 232448 - 1024
     assert not e("posv", (8, 127, 127), (8, 127, 325)) and not e("inv", (8, 325, 325), None)
     assert e("posv", (8, 128, 128), (8, 128, 323)) and e("inv", (8, 128, 128), None)
+
+
+@pytest.mark.parametrize("n", [1, 7, 33, 128, 160])
+def test_posv_runs_on_the_potrs_layout(n):
+    """posv's kernel holds A, then L and Lᵀ, in potrs' 16-byte-row tile
+    beside the right-hand sides: its working set is potrs', and its
+    envelope the one the column-sweep posv kernel set (both layouts must
+    fit), so no bucket changes route."""
+    e = functools.partial(bs.eligible, dtype=torch.float32, interpret=False)
+    limit = 232448 - 1024
+    for k in (0, 1, 3, 8, 33, n, 200, 323, 324):
+        n4 = (n + 3) // 4 * 4
+        assert bs.smem_bytes("posv", n, k) == bs.smem_bytes("potrs", n, k) == 4 * n4 * sum(bs._potrs_lds(n, k))
+        sweep = 4 * (n * (n + 1 if n % 2 == 0 else n) + n * k)
+        assert e("posv", (8, n, n), (8, n, k)) == (max(sweep, bs.smem_bytes("potrs", n, k)) <= limit)
+    assert e("inv", (8, n, n), None)
+    if n == 128:  # the blocked layout alone would take k = 324
+        assert bs.smem_bytes("posv", 128, 324) <= limit and not e("posv", (8, 128, 128), (8, 128, 324))
 
 
 # ---------------------------------------------------------------------------
@@ -452,7 +472,7 @@ def test_trsm_envelope_and_refusals():
     # one sweep holds the factor and the right-hand sides: posv's envelope
     e = functools.partial(bs.eligible, dtype=torch.float32, interpret=False)
     assert e("trsm", (8, 128, 128), (8, 128, 323)) and not e("trsm", (8, 128, 128), (8, 128, 324))
-    assert bs.smem_bytes("trsm", 128, 8) == bs.smem_bytes("posv", 128, 8)
+    assert bs.smem_bytes("trsm", 128, 8) == 4 * (128 * 129 + 128 * 8)
     with pytest.raises(TypeError):
         bs.trsm(torch.zeros((2, 4, 4), dtype=torch.float64), torch.zeros((2, 4, 1), dtype=torch.float64))
     with pytest.raises(ValueError, match="uplo"):

@@ -175,9 +175,10 @@ def test_envelope_admits_every_ladder_width():
             assert bt.step_eligible(b, k, 8, torch.float32, interpret=False)
             assert bt.default_impl(b, k, 8, torch.bfloat16, interpret=False) == "pallas"
         assert bt.partition_inner_impl(b, 64, 8, torch.float32, interpret=False) == "pallas"
-    assert bt.smem_bytes("factor", 128, 0) == 198_144
-    assert bt.stage_cols("fused_forward", 128, 257) == 32
-    assert bt.smem_bytes("fused_forward", 128, 257) == 198_144 + 32_768
+    # the factor steps' blocked route: three tiles of 128 rows of 132 floats
+    assert bt.smem_bytes("factor", 128, 0) == 202_752
+    assert bt.stage_cols("fused_forward", 128, 257) == 28
+    assert bt.smem_bytes("fused_forward", 128, 257) == 202_752 + 28_672
     assert bt.stage_cols("fused_forward", 64, 64) == 64
     assert bt.stage_cols("solve_backward", 128, 257) == 97
     for kernel in ("factor", "fused_forward", "forward_solve", "solve_backward"):
@@ -192,6 +193,40 @@ def test_envelope_admits_every_ladder_width():
     assert bt.step_eligible(168, 1, 8, torch.float32, interpret=False, kernel="forward_solve")
     assert not bt.step_eligible(168, 1, 8, torch.float32, interpret=False)
     assert bt.default_impl(16, 1, 8, torch.float64, interpret=False) == "xla"
+
+
+#: b -> (route, ld, factor step bytes, fused step stage columns at k = 257)
+CHAIN_LAYOUTS = {2: ("blocked", 4, 4 * 3 * 4 * 4, 257), 7: ("blocked", 12, 4 * 3 * 8 * 12, 257),
+                 16: ("blocked", 20, 4 * 3 * 16 * 20, 257), 128: ("blocked", 132, 202_752, 28),
+                 136: ("blocked", 140, 228_480, 2), 137: ("sweep", 137, 225_228, 5),
+                 138: ("sweep", 139, 230_184, 1)}
+
+
+@pytest.mark.parametrize("b", sorted(CHAIN_LAYOUTS))
+def test_chain_route_and_layout(b):
+    """The factor steps' two routes: 'blocked' (16-byte-row tiles, ld 4 mod
+    8, plus one staged column) up to b = 136, 'sweep' (odd-ld tiles) at 137
+    and 138; smem_bytes and stage_cols mirror the kernel's layout, and the
+    envelope (step_eligible, default_impl) is the same on both sides of
+    the switch."""
+    route, ld, factor_bytes, kc = CHAIN_LAYOUTS[b]
+    assert bt.chain_route(b) == route
+    b4 = (b + 3) // 4 * 4
+    assert (bt._blocked_ld(b) if route == "blocked" else bt._odd_ld(b)) == ld
+    if route == "blocked":
+        assert ld % 4 == 0 and (ld // 4) % 2 == 1 and ld >= b4
+        assert factor_bytes == 4 * 3 * b4 * ld
+    else:
+        assert 4 * (3 * b4 * bt._blocked_ld(b) + 2 * b) > hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+        assert factor_bytes == 4 * 3 * b * ld
+    assert bt.smem_bytes("factor", b, 0) == factor_bytes
+    assert bt.stage_cols("fused_forward", b, 257) == kc
+    assert bt.smem_bytes("fused_forward", b, 257) == factor_bytes + 4 * 2 * b * kc
+    for kernel in ("fused_forward", "factor"):
+        assert bt.step_eligible(b, 1, 8, torch.float32, interpret=False, kernel=kernel)
+        assert bt.default_impl(b, 1, 8, torch.float32, interpret=False, kernel=kernel) == "pallas"
+    # the sweeps keep their odd-ld tiles on both routes
+    assert bt.smem_bytes("forward_solve", b, 1) == 4 * (2 * b * bt._odd_ld(b) + 2 * b)
 
 
 @pytest.mark.parametrize("dt,jdt", [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),

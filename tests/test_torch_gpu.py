@@ -445,6 +445,125 @@ def test_lstsq_rank_deficient_info_matches_plain(cuda):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
+def _same_bits(got, want):
+    """Bitwise equality, NaN included: the same NaN pattern, the same bits
+    everywhere else (a NaN's payload may differ between a kernel's bf16
+    rounding and torch's)."""
+    nan = torch.isnan(got)
+    if got.dtype != want.dtype or not torch.equal(nan, torch.isnan(want)):
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[got.dtype]
+    return torch.equal(got.masked_fill(nan, 0).view(view), want.masked_fill(nan, 0).view(view))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [7, 33, 128])
+@pytest.mark.parametrize("k", [1, 8, 128])
+def test_posv_bitwise_potrf_then_potrs(cuda, n, k, dt):
+    """The fused posv (the blocked factor and solves in one block) against
+    potrs(potrf(A), B) bit for bit — on bf16 storage through the f32 factor
+    (posv keeps its factor in f32, X rounded once), so through potrf and
+    potrs of A and B widened — and info against potrf's and the plain
+    version's, with a fault in four of six problems: NaN below the
+    diagonal, NaN in the upper triangle only, +inf on the last pivot, a
+    negative pivot (past the first panel where n allows)."""
+    A = _spd_batch(80 + n, 6, n, dt, cuda)
+    B = _rand(81 + k, (6, n, k), dt, cuda)
+    A[1, n // 2, n // 3] = float("nan")
+    A[2, 0, n - 1] = float("nan")
+    A[3, n - 1, n - 1] = float("inf")
+    A[4, min(20, n - 1), min(20, n - 1)] = -1.0
+    hopper.reset_counts()
+    X, info = batched_small.posv(A, B)
+    assert hopper.counts()["small.posv"] == 1
+    Af, Bf = A.float(), B.float()
+    R, info_r = batched_small.potrf(Af)
+    assert _same_bits(X, batched_small.potrs(R, Bf).to(X.dtype))
+    assert torch.equal(info, info_r) and torch.equal(info, batched_small.posv_plain(A, B)[1])
+    assert not info[[0, 5]].any() and bool(info[1:5].all())
+
+
+@pytest.mark.parametrize("b", [16, 37, 128, 138])
+def test_blocktri_factor_step_is_potrf_and_trsm(cuda, b):
+    """factor_step on its route (`chain_route`: 'blocked' up to b = 136,
+    'sweep' at 138): with C = 0 and the identity carried, L is
+    `small.potrf`'s lower factor of D bit for bit; with a carried factor
+    Lc, Wt is `small.trsm`'s forward solve Lc⁻¹·Cᵀ bit for bit."""
+    D, C, _, Lc, _ = _bt_operands(90 + b, 3, 2, b, 1, "f32", cuda)
+    eye = torch.eye(b, device=cuda).expand(3, b, b).contiguous()
+    hopper.reset_counts()
+    L, Wt, info = blocktri_small.factor_step(D, torch.zeros_like(C), eye)
+    for s in range(2):
+        R, info_r = batched_small.potrf(D[:, s].contiguous(), uplo="L")
+        assert _same_bits(L[:, s], R) and torch.equal(info[:, s], info_r)
+    assert not Wt.any() and not info.any()
+    _, Wt1, _ = blocktri_small.factor_step(D[:, :1], C[:, :1], Lc)
+    assert _same_bits(Wt1[:, 0], batched_small.trsm(Lc, C[:, 0].mT.contiguous(), uplo="L"))
+    assert hopper.route_counts()["bt.factor"] == {blocktri_small.chain_route(b): 2}
+
+
+def _bt_step_c(name, code, D, C, Lc, B=None, yc=None):
+    """One factor step through its C entry on route `code` (0 'sweep', 1
+    'blocked'; the wrapper always takes `chain_route(b)`), uncounted:
+    (L, Wt, [y,] info) as the wrapper returns them."""
+    batch, seg, b, _ = D.shape
+    L, Wt = torch.empty_like(D), torch.empty_like(D)
+    info = torch.empty((batch, seg), dtype=torch.int32, device=D.device)
+    dt = hopper._DTYPE_CODE[D.dtype]
+    if name == "factor":
+        rc = _build.entry("capital_bt_factor")(dt, D.data_ptr(), C.data_ptr(), Lc.data_ptr(), L.data_ptr(),
+                                               Wt.data_ptr(), info.data_ptr(), batch, seg, b, code,
+                                               hopper._stream())
+        assert rc == 0, rc
+        return L, Wt, info
+    k = B.shape[-1]
+    y = torch.empty_like(B)
+    scratch = torch.empty((batch, b, k), dtype=torch.float32, device=D.device)
+    rc = _build.entry("capital_bt_fused_forward")(
+        dt, D.data_ptr(), C.data_ptr(), B.data_ptr(), Lc.data_ptr(), yc.data_ptr(), L.data_ptr(), Wt.data_ptr(),
+        y.data_ptr(), info.data_ptr(), scratch.data_ptr(), batch, seg, b, k,
+        blocktri_small.stage_cols("fused_forward", b, k), code, hopper._stream())
+    assert rc == 0, rc
+    return L, Wt, y, info
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b", [37, 128])
+@pytest.mark.parametrize("fault", ["none", "nan", "-inf", "indefinite", "nan_coupling"])
+def test_blocktri_routes_bitwise(cuda, fault, b, dt):
+    """Both factor steps on their 'blocked' route (the wrappers) and on the
+    'sweep' route (the C entries with route code 0) give the same L, Wt, y
+    and info bit for bit, on healthy chains and with a fault in problem 1's
+    second chain block: a non-finite S takes the column sweep at once, an
+    indefinite one after chol_blocked gives up (S formed again); the blocks
+    after it carry the reference's NaN pattern.  b = 37 runs the padded
+    tile and the scalar transposed load."""
+    D, C, B, Lc, yc = _bt_operands(95, 3, 4, b, 3, dt, cuda)
+    if fault == "nan":
+        D[1, 1, 5, 7] = float("nan")
+    elif fault == "-inf":
+        D[1, 1, 0, 0] = -float("inf")
+    elif fault == "indefinite":
+        D[1, 1] = torch.diag(torch.tensor([1.0] * 20 + [-5.0] + [1.0] * (b - 21), device=cuda))
+        C[1, 1] = 0
+    elif fault == "nan_coupling":
+        C[1, 1, 9, 4] = float("nan")
+    D, C, B, Lc, yc = (x.contiguous() for x in (D, C, B, Lc, yc))
+    hopper.reset_counts()
+    fused = {"blocked": blocktri_small.fused_forward_step(D, C, B, Lc, yc),
+             "sweep": _bt_step_c("fused_forward", 0, D, C, Lc, B, yc)}
+    fac = {"blocked": blocktri_small.factor_step(D, C, Lc), "sweep": _bt_step_c("factor", 0, D, C, Lc)}
+    for out in (fused, fac):
+        for got, want in zip(out["blocked"], out["sweep"]):
+            assert torch.equal(got, want) if got.dtype == torch.int32 else _same_bits(got, want)
+    assert torch.equal(fused["blocked"][3], fac["blocked"][2])
+    assert torch.equal(fused["blocked"][3], blocktri_small.fused_forward_step_plain(D, C, B, Lc, yc)[3])
+    info = fused["blocked"][3]
+    assert bool(info[1, 1]) == (fault != "none") and not info[1, 0] and not info[[0, 2]].any()
+    routes = hopper.route_counts()
+    assert routes["bt.fused_forward"] == routes["bt.factor"] == {"blocked": 1}
+
+
 def test_small_counters_move_only_on_launch(cuda):
     A = _spd_batch(38, 4, 16, "f32", cuda)
     B = _rand(39, (4, 16, 2), "f32", cuda)
