@@ -64,14 +64,14 @@ SIGNATURES = {
     "capital_fused_tail": ("fused_tail.cu", [_I, _P, _LL, _P, _P, _LL, _P, _P, _I, _I, _I, _P]),
     "capital_tsqr_panel": ("tsqr.cu", [_I, _P, _P, _P, _I, _I, _I, _P]),
     "capital_bt_fused_forward": (
-        "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "capital_bt_factor": ("blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "capital_bt_forward_solve": (
-        "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "capital_bt_solve_backward": (
-        "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "capital_up_sweep": ("update_small.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _D, _P]),
     "capital_sched_matmul": (

@@ -42,22 +42,30 @@ non-finite values); the models layer min-combines it to a global pivot.
 Shared memory (`smem_bytes`): the (b, b) tiles are resident in f32 and the
 right-hand sides stream through a stage of `stage_cols` columns (columns
 are independent), with the carried y_{i−1} / x_{i+1} kept in f32 in a
-device-memory scratch between blocks.  So every RHS width fits beside the
-tiles, and the envelope is one of b alone.
+device-memory scratch between blocks, or in the stage itself where a
+block's columns fit one chunk (the solve steps' 'blocked' route).  So every
+RHS width fits beside the tiles, and the envelope is one of b alone.
 
-The factor steps run on one of two routes (`chain_route`, tallied in
-`hopper.route_counts()`): 'blocked' up to b = 136 — 16-byte-row tiles, Wt
-by the blocked forward solve, S −= Wtᵀ·Wt in 4 x 4 register tiles,
-potrf's blocked factor (`chol_blocked`), the column sweep only for a
-faulted block — and 'sweep' (odd-ld tiles and the column sweeps) for
-b = 137 and 138.  Both apply the sweeps' operations in the sweeps' order,
-so they compute the same bits.
+Every step runs on one of two routes (`chain_route`, tallied in
+`hopper.route_counts()`).  'blocked': 16-byte-row tiles, Wt by the blocked
+forward solve, S −= Wtᵀ·Wt in 4 x 4 register tiles, potrf's blocked factor
+(`chol_blocked`, the column sweep only for a faulted block); the coupling
+products of the right-hand sides in 4 x 4 register tiles and their
+triangular solves blocked (`fwd_blocked`, `bwd_upper_blocked`); the RHS
+columns of the solve steps and the fused step split over `rhs_splits`
+CUDA blocks a problem, so that a small batch fills the SMs.  'sweep':
+odd-ld tiles and the column sweeps, one CUDA block a problem — b = 137
+and 138 for the factor steps, 165 to 169 for the solve steps.  Both apply
+the sweeps' operations in the sweeps' order, so they compute the same
+bits, and a split changes none.
 
 `block` (the JAX kernels' static column unroll) is validated and changes
 nothing here; `precision` is IEEE f32 either way.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -67,22 +75,33 @@ from capital_tpu_torch.ops.batched_small import _resolve_block
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 #: resident (b, b) f32 tiles per kernel: the carried factor, Wt and the
-#: Schur complement for the factor steps; L and Wt for the sweeps
+#: Schur complement for the factor steps; L and Wt for the solve steps
 _TILES = {"fused_forward": 3, "factor": 3, "forward_solve": 2, "solve_backward": 2}
-#: the factor steps, which take the blocked route where its tiles fit
+#: the factor steps, whose blocked route keeps three tiles
 _FACTOR_KERNELS = ("fused_forward", "factor")
+#: the kernels whose right-hand-side columns split over CUDA blocks on the
+#: blocked route (`rhs_splits`); the fused step's split blocks each run the
+#: factor recurrence again, on SMs the batch leaves idle
+_SPLIT_KERNELS = ("fused_forward", "forward_solve", "solve_backward")
 #: the C entries' route codes (csrc/blocktri_small.cu)
 _ROUTE_CODE = {"sweep": 0, "blocked": 1}
+#: streaming multiprocessors of the card the column split fills (H100 SXM)
+SMS = 132
 
 
 def _odd_ld(b: int) -> int:
     return b + 1 if b % 2 == 0 else b
 
 
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
 def _blocked_ld(b: int) -> int:
     """The blocked route's leading dimension (csrc chain_ld): round4(b)
-    floats (16-byte rows), plus 4 when that makes it 4 mod 8."""
-    b4 = (b + 3) // 4 * 4
+    floats (16-byte rows), plus 4 when that makes it 4 mod 8.  A stage of
+    kc columns takes `_blocked_ld(kc)` too."""
+    b4 = _round4(b)
     return b4 if (b4 // 4) % 2 else b4 + 4
 
 
@@ -90,58 +109,115 @@ def _budget() -> int:
     return hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
 
 
-def chain_route(b: int) -> str:
-    """The route the factor steps (fused_forward_step, factor_step) take
-    for chain blocks of order b on the card, tallied in
-    `hopper.route_counts()`: 'blocked' (16-byte-row tiles: Wt by
-    fwd_blocked, S −= Wtᵀ·Wt in register tiles, chol_blocked) where its
-    three tiles of round4(b) rows of `_blocked_ld(b)` floats and one staged
-    right-hand-side column fit a block — b <= 136 — else 'sweep' (odd-ld
-    tiles, the column sweeps), which takes b up to 138.  Both compute the
-    same bits."""
-    b4 = (b + 3) // 4 * 4
-    return "blocked" if 4 * (3 * b4 * _blocked_ld(b) + 2 * b) <= _budget() else "sweep"
-
-
-def _tile_floats(kernel: str, b: int) -> int:
-    if kernel in _FACTOR_KERNELS and chain_route(b) == "blocked":
-        return 3 * ((b + 3) // 4 * 4) * _blocked_ld(b)
-    return _TILES[kernel] * b * _odd_ld(b)
-
-
-def stage_cols(kernel: str, b: int, k: int) -> int:
-    """RHS columns one chunk of the stage holds: all k when they fit beside
-    the tiles, else as many as fit (0 for the factor step, which has no
-    right-hand side)."""
-    if kernel == "factor" or k == 0:
-        return 0
-    room = _budget() - 4 * _tile_floats(kernel, b)
-    return max(0, min(k, room // (8 * b)))
-
-
-def smem_bytes(kernel: str, b: int, k: int) -> int:
-    """Dynamic shared memory of one block of `kernel` for chain blocks of
-    order b with k right-hand sides: the resident f32 tiles and a
-    two-buffer RHS stage (the chunk being solved and the carried chunk of
-    the neighbouring block) of kc = stage_cols columns.  The factor steps
-    on their 'blocked' route (`chain_route`) keep three tiles of round4(b)
-    rows of ld = `_blocked_ld(b)` floats (16-byte rows for register-tiled
-    products); the sweeps, and the factor steps on the 'sweep' route, keep
-    tiles of b rows with an odd ld (b + 1 for even b) so column walks are
-    free of bank conflicts.
-
-    factor          4·3·round4(b)·ld       (L_{i−1}, Wt, S → L_i; 'sweep':
-                                            4·3·b·odd_ld)
-    fused_forward   the same + 4·2·b·kc
-    forward_solve   4·(2·b·odd_ld + 2·b·kc)   (L_i, Wt_i)
-    solve_backward  4·(2·b·odd_ld + 2·b·kc)   (L_i, Wt_{i+1})
-
-    At b = 128 the factor steps' tiles take 202,752 bytes (ld 132) and the
-    fused step's stage 28 columns (28,672 bytes); b = 64 takes k = 64
-    whole."""
+def _kernel(kernel: str) -> str:
     if kernel not in _TILES:
         raise ValueError(f"unknown blocktri_small kernel {kernel!r}")
-    return 4 * (_tile_floats(kernel, b) + 2 * b * stage_cols(kernel, b, k))
+    return kernel
+
+
+def _blocked_tile(b: int) -> int:
+    """Floats of one blocked-route tile: round4(b) rows of `_blocked_ld(b)`."""
+    return _round4(b) * _blocked_ld(b)
+
+
+def _blocked_stage(b: int, kc: int) -> int:
+    """Floats of the blocked route's RHS stage: two buffers (the columns
+    being solved, the carried neighbour) of round4(b) rows of
+    `_blocked_ld(kc)` floats."""
+    return 2 * _round4(b) * _blocked_ld(kc)
+
+
+def chain_route(b: int, kernel: str = "factor") -> str:
+    """The route `kernel` takes for chain blocks of order b on the card,
+    tallied in `hopper.route_counts()`: 'blocked' where its 16-byte-row
+    tiles and a stage of one 4-column group fit a block, else 'sweep' (odd-ld
+    tiles, the column sweeps).  Both compute the same bits.
+
+    * the factor steps (fused_forward, factor): three tiles and one staged
+      column — b <= 136; 'sweep' takes b up to 138;
+    * the solve steps (forward_solve, solve_backward): two tiles and a
+      stage of round4(b) x 4 floats twice — b <= 164; 'sweep' takes b up to
+      169."""
+    if _kernel(kernel) in _FACTOR_KERNELS:
+        return "blocked" if 4 * (3 * _blocked_tile(b) + 2 * b) <= _budget() else "sweep"
+    return "blocked" if 4 * (2 * _blocked_tile(b) + _blocked_stage(b, 4)) <= _budget() else "sweep"
+
+
+def rhs_splits(kernel: str, batch: int, b: int, k: int) -> int:
+    """CUDA blocks a problem's k right-hand-side columns split over on the
+    card: enough that batch·splits fills the card's `SMS` SMs, with no
+    block narrower than one 4-column register-tile group (splits <= k // 4);
+    1 for a batch that fills them alone, for the factor step, and on the
+    'sweep' route (one block a problem).  Block s of problem p takes
+    columns [s·k // splits, (s+1)·k // splits); the fused step's blocks each
+    run the factor recurrence too, and only block 0 stores L, Wt and info.
+    At the partitioned flagship's interiors (8 problems, k = 257, b = 128)
+    16, at the Spike flagship's (16 problems, k = 34, b = 16) 8."""
+    if _kernel(kernel) not in _SPLIT_KERNELS or chain_route(b, kernel) != "blocked" or batch < 1:
+        return 1
+    return max(1, min(k // 4, SMS // batch))
+
+
+def _stage_cols(kernel: str, b: int, k: int, splits: int, route: str) -> int:
+    """`stage_cols` on `route`'s layout (a check that runs the other route
+    through the C entry sizes its stage with this)."""
+    if _kernel(kernel) == "factor" or k == 0:
+        return 0
+    want = -(-k // splits)
+    if route == "blocked":
+        # two tiles, then the stage (which the fused step lays over L_{i−1}'s
+        # tile and past it): round4(b) rows of at most `lds` floats, twice
+        lds = (_budget() // 4 - 2 * _blocked_tile(b)) // (2 * _round4(b))
+        g = lds // 4  # the widest stage ld is 4·g if g is odd, else 4·(g − 1)
+        return max(0, min(want, 4 * g if g % 2 else 4 * (g - 1)))
+    room = _budget() - 4 * _TILES[kernel] * b * _odd_ld(b)
+    return max(0, min(want, room // (8 * b)))
+
+
+def stage_cols(kernel: str, b: int, k: int, splits: int = 1) -> int:
+    """RHS columns one chunk of the stage holds: all of a CUDA block's
+    ceil(k / splits) columns when they fit beside the tiles, else as many as
+    fit (0 for the factor step, which has no right-hand side), on the
+    layout of `chain_route(b, kernel)`."""
+    return _stage_cols(kernel, b, k, splits, chain_route(b, kernel))
+
+
+def _smem_bytes(kernel: str, b: int, k: int, splits: int, route: str) -> int:
+    """`smem_bytes` on `route`'s layout."""
+    kc = _stage_cols(kernel, b, k, splits, route)
+    if route == "blocked":
+        tile = _blocked_tile(b)
+        if kernel == "factor":
+            return 4 * 3 * tile
+        stage = _blocked_stage(b, kc)
+        return 4 * (2 * tile + (max(tile, stage) if kernel == "fused_forward" else stage))
+    return 4 * (_TILES[kernel] * b * _odd_ld(b) + 2 * b * kc)
+
+
+def smem_bytes(kernel: str, b: int, k: int, splits: int = 1) -> int:
+    """Dynamic shared memory of one CUDA block of `kernel` for chain blocks
+    of order b with k right-hand sides split `splits` ways, on the route
+    `chain_route(b, kernel)` picks, with kc = `stage_cols` and tile =
+    round4(b)·ld floats, ld = `_blocked_ld(b)` (16-byte rows for
+    register-tiled products):
+
+    'blocked'
+      factor          4·3·tile                   (L_{i−1}, Wt, S → L_i)
+      fused_forward   4·(2·tile + max(tile, 2·round4(b)·_blocked_ld(kc)))
+                      (Wt, S → L_i, then L_{i−1} or the stage over it)
+      forward_solve   4·(2·tile + 2·round4(b)·_blocked_ld(kc))  (L_iᵀ, Wt_i)
+      solve_backward  the same                                (L_i, Wt_{i+1}ᵀ)
+    'sweep' (b rows of odd_ld(b) floats, so column walks are free of bank
+    conflicts)
+      factor          4·3·b·odd_ld
+      fused_forward   the same + 4·2·b·kc
+      forward_solve   4·(2·b·odd_ld + 2·b·kc)
+      solve_backward  the same
+
+    At b = 128 the tiles take 67,584 bytes each (ld 132): the factor step
+    202,752, the fused step the same at k = 1 and 229,376 at k = 257
+    (kc = 92), the solve steps 139,264 at k = 1 and 229,376 at k = 257."""
+    return _smem_bytes(kernel, b, k, splits, chain_route(b, _kernel(kernel)))
 
 
 def _fits(kernel: str, b: int, k: int) -> bool:
@@ -229,13 +305,25 @@ def _kernel_gate(name: str, kernel: str, b: int, k: int) -> None:
         )
 
 
-def _launch(name: str, *args, route: str | None = None) -> None:
-    """Launch capital_bt_<name>; a factor step gets its route's code as
-    the last argument before the stream, and its launch is tallied by
-    route."""
-    code = () if route is None else (_ROUTE_CODE[route],)
-    rc = _build.entry("capital_bt_" + name)(*args, *code, hopper._stream())
+def _launch(name: str, *args, route: str) -> None:
+    """Launch capital_bt_<name> with its route's code as the last argument
+    before the stream, and tally the launch by route."""
+    rc = _build.entry("capital_bt_" + name)(*args, _ROUTE_CODE[route], hopper._stream())
     hopper._launched(rc, hopper.KERNELS["bt." + name], route)
+
+
+@functools.lru_cache(maxsize=256)
+def _rhs_launch(kernel: str, batch: int, b: int, k: int):
+    """(route, splits, kc, needs_scratch) of a launch of a kernel with right-hand
+    sides, by the rules: the scratch is needed unless every CUDA block's
+    columns fit one chunk on the solve steps' blocked route (the carry then
+    stays in the stage).  Cached: a launch's host time is part of every
+    small chain's wall."""
+    route = chain_route(b, kernel)
+    splits = rhs_splits(kernel, batch, b, k)
+    kc = stage_cols(kernel, b, k, splits)
+    resident = kernel in _SPLIT_KERNELS and route == "blocked" and -(-k // splits) <= kc
+    return route, splits, kc, not resident
 
 
 # --------------------------------------------------------------------------
@@ -337,6 +425,17 @@ def _c(*tensors):
     return [t.contiguous() for t in tensors]
 
 
+def _solve_launch(kernel, L, Wt, B, carry, out):
+    """One launch of a solve step on contiguous operands, on its route and
+    column split by the rules."""
+    batch, seg, b, k = B.shape
+    route, splits, kc, needs_scratch = _rhs_launch(kernel, batch, b, k)
+    scratch = torch.empty((batch, b, k), dtype=torch.float32, device=B.device) if needs_scratch else None
+    _launch(kernel, hopper._DTYPE_CODE[B.dtype], L.data_ptr(), Wt.data_ptr(), B.data_ptr(),
+            carry.data_ptr(), out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), batch, seg,
+            b, k, kc, splits, route=route)
+
+
 def fused_forward_step(D, C, B, Lc, yc, *, block: int = 0, precision: str | None = "highest"):
     """FUSED factor + forward-solve scan step: for each of `seg` chain
     blocks, factor S_i and consume L_i at once for y_i =
@@ -347,8 +446,8 @@ def fused_forward_step(D, C, B, Lc, yc, *, block: int = 0, precision: str | None
     carried forward solution (0 before block 1).  Returns (L, Wt, y,
     info): per-block factors, transposed sub-diagonal factors, forward
     solutions and per-block potrf info (batch, seg) int32.  On the card the
-    launch takes `chain_route(b)` ('blocked' or 'sweep', the same bits),
-    tallied in `hopper.route_counts()`."""
+    launch takes `chain_route(b, "fused_forward")` ('blocked' or 'sweep',
+    the same bits), tallied in `hopper.route_counts()`."""
     batch, seg, b, _ = D.shape
     k = B.shape[-1]
     _check_steps("fused_forward_step", [("D", D), ("C", C)],
@@ -364,10 +463,11 @@ def fused_forward_step(D, C, B, Lc, yc, *, block: int = 0, precision: str | None
     info = torch.empty((batch, seg), dtype=torch.int32, device=D.device)
     scratch = torch.empty((batch, b, k), dtype=torch.float32, device=D.device)
     if batch and seg:
+        route, splits, kc, _ = _rhs_launch("fused_forward", batch, b, k)
         _launch("fused_forward", hopper._DTYPE_CODE[D.dtype], D.data_ptr(), C.data_ptr(),
                 B.data_ptr(), Lc.data_ptr(), yc.data_ptr(), L.data_ptr(), Wt.data_ptr(),
-                y.data_ptr(), info.data_ptr(), scratch.data_ptr(), batch, seg, b, k,
-                stage_cols("fused_forward", b, k), route=chain_route(b))
+                y.data_ptr(), info.data_ptr(), scratch.data_ptr(), batch, seg, b, k, kc, splits,
+                route=route)
     return L, Wt, y, info
 
 
@@ -387,14 +487,16 @@ def factor_step(D, C, Lc, *, block: int = 0, precision: str | None = "highest"):
     info = torch.empty((batch, seg), dtype=torch.int32, device=D.device)
     if batch and seg:
         _launch("factor", hopper._DTYPE_CODE[D.dtype], D.data_ptr(), C.data_ptr(), Lc.data_ptr(),
-                L.data_ptr(), Wt.data_ptr(), info.data_ptr(), batch, seg, b, route=chain_route(b))
+                L.data_ptr(), Wt.data_ptr(), info.data_ptr(), batch, seg, b, route=chain_route(b, "factor"))
     return L, Wt, info
 
 
 def forward_solve_step(L, Wt, B, yc, *, block: int = 0, precision: str | None = "highest"):
     """Forward block-bidiagonal sweep from a ready factor: for each of
     `seg` blocks, y_i = L_i⁻¹(b_i − Wt_iᵀ·y_{i−1}).  Returns y
-    (batch, seg, b, k)."""
+    (batch, seg, b, k).  On the card the launch takes
+    `chain_route(b, "forward_solve")` and `rhs_splits` CUDA blocks a
+    problem (the same bits either way), tallied in `hopper.route_counts()`."""
     batch, seg, b, _ = L.shape
     k = B.shape[-1]
     _check_steps("forward_solve_step", [("L", L), ("Wt", Wt)], [("yc", yc, (batch, b, k))], b)
@@ -406,11 +508,8 @@ def forward_solve_step(L, Wt, B, yc, *, block: int = 0, precision: str | None = 
     _kernel_gate("forward_solve_step", "forward_solve", b, k)
     L, Wt, B, yc = _c(L, Wt, B, yc)
     y = torch.empty_like(B)
-    scratch = torch.empty((batch, b, k), dtype=torch.float32, device=B.device)
     if batch and seg and k:
-        _launch("forward_solve", hopper._DTYPE_CODE[B.dtype], L.data_ptr(), Wt.data_ptr(),
-                B.data_ptr(), yc.data_ptr(), y.data_ptr(), scratch.data_ptr(), batch, seg, b, k,
-                stage_cols("forward_solve", b, k))
+        _solve_launch("forward_solve", L, Wt, B, yc, y)
     return y
 
 
@@ -419,7 +518,8 @@ def solve_backward_step(L, Wtn, Y, xc, *, block: int = 0, precision: str | None 
     inside the step: x_i = L_i⁻ᵀ(y_i − Wt_{i+1}·x_{i+1}).  `Wtn` is Wt
     shifted down one block (Wtn[:, s] = Wt of chain block s+1; zeros past
     the chain end) and `xc` carries x_{i+1} of the block after this step's
-    last (0 past the chain end).  Returns x (batch, seg, b, k)."""
+    last (0 past the chain end).  Returns x (batch, seg, b, k), on its
+    route and column split as in `forward_solve_step`."""
     batch, seg, b, _ = L.shape
     k = Y.shape[-1]
     _check_steps("solve_backward_step", [("L", L), ("Wtn", Wtn)], [("xc", xc, (batch, b, k))], b)
@@ -431,9 +531,6 @@ def solve_backward_step(L, Wtn, Y, xc, *, block: int = 0, precision: str | None 
     _kernel_gate("solve_backward_step", "solve_backward", b, k)
     L, Wtn, Y, xc = _c(L, Wtn, Y, xc)
     x = torch.empty_like(Y)
-    scratch = torch.empty((batch, b, k), dtype=torch.float32, device=Y.device)
     if batch and seg and k:
-        _launch("solve_backward", hopper._DTYPE_CODE[Y.dtype], L.data_ptr(), Wtn.data_ptr(),
-                Y.data_ptr(), xc.data_ptr(), x.data_ptr(), scratch.data_ptr(), batch, seg, b, k,
-                stage_cols("solve_backward", b, k))
+        _solve_launch("solve_backward", L, Wtn, Y, xc, x)
     return x

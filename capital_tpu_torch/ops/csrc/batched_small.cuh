@@ -333,17 +333,48 @@ __device__ int chol_blocked(float* S, int ld, int n) {
 // y_j = Y[j]/d_j, then Y[i] −= U[i][j]·y_j for i < j — bwd_sweep's
 // operations in its order.  FULL (w == NB, every panel but a narrow last
 // one) unrolls every bound on w away (see fwd_blocked's `full_panels`).
-template <bool FULL>
+// LOWER reads U[i][j] from Uᵀ in S's lower triangle (S[j·ld + i]) instead,
+// and reads ahead: the block's divisors all at once, and row j − 1 of Uᵀ
+// (16-byte loads) while y_j divides, so the column's dependent chain waits
+// on no shared-memory load (read in the chain's order, the loads of a row
+// sat between two divisions).
+template <bool FULL, bool LOWER = false>
 __device__ __forceinline__ void bwd_diag_column(const float* S, int ld, int k0, int w, float* col, int ldy) {
   float y[NB];
 #pragma unroll
   for (int i = 0; i < NB; ++i) y[i] = FULL || i < w ? col[(k0 + i) * ldy] : 0.f;
+  if constexpr (LOWER) {
+    float d[NB], v[NB / 4][4], vn[NB / 4][4];
 #pragma unroll
-  for (int j = NB - 1; j >= 0; --j) {
-    if (!FULL && j >= w) continue;
-    y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
+    for (int j = 0; j < NB; ++j) d[j] = FULL || j < w ? safe_div(S[(k0 + j) * ld + k0 + j]) : 1.f;
+    const int top = FULL ? NB - 1 : w - 1;
 #pragma unroll
-    for (int i = 0; i < j; ++i) y[i] = fmaf(-S[(k0 + i) * ld + k0 + j], y[j], y[i]);
+    for (int q = 0; q < NB / 4; ++q)
+      if (4 * q < top) unpack4(v[q], ld4(S + (k0 + top) * ld + k0 + 4 * q));
+#pragma unroll
+    for (int j = NB - 1; j >= 0; --j) {
+      if (!FULL && j >= w) continue;
+      if (j > 0) {  // row j − 1 of Uᵀ: U[i][j − 1] for i < j − 1
+#pragma unroll
+        for (int q = 0; q < NB / 4; ++q)
+          if (4 * q < j - 1) unpack4(vn[q], ld4(S + (k0 + j - 1) * ld + k0 + 4 * q));
+      }
+      y[j] = y[j] / d[j];
+#pragma unroll
+      for (int i = 0; i < j; ++i) y[i] = fmaf(-v[i / 4][i % 4], y[j], y[i]);
+#pragma unroll
+      for (int q = 0; q < NB / 4; ++q)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) v[q][t] = vn[q][t];
+    }
+  } else {
+#pragma unroll
+    for (int j = NB - 1; j >= 0; --j) {
+      if (!FULL && j >= w) continue;
+      y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
+#pragma unroll
+      for (int i = 0; i < j; ++i) y[i] = fmaf(-S[(k0 + i) * ld + k0 + j], y[j], y[i]);
+    }
   }
 #pragma unroll
   for (int i = 0; i < NB; ++i)
@@ -538,25 +569,57 @@ __device__ __forceinline__ void mirror_lower(float* S, int ld, int n) {
 // fwd_blocked's diagonal step on one column `col` of Y (rows k0 .. k0 + w,
 // stride ldy): y_j = Y[j]/d_j, then Y[i] −= L[i][j]·y_j for i > j, L read
 // from the rows of Lᵀ.  FULL (w == NB) unrolls every bound on w away.
-template <bool FULL>
+// AHEAD reads the block's divisors all at once and row j + 1 of Lᵀ while
+// y_j divides (see bwd_diag_column's LOWER); the arithmetic is the same.
+template <bool FULL, bool AHEAD = false>
 __device__ __forceinline__ void fwd_diag_column(const float* S, int ld, int k0, int w, float* col, int ldy) {
   const int w4 = round4(w);
   float y[NB];
 #pragma unroll
   for (int i = 0; i < NB; ++i) y[i] = FULL || i < w ? col[(k0 + i) * ldy] : 0.f;
+  if constexpr (AHEAD) {
+    float d[NB], v[NB / 4][4], vn[NB / 4][4];
 #pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    if (!FULL && j >= w) break;
-    y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
-    const float* lt = S + (k0 + j) * ld + k0;  // L[k0 + i][k0 + j] at column k0 + i
+    for (int j = 0; j < NB; ++j) d[j] = FULL || j < w ? safe_div(S[(k0 + j) * ld + k0 + j]) : 1.f;
 #pragma unroll
-    for (int q = (j + 1) / 4; q < NB / 4; ++q) {
-      if (!FULL && 4 * q >= w4) break;
-      float v[4];
-      unpack4(v, ld4(lt + 4 * q));
+    for (int q = 0; q < NB / 4; ++q)
+      if (FULL || 4 * q < w4) unpack4(v[q], ld4(S + k0 * ld + k0 + 4 * q));
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-        if (4 * q + t > j) y[4 * q + t] = fmaf(-v[t], y[j], y[4 * q + t]);
+    for (int j = 0; j < NB; ++j) {
+      if (!FULL && j >= w) break;
+      if (j + 1 < (FULL ? NB : w)) {  // row j + 1 of Lᵀ: L[k0 + i][k0 + j + 1] at column k0 + i
+#pragma unroll
+        for (int q = (j + 2) / 4; q < NB / 4; ++q)
+          if (FULL || 4 * q < w4) unpack4(vn[q], ld4(S + (k0 + j + 1) * ld + k0 + 4 * q));
+      }
+      y[j] = y[j] / d[j];
+#pragma unroll
+      for (int q = (j + 1) / 4; q < NB / 4; ++q) {
+        if (!FULL && 4 * q >= w4) break;
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (4 * q + t > j) y[4 * q + t] = fmaf(-v[q][t], y[j], y[4 * q + t]);
+      }
+#pragma unroll
+      for (int q = 0; q < NB / 4; ++q)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) v[q][t] = vn[q][t];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (!FULL && j >= w) break;
+      y[j] = y[j] / safe_div(S[(k0 + j) * ld + k0 + j]);
+      const float* lt = S + (k0 + j) * ld + k0;  // L[k0 + i][k0 + j] at column k0 + i
+#pragma unroll
+      for (int q = (j + 1) / 4; q < NB / 4; ++q) {
+        if (!FULL && 4 * q >= w4) break;
+        float v[4];
+        unpack4(v, ld4(lt + 4 * q));
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (4 * q + t > j) y[4 * q + t] = fmaf(-v[t], y[j], y[4 * q + t]);
+      }
     }
   }
 #pragma unroll
@@ -579,7 +642,9 @@ __device__ __forceinline__ void fwd_diag_column(const float* S, int ld, int k0, 
 // three-blocks-an-SM register cap and a third of its time
 // (probes/potrs_variants.py); lstsq, at one block an SM, keeps the single
 // copy, whose second one would take it to 255 registers and spills.
-template <bool full_panels = false>
+// `ahead`: the diagonal step reads its loads ahead of the dependent chain
+// (fwd_diag_column's AHEAD; the chain's solve steps, at one block an SM).
+template <bool full_panels = false, bool ahead = false>
 __device__ void fwd_blocked(const float* S, int ld, int n, float* Y1, int ld1, int nc1, float* Y2 = nullptr,
                             int ld2 = 0, int nc2 = 0) {
   const int n4 = round4(n), cg1 = round4(nc1) / 4, cg = cg1 + round4(nc2) / 4;
@@ -588,8 +653,8 @@ __device__ void fwd_blocked(const float* S, int ld, int n, float* Y1, int ld1, i
     for (int c = threadIdx.x; c < nc1 + nc2; c += NT) {
       float* col = c < nc1 ? Y1 + c : Y2 + c - nc1;
       const int ldy = c < nc1 ? ld1 : ld2;
-      if (full_panels && w == NB) fwd_diag_column<true>(S, ld, k0, w, col, ldy);
-      else fwd_diag_column<false>(S, ld, k0, w, col, ldy);
+      if (full_panels && w == NB) fwd_diag_column<true, ahead>(S, ld, k0, w, col, ldy);
+      else fwd_diag_column<false, ahead>(S, ld, k0, w, col, ldy);
     }
     __syncthreads();
     const int t0 = k0 + NB;
@@ -625,15 +690,18 @@ __device__ void fwd_blocked(const float* S, int ld, int n, float* Y1, int ld1, i
 // descending — bwd_sweep's operations in bwd_sweep's order.  With
 // `lower_rows` S also holds Uᵀ in its lower triangle, and the tiles read a
 // column of U as a 16-byte load of a row of Uᵀ (four scalar loads that
-// share two banks otherwise); `full_panels` as in fwd_blocked.
-template <bool lower_rows = false, bool full_panels = false>
+// share two banks otherwise); `full_panels` as in fwd_blocked.  With
+// `diag_lower` too the diagonal blocks read U from Uᵀ as well, so only S's
+// lower triangle is read: L as the chain stores it, U = Lᵀ; their loads
+// then run ahead of the dependent chain (bwd_diag_column's LOWER).
+template <bool lower_rows = false, bool full_panels = false, bool diag_lower = false>
 __device__ void bwd_upper_blocked(const float* S, int ld, int n, float* Y, int ldy, int nc) {
   const int cg = round4(nc) / 4;
   for (int k0 = (n - 1) / NB * NB; k0 >= 0; k0 -= NB) {
     const int w = min(NB, n - k0);
     for (int c = threadIdx.x; c < nc; c += NT) {
-      if (full_panels && w == NB) bwd_diag_column<true>(S, ld, k0, w, Y + c, ldy);
-      else bwd_diag_column<false>(S, ld, k0, w, Y + c, ldy);
+      if (full_panels && w == NB) bwd_diag_column<true, diag_lower>(S, ld, k0, w, Y + c, ldy);
+      else bwd_diag_column<false, diag_lower>(S, ld, k0, w, Y + c, ldy);
     }
     __syncthreads();
     if (k0 == 0) break;

@@ -8,46 +8,62 @@
 // the carried diagonal factor L_{i−1} stays on chip from one chain block to
 // the next inside the launch.
 //
-// Per chain block i (f32, all in shared memory), the factor steps on their
-// two routes (ops/blocktri_small.chain_route picks one before the launch):
-//                      blocked (b <= 136)            sweep (b = 137, 138)
+// Per chain block i (f32, all in shared memory), every step on one of two
+// routes (ops/blocktri_small.chain_route picks one per kernel before the
+// launch):
+//                      blocked                       sweep
 //   Wt = L_{i−1}⁻¹·Cᵀ  Cᵀ by 4 x 4 register tiles,   Cᵀ an index read,
 //                      fwd_blocked                   fwd_sweep
 //   S  = D − Wtᵀ·Wt    4 x 4 register tiles of the   a dot product a thread
 //                      lower half, mirrored (the full S feeds info)
 //   L_i, info = chol(S) chol_blocked; on a fault      chol_sweep
 //                      chol_sweep, S formed again
-//   y_i = L_i⁻¹(b_i − Wtᵀ·y_{i−1})               (fused, forward_solve)
+//   y_i = L_i⁻¹(b_i − Wtᵀ·y_{i−1})    (fused, forward_solve)
 //   x_i = L_i⁻ᵀ(y_i − Wt_{i+1}·x_{i+1}), descending      (solve_backward)
+//                      the coupling product in 4 x 4  a dot product a
+//                      register tiles (`couple`),     thread and entry,
+//                      fwd_blocked / bwd_upper_blocked fwd_sweep / bwd_sweep
+//                      on 16-byte-row stages
 // Both routes apply the column sweeps' operations in the sweeps' order
-// (batched_small.cuh), so their L, Wt and info are bitwise the same, info
-// follows the JAX kernel's convention exactly and identity blocks factor and
-// solve exactly.  The blocked route keeps L_i in both triangles (Lᵀ above
-// the diagonal), so the next block's fwd_blocked reads rows.
+// (batched_small.cuh), so their L, Wt, y, x and info are bitwise the same,
+// info follows the JAX kernel's convention exactly and identity blocks factor
+// and solve exactly.  The blocked factor route keeps L_i in both triangles
+// (Lᵀ above the diagonal), so the next block's fwd_blocked reads rows.
 //
 // Shared memory, as capital_tpu_torch/ops/blocktri_small.smem_bytes
-// computes it: three tiles for the factor steps (L_{i−1}, Wt, S → L_i; the
-// L tile and the S tile swap roles after every block) — on the blocked
-// route round4(b) rows of chain_ld(b) floats (16-byte rows, ld ≡ 4 mod 8,
-// zero padding), on the sweep route b rows of odd_ld(b) — two odd-ld tiles
-// for the sweeps (L_i, Wt), and a stage of 2·b·kc floats for the
-// right-hand sides: the chunk being solved and the carried chunk of the
-// neighbouring block.  Right-hand-side columns are independent, so they
-// stream through the stage kc at a time, and the f32 carry between chain
-// blocks lives in a device-memory scratch (batch, b, k) that the wrapper
-// allocates (read back by the same block after a barrier).  At b = 128
-// the blocked route's three tiles take 202,752 bytes and leave room for
-// kc = 28; every width k fits that way.
+// computes it.  Blocked route: tiles of round4(b) rows of chain_ld(b) floats
+// (16-byte rows, ld ≡ 4 mod 8, zero padding) — three for the factor steps
+// (L_{i−1}, Wt, S → L_i), two for the solve steps (L_i, Wt) — and a stage of
+// two round4(b)-row buffers of chain_ld(kc) floats for the right-hand sides
+// (the columns being solved and the carried neighbour y_{i−1} / x_{i+1}).
+// The fused step lays its stage over the dead L_{i−1} tile and what lies
+// past it (the factor is done with L_{i−1} when the stage fills), so at
+// k = 1 it takes no more than the factor step.  Sweep route: b rows of
+// odd_ld(b) (three tiles for the factor steps, two for the solve steps) and
+// a stage of 2·b·kc floats.  Right-hand-side columns are independent, so
+// they stream through the stage kc at a time, and the f32 carry between
+// chain blocks lives in a device-memory scratch (batch, b, k) that the
+// wrapper allocates (read back by the same block after a barrier) — except
+// on the solve steps' blocked route where a block's columns fit one chunk:
+// the carry then stays in the stage from one chain block to the next.
+//
+// Column split (blocked route): the grid is (batch, splits), and block
+// (p, s) takes columns [s·k/splits, (s+1)·k/splits) of problem p through
+// every chain block (ops/blocktri_small.rhs_splits picks splits so that
+// the batch fills the SMs).  The fused step's split blocks each run the
+// factor recurrence again and only split 0 stores L, Wt and info.  The
+// columns are independent, so a split changes no bit.
 //
 // What bounds them on the card: at the flagship (batch 1, 64 blocks of 128)
 // one SM walks the chain alone, so the time is each block's dependent
 // chain — on the blocked route three barriers a 16-column panel of the
-// factor and two of Wt's solve, on the sweep route one or two a column —
-// far from both the bytes bound (the operands are read once) and the f32
-// operations bound.  A batch of problems (or the partitioned driver's
-// folded interiors) fills more SMs.  Not done yet: tensor cores for Wtᵀ·Wt
-// and the Wt solve, a cluster per problem, the RHS sweeps (forward_rhs,
-// the solve steps) on the blocked solves.
+// factor and two of each triangular solve, on the sweep route one or two a
+// column — far from both the bytes bound (the operands are read once) and
+// the f32 operations bound.  A batch of problems, the partitioned driver's
+// folded interiors, or the column split fills more SMs.  Not done yet:
+// tensor cores for Wtᵀ·Wt and the Wt solve, a cluster per problem.
+
+#include <algorithm>
 
 #include "batched_small.cuh"
 
@@ -297,7 +313,8 @@ __device__ void load_carry(float* P, int ld, const T* Lc, int b) {
   __syncthreads();
 }
 
-// The forward sweep of one chain block over every RHS column, kc at a time:
+// The fused step's right-hand sides on the sweep route: the forward column
+// sweep of one chain block over every RHS column, kc at a time:
 // y = Lt⁻¹(rhs − Wᵀ·yprev), yprev from `first_carry` (the launch's carry, at
 // dtype) or from the f32 scratch `carry`; y goes to `carry` and `out`.
 template <typename T>
@@ -330,22 +347,22 @@ __device__ void forward_rhs(const float* Lt, const float* W, int ld, const T* rh
   }
 }
 
-template <typename T, bool BLOCKED>
-__global__ void __launch_bounds__(NT) fused_forward_kernel(const T* D, const T* C, const T* B, const T* Lc,
-                                                           const T* yc, T* L, T* Wt, T* y, int* info,
-                                                           float* scratch, int seg, int b, int k, int kc) {
+template <typename T>
+__global__ void __launch_bounds__(NT) fused_forward_sweep_kernel(const T* D, const T* C, const T* B, const T* Lc,
+                                                                 const T* yc, T* L, T* Wt, T* y, int* info,
+                                                                 float* scratch, int seg, int b, int k, int kc) {
   extern __shared__ float4 smem4[];
-  const int ld = chain_ld(b, BLOCKED), rows = chain_rows(b, BLOCKED);
+  const int ld = chain_ld(b, false), rows = chain_rows(b, false);
   float* P = reinterpret_cast<float*>(smem4);
   float* W = P + rows * ld;
   float* S = W + rows * ld;
   float* R = S + rows * ld;
   float* Yp = R + b * kc;
   const long long p = blockIdx.x, bb = (long long)b * b, bk = (long long)b * k;
-  load_carry<T, BLOCKED>(P, ld, Lc + p * bb, b);
+  load_carry<T, false>(P, ld, Lc + p * bb, b);
   for (int s = 0; s < seg; ++s) {
     const long long blk = p * seg + s;
-    const int inf = factor_block<T, BLOCKED>(P, W, S, ld, D + blk * bb, C + blk * bb, b);
+    const int inf = factor_block_sweep(P, W, S, ld, D + blk * bb, C + blk * bb, b);
     store_tile(L + blk * bb, S, ld, b, true);
     store_tile(Wt + blk * bb, W, ld, b, false);
     if (threadIdx.x == 0) info[blk] = inf;
@@ -355,6 +372,177 @@ __global__ void __launch_bounds__(NT) fused_forward_kernel(const T* D, const T* 
     float* t = P;
     P = S;
     S = t;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The right-hand sides on the blocked route: stages of round4(b) rows of
+// lds = chain_ld(kc) floats (16-byte rows), the coupling product in 4 x 4
+// register tiles and the blocked triangular solves of batched_small.cuh.
+// ---------------------------------------------------------------------------
+
+// w columns from column c0 of one problem's two (b, k) row-major blocks —
+// the right-hand side and the carried neighbour — into two stages (b rows
+// of lds floats), widened to f32: four entries of each in flight a thread
+// before their stores; `src2` null skips the second
+template <typename T1, typename T2>
+__device__ void stage_in2(float* dst1, const T1* src1, float* dst2, const T2* src2, int lds, int k, int c0, int w,
+                          int b) {
+  const int n = b * w;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 4 * NT) {
+    float v[4], u[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = e0 + q * NT, r = e / w;
+      const long long g = (long long)r * k + c0 + e - r * w;
+      if (e < n) {
+        v[q] = widen(src1[g]);
+        if (src2) u[q] = widen(src2[g]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = e0 + q * NT, r = e / w;
+      if (e < n) {
+        dst1[r * lds + e - r * w] = v[q];
+        if (src2) dst2[r * lds + e - r * w] = u[q];
+      }
+    }
+  }
+}
+
+// the stage's w columns out to columns c0.. of `out` (rounded once to T)
+// and, where `carry` is given, to the f32 scratch
+template <typename T>
+__device__ void stage_out(T* out, float* carry, const float* R, int lds, int k, int c0, int w, int b) {
+  for (int e = threadIdx.x; e < b * w; e += NT) {
+    const int r = e / w, c = e - r * w;
+    const long long g = (long long)r * k + c0 + c;
+    const float v = R[r * lds + c];
+    out[g] = Cast<T>::from(v);
+    if (carry) carry[g] = v;
+  }
+}
+
+// R −= Aᵀ·Y on the stage (b live rows, w columns): register tiles of R of
+// RT rows by 4 columns, A read by rows (A[l][r0..r0+RT)) and Y by rows.
+// Each accumulator starts at 0, takes fmaf(A[l][r], Y[l][c], acc) for l
+// ascending and is subtracted once — the sweep route's dot product,
+// contracted — so R is bitwise the same.  The forward step passes A = Wt_i
+// as stored (Rᵢ −= Wt_iᵀ·y_{i−1}), the backward one A = Wt_{i+1}ᵀ
+// (Rᵢ −= Wt_{i+1}·x_{i+1}).  Padding rows and columns compute values nobody
+// reads.
+template <int RT>
+__device__ __forceinline__ void couple_tiles(const float* A, int ld, const float* Y, float* R, int lds, int b,
+                                             int w) {
+  const int cg = round4(w) / 4, tiles = round4(b) / RT * cg;
+  for (int e = threadIdx.x; e < tiles; e += NT) {
+    const int r0 = RT * (e / cg), c0 = 4 * (e % cg);
+    float acc[RT][4];
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+#pragma unroll 4
+    for (int l = 0; l < b; ++l) {
+      float a[4], y[4];
+      if constexpr (RT == 4) unpack4(a, ld4(A + l * ld + r0));
+      else a[0] = A[l * ld + r0];
+      unpack4(y, ld4(Y + l * lds + c0));
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(a[r], y[q], acc[r][q]);
+    }
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float v[4];
+      unpack4(v, ld4(R + (r0 + r) * lds + c0));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] -= acc[r][q];
+      st4(R + (r0 + r) * lds + c0, v);
+    }
+  }
+}
+
+// 4 x 4 tiles (two 16-byte loads per 16 FMAs), or 1 x 4 where 4 x 4 tiles
+// would leave three quarters of the threads idle (w <= 4 at b = 128: one
+// warp, 128 dependent steps, against four warps)
+__device__ void couple(const float* A, int ld, const float* Y, float* R, int lds, int b, int w) {
+  if (round4(b) * (round4(w) / 4) <= NT) couple_tiles<1>(A, ld, Y, R, lds, b, w);
+  else couple_tiles<4>(A, ld, Y, R, lds, b, w);
+}
+
+// floats [0, n) of shared memory zeroed, 16 bytes a store (n % 4 == 0)
+__device__ __forceinline__ void zero_smem(float* S, int n) {
+  for (int e = threadIdx.x; e < n / 4; e += NT) reinterpret_cast<float4*>(S)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// this block's columns of its problem: [lo, hi) of k, split `splits` ways
+__device__ __forceinline__ void split_cols(int k, int splits, int& lo, int& hi) {
+  lo = (int)((long long)blockIdx.y * k / splits);
+  hi = (int)((long long)(blockIdx.y + 1) * k / splits);
+}
+
+// The fused step's right-hand sides of one chain block on the blocked
+// route: columns [lo, hi) kc at a time, y = L_i⁻¹(rhs − Wtᵀ·yprev) with
+// yprev from `first` (the launch's carry, at T) or the f32 scratch `carry`;
+// y goes to `carry` and `out`.  Out of line, so the factor's registers and
+// the stage's are allocated apart (inlined into the kernel they spilled).
+template <typename T>
+__device__ __noinline__ void fused_rhs(const float* S, const float* W, int ld, float* R, float* Yp, int lds,
+                                       const T* rhs, const T* first, float* carry, T* out, int k, int lo, int hi,
+                                       int kc, int b) {
+  for (int c0 = lo; c0 < hi; c0 += kc) {
+    const int w = min(kc, hi - c0);
+    if (first) stage_in2(R, rhs, Yp, first, lds, k, c0, w, b);
+    else stage_in2(R, rhs, Yp, (const float*)carry, lds, k, c0, w, b);
+    __syncthreads();
+    couple(W, ld, Yp, R, lds, b, w);
+    __syncthreads();
+    fwd_blocked<true, true>(S, ld, b, R, lds, w);
+    stage_out(out, carry, R, lds, k, c0, w, b);
+    __syncthreads();  // the next chunk overwrites the stage; the carry is in
+  }
+}
+
+// The fused step on the blocked route.  Layout: W, S, then L_{i−1} (P);
+// once factor_block_blocked has consumed L_{i−1}, the RHS stage (R, then
+// Yp) takes P's place and what lies past it, and at the chain block's end
+// L_i is copied from S into P.  The carry goes through the scratch.
+template <typename T>
+__global__ void __launch_bounds__(NT) fused_forward_blocked_kernel(const T* D, const T* C, const T* B, const T* Lc,
+                                                                   const T* yc, T* L, T* Wt, T* y, int* info,
+                                                                   float* scratch, int seg, int b, int k, int kc,
+                                                                   int splits) {
+  extern __shared__ float4 smem4[];
+  const int ld = chain_ld(b, true), rows = chain_rows(b, true), lds = chain_ld(kc, true);
+  float* W = reinterpret_cast<float*>(smem4);
+  float* S = W + rows * ld;
+  float* P = S + rows * ld;
+  float* R = P;
+  float* Yp = P + rows * lds;
+  const long long p = blockIdx.x, bb = (long long)b * b, bk = (long long)b * k;
+  int lo, hi;
+  split_cols(k, splits, lo, hi);
+  const bool owner = blockIdx.y == 0;
+  float* carry = scratch + p * bk;
+  zero_smem(W, 2 * rows * ld);  // W's and S's padding stays zero from here on
+  load_factor_both(P, ld, Lc + p * bb, b, 0);
+  __syncthreads();
+  for (int s = 0; s < seg; ++s) {
+    const long long blk = p * seg + s;
+    const int inf = factor_block_blocked(P, W, S, ld, D + blk * bb, C + blk * bb, b);
+    if (owner) {
+      store_tile(L + blk * bb, S, ld, b, true);
+      store_tile(Wt + blk * bb, W, ld, b, false);
+      if (threadIdx.x == 0) info[blk] = inf;
+    }
+    fused_rhs(S, W, ld, R, Yp, lds, B + blk * bk, s == 0 ? yc + p * bk : nullptr, carry, y + blk * bk, k, lo, hi,
+              kc, b);
+    for (int e = threadIdx.x; e < rows * ld / 4; e += NT)  // L_i carried on
+      reinterpret_cast<float4*>(P)[e] = reinterpret_cast<const float4*>(S)[e];
+    __syncthreads();
   }
 }
 
@@ -445,6 +633,65 @@ __global__ void __launch_bounds__(NT) solve_backward_kernel(const T* L, const T*
   }
 }
 
+// The solve steps on the blocked route (FORWARD: forward_solve, else
+// solve_backward, chain blocks descending).  Layout: the factor tile Lf,
+// the coupling tile A, the stage R and the carried neighbour Yn.
+//   forward    Lf = L_iᵀ (fwd_blocked reads L from the rows of Lᵀ and
+//              nothing else), A = Wt_i as stored
+//   backward   Lf = L_i as stored (bwd_upper_blocked reads U = Lᵀ from its
+//              lower triangle only), A = Wt_{i+1}ᵀ
+// (the transposed loads keep their shared-memory stores contiguous, where
+// the factor steps' both-triangle load would conflict 16 ways)
+// A block whose columns fit one chunk keeps the carry in the stage (R and
+// Yn swap roles after every chain block); else each chunk reads and writes
+// it through the scratch.
+template <typename T, bool FORWARD>
+__global__ void __launch_bounds__(NT) solve_blocked_kernel(const T* L, const T* Wt, const T* B, const T* carry0,
+                                                           T* out, float* scratch, int seg, int b, int k, int kc,
+                                                           int splits) {
+  extern __shared__ float4 smem4[];
+  const int ld = chain_ld(b, true), rows = chain_rows(b, true), lds = chain_ld(kc, true);
+  float* Lf = reinterpret_cast<float*>(smem4);
+  float* A = Lf + rows * ld;
+  float* R = A + rows * ld;
+  float* Yn = R + rows * lds;
+  const long long p = blockIdx.x, bb = (long long)b * b, bk = (long long)b * k;
+  int lo, hi;
+  split_cols(k, splits, lo, hi);
+  const bool resident = hi - lo <= kc;
+  float* carry = resident ? nullptr : scratch + p * bk;
+  zero_smem(Lf, 2 * rows * (ld + lds));  // the padding stays zero from here on
+  __syncthreads();
+  for (int t = 0; t < seg; ++t) {
+    const long long blk = p * seg + (FORWARD ? t : seg - 1 - t);
+    if constexpr (FORWARD) {
+      load_tile_t4(Lf, ld, L + blk * bb, b);
+      load_rows(A, ld, Wt + blk * bb, b);
+    } else {
+      load_rows(Lf, ld, L + blk * bb, b);
+      load_tile_t4(A, ld, Wt + blk * bb, b);
+    }
+    for (int c0 = lo; c0 < hi; c0 += kc) {
+      const int w = min(kc, hi - c0);
+      if (t == 0) stage_in2(R, B + blk * bk, Yn, carry0 + p * bk, lds, k, c0, w, b);
+      else stage_in2(R, B + blk * bk, Yn, resident ? nullptr : (const float*)carry, lds, k, c0, w, b);
+      __syncthreads();
+      couple(A, ld, Yn, R, lds, b, w);
+      __syncthreads();
+      if constexpr (FORWARD) fwd_blocked<true, true>(Lf, ld, b, R, lds, w);
+      else bwd_upper_blocked<true, true, true>(Lf, ld, b, R, lds, w);
+      stage_out(out + blk * bk, carry, R, lds, k, c0, w, b);
+      if (resident) {  // the result is the next block's carry; nobody reads
+        float* r = R;  // Yn (the new R) again before the next barrier
+        R = Yn;
+        Yn = r;
+      } else {
+        __syncthreads();  // the next chunk overwrites the stage; the carry is in
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // C entries: return the cudaError_t of the launch (0 = launched), -1 for
 // arguments the kernels do not take.  Chain operands are contiguous
@@ -453,12 +700,12 @@ __global__ void __launch_bounds__(NT) solve_backward_kernel(const T* L, const T*
 // ---------------------------------------------------------------------------
 
 template <auto Kernel, typename... Args>
-static int run(int batch, size_t smem, void* stream, Args... args) {
-  if (smem > SMEM_MAX || batch < 1) return -1;
+static int run(dim3 grid, size_t smem, void* stream, Args... args) {
+  if (smem > SMEM_MAX || grid.x < 1 || grid.y < 1 || grid.y > 65535) return -1;
   static const cudaError_t attr =
       cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
   if (attr != cudaSuccess) return (int)attr;
-  Kernel<<<batch, NT, smem, (cudaStream_t)stream>>>(args...);
+  Kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -466,34 +713,76 @@ static size_t tiles_bytes(int ntiles, int b, bool blocked = false) {
   return sizeof(float) * (size_t)ntiles * chain_rows(b, blocked) * chain_ld(b, blocked);
 }
 
+// the sweep route's stage: the chunk and the carried chunk, b x kc each
 static size_t stage_bytes(int b, int kc) { return sizeof(float) * 2 * (size_t)b * kc; }
 
-template <typename T, bool BLOCKED>
+// the blocked route's stage: two buffers of round4(b) rows of chain_ld(kc)
+static size_t blocked_stage_bytes(int b, int kc) {
+  return sizeof(float) * 2 * (size_t)chain_rows(b, true) * chain_ld(kc, true);
+}
+
+// the column split takes 1 <= splits <= k (no block without a column)
+static bool split_ok(int k, int splits) { return splits >= 1 && splits <= (k > 0 ? k : 1); }
+
+template <typename T>
 static int fused_forward(const void* D, const void* C, const void* B, const void* Lc, const void* yc, void* L,
                          void* Wt, void* y, void* info, void* scratch, int batch, int seg, int b, int k, int kc,
-                         void* stream) {
-  return run<fused_forward_kernel<T, BLOCKED>>(
-      batch, tiles_bytes(3, b, BLOCKED) + stage_bytes(b, kc), stream, (const T*)D, (const T*)C, (const T*)B,
-      (const T*)Lc, (const T*)yc, (T*)L, (T*)Wt, (T*)y, (int*)info, (float*)scratch, seg, b, k, kc);
+                         int splits, bool blocked, void* stream) {
+  if (!blocked) {
+    if (splits != 1) return -1;
+    return run<fused_forward_sweep_kernel<T>>(
+        dim3(batch), tiles_bytes(3, b) + stage_bytes(b, kc), stream, (const T*)D, (const T*)C, (const T*)B,
+        (const T*)Lc, (const T*)yc, (T*)L, (T*)Wt, (T*)y, (int*)info, (float*)scratch, seg, b, k, kc);
+  }
+  // two tiles, then L_{i−1}'s tile or the stage laid over it, whichever is larger
+  const size_t smem = tiles_bytes(2, b, true) + std::max(tiles_bytes(1, b, true), blocked_stage_bytes(b, kc));
+  return run<fused_forward_blocked_kernel<T>>(
+      dim3(batch, splits), smem, stream, (const T*)D, (const T*)C, (const T*)B, (const T*)Lc, (const T*)yc,
+      (T*)L, (T*)Wt, (T*)y, (int*)info, (float*)scratch, seg, b, k, kc, splits);
 }
 
 template <typename T, bool BLOCKED>
 static int factor(const void* D, const void* C, const void* Lc, void* L, void* Wt, void* info, int batch, int seg,
                   int b, void* stream) {
-  return run<factor_kernel<T, BLOCKED>>(batch, tiles_bytes(3, b, BLOCKED), stream, (const T*)D, (const T*)C,
-                                        (const T*)Lc, (T*)L, (T*)Wt, (int*)info, seg, b);
+  return run<factor_kernel<T, BLOCKED>>(dim3(batch), tiles_bytes(3, b, BLOCKED), stream, (const T*)D,
+                                        (const T*)C, (const T*)Lc, (T*)L, (T*)Wt, (int*)info, seg, b);
 }
 
-// route: 0 sweep, 1 blocked (ops/blocktri_small.chain_route)
+// A solve step (FORWARD: forward_solve, else solve_backward) on its route.
+// The blocked route's scratch may be null when every block's columns fit
+// one chunk (the carry then stays in the stage).
+template <typename T, bool FORWARD>
+static int solve_step(const void* L, const void* Wt, const void* B, const void* carry0, void* out, void* scratch,
+                      int batch, int seg, int b, int k, int kc, int splits, bool blocked, void* stream) {
+  if (!blocked) {
+    if (splits != 1 || !scratch) return -1;
+    const size_t smem = tiles_bytes(2, b) + stage_bytes(b, kc);
+    if constexpr (FORWARD)
+      return run<forward_solve_kernel<T>>(dim3(batch), smem, stream, (const T*)L, (const T*)Wt, (const T*)B,
+                                          (const T*)carry0, (T*)out, (float*)scratch, seg, b, k, kc);
+    else
+      return run<solve_backward_kernel<T>>(dim3(batch), smem, stream, (const T*)L, (const T*)Wt, (const T*)B,
+                                           (const T*)carry0, (T*)out, (float*)scratch, seg, b, k, kc);
+  }
+  if (!scratch && (k + splits - 1) / splits > kc) return -1;
+  const size_t smem = tiles_bytes(2, b, true) + blocked_stage_bytes(b, kc);
+  return run<solve_blocked_kernel<T, FORWARD>>(dim3(batch, splits), smem, stream, (const T*)L, (const T*)Wt,
+                                               (const T*)B, (const T*)carry0, (T*)out, (float*)scratch, seg, b, k,
+                                               kc, splits);
+}
+
+// route: 0 sweep, 1 blocked (ops/blocktri_small.chain_route); splits: the
+// column split of the blocked route (ops/blocktri_small.rhs_splits), 1 on
+// the sweep route
 extern "C" int capital_bt_fused_forward(int dtype, const void* D, const void* C, const void* B, const void* Lc,
                                         const void* yc, void* L, void* Wt, void* y, void* info, void* scratch,
-                                        int batch, int seg, int b, int k, int kc, int route, void* stream) {
-  if (b < 1 || b > MAX_B || seg < 1 || k < 0 || (k > 0 && (kc < 1 || kc > k)) || route < 0 || route > 1)
+                                        int batch, int seg, int b, int k, int kc, int splits, int route,
+                                        void* stream) {
+  if (b < 1 || b > MAX_B || seg < 1 || k < 0 || (k > 0 && (kc < 1 || kc > k)) || route < 0 || route > 1 ||
+      !split_ok(k, splits))
     return -1;
-  auto go = dtype == DT_F32    ? (route ? fused_forward<float, true> : fused_forward<float, false>)
-            : dtype == DT_BF16 ? (route ? fused_forward<bf16, true> : fused_forward<bf16, false>)
-                               : nullptr;
-  return go ? go(D, C, B, Lc, yc, L, Wt, y, info, scratch, batch, seg, b, k, kc, stream) : -1;
+  auto go = dtype == DT_F32 ? fused_forward<float> : dtype == DT_BF16 ? fused_forward<bf16> : nullptr;
+  return go ? go(D, C, B, Lc, yc, L, Wt, y, info, scratch, batch, seg, b, k, kc, splits, route == 1, stream) : -1;
 }
 
 extern "C" int capital_bt_factor(int dtype, const void* D, const void* C, const void* Lc, void* L, void* Wt,
@@ -507,28 +796,16 @@ extern "C" int capital_bt_factor(int dtype, const void* D, const void* C, const 
 
 extern "C" int capital_bt_forward_solve(int dtype, const void* L, const void* Wt, const void* B, const void* yc,
                                         void* y, void* scratch, int batch, int seg, int b, int k, int kc,
-                                        void* stream) {
-  if (b < 1 || seg < 1 || k < 1 || kc < 1 || kc > k) return -1;
-  const size_t smem = tiles_bytes(2, b) + stage_bytes(b, kc);
-  if (dtype == DT_F32)
-    return run<forward_solve_kernel<float>>(batch, smem, stream, (const float*)L, (const float*)Wt,
-               (const float*)B, (const float*)yc, (float*)y, (float*)scratch, seg, b, k, kc);
-  if (dtype == DT_BF16)
-    return run<forward_solve_kernel<bf16>>(batch, smem, stream, (const bf16*)L, (const bf16*)Wt,
-               (const bf16*)B, (const bf16*)yc, (bf16*)y, (float*)scratch, seg, b, k, kc);
-  return -1;
+                                        int splits, int route, void* stream) {
+  if (b < 1 || seg < 1 || k < 1 || kc < 1 || kc > k || route < 0 || route > 1 || !split_ok(k, splits)) return -1;
+  auto go = dtype == DT_F32 ? solve_step<float, true> : dtype == DT_BF16 ? solve_step<bf16, true> : nullptr;
+  return go ? go(L, Wt, B, yc, y, scratch, batch, seg, b, k, kc, splits, route == 1, stream) : -1;
 }
 
 extern "C" int capital_bt_solve_backward(int dtype, const void* L, const void* Wtn, const void* Y,
                                          const void* xc, void* x, void* scratch, int batch, int seg, int b, int k,
-                                         int kc, void* stream) {
-  if (b < 1 || seg < 1 || k < 1 || kc < 1 || kc > k) return -1;
-  const size_t smem = tiles_bytes(2, b) + stage_bytes(b, kc);
-  if (dtype == DT_F32)
-    return run<solve_backward_kernel<float>>(batch, smem, stream, (const float*)L, (const float*)Wtn,
-               (const float*)Y, (const float*)xc, (float*)x, (float*)scratch, seg, b, k, kc);
-  if (dtype == DT_BF16)
-    return run<solve_backward_kernel<bf16>>(batch, smem, stream, (const bf16*)L, (const bf16*)Wtn,
-               (const bf16*)Y, (const bf16*)xc, (bf16*)x, (float*)scratch, seg, b, k, kc);
-  return -1;
+                                         int kc, int splits, int route, void* stream) {
+  if (b < 1 || seg < 1 || k < 1 || kc < 1 || kc > k || route < 0 || route > 1 || !split_ok(k, splits)) return -1;
+  auto go = dtype == DT_F32 ? solve_step<float, false> : dtype == DT_BF16 ? solve_step<bf16, false> : nullptr;
+  return go ? go(L, Wtn, Y, xc, x, scratch, batch, seg, b, k, kc, splits, route == 1, stream) : -1;
 }

@@ -96,12 +96,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     factor, forward_solve, solve_backward) against their plain versions:
     chain blocks of 128 with seg = 8 at k = 1, 64, 33 (the arrowhead's
     k + s) and 257 (the Spike interiors' k + 2b), b = 16 at the Spike
-    flagship's k + 2b = 34, 8 and 264 problems, f32 and bf16, every factor
-    step's launch on its route (`blocktri_small.chain_route`: 'blocked');
-    timed beside bound, plain version and the library route, the factor
-    steps also by device time; NaN, −inf and indefinite blocks injected
-    into one problem, on both routes of the factor steps ('blocked' and
-    'sweep', bit for bit the same);
+    flagship's k + 2b = 34, 8 and 264 problems, f32 and bf16, every
+    step's launch on its route (`blocktri_small.chain_route`: 'blocked')
+    and column split (`rhs_splits`), each bit for bit its 'sweep' route
+    through the C entry and the solve steps also unsplit; timed beside
+    bound, plain version and the library route, and by device time and
+    `queued_ms`; NaN, −inf and indefinite blocks injected into one problem
+    of the factor steps, NaN / −inf right-hand sides, zero / NaN diagonals
+    of L and NaN couplings into the solve steps, on both routes (bit for
+    bit the same);
 14. drives the structured path through its entry points: blocktri.posv at
     the flagship (64 blocks of 128, f32, one problem, one RHS) under
     'pallas', 'auto' (partitioned) and 'xla' (one run profiled by BT::
@@ -195,8 +198,8 @@ SMALL_KERNELS = ("small.potrf", "small.potrs", "small.posv", "small.lstsq")
 INV_KERNELS = ("write_diag_blocks", "fused_tail", "small.trsm", "tsqr.panel_qr")
 #: the block-tridiagonal slice's kernels
 BT_KERNELS = ("bt.fused_forward", "bt.factor", "bt.forward_solve", "bt.solve_backward")
-#: the chain's factor steps, whose launches take a route (blocked / sweep)
-CHAIN_ROUTED = ("bt.fused_forward", "bt.factor")
+#: the chain's scan steps, whose launches take a route (blocked / sweep)
+CHAIN_ROUTED = BT_KERNELS
 #: the update / refinement slice's kernel
 UP_KERNELS = ("up.sweep",)
 #: the mesh slice's kernel
@@ -1667,8 +1670,8 @@ def drive_counted(hopper, run, want: dict, label: str, route=None, extra_routes=
     check(counts == full, f"{label}: launch counts {counts} != predicted {full}")
     if route is not None:
         check_routes(hopper, counts, route, label, extra_routes)
-    # every chain this script drives has blocks of at most 128: the factor
-    # steps' blocked route (blocktri_small.chain_route)
+    # every chain this script drives has blocks of at most 128: every scan
+    # step's blocked route (blocktri_small.chain_route)
     chain = {k: {"blocked": counts[k]} for k in CHAIN_ROUTED if counts[k]}
     got = {k: v for k, v in hopper.route_counts().items() if k in CHAIN_ROUTED}
     check(got == chain, f"{label}: chain launches by route {got} != {chain}")
@@ -2009,33 +2012,61 @@ def bt_rel(got, want) -> float:
     return float(torch.linalg.norm((g - w).flatten()) / torch.linalg.norm(w.flatten()))
 
 
-def bt_sweep_route(name: str, args):
-    """A factor step on its 'sweep' route (route code 0) through the C entry
-    (the wrapper always takes `chain_route(b)`), uncounted: the wrapper's
-    outputs from the wrapper's arguments ((D, C, B, Lc, yc) or (D, C, Lc))."""
+def bt_entry(name: str, args, route: str = "sweep", splits: int = 1, kc: int | None = None):
+    """A scan step through its C entry on `route` with its right-hand
+    sides split `splits` ways and staged kc columns at a time (default:
+    `stage_cols` on that route and split), uncounted — the wrapper always
+    takes the rules' route and split: the wrapper's outputs from the
+    wrapper's arguments ((D, C, B, Lc, yc), (D, C, Lc), or (L, Wt, B, carry)
+    for the solve steps).  The solve steps always get a scratch, so a kc
+    narrower than a block's columns runs the carry through it."""
     from capital_tpu_torch.ops import _build, blocktri_small, hopper
 
+    kernel = name.removeprefix("bt.")
+    code = {"sweep": 0, "blocked": 1}[route]
     D, C = args[0], args[1]
     batch, seg, b, _ = D.shape
-    L, Wt = torch.empty_like(D), torch.empty_like(D)
-    info = torch.empty((batch, seg), dtype=torch.int32, device=D.device)
     dt = hopper._DTYPE_CODE[D.dtype]
     if name == "bt.factor":
+        L, Wt = torch.empty_like(D), torch.empty_like(D)
+        info = torch.empty((batch, seg), dtype=torch.int32, device=D.device)
         rc = _build.entry("capital_bt_factor")(dt, D.data_ptr(), C.data_ptr(), args[2].data_ptr(), L.data_ptr(),
-                                               Wt.data_ptr(), info.data_ptr(), batch, seg, b, 0,
+                                               Wt.data_ptr(), info.data_ptr(), batch, seg, b, code,
                                                hopper._stream())
-        check(rc == 0, f"{name} sweep route: rc {rc}")
+        check(rc == 0, f"{name} {route} route: rc {rc}")
         return L, Wt, info
-    B, Lc, yc = args[2:]
+    B = args[2]
     k = B.shape[-1]
-    y = torch.empty_like(B)
+    kc = blocktri_small._stage_cols(kernel, b, k, splits, route) if kc is None else kc
     scratch = torch.empty((batch, b, k), dtype=torch.float32, device=D.device)
-    rc = _build.entry("capital_bt_fused_forward")(
-        dt, D.data_ptr(), C.data_ptr(), B.data_ptr(), Lc.data_ptr(), yc.data_ptr(), L.data_ptr(), Wt.data_ptr(),
-        y.data_ptr(), info.data_ptr(), scratch.data_ptr(), batch, seg, b, k,
-        blocktri_small.stage_cols("fused_forward", b, k), 0, hopper._stream())
-    check(rc == 0, f"{name} sweep route: rc {rc}")
-    return L, Wt, y, info
+    out = torch.empty_like(B)
+    if name == "bt.fused_forward":
+        Lc, yc = args[3:]
+        L, Wt = torch.empty_like(D), torch.empty_like(D)
+        info = torch.empty((batch, seg), dtype=torch.int32, device=D.device)
+        rc = _build.entry("capital_bt_fused_forward")(
+            dt, D.data_ptr(), C.data_ptr(), B.data_ptr(), Lc.data_ptr(), yc.data_ptr(), L.data_ptr(),
+            Wt.data_ptr(), out.data_ptr(), info.data_ptr(), scratch.data_ptr(), batch, seg, b, k, kc, splits,
+            code, hopper._stream())
+        check(rc == 0, f"{name} {route} route: rc {rc}")
+        return L, Wt, out, info
+    rc = _build.entry("capital_bt_" + kernel)(
+        dt, D.data_ptr(), C.data_ptr(), B.data_ptr(), args[3].data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        batch, seg, b, k, kc, splits, code, hopper._stream())
+    check(rc == 0, f"{name} {route} route: rc {rc}")
+    return out
+
+
+def bt_sweep_route(name: str, args):
+    """A scan step on its 'sweep' route (route code 0, one CUDA block a
+    problem) through the C entry, uncounted (`bt_entry`)."""
+    return bt_entry(name, args, "sweep")
+
+
+def bt_same(got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return len(got) == len(want) and all(same_bits(x, y) for x, y in zip(got, want))
 
 
 def bt_kernel_phase(hopper, blocktri_small, blocktri, dev) -> dict:
@@ -2059,12 +2090,21 @@ def bt_kernel_phase(hopper, blocktri_small, blocktri, dev) -> dict:
                 hopper.reset_counts()
                 got, want = fn(*args), plain(*args)
                 torch.cuda.synchronize()
-                if name in CHAIN_ROUTED:
-                    check(hopper.route_counts() == {name: {blocktri_small.chain_route(b): 1}},
-                          f"{name} b={b}: launched by route {hopper.route_counts()}")
-                    swept = bt_sweep_route(name, args)
-                    check(all(same_bits(x, y) for x, y in zip(got, swept)),
-                          f"{name} {batch}x{seg}x{b}x{k} {dtn}: the blocked and sweep routes differ")
+                kernel = name.removeprefix("bt.")
+                check(hopper.route_counts() == {name: {blocktri_small.chain_route(b, kernel): 1}},
+                      f"{name} b={b}: launched by route {hopper.route_counts()}")
+                check(bt_same(got, bt_sweep_route(name, args)),
+                      f"{name} {batch}x{seg}x{b}x{k} {dtn}: the blocked and sweep routes differ")
+                if name in ("bt.forward_solve", "bt.solve_backward"):
+                    # unsplit, and with the carry through the scratch (a
+                    # stage narrower than a block's columns)
+                    splits = blocktri_small.rhs_splits(kernel, batch, b, k)
+                    check(bt_same(got, bt_entry(name, args, "blocked", 1)),
+                          f"{name} {batch}x{seg}x{b}x{k} {dtn}: split {splits} and unsplit launches differ")
+                    if k > 1:
+                        kc = min(-(-k // splits) - 1, blocktri_small.stage_cols(kernel, b, k, splits))
+                        check(bt_same(got, bt_entry(name, args, "blocked", splits, max(1, kc))),
+                              f"{name} {batch}x{seg}x{b}x{k} {dtn}: the scratch carry differs")
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
                 err = 0.0
@@ -2119,7 +2159,38 @@ def bt_kernel_phase(hopper, blocktri_small, blocktri, dev) -> dict:
             others = [i for i in range(8) if i != 3]
             check(int(gk[3]) > 2 * 128 and not bool(gk[others].any()), f"fault {fault} {dtn}: pivots {gk.tolist()}")
             faults[f"{fault} {dtn}"] = int(gk[3])
-        del D, C, B, yc, Lc
+        # the right-hand sides' faults: the fused step with a NaN in B, the
+        # solve steps with a NaN / −inf in Y, a zero diagonal of L (safe_div's
+        # guarded divisor), a NaN one and a NaN coupling, each in problem 3's
+        # chain block 2 — the wrappers (blocked, split) bit for bit the sweep
+        # route and the unsplit launch
+        Bf = B.clone()
+        Bf[3, 2, 5, 0] = float("nan")
+        args = (D, C, Bf, Lc, yc)
+        check(bt_same(blocktri_small.fused_forward_step(*args), bt_sweep_route("bt.fused_forward", args)),
+              f"fault nan_rhs {dtn}: the fused step's blocked and sweep routes differ")
+        L, Wt, _, _ = blocktri_small.fused_forward_step(D, C, B, Lc, yc)
+        for fault in ("nan_rhs", "-inf_rhs", "zero_diag", "nan_diag", "nan_coupling"):
+            Lf, Wf, Yf = L.clone(), Wt.clone(), B.clone()
+            if fault == "nan_rhs":
+                Yf[3, 2, 5, 0] = float("nan")
+            elif fault == "-inf_rhs":
+                Yf[3, 2, 0, 1] = -float("inf")
+            elif fault == "zero_diag":
+                Lf[3, 2, 40, 40] = 0
+            elif fault == "nan_diag":
+                Lf[3, 2, 7, 7] = float("nan")
+            else:
+                Wf[3, 2, 9, 4] = float("nan")
+            for name, fn in (("bt.forward_solve", blocktri_small.forward_solve_step),
+                             ("bt.solve_backward", blocktri_small.solve_backward_step)):
+                args = (Lf, Wf, Yf, yc)
+                got = fn(*args)
+                check(bt_same(got, bt_sweep_route(name, args)) and bt_same(got, bt_entry(name, args, "blocked")),
+                      f"fault {fault} {dtn}: {name}'s blocked, unsplit and sweep launches differ")
+                nans = torch.isnan(got).flatten(2).any(-1)
+                check(not bool(nans[[0, 1, 2, 4, 5, 6, 7]].any()), f"fault {fault} {dtn}: {name} spread past problem 3")
+        del D, C, B, Bf, yc, Lc, L, Wt
     res["faults_global_pivot"] = faults
     print(json.dumps({"blocktri faults": faults}), flush=True)
     torch.cuda.empty_cache()

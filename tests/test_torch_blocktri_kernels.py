@@ -175,12 +175,15 @@ def test_envelope_admits_every_ladder_width():
             assert bt.step_eligible(b, k, 8, torch.float32, interpret=False)
             assert bt.default_impl(b, k, 8, torch.bfloat16, interpret=False) == "pallas"
         assert bt.partition_inner_impl(b, 64, 8, torch.float32, interpret=False) == "pallas"
-    # the factor steps' blocked route: three tiles of 128 rows of 132 floats
+    # the factor steps' blocked route: three tiles of 128 rows of 132 floats;
+    # the fused step's stage lies over L_{i−1}'s tile and past it, two
+    # buffers of 128 rows of 92 floats at k = 257, as the solve steps' stage
     assert bt.smem_bytes("factor", 128, 0) == 202_752
-    assert bt.stage_cols("fused_forward", 128, 257) == 28
-    assert bt.smem_bytes("fused_forward", 128, 257) == 202_752 + 28_672
+    assert bt.stage_cols("fused_forward", 128, 257) == 92
+    assert bt.smem_bytes("fused_forward", 128, 257) == 4 * (2 * 128 * 132 + 2 * 128 * 92) == 229_376
+    assert bt.smem_bytes("fused_forward", 128, 1) == 202_752
     assert bt.stage_cols("fused_forward", 64, 64) == 64
-    assert bt.stage_cols("solve_backward", 128, 257) == 97
+    assert bt.stage_cols("solve_backward", 128, 257) == 92
     for kernel in ("factor", "fused_forward", "forward_solve", "solve_backward"):
         assert bt.smem_bytes(kernel, 128, 257) <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
     # the largest chain block the fused step takes, and f64 never
@@ -197,8 +200,8 @@ def test_envelope_admits_every_ladder_width():
 
 #: b -> (route, ld, factor step bytes, fused step stage columns at k = 257)
 CHAIN_LAYOUTS = {2: ("blocked", 4, 4 * 3 * 4 * 4, 257), 7: ("blocked", 12, 4 * 3 * 8 * 12, 257),
-                 16: ("blocked", 20, 4 * 3 * 16 * 20, 257), 128: ("blocked", 132, 202_752, 28),
-                 136: ("blocked", 140, 228_480, 2), 137: ("sweep", 137, 225_228, 5),
+                 16: ("blocked", 20, 4 * 3 * 16 * 20, 257), 128: ("blocked", 132, 202_752, 92),
+                 136: ("blocked", 140, 228_480, 68), 137: ("sweep", 137, 225_228, 5),
                  138: ("sweep", 139, 230_184, 1)}
 
 
@@ -210,7 +213,7 @@ def test_chain_route_and_layout(b):
     envelope (step_eligible, default_impl) is the same on both sides of
     the switch."""
     route, ld, factor_bytes, kc = CHAIN_LAYOUTS[b]
-    assert bt.chain_route(b) == route
+    assert bt.chain_route(b) == bt.chain_route(b, "fused_forward") == route
     b4 = (b + 3) // 4 * 4
     assert (bt._blocked_ld(b) if route == "blocked" else bt._odd_ld(b)) == ld
     if route == "blocked":
@@ -221,12 +224,118 @@ def test_chain_route_and_layout(b):
         assert factor_bytes == 4 * 3 * b * ld
     assert bt.smem_bytes("factor", b, 0) == factor_bytes
     assert bt.stage_cols("fused_forward", b, 257) == kc
-    assert bt.smem_bytes("fused_forward", b, 257) == factor_bytes + 4 * 2 * b * kc
+    if route == "blocked":
+        # the fused step's stage (two buffers of round4(b) rows of
+        # _blocked_ld(kc) floats) lies over L_{i−1}'s tile and past it
+        tile, stage = b4 * ld, 2 * b4 * bt._blocked_ld(kc)
+        assert bt.smem_bytes("fused_forward", b, 257) == 4 * (2 * tile + max(tile, stage))
+    else:
+        assert bt.smem_bytes("fused_forward", b, 257) == factor_bytes + 4 * 2 * b * kc
     for kernel in ("fused_forward", "factor"):
         assert bt.step_eligible(b, 1, 8, torch.float32, interpret=False, kernel=kernel)
         assert bt.default_impl(b, 1, 8, torch.float32, interpret=False, kernel=kernel) == "pallas"
-    # the sweeps keep their odd-ld tiles on both routes
-    assert bt.smem_bytes("forward_solve", b, 1) == 4 * (2 * b * bt._odd_ld(b) + 2 * b)
+    # the solve steps take the blocked route up to b = 164, on 16-byte-row
+    # tiles: two tiles and a stage of two round4(b)-row buffers
+    assert bt.chain_route(b, "forward_solve") == bt.chain_route(b, "solve_backward") == "blocked"
+    assert bt.smem_bytes("forward_solve", b, 1) == 4 * (2 * b4 * bt._blocked_ld(b) + 2 * b4 * 4)
+
+
+#: b -> (solve steps' route, ld, bytes at k = 1, stage columns at k = 257,
+#: bytes at k = 257), both steps alike
+SOLVE_LAYOUTS = {2: ("blocked", 4, 256, 257, 8_448), 16: ("blocked", 20, 3_072, 257, 35_840),
+                 37: ("blocked", 44, 15_360, 257, 97_280), 50: ("blocked", 52, 23_296, 257, 129_792),
+                 128: ("blocked", 132, 139_264, 92, 229_376), 136: ("blocked", 140, 156_672, 68, 226_304),
+                 164: ("blocked", 164, 220_416, 12, 230_912), 165: ("sweep", 165, 219_120, 10, 231_000),
+                 169: ("sweep", 169, 229_840, 2, 231_192)}
+
+
+@pytest.mark.parametrize("kernel", ["forward_solve", "solve_backward"])
+@pytest.mark.parametrize("b", sorted(SOLVE_LAYOUTS))
+def test_solve_route_and_layout(b, kernel):
+    """The solve steps' two routes: 'blocked' (two 16-byte-row tiles of
+    round4(b) rows, ld 4 mod 8, and a stage of two round4(b)-row buffers of
+    _blocked_ld(kc) floats) up to b = 164, 'sweep' (two odd-ld tiles and a
+    stage of 2·b·kc floats, the kernels the blocked route replaced) from
+    165 to 169; smem_bytes and stage_cols mirror the kernel's layout, and
+    the 'sweep' numbers are the ones the sweeps always had."""
+    route, ld, bytes1, kc, bytes257 = SOLVE_LAYOUTS[b]
+    b4 = (b + 3) // 4 * 4
+    assert bt.chain_route(b, kernel) == route
+    assert bt.stage_cols(kernel, b, 1) == 1 and bt.stage_cols(kernel, b, 257) == kc
+    assert bt.smem_bytes(kernel, b, 1) == bytes1 and bt.smem_bytes(kernel, b, 257) == bytes257
+    if route == "blocked":
+        assert bt._blocked_ld(b) == ld and ld % 4 == 0 and (ld // 4) % 2 == 1
+        assert bytes257 == 4 * (2 * b4 * ld + 2 * b4 * bt._blocked_ld(kc))
+        assert bt._blocked_ld(kc) % 4 == 0 and (bt._blocked_ld(kc) // 4) % 2 == 1
+        # the widest stage that fits: one more 4-column group would not
+        wider = bt._blocked_ld(bt._round4(kc) + 1)
+        assert kc == 257 or 4 * (2 * b4 * ld + 2 * b4 * wider) > hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+    else:
+        assert bt._odd_ld(b) == ld and bytes257 == 4 * (2 * b * ld + 2 * b * kc)
+        # the blocked layout does not fit a single 4-column group here
+        assert 4 * (2 * b4 * bt._blocked_ld(b) + 8 * b4) > hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+    # the sweep layout through the route keyword of the helpers, as a
+    # check of the other route through the C entry computes it
+    assert bt._smem_bytes(kernel, b, 1, 1, "sweep") == 4 * (2 * b * bt._odd_ld(b) + 2 * b)
+    assert bt.smem_bytes(kernel, b, 257) <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+
+
+def _parent_solve_fits(b: int) -> bool:
+    """The solve steps' envelope before their blocked route: two odd-ld
+    tiles and one staged column of the two-buffer stage."""
+    budget = hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+    return budget - 4 * 2 * b * bt._odd_ld(b) >= 8 * b
+
+
+@pytest.mark.parametrize("kernel", ["forward_solve", "solve_backward"])
+def test_solve_envelope_is_the_parents(kernel):
+    """step_eligible and default_impl admit every (b, k) of the solve steps
+    that they admitted before the blocked route, and no other: b <= 169
+    whatever k, on one route or the other."""
+    for b in range(1, 201):
+        want = _parent_solve_fits(b)
+        assert want == (b <= 169)
+        for k in (1, 2, 3, 33, 64, 257, 4096):
+            assert bt.step_eligible(b, k, 8, torch.float32, interpret=False, kernel=kernel) == want
+            assert bt.default_impl(b, k, 8, torch.float32, interpret=False,
+                                   kernel=kernel) == ("pallas" if want else "xla")
+        if want:
+            assert bt.chain_route(b, kernel) == ("blocked" if b <= 164 else "sweep")
+
+
+#: (kernel, batch, b, k) -> column splits: phase 13's scan-step geometries
+#: (chip_smoke.BT_GEOMS), the blocktri flagship's steps (1 problem, k = 1)
+#: and the partitioned flagship's interior steps (8 problems, k + 2b = 257)
+SPLITS = {("forward_solve", 8, 128, 1): 1, ("forward_solve", 8, 128, 64): 16,
+          ("forward_solve", 8, 128, 33): 8, ("forward_solve", 8, 128, 257): 16,
+          ("forward_solve", 16, 16, 34): 8, ("forward_solve", 264, 128, 1): 1,
+          ("forward_solve", 264, 128, 33): 1, ("solve_backward", 1, 128, 1): 1,
+          ("solve_backward", 8, 128, 257): 16, ("solve_backward", 16, 16, 34): 8,
+          ("solve_backward", 2, 128, 3): 1, ("solve_backward", 128, 128, 257): 1,
+          ("solve_backward", 1, 165, 257): 1, ("fused_forward", 8, 128, 257): 16,
+          ("fused_forward", 1, 128, 1): 1, ("fused_forward", 264, 128, 33): 1,
+          ("fused_forward", 16, 16, 34): 8, ("fused_forward", 8, 137, 257): 1,
+          ("factor", 8, 128, 0): 1}
+
+
+@pytest.mark.parametrize("geom", sorted(SPLITS), ids=lambda g: "-".join(map(str, g)))
+def test_rhs_splits_rule(geom):
+    """The column split fills the card's SMS SMs with no CUDA block
+    narrower than one 4-column group (splits <= k // 4), 1 once the batch
+    fills them, for the factor step and on the 'sweep' route (b = 165 for
+    the solve steps, 137 for the fused step); every block's range is
+    non-empty and the ranges tile [0, k)."""
+    kernel, batch, b, k = geom
+    s = bt.rhs_splits(kernel, batch, b, k)
+    assert s == SPLITS[geom]
+    assert batch * s <= max(bt.SMS, batch) and (s == 1 or k // s >= 4)
+    if kernel != "factor":
+        cols = [(i * k // s, (i + 1) * k // s) for i in range(s)]
+        assert cols[0][0] == 0 and cols[-1][1] == k and all(lo < hi for lo, hi in cols)
+        assert all(a[1] == c[0] for a, c in zip(cols, cols[1:]))
+        kc = bt.stage_cols(kernel, b, k, s)
+        assert 1 <= kc <= -(-k // s)
+        assert bt.smem_bytes(kernel, b, k, s) <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
 
 
 @pytest.mark.parametrize("dt,jdt", [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),

@@ -519,12 +519,98 @@ def _bt_step_c(name, code, D, C, Lc, B=None, yc=None):
     k = B.shape[-1]
     y = torch.empty_like(B)
     scratch = torch.empty((batch, b, k), dtype=torch.float32, device=D.device)
+    route = "blocked" if code else "sweep"
     rc = _build.entry("capital_bt_fused_forward")(
         dt, D.data_ptr(), C.data_ptr(), B.data_ptr(), Lc.data_ptr(), yc.data_ptr(), L.data_ptr(), Wt.data_ptr(),
         y.data_ptr(), info.data_ptr(), scratch.data_ptr(), batch, seg, b, k,
-        blocktri_small.stage_cols("fused_forward", b, k), code, hopper._stream())
+        blocktri_small._stage_cols("fused_forward", b, k, 1, route), 1, code, hopper._stream())
     assert rc == 0, rc
     return L, Wt, y, info
+
+
+def _bt_solve_c(name, L, Wt, B, carry, route="sweep", splits=1, kc=None):
+    """A solve step ('forward_solve' or 'solve_backward') through its C
+    entry on `route`, its columns split `splits` ways and staged kc at a time
+    (default: `stage_cols` there), with a scratch, uncounted."""
+    batch, seg, b, k = B.shape
+    kc = blocktri_small._stage_cols(name, b, k, splits, route) if kc is None else kc
+    out = torch.empty_like(B)
+    scratch = torch.empty((batch, b, k), dtype=torch.float32, device=B.device)
+    rc = _build.entry("capital_bt_" + name)(
+        hopper._DTYPE_CODE[B.dtype], L.data_ptr(), Wt.data_ptr(), B.data_ptr(), carry.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), batch, seg, b, k, kc, splits, {"sweep": 0, "blocked": 1}[route], hopper._stream())
+    assert rc == 0, rc
+    return out
+
+
+def _solve_fault(L, Wt, Y, fault):
+    L, Wt, Y = L.clone(), Wt.clone(), Y.clone()
+    b, k = Y.shape[-2:]
+    if fault == "nan_rhs":
+        Y[1, 1, 5, 0] = float("nan")
+    elif fault == "-inf_rhs":
+        Y[1, 1, 0, k - 1] = -float("inf")
+    elif fault == "zero_diag":
+        L[1, 1, b // 3, b // 3] = 0
+    elif fault == "nan_diag":
+        L[1, 1, 7, 7] = float("nan")
+    elif fault == "nan_coupling":
+        Wt[1, 1, 9, 4] = float("nan")
+    return L, Wt, Y
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b", [37, 128])
+@pytest.mark.parametrize("fault", ["none", "nan_rhs", "-inf_rhs", "zero_diag", "nan_diag", "nan_coupling"])
+@pytest.mark.parametrize("name", ["forward_solve", "solve_backward"])
+def test_blocktri_solve_routes_bitwise(cuda, name, fault, b, dt):
+    """Each solve step on its 'blocked' route (the wrapper: 16-byte-row
+    stages, register-tiled coupling products, blocked triangular solves,
+    the columns split over 4 CUDA blocks a problem here) gives the bits of
+    its 'sweep' route (the column sweeps, through the C entry with route
+    code 0), of its unsplit launch and of a launch whose carry goes through
+    the scratch, on healthy chains and with a fault in problem 1's second
+    chain block; a zero diagonal takes safe_div's guarded divisor.  b = 37
+    runs the padded tiles and the scalar transposed load."""
+    D, C, B, Lc, yc = _bt_operands(96, 3, 4, b, 19, dt, cuda)
+    L, Wt, _, _ = blocktri_small.fused_forward_step(D, C, B, Lc, yc)
+    L, Wt, Y = _solve_fault(L, Wt, B, fault)
+    hopper.reset_counts()
+    got = getattr(blocktri_small, name + "_step")(L, Wt, Y, yc)
+    assert hopper.route_counts() == {"bt." + name: {"blocked": 1}}
+    splits = blocktri_small.rhs_splits(name, 3, b, 19)
+    assert splits == 4
+    for want in (_bt_solve_c(name, L, Wt, Y, yc), _bt_solve_c(name, L, Wt, Y, yc, "blocked"),
+                 _bt_solve_c(name, L, Wt, Y, yc, "blocked", splits, 3)):
+        assert _same_bits(got, want)
+    bad = torch.isnan(got).flatten(1).any(1)
+    assert not bad[[0, 2]].any()
+
+
+@pytest.mark.parametrize("b", [16, 50, 128, 136, 166])
+def test_blocktri_solve_split_and_unsplit_bitwise(cuda, b):
+    """At k = 1, 3, 33, 64 and 257, f32 and bf16: each solve step's
+    wrapper and the fused step's (their rules' route and column split) are
+    bit for bit their unsplit launch and their 'sweep' route; b = 166 takes
+    the solve steps' 'sweep' route itself (the fused step stops at 138)."""
+    for dt in ("f32", "bf16"):
+        for k in (1, 3, 33, 64, 257):
+            D, C, B, Lc, yc = _bt_operands(97 + k, 3, 2, b, k, dt, cuda)
+            if b <= 138:
+                out = blocktri_small.fused_forward_step(D, C, B, Lc, yc)
+                for want in (_bt_step_c("fused_forward", 0, D, C, Lc, B, yc),
+                             _bt_step_c("fused_forward", 1, D, C, Lc, B, yc)):
+                    assert all(torch.equal(g, w) if g.dtype == torch.int32 else _same_bits(g, w)
+                               for g, w in zip(out, want))
+                L, Wt = out[:2]
+            else:
+                L, Wt, _, _ = blocktri_small.fused_forward_step_plain(D, C, B, Lc, yc)
+            for name in ("forward_solve", "solve_backward"):
+                route = blocktri_small.chain_route(b, name)
+                assert route == ("sweep" if b == 166 else "blocked")
+                got = getattr(blocktri_small, name + "_step")(L, Wt, B, yc)
+                assert _same_bits(got, _bt_solve_c(name, L, Wt, B, yc))
+                assert _same_bits(got, _bt_solve_c(name, L, Wt, B, yc, route))
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -1155,6 +1241,10 @@ def test_blocktri_identity_chain_is_exact(cuda):
     L, Wt, y, info = blocktri_small.fused_forward_step(eye, zero, B, eye[:, 0], B[:, 0])
     assert torch.equal(L, eye) and not Wt.any() and not y.any() and not info.any()
     assert not blocktri_small.solve_backward_step(L, Wt, B, B[:, 0]).any()
+    # identity blocks solve exactly on the solve steps' blocked route too
+    R = torch.randn(2, seg, b, 3, generator=torch.Generator(device="cpu").manual_seed(0)).to(cuda)
+    assert torch.equal(blocktri_small.forward_solve_step(L, Wt, R, B[:, 0]), R)
+    assert torch.equal(blocktri_small.solve_backward_step(L, Wt, R, B[:, 0]), R)
 
 
 def test_blocktri_counters_move_only_on_launch(cuda):
