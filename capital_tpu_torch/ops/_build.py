@@ -73,7 +73,7 @@ SIGNATURES = {
     "capital_bt_solve_backward": (
         "blocktri_small.cu", [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
-    "capital_up_sweep": ("update_small.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _D, _P]),
+    "capital_up_sweep": ("update_small.cu", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _P]),
     "capital_sched_matmul": (
         "sched_matmul.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     ),

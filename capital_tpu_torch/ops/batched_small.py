@@ -17,8 +17,8 @@ outputs and info: the serve fault-containment contract) — and fuse:
   back-substitution through R2·R1) in one block.
 * ``potrf`` / ``potrs``: the unfused factor and solve (the `pallas_split`
   route, and the resident-factor solve); potrf runs a blocked factor.
-* ``trsm``: one triangular sweep, op(T)·X = B, for every uplo × trans (no
-  serve program calls it).
+* ``trsm``: one triangular solve, op(T)·X = B, for every uplo × trans, on
+  potrs' blocked solves (no serve program calls it).
 
 Each is a wrapper, a plain version and a launch counter, as in
 ops/hopper.py.  The wrapper validates shapes, uplo and dtype (bf16 or f32;
@@ -113,18 +113,17 @@ def _lstsq_floats(n: int, k: int) -> int:
 
 def smem_bytes(op: str, n: int, k: int) -> int:
     """Dynamic shared memory of one block of the `op` kernel for one problem
-    of order n with k right-hand sides.  The sweep kernel (trsm) keeps f32
-    matrices with an odd leading dimension ld (n + 1 for even n) so column
-    walks are free of bank conflicts; the blocked ones (potrf, potrs, posv,
-    lstsq) want 16-byte rows instead: round4(n) rows of round4(n) floats,
-    plus 4 when that is 0 mod 8 (`_potrf_ld` for potrf).
+    of order n with k right-hand sides.  Every kernel keeps 16-byte rows:
+    round4(n) rows of round4(n) floats, plus 4 when that is 0 mod 8
+    (`_potrf_ld` for potrf, `_potrs_lds` for the solves).
 
     potrf              4·round4(n)·_potrf_ld(n)   (the working matrix)
-    potrs, posv        4·round4(n)·(ld + ldy)     (A, then L and U = Lᵀ in
-                                                   its two triangles; the
+    potrs, posv, trsm  4·round4(n)·(ld + ldy)     (A, then L and U = Lᵀ in
+                                                   its two triangles, or
+                                                   trsm's T in the one its
+                                                   solve reads; the
                                                    right-hand sides;
                                                    `_potrs_lds`)
-    trsm               4·(n·ld + n·k)             (factor, right-hand sides)
     lstsq              4·(max(tile, stage) + tile + round4(n)·round4(k)
                        + 16·round4(n))            (G's copy and R1 or the
                                                    [A|B] stage, the
@@ -133,13 +132,10 @@ def smem_bytes(op: str, n: int, k: int) -> int:
     with tile = round4(n)·ld and stage = 2·rows·(round32(n) + round16(k)),
     rows = min(LSTSQ_ROWS, 2048 // (ceil(n/4) + ceil(k/4))).
     """
-    ld = n + 1 if n % 2 == 0 else n
     if op == "potrf":
         return 4 * ((n + 3) // 4 * 4) * _potrf_ld(n)
-    if op in ("potrs", "posv"):
+    if op in ("potrs", "posv", "trsm"):
         return 4 * ((n + 3) // 4 * 4) * sum(_potrs_lds(n, k))
-    if op == "trsm":
-        return 4 * (n * ld + n * k)
     if op == "lstsq":
         return 4 * _lstsq_floats(n, k)
     raise ValueError(f"unknown batched_small op {op!r}")
@@ -153,17 +149,15 @@ def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype, *, interpret
     LSTSQ_ROWS rows); the batch axis lives on the launch grid.  `op` is
     'posv' (also serve's inv as posv with k = n), 'potrs', 'trsm', 'lstsq'
     or 'potrf'; b_shape None means k = n.  A posv or inv bucket may run as
-    potrf + potrs (`pallas_split`, the refinement loop); posv shares potrs'
-    working set, and the bucket keeps the edge the column-sweep posv kernel
-    set (n·odd_ld(n) + n·k floats), so no bucket changes route with the
-    kernel's layout (the two differ only at the largest k: n = 128,
-    k = 324 fits the blocked layout and stays refused).
+    potrf + potrs (`pallas_split`, the refinement loop); posv, potrs and
+    trsm share one working set (`smem_bytes`), which is posv's envelope.
 
     Edges at f32 and bf16 alike (shared memory holds f32): n = 128 takes
-    posv up to k = 323 and lstsq up to k = 172; n = 160 takes posv up to
-    k = 200; potrf takes n up to 240.  Every bucket the 'auto' rule routes
-    here (n <= 128, posv/inv with k <= n, lstsq with k <= n) is eligible,
-    so 'auto' resolves as the JAX package does there.
+    posv, potrs and trsm up to k = 324 and lstsq up to k = 172; n = 160
+    takes posv up to k = 200; potrf takes n up to 240.  Every bucket the
+    'auto' rule routes here (n <= 128, posv/inv with k <= n, lstsq with
+    k <= n) is eligible, so 'auto' resolves as the JAX package does
+    there.
 
     interpret=True (the operands lie on the CPU) answers True: the plain
     versions have no envelope, as the JAX kernels in interpret mode have
@@ -173,11 +167,7 @@ def eligible(op: str, a_shape: tuple, b_shape: tuple | None, dtype, *, interpret
         return True
     n = a_shape[-1]
     k = b_shape[-1] if b_shape is not None else n
-    limit = hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
-    if op in ("posv", "inv"):
-        sweep_edge = 4 * (n * (n + 1 if n % 2 == 0 else n) + n * k)
-        return max(smem_bytes("posv", n, k), sweep_edge) <= limit
-    return smem_bytes(op, n, k) <= limit
+    return smem_bytes("posv" if op == "inv" else op, n, k) <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
 
 
 def dtype_capable(dtype) -> bool:
@@ -362,8 +352,10 @@ def trsm(T, B, *, uplo: str = "U", trans: bool = False, block: int = 0,
          precision: str | None = "highest"):
     """Batched triangular solve op(T)·X = B over (batch, n, n) factors and
     (batch, n, k) right-hand sides, op(T) = T or Tᵀ (trans): one launch,
-    one sweep per problem — forward when op(T) is lower ((uplo == 'L') xor
-    trans), else backward; only the live triangle of T is read.  X is a new
+    one block per problem on potrs' tile and blocked solves — forward
+    (csrc fwd_blocked) when op(T) is lower ((uplo == 'L') xor trans), else
+    backward (bwd_upper_blocked), each its column sweep's arithmetic in the
+    sweep's order; only the live triangle of T is used.  X is a new
     tensor: the JAX kernel aliases it onto B, the port keeps B."""
     _check_batched(T, B, op="batched trsm")
     _check_uplo(uplo)

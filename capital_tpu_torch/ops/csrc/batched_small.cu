@@ -35,6 +35,10 @@
 // rows): two barriers a 16-row panel of each solve where the sweeps took
 // one or two a column, the panel's rows below (above) it as 4 x 4 register
 // tiles.  At n = 128, k = 8 the block needs 73,728 B (three blocks an SM).
+// trsm runs one of those two solves on the same tile (op(T) lower: the
+// forward one; upper: the backward one), each reading one triangle, which
+// is all it loads, in place of a column sweep (probes/update_trsm.py keeps
+// that kernel: 2.126 ms at 8192 x 128 x 8 f32 on the H100, this one 0.431).
 //
 // posv is potrf's blocked factor and potrs' blocked solves in one block, on
 // potrs' tile: A loaded by rows and scanned, chol_blocked (which leaves L
@@ -69,14 +73,13 @@
 // the 2048-problem batch.  ptxas: 167 registers (f32; bf16 153), no spill,
 // under __launch_bounds__(NT, 1); left to itself it chose 128 and spilled.
 //
-// Shared memory per block (f32; ld = odd_ld(n), potrf ld = potrf_ld(n),
-// potrs and posv ld, ldy = potrs_lds(n, k), lstsq ld = lstsq_ld(n)), as
+// Shared memory per block (f32; potrf ld = potrf_ld(n), potrs, posv and
+// trsm ld, ldy = potrs_lds(n, k), lstsq ld = lstsq_ld(n)), as
 // capital_tpu_torch/ops/batched_small.smem_bytes computes it:
-//   potrf        round4(n)·ld
-//   potrs, posv  round4(n)·(ld + ldy)
-//   trsm         n·ld + n·k
-//   lstsq        max(tile, stage) + tile + round4(n)·round4(k) + NB·round4(n),
-//                tile = round4(n)·ld, stage = 2·rows·(round32(n) + round16(k))
+//   potrf              round4(n)·ld
+//   potrs, posv, trsm  round4(n)·(ld + ldy)
+//   lstsq              max(tile, stage) + tile + round4(n)·round4(k) + NB·round4(n),
+//                      tile = round4(n)·ld, stage = 2·rows·(round32(n) + round16(k))
 // Above 48 KB it is dynamic shared memory, enabled per kernel with
 // cudaFuncSetAttribute.  lstsq's state: the stage, then G's copy and R1 (L1
 // and L1ᵀ) in one tile; G -> V -> G2 -> R2 (L2 and L2ᵀ) -> R in the other
@@ -89,14 +92,6 @@ using namespace small;
 
 constexpr int LSTSQ_ROWS = 32;
 constexpr size_t SMEM_MAX = 232448 - 1024;
-
-template <typename T>
-__device__ void load_tile(float* dst, int ldd, const T* src, int rows, int cols) {
-  for (int e = threadIdx.x; e < rows * cols; e += NT) {
-    const int r = e / cols, c = e - r * cols;
-    dst[r * ldd + c] = widen(src[e]);
-  }
-}
 
 template <typename T>
 __device__ void store_tile(T* dst, const float* src, int lds, int rows, int cols) {
@@ -151,24 +146,6 @@ __global__ void __launch_bounds__(NT) potrf_kernel(const T* A, T* R, int* info, 
   }
   store_factor(R + off, S, ld, n, upper);
   if (threadIdx.x == 0) info[blockIdx.x] = inf;
-}
-
-// op(T)·X = B with one sweep: forward (L = T stored lower, or Tᵀ of a T
-// stored upper) or backward (U = T stored upper, or Tᵀ of a T stored lower)
-template <typename T>
-__global__ void __launch_bounds__(NT) trsm_kernel(const T* Tm, const T* B, T* X, int n, int k, int upper,
-                                                  int forward) {
-  extern __shared__ float smem[];
-  const int ld = odd_ld(n);
-  float* S = smem;
-  float* Y = smem + n * ld;
-  const long long b = blockIdx.x;
-  load_tile(S, ld, Tm + b * n * n, n, n);
-  load_tile(Y, k, B + b * n * k, n, k);
-  __syncthreads();
-  if (forward) fwd_sweep(S, ld, upper != 0, Y, k, n, k);
-  else bwd_sweep(S, ld, upper != 0, Y, k, n, k);
-  store_tile(X + b * n * k, Y, k, n, k);
 }
 
 // ---------------------------------------------------------------------------
@@ -463,6 +440,83 @@ __global__ void __launch_bounds__(NT, 3) potrs_kernel(const T* Tm, const T* B, T
   store_rhs(X + b * n * k, Y, ldy, n, k);
 }
 
+// T's live triangle into ONE triangle of the 16-byte-row tile S — the
+// upper one (`to_upper`) or the lower one — T[r][c] at S[r][c] where T's
+// live triangle is that one, else at S[c][r] (`flip`); S's padding
+// (columns n..round4(n), rows n..round4(n)) zeroed.  Where rows move as
+// 4-entry vectors (no padding then), a thread takes a 4 x 4 block of T
+// that holds live entries through registers: four rows' 16-byte loads,
+// then four 16-byte stores, transposed when flipped — consecutive threads
+// along a row band of T, or down a column band when flipped, so a
+// quarter-warp stores 128 contiguous bytes (a flipped entry-by-entry store
+// conflicted 16 ways at ld ≡ 4 mod 8).  A diagonal block also carries T's
+// dead entries into S's other triangle, which no solve reads; S's other
+// triangle is otherwise left as it was.
+template <typename T>
+__device__ void load_factor_one(float* __restrict__ S, int ld, const T* __restrict__ src, int n, int upper,
+                                bool to_upper) {
+  const int n4 = round4(n), pad = n4 - n;
+  const bool flip = (upper != 0) != to_upper;
+  if (rows_vec4(src, n)) {
+    const int tb = n / 4;
+    for (int e = threadIdx.x; e < tb * tb; e += NT) {
+      const int a = e / tb, z = e - a * tb;
+      const int bi = flip ? z : a, bj = flip ? a : z;  // T's row and column block
+      if (upper ? bj < bi : bj > bi) continue;         // all dead
+      float v[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load4(src + (4 * bi + i) * n + 4 * bj, v[i]);
+      if (flip) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float t[4] = {v[0][j], v[1][j], v[2][j], v[3][j]};
+          st4(S + (4 * bj + j) * ld + 4 * bi, t);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) st4(S + (4 * bi + i) * ld + 4 * bj, v[i]);
+      }
+    }
+  } else {
+    const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int r = wid; r < n; r += WARPS)
+      for (int c = (upper ? r : 0) + lane; c < (upper ? n : r + 1); c += 32)
+        S[flip ? c * ld + r : r * ld + c] = widen(src[r * n + c]);
+  }
+  for (int e = threadIdx.x; e < n * pad; e += NT) S[(e / pad) * ld + n + e % pad] = 0.f;
+  for (int e = threadIdx.x; e < pad * ld; e += NT) S[n * ld + e] = 0.f;
+}
+
+// op(T)·X = B, one problem a block, on potrs' tile and blocked solves, B
+// beside the factor.  op(T) lower ('L' without trans: L = T; 'U' with
+// trans: L = Tᵀ): Lᵀ into S's upper triangle, then fwd_blocked, which
+// reads only that triangle.  op(T) upper ('U': U = T; 'L' with trans: U =
+// Tᵀ): Uᵀ into S's lower triangle, then bwd_upper_blocked with
+// `diag_lower`, which reads only that one (and reads its diagonal block's
+// rows and divisors ahead of the dependent chain).  So half the cases load
+// T transposed and half as it lies, and none stores a triangle it does
+// not read.  Both solves apply their column sweep's operations in the
+// sweep's order (fwd_sweep, bwd_sweep), so X is the column-sweep kernel's
+// bit for bit; bf16 widened on load, rounded once on store.  One instance
+// a direction: both solves in one body behind a run-time branch spilled
+// 84 B under the three-blocks-an-SM cap; the forward solve reading ahead
+// (`fwd_blocked<true, true>`) spilled 104 B there and was 4–13 % slower
+// (probes/update_trsm.py).
+template <typename T, bool FORWARD>
+__global__ void __launch_bounds__(NT, 3) trsm_kernel(const T* Tm, const T* B, T* X, int n, int k, int upper, int ld,
+                                                  int ldy) {
+  extern __shared__ float4 smem4[];
+  float* S = reinterpret_cast<float*>(smem4);
+  float* Y = S + round4(n) * ld;
+  const long long b = blockIdx.x;
+  load_factor_one(S, ld, Tm + b * n * n, n, upper, FORWARD);
+  load_rhs(Y, ldy, B + b * n * k, n, k);
+  __syncthreads();
+  if constexpr (FORWARD) fwd_blocked<true>(S, ld, n, Y, ldy, k);
+  else bwd_upper_blocked<true, true, true>(S, ld, n, Y, ldy, k);
+  store_rhs(X + b * n * k, Y, ldy, n, k);
+}
+
 // posv's two halves, each kept out of line (__noinline__) so that the kernel
 // gets potrf's register allocation around the factor and potrs' around the
 // solves under its three-blocks-an-SM cap (80 registers): inlined into one
@@ -665,8 +719,6 @@ static int run(int batch, size_t smem, void* stream, Args... args) {
   return (int)cudaGetLastError();
 }
 
-static size_t tile_bytes(int n) { return sizeof(float) * (size_t)n * odd_ld(n); }
-
 // The potrf tile's leading dimension: round4(n) (16-byte rows), plus 4 when
 // that makes ld ≡ 4 (mod 8) and still fits, so the 16-byte row loads of
 // eight lanes on eight consecutive rows hit distinct banks.  Shared memory
@@ -717,13 +769,19 @@ extern "C" int capital_small_potrs(int dtype, const void* Tm, const void* B, voi
 extern "C" int capital_small_trsm(int dtype, const void* Tm, const void* B, void* X, int batch, int n,
                                   int k, int upper, int forward, void* stream) {
   if (n < 1 || k < 0) return -1;
-  const size_t smem = tile_bytes(n) + sizeof(float) * (size_t)n * k;
+  int ld, ldy;
+  potrs_lds(n, k, &ld, &ldy);
+  const size_t smem = sizeof(float) * (size_t)round4(n) * (ld + ldy);
   if (dtype == DT_F32)
-    return run<trsm_kernel<float>>(batch, smem, stream, (const float*)Tm, (const float*)B, (float*)X, n, k, upper,
-               forward);
+    return forward ? run<trsm_kernel<float, true>>(batch, smem, stream, (const float*)Tm, (const float*)B, (float*)X,
+                                                   n, k, upper, ld, ldy)
+                   : run<trsm_kernel<float, false>>(batch, smem, stream, (const float*)Tm, (const float*)B,
+                                                    (float*)X, n, k, upper, ld, ldy);
   if (dtype == DT_BF16)
-    return run<trsm_kernel<bf16>>(batch, smem, stream, (const bf16*)Tm, (const bf16*)B, (bf16*)X, n, k, upper,
-               forward);
+    return forward ? run<trsm_kernel<bf16, true>>(batch, smem, stream, (const bf16*)Tm, (const bf16*)B, (bf16*)X,
+                                                  n, k, upper, ld, ldy)
+                   : run<trsm_kernel<bf16, false>>(batch, smem, stream, (const bf16*)Tm, (const bf16*)B, (bf16*)X,
+                                                   n, k, upper, ld, ldy);
   return -1;
 }
 

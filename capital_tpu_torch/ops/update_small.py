@@ -7,17 +7,20 @@ A' = A ± V·Vᵀ, the factor R' of A' is reachable in O(kn²) by a sweep of
 
 * ``impl='pallas'`` (the reference's name; on the card the CUDA kernel of
   ops/csrc/update_small.cu) — the rotation sweep, one launch over the
-  batch, one block per problem, f32 compute.  Per rank q and column j:
+  batch, a warp per problem, f32 compute.  Per rank q and column j:
 
       t  = v_j / R_jj
       c  = sqrt(1 + σ·t²)            σ = +1 update, −1 downdate
       R'_j,: = (R_j,: + σ·t·v) / c   (columns >= j)
       v' = (v − t·R_j,:) / c
 
-  A downdate loses positive-definiteness where c² = 1 − t² <= 0; `info`
+  The kernel streams R by rows and applies up to 8 ranks to a row before
+  the next (`passes`), which applies the same operations to the same
+  values as the rank-major order above.  A downdate loses
+  positive-definiteness where c² = 1 − t² <= 0; `info`
   follows the potrf convention (0 healthy, j + 1 at the first bad
-  rotation column, n + 1 for a non-finite entry elsewhere) and the
-  guarded divisor keeps the sweep total.
+  rotation column in rank-major order, n + 1 for a non-finite entry
+  elsewhere) and the guarded divisor keeps the sweep total.
 
 * ``impl='xla'`` — the blocked J-orthogonal panel scan in the operand's
   own dtype (the f64 route: `dtype_capable` keeps f64 off the kernel even
@@ -48,8 +51,11 @@ reference in interpret mode, pinned by tests/test_torch_update.py):
 * a non-finite row delta turns the whole column c NaN in the write-back;
 * the final n + 1 test reads the whole tile before `triu`.
 
-The kernel keeps a non-finite count per column of the tile and per row of
-V to give the same answers without the contractions.
+The row-streamed order is exact only while everything read and made is
+finite: the kernel checks that as it goes and sweeps a problem that fails
+a check again, in the same launch, by the resident algorithm, which keeps
+a non-finite count per column of an f32 tile and per row of V to give the
+same answers without the contractions.
 """
 
 from __future__ import annotations
@@ -71,25 +77,56 @@ __all__ = [
     "default_impl",
     "resolve_panel",
     "dtype_capable",
+    "passes",
+    "problems_per_block",
     "smem_bytes",
+    "sweep_route",
     "sweep",
     "sweep_plain",
 ]
 
 
+#: problems a block of the sweep kernel's row route takes, at most (csrc
+#: MAX_WARPS)
+MAX_WARPS = 8
+#: ranks one pass of the sweep kernel applies to a row, at most (csrc KC)
+PASS_RANKS = 8
+#: row groups in flight between two rank warps of the wave route (csrc
+#: RING), and rows a group (csrc HOP)
+RING = 4
+HOP = 4
+#: streaming multiprocessors of the card (H100 SXM)
+SMS = 132
+#: the sweep kernel's routes and their C codes (csrc Route)
+ROUTES = {"row": 0, "wave": 1}
+#: the largest batch the wave route takes: a block a problem, and at
+#: n = 128, k = 8 it was ahead of the row route up to 528 problems and
+#: behind from 1056 (H100)
+WAVE_BATCH_MAX = 4 * SMS
+
+
 def smem_bytes(n: int) -> int:
-    """Dynamic shared memory of one block of the sweep kernel for one
-    problem of order n: the f32 working tile (n, n + 1), the f32 rotated
-    vector v (n), and two int counts of n each (non-finite entries per
-    tile column and per row of V) — 4·(n·(n + 1) + 3n), 67,584 bytes at
-    n = 128.  V streams one column per rank, so k does not enter."""
-    return 4 * (n * (n + 1) + 3 * n)
+    """Dynamic shared memory of one block of the sweep kernel for problems
+    of order n, the larger of its two routes' (csrc smem_bytes): the fault
+    path's f32 working tile (n, n + 1), rotated vector v (n) and two int
+    counts of n each (non-finite entries per tile column and per row of
+    V) — 4·(n·(n + 1) + 3n), 67,584 bytes at n = 128 — or, where larger
+    (n <= 117 and 129..132), the wave route's rings (7 links of RING groups
+    of HOP rows of 32·ceil(n/32) floats) and their 56 flags, which lie over
+    the tile.  The fast paths keep a
+    problem in registers; a block's problems that fail a finiteness check
+    take the tile in turn.  V streams one column per rank, so k does not
+    enter."""
+    tile = n * (n + 1) + 3 * n
+    rings = (PASS_RANKS - 1) * RING * HOP * 32 * -(-n // 32) + 2 * (PASS_RANKS - 1) * RING
+    return 4 * max(tile, rings)
 
 
 def eligible(n: int, k: int, dtype, *, interpret: bool) -> bool:
-    """Whether the sweep kernel takes ONE problem of order n at rank k: its
-    working set (`smem_bytes`) must fit one block's shared memory, 232,448
-    bytes less a 1,024-byte reserve (n up to 238 at any k and dtype).
+    """Whether the sweep kernel takes ONE problem of order n at rank k: the
+    fault path's working set (`smem_bytes`) must fit one block's shared
+    memory, 232,448 bytes less a 1,024-byte reserve (n up to 238 at any k
+    and dtype; the fast path's registers would hold 256).
     interpret=True (the operands lie on the CPU) answers True: the plain
     version has no envelope, as the JAX kernel in interpret mode has
     none."""
@@ -97,6 +134,34 @@ def eligible(n: int, k: int, dtype, *, interpret: bool) -> bool:
     if interpret:
         return True
     return smem_bytes(n) <= hopper.SMEM_PER_BLOCK - hopper.SMEM_RESERVE
+
+
+def sweep_route(batch: int, k: int) -> str:
+    """The sweep kernel's route for a call: 'wave' (a block a problem, a
+    warp a rank: a pass is a chain of about n + 8 steps) for k >= 2 at
+    batches up to WAVE_BATCH_MAX = 528, else 'row' (a warp a problem, the
+    throughput route; k = 1 has no ranks to pipeline)."""
+    return "wave" if k >= 2 and batch <= WAVE_BATCH_MAX else "row"
+
+
+def passes(k: int, route: str = "row") -> list[int]:
+    """The ranks of each pass of the sweep kernel over R (csrc): on the row
+    route passes of PASS_RANKS, then the remainder's 4, 2 and 1 in that
+    order (k = 0: one pass that copies and checks); on the wave route
+    passes of PASS_RANKS and the remainder whole."""
+    if route == "wave":
+        return [min(PASS_RANKS, k - q0) for q0 in range(0, k, PASS_RANKS)]
+    if k == 0:
+        return [0]
+    out = [PASS_RANKS] * (k // PASS_RANKS)
+    return out + [w for w in (4, 2, 1) if (k % PASS_RANKS) & w]
+
+
+def problems_per_block(batch: int) -> int:
+    """Warps (problems) a block of the row route: enough blocks to give
+    every SM one before a block takes two problems, at most MAX_WARPS
+    (the throughput batch runs eight problems a block)."""
+    return max(1, min(MAX_WARPS, -(-batch // SMS)))
 
 
 def default_impl(n: int, k: int, dtype, *, interpret: bool) -> str:
@@ -215,9 +280,15 @@ def sweep_plain(R, V, sign: float, *, block: int = 0, precision=None):
 def sweep(R, V, sign: float, *, block: int = 0, precision: str | None = "highest"):
     """The rotation sweep over a (batch, n, n) upper factor and a
     (batch, n, k) rank-k panel, σ = `sign` (+1 update, −1 downdate): one
-    launch (ops/csrc/update_small.cu), one block per problem, R loaded
-    once into an f32 tile in shared memory and V streamed one column per
-    rank.  Returns (R', info): R' upper at R's dtype (the strict lower
+    launch (ops/csrc/update_small.cu) on the route `sweep_route` picks —
+    'row': a warp per problem (`problems_per_block` a block); 'wave': a
+    block per problem, a warp per rank, rows passed from rank to rank —
+    R streamed by rows with up to 8 ranks applied to a row (`passes`), V
+    in registers, tallied by route in `hopper.route_counts()`; a problem
+    whose operands or intermediates are not all finite is swept again in
+    the same launch by the resident algorithm, from its inputs.  Between
+    passes R stays in f32: in the output for f32, in an f32 scratch for
+    bf16.  Returns (R', info): R' upper at R's dtype (the strict lower
     triangle exactly zero), info (batch,) int32."""
     _check_sweep(R, V)
     batched_small._resolve_block(R.shape[-1], block)
@@ -234,11 +305,24 @@ def sweep(R, V, sign: float, *, block: int = 0, precision: str | None = "highest
     out = torch.empty_like(R)
     info = torch.empty(batch, dtype=torch.int32, device=R.device)
     if batch:
-        rc = _build.entry("capital_up_sweep")(
-            hopper._DTYPE_CODE[R.dtype], R.data_ptr(), V.data_ptr(), out.data_ptr(),
-            info.data_ptr(), batch, n, k, float(sign), hopper._stream())
-        hopper._launched(rc, hopper.KERNELS["up.sweep"])
+        route = sweep_route(batch, k)
+        rc = _sweep_launch(R, V, out, info, sign, route, problems_per_block(batch))
+        hopper._launched(rc, hopper.KERNELS["up.sweep"], route)
     return out, info
+
+
+def _sweep_launch(R, V, out, info, sign: float, route: str, warps: int) -> int:
+    """One launch of the sweep kernel's C entry on `route` (uncounted); the
+    f32 scratch for bf16 R between passes.  Returns the entry's code."""
+    batch, n, _ = R.shape
+    k = V.shape[-1]
+    work = None
+    if R.dtype == torch.bfloat16 and len(passes(k, route)) > 1:
+        work = torch.empty((batch, n, n), dtype=torch.float32, device=R.device)
+    return _build.entry("capital_up_sweep")(
+        hopper._DTYPE_CODE[R.dtype], R.data_ptr(), V.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), info.data_ptr(), batch, n, k, ROUTES[route], warps,
+        float(sign), hopper._stream())
 
 
 # --------------------------------------------------------------------------

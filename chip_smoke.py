@@ -119,17 +119,21 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     the Spike geometry (64 blocks of 16) on the kernel and library routes
     in turns, each with a profiled call's idle share;
 15. holds the rank-k update's rotation-sweep kernel against its plain
-    version: update and downdate, f32 and bf16, at (8, 128, k) for k = 1,
-    8, 64 and (8192, 128, 8), with the f64 residual gate of bench update,
-    timed beside bound, plain version and the refactor from the resident
-    state; NaN / ±inf on R's diagonal, in its dead lower triangle and in V,
-    and an infeasible downdate, each in one problem of eight;
+    version bit for bit (R' and info): update and downdate, f32 and bf16,
+    at (8, 128, k) for k = 1, 8, 64 and (8192, 128, 8), each through the
+    wrapper (its launch checked on `update_small.sweep_route`'s route) and
+    the other route through the C entry, with the f64 residual gate of
+    bench update, timed (wall and device time, both routes) beside bound,
+    plain version and the refactor from the resident state; NaN / ±inf on
+    R's diagonal, in its dead lower triangle and in V, and an infeasible
+    downdate, each in one problem of 8 and of 1056, on both routes;
 16. drives the update and refinement paths: the bench-update flagship
     (n = 1024, k = 16, batch 2, f32: the panel scan, no kernel) against
     the refactor, `api.batched("chol_update" | "chol_downdate")` at
-    (8, 128, 8) f32 on 'auto', 'pallas', 'vmap' and f64 (plus a padded
-    bucket cropped), the bench-refine flagship (batch 4, n = 1024, nrhs 4,
-    f64 at cond 1e5, tier 'guaranteed' against the straight f64 solve,
+    (8, 128, 8) f32 on 'auto', 'pallas' (the sweep on its 'wave' route),
+    'vmap' and f64 (plus a padded bucket cropped), the bench-refine
+    flagship (batch 4, n = 1024, nrhs 4, f64 at cond 1e5, tier
+    'guaranteed' against the straight f64 solve,
     each problem's backward error also recomputed in NumPy on the host;
     profiled by IR:: phase), guaranteed posv and lstsq and the fast tier
     at the serve bucket, and guaranteed posv_blocktri on the scan route;
@@ -166,8 +170,9 @@ Phases 3, 5, 7, 9–12, 14, 16 and 18 set every launch counter to 0 just
 before their runs and check the counts just after against the plan;
 phases 3, 4, 5, 9, 11, 17 and 18 also check that every tri_matmul and
 sched_matmul and qr_fused launch took its dtype's route (bf16 wgmma, f32
-fma, f64 dmma), and phases 3, 8 and 11 that every fused_tail launch took
-its window's route (block or cluster).
+fma, f64 dmma), phases 3, 8 and 11 that every fused_tail launch took
+its window's route (block or cluster), and phases 15 and 16 that every
+up.sweep launch took `update_small.sweep_route`'s (row or wave).
 
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA or a directory without the package.
@@ -215,8 +220,9 @@ DTYPE_BY_NAME = {"f32": torch.float32, "bf16": torch.bfloat16}
 #: phase 15's sweeps (batch, n, k): the serve bucket's largest small-N n
 #: over the nrhs_buckets rungs, and the throughput batch
 UP_SHAPES = ((8, 128, 1), (8, 128, 8), (8, 128, 64), (8192, 128, 8))
-#: phase 15's faults, each in problem 3 of (8, 128, 8) f32: (operand,
-#: index, value, sign); 'infeasible' scales that problem's V by 40
+#: phase 15's faults, each in problem 3 of (8, 128, 8) f32 and in problem
+#: 1050 of (1056, 128, 8), whose block holds seven healthy problems:
+#: (operand, index, value, sign); 'infeasible' scales that problem's V by 40
 UP_FAULTS = {"nan_diag": ("R", (40, 40), float("nan"), 1.0), "inf_diag": ("R", (7, 7), float("inf"), 1.0),
              "-inf_diag": ("R", (90, 90), float("-inf"), 1.0), "nan_lower": ("R", (100, 3), float("nan"), 1.0),
              "inf_lower": ("R", (127, 64), float("inf"), 1.0), "nan_V": ("V", (55, 2), float("nan"), 1.0),
@@ -1618,11 +1624,14 @@ def inv_kernel_phase(hopper, batched_small, tsqr, dev) -> dict:
                 Xp = batched_small.trsm_plain(T, B, uplo=uplo, trans=trans)
                 err = max(err, small_close("small.trsm", Xk, Xp, torch.float32))
         Tu = torch.triu(T)
+        it = 3 if size == "throughput" else 20
         res[f"small.trsm {size}"] = dict(
             max_abs_err=err,
-            ms=time_ms(lambda: batched_small.trsm(T, B), 3 if size == "throughput" else 20),
+            ms=time_ms(lambda: batched_small.trsm(T, B), it),
+            device_ms=device_ms(lambda: batched_small.trsm(T, B), it),
             plain_ms=time_budget_ms(lambda: batched_small.trsm_plain(T, B)),
             library_ms=time_budget_ms(lambda: torch.linalg.solve_triangular(Tu, B, upper=True)),
+            library_device_ms=device_ms(lambda: torch.linalg.solve_triangular(Tu, B, upper=True), it),
             shape=f"batch {b} n {n} k {k} float32",
             # bytes: T's live triangle and B read, X written
             bound=bound_ms(b * (n * (n + 1) / 2.0 + 2.0 * n * k) * 4, b * float(n * n * k),
@@ -1653,12 +1662,13 @@ def inv_kernel_phase(hopper, batched_small, tsqr, dev) -> dict:
     return res
 
 
-def drive_counted(hopper, run, want: dict, label: str, route=None, extra_routes=None):
+def drive_counted(hopper, run, want: dict, label: str, route=None, extra_routes=None, sweep_route=None):
     """One call of `run` with the counters set to 0 just before and read
     just after, held to `want` (every kernel not named there: 0) and, where
     `route` (a route or a dtype, as `check_routes` takes) is given, every
     routed launch to its route (`extra_routes`: the tallies of kernels
-    outside ROUTED, such as fused_tail's)."""
+    outside ROUTED, such as fused_tail's); the rank-k sweep's launches all
+    on `sweep_route` (`update_small.sweep_route` of the call)."""
     torch.cuda.synchronize()
     hopper.reset_counts()
     t0 = time.perf_counter()
@@ -1675,6 +1685,9 @@ def drive_counted(hopper, run, want: dict, label: str, route=None, extra_routes=
     chain = {k: {"blocked": counts[k]} for k in CHAIN_ROUTED if counts[k]}
     got = {k: v for k, v in hopper.route_counts().items() if k in CHAIN_ROUTED}
     check(got == chain, f"{label}: chain launches by route {got} != {chain}")
+    sweep = {sweep_route: counts["up.sweep"]} if counts["up.sweep"] else {}
+    got = hopper.route_counts().get("up.sweep", {})
+    check(got == sweep, f"{label}: up.sweep launches by route {got} != {sweep}")
     return out, counts, secs
 
 
@@ -2622,59 +2635,96 @@ def up_refactor(R, V):
     return torch.linalg.cholesky_ex(R.mT @ R + V @ V.mT)
 
 
+def up_entry(update_small, R, V, sign, route):
+    """One rank-k sweep through the kernel's C entry on `route`, uncounted
+    (the wrapper takes `update_small.sweep_route`): (R', info)."""
+    out, info = torch.empty_like(R), torch.empty(R.shape[0], dtype=torch.int32, device=R.device)
+    rc = update_small._sweep_launch(R, V, out, info, sign, route, update_small.problems_per_block(R.shape[0]))
+    check(rc == 0, f"up.sweep C entry on route {route}: error {rc}")
+    return out, info
+
+
 def up_kernel_phase(update_small, dev) -> dict:
-    """Phase 15: the rotation-sweep kernel against its plain version at the
-    serve latency bucket's n = 128 over the nrhs rungs k = 1, 8, 64 and at
-    the throughput batch (8192 problems, k = 8), update and downdate, f32
-    and bf16; timed beside bound, plain version and the refactor; then the
-    fault cases, each poisoning one problem of eight."""
+    """Phase 15: the rotation-sweep kernel against its plain version, bit
+    for bit (R' and info), at the serve latency bucket's n = 128 over the
+    nrhs rungs k = 1, 8, 64 and at the throughput batch (8192 problems,
+    k = 8), update and downdate, f32 and bf16; the updates timed (wall and
+    device time) beside bound, and at k = 8 beside the plain version (f32)
+    and the refactor (f32: cusolver's Cholesky takes no bf16); then the
+    fault cases, each poisoning one problem of eight (a block each) and one
+    of 1056 (eight a block, beside seven healthy ones).  Each shape runs
+    the wrapper (its launch on `sweep_route`'s route, checked) and the other
+    route through the C entry (`up_entry`), both held to the plain version;
+    the other route is timed too."""
+    from capital_tpu_torch.ops import hopper
+
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         item = torch.tensor([], dtype=dtype).element_size()
         for batch, n, k in UP_SHAPES:
+            rule = update_small.sweep_route(batch, k)
+            other = {"row": "wave", "wave": "row"}[rule] if k >= 2 else None
             for op, sign in (("update", 1.0), ("downdate", -1.0)):
                 _, R, V = up_operands(batch, n, k, dtype, sign < 0, 31 + k, dev)
+                hopper.reset_counts()
                 Rk, ik = update_small.sweep(R, V, sign)
+                tally = hopper.route_counts().get("up.sweep")
+                check(tally == {rule: 1}, f"up.sweep {batch}x{n}x{k}: launches by route {tally}, rule {rule}")
                 Rp, ip = update_small.sweep_plain(R, V, sign)
                 torch.cuda.synchronize()
                 check(torch.equal(ik, ip) and not bool(ik.any()), f"up.sweep {op} {dtype}: info {ik.tolist()[:8]}")
+                check(same_bits(Rk, Rp), f"up.sweep {op} {dtype} {batch}x{n}x{k}: not bit for bit the plain version")
+                if other:
+                    Ro, io = up_entry(update_small, R, V, sign, other)
+                    check(torch.equal(io, ip) and same_bits(Ro, Rp),
+                          f"up.sweep {op} {dtype} {batch}x{n}x{k} route {other}: not bit for bit the plain version")
                 err = small_close("up.sweep", Rk, Rp, dtype)
                 r = up_residual(R, V, Rk, sign)
                 gate = 5e-5 if dtype == torch.float32 else 1e-2
                 check(r < gate, f"up.sweep {op} {dtype} {batch}x{n}x{k}: residual {r} >= {gate}")
                 key = f"{op} {batch}x{n}x{k} {'f32' if dtype == torch.float32 else 'bf16'}"
-                # the plain version is launch-bound (~1 ms a column step): time it
-                # for the f32 update at the serve bucket and the throughput batch
-                timed = dtype == torch.float32 and op == "update" and k == 8
-                row = dict(max_abs_err=err, residual=r,
-                           ms=time_ms(lambda: update_small.sweep(R, V, sign), 10 if batch == 8 else 3),
+                it = 10 if batch == 8 else 3
+                row = dict(max_abs_err=err, residual=r, route=rule,
+                           ms=time_ms(lambda: update_small.sweep(R, V, sign), it),
                            bound=bound_ms(batch * (2.0 * n * n + n * k) * item, batch * 4.5 * k * n * n,
                                           torch.float32))
-                if timed:
-                    row["plain_ms"] = time_budget_ms(lambda: update_small.sweep_plain(R, V, sign), most=3)
-                    row["library_ms"] = time_budget_ms(lambda: up_refactor(R, V))
+                if op == "update":
+                    row["device_ms"] = device_ms(lambda: update_small.sweep(R, V, sign), it)
+                    if other:
+                        row[f"{other}_route_ms"] = time_ms(lambda: up_entry(update_small, R, V, sign, other), it)
+                # the plain version is launch-bound (~1 ms a column step): time it
+                # for the f32 update at the serve bucket and the throughput batch
+                if op == "update" and k == 8:
+                    row["library_ms"] = None
+                    if dtype == torch.float32:
+                        row["plain_ms"] = time_budget_ms(lambda: update_small.sweep_plain(R, V, sign), most=3)
+                        row["library_ms"] = time_budget_ms(lambda: up_refactor(R, V))
+                        row["library_device_ms"] = device_ms(lambda: up_refactor(R, V), it)
                 res[key] = row
                 del R, V, Rk, Rp
     torch.cuda.empty_cache()
 
-    # faults: one problem of eight poisoned; info, NaN and inf patterns
-    # equal to the plain version's, and only that problem flagged
+    # faults: one problem of eight, and one of 1056, poisoned, on both
+    # routes; info, NaN and inf patterns and every finite bit equal to the
+    # plain version's, and only that problem flagged
     faults = {}
     for case, (where, idx, val, sign) in UP_FAULTS.items():
-        _, R, V = up_operands(8, 128, 8, torch.float32, sign < 0, 41, dev)
-        if case == "infeasible":
-            V[3] *= 40.0
-        else:
-            (R if where == "R" else V)[(3, *idx)] = val
-        Rk, ik = update_small.sweep(R, V, sign)
-        Rp, ip = update_small.sweep_plain(R, V, sign)
-        same = (torch.equal(ik, ip) and torch.equal(Rk.isnan(), Rp.isnan())
-                and torch.equal(Rk.isinf(), Rp.isinf()))
-        others = [i for i in range(8) if i != 3]
-        check(same and int(ik[3]) != 0 and not bool(ik[others].any()),
-              f"up.sweep fault {case}: info {ik.tolist()} vs plain {ip.tolist()}")
-        fin = torch.isfinite(Rk) & torch.isfinite(Rp)
-        faults[case] = dict(info=int(ik[3]), max_abs_err=float((Rk[fin] - Rp[fin]).abs().max()))
+        for batch, p in ((8, 3), (1056, 1050)):
+            _, R, V = up_operands(batch, 128, 8, torch.float32, sign < 0, 41, dev)
+            if case == "infeasible":
+                V[p] *= 40.0
+            else:
+                (R if where == "R" else V)[(p, *idx)] = val
+            Rp, ip = update_small.sweep_plain(R, V, sign)
+            for route in ("row", "wave"):
+                Rk, ik = up_entry(update_small, R, V, sign, route)
+                flagged = torch.nonzero(ik).flatten().tolist()
+                check(torch.equal(ik, ip) and same_bits(Rk, Rp) and flagged == [p],
+                      f"up.sweep fault {case} batch {batch} route {route}: info {ik[p].tolist()} vs plain "
+                      f"{ip[p].tolist()}, flagged {flagged[:8]}")
+            if batch == 8:
+                fin = torch.isfinite(Rk) & torch.isfinite(Rp)
+                faults[case] = dict(info=int(ik[p]), max_abs_err=float((Rk[fin] - Rp[fin]).abs().max()))
     res["faults"] = faults
     return res
 
@@ -2718,7 +2768,7 @@ def update_refine_phase(hopper, dev) -> dict:
         for impl in ("auto", "pallas", "vmap"):
             want = {"up.sweep": 1} if impl != "vmap" else {}
             (Rx, ix), counts, _ = drive_counted(hopper, lambda: api.batched(op, "highest", impl)(R, V), want,
-                                                f"{op} {impl}")
+                                                f"{op} {impl}", sweep_route=update_small.sweep_route(8, 8))
             check(not bool(ix.any()) and up_residual(R, V, Rx, sign) < tol, f"{op} {impl}: info {ix.tolist()}")
             got[impl] = Rx
             if op == "chol_update" and impl == "auto":

@@ -51,6 +51,14 @@ from capital_tpu_torch.ops import _build, batched_small, blocktri_small  # noqa:
 SMALL, CHAIN = "batched_small.cu", "blocktri_small.cu"
 #: the posv kernel the blocked one replaced
 OLD_POSV = """template <typename T>
+__device__ void load_tile(float* dst, int ldd, const T* src, int rows, int cols) {
+  for (int e = threadIdx.x; e < rows * cols; e += NT) {
+    const int r = e / cols, c = e - r * cols;
+    dst[r * ldd + c] = widen(src[e]);
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(NT) posv_kernel(const T* A, const T* B, T* X, int* info, int n, int k) {
   extern __shared__ float smem[];
   const int ld = odd_ld(n);
@@ -69,7 +77,9 @@ __global__ void __launch_bounds__(NT) posv_kernel(const T* A, const T* B, T* X, 
 }
 
 """
-OLD_POSV_ENTRY = """extern "C" int capital_small_posv(int dtype, const void* A, const void* B, void* X, void* info, int batch,
+OLD_POSV_ENTRY = """static size_t tile_bytes(int n) { return sizeof(float) * (size_t)n * odd_ld(n); }
+
+extern "C" int capital_small_posv(int dtype, const void* A, const void* B, void* X, void* info, int batch,
                                   int n, int k, void* stream) {
   if (n < 1 || k < 0) return -1;
   const size_t smem = tile_bytes(n) + sizeof(float) * (size_t)n * k;

@@ -284,19 +284,18 @@ def test_potrs_working_set_and_envelope():
 @pytest.mark.parametrize("n", [1, 7, 33, 128, 160])
 def test_posv_runs_on_the_potrs_layout(n):
     """posv's kernel holds A, then L and Lᵀ, in potrs' 16-byte-row tile
-    beside the right-hand sides: its working set is potrs', and its
-    envelope the one the column-sweep posv kernel set (both layouts must
-    fit), so no bucket changes route."""
+    beside the right-hand sides: its working set is potrs', and that
+    working set is its envelope (the deleted column-sweep kernel's odd-ld
+    layout no longer enters)."""
     e = functools.partial(bs.eligible, dtype=torch.float32, interpret=False)
     limit = 232448 - 1024
     for k in (0, 1, 3, 8, 33, n, 200, 323, 324):
         n4 = (n + 3) // 4 * 4
         assert bs.smem_bytes("posv", n, k) == bs.smem_bytes("potrs", n, k) == 4 * n4 * sum(bs._potrs_lds(n, k))
-        sweep = 4 * (n * (n + 1 if n % 2 == 0 else n) + n * k)
-        assert e("posv", (8, n, n), (8, n, k)) == (max(sweep, bs.smem_bytes("potrs", n, k)) <= limit)
+        assert e("posv", (8, n, n), (8, n, k)) == (bs.smem_bytes("potrs", n, k) <= limit)
     assert e("inv", (8, n, n), None)
-    if n == 128:  # the blocked layout alone would take k = 324
-        assert bs.smem_bytes("posv", 128, 324) <= limit and not e("posv", (8, 128, 128), (8, 128, 324))
+    if n == 128:  # the one k where the old column-sweep edge refused what the tile takes
+        assert bs.smem_bytes("posv", 128, 324) <= limit and e("posv", (8, 128, 128), (8, 128, 324))
 
 
 # ---------------------------------------------------------------------------
@@ -377,8 +376,8 @@ def test_default_impl_matches_reference(interpret):
 
 def test_eligible_card_edges_as_documented():
     e = functools.partial(bs.eligible, dtype=torch.float32, interpret=False)
-    assert e("posv", (8, 128, 128), (8, 128, 323))
-    assert not e("posv", (8, 128, 128), (8, 128, 324))
+    assert e("posv", (8, 128, 128), (8, 128, 324))
+    assert not e("posv", (8, 128, 128), (8, 128, 325))
     # lstsq's blocked layout: two 16-byte-row tiles (one doubles as the [A | B]
     # stage), AᵀB with round4(k) columns, a 16-column panel of G2
     assert bs.smem_bytes("lstsq", 128, 8) == 4 * (2 * 128 * 132 + 128 * 8 + 16 * 128)
@@ -469,10 +468,15 @@ def test_trsm_bf16_matches_reference():
 
 
 def test_trsm_envelope_and_refusals():
-    # one sweep holds the factor and the right-hand sides: posv's envelope
+    # trsm runs potrs' blocked solves on potrs' tile: its working set and
+    # envelope are potrs' (and posv's)
     e = functools.partial(bs.eligible, dtype=torch.float32, interpret=False)
-    assert e("trsm", (8, 128, 128), (8, 128, 323)) and not e("trsm", (8, 128, 128), (8, 128, 324))
-    assert bs.smem_bytes("trsm", 128, 8) == 4 * (128 * 129 + 128 * 8)
+    assert e("trsm", (8, 128, 128), (8, 128, 324)) and not e("trsm", (8, 128, 128), (8, 128, 325))
+    assert bs.smem_bytes("trsm", 128, 8) == 4 * 128 * (132 + 12)
+    for n in (1, 7, 33, 128, 160, 240):
+        for k in (1, 8, 64, n):
+            assert bs.smem_bytes("trsm", n, k) == bs.smem_bytes("potrs", n, k)
+            assert e("trsm", (8, n, n), (8, n, k)) == e("potrs", (8, n, n), (8, n, k))
     with pytest.raises(TypeError):
         bs.trsm(torch.zeros((2, 4, 4), dtype=torch.float64), torch.zeros((2, 4, 1), dtype=torch.float64))
     with pytest.raises(ValueError, match="uplo"):

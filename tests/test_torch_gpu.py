@@ -1026,7 +1026,8 @@ def test_fused_tail_refuses(cuda):
         hopper.fused_tail(buf.double(), z.double(), z.double(), off=0, n=128, dest=0)
 
 
-@pytest.mark.parametrize("shape", [(3, 16, 4), (5, 37, 3), (8, 128, 8), (4, 128, 128)])
+@pytest.mark.parametrize("shape", [(3, 16, 4), (5, 37, 3), (8, 128, 8), (4, 128, 128), (2, 128, 324),
+                                   (2, 160, 200)])
 def test_small_trsm_kernel_vs_plain(cuda, shape):
     b, n, k = shape
     T = _rand(55, (b, n, n), "f32", cuda) / float(np.sqrt(n)) + 3 * torch.eye(n, device=cuda)
@@ -1040,6 +1041,22 @@ def test_small_trsm_kernel_vs_plain(cuda, shape):
             op = op.mT if trans else op
             assert float((op.double() @ X.double() - B.double()).abs().max()) < 1e-4
     assert hopper.counts()["small.trsm"] == 4
+
+
+@pytest.mark.parametrize("uplo", ["U", "L"])
+@pytest.mark.parametrize("trans", [False, True])
+def test_small_trsm_bf16_and_dead_triangle(cuda, uplo, trans):
+    """bf16 storage (widened on load, rounded once) against the plain
+    version, and a NaN-filled dead triangle that no solve uses."""
+    T = _rand(57, (4, 128, 128), "f32", cuda) / float(np.sqrt(128)) + 3 * torch.eye(128, device=cuda)
+    dead = torch.ones(128, 128, dtype=torch.bool, device=cuda)
+    T[:, dead.tril(-1) if uplo == "U" else dead.triu(1)] = float("nan")
+    B = _rand(58, (4, 128, 8), "f32", cuda)
+    for dt in ("f32", "bf16"):
+        Td, Bd = T.to(DTYPES[dt]), B.to(DTYPES[dt])
+        X = batched_small.trsm(Td, Bd, uplo=uplo, trans=trans)
+        assert X.dtype == DTYPES[dt] and bool(torch.isfinite(X).all())
+        _close(X, batched_small.trsm_plain(Td, Bd, uplo=uplo, trans=trans), dt)
 
 
 def _panels(seed, shape, dev, dt="f32"):
@@ -1371,6 +1388,97 @@ def test_update_sweep_faults_match_plain(cuda, case):
     assert torch.equal(Rk[fin], Rp[fin])
 
 
+UP_GRID_N = (1, 31, 32, 33, 127, 128, 238)
+UP_GRID_K = (0, 1, 8, 64, 100)
+
+
+def _sweep_c(R, V, sign, route):
+    """One sweep through the C entry on `route` (uncounted; the wrapper
+    takes `sweep_route`)."""
+    out, info = torch.empty_like(R), torch.empty(R.shape[0], dtype=torch.int32, device=R.device)
+    rc = update_small._sweep_launch(R, V, out, info, sign, route, update_small.problems_per_block(R.shape[0]))
+    assert rc == 0
+    return out, info
+
+
+@pytest.mark.parametrize("k", UP_GRID_K)
+@pytest.mark.parametrize("n", UP_GRID_N)
+def test_update_sweep_row_streamed_bitwise(cuda, n, k):
+    """The row-streamed kernel against the plain version, bit for bit, on
+    both sides of every 32-column lane boundary and rank-pass boundary
+    (passes of 8, 4, 2, 1 ranks), through the wrapper and on each route:
+    f32 update and downdate, bf16 update (R between passes in the f32
+    scratch)."""
+    for dt, sign in (("f32", 1.0), ("f32", -1.0), ("bf16", 1.0)):
+        R, V = _up_operands(70 + n + k, 8, n, k, dt, sign < 0, cuda)
+        Rp, ip = update_small.sweep_plain(R, V, sign)
+        hopper.reset_counts()
+        Rk, ik = update_small.sweep(R, V, sign)
+        assert hopper.route_counts()["up.sweep"] == {update_small.sweep_route(8, k): 1}
+        assert torch.equal(ik, ip) and not ik.any()
+        assert torch.equal(Rk, Rp), (dt, sign)
+        for route in ("row", "wave") if k >= 2 else ("row",):
+            Rc, ic = _sweep_c(R, V, sign, route)
+            assert torch.equal(ic, ip) and torch.equal(Rc, Rp), (dt, sign, route)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_update_sweep_throughput_batch_bitwise(cuda, dt):
+    """8192 problems (the row route, eight a block; the wave route through
+    the C entry): n = 128 at k = 8 (one pass) and n = 37 at k = 5 (passes
+    of 4 and 1)."""
+    for n, k, sign in ((128, 8, 1.0), (37, 5, -1.0)):
+        R, V = _up_operands(80 + k, 8192, n, k, dt, sign < 0, cuda)
+        Rk, ik = update_small.sweep(R, V, sign)
+        Rp, ip = update_small.sweep_plain(R, V, sign)
+        assert torch.equal(ik, ip) and not ik.any() and torch.equal(Rk, Rp)
+        Rw, iw = _sweep_c(R, V, sign, "wave")
+        assert torch.equal(iw, ip) and torch.equal(Rw, Rp)
+
+
+#: faults in a 128 x 20 problem (passes of 8, 8 and 4 ranks), each in the
+#: first, middle and last lane (columns 0 / 32, 47, 127 and their rows)
+#: and, for V, rank pass (ranks 0, 11, 19): (sign, [(operand, index,
+#: value)]); 'scale' multiplies the problem's V
+UP_FAULT_POSITIONS = {
+    **{f"nan_diag_{j}": (1.0, [("R", (j, j), float("nan"))]) for j in (0, 47, 127)},
+    **{f"-inf_diag_{j}": (-1.0, [("R", (j, j), float("-inf"))]) for j in (0, 47, 127)},
+    **{f"inf_lower_{r}_{c}": (1.0, [("R", (r, c), float("inf"))]) for r, c in ((1, 0), (90, 47), (127, 95))},
+    **{f"nan_upper_{r}_{c}": (1.0, [("R", (r, c), float("nan"))]) for r, c in ((3, 96), (10, 79), (0, 127))},
+    **{f"nan_V_{c}_{q}": (1.0, [("V", (c, q), float("nan"))]) for c, q in ((0, 0), (47, 11), (127, 19))},
+    **{f"-inf_V_{c}_{q}": (-1.0, [("V", (c, q), float("-inf"))]) for c, q in ((32, 19), (79, 0), (127, 8))},
+    **{f"overflow_V_{c}_{q}": (1.0, [("V", (c, q), 3e38)]) for c, q in ((0, 0), (60, 12), (127, 19))},
+    "infeasible": (-1.0, [("scale", None, 40.0)]),
+    # bad steps (0, 100) and (1, 5): rank-major order meets (0, 100) first,
+    # the rows (1, 5)
+    "bad_order": (-1.0, [("V", (100, 0), 40.0), ("V", (5, 1), 40.0)]),
+    "bad_late_rank": (-1.0, [("V", (33, 19), 40.0)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UP_FAULT_POSITIONS))
+def test_update_sweep_fault_positions_match_plain(cuda, case):
+    """Each fault in one problem of 8 and in three problems of 1056 (on the
+    row route eight a block: a faulted problem beside healthy ones in its
+    block), on both routes: info, the NaN / inf pattern and every finite
+    bit equal the plain version's, and only the poisoned problems are
+    flagged."""
+    sign, edits = UP_FAULT_POSITIONS[case]
+    for batch, where in ((8, (3,)), (1056, (3, 10, 1049))):
+        R, V = _up_operands(63, batch, 128, 20, "f32", sign < 0, cuda)
+        for p in where:
+            for op, idx, val in edits:
+                if op == "scale":
+                    V[p] *= val
+                else:
+                    (R if op == "R" else V)[(p, *idx)] = val
+        Rp, ip = update_small.sweep_plain(R, V, sign)
+        for route in ("row", "wave"):
+            Rk, ik = _sweep_c(R, V, sign, route)
+            assert torch.equal(ik, ip) and set(torch.nonzero(ik).flatten().tolist()) == set(where), (case, route)
+            assert _same_bits(Rk, Rp), (case, route)
+
+
 def test_update_sweep_refuses(cuda):
     R, V = _up_operands(62, 2, 16, 2, "f32", False, cuda)
     with pytest.raises(TypeError, match="bf16 or f32"):
@@ -1380,6 +1488,10 @@ def test_update_sweep_refuses(cuda):
     big = torch.eye(240, device=cuda)[None]
     with pytest.raises(ValueError, match="shared"):
         update_small.sweep(big, torch.zeros((1, 240, 1), device=cuda), 1.0)
+    # the C entry refuses the wave route at k = 1 and a row route of 9 warps
+    out, info = torch.empty_like(R), torch.empty(2, dtype=torch.int32, device=cuda)
+    assert update_small._sweep_launch(R, V[..., :1].contiguous(), out, info, 1.0, "wave", 1) == -1
+    assert update_small._sweep_launch(R, V, out, info, 1.0, "row", 9) == -1
 
 
 @pytest.mark.parametrize("impl,want", [("auto", 1), ("pallas", 1), ("pallas_split", 1), ("vmap", 0)])
@@ -1389,6 +1501,8 @@ def test_batched_update_launches_per_plan(cuda, impl, want):
     R1, info = api.batched("chol_update", "highest", impl)(R, V)
     c = hopper.counts()
     assert c == {**dict.fromkeys(c, 0), "up.sweep": want} and not info.any()
+    # the serve bucket (8 problems, k = 8) takes the wave route
+    assert hopper.route_counts().get("up.sweep", {}) == ({"wave": 1} if want else {})
     hopper.reset_counts()
     api.batched("chol_update", "highest", impl)(R.double(), V.double())
     assert not any(hopper.counts().values())

@@ -11,7 +11,9 @@ write-back round differently), bf16 1e-2 (R' rounds to bf16 once); panel
 scan f32 1e-5, f64 1e-12.  `info` and the NaN / inf pattern of R' are
 compared exactly; after a fault the finite garbage of the broken problem
 is not compared.  Interpret-mode sweeps cost n·k steps, so n <= 16,
-k <= 3.
+k <= 3, and one n = 33, k = 5 case crosses the card kernel's 32-column
+lane boundary.  The card kernel's row-streamed order is held to the plain
+version bit for bit here, written out with torch f32 ops.
 """
 
 import jax.numpy as jnp
@@ -66,7 +68,7 @@ def _same(ref, got, tol, healthy=None):
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("op", ["update", "downdate"])
-@pytest.mark.parametrize("n,k", [(8, 1), (16, 3)])
+@pytest.mark.parametrize("n,k", [(8, 1), (16, 3), (33, 5)])
 def test_sweep_plain_matches_reference(op, dt, n, k):
     R, V = _operands(3, n, k, dt, op == "downdate", seed=n + k)
     Rr, ir, Rp, ip = _run(op, R, V, "pallas")
@@ -77,6 +79,88 @@ def test_sweep_plain_matches_reference(op, dt, n, k):
     A1 = R64.transpose(0, 2, 1) @ R64 + OPS[op][2] * V64 @ V64.transpose(0, 2, 1)
     res = np.linalg.norm(Rp.transpose(0, 2, 1) @ Rp - A1) / np.linalg.norm(A1)
     assert res < {"f32": 5e-6, "bf16": 2e-2}[dt]
+
+
+def _row_streamed(R, V, sign, chunk):
+    """The card kernel's order, written out with torch f32 ops: ranks in
+    passes of `chunk`, each pass a walk over the rows that applies its
+    ranks to a row before the next; a row's dead columns (c < j) are not
+    updated, in the row or in v.  info is the first bad step in rank-major
+    order, min(q·n + j) % n + 1."""
+    batch, n, _ = R.shape
+    k = V.shape[-1]
+    W = R.float().clone()
+    cols = torch.arange(n)
+    one = torch.ones(batch)
+    key = torch.full((batch,), k * n, dtype=torch.int64)
+    for q0 in range(0, k, chunk):
+        ranks = range(q0, min(k, q0 + chunk))
+        v = {q: V[:, :, q].float().clone() for q in ranks}
+        for j in range(n):
+            row, live = W[:, j, :].clone(), cols >= j
+            for q in ranks:
+                d = row[:, j]
+                t = v[q][:, j] / torch.where(d != 0, d, one)
+                st = sign * t
+                c2 = 1.0 + st * t
+                good = (d > 0) & (c2 > 0)
+                key = torch.where(good, key, torch.clamp(key, max=q * n + j))
+                cinv = 1.0 / torch.sqrt(torch.where(good, c2, one))
+                nr = torch.where(live, (row + st[:, None] * v[q]) * cinv[:, None], 0.0)
+                v[q] = torch.where(live, (v[q] - t[:, None] * row) * cinv[:, None], v[q])
+                row = row + (nr - row)
+            W[:, j, :] = row
+    info = torch.where(key < k * n, key % n + 1, 0).to(torch.int32)
+    return torch.triu(W).to(R.dtype), info
+
+
+@pytest.mark.parametrize("op", ["update", "downdate"])
+@pytest.mark.parametrize("chunk", [1, 2, "k"])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("n", [8, 33, 37])
+def test_row_streamed_order_is_the_sweep_bitwise(n, k, chunk, op):
+    """The premise of the card kernel: on finite operands the row-streamed
+    order (passes of `chunk` ranks, dead columns skipped) applies the same
+    IEEE f32 operations to the same values as the plain version's
+    rank-major order, so R' and info agree bit for bit.  A downdate makes
+    problem 1 infeasible (finite bad steps: info from rank-major order) and
+    for k > 1 gives problem 2 two bad steps that the two orders meet in
+    opposite order: rank 0 late (row n − 3), rank 1 early (row 2)."""
+    sign = 1.0 if op == "update" else -1.0
+    R, V = (torch.from_numpy(x) for x in _operands(3, n, k, "f32", sign < 0, seed=n + k))
+    if sign < 0:
+        V[1] *= 40.0
+        if k > 1:
+            V[2, n - 3, 0] = V[2, 2, 1] = 40.0
+    Rs, infos = _row_streamed(R, V, sign, k if chunk == "k" else chunk)
+    Rp, infop = up.sweep_plain(R, V, sign)
+    assert bool(torch.isfinite(Rp).all())  # the premise holds for finite values only
+    assert torch.equal(infos, infop) and torch.equal(Rs, Rp)
+    if sign < 0:
+        assert int(infop[1]) != 0 and (k == 1 or int(infop[2]) == n - 2)
+
+
+def test_sweep_launch_plan():
+    """The card kernel's plan: its route (the wave route for k >= 2 up to
+    528 problems), its passes over R (row route: 8 ranks, then the
+    remainder's 4, 2 and 1) and problems a block (row route: one a block
+    until every SM has one, then up to 8); its shared memory does not grow
+    with k or the batch."""
+    assert up.passes(0) == [0] and up.passes(1) == [1] and up.passes(8) == [8]
+    assert up.passes(5) == [4, 1] and up.passes(7) == [4, 2, 1]
+    assert up.passes(64) == [8] * 8 and up.passes(100) == [8] * 12 + [4]
+    assert all(sum(up.passes(k)) == k for k in range(200))
+    assert [up.problems_per_block(b) for b in (1, 8, 132, 133, 264, 1024, 1056, 8192)] == [1, 1, 1, 2, 2, 8, 8, 8]
+    # the wave route: a warp a rank, passes of 8 and the remainder whole
+    assert up.passes(5, "wave") == [5] and up.passes(20, "wave") == [8, 8, 4] and up.passes(64, "wave") == [8] * 8
+    assert [up.sweep_route(b, k) for b, k in ((8, 1), (8, 2), (8, 8), (8, 64), (528, 8), (529, 8), (8192, 8))] == [
+        "row", "wave", "wave", "wave", "wave", "row", "row"]
+    # the fault path's tile, or the wave route's rings where they are larger
+    # (groups of 4 rows in flight, 4 groups a link)
+    assert up.smem_bytes(238) == 4 * (238 * 239 + 3 * 238) and up.smem_bytes(118) == 4 * (118 * 119 + 3 * 118)
+    assert up.smem_bytes(1) == up.smem_bytes(32) == 4 * (7 * 4 * 4 * 32 + 56)
+    assert up.smem_bytes(117) == 4 * (7 * 4 * 4 * 128 + 56) and up.smem_bytes(132) == 4 * (7 * 4 * 4 * 160 + 56)
+    assert up.smem_bytes(133) == 4 * (133 * 134 + 3 * 133)
 
 
 @pytest.mark.parametrize("dt", ["f32", "f64"])
