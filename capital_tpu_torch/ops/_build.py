@@ -60,7 +60,7 @@ SIGNATURES = {
     "capital_small_posv": ("batched_small.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _P]),
     "capital_small_lstsq": ("batched_small.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "capital_small_trsm": ("batched_small.cu", [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "capital_write_diag": ("write_diag.cu", [_I, _I, _P, _P, _LL, _I, _I, _P]),
+    "capital_write_diag": ("write_diag.cu", [_I, _I, _P, _P, _LL, _I, _I, _I, _P]),
     "capital_fused_tail": ("fused_tail.cu", [_I, _P, _LL, _P, _P, _LL, _P, _P, _I, _I, _I, _P]),
     "capital_tsqr_panel": ("tsqr.cu", [_I, _P, _P, _P, _I, _I, _I, _P]),
     "capital_bt_fused_forward": (

@@ -27,8 +27,10 @@ Each kernel sits here as three things side by side:
   the element-load loop, 'wmma' for bf16 and 'simt' for f32 / f64.  The
   CholeskyQR2 kernels tally 'wgmma' for bf16 (their operands are always
   TMA-aligned) and 'simt' otherwise; `fused_tail` tallies 'block' (one
-  block holds the window) or 'cluster' (a thread-block cluster does).  The
-  route is chosen before the launch and never changes after a failure.
+  block holds the window) or 'cluster' (a thread-block cluster does);
+  `write_diag_blocks` 'vec' (16-byte vectors, `write_diag_route`) or
+  'elem'.  The route is chosen before the launch and never changes after a
+  failure.
 
 Unlike the JAX package, where "consumed" buffers are a promise to XLA,
 writes here are real mutation: `out` windows are written in place and the
@@ -136,8 +138,8 @@ def counts() -> dict[str, int]:
 def route_counts() -> dict[str, dict[str, int]]:
     """Launches of each kernel that has routes, by route ('wgmma', 'wmma',
     'simt', ...; fused_tail 'block' / 'cluster'; the chain's factor steps
-    'blocked' / 'sweep'); kernels not launched since the last reset are
-    left out."""
+    'blocked' / 'sweep'; write_diag_blocks 'vec' / 'elem'); kernels not
+    launched since the last reset are left out."""
     return {name: dict(k.by_route) for name, k in KERNELS.items() if k.by_route}
 
 
@@ -650,13 +652,35 @@ def write_diag_blocks_plain(out, W):
     return out
 
 
+#: write_diag_blocks' routes and their C route codes (csrc/write_diag.cu)
+WRITE_DIAG_ROUTES = {"elem": 0, "vec": 1}
+
+
+def write_diag_route(out, W) -> str:
+    """The route a CUDA `write_diag_blocks(out, W)` launch takes: 'vec'
+    (16-byte vectors of W, cast in registers, stored at out's width) where
+    every access it makes is aligned — W a contiguous stack at a 16-byte
+    aligned address, s a multiple of the vector width (16 bytes of W's
+    dtype), and out's origin and row stride multiples of the store width
+    (the vector's bytes at out's dtype, 16 at most); 'elem' (one element a
+    thread) otherwise.  Reads dtypes, shapes, strides and `data_ptr()`
+    only, so it answers for CPU tensors too."""
+    vec = 16 // W.itemsize
+    store = min(16, vec * out.itemsize)
+    ok = (W.data_ptr() % 16 == 0 and W.shape[-1] % vec == 0 and out.data_ptr() % store == 0
+          and out.stride(0) * out.itemsize % store == 0 and W.is_contiguous())
+    return "vec" if ok else "elem"
+
+
 def write_diag_blocks(out, W):
     """Write the (count, s, s) stack W onto the diagonal blocks
     ``out[i*s:(i+1)*s, i*s:(i+1)*s]`` in place, cast to out's dtype, and
     return `out`; every other element of `out` is left untouched
     (ops/csrc/write_diag.cu; pallas_tpu.write_diag_blocks).  Any block size
-    s works.  Where the JAX package's fallback would clip a block (a
-    non-square `out`, or count·s beyond its edge) this raises ValueError."""
+    s works; on the card the launch takes `write_diag_route(out, W)`'s
+    route, tallied in `route_counts()`.  Where the JAX package's fallback
+    would clip a block (a non-square `out`, or count·s beyond its edge)
+    this raises ValueError."""
     count, s = _diag_spec(out, W)
     if not _on_card(out, W):
         return write_diag_blocks_plain(out, W)
@@ -666,11 +690,12 @@ def write_diag_blocks(out, W):
     if count == 0 or s == 0:
         return out
     W = W.contiguous()
+    route = write_diag_route(out, W)
     rc = _build.entry("capital_write_diag")(
         _DTYPE_CODE[W.dtype], _DTYPE_CODE[out.dtype], W.data_ptr(), out.data_ptr(),
-        out.stride(0), count, s, _stream(),
+        out.stride(0), count, s, WRITE_DIAG_ROUTES[route], _stream(),
     )
-    _launched(rc, KERNELS["write_diag_blocks"])
+    _launched(rc, KERNELS["write_diag_blocks"], route)
     return out
 
 

@@ -70,7 +70,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 8. holds the four kernels of the triangular-inversion slice against their
    plain versions, timed beside their bounds and library calls:
    write_diag_blocks (96 blocks of 512² bf16 into a NaN-filled 49152²
-   buffer), fused_tail (windows of 128 on the block route and of 256, 384
+   buffer, 16 of 512² f32 into 8192², f32 into bf16 at 96 x 512², and
+   s = 100 bf16 on the 'elem' route; every launch on its route, the
+   buffer bit for bit the plain version's, the 'elem' route through the C
+   entry bit for bit the same; wall and device time beside copy_),
+   fused_tail (windows of 128 on the block route and of 256, 384
    and 512 on the cluster route, bf16 and f32, healthy — bit for bit the
    kernel's own column-sweep path — and with faults, every launch on its
    route; timed, also by device time), batched trsm (8 and 8192 problems of n=128, k=8, f32, every
@@ -279,6 +283,14 @@ INV_SHAPES = {"write_diag": (96, 512),
               "newton": 8192, "tail_factor": (16384, 128), "tsqr": (2_097_152, 128)}
 
 
+#: write_diag_blocks' cases (count, s, W dtype, out dtype): the rectri
+#: flagship's write-back (INV_SHAPES["write_diag"]; first), the f32 rectri cell's
+#: (16 x 512² f32 into 8192²), f32 W cast into bf16 at the flagship's
+#: size, and s = 100 bf16, which takes the 'elem' route
+WRITE_DIAG_CASES = ((96, 512, torch.bfloat16, torch.bfloat16), (16, 512, torch.float32, torch.float32),
+                    (96, 512, torch.float32, torch.bfloat16), (96, 100, torch.bfloat16, torch.bfloat16))
+
+
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError("FAIL: " + msg)
@@ -290,7 +302,8 @@ def same_bits(got, want) -> bool:
     nan = torch.isnan(got)
     if got.dtype != want.dtype or not torch.equal(nan, torch.isnan(want)):
         return False
-    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int32: torch.int32}[got.dtype]
+    view = {torch.float64: torch.int64, torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int32: torch.int32}[got.dtype]
     return torch.equal(got.masked_fill(nan, 0).view(view), want.masked_fill(nan, 0).view(view))
 
 
@@ -1515,35 +1528,75 @@ def tri_operand(n: int, dtype, seed: int, device) -> torch.Tensor:
     return out
 
 
+def write_diag_case(hopper, count, s, dt_w, dt_out, gen, dev) -> dict:
+    """write_diag_blocks of a (count, s, s) stack into a NaN-filled
+    (count·s)² buffer: the launch on `write_diag_route`'s route ('vec'
+    where s is a multiple of the 16-byte vector, else 'elem'), the whole
+    buffer bit for bit the plain version's (NaN outside the blocks), and
+    the 'elem' route through the C entry (uncounted) bit for bit the same;
+    timed by wall and device time beside `copy_` into the blocks view."""
+    from capital_tpu_torch.ops import _build
+
+    p = count * s
+    W = torch.randn((count, s, s), generator=gen, device=dev).to(dt_w)
+    out = torch.full((p, p), float("nan"), dtype=dt_out, device=dev)
+    route = hopper.write_diag_route(out, W)
+    label = f"write_diag_blocks {count}x{s}² {dt_w} into {dt_out}"
+    check(route == ("elem" if s % (16 // W.element_size()) else "vec"), f"{label}: route {route}")
+    hopper.reset_counts()
+    hopper.write_diag_blocks(out, W)
+    check(hopper.route_counts() == {"write_diag_blocks": {route: 1}}, f"{label}: {hopper.route_counts()}")
+    want = hopper.write_diag_blocks_plain(torch.full_like(out, float("nan")), W)
+    torch.cuda.synchronize()
+    check(same_bits(out, want), f"{label}: not bit for bit the plain version")
+    nan = int(torch.isnan(out).sum())
+    check(nan == p * p - count * s * s, f"{label}: {p * p - count * s * s - nan} elements outside the "
+          "blocks were written")
+    del want
+    blocks = out.as_strided((count, s, s), (s * p + s, p, 1))
+    kept = blocks.clone()
+    blocks.fill_(float("nan"))
+    entry = _build.entry("capital_write_diag")
+    args = (hopper._DTYPE_CODE[dt_w], hopper._DTYPE_CODE[dt_out], W.data_ptr(), out.data_ptr(), p, count, s,
+            hopper.WRITE_DIAG_ROUTES["elem"])
+
+    def elem():
+        check(entry(*args, hopper._stream()) == 0, f"{label}: the 'elem' launch failed")
+
+    elem()
+    torch.cuda.synchronize()
+    check(same_bits(blocks, kept), f"{label}: the 'elem' route's bits differ")
+    check(hopper.counts()["write_diag_blocks"] == 1, f"{label}: a direct C entry call was counted")
+    del kept
+    run, lib = (lambda: hopper.write_diag_blocks(out, W)), (lambda: blocks.copy_(W))
+    res = dict(
+        route=route, max_abs_err=0.0,
+        ms=time_ms(run, 20), device_ms=device_ms(run, 20),
+        plain_ms=time_ms(lambda: hopper.write_diag_blocks_plain(out, W), 5),
+        library_ms=time_ms(lib, 20), library_device_ms=device_ms(lib, 20),
+        shape=f"{count} x {s}x{s} {dt_w} into {p}x{p} {dt_out}",
+        bound=bound_ms(float(count * s * s * (W.element_size() + out.element_size())), 0.0, dt_out),
+    )
+    if route != "elem":  # the replaced kernel, on the same operands
+        res.update(elem_ms=time_ms(elem, 20), elem_device_ms=device_ms(elem, 20))
+    del out, blocks, W
+    torch.cuda.empty_cache()
+    return res
+
+
 def inv_kernel_phase(hopper, batched_small, tsqr, dev) -> dict:
     """The four kernels of the triangular-inversion slice against their
     plain versions at the shapes their paths give them."""
     res = {}
     gen = torch.Generator(device=dev).manual_seed(31)
 
-    # write_diag_blocks: the rectri flagship's write-back, 96 x 512² bf16
-    # into a NaN-filled 49152² buffer — nothing outside the blocks written
-    count, s = INV_SHAPES["write_diag"]
-    p = count * s
-    W = torch.randn((count, s, s), generator=gen, device=dev).to(torch.bfloat16)
-    out = torch.full((p, p), float("nan"), dtype=torch.bfloat16, device=dev)
-    hopper.write_diag_blocks(out, W)
-    torch.cuda.synchronize()
-    blocks = out.as_strided((count, s, s), (s * p + s, p, 1))
-    check(torch.equal(blocks, W), "write_diag_blocks: a block differs from W")
-    nan = int(torch.isnan(out).sum())
-    check(nan == p * p - count * s * s, f"write_diag_blocks: {p * p - count * s * s - nan} elements "
-          "outside the blocks were written")
-    res["write_diag_blocks"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: hopper.write_diag_blocks(out, W), 20),
-        plain_ms=time_ms(lambda: hopper.write_diag_blocks_plain(out, W), 5),
-        library_ms=time_ms(lambda: blocks.copy_(W), 20),
-        shape=f"{count} x {s}x{s} bf16 into {p}x{p}",
-        bound=bound_ms(2.0 * count * s * s * 2, 0.0, torch.bfloat16),
-    )
-    del out, blocks, W
-    torch.cuda.empty_cache()
+    # write_diag_blocks: the rectri flagship's write-back (96 x 512² bf16
+    # into a NaN-filled 49152² buffer), the f32 cell's, a cast and an
+    # 'elem' size, each on its route and bit for bit the plain version; the
+    # kernels line reads the first (the flagship's)
+    for i, (count, s, dt_w, dt_out) in enumerate(WRITE_DIAG_CASES):
+        key = "write_diag_blocks" + (f" {count}x{s} {dt_w} into {dt_out}" if i else "")
+        res[key] = write_diag_case(hopper, count, s, dt_w, dt_out, gen, dev)
 
     # fused_tail: each window of INV_SHAPES["tail"] inside a larger operand
     # (its lower half NaN: never read) into NaN-filled Rp / RIp, healthy and
@@ -1729,8 +1782,10 @@ def rectri_phase(hopper, grid, dev) -> dict:
     want = {"zeros_dead_lower": 1, "write_diag_blocks": 1, "tri_matmul.trmm": 2 * (nb - 1)}
     L = tri_operand(n, torch.bfloat16, 0, dev)
     cfg = inverse.RectriConfig(base_case_dim=bc, mode="pallas", precision=None)
+    # its one write-back on the 'vec' route (hopper.write_diag_route)
+    vec = {"write_diag_blocks": {"vec": 1}}
     Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(grid, L, "L", cfg), want,
-                                     "rectri flagship", "wgmma")
+                                     "rectri flagship", "wgmma", extra_routes=vec)
     gate = float(residual.inverse_residual_blocked(L, Li))
     check(gate < 5e-2, f"rectri flagship: inverse residual {gate} >= 5e-2")
     del Li
@@ -1750,7 +1805,7 @@ def rectri_phase(hopper, grid, dev) -> dict:
     L = tri_operand(n, torch.float32, 1, dev)
     cfg = inverse.RectriConfig(base_case_dim=bc, mode="pallas", precision="highest")
     Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(grid, L, "L", cfg), want, "rectri f32",
-                                     torch.float32)
+                                     torch.float32, extra_routes=vec)
     with plain_versions(hopper):
         Lq = inverse.rectri(grid, L, "L", cfg)
     d = float(residual.rel_fro(Li - Lq, Lq))
@@ -1759,7 +1814,7 @@ def rectri_phase(hopper, grid, dev) -> dict:
     check(d < 1e-5 and gate < 5e-5, f"rectri f32: vs plain {d}, inverse residual {gate}")
     U = L.T.contiguous()
     Ui, ucounts, _ = drive_counted(hopper, lambda: inverse.rectri(grid, U, "U", cfg), want, "rectri U",
-                                   torch.float32)
+                                   torch.float32, extra_routes=vec)
     ugate = float(residual.inverse_residual(U, Ui))
     check(ugate < 5e-5 and float(torch.tril(Ui, -1).abs().max()) == 0.0, f"rectri U: residual {ugate}")
     out["f32"] = dict(n=n, bc=bc, counts=counts, seconds_first=secs, vs_plain=d, inverse_residual=gate,

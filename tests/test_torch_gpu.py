@@ -858,6 +858,119 @@ def test_write_diag_blocks_kernel(cuda, s, dts):
     assert int(torch.isnan(got).sum()) == got.numel() - count * s * s
 
 
+#: integer views for bitwise comparison
+_BITS = {torch.bfloat16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def _diag_specials(dt):
+    """NaN, ±inf, ±0, subnormals of W's dtype and values that turn
+    subnormal, infinite or zero in a narrower out."""
+    tiny = {"bf16": [2.0**-130, -(2.0**-133)], "f32": [1e-40, -3e-45, 2.0**-130],
+            "f64": [1e-310, -5e-324, 1e-40, 1e-45, 1e39, -3.3961e38]}[dt]
+    return [float("nan"), float("inf"), float("-inf"), -0.0, 0.0, 3.3961e38, *tiny]
+
+
+def _diag_stack(seed, count, s, dt, dev):
+    W = _rand(seed, (count, s, s), dt, "cpu")
+    flat = W.view(-1)
+    sp = torch.tensor(_diag_specials(dt), dtype=torch.float64).to(DTYPES[dt])
+    idx = torch.arange(len(sp)) * (flat.numel() // len(sp)) + 1
+    flat[idx] = sp
+    flat[-len(sp):] = sp
+    return W.to(dev)
+
+
+def _write_diag_c(out, W, route):
+    """One launch through the C entry on `route` (uncounted)."""
+    rc = _build.entry("capital_write_diag")(
+        hopper._DTYPE_CODE[W.dtype], hopper._DTYPE_CODE[out.dtype], W.data_ptr(), out.data_ptr(),
+        out.stride(0), W.shape[0], W.shape[1], hopper.WRITE_DIAG_ROUTES[route], hopper._stream())
+    assert rc == 0, rc
+    return out
+
+
+def _same_bits(got, want):
+    return torch.equal(got.view(_BITS[got.dtype]), want.view(_BITS[want.dtype]))
+
+
+@pytest.mark.parametrize("s", [24, 64, 100])
+@pytest.mark.parametrize("dt_out", list(DTYPES))
+@pytest.mark.parametrize("dt_w", list(DTYPES))
+def test_write_diag_routes_bitwise(cuda, dt_w, dt_out, s):
+    # both routes against each other and the plain version, bit for bit,
+    # on NaN-filled outs: specials in W, nothing outside the blocks written
+    count = 3
+    W = _diag_stack(70 + s, count, s, dt_w, cuda)
+    fill = lambda: torch.full((count * s + 16, count * s + 16), float("nan"), dtype=DTYPES[dt_out], device=cuda)
+    route = hopper.write_diag_route(fill(), W)
+    assert route == ("elem" if s % (16 // W.element_size()) else "vec")
+    hopper.reset_counts()
+    got = hopper.write_diag_blocks(fill(), W)
+    assert hopper.route_counts() == {"write_diag_blocks": {route: 1}}
+    elem = _write_diag_c(fill(), W, "elem")
+    plain = hopper.write_diag_blocks_plain(fill(), W)
+    assert hopper.counts()["write_diag_blocks"] == 1
+    torch.cuda.synchronize()
+    assert _same_bits(got, elem)  # the replaced kernel's bits, NaN payloads too
+    nan = torch.isnan(plain)
+    assert torch.equal(torch.isnan(got), nan)
+    assert _same_bits(got.masked_fill(nan, 0), plain.masked_fill(nan, 0))
+    blocks = got.as_strided((count, s, s), (s * got.stride(0) + s, got.stride(0), 1))
+    assert int(torch.isnan(got).sum()) - int(torch.isnan(blocks).sum()) == got.numel() - count * s * s
+
+
+@pytest.mark.parametrize("col", [1, 4, 8])
+def test_write_diag_offset_out(cuda, col):
+    # an out view whose origin is 2 or 8 bytes past a 16-byte boundary
+    # takes 'elem', 16 bytes past it 'vec'; both write the plain version's bits
+    count, s = 4, 64
+    p = count * s
+    W = _diag_stack(80, count, s, "bf16", cuda)
+    got, want = (torch.full((p, p + 16), float("nan"), dtype=torch.bfloat16, device=cuda) for _ in range(2))
+    hopper.reset_counts()
+    hopper.write_diag_blocks(got[:, col:col + p], W)
+    assert hopper.route_counts() == {"write_diag_blocks": {"vec" if col == 8 else "elem": 1}}
+    hopper.write_diag_blocks_plain(want[:, col:col + p], W)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert _same_bits(got.masked_fill(nan, 0), want.masked_fill(nan, 0))
+
+
+def test_write_diag_flagship_route_tally(cuda):
+    # the rectri flagship's write-back: 96 x 512² bf16 into a NaN-filled
+    # 49152² buffer, one 'vec' launch; the 'elem' route through the C
+    # entry on the same operands counts nothing and writes the same bits
+    count, s = 96, 512
+    p = count * s
+    W = _rand(81, (count, s, s), "bf16", cuda)
+    out = torch.full((p, p), float("nan"), dtype=torch.bfloat16, device=cuda)
+    hopper.reset_counts()
+    hopper.write_diag_blocks(out, W)
+    assert hopper.counts()["write_diag_blocks"] == 1
+    assert hopper.route_counts() == {"write_diag_blocks": {"vec": 1}}
+    blocks = out.as_strided((count, s, s), (s * p + s, p, 1))
+    torch.cuda.synchronize()
+    assert _same_bits(blocks, W)
+    assert int(torch.isnan(out).sum()) == p * p - count * s * s
+    blocks.fill_(float("nan"))
+    _write_diag_c(out, W, "elem")
+    assert hopper.counts()["write_diag_blocks"] == 1
+    assert hopper.route_counts() == {"write_diag_blocks": {"vec": 1}}
+    torch.cuda.synchronize()
+    assert _same_bits(blocks, W)
+    assert int(torch.isnan(out).sum()) == p * p - count * s * s
+
+
+def test_write_diag_vec_entry_refuses_misaligned(cuda):
+    # the C entry answers -1 for a 'vec' launch it cannot make aligned
+    W = _rand(82, (2, 100, 100), "bf16", cuda)
+    out = torch.zeros((200, 200), dtype=torch.bfloat16, device=cuda)
+    rc = _build.entry("capital_write_diag")(0, 0, W.data_ptr(), out.data_ptr(), 200, 2, 100,
+                                            hopper.WRITE_DIAG_ROUTES["vec"], hopper._stream())
+    assert rc == -1
+
+
 def test_write_diag_blocks_refuses(cuda):
     W = _rand(51, (4, 16, 16), "f32", cuda)
     with pytest.raises(ValueError, match="do not fit"):
@@ -1770,8 +1883,11 @@ def test_mesh_and_rectri_routes(cuda, dt):
     inverse.rectri(Grid.square(device=cuda), R.T.contiguous(), "L",
                    inverse.RectriConfig(base_case_dim=128, mode="pallas"))
     c = hopper.counts()
+    # rectri's one write-back: a contiguous stack of 128-blocks into an
+    # aligned buffer, the 'vec' route in every dtype
     assert hopper.route_counts() == {
-        "tri_matmul.trmm": {route: c["tri_matmul.trmm"]}, "tri_matmul.syrk": {route: c["tri_matmul.syrk"]}}
+        "tri_matmul.trmm": {route: c["tri_matmul.trmm"]}, "tri_matmul.syrk": {route: c["tri_matmul.syrk"]},
+        "write_diag_blocks": {"vec": 1}}
     hopper.reset_counts()
     cholesky.factor(Grid.rect(2, 2, 1, devices=[cuda] * 4), A,
                     cholesky.CholinvConfig(mode="explicit", base_case_dim=256))

@@ -157,7 +157,11 @@ def test_rectri_refuses(tgrid):
 
 
 @pytest.mark.parametrize("s,dts", [(128, ("bf16", "bf16")), (128, ("f32", "bf16")),
-                                   (256, ("f64", "f64")), (48, ("f32", "f32"))])
+                                   (256, ("f64", "f64")), (48, ("f32", "f32")),
+                                   # sizes the card's route rule (hopper.write_diag_route)
+                                   # sends to 'vec' at several store widths, and 100: 'elem'
+                                   (24, ("f64", "bf16")), (40, ("bf16", "f32")),
+                                   (64, ("f32", "f64")), (100, ("bf16", "bf16"))])
 def test_write_diag_blocks_matches_jax_bitwise(s, dts):
     count, p = 3, 3 * s + 64
     rng = np.random.default_rng(s)
