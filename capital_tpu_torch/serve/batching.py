@@ -53,8 +53,16 @@ FACTOR_OPS = ("chol_update", "chol_downdate", "posv_cached",
 #: engine-internal bucket op of the residency-miss (seeding) route.
 MISS_OPS = ("posv_cached_miss",)
 
+#: the client-facing streaming-session ops (SolveEngine.submit)
+SESSION_OPS = ("session_open", "session_append", "session_solve",
+               "session_contract", "session_close")
+
 #: engine-internal session bucket ops.
 SESSION_BUCKET_OPS = ("session_extend", "session_solve")
+
+#: the ROADMAP items the refused ops wait for
+RESIDENCY_ITEM = "Queue A item 8, serve tier (factor residency)"
+SESSION_ITEM = "Queue A item 8, serve tier (streaming sessions)"
 
 #: the dense ops
 DENSE_OPS = ("posv", "lstsq", "inv")
@@ -73,9 +81,9 @@ def check_op(op: str) -> None:
     if op in DENSE_OPS or op in STRUCTURED_OPS:
         return
     if op in FACTOR_OPS or op in MISS_OPS:
-        item = "Queue A item 8, serve tier (factor residency)"
-    elif op in SESSION_BUCKET_OPS:
-        item = "Queue A item 8, serve tier (streaming sessions)"
+        item = RESIDENCY_ITEM
+    elif op in SESSION_BUCKET_OPS or op in SESSION_OPS:
+        item = SESSION_ITEM
     else:
         raise ValueError(f"unknown serve op {op!r}; expected one of {OPS}")
     raise NotImplementedError(f"serve op {op!r} is not ported yet (ROADMAP {item})")

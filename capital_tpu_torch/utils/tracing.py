@@ -37,9 +37,12 @@ PHASE_REGISTRY: tuple[str, ...] = (
     "RT::batch_write", "RT::buffers",
     # trsm (models/trsm.py)
     "TS::dinv", "TS::leaf", "TS::update",
-    # serve (serve/): serve::pad wraps bucket padding, serve::solve the
-    # per-problem library solves of the vmap route
-    "serve::pad", "serve::solve",
+    # serve (serve/): serve::ingest is the engine's host-side per-request
+    # fault tap, serve::pad wraps bucket padding, serve::solve the
+    # per-problem library solves of the vmap route; SV::stage wraps the
+    # staging of padded operands onto the device at admission, SV::dispatch
+    # the bucket program's call
+    "serve::ingest", "serve::pad", "serve::solve", "SV::stage", "SV::dispatch",
     # batched small-N kernels (ops/batched_small.py): OP::batched_small
     # wraps the standalone potrf/potrs kernels, SV::fused_* the fused
     # factor+solve kernels (one phase: the factor never leaves the block)

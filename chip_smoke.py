@@ -67,6 +67,21 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    gates of bench/drivers.py against an f64 host reference, the pallas
    and vmap routes against each other, identity-tail exactness and NaN
    containment;
+7b. drives the port's serve engine, `serve.SolveEngine` on the card, at
+   the reference serve smoke's configuration (capital_tpu/serve/__main__.py
+   :146-172) at phase 7's widths: 252 seeded requests (ragged f32 posv /
+   lstsq / inv, posv_blocktri, posv_arrowhead, f64 posv on the library
+   route, guaranteed f64 posv, four oversize n = 1024 posv on the single
+   route), warmed up, then sent in turns through a continuous and a sync
+   engine (continuous, sync, sync, continuous), sleeping past max_delay_s
+   and pumping every 7th submit; every bucket program one CUDA graph,
+   its launches and routes at capture held to its plan; every response
+   ok under the drivers' residual gates; no build after warm-up; one
+   continuous turn profiled, whose trace must hold replays x plan
+   records of each kernel; 100 % complete span chains; every program's
+   replay bit for bit its eager `api.batched` program on one assembled
+   batch, both timed in turns; prints the latency split, occupancy, idle
+   share and the replay / eager walls;
 8. holds the four kernels of the triangular-inversion slice against their
    plain versions, timed beside their bounds and library calls:
    write_diag_blocks (96 blocks of 512² bf16 into a NaN-filled 49152²
@@ -170,8 +185,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     no path, with 0), the nvidia-smi line, and last
     {"ok": true, "device": {...}}.
 
-Phases 3, 5, 7, 9–12, 14, 16 and 18 set every launch counter to 0 just
-before their runs and check the counts just after against the plan;
+Phases 3, 5, 7, 7b, 9–12, 14, 16 and 18 set every launch counter to 0 just
+before their runs and check the counts just after against the plan (7b:
+the counts move at capture, not at a replay; the trace counts the replays);
 phases 3, 4, 5, 9, 11, 17 and 18 also check that every tri_matmul and
 sched_matmul and qr_fused launch took its dtype's route (bf16 wgmma, f32
 fma, f64 dmma), phases 3, 8 and 11 that every fused_tail launch took
@@ -1507,6 +1523,323 @@ def serve_phase(hopper, dev) -> dict:
         f = api.batched("posv", "highest", impl)
         out[f"profile_posv_8x128x8_{impl}"] = profile(lambda: f(Ab, Bb), "SV::" if impl == "pallas" else "serve::")
     out["launches"] = launches
+    return out
+
+
+# ---- the serve engine (phase 7b) -------------------------------------------
+
+#: the reference's serve smoke (capital_tpu/serve/__main__.py:146-172) at the
+#: port's small-N widths: serve_phase's ladders, the default structured ones
+ENGINE_CFG = dict(buckets=(32, 64, 128), rows_buckets=(128, 256, 512), nrhs_buckets=(1, 8, 64),
+                  max_batch=8)
+#: requests of the seeded stream, by kind
+ENGINE_MIX = {"posv": 64, "lstsq": 48, "inv": 32, "posv_blocktri": 48, "posv_arrowhead": 24,
+              "posv f64": 16, "posv f64 guaranteed": 16, "posv oversize": 4}
+#: the kernels the stream's bucket programs run (f32 dense on the fused
+#: kernels, guaranteed f64 on potrf + potrs, the chains' scan steps)
+ENGINE_KERNELS = ("small.posv", "small.lstsq", "small.potrf", "small.potrs", "bt.fused_forward",
+                  "bt.solve_backward")
+#: the turns of the stream, by scheduler
+ENGINE_TURNS = ("continuous", "sync", "sync", "continuous")
+#: each captured program's replay against its eager program: calls of each, in turns
+ENGINE_REPLAY_CALLS = 5
+#: the CUDA kernel each counted kernel of the engine's programs runs, as
+#: its name reads in a trace (the chain's solve steps on either route)
+ENGINE_TRACE_NAMES = {
+    "small.posv": ("posv_kernel<",), "small.potrf": ("potrf_kernel<",),
+    "small.potrs": ("potrs_kernel<",), "small.lstsq": ("lstsq_kernel<",),
+    "bt.fused_forward": ("fused_forward_sweep_kernel<", "fused_forward_blocked_kernel<"),
+    "bt.factor": ("factor_kernel<",),
+    "bt.forward_solve": ("forward_solve_kernel<", "solve_blocked_kernel<float, true>"),
+    "bt.solve_backward": ("solve_backward_kernel<", "solve_blocked_kernel<float, false>"),
+}
+
+
+def engine_requests(seed: int, dev):
+    """The engine phase's seeded stream, made on the card: ragged f32 posv
+    / lstsq / inv (n 17-128, nrhs 1-64; lstsq m 2n-3n), f32 posv_blocktri
+    (nblocks 8-64, b 32-128, nrhs 1-8), posv_arrowhead (8 blocks of 32,
+    border s 8-32, nrhs 1-8), f64 posv (the library route) and guaranteed
+    f64 posv (n 17-128, nrhs 1-8), and four f32 posv at n = 1024 (the
+    oversize single route), shuffled.  Returns [(op, A, B, tier)]."""
+    from capital_tpu_torch.models import arrowhead
+
+    host = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pick = lambda lo, hi: int(torch.randint(lo, hi + 1, (1,), generator=host))  # noqa: E731
+
+    def spd(n, dtype):
+        G = torch.randn((n, n), generator=gen, device=dev, dtype=torch.float64)
+        return (G @ G.T / n + 3.0 * torch.eye(n, device=dev, dtype=torch.float64)).to(dtype)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float64).to(dtype)
+
+    f32, f64 = torch.float32, torch.float64
+    reqs = []
+    for kind, count in ENGINE_MIX.items():
+        for _ in range(count):
+            n = pick(17, 128)
+            if kind == "posv":
+                reqs.append(("posv", spd(n, f32), randn(n, pick(1, 64)), "balanced"))
+            elif kind == "lstsq":
+                m = pick(2 * n, 3 * n)
+                reqs.append(("lstsq", randn(m, n), randn(m, pick(1, 64)), "balanced"))
+            elif kind == "inv":
+                reqs.append(("inv", spd(n, f32), None, "balanced"))
+            elif kind in ("posv f64", "posv f64 guaranteed"):
+                tier = "guaranteed" if kind.endswith("guaranteed") else "balanced"
+                reqs.append(("posv", spd(n, f64), randn(n, pick(1, 8), dtype=f64), tier))
+            elif kind == "posv oversize":
+                reqs.append(("posv", spd(1024, f32), randn(1024, 4), "balanced"))
+            else:
+                nblocks, b = (pick(8, 64), pick(32, 128)) if kind == "posv_blocktri" else (8, 32)
+                D, C, B = chain_operands(1, nblocks, b, pick(1, 8), pick(0, 1 << 30), dev)
+                A = torch.stack([D[0], C[0]])
+                if kind == "posv_blocktri":
+                    reqs.append(("posv_blocktri", A, B[0], "balanced"))
+                else:
+                    s = pick(8, 32)
+                    _, _, F, S, _, Bs = arrowhead_operands(1, nblocks, b, s, B.shape[-1], pick(0, 1 << 30),
+                                                           dev)
+                    reqs.append(("posv_arrowhead", A, arrowhead.pack(F, S, B, Bs)[0], "balanced"))
+    order = torch.randperm(len(reqs), generator=host).tolist()
+    return [reqs[i] for i in order]
+
+
+def engine_residual(op: str, A, B, X) -> float:
+    """One response's residual in f64 on the card, the reference smoke's
+    (capital_tpu/serve/__main__.py `_residual`): ‖AX − B‖/‖B‖ (posv, and the
+    chain ops blockwise), the normal equations' for lstsq, ‖AX − I‖/√n for
+    inv."""
+    from capital_tpu_torch.models import arrowhead
+
+    if op == "posv_blocktri":
+        return chain_residual(A[0][None], A[1][None], B[None], X[None])
+    if op == "posv_arrowhead":
+        nblocks, b = A.shape[1], A.shape[2]
+        F, S, Bc, Bs = arrowhead.unpack(B[None], nblocks, b)
+        n_t = nblocks * b
+        Xc = X[:n_t].reshape(1, nblocks, b, -1)
+        return arrowhead_residual(A[0][None], A[1][None], F, S, Bc, Bs, Xc, X[n_t:][None])
+    A, X = A.double(), X.double()
+    if op == "inv":
+        n = A.shape[0]
+        return float(torch.linalg.norm(A @ X - torch.eye(n, dtype=torch.float64, device=A.device))
+                     / math.sqrt(n))
+    B = B.double()
+    if op == "lstsq":
+        return float(torch.linalg.norm(A.T @ (A @ X - B)) / torch.linalg.norm(A.T @ B))
+    return float(torch.linalg.norm(A @ X - B) / torch.linalg.norm(B))
+
+
+def engine_turn(eng, reqs) -> dict:
+    """One pass of the stream through `eng`, the reference smoke's loop:
+    every 7th submit sleeps past max_delay_s and pumps (the deadline path),
+    then drain.  Returns the responses, the wall and the batches' mean
+    occupancy."""
+    occ0 = len(eng.stats.occupancies)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = []
+    for i, (op, A, B, tier) in enumerate(reqs):
+        tickets.append(eng.submit(op, A, B, accuracy_tier=tier))
+        if i % 7 == 6:
+            time.sleep(eng.cfg.max_delay_s)
+            eng.pump()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    occ = eng.stats.occupancies[occ0:]
+    return dict(responses=[t.result() for t in tickets], wall_s=wall,
+                batches=len(occ), occupancy=sum(occ) / len(occ))
+
+
+def latency_split(responses) -> dict:
+    """p50 / p99 of the latency and of its queue-wait and device halves,
+    ms, over the batched responses (nearest rank, stats.percentiles)."""
+    from capital_tpu_torch.serve import stats
+
+    batched = [r for r in responses if r.batched]
+    out = {}
+    for name in ("latency_s", "queue_wait_s", "device_s"):
+        p = stats.percentiles([getattr(r, name) for r in batched], (50.0, 99.0))
+        out[name.replace("_s", "_ms")] = {k: v * 1e3 for k, v in p.items()}
+    return out
+
+
+def engine_plan(bucket, cfg) -> tuple[dict, dict]:
+    """A bucket program's launches and route tallies at capture: the
+    serve_phase plans for the f32 dense buckets, nothing for the f64
+    library route, potrf once and potrs once a sweep (the cap, and the
+    start) for guaranteed f64 posv, and `bt_posv_plan` on the blocked
+    route for the chain ops."""
+    from capital_tpu_torch.models import blocktri
+    from capital_tpu_torch.robust import refine
+    from capital_tpu_torch.serve import program
+
+    if bucket.op in ("posv_blocktri", "posv_arrowhead"):
+        nbb = bucket.a_shape[1]
+        plan = bt_posv_plan(blocktri, nbb, program.blocktri_algorithm(nbb, bucket.dtype, cfg))
+        return plan, {k: {"blocked": v} for k, v in plan.items()}
+    if bucket.tier == "guaranteed":
+        sweeps = refine.plan("guaranteed", torch.float64).max_iters + 1
+        return {"small.potrf": 1, "small.potrs": sweeps}, {}
+    if bucket.dtype == "float64":
+        return {}, {}
+    return dict(SERVE_LAUNCHES[(bucket.op, "auto")]), {}
+
+
+def engine_trace_counts(launches: dict) -> dict:
+    """A trace's kernel records by counted kernel (ENGINE_TRACE_NAMES)."""
+    return {k: sum(n for name, n in launches.items() if any(p in name for p in pats))
+            for k, pats in ENGINE_TRACE_NAMES.items()}
+
+
+def engine_replays(eng, reqs, cfg) -> dict:
+    """Each captured program against an eager call of its `api.batched`
+    program on one assembled batch of its own requests: bit for bit, and
+    the host wall of a synchronized call of each, in turns."""
+    from capital_tpu_torch.serve import api, batching
+
+    groups: dict = {}
+    for op, A, B, tier in reqs:
+        bk = batching.bucket_for(op, tuple(A.shape), None if B is None else tuple(B.shape),
+                                 str(A.dtype).replace("torch.", ""), eng.cfg, tier=tier)
+        if bk is not None:
+            groups.setdefault(bk, []).append(batching.pad_operands(op, A, B, bk))
+    out = {}
+    for key, prog in eng.cache.programs().items():
+        bk = prog.bucket
+        members = groups[bk][: bk.capacity]
+        Ab, Bb, _ = batching.assemble([p[0] for p in members], [p[1] for p in members], bk,
+                                      device=eng.grid.device)
+        ins = (Ab,) if Bb is None else (Ab, Bb)
+        fn = api.batched(bk.op, cfg.precision, cfg.small_n_impl, blocktri_impl=cfg.blocktri_impl,
+                         tier=bk.tier)
+        got = prog(*ins)
+        want = tuple(fn(*(x.clone() for x in ins)))
+        torch.cuda.synchronize()
+        label = batching.bucket_label(bk)
+        check(len(got) == len(want) and all(same_bits(g, w) for g, w in zip(got, want)),
+              f"engine: {label} replay differs from the eager program on the same batch")
+        walls = {"replay": [], "eager": []}
+        for i in range(ENGINE_REPLAY_CALLS):
+            for name in (("replay", "eager") if i % 2 == 0 else ("eager", "replay")):
+                f = (lambda: prog(*ins)) if name == "replay" else (lambda: fn(*ins))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        out[label] = dict(problems=len(members), replay_ms=statistics.median(walls["replay"]),
+                          eager_ms=statistics.median(walls["eager"]))
+    return out
+
+
+def engine_phase(hopper, dev) -> dict:
+    """The port's SolveEngine on the card (module docstring, phase 7b)."""
+    from capital_tpu_torch.obs import ledger, spans
+    from capital_tpu_torch.serve import ServeConfig, SolveEngine
+
+    reqs = engine_requests(19, dev)
+    tol32, tol64 = 5e-5, 1e-13  # bench/drivers.py:_tolerance; lstsq 10x
+    engines, out = {}, {"requests": len(reqs), "turns": []}
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    t0 = time.perf_counter()
+    for sched in dict.fromkeys(ENGINE_TURNS):
+        cfg = ServeConfig(scheduler=sched, **ENGINE_CFG)
+        eng = engines[sched] = SolveEngine(cfg=cfg)
+        built = eng.warmup((op, tuple(A.shape), None if B is None else tuple(B.shape), A.dtype, tier)
+                           for op, A, B, tier in reqs)
+        out[f"warmup_{sched}"] = dict(builds=built, cache=eng.cache_stats())
+    torch.cuda.synchronize()
+    out["warmup_s"] = time.perf_counter() - t0
+    out["warmup_counts"] = {k: v for k, v in hopper.counts().items() if v}
+    missing = [k for k in ENGINE_KERNELS if not out["warmup_counts"].get(k)]
+    check(not missing, f"engine: kernels of the engine's programs never launched: {missing}")
+    # the captured programs' plans, at capture
+    for sched, eng in engines.items():
+        progs = eng.cache.programs()
+        check(progs and all(p.captured for p in progs.values()),
+              f"engine {sched}: a bucket program was not captured")
+        for prog in progs.values():
+            plan, routes = engine_plan(prog.bucket, eng.cfg)
+            check(prog.capture_counts == plan and prog.capture_routes == routes,
+                  f"engine {sched} {prog.bucket}: capture launched {prog.capture_counts} "
+                  f"{prog.capture_routes}, plan {plan} {routes}")
+        out[f"programs_{sched}"] = len(progs)
+    # the stream, continuous against sync in turns
+    for sched in ENGINE_TURNS:
+        eng = engines[sched]
+        turn = engine_turn(eng, reqs)
+        worst: dict = {}
+        for (op, A, B, tier), r in zip(reqs, turn["responses"]):
+            check(r.ok and r.x is not None, f"engine {sched}: request {r.request_id} ({op}) failed: {r.error}")
+            res = engine_residual(op, A, B, r.x)
+            tol = tol64 if A.dtype == torch.float64 else tol32
+            gate = 10 * tol if op == "lstsq" else tol
+            check(res < gate, f"engine {sched}: request {r.request_id} ({op} {tuple(A.shape)} {tier}) "
+                              f"residual {res} >= {gate}")
+            name = f"{op} {str(A.dtype)[6:]} {tier}"
+            worst[name] = max(worst.get(name, 0.0), res)
+        line = dict(scheduler=sched, wall_s=turn["wall_s"], batches=turn["batches"],
+                    occupancy=turn["occupancy"], **latency_split(turn["responses"]), worst_residual=worst)
+        out["turns"].append(line)
+        print(json.dumps({"engine_turn": sched, **{k: v for k, v in line.items() if k != "worst_residual"}}),
+              flush=True)
+    for sched, eng in engines.items():
+        cache = eng.cache_stats()
+        warm = out[f"warmup_{sched}"]["cache"]
+        check(cache["misses"] == 0 and cache["compiles"] == warm["compiles"],
+              f"engine {sched}: built after warm-up: {cache} (warm-up {warm})")
+    # one continuous turn under the profiler: the replays ran their plans
+    eng = engines["continuous"]
+    for n in range(1, 4):
+        before = eng.cache.replays()
+        hopper.reset_counts()
+        prof = profile(lambda: engine_turn(eng, reqs), "SV::")
+        eager = hopper.counts()
+        want = dict.fromkeys(ENGINE_TRACE_NAMES, 0)
+        for key, prog in eng.cache.programs().items():
+            for k, v in prog.capture_counts.items():
+                want[k] += (prog.replays - before.get(key, 0)) * v
+        for k in want:
+            want[k] += eager.get(k, 0)
+        got = engine_trace_counts(prof["launches"])
+        if got == want:
+            break
+    check(got == want, f"engine: the trace's kernel records {got} != replays x plan {want}")
+    # launches outside the graphs: the oversize singles' (the models' own route)
+    out["profile"] = dict(tries=n, kernels=got, eager_counts={k: v for k, v in eager.items() if v},
+                          wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
+                          idle_share=prof["idle_share"], top_kernels_device_ms=prof["top_kernels_device_ms"])
+    print(json.dumps({"engine_profile": "continuous turn", **out["profile"]}), flush=True)
+    # the records: complete chains, the reference's schema
+    for sched, eng in engines.items():
+        st = eng.emit_trace()["serve_trace"]
+        bad = [p for t in st["traces"] for p in spans.trace_dict_problems(t)]
+        check(st["requests"] == st["complete"] == eng.stats.requests and not st["dropped"] and not bad,
+              f"engine {sched}: {st['complete']} of {st['requests']} trace chains complete "
+              f"({eng.stats.requests} requests): {bad[:3]}")
+        rec = eng.emit_stats()
+        check(rec["manifest"]["platform"] == "cuda" and rec["record"] == "capital_tpu.ledger",
+              f"engine {sched}: record {rec['manifest']}")
+        out[f"stats_{sched}"] = {k: rec["request_stats"][k] for k in
+                                 ("requests", "ok", "batches", "batch_occupancy_mean", "latency_ms",
+                                  "queue_wait_ms", "device_ms", "cache")}
+        out[f"trace_{sched}"] = dict(requests=st["requests"], complete=st["complete"])
+    out["ledger_schema"] = ledger.SCHEMA_VERSION
+    # every captured program against its eager program
+    rep = engine_replays(engines["continuous"], reqs, engines["continuous"].cfg)
+    out["replay_vs_eager"] = rep
+    tot_r = sum(r["replay_ms"] for r in rep.values())
+    tot_e = sum(r["eager_ms"] for r in rep.values())
+    print(json.dumps({"engine_replay_vs_eager": {"programs": len(rep), "replay_ms_sum": tot_r,
+                                                 "eager_ms_sum": tot_e}}), flush=True)
+    for label, r in sorted(rep.items()):
+        print(json.dumps({"engine_program": label, **r}), flush=True)
     return out
 
 
@@ -3394,6 +3727,9 @@ def main(argv=None) -> int:
     serve_counts = out["serve"]["launches"]
     missing = [k for k in SMALL_KERNELS if serve_counts.get(k, 0) < 1]
     check(not missing, f"kernels of the serve path never launched: {missing}")
+
+    # ---- phase 7b: the serve engine ----------------------------------------
+    out["engine"] = engine_phase(hopper, dev)
 
     # ---- phase 8: the inversion slice's kernels against plain versions ---
     from capital_tpu_torch.ops import tsqr

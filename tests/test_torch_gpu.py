@@ -2056,3 +2056,102 @@ def test_dmma_fma_routes_refuse(cuda):
     assert hopper.route_counts() == {"tri_matmul.dense": {"simt": 1}}
     torch.cuda.synchronize()
     _close(got, hopper.tri_matmul_plain(A, A, a_view=(0, 1, 256, 256), b_view=(0, 256, 256, 256)), "f64")
+
+
+# ---- the serve engine's captured bucket programs ----------------------------
+
+ENGINE_LADDERS = dict(buckets=(32, 64), rows_buckets=(128, 256), nrhs_buckets=(1, 8),
+                      nblocks_buckets=(8, 32), block_buckets=(16, 32), border_buckets=(8,), max_batch=4)
+#: (op, a_shape, b_shape, dtype, tier, small_n_impl): the program, its launches at capture
+CAPTURE_CASES = {
+    "posv f32 auto": (("posv", (64, 64), (64, 8), "float32", "balanced", "auto"), {"small.posv": 1}),
+    "posv f32 split": (("posv", (64, 64), (64, 8), "float32", "balanced", "pallas_split"),
+                       {"small.potrf": 1, "small.potrs": 1}),
+    "lstsq f32 auto": (("lstsq", (256, 64), (256, 8), "float32", "balanced", "auto"), {"small.lstsq": 1}),
+    "inv bf16 auto": (("inv", (32, 32), None, "bfloat16", "balanced", "auto"), {"small.posv": 1}),
+    "posv f64 auto": (("posv", (64, 64), (64, 8), "float64", "balanced", "auto"), {}),
+    "posv f64 guaranteed": (("posv", (32, 32), (32, 1), "float64", "guaranteed", "auto"),
+                            {"small.potrf": 1, "small.potrs": refine.DEFAULT_MAX_ITERS + 1}),
+    "blocktri f32 scan": (("posv_blocktri", (2, 8, 32, 32), (8, 32, 8), "float32", "balanced", "auto"),
+                          {"bt.fused_forward": 1, "bt.solve_backward": 1}),
+    "blocktri f32 partitioned": (("posv_blocktri", (2, 32, 16, 16), (32, 16, 1), "float32", "balanced",
+                                  "auto"), {"bt.fused_forward": 2, "bt.solve_backward": 2}),
+}
+
+
+def _capture_operands(op, a_shape, b_shape, dtype, cap, dev):
+    g = torch.Generator().manual_seed(len(op) + cap)
+    f64 = torch.float64
+    if op == "posv_blocktri":
+        _, nb, b, _ = a_shape
+        G = torch.randn(cap, nb, b, b, generator=g, dtype=f64)
+        D = G @ G.mT / b + 3.0 * torch.eye(b, dtype=f64)
+        C = 0.3 / b ** 0.5 * torch.randn(cap, nb, b, b, generator=g, dtype=f64)
+        C[:, 0] = 0
+        A, B = torch.stack([D, C], dim=1), torch.randn(cap, *b_shape, generator=g, dtype=f64)
+    elif op == "lstsq":
+        A, B = torch.randn(cap, *a_shape, generator=g, dtype=f64), torch.randn(cap, *b_shape, generator=g, dtype=f64)
+    else:
+        n = a_shape[0]
+        G = torch.randn(cap, n, n, generator=g, dtype=f64)
+        A = G @ G.mT / n + 3.0 * torch.eye(n, dtype=f64)
+        B = None if b_shape is None else torch.randn(cap, *b_shape, generator=g, dtype=f64)
+    dt = DTYPES[{"float64": "f64", "float32": "f32", "bfloat16": "bf16"}[dtype]]
+    return tuple(x.to(dt).to(dev) for x in (A, B) if x is not None)
+
+
+def _same_bits(got, want):
+    nan = torch.isnan(got.float()) if got.is_floating_point() else torch.zeros_like(got, dtype=torch.bool)
+    if got.dtype != want.dtype or not torch.equal(nan, torch.isnan(want.float()) if want.is_floating_point()
+                                                  else nan):
+        return False
+    return torch.equal(got.masked_fill(nan, 0), want.masked_fill(nan, 0))
+
+
+@pytest.mark.parametrize("case", list(CAPTURE_CASES))
+def test_engine_replay_equals_eager_and_capture_counts(cuda, case):
+    from capital_tpu_torch.serve import batching, program
+    from capital_tpu_torch.serve.engine import ServeConfig
+
+    (op, a_shape, b_shape, dtype, tier, impl), plan = CAPTURE_CASES[case]
+    cfg = ServeConfig(small_n_impl=impl, **ENGINE_LADDERS)
+    bucket = batching.Bucket(op, dtype, a_shape, b_shape, cfg.max_batch, tier)
+    assert program.capturable(bucket, cfg)
+    fn = api.batched(op, cfg.precision, impl, blocktri_impl=cfg.blocktri_impl, tier=tier)
+    prog = program.Program(fn, bucket, cuda, capture=True)
+    assert prog.captured and prog.capture_counts == plan
+    chain = {k: {"blocked": v} for k, v in plan.items() if k.startswith("bt.")}
+    assert prog.capture_routes == chain
+    ins = _capture_operands(op, a_shape, b_shape, dtype, cfg.max_batch, cuda)
+    hopper.reset_counts()
+    got = prog(*ins)
+    want = tuple(fn(*(x.clone() for x in ins)))
+    torch.cuda.synchronize()
+    assert len(got) == len(want) and all(_same_bits(g, w) for g, w in zip(got, want))
+    # the replay launched nothing through the wrappers: only the eager call counted
+    assert hopper.counts() == {**dict.fromkeys(hopper.KERNELS, 0), **plan}
+    assert prog.replays == 1 and not int(got[-1].abs().max())
+
+
+def test_engine_two_inflight_batches_land_their_own(cuda):
+    from capital_tpu_torch.serve import ServeConfig, SolveEngine
+
+    eng = SolveEngine(cfg=ServeConfig(scheduler="continuous", max_inflight=2, **dict(ENGINE_LADDERS,
+                                                                                      max_batch=2)))
+    assert eng.grid.device.type == "cuda"
+    g = torch.Generator().manual_seed(3)
+    probs = []
+    for _ in range(4):
+        G = torch.randn(20, 20, generator=g, dtype=torch.float64)
+        probs.append((G @ G.T / 20 + 3.0 * torch.eye(20, dtype=torch.float64),
+                      torch.randn(20, 3, generator=g, dtype=torch.float64)))
+    tickets = [eng.submit("posv", A.float(), B.float()) for A, B in probs]
+    assert eng.scheduler.inflight_depth == 2 and all(t.done for t in tickets)
+    eng.drain()
+    for (A, B), t in zip(probs, tickets):
+        r = t.result()
+        assert r.ok and r.x.device.type == "cuda"
+        want = torch.linalg.solve(A, B)
+        assert float((r.x.double().cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    ((key, prog),) = eng.cache.programs().items()
+    assert prog.captured and eng.cache.replays() == {key: 2}

@@ -45,6 +45,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import capital_tpu_torch.models.banded, capital_tpu_torch.ops.blocktri_small\n"
         "import capital_tpu_torch.ops.update_small, capital_tpu_torch.robust.refine\n"
         "import capital_tpu_torch.parallel.mesh\n"
+        "import capital_tpu_torch.serve, capital_tpu_torch.serve.program\n"
+        "import capital_tpu_torch.obs.spans, capital_tpu_torch.obs.ledger\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'capital_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'capital_tpu.')))\n"
         "print(','.join(bad))\n"
