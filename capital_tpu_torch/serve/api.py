@@ -41,17 +41,25 @@ capital_tpu/serve/api.py).
   rank-k panel) batches and return (R', info); 'vmap' is its panel scan,
   'pallas' / 'pallas_split' its sweep kernel (f64 always the panel scan).
 
-  `tier` (robust/refine.TIERS) reaches posv, lstsq and posv_blocktri:
-  'fast' runs the program with the factor dtype one notch down and casts
-  the answer back; 'guaranteed' runs the refinement program
-  (`_batched_refine`), five outputs (X, iters, converged, resid, info).
+  The factor-residency and session programs run against a resident
+  factor that the engine composes into the batch: posv_cached is potrs
+  alone (info ≡ 0); its miss program posv_cached_miss is potrf + potrs
+  with three outputs (X, R, info) so landing can install R;
+  blocktri_extend and session_extend extend a chain from its resident
+  carry (models/blocktri.extend), returning the stacked [L; Wt];
+  session_solve runs both block sweeps against the resident (L, Wt) of
+  the 4-stack [D; C; L; Wt] (info ≡ 0).
+
+  `tier` (robust/refine.TIERS) reaches posv, lstsq, posv_blocktri and
+  session_solve: 'fast' runs the program with the factor dtype one notch
+  down and casts the answer back; 'guaranteed' runs the refinement program
+  (`_batched_refine`), five outputs (X, iters, converged, resid, info);
+  session_solve's refines against its resident factor (refine's
+  ``factor=`` seam).
 
 * **single** — a request beyond every ladder runs unbatched through the
   models: cholesky.solve, qr.factor + apply_QT + a triangular solve,
   cholesky.factor + summa.gemm, and the chain ops as a batch of one.
-
-The residency and session ops wait for the serve tier (ROADMAP Queue A
-item 8) and raise NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -121,8 +129,8 @@ def _batched_vmap(op: str, precision):
 
 def _batched_pallas(op: str, precision, split: bool):
     """The batched-grid route: the whole bucket batch in one (fused) or two
-    (split) kernel launches.  f64 buckets take the vmap program even when
-    the impl was forced (batched_small.dtype_capable)."""
+    (split) kernel launches.  `_dense_route` sends the dtypes the kernels
+    cannot take (f64) to the library program instead."""
     if op == "inv":
         def kernel(a):
             eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand(a.shape)
@@ -131,12 +139,7 @@ def _batched_pallas(op: str, precision, split: bool):
                 return batched_small.potrs(R, eye, uplo="U", precision=precision), info
             return batched_small.posv(a, eye, uplo="U", precision=precision)
 
-        def f_inv(a):
-            if not batched_small.dtype_capable(a.dtype):
-                return _batched_vmap(op, precision)(a)
-            return kernel(a)
-
-        return f_inv
+        return kernel
     if op == "lstsq":
         def kernel(a, b):
             return batched_small.lstsq(a, b, precision=precision)
@@ -148,10 +151,27 @@ def _batched_pallas(op: str, precision, split: bool):
         def kernel(a, b):
             return batched_small.posv(a, b, uplo="U", precision=precision)
 
-    def f(a, b):
-        if not batched_small.dtype_capable(a.dtype):
-            return _batched_vmap(op, precision)(a, b)
-        return kernel(a, b)
+    return kernel
+
+
+def _dense_route(op: str, impl: str, kernel_f, library_f):
+    """The route rule of every program at the dense geometry: 'vmap' is the
+    library program; 'pallas' / 'pallas_split' the kernels, save for a
+    dtype they cannot take (f64), which takes the library program; 'auto'
+    asks batched_small.default_impl(op) at the batch shapes (inv asks
+    posv's question with b's shape a's; the residency programs ask
+    posv's)."""
+    if impl == "vmap":
+        return library_f
+
+    def f(a, *b):
+        if impl == "auto":
+            rhs = (b[0] if b else a).shape
+            use = batched_small.default_impl(op, a.shape, rhs, a.dtype,
+                                             interpret=_host_side(a)) != "vmap"
+        else:
+            use = batched_small.dtype_capable(a.dtype)
+        return kernel_f(a, *b) if use else library_f(a, *b)
 
     return f
 
@@ -233,11 +253,97 @@ def _batched_update(op: str, precision, impl: str):
     return f
 
 
+def _batched_posv_cached(precision, impl: str):
+    """Solve against a resident factor: (R, B) -> (X, info ≡ 0).  No
+    factorization happens (landing installs only healthy factors), so the
+    program is potrs alone."""
+
+    def zero(r):
+        return torch.zeros(r.shape[0], dtype=torch.int32, device=r.device)
+
+    def pallas_f(r, b):
+        return batched_small.potrs(r, b, uplo="U", precision=precision), zero(r)
+
+    def vmap_f(r, b):
+        with tracing.scope("serve::solve"):
+            X = lapack.potrs(r, b, uplo="U")
+        return X, zero(r)
+
+    return _dense_route("posv", impl, pallas_f, vmap_f)
+
+
+def _batched_posv_cached_miss(precision, impl: str):
+    """The residency-miss (seeding) program: full (A, B) operands, three
+    outputs (X, R, info) so landing can install the fresh factor under the
+    request's token."""
+
+    def pallas_f(a, b):
+        R, info = batched_small.potrf(a, uplo="U", precision=precision)
+        return batched_small.potrs(R, b, uplo="U", precision=precision), R, info
+
+    def vmap_f(a, b):
+        with tracing.scope("serve::solve"):
+            R, info = lapack.potrf(a, uplo="U", with_info=True)
+            return lapack.potrs(R, b, uplo="U"), R, info
+
+    return _dense_route("posv", impl, pallas_f, vmap_f)
+
+
+def _batched_extend(precision, impl: str):
+    """The chain-extension program: (appended chain pack (batch, 2,
+    nblocks, b, b), resident carry (batch, b, b)) -> (stacked [L; Wt]
+    (batch, 2, nblocks, b, b), info).  C[:, 0] arrives live (the engine
+    zeroes it for a fresh token's seed, so one program serves both)."""
+    mapped = _TWO_IMPL_MAP[impl]
+
+    def f(a, carry):
+        L, Wt, info = blocktri.extend(a[:, 0], a[:, 1], carry, precision=precision, impl=mapped)
+        return torch.stack([L, Wt], dim=1), info
+
+    return f
+
+
+def _batched_session_extend(precision, impl: str):
+    """The session open / append program: `_batched_extend` (the engine
+    seeds an identity carry and zeroes C[:, 0] for an open), the chain
+    work priced once under SS::extend."""
+    extend = _batched_extend(precision, impl)
+
+    def f(a, carry):
+        with tracing.scope("SS::extend"):
+            tracing.emit(flops=a.shape[0] * tracing.blocktri_chol_flops(a.shape[2], a.shape[3]))
+            with tracing.muted():
+                return extend(a, carry)
+
+    return f
+
+
+def _batched_session_solve(precision, impl: str):
+    """The resident-factor session solve: the 4-stack A = (batch, 4,
+    nblocks, b, b) = [D; C; L; Wt] carries the window (for the guaranteed
+    tier's residual) and the resident factor; the balanced program reads
+    the factor half only — both block sweeps, info ≡ 0."""
+    mapped = _TWO_IMPL_MAP[impl]
+
+    def f(a, b):
+        nblocks, bs = a.shape[2], a.shape[3]
+        with tracing.scope("SS::solve"):
+            tracing.emit(flops=a.shape[0] * 2 * tracing.blocktri_solve_flops(nblocks, bs, b.shape[-1]))
+            with tracing.muted():
+                X = blocktri.solve(a[:, 2], a[:, 3], b, precision=precision, impl=mapped)
+        return X, torch.zeros(a.shape[0], dtype=torch.int32, device=a.device)
+
+    return f
+
+
 def _batched_refine(op: str, precision, impl: str, tier: str):
     """The guaranteed-tier bucket program: mixed-precision iterative
     refinement (robust/refine) over the solve, five outputs (X, iters,
     converged, resid, info).  The dtypes resolve from the operand dtype
-    alone (`refine.plan`)."""
+    alone (`refine.plan`).  session_solve refines against the resident
+    (L, Wt) of its 4-stack, cast to the plan's factor dtype (refine's
+    ``factor=`` seam): the window half drives the residual and nothing is
+    refactored."""
 
     def f(a, b):
         p = refine.plan(tier, a.dtype)
@@ -247,6 +353,10 @@ def _batched_refine(op: str, precision, impl: str, tier: str):
             X, info, ri = refine.posv(a, b, **kw)
         elif op == "lstsq":
             X, info, ri = refine.lstsq(a, b, **kw)
+        elif op == "session_solve":
+            X, info, ri = refine.posv_blocktri(
+                a[:, 0], a[:, 1], b,
+                factor=(a[:, 2].to(p.factor_dtype), a[:, 3].to(p.factor_dtype)), **kw)
         else:  # posv_blocktri (bucket packing: a[:, 0] = D, a[:, 1] = C)
             X, info, ri = refine.posv_blocktri(a[:, 0], a[:, 1], b, **kw)
         return X, ri.iters, ri.converged, ri.resid, info
@@ -255,7 +365,7 @@ def _batched_refine(op: str, precision, impl: str, tier: str):
 
 
 #: the ops the accuracy-tier vocabulary applies to (session_solve's
-#: guaranteed tier waits for ROADMAP Queue A item 8); every other op
+#: guaranteed tier refines against the resident factor); every other op
 #: refuses a tier other than 'balanced'
 TIER_OPS = ("posv", "lstsq", "posv_blocktri", "session_solve")
 
@@ -276,7 +386,7 @@ def batched(op: str, precision: str | None = "highest",
             f"unknown batched impl {impl!r}: expected one of "
             f"{batched_small.IMPLS}"
         )
-    batching._check_bucket_op(op)
+    batching.check_op(op)
     if tier != "balanced":
         batching._check_tier(tier)
         if op not in TIER_OPS:
@@ -296,34 +406,23 @@ def batched(op: str, precision: str | None = "highest",
         return fast
     if op in batching.UPDATE_OPS:
         return _batched_update(op, precision, impl)
+    if op == "posv_cached":
+        return _batched_posv_cached(precision, impl)
+    if op == "posv_cached_miss":
+        return _batched_posv_cached_miss(precision, impl)
+    if op == "blocktri_extend":
+        return _batched_extend(precision, impl)
+    if op == "session_extend":
+        return _batched_session_extend(precision, impl)
+    if op == "session_solve":
+        return _batched_session_solve(precision, impl)
     if op == "posv_blocktri":
         return _batched_blocktri(precision, impl, blocktri_impl, blocktri_partitions)
     if op == "posv_arrowhead":
         return _batched_arrowhead(precision, impl, blocktri_impl, blocktri_partitions)
-    if impl == "vmap":
-        return _batched_vmap(op, precision)
-    if impl in ("pallas", "pallas_split"):
-        return _batched_pallas(op, precision, split=(impl == "pallas_split"))
-    if op == "inv":
-        # auto for inv: the identity-RHS posv's question, b_shape == a_shape
-        def auto_inv(a):
-            pick = batched_small.default_impl(
-                "posv", a.shape, a.shape, a.dtype, interpret=_host_side(a)
-            )
-            if pick == "vmap":
-                return _batched_vmap(op, precision)(a)
-            return _batched_pallas(op, precision, split=False)(a)
-
-        return auto_inv
-
-    def auto(a, b):
-        pick = batched_small.default_impl(op, a.shape, b.shape, a.dtype,
-                                          interpret=_host_side(a))
-        if pick == "vmap":
-            return _batched_vmap(op, precision)(a, b)
-        return _batched_pallas(op, precision, split=False)(a, b)
-
-    return auto
+    return _dense_route("posv" if op == "inv" else op, impl,
+                        _batched_pallas(op, precision, split=(impl == "pallas_split")),
+                        _batched_vmap(op, precision))
 
 
 def single(op: str, grid, precision: str | None = "highest", robust=None,
@@ -400,5 +499,4 @@ def single(op: str, grid, precision: str | None = "highest", robust=None,
             return flat, (info[0] if robust is not None else zero())
 
         return f
-    batching.check_op(op)  # raises for the ops this port does not serve yet
     raise ValueError(f"unknown serve op {op!r}")

@@ -1,6 +1,7 @@
 """Shape bucketing and micro-batch assembly (counterpart of
-capital_tpu/serve/batching.py): the dense ops posv, lstsq and inv, and the
-structured ops posv_blocktri and posv_arrowhead.
+capital_tpu/serve/batching.py): the dense ops posv, lstsq and inv, the
+structured ops posv_blocktri and posv_arrowhead, and the factor-residency
+and streaming-session bucket programs.
 
 Every distinct operand shape would be a fresh program; bucketing pads each
 request to the smallest rung of the config's ladders with a structure-safe
@@ -19,18 +20,22 @@ unpadded one.  posv_arrowhead adds one packed tail operand
 (models/arrowhead.pack) whose border columns zero-pad and whose corner
 embeds as diag(S, I); the border width s has its own ladder.
 
-chol_update / chol_downdate bucket the engine-composed operands (the
-resident factor R (n, n), the rank-k panel V (n, k)) on `buckets` x
-`nrhs_buckets`; the pad is diag(R, I) with zero V rows and columns, a fixed
-point of the sweep, and the crop is the (n, n) principal window.  A bucket
-carries the accuracy tier ('balanced', 'fast', 'guaranteed'): tiers change
-the program, not the padded shapes.
+The factor-residency ops bucket on the engine-composed operands, not the
+wire payload: chol_update / chol_downdate as (resident factor R (n, n),
+rank-k panel V (n, k)) on `buckets` x `nrhs_buckets`, the pad diag(R, I)
+with zero V rows and columns (a fixed point of the sweep); posv_cached as
+(resident R, RHS) and its miss program posv_cached_miss as (A, RHS), both
+at posv's geometry; blocktri_extend and the session open / append program
+session_extend as (appended chain pack (2, nblocks, b, b), resident carry
+(b, b)), the carry padded to diag(L_last, I); session_solve as the 4-stack
+[D; C; L; Wt] (4, nblocks, b, b) with the factor half padded consistently
+with the window half (diag(L_i, I) beside diag(D_i, I)).  A bucket carries
+the accuracy tier ('balanced', 'fast', 'guaranteed'): tiers change the
+program, not the padded shapes.
 
-The engine path (`check_op`) still refuses the factor-residency and session
-ops, which wait for ROADMAP Queue A item 8 (the session solve's tiers with
-them); each raises NotImplementedError naming its item.  Functions
-that create tensors take `device=`, which defaults to the CUDA card and
-raises without one.
+Padding runs on the operands' device (the card on the engine's path).
+Functions that create tensors take `device=`, which defaults to the CUDA
+card and raises without one.
 """
 
 from __future__ import annotations
@@ -50,19 +55,21 @@ OPS = ("posv", "lstsq", "inv", "posv_blocktri", "posv_arrowhead",
 FACTOR_OPS = ("chol_update", "chol_downdate", "posv_cached",
               "blocktri_extend")
 
-#: engine-internal bucket op of the residency-miss (seeding) route.
+#: engine-internal bucket op: a posv_cached whose token is not resident
+#: rides the full (A, B) operands through a 3-output refactor program
+#: (X, R, info) so landing can install R — the seeding route.
 MISS_OPS = ("posv_cached_miss",)
 
-#: the client-facing streaming-session ops (SolveEngine.submit)
+#: the client-facing streaming-session ops (SolveEngine.submit, every one
+#: with factor_token = the session id).  session_open and session_append
+#: run the one engine-internal `session_extend` bucket program;
+#: session_solve buckets under its own name on the 4-stack [D; C; L; Wt];
+#: session_contract and session_close are host-side and have no program.
 SESSION_OPS = ("session_open", "session_append", "session_solve",
                "session_contract", "session_close")
 
 #: engine-internal session bucket ops.
 SESSION_BUCKET_OPS = ("session_extend", "session_solve")
-
-#: the ROADMAP items the refused ops wait for
-RESIDENCY_ITEM = "Queue A item 8, serve tier (factor residency)"
-SESSION_ITEM = "Queue A item 8, serve tier (streaming sessions)"
 
 #: the dense ops
 DENSE_OPS = ("posv", "lstsq", "inv")
@@ -70,30 +77,19 @@ DENSE_OPS = ("posv", "lstsq", "inv")
 #: the block-tridiagonal chain ops (models/blocktri, models/arrowhead)
 STRUCTURED_OPS = ("posv_blocktri", "posv_arrowhead")
 
-#: the rank-k update ops: their bucket programs (api.batched) are served,
-#: the engine's residency protocol around them is not (Queue A item 8)
+#: the rank-k update ops
 UPDATE_OPS = ("chol_update", "chol_downdate")
+
+#: the chain-extension bucket ops: (appended chain pack, resident carry)
+EXTEND_OPS = ("blocktri_extend", "session_extend")
 
 
 def check_op(op: str) -> None:
-    """Raise for an op the port does not serve yet: NotImplementedError
-    naming its ROADMAP item, ValueError for an unknown op."""
-    if op in DENSE_OPS or op in STRUCTURED_OPS:
+    """Raise ValueError (the reference's message) for an op without a
+    bucket program: OPS, MISS_OPS and SESSION_BUCKET_OPS have one."""
+    if op in OPS or op in MISS_OPS or op in SESSION_BUCKET_OPS:
         return
-    if op in FACTOR_OPS or op in MISS_OPS:
-        item = RESIDENCY_ITEM
-    elif op in SESSION_BUCKET_OPS or op in SESSION_OPS:
-        item = SESSION_ITEM
-    else:
-        raise ValueError(f"unknown serve op {op!r}; expected one of {OPS}")
-    raise NotImplementedError(f"serve op {op!r} is not ported yet (ROADMAP {item})")
-
-
-def _check_bucket_op(op: str) -> None:
-    """Raise for an op without a bucket program in the port (`check_op`'s
-    rule, with the update ops' programs let through)."""
-    if op not in UPDATE_OPS:
-        check_op(op)
+    raise ValueError(f"unknown serve op {op!r}; expected one of {OPS}")
 
 
 def _check_tier(tier: str) -> None:
@@ -170,18 +166,37 @@ def bucket_for(op: str, a_shape, b_shape, dtype: str, cfg,
     the dense ladder; posv_arrowhead's tail operand (nblocks·b + s, s + k)
     buckets to (nbb·bb + sb, sb + kb), s on cfg.border_buckets;
     chol_update / chol_downdate bucket (R (n, n), V (n, k)) to
-    ((nb, nb), (nb, kb)).  `tier` is stamped into the bucket."""
+    ((nb, nb), (nb, kb)); posv_cached / posv_cached_miss take posv's
+    geometry; blocktri_extend / session_extend bucket the appended chain
+    like posv_blocktri with the carry at (bb, bb); session_solve buckets
+    the 4-stack [D; C; L; Wt] to (4, nbb, bb, bb).  `tier` is stamped into
+    the bucket."""
+    check_op(op)
     _check_tier(tier)
     if tier != "balanced":
         b = bucket_for(op, a_shape, b_shape, dtype, cfg)
         return None if b is None else dataclasses.replace(b, tier=tier)
-    _check_bucket_op(op)
-    if op in UPDATE_OPS:
+    if op in UPDATE_OPS or op in ("posv_cached", "posv_cached_miss"):
         nb = _pick(cfg.buckets, a_shape[0])
         kb = _pick(cfg.nrhs_buckets, b_shape[1])
         if nb is None or kb is None:
             return None
         return Bucket(op, dtype, (nb, nb), (nb, kb), cfg.max_batch)
+    if op in EXTEND_OPS:
+        _, nblocks, b, _ = a_shape
+        nbb = _pick(cfg.nblocks_buckets, nblocks)
+        bb = _pick(cfg.block_buckets, b)
+        if nbb is None or bb is None:
+            return None
+        return Bucket(op, dtype, (2, nbb, bb, bb), (bb, bb), cfg.max_batch)
+    if op == "session_solve":
+        _, nblocks, b, _ = a_shape
+        nbb = _pick(cfg.nblocks_buckets, nblocks)
+        bb = _pick(cfg.block_buckets, b)
+        kb = _pick(cfg.nrhs_buckets, b_shape[2])
+        if nbb is None or bb is None or kb is None:
+            return None
+        return Bucket(op, dtype, (4, nbb, bb, bb), (nbb, bb, kb), cfg.max_batch)
     if op == "posv_blocktri":
         _, nblocks, b, _ = a_shape
         nbb = _pick(cfg.nblocks_buckets, nblocks)
@@ -229,12 +244,16 @@ def pad_operands(op: str, A, B, bucket: Bucket):
     (on A's device).  For the update ops diag(R, I) stays a valid upper
     factor and the zero V rows and columns make every padded rotation a
     t = 0 no-op: the pad is a fixed point of the sweep."""
-    _check_bucket_op(op)
+    check_op(op)
     with tracing.scope("serve::pad"):
         if op == "posv_blocktri":
             return _pad_blocktri(A, B, bucket)
         if op == "posv_arrowhead":
             return _pad_arrowhead(A, B, bucket)
+        if op in EXTEND_OPS:
+            return _pad_blocktri_extend(A, B, bucket)
+        if op == "session_solve":
+            return _pad_session_solve(A, B, bucket)
         pa = masking.embed_identity_tail(A, *bucket.a_shape)
         pb = None
         if bucket.b_shape is not None:
@@ -245,17 +264,20 @@ def pad_operands(op: str, A, B, bucket: Bucket):
         return pa, pb
 
 
-def _chain_pad(A, bucket: Bucket):
-    """The chain pack A = (2, nblocks, b, b) padded to the bucket's
-    (2, nbb, bb, bb): real diagonal blocks complete to diag(D_i, I),
-    couplings zero-pad, appended blocks become I with zero couplings."""
+def _chain_pad(A, bucket: Bucket, diagonals=(0,)):
+    """The chain pack A = (stack, nblocks, b, b) padded to the bucket's
+    (stack, nbb, bb, bb): the real blocks of each stack entry in
+    `diagonals` complete to diag(X_i, I) and its appended blocks become I;
+    every other entry (the couplings) zero-pads."""
     _, nblocks, b, _ = A.shape
     nbb, bb = bucket.a_shape[1], bucket.a_shape[2]
     pa = torch.nn.functional.pad(A, (0, bb - b, 0, bb - b, 0, nbb - nblocks))
     eye = torch.eye(bb, dtype=A.dtype, device=A.device)
     tail = torch.where(torch.arange(bb, device=A.device) >= b, eye, torch.zeros_like(eye))
     blk = (torch.arange(nbb, device=A.device) < nblocks)[:, None, None]
-    pa[0] += torch.where(blk, tail, eye)
+    emb = torch.where(blk, tail, eye)
+    for i in diagonals:
+        pa[i] += emb
     return pa
 
 
@@ -294,14 +316,48 @@ def _pad_arrowhead(A, P, bucket: Bucket):
     return _chain_pad(A, bucket), torch.cat([ptop, pbot], dim=0)
 
 
+def _pad_blocktri_extend(A, carry, bucket: Bucket):
+    """Structure-safe pad for the chain-extension operands: the appended
+    blocks pad as `_pad_blocktri`'s, and the resident carry L_last embeds
+    as diag(L_last, I), a lower factor of diag(S_last, I), so the first
+    appended block's coupling solve stays block-diagonal arithmetic and
+    the real blocks' factor is bitwise the unpadded one."""
+    return _chain_pad(A, bucket), masking.embed_identity_tail(carry, *bucket.b_shape)
+
+
+def _pad_session_solve(A, B, bucket: Bucket):
+    """Structure-safe pad for the session 4-stack [D; C; L; Wt]: the window
+    half pads as `_pad_blocktri`'s (diag(D_i, I), zero couplings, appended
+    identity blocks) and the factor half consistently with it —
+    diag(L_i, I) is the factor of diag(S_i, I) and the zero-padded Wt keeps
+    both sweeps' padded carries exact zeros — so the real blocks' solution
+    is bitwise the unpadded one and the guaranteed tier's residual is
+    exactly zero on every padded row."""
+    nbb, bb, kb = bucket.b_shape
+    nblocks, b, k = B.shape
+    return _chain_pad(A, bucket, diagonals=(0, 2)), torch.nn.functional.pad(
+        B, (0, kb - k, 0, bb - b, 0, nbb - nblocks))
+
+
 def fill_problem(bucket: Bucket, *, device=None):
     """The benign problem that tops a short batch up to capacity: an
     identity operand (SPD for posv/inv, orthonormal columns for lstsq)
     against a zero RHS.  For posv_blocktri the identity chain (identity
     diagonal blocks, zero couplings); for posv_arrowhead that chain coupled
-    to an identity corner through a zero border (the whole matrix is I)."""
-    _check_bucket_op(bucket.op)
+    to an identity corner through a zero border (the whole matrix is I).
+    The extend programs extend the identity chain from an identity carry;
+    session_solve's fill is the identity window beside its own factor
+    (L = I, Wt = 0)."""
+    check_op(bucket.op)
     dev, dt = _device(device), _dtype(bucket.dtype)
+    if bucket.op in EXTEND_OPS or bucket.op == "session_solve":
+        _, nbb, bb, _ = bucket.a_shape
+        eyes = torch.eye(bb, dtype=dt, device=dev).expand(nbb, bb, bb)
+        zeros = torch.zeros((nbb, bb, bb), dtype=dt, device=dev)
+        if bucket.op == "session_solve":
+            return (torch.stack([eyes, zeros, eyes, zeros]),
+                    torch.zeros(bucket.b_shape, dtype=dt, device=dev))
+        return torch.stack([eyes, zeros]), torch.eye(bb, dtype=dt, device=dev)
     if bucket.op in STRUCTURED_OPS:
         _, nbb, bb, _ = bucket.a_shape
         eyes = torch.eye(bb, dtype=dt, device=dev).expand(nbb, bb, bb)
@@ -336,17 +392,20 @@ def assemble(padded_a, padded_b, bucket: Bucket, *, device=None):
 def crop(op: str, X, a_shape, b_shape):
     """Slice one padded per-problem solution back to the request's true
     shape (the identity tail's rows of X are exact zeros)."""
-    if op == "posv":
+    if op in ("posv", "posv_cached", "posv_cached_miss"):
         return X[: a_shape[0], : b_shape[1]]
     if op == "lstsq":
         return X[: a_shape[1], : b_shape[1]]
-    if op == "posv_blocktri":
+    if op in ("posv_blocktri", "session_solve"):
         return X[: a_shape[1], : a_shape[2], : b_shape[2]]
+    if op in EXTEND_OPS:
+        # the stacked (2, nbb, bb, bb) [L; Wt] back to the appended blocks
+        return X[:, : a_shape[1], : a_shape[2], : a_shape[2]]
     if op == "posv_arrowhead":
         # X is the chain half (nbb, bb, kb), blocked, so slicing unpads; the
         # corner half is the program's second output
         nblocks, b = a_shape[1], a_shape[2]
         s = b_shape[0] - nblocks * b
         return X[:nblocks, :b, : b_shape[1] - s]
-    _check_bucket_op(op)
+    check_op(op)
     return X[: a_shape[0], : a_shape[0]]  # inv, chol_update, chol_downdate

@@ -27,14 +27,24 @@ need the whole picture: request validation, the host-side
 ``serve::ingest`` fault tap (a planted fault corrupts exactly one request
 and never a cached program), bucket resolution and the config hash.
 
+Factor residency and streaming sessions (the reference's docs/SERVING.md
+"Factor residency", "Streaming sessions"): `factor_token=` names a resident
+factor in the engine's `FactorCache` (serve/factorcache.py).  chol_update /
+chol_downdate ship only the rank-k panel V against it, posv_cached solves
+against it (a miss refactors and installs), blocktri_extend appends chain
+blocks from its carry, and the session ops (serve/sessions.py drives them)
+open, append to, solve against, contract and close a resident chain.
+Residency resolves host-side at submit, before padding: the bucket programs
+never see a token, so residency changes never rebuild a program.  Every
+case that cannot be served lands a loud failed Response, never a silent
+wrong answer.
+
 `SolveEngine(grid=None, cfg)` runs on the CUDA card (`Grid.square()`,
 which raises without one); pass ``Grid.square(device="cpu")`` to run the
 plain versions on the host.  Not ported yet, each raising
-NotImplementedError naming its ROADMAP item: the factor-residency ops and
-methods (Queue A item 8, factor residency), the streaming-session ops
-(item 8, sessions), rolling-window telemetry (`enable_telemetry`, item 8's
-front end) and the persistent disk tier (`ServeConfig.persist_dir`, item
-8's persistent tier).
+NotImplementedError naming its ROADMAP item: rolling-window telemetry
+(`enable_telemetry`, item 8's front end) and the persistent disk tier
+(`ServeConfig.persist_dir`, item 8's persistent tier).
 """
 
 from __future__ import annotations
@@ -49,13 +59,14 @@ import torch
 
 from capital_tpu_torch.models import blocktri
 from capital_tpu_torch.obs import spans
-from capital_tpu_torch.ops import batched_small
+from capital_tpu_torch.ops import batched_small, lapack
 from capital_tpu_torch.parallel.topology import Grid
 from capital_tpu_torch.robust import faultinject
-from capital_tpu_torch.robust.config import RobustConfig
+from capital_tpu_torch.robust.config import RobustConfig, RobustInfo
 from capital_tpu_torch.serve import api, batching, program, stats
 from capital_tpu_torch.serve.cache import ExecutableCache
 from capital_tpu_torch.serve.executor import Executor, Response, Ticket, _Pending
+from capital_tpu_torch.serve.factorcache import FactorCache
 from capital_tpu_torch.serve.scheduler import Scheduler
 from capital_tpu_torch.utils import tracing
 
@@ -85,8 +96,12 @@ class ServeConfig:
     max_delay_s: oldest-request age that forces a flush.
     precision: matmul precision inside the programs ('highest' is IEEE f32).
     robust: per-request breakdown flagging.
-    donate, oversize, tail_fuse_depth, scheduler, max_inflight, persist_dir,
-        factor_cache_bytes: engine knobs (Queue A item 8).
+    donate, oversize, tail_fuse_depth, scheduler, max_inflight, persist_dir:
+        engine knobs.
+    factor_cache_bytes: byte budget of the resident-factor pool
+        (serve/factorcache.py).  Not in the config hash: residency is
+        runtime policy (which factors are remembered), the bucket programs
+        are keyed by shape alone.
     small_n_impl: which batched implementation the bucket programs use
         (serve/api.batched): 'auto', 'vmap', 'pallas' or 'pallas_split'.
     """
@@ -189,6 +204,9 @@ class SolveEngine:
         self.validate = validate  # guarded-by: <frozen>
         self.stats = stats.Collector()  # guarded-by: <owner-thread>
         self.cache = ExecutableCache()  # guarded-by: <owner-thread>
+        # host-side resident-factor pool: no program sees it, so residency
+        # changes never rebuild one; its copies live on the grid's device
+        self.factors = FactorCache(cfg.factor_cache_bytes, device=self.grid.device)  # guarded-by: <owner-thread>
         self.executor = Executor(cfg, self.grid, self.stats)  # guarded-by: <owner-thread>
         self.scheduler = Scheduler(cfg, self.executor, self._resolve_bucket)  # guarded-by: <owner-thread>
         # per-request span traces (obs/spans.py): every submit() starts a
@@ -199,7 +217,8 @@ class SolveEngine:
         # config hash: everything that changes the built programs or the
         # padding geometry — two engines differing here never share cache
         # entries.  scheduler / max_inflight / persist_dir are absent: they
-        # change when and where programs run, never what was built.
+        # change when and where programs run, never what was built, and
+        # factor_cache_bytes is runtime residency policy.
         ident = repr((cfg.buckets, cfg.rows_buckets, cfg.nrhs_buckets,
                       cfg.nblocks_buckets, cfg.block_buckets,
                       cfg.border_buckets,
@@ -313,8 +332,13 @@ class SolveEngine:
         backward error and fails the request loudly if it does not
         converge.  `deadline_ms` stamps the request's trace (slack at
         dispatch, violation attribution); it never changes scheduling.
-        `factor_token` and the residency and session ops are not ported
-        yet (NotImplementedError naming the ROADMAP item)."""
+
+        `factor_token` names a resident factor (module docstring):
+        chol_update / chol_downdate submit only the rank-k panel A = V
+        (n, k); posv_cached submits the full (A, B) so a miss can seed the
+        factor; blocktri_extend submits the appended chain pack A = (2,
+        nblocks, b, b) — a never-seen token seeds a fresh chain, an evicted
+        one fails loudly.  The session ops take the session id."""
         t_enq = time.monotonic()
         tid = self._next_id
         self._next_id += 1
@@ -333,12 +357,28 @@ class SolveEngine:
                 f"accuracy_tier={accuracy_tier!r} is only defined for "
                 f"{api.TIER_OPS}, got op {op!r}"
             )
-        batching.check_op(op)  # the residency and session ops raise here
-        if factor_token is not None:
-            raise NotImplementedError(
-                f"factor_token= is not ported yet (ROADMAP {batching.RESIDENCY_ITEM})")
-        A = torch.as_tensor(A, device=self.grid.device)
+        A = torch.as_tensor(A, device=self.grid.device) if A is not None else None
         B = torch.as_tensor(B, device=self.grid.device) if B is not None else None
+        if op in batching.SESSION_OPS:
+            if factor_token is None:
+                raise ValueError(
+                    f"{op} requires factor_token= (the session id — "
+                    "docs/SERVING.md 'Streaming sessions')"
+                )
+            return self._submit_session(ticket, op, A, B, str(factor_token),
+                                        accuracy_tier, t_enq)
+        if op in batching.FACTOR_OPS:
+            if factor_token is None:
+                raise ValueError(
+                    f"{op} requires factor_token= (docs/SERVING.md "
+                    "'Factor residency')"
+                )
+            return self._submit_factor(ticket, op, A, B, str(factor_token), t_enq)
+        if factor_token is not None:
+            raise ValueError(
+                f"factor_token is only valid for {batching.FACTOR_OPS}, "
+                f"got op {op!r}"
+            )
         if op == "posv_blocktri":
             if (A.ndim != 4 or A.shape[0] != 2
                     or A.shape[2] != A.shape[3]):
@@ -468,7 +508,8 @@ class SolveEngine:
         ledger record (appended to `path` when given)."""
         return self.stats.emit(
             path, grid=self.grid, config=self.cfg,
-            cache=self.cache_stats(), **extra,
+            cache=self.cache_stats(), factor_cache=self.factors.stats(),
+            **extra,
         )
 
     def emit_trace(self, path: Optional[str] = None, *,
@@ -486,20 +527,32 @@ class SolveEngine:
         raise NotImplementedError(
             f"SolveEngine.enable_telemetry is not ported yet (ROADMAP {TELEMETRY_ITEM})")
 
-    def install_factor(self, token: str, R):
-        """Factor residency is not ported yet."""
-        raise NotImplementedError(
-            f"SolveEngine.install_factor is not ported yet (ROADMAP {batching.RESIDENCY_ITEM})")
+    # ---- factor residency ----------------------------------------------------
 
-    def release_factor(self, token: str):
-        """Factor residency is not ported yet."""
-        raise NotImplementedError(
-            f"SolveEngine.release_factor is not ported yet (ROADMAP {batching.RESIDENCY_ITEM})")
+    def install_factor(self, token: str, R) -> list[str]:
+        """Out-of-band seeding: install an upper-triangular R (A = RᵀR, the
+        lapack.potrf uplo='U' convention) as the resident dense factor for
+        `token` (a copy on the grid's device: later writes to R do not
+        reach it).  Returns the tokens the byte budget evicted."""
+        R = torch.as_tensor(R)
+        if R.ndim != 2 or R.shape[0] != R.shape[1]:
+            raise ValueError(
+                f"install_factor needs a square (n, n) factor, got {tuple(R.shape)}"
+            )
+        return self.factors.put(
+            token, "dense", (R,),
+            {"n": int(R.shape[0]), "dtype": _dtype_name(R.dtype)},
+        )
 
-    def factor_stats(self):
-        """Factor residency is not ported yet."""
-        raise NotImplementedError(
-            f"SolveEngine.factor_stats is not ported yet (ROADMAP {batching.RESIDENCY_ITEM})")
+    def release_factor(self, token: str) -> bool:
+        """Explicit client drop of a resident factor (clears any eviction
+        tombstone).  Returns whether an entry was resident."""
+        return self.factors.release(token)
+
+    def factor_stats(self) -> dict:
+        """The FactorCache counter block, also emitted inside every
+        serve:request_stats record once factor traffic exists."""
+        return self.factors.stats()
 
     def _start_trace(self, ticket: Ticket, op: str,
                      tier: str) -> spans.RequestTrace:
@@ -537,6 +590,479 @@ class SolveEngine:
             client_op=client_op, sink=sink,
         ))
         self.stats.note_queue_depth(self.queue_depth())
+
+    def _lose(self, ticket: Ticket, op: str, msg: str, t_enq: float) -> Ticket:
+        """Land a request the residency protocol cannot serve as a loud
+        failure (never a silent wrong answer)."""
+        self.executor.fail(ticket, op, msg, t_enq)
+        return ticket
+
+    def _submit_factor(self, ticket: Ticket, op: str, A, B, token: str,
+                       t_enq: float) -> Ticket:
+        """The factor-residency submit path (the reference's, case for
+        case).  Residency resolves here, host-side, before padding: an
+        update / downdate against a non-resident token, any kind / shape /
+        dtype mismatch with the resident entry, an extend against an
+        evicted chain and any oversize shape land a loud failed Response."""
+        if op in batching.UPDATE_OPS:
+            if A.ndim != 2 or B is not None:
+                raise ValueError(
+                    f"{op} needs A = V (n, k), no B — the resident factor "
+                    f"is the other operand; got A {tuple(A.shape)}"
+                    + ("" if B is None else f", B {tuple(B.shape)}")
+                )
+        elif op == "posv_cached":
+            if A.ndim != 2 or A.shape[0] != A.shape[1]:
+                raise ValueError(
+                    f"posv_cached needs a square SPD operand, got {tuple(A.shape)}"
+                )
+            if B is None or B.ndim != 2 or B.shape[0] != A.shape[0]:
+                raise ValueError(
+                    f"posv_cached needs a 2D RHS with {A.shape[0]} rows, "
+                    f"got {None if B is None else tuple(B.shape)}"
+                )
+        else:  # blocktri_extend
+            if A.ndim != 4 or A.shape[0] != 2 or A.shape[2] != A.shape[3]:
+                raise ValueError(
+                    f"blocktri_extend needs A = (2, nblocks, b, b) appended "
+                    f"[diagonal, sub-diagonal] blocks, got {tuple(A.shape)}"
+                )
+            if B is not None:
+                raise ValueError(
+                    f"blocktri_extend takes no B (the resident carry is "
+                    f"the second operand), got B {tuple(B.shape)}"
+                )
+        # traced only once past the raise-validation, as submit()
+        self._start_trace(ticket, op, "balanced")
+        try:
+            # the per-request tap: a planted fault corrupts one request's
+            # operand, never a cached program or a resident factor (the
+            # sinks refuse to install flagged results)
+            A = faultinject.tap(A, point="serve::ingest")
+        except faultinject.FaultInjected as e:
+            return self._lose(ticket, op, str(e), t_enq)
+        dt = _dtype_name(A.dtype)
+        ent = self.factors.lookup(token)
+
+        def lose(msg: str) -> Ticket:
+            return self._lose(ticket, op, msg + " (docs/SERVING.md 'Factor residency')", t_enq)
+
+        if op in batching.UPDATE_OPS:
+            if ent is None:
+                why = "evicted" if self.factors.evicted(token) else "never seeded"
+                return lose(
+                    f"factor_token {token!r} not resident ({why}): {op} "
+                    "ships only the rank-k panel V, so there is nothing to "
+                    "update — seed with posv_cached or install_factor()"
+                )
+            if ent.kind != "dense":
+                return lose(f"factor_token {token!r} holds a {ent.kind} factor; {op} needs a dense one")
+            R = ent.arrays[0]
+            n = int(R.shape[0])
+            if A.shape[0] != n or _dtype_name(R.dtype) != dt:
+                return lose(
+                    f"V {tuple(A.shape)}/{dt} does not ride the resident factor "
+                    f"({n}, {n})/{_dtype_name(R.dtype)} under token {token!r}"
+                )
+            bucket = batching.bucket_for(op, (n, n), tuple(A.shape), dt, self.cfg)
+            if bucket is None:
+                return lose(f"no bucket for {op} n={n} k={A.shape[1]}: factor ops have no oversize route")
+            pa, pb = batching.pad_operands(op, R, A, bucket)
+            self._admit(ticket, bucket, pa, pb, (n, n), tuple(A.shape), t_enq,
+                        client_op=op, sink=self._update_sink(op, token, n, A))
+            return ticket
+
+        if op == "posv_cached":
+            n = int(A.shape[0])
+            if ent is not None:
+                if ent.kind != "dense":
+                    return lose(
+                        f"factor_token {token!r} holds a {ent.kind} factor; posv_cached needs a dense one")
+                R = ent.arrays[0]
+                if int(R.shape[0]) != n or _dtype_name(R.dtype) != dt:
+                    return lose(
+                        f"operand {tuple(A.shape)}/{dt} does not match the resident factor "
+                        f"{tuple(R.shape)}/{_dtype_name(R.dtype)} under token {token!r}"
+                    )
+                bucket = batching.bucket_for("posv_cached", (n, n), tuple(B.shape), dt, self.cfg)
+                if bucket is None:
+                    return lose(f"no bucket for posv_cached n={n} nrhs={B.shape[1]}: factor ops have "
+                                "no oversize route")
+                pa, pb = batching.pad_operands("posv_cached", R, B, bucket)
+                self._admit(ticket, bucket, pa, pb, (n, n), tuple(B.shape), t_enq,
+                            client_op="posv_cached")
+                return ticket
+            # miss: seed by refactoring through the 3-output miss program
+            # (X, R, info); the full operand is on the wire, so re-seeding
+            # is safe even for an evicted token
+            bucket = batching.bucket_for("posv_cached_miss", tuple(A.shape), tuple(B.shape), dt, self.cfg)
+            if bucket is None:
+                return lose(f"no bucket for posv_cached n={n} nrhs={B.shape[1]}: factor ops have no "
+                            "oversize route")
+            pa, pb = batching.pad_operands("posv_cached_miss", A, B, bucket)
+            self._admit(ticket, bucket, pa, pb, tuple(A.shape), tuple(B.shape), t_enq,
+                        client_op="posv_cached", sink=self._seed_sink(token, n))
+            return ticket
+
+        # blocktri_extend
+        nblocks, b = int(A.shape[1]), int(A.shape[2])
+        if ent is not None:
+            if ent.kind != "blocktri":
+                return lose(f"factor_token {token!r} holds a {ent.kind} factor; blocktri_extend needs a "
+                            "blocktri chain")
+            if int(ent.meta["b"]) != b or ent.meta["dtype"] != dt:
+                return lose(
+                    f"appended blocks {tuple(A.shape)}/{dt} do not ride the resident chain "
+                    f"b={ent.meta['b']}/{ent.meta['dtype']} under token {token!r}"
+                )
+            carry = ent.arrays[2]
+            prior = int(ent.meta["nblocks"])
+        else:
+            if self.factors.evicted(token):
+                return lose(
+                    f"factor_token {token!r} was EVICTED: extending a "
+                    "silently re-seeded identity chain would be a wrong "
+                    "answer — resubmit the full chain under a fresh token"
+                )
+            # fresh chain: identity carry and a zeroed first coupling run
+            # the same program as a continuation (the client's A is kept)
+            carry = torch.eye(b, dtype=A.dtype, device=A.device)
+            A = A.clone()
+            A[1, 0] = 0
+            prior = 0
+        bucket = batching.bucket_for("blocktri_extend", tuple(A.shape), (b, b), dt, self.cfg)
+        if bucket is None:
+            return lose(f"no bucket for blocktri_extend nblocks={nblocks} b={b}: factor ops have no "
+                        "oversize route")
+        pa, pb = batching.pad_operands("blocktri_extend", A, carry, bucket)
+        self._admit(ticket, bucket, pa, pb, tuple(A.shape), (b, b), t_enq,
+                    client_op="blocktri_extend", sink=self._extend_sink(token, b, prior))
+        return ticket
+
+    def _submit_session(self, ticket: Ticket, op: str, A, B, token: str,
+                        tier: str, t_enq: float) -> Ticket:
+        """The session protocol's submit path (serve/sessions.py drives
+        it).  Wire shapes: session_open / session_append take the window
+        blocks A = (2, nblocks, b, b) ([D; C]; C[:, 0] live for append,
+        zeroed here for open) and no B; session_solve takes the current
+        window A = (2, nblocks, b, b) and B = (nblocks, b, nrhs), and the
+        engine stacks [D; C; L; Wt] on the grid's device from the resident
+        factor; session_contract takes A = k (a scalar: the oldest blocks
+        to drop) and returns the new head diagonal factor block L_k (b, b);
+        session_close takes no operands and returns a 0/1 released flag.
+
+        A request against an evicted session fails with a
+        ``SessionEvicted:`` error (re-seed with session_open, which clears
+        the tombstone); one against a never-opened session fails as 'not
+        open'.  Both are failed Responses, never silent identity answers."""
+        if op in ("session_open", "session_append"):
+            if A.ndim != 4 or A.shape[0] != 2 or A.shape[2] != A.shape[3]:
+                raise ValueError(
+                    f"{op} needs A = (2, nblocks, b, b) window blocks "
+                    f"[diagonal, sub-diagonal], got {tuple(A.shape)}"
+                )
+            if B is not None:
+                raise ValueError(f"{op} takes no B (the carry is resident), got B {tuple(B.shape)}")
+        elif op == "session_solve":
+            if A.ndim != 4 or A.shape[0] != 2 or A.shape[2] != A.shape[3]:
+                raise ValueError(
+                    f"session_solve needs A = (2, nblocks, b, b) — the "
+                    f"session's current [D; C] window — got {tuple(A.shape)}"
+                )
+            if B is None or B.ndim != 3 or B.shape[:2] != A.shape[1:3]:
+                raise ValueError(
+                    f"session_solve needs B = (nblocks, b, nrhs) riding "
+                    f"A {tuple(A.shape)}, got {None if B is None else tuple(B.shape)}"
+                )
+        elif op == "session_contract":
+            if A.ndim != 0:
+                raise ValueError(
+                    f"session_contract needs a scalar A = k (blocks to drop), got shape {tuple(A.shape)}")
+            if B is not None:
+                raise ValueError("session_contract takes no B")
+        else:  # session_close
+            if A is not None or B is not None:
+                raise ValueError("session_close takes no operands")
+        self._start_trace(ticket, op, tier)
+
+        def lose(msg: str) -> Ticket:
+            return self._lose(ticket, op, msg + " (docs/SERVING.md 'Streaming sessions')", t_enq)
+
+        def lose_missing() -> Ticket:
+            if self.factors.evicted(token):
+                return lose(
+                    f"SessionEvicted: session {token!r} lost its resident "
+                    "factor to cache pressure — re-seed the window with "
+                    "session_open"
+                )
+            return lose(f"session {token!r} is not open")
+
+        # host-side administrative ops: no program runs; the span chain is
+        # admit -> cache_lookup -> respond under the 'session' trace kind
+        if op == "session_close":
+            if ticket.trace is not None:
+                ticket.trace.kind = "session"
+                ticket.trace.extend("admit")
+            released = self.factors.release(token)
+            if ticket.trace is not None:
+                ticket.trace.extend("cache_lookup")
+            flag = torch.tensor(1 if released else 0, dtype=torch.int32, device=self.grid.device)
+            return self._finish_host(ticket, op, flag, t_enq)
+        if op == "session_contract":
+            if ticket.trace is not None:
+                ticket.trace.kind = "session"
+                ticket.trace.extend("admit")
+            ent = self.factors.lookup(token)
+            if ticket.trace is not None:
+                ticket.trace.extend("cache_lookup")
+            if ent is None:
+                return lose_missing()
+            if ent.kind != "session":
+                return lose(f"factor_token {token!r} holds a {ent.kind} factor; session ops need a "
+                            "session chain")
+            k = int(A)
+            nblocks = int(ent.meta["nblocks"])
+            if not 0 < k < nblocks:
+                return lose(
+                    f"session_contract k={k} must satisfy 0 < k < "
+                    f"nblocks={nblocks} (contracting the whole chain is "
+                    "session_close)"
+                )
+            Lc, Wtc = blocktri.contract(ent.arrays[0][None], ent.arrays[1][None], k)
+            self.factors.put(
+                token, "session", (Lc[0], Wtc[0], ent.arrays[2]),
+                {"b": int(ent.meta["b"]), "nblocks": nblocks - k,
+                 "dtype": ent.meta["dtype"],
+                 "dropped": int(ent.meta.get("dropped", 0)) + k},
+            )
+            # the new head diagonal factor block: what the client needs to
+            # marginalize its window head (D[0] <- L_k·L_kᵀ)
+            return self._finish_host(ticket, op, Lc[0, 0].clone(), t_enq)
+
+        try:
+            A = faultinject.tap(A, point="serve::ingest")
+        except faultinject.FaultInjected as e:
+            return self._lose(ticket, op, str(e), t_enq)
+        dt = _dtype_name(A.dtype)
+
+        if op == "session_open":
+            nblocks, b = int(A.shape[1]), int(A.shape[2])
+            # open is the re-seed path: drop any prior incarnation and
+            # clear an eviction tombstone
+            self.factors.release(token)
+            carry = torch.eye(b, dtype=A.dtype, device=A.device)
+            A = A.clone()
+            A[1, 0] = 0
+            bucket = batching.bucket_for("session_extend", tuple(A.shape), (b, b), dt, self.cfg)
+            if bucket is None:
+                return lose(f"no bucket for session window nblocks={nblocks} b={b}: session ops have "
+                            "no oversize route")
+            pa, pb = batching.pad_operands("session_extend", A, carry, bucket)
+            self._admit(ticket, bucket, pa, pb, tuple(A.shape), (b, b), t_enq,
+                        client_op="session_open", sink=self._session_extend_sink(op, token, b))
+            return ticket
+
+        ent = self.factors.lookup(token)
+        if ent is None:
+            return lose_missing()
+        if ent.kind != "session":
+            return lose(f"factor_token {token!r} holds a {ent.kind} factor; session ops need a session "
+                        "chain")
+        if int(ent.meta["b"]) != int(A.shape[2]) or ent.meta["dtype"] != dt:
+            return lose(
+                f"operand {tuple(A.shape)}/{dt} does not ride the resident "
+                f"session chain b={ent.meta['b']}/{ent.meta['dtype']} "
+                f"under token {token!r}"
+            )
+
+        if op == "session_append":
+            nblocks, b = int(A.shape[1]), int(A.shape[2])
+            bucket = batching.bucket_for("session_extend", tuple(A.shape), (b, b), dt, self.cfg)
+            if bucket is None:
+                return lose(f"no bucket for session append nblocks={nblocks} b={b}: session ops have "
+                            "no oversize route")
+            pa, pb = batching.pad_operands("session_extend", A, ent.arrays[2], bucket)
+            self._admit(ticket, bucket, pa, pb, tuple(A.shape), (b, b), t_enq,
+                        client_op="session_append", sink=self._session_extend_sink(op, token, b))
+            return ticket
+
+        # session_solve
+        nblocks, b = int(A.shape[1]), int(A.shape[2])
+        if int(ent.meta["nblocks"]) != nblocks:
+            return lose(
+                f"session_solve window has {nblocks} blocks but the "
+                f"resident chain under {token!r} has "
+                f"{ent.meta['nblocks']} — the client window is out of "
+                "sync (append/contract landed without updating it?)"
+            )
+        A4 = torch.stack([A[0], A[1], ent.arrays[0], ent.arrays[1]])
+        bucket = batching.bucket_for("session_solve", tuple(A4.shape), tuple(B.shape), dt, self.cfg,
+                                     tier=tier)
+        if bucket is None:
+            return lose(f"no bucket for session_solve nblocks={nblocks} b={b} nrhs={B.shape[2]}: "
+                        "session ops have no oversize route")
+        pa, pb = batching.pad_operands("session_solve", A4, B, bucket)
+        sink = self._refine_sink("session_solve") if bucket.tier == "guaranteed" else None
+        self._admit(ticket, bucket, pa, pb, tuple(A4.shape), tuple(B.shape), t_enq,
+                    client_op="session_solve", sink=sink)
+        return ticket
+
+    def _finish_host(self, ticket: Ticket, op: str, x, t_enq: float) -> Ticket:
+        """Land a host-side session op (contract / close): no dispatch
+        happened, so the latency has no queue-wait / device split."""
+        t_land = time.monotonic()
+        ticket.response = Response(
+            request_id=ticket.request_id, op=op, ok=True, x=x, info=None,
+            error=None, bucket=None, batched=False, latency_s=t_land - t_enq,
+        )
+        if ticket.trace is not None:
+            ticket.trace.extend("respond")
+            ticket.response.trace = ticket.trace
+        self.stats.record_request(op, t_land - t_enq, ok=True)
+        return ticket
+
+    def _session_extend_sink(self, op: str, token: str, b: int):
+        """Landing hook for session_open / session_append: install (open)
+        or concatenate (append) the landed (L, Wt) and roll the carry.
+        Sessions are stateful, so a flagged extend fails the request
+        loudly even under robust=None, and a chain evicted between dispatch
+        and landing fails it as SessionEvicted (installing the suffix alone
+        would re-seed a truncated chain)."""
+
+        def sink(x, extras, raw_info):
+            i = int(raw_info)
+            if i != 0:
+                return x, raw_info, (
+                    f"{op} flagged breakdown (info={i}, segment-relative "
+                    "to the submitted window blocks): the window is not "
+                    f"SPD-consistent; resident session chain {token!r} "
+                    "left unchanged" + (
+                        " (open failed — the session is closed)"
+                        if op == "session_open" else "")
+                )
+            L, Wt = x[0], x[1]
+            dropped, nblocks = 0, int(L.shape[0])
+            ent = self.factors.peek(token)
+            if ent is None and op != "session_open" and self.factors.evicted(token):
+                return x, raw_info, (
+                    f"SessionEvicted: resident chain {token!r} was evicted "
+                    f"mid-flight (before this {op} landed); the suffix was "
+                    "NOT installed — reopen the session and replay"
+                )
+            if ent is not None and ent.kind == "session":
+                nblocks += int(ent.arrays[0].shape[0])
+                dropped = int(ent.meta.get("dropped", 0))
+            self.factors.append_blocks(
+                token, "session", L, Wt,
+                {"b": b, "nblocks": nblocks,
+                 "dtype": _dtype_name(L.dtype), "dropped": dropped},
+            )
+            return x, raw_info, None
+
+        return sink
+
+    def _update_sink(self, op: str, token: str, n: int, V):
+        """Landing hook for chol_update / chol_downdate: install R' on a
+        clean info, refuse to install on breakdown.  A flagged downdate
+        degrades to a fresh refactor S = RᵀR − VVᵀ from the still-resident
+        old factor (put() runs only on success, and the resident R is never
+        the donated batch buffer: the batch is a stacked copy); only if that
+        also fails does the request fail loudly."""
+
+        def sink(x, extras, raw_info):
+            i = int(raw_info)
+            if i == 0:
+                self.factors.put(token, "dense", (x,), {"n": n, "dtype": _dtype_name(x.dtype)})
+                return x, raw_info, None
+            if op == "chol_update":
+                # a rank-k update of an SPD matrix cannot break down in
+                # exact arithmetic: a flag means a poisoned operand
+                return x, raw_info, (
+                    f"chol_update flagged breakdown (info={i}) — operand "
+                    f"is not finite-SPD-consistent; resident factor "
+                    f"{token!r} left unchanged"
+                )
+            ent = self.factors.peek(token)
+            if ent is None:
+                return x, raw_info, (
+                    f"chol_downdate breakdown (info={i}) and token "
+                    f"{token!r} was released/evicted mid-flight: no "
+                    "resident state to degrade from"
+                )
+            self.factors.note_downdate_degrade()
+            fn = self._get_degrade(n, int(V.shape[1]), _dtype_name(V.dtype))
+            R2, info2 = fn(ent.arrays[0], V)
+            if int(info2) == 0:
+                self.factors.put(token, "dense", (R2,), {"n": n, "dtype": _dtype_name(R2.dtype)})
+                return R2, RobustInfo(info=0, breakdown=1, shifted=0, sigma=0.0,
+                                      escalated=1, ortho=-1.0), None
+            return x, raw_info, (
+                f"chol_downdate breakdown (info={i}) and the degrade "
+                f"refactor ALSO failed (potrf info={int(info2)}): "
+                "A − VVᵀ is not positive definite — resident factor "
+                f"{token!r} left at its pre-downdate state"
+            )
+
+        return sink
+
+    def _seed_sink(self, token: str, n: int):
+        """Landing hook for the posv_cached miss program: install the
+        refactored R (cropped from its padded batch slot) on a clean info
+        only — a flagged refactor never becomes resident truth."""
+
+        def sink(x, extras, raw_info):
+            if int(raw_info) == 0:
+                R = extras[0][:n, :n]
+                self.factors.put(token, "dense", (R,), {"n": n, "dtype": _dtype_name(R.dtype)})
+            return x, raw_info, None
+
+        return sink
+
+    def _extend_sink(self, token: str, b: int, prior: int):
+        """Landing hook for blocktri_extend: append the new (L, Wt) blocks
+        to the resident chain and roll the carry.  A flagged extend
+        installs nothing (the prefix stays valid; the landed info is
+        segment-relative); a prefix evicted between dispatch and landing
+        fails the extend loudly."""
+
+        def sink(x, extras, raw_info):
+            if int(raw_info) != 0:
+                return x, raw_info, None
+            L, Wt = x[0], x[1]
+            ent = self.factors.peek(token)
+            if ent is None and prior > 0 and self.factors.evicted(token):
+                return x, raw_info, (
+                    f"resident blocktri chain {token!r} was evicted "
+                    "mid-flight (before this extend landed); the suffix "
+                    "was NOT installed — re-factor the full chain"
+                )
+            nblocks = int(L.shape[0])
+            if ent is not None and ent.kind == "blocktri":
+                nblocks += int(ent.arrays[0].shape[0])
+            self.factors.append_blocks(
+                token, "blocktri", L, Wt,
+                {"b": b, "nblocks": nblocks, "dtype": _dtype_name(L.dtype)},
+            )
+            return x, raw_info, None
+
+        return sink
+
+    def _get_degrade(self, n: int, k: int, dtype: str):
+        """The downdate-degrade program: refactor S = RᵀR − VVᵀ from
+        scratch (lapack.potrf upper, with info).  Built once per shape like
+        the oversize single route, and counted as a warm-up build: an
+        exceptional path's build must not read as a steady-state rebuild."""
+        key = ("degrade", n, k, dtype, self._grid_key, self._cfg_hash)
+
+        def build():
+            def fn(R, V):
+                with tracing.scope("UP::downdate"):
+                    S = R.mT @ R - V @ V.mT
+                    return lapack.potrf(S, uplo="U", with_info=True)
+
+            return fn
+
+        return self.cache.get(key, build, warmup=True)
 
     def _arrowhead_sink(self, a_shape, b_shape):
         """Landing hook for posv_arrowhead: the 3-output bucket program

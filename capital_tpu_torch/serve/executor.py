@@ -152,11 +152,13 @@ class Executor:
         """The donation declaration for one bucket program (the
         reference's rule): posv's RHS batch, inv's operand batch, nothing
         for lstsq (its (m, nrhs) RHS cannot hold the (n, nrhs) solution).
-        chol_update / chol_downdate donate the assembled factor batch,
+        chol_update / chol_downdate donate the assembled factor batch —
+        `batching.assemble` stacks copies of the padded operands, so the
+        resident factor in the FactorCache is never that buffer —
         posv_cached its RHS; the miss, extend and session programs and
-        every tiered bucket donate nothing (the fast program downcasts its
-        inputs, the guaranteed one keeps both operands live across every
-        sweep)."""
+        every tiered bucket donate nothing (session_solve's 4-stack holds
+        the resident (L, Wt); the fast program downcasts its inputs, the
+        guaranteed one keeps both operands live across every sweep)."""
         if not self.donate():
             return ()
         if bucket.tier != "balanced":

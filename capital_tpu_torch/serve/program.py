@@ -51,7 +51,15 @@ def small_route(bucket: batching.Bucket, cfg, *, interpret: bool) -> bool:
     reference's `SolveEngine._small_route`, the same static resolution
     `api.batched('auto')` makes at call time).  `interpret` is the grid's
     side of the envelope question (`api._host_side`): True on the CPU,
-    where the plain versions have no envelope."""
+    where the plain versions have no envelope.
+
+    posv_cached and its miss program resolve as posv at the same shapes;
+    blocktri_extend as a chain scan step at k = b.  session_extend and
+    session_solve resolve as the reference's engine resolves them: through
+    batched_small's question, which answers the library route for every op
+    but posv and lstsq, so under 'auto' they count as not small, although
+    on the card their chain steps take the kernels (`blocktri_small`'s own
+    gate) — the split is stats only, and it stays the reference's."""
     impl = cfg.small_n_impl
     if impl == "vmap":
         return False
@@ -83,6 +91,10 @@ def small_route(bucket: batching.Bucket, cfg, *, interpret: bool) -> bool:
     if forced:
         return True
     a_shape = (bucket.capacity,) + bucket.a_shape
+    if bucket.op in ("posv_cached", "posv_cached_miss"):
+        # potrs / potrf + potrs at posv's geometry: posv's question
+        return batched_small.default_impl("posv", a_shape, (bucket.capacity,) + bucket.b_shape,
+                                          dtype, interpret=interpret) == "pallas"
     if bucket.op == "inv":
         # inv rides the posv kernel with an identity RHS (api.batched)
         return batched_small.default_impl("posv", a_shape, a_shape, dtype,
@@ -110,7 +122,9 @@ def blocktri_algorithm(nblocks: int, dtype, cfg) -> str:
 
 #: the ops whose bucket programs capture on the card: every op with a
 #: bucket program (`capturable`)
-CAPTURED_OPS = batching.DENSE_OPS + batching.STRUCTURED_OPS + batching.UPDATE_OPS
+CAPTURED_OPS = (batching.DENSE_OPS + batching.STRUCTURED_OPS + batching.UPDATE_OPS
+                + ("posv_cached",) + batching.MISS_OPS + ("blocktri_extend",)
+                + batching.SESSION_BUCKET_OPS)
 
 
 def capturable(bucket: batching.Bucket, cfg) -> bool:
@@ -122,7 +136,11 @@ def capturable(bucket: batching.Bucket, cfg) -> bool:
     (`small_route`) and chain algorithm.  `probes/serve_capture.py` asked
     the card for every combination of op x dtype (f32, f64, bf16) x
     small_n_impl x chain algorithm x tier x capacity (1, 8): each
-    captured, and each replay was bit for bit the eager program's.  None
+    captured, and each replay was bit for bit the eager program's — the
+    residency and session programs too (202 of 202 combinations of
+    posv_cached, posv_cached_miss with its three outputs, blocktri_extend,
+    session_extend, session_solve in all three tiers with the guaranteed
+    tier's five outputs, and chol_downdate, H100 80GB HBM3 at 700 W).  None
     of the programs syncs with the host: the port's kernels are launched
     through ctypes on the current stream, the refinement loop runs its
     sweep cap with the freeze mask on the device, and the library routes'

@@ -58,6 +58,10 @@ PHASE_REGISTRY: tuple[str, ...] = (
     # refinement sweeps (robust/refine.py): IR::residual wraps the
     # high-precision residual product, IR::correct the correction solve
     "UP::update", "UP::downdate", "IR::residual", "IR::correct",
+    # streaming sessions (serve/sessions.py): SS::extend wraps the session
+    # open / append chain-extension program, SS::solve the resident-factor
+    # sweeps; the chain work inside is priced once, under these tags
+    "SS::extend", "SS::solve",
 )
 _PHASE_SET: set[str] = set(PHASE_REGISTRY)
 
@@ -389,6 +393,20 @@ def refine_sweep_flops(n: int, k: int) -> float:
     (IR::residual + IR::correct): the residual product r = B − A·X (2n²k),
     the two triangular correction sweeps and the X += d axpy."""
     return 2.0 * n * n * k + 2.0 * batched_trsm_flops(n, k) + 2.0 * n * k
+
+
+def refine_sweeps_from_stats(refine_block: dict | None) -> float:
+    """Mean executed refinement sweeps per request, read from a serve
+    stats `refine` block (serve/stats.Collector): the iters p50, floored at
+    1.0 (every refined request runs at least the residual check sweep); an
+    absent or malformed block gives the one-sweep default."""
+    if not refine_block:
+        return 1.0
+    iters = refine_block.get("iters") or {}
+    try:
+        return max(float(iters.get("p50", 1.0)), 1.0)
+    except (TypeError, ValueError):
+        return 1.0
 
 
 def refine_lstsq_sweep_flops(m: int, n: int, k: int) -> float:

@@ -82,6 +82,29 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    replay bit for bit its eager `api.batched` program on one assembled
    batch, both timed in turns; prints the latency split, occupancy, idle
    share and the replay / eager walls;
+7c. drives factor residency and streaming sessions through the engine:
+   a seeded 50-request residency stream shaped like the reference's
+   residency smoke (capital_tpu/bench/drivers.py:1578: posv_cached misses
+   seed five tokens, then chol_update / chol_downdate / posv_cached hits)
+   at n = 128 f32 with k 1 and 8 and one f64 token on the library route,
+   a poisoned update (refused, the resident R bit for bit unchanged),
+   downdates at the edge of definiteness that the f32 sweep flags and the
+   engine degrades to a refactor, one beyond it (fails loudly), and a pool
+   small enough to evict (an evicted token's update fails loudly, a miss
+   reseeds it); then the session flagship of Makefile:164-169 through
+   `SessionManager`: a 64-block window of 128, f32, open, a cycle of
+   append 8 + contract 8 + solve at each of the 'balanced', 'fast' and
+   'guaranteed' tiers (solve and reconstruction residuals against the
+   marginalized window in f64 numpy under the f32 gate), extend from the
+   resident carry bit for bit the refactor of the whole chain, one
+   eviction (SessionEvicted) and its reseed.  The six kernels of these
+   programs (small.potrf, small.potrs, up.sweep, bt.factor,
+   bt.forward_solve, bt.solve_backward) launch, every program is captured
+   with the plan it predicts, each replay is bit for bit its eager
+   program, the same streams on the plain versions agree within the f32
+   tolerance, and a profiled turn's trace holds replays x plan records;
+   prints the sliding cycle against a full refactor of the window, the
+   factor_cache and session_stats blocks and the idle share;
 8. holds the four kernels of the triangular-inversion slice against their
    plain versions, timed beside their bounds and library calls:
    write_diag_blocks (96 blocks of 512² bf16 into a NaN-filled 49152²
@@ -204,6 +227,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -878,13 +902,14 @@ def profile(run, prefix: str, sequence: bool = False) -> dict:
     return out
 
 
-def complete_profile(run, prefix: str, tries: int = 3) -> dict:
+def complete_profile(run, prefix: str, tries: int = 3, complete=None) -> dict:
     """`profile` taken up to `tries` times, until a trace kept a device
-    record of every launch (`records_lost` 0); the last trace otherwise.
-    `tries`: the traces taken."""
+    record of every launch (`records_lost` 0, or `complete(prof)` where a
+    run replays CUDA graphs, whose kernels have no host launch of their
+    own); the last trace otherwise.  `tries`: the traces taken."""
     for n in range(1, tries + 1):
         prof = profile(run, prefix)
-        if not prof["records_lost"]:
+        if (complete(prof) if complete is not None else not prof["records_lost"]):
             break
     return dict(prof, tries=n)
 
@@ -1544,14 +1569,16 @@ ENGINE_TURNS = ("continuous", "sync", "sync", "continuous")
 #: each captured program's replay against its eager program: calls of each, in turns
 ENGINE_REPLAY_CALLS = 5
 #: the CUDA kernel each counted kernel of the engine's programs runs, as
-#: its name reads in a trace (the chain's solve steps on either route)
+#: its name reads in a trace (regular expressions; the chain's solve steps
+#: on either route, in either dtype)
 ENGINE_TRACE_NAMES = {
     "small.posv": ("posv_kernel<",), "small.potrf": ("potrf_kernel<",),
     "small.potrs": ("potrs_kernel<",), "small.lstsq": ("lstsq_kernel<",),
     "bt.fused_forward": ("fused_forward_sweep_kernel<", "fused_forward_blocked_kernel<"),
     "bt.factor": ("factor_kernel<",),
-    "bt.forward_solve": ("forward_solve_kernel<", "solve_blocked_kernel<float, true>"),
-    "bt.solve_backward": ("solve_backward_kernel<", "solve_blocked_kernel<float, false>"),
+    "bt.forward_solve": ("forward_solve_kernel<", r"solve_blocked_kernel<[^,>]*, true>"),
+    "bt.solve_backward": ("solve_backward_kernel<", r"solve_blocked_kernel<[^,>]*, false>"),
+    "up.sweep": ("sweep_kernel<", "sweep_wave_kernel<"),
 }
 
 
@@ -1691,9 +1718,12 @@ def engine_plan(bucket, cfg) -> tuple[dict, dict]:
 
 
 def engine_trace_counts(launches: dict) -> dict:
-    """A trace's kernel records by counted kernel (ENGINE_TRACE_NAMES)."""
-    return {k: sum(n for name, n in launches.items() if any(p in name for p in pats))
-            for k, pats in ENGINE_TRACE_NAMES.items()}
+    """A trace's kernel records by counted kernel (ENGINE_TRACE_NAMES; a
+    pattern matches at a name boundary, so 'sweep_kernel<' is not the
+    chain's fused_forward_sweep_kernel)."""
+    pats = {k: [re.compile(r"(?<![\w])" + p) for p in ps] for k, ps in ENGINE_TRACE_NAMES.items()}
+    return {k: sum(n for name, n in launches.items() if any(p.search(name) for p in ps))
+            for k, ps in pats.items()}
 
 
 def engine_replays(eng, reqs, cfg) -> dict:
@@ -1840,6 +1870,553 @@ def engine_phase(hopper, dev) -> dict:
                                                  "eager_ms_sum": tot_e}}), flush=True)
     for label, r in sorted(rep.items()):
         print(json.dumps({"engine_program": label, **r}), flush=True)
+    return out
+
+
+# ---- factor residency and streaming sessions (phase 7c) ----------------------
+
+#: the residency stream's engine: phase 7b's ladders, robust flagging on,
+#: and a factor pool of ten 128 x 128 f32 factors, so the stream evicts
+RESIDENCY_CFG = dict(ENGINE_CFG, factor_cache_bytes=10 * 128 * 128 * 4)
+#: the session flagship (Makefile:164-169, bench-session): a window of 64
+#: blocks of 128, slid by 8, two RHS columns, one problem, f32
+SESSION_FLAGSHIP = (64, 128, 8, 2)
+#: the session engine: phase 7b's ladders with the window's chain rungs and
+#: a pool that holds one session (a 72-block chain is 9.1 MB), not two
+SESSION_CFG = dict(ENGINE_CFG, nblocks_buckets=(8, 64), block_buckets=(128,),
+                   factor_cache_bytes=12 << 20)
+#: the sliding cycles, by the tier of their solve (the plain versions'
+#: run of the same stream is most of the phase's time: one cycle a tier)
+SESSION_TIERS = ("balanced", "fast", "guaranteed")
+#: the kernels of the residency and session programs
+RESIDENCY_KERNELS = ("small.potrf", "small.potrs", "up.sweep", "bt.factor", "bt.forward_solve",
+                     "bt.solve_backward")
+
+
+@contextmanager
+def eager_programs():
+    """Build every bucket program as its eager closure (for the comparison
+    run on the plain versions only): `program.capturable` answers False."""
+    from capital_tpu_torch.serve import program
+
+    saved = program.capturable
+    program.capturable = lambda bucket, cfg: False
+    try:
+        yield
+    finally:
+        program.capturable = saved
+
+
+def residency_plan(bucket, cfg) -> tuple[dict, dict]:
+    """A residency or session bucket program's launches and route tallies
+    at capture: potrs (hit) or potrf + potrs (miss) for f32 posv_cached,
+    one sweep for an f32 update on `update_small.sweep_route`, nbb/seg
+    factor steps for an extend, nbb/seg forward and backward steps a sweep
+    for a session solve (the guaranteed tier's sweep cap and its start),
+    all on the blocked chain route; nothing for the f64 library route."""
+    from capital_tpu_torch.models import blocktri
+    from capital_tpu_torch.ops import update_small
+    from capital_tpu_torch.robust import refine
+
+    if bucket.dtype == "float64":
+        return {}, {}
+    if bucket.op == "posv_cached":
+        return {"small.potrs": 1}, {}
+    if bucket.op == "posv_cached_miss":
+        return {"small.potrf": 1, "small.potrs": 1}, {}
+    if bucket.op in ("chol_update", "chol_downdate"):
+        return {"up.sweep": 1}, {"up.sweep": {update_small.sweep_route(bucket.capacity, bucket.b_shape[1]): 1}}
+    steps = bucket.a_shape[1] // blocktri.resolve_seg(bucket.a_shape[1])
+    if bucket.op in ("blocktri_extend", "session_extend"):
+        plan = {"bt.factor": steps}
+    else:
+        sweeps = refine.DEFAULT_MAX_ITERS + 1 if bucket.tier == "guaranteed" else 1
+        plan = {"bt.forward_solve": sweeps * steps, "bt.solve_backward": sweeps * steps}
+    return plan, {k: {"blocked": v} for k, v in plan.items()}
+
+
+def residency_data(dev) -> dict:
+    """The residency stream's operands, made on the card from a seed: the
+    reference's 50-request residency smoke (capital_tpu/bench/drivers.py
+    `_update_serve_smoke`: seed tokens with posv_cached misses, then
+    chol_update / posv_cached hits) at n = 128 f32 with k 1 and 8, plus
+    one f64 token (the library route); downdates at the edge of
+    definiteness (A − VVᵀ = Rᵀ(I − PPᵀ)R with ‖P‖₂² = 1 − 3e-7, which the
+    f32 sweep flags for most seeds while the refactor of S = RᵀR − VVᵀ
+    succeeds) and one beyond it (‖P‖₂ = 1.5, where the degrade fails)."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    f64 = torch.float64
+
+    def spd(n, dtype=torch.float32):
+        G = torch.randn((n, n), generator=gen, device=dev, dtype=f64)
+        return (G @ G.T / n + 3.0 * torch.eye(n, device=dev, dtype=f64)).to(dtype)
+
+    def panel(A, k, scale):
+        R = torch.linalg.cholesky(A.double()).T
+        Q, _ = torch.linalg.qr(torch.randn((128, k), generator=gen, device=dev, dtype=f64))
+        sig = torch.full((k,), 0.5, device=dev, dtype=f64)
+        sig[0] = scale
+        return (R.T @ (Q * sig)).float()
+
+    toks = {f"tok{i}": spd(128) for i in range(4)}
+    toks["tok64"] = spd(128, f64)
+    edge = {f"edge{i}": spd(128) for i in range(4)}
+    over = spd(128)
+    Dc, Cc, _ = chain_operands(1, 16, 128, 1, 24, dev)
+    return dict(chain=(Dc[0], Cc[0]),
+        A=toks, B={t: torch.randn((128, 4), generator=gen, device=dev, dtype=A.dtype) for t, A in toks.items()},
+        V={k: 0.05 / math.sqrt(128) * torch.randn((128, k), generator=gen, device=dev) for k in (1, 8)},
+        V64=0.05 / math.sqrt(128) * torch.randn((128, 8), generator=gen, device=dev, dtype=f64),
+        edge=edge, edge_V={t: panel(A, 1, math.sqrt(1.0 - 3e-7)) for t, A in edge.items()},
+        over=over, over_V=panel(over, 8, 1.5), Bf=torch.randn((128, 4), generator=gen, device=dev))
+
+
+def residency_turn(eng, data, faultinject) -> dict:
+    """The residency stream through `eng` (module docstring, phase 7c):
+    requests are issued a round at a time (one per token, so a batch holds
+    several tokens' requests) and each round drains, because an update
+    reads the resident factor at submit.  Returns the responses by step,
+    the tracked matrices and what the checks read."""
+    A = {t: a.double() for t, a in {**data["A"], **data["edge"], "over": data["over"]}.items()}
+    steps, flagged = [], {}
+
+    def round_(reqs):
+        # each step keeps the matrix a solve answers for (tracked in f64)
+        ts = [(label, eng.submit(op, X, Y, factor_token=tok), A.get(tok) if op == "posv_cached" else None)
+              for label, op, X, Y, tok in reqs]
+        eng.drain()
+        for label, t, ref in ts:
+            steps.append((label, t.result(), ref))
+        return [t.result() for _, t, _ in ts]
+
+    toks = list(data["A"])
+    round_([(f"seed {t}", "posv_cached", data["A"][t], data["B"][t], t) for t in toks])  # 5 misses
+    n_req = len(toks)
+    i = 0
+    while n_req < 50:  # 45 hits: updates, downdates back, solves
+        reqs = []
+        for t in toks:
+            f64 = t == "tok64"
+            kind = (i + toks.index(t)) % 3
+            V = data["V64"] if f64 else data["V"][1 if i % 2 else 8]
+            if kind == 0:
+                reqs.append((f"update {t}", "chol_update", V, None, t))
+                A[t] = A[t] + V.double() @ V.double().T
+            elif kind == 1 and i >= 1:
+                reqs.append((f"downdate {t}", "chol_downdate", V, None, t))
+                A[t] = A[t] - V.double() @ V.double().T
+            else:
+                reqs.append((f"solve {t}", "posv_cached", A[t].to(data["A"][t].dtype), data["B"][t], t))
+        for (label, op, X, Y, t), r in zip(reqs, round_(reqs)):
+            check(r.ok, f"residency: {label} failed: {r.error}")
+        n_req += len(reqs)
+        i += 1
+    # a flagged update: a NaN planted in V at ingest; the resident R is
+    # left bit for bit as it was
+    R0 = eng.factors.peek("tok0").arrays[0].clone()
+    with faultinject.active_plan(faultinject.Fault(tag="serve::ingest", kind="nan")):
+        (r,) = round_([("poisoned update tok0", "chol_update", data["V"][8], None, "tok0")])
+    flagged_ok = (not r.ok and "left unchanged" in (r.error or "")
+                  and torch.equal(eng.factors.peek("tok0").arrays[0], R0))
+    # downdates at the edge of definiteness: the f32 sweep flags, the
+    # engine degrades to the refactor from the resident factor
+    round_([(f"seed {t}", "posv_cached", a, data["Bf"], t) for t, a in data["edge"].items()])
+    d0 = eng.factor_stats()["downdate_degrades"]
+    edge = round_([(f"edge downdate {t}", "chol_downdate", data["edge_V"][t], None, t) for t in data["edge"]])
+    for t, r in zip(data["edge"], edge):
+        A[t] = data["edge"][t].double() - data["edge_V"][t].double() @ data["edge_V"][t].double().T
+        flagged[t] = bool(r.info is not None and int(r.info.escalated) == 1)
+    degrades = eng.factor_stats()["downdate_degrades"] - d0
+    # beyond definiteness: the degrade fails too, loudly; R stays
+    round_([("seed over", "posv_cached", data["over"], data["Bf"], "over")])
+    R1 = eng.factors.peek("over").arrays[0].clone() if eng.factors.peek("over") is not None else None
+    (r_over,) = round_([("infeasible downdate over", "chol_downdate", data["over_V"], None, "over")])
+    over_ok = (not r_over.ok and "ALSO failed" in (r_over.error or "")
+               and R1 is not None and torch.equal(eng.factors.peek("over").arrays[0], R1))
+    # the pool is over budget by now: traffic to an evicted token fails
+    # loudly, and a posv_cached miss reseeds it
+    gone = [t for t in toks + list(data["edge"]) if eng.factors.evicted(t)]
+    evict = {}
+    if gone:
+        t = gone[0]
+        V = data["V64"] if t == "tok64" else data["V"][8]
+        (r_ev,) = round_([(f"evicted update {t}", "chol_update", V, None, t)])
+        At = A[t].to(data["A"].get(t, data["Bf"]).dtype)
+        (r_re,) = round_([(f"reseed {t}", "posv_cached", At, data["B"].get(t, data["Bf"]), t)])
+        evict = dict(token=t, failed_loud=not r_ev.ok and "evicted" in (r_ev.error or ""), reseeded=r_re.ok)
+    # every resident factor against its tracked matrix, before the chain
+    # below evicts them
+    resident = {}
+    for tok, At in A.items():
+        ent = eng.factors.peek(tok)
+        if ent is not None:
+            R = ent.arrays[0].double()
+            resident[tok] = (float(torch.linalg.norm(R.T @ R - At) / torch.linalg.norm(At)),
+                             ent.arrays[0].dtype == torch.float64)
+    # a chain of 16 blocks of 128 extended 8 at a time from its resident
+    # carry (1 MiB: over the pool's budget alone, so it is the newest entry
+    # kept and evicts the rest): bit for bit the whole chain's refactor
+    from capital_tpu_torch.models import blocktri
+
+    Dc, Cc = data["chain"]
+    for lo in (0, 8):
+        (r,) = round_([("extend chain", "blocktri_extend", torch.stack([Dc[lo:lo + 8], Cc[lo:lo + 8]]), None,
+                        "chain")])
+        check(r.ok, f"residency: extend chain failed: {r.error}")
+    L, Wt, info = blocktri.factor(Dc[None], Cc[None])
+    ent = eng.factors.peek("chain")
+    extend_ok = bool(ent is not None and not info.any() and torch.equal(ent.arrays[0], L[0])
+                     and torch.equal(ent.arrays[1], Wt[0]) and torch.equal(ent.arrays[2], L[0, -1]))
+    return dict(steps=steps, A=A, flagged_ok=flagged_ok, edge_flagged=flagged, degrades=degrades,
+                over_ok=over_ok, gone=gone, evict=evict, extend_equals_refactor=extend_ok, resident=resident)
+
+
+def residency_checks(data, turn) -> dict:
+    """The stream's gates: every solve's ‖AX − B‖/‖B‖ and every resident
+    factor's ‖RᵀR − A‖/‖A‖ (before the chain evicts them; the degraded
+    ones too) against the tracked matrix (f64 on the card) under the bench
+    gate (5e-5 f32, 1e-12 f64: bench/drivers.py `_tolerance`)."""
+    worst: dict = {}
+    for label, r, A in turn["steps"]:
+        kind, tok = label.rsplit(" ", 1)
+        if not r.ok or A is None:
+            continue
+        B = data["B"].get(tok, data["Bf"]).double()
+        res = float(torch.linalg.norm(A @ r.x.double() - B) / torch.linalg.norm(B))
+        tol = 1e-12 if r.x.dtype == torch.float64 else 5e-5
+        check(res < tol, f"residency: {label} residual {res} >= {tol}")
+        worst[f"{kind} {str(r.x.dtype)[6:]}"] = max(worst.get(f"{kind} {str(r.x.dtype)[6:]}", 0.0), res)
+    for tok, (res, f64) in turn["resident"].items():
+        tol = 1e-12 if f64 else 5e-5
+        check(res < tol, f"residency: resident factor {tok} residual {res} >= {tol}")
+        worst["factor"] = max(worst.get("factor", 0.0), res)
+    return worst
+
+
+def session_data(dev) -> dict:
+    """The session stream's chain, made on the card from a seed (the bench
+    drivers' chain, `chain_operands`): the 64-block window and a slide of 8
+    blocks a cycle, C[0] live in each slide; one RHS per cycle."""
+    nblocks, b, slide, nrhs = SESSION_FLAGSHIP
+    total = nblocks + slide * len(SESSION_TIERS)
+    D, C, _ = chain_operands(1, total, b, 1, 21, dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    return dict(D=D[0], C=C[0], B=[torch.randn((nblocks, b, nrhs), generator=gen, device=dev)
+                                   for _ in SESSION_TIERS])
+
+
+def np_window_residuals(D, C, L, Wt, B, X) -> tuple[float, float]:
+    """The slid window's solve residual ‖A·X − B‖/‖B‖ and reconstruction
+    residual ‖A − L̃·L̃ᵀ‖/‖A‖, blockwise in f64 numpy on the host, against
+    the marginalized window (D, C) the session mirror holds."""
+    import numpy as np
+
+    D, C, L, Wt, B, X = (t.double().cpu().numpy() for t in (D, C, L, Wt, B, X))
+    Y = D @ X
+    Y[1:] += C[1:] @ X[:-1]
+    Y[:-1] += C[1:].transpose(0, 2, 1) @ X[1:]
+    solve = float(np.linalg.norm(Y - B) / np.linalg.norm(B))
+    W = Wt.transpose(0, 2, 1)
+    diag = L @ L.transpose(0, 2, 1)
+    diag[1:] += W[1:] @ W[1:].transpose(0, 2, 1)
+    off = W[1:] @ L[:-1].transpose(0, 2, 1)
+    num = np.square(diag - D).sum() + 2.0 * np.square(off - C[1:]).sum()
+    den = np.square(D).sum() + 2.0 * np.square(C[1:]).sum()
+    return solve, float(np.sqrt(num / den))
+
+
+def session_turn(eng, mgr, data, SessionEvicted) -> dict:
+    """The session stream (phase 7c): open the 64-block window, then per
+    cycle append 8 + contract 8 + solve at the cycle's tier, each solve and
+    the resident factor held to the slid window; after the first append
+    the resident 72-block chain against a refactor of the whole chain,
+    bit for bit; then a second session evicts the first, whose next solve
+    raises SessionEvicted, and open reseeds it."""
+    from capital_tpu_torch.models import blocktri
+
+    nblocks, _, slide, _ = SESSION_FLAGSHIP
+    D, C = data["D"], data["C"]
+    out = {"cycles": []}
+    r = mgr.open("s", D[:nblocks], C[:nblocks])
+    check(r.ok, f"session: open failed: {r.error}")
+    for i, tier in enumerate(SESSION_TIERS):
+        lo = nblocks + i * slide
+        r = mgr.append("s", D[lo:lo + slide], C[lo:lo + slide])
+        check(r.ok, f"session: append {i} failed: {r.error}")
+        if i == 0:
+            ent = eng.factors.peek("s")
+            L, Wt, info = blocktri.factor(D[None, :lo + slide], C[None, :lo + slide])
+            out["extend_equals_refactor"] = bool(not info.any() and torch.equal(ent.arrays[0], L[0])
+                                                 and torch.equal(ent.arrays[1], Wt[0]))
+        r = mgr.contract("s", slide)
+        check(r.ok, f"session: contract {i} failed: {r.error}")
+        r = mgr.solve("s", data["B"][i], accuracy_tier=tier)
+        check(r.ok, f"session: {tier} solve {i} failed: {r.error}")
+        Dw, Cw = mgr.window("s")
+        ent = eng.factors.peek("s")
+        solve, recon = np_window_residuals(Dw, Cw, ent.arrays[0], ent.arrays[1], data["B"][i], r.x)
+        out["cycles"].append(dict(tier=tier, solve_residual=solve, reconstruction_residual=recon, x=r.x))
+    # eviction: a second window evicts the first; the reseed is open
+    r = mgr.open("s2", D[:nblocks], C[:nblocks])
+    check(r.ok, f"session: open s2 failed: {r.error}")
+    try:
+        mgr.solve("s", data["B"][0])
+        out["evicted_raised"] = False
+    except SessionEvicted:
+        out["evicted_raised"] = True
+    r = mgr.open("s", D[:nblocks], C[:nblocks])
+    out["reseeded"] = r.ok and mgr.solve("s", data["B"][0]).ok
+    return out
+
+
+def residency_replays(eng, cfg, dev) -> dict:
+    """Each captured program of `eng` against an eager call of its
+    `api.batched` program on one seeded batch of well-posed problems at the
+    bucket's shapes: bit for bit, and the host wall of a synchronized call
+    of each, in turns."""
+    from capital_tpu_torch.models import blocktri
+    from capital_tpu_torch.serve import api, batching
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    f64 = torch.float64
+    out = {}
+    for prog in eng.cache.programs().values():
+        bk = prog.bucket
+        cap, dt = bk.capacity, batching._dtype(bk.dtype)
+
+        def spd(*shape):
+            G = torch.randn(shape, generator=gen, device=dev, dtype=f64)
+            return G @ G.mT / shape[-1] + 3.0 * torch.eye(shape[-1], device=dev, dtype=f64)
+
+        if bk.op in ("posv_cached", "posv_cached_miss", "chol_update", "chol_downdate"):
+            n = bk.a_shape[0]
+            A = spd(cap, n, n)
+            if bk.op != "posv_cached_miss":
+                A = torch.linalg.cholesky(A).mT.contiguous()
+            B = torch.randn((cap,) + bk.b_shape, generator=gen, device=dev, dtype=f64)
+            if bk.op in ("chol_update", "chol_downdate"):
+                B = 0.05 / math.sqrt(n) * B
+        else:
+            nb, b = bk.a_shape[1], bk.a_shape[2]
+            D = spd(cap, nb, b, b)
+            C = 0.3 / math.sqrt(b) * torch.randn((cap, nb, b, b), generator=gen, device=dev, dtype=f64)
+            if bk.op in ("blocktri_extend", "session_extend"):
+                A, B = torch.stack([D, C], dim=1), torch.linalg.cholesky(spd(cap, b, b))
+            else:
+                C[:, 0] = 0
+                L, Wt, _ = blocktri.factor(D, C, impl="xla")
+                A = torch.stack([D, C, L, Wt], dim=1)
+                B = torch.randn((cap,) + bk.b_shape, generator=gen, device=dev, dtype=f64)
+        ins = (A.to(dt), B.to(dt))
+        fn = api.batched(bk.op, cfg.precision, cfg.small_n_impl, tier=bk.tier)
+        got = prog(*ins)
+        want = tuple(fn(*(x.clone() for x in ins)))
+        torch.cuda.synchronize()
+        label = batching.bucket_label(bk)
+        check(len(got) == len(want) and all(same_bits(g, w) for g, w in zip(got, want)),
+              f"residency: {label} replay differs from the eager program on the same batch")
+        walls = {"replay": [], "eager": []}
+        for i in range(ENGINE_REPLAY_CALLS):
+            for name in (("replay", "eager") if i % 2 == 0 else ("eager", "replay")):
+                f = (lambda: prog(*ins)) if name == "replay" else (lambda: fn(*ins))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        out[label] = dict(outputs=len(got), replay_ms=statistics.median(walls["replay"]),
+                          eager_ms=statistics.median(walls["eager"]))
+    return out
+
+
+def check_plans(eng, label: str) -> None:
+    """Every program of `eng` captured, each with the launches and route
+    tallies `residency_plan` (or phase 7b's `engine_plan`) predicts."""
+    progs = eng.cache.programs()
+    check(progs and all(p.captured for p in progs.values()), f"{label}: a bucket program was not captured")
+    for prog in progs.values():
+        plan, routes = residency_plan(prog.bucket, eng.cfg)
+        check(prog.capture_counts == plan and prog.capture_routes == routes,
+              f"{label} {prog.bucket}: capture launched {prog.capture_counts} {prog.capture_routes}, "
+              f"plan {plan} {routes}")
+
+
+def traced_turn(hopper, engines, run, label: str) -> dict:
+    """`run` under the profiler (`complete_profile`), retaken until the
+    trace's kernel records equal the replays it made times each program's
+    plan at capture, plus the launches made eagerly (the degrade's library
+    work launches none of the counted kernels)."""
+    state = {}
+
+    def turn():
+        state["before"] = [eng.cache.replays() for eng in engines]
+        hopper.reset_counts()
+        res = run()
+        state["eager"] = hopper.counts()
+        return res
+
+    def want_counts():
+        want = dict.fromkeys(ENGINE_TRACE_NAMES, 0)
+        for eng, before in zip(engines, state["before"]):
+            for key, prog in eng.cache.programs().items():
+                for k, v in prog.capture_counts.items():
+                    want[k] += (prog.replays - before.get(key, 0)) * v
+        for k in want:
+            want[k] += state["eager"].get(k, 0)
+        return want
+
+    prof = complete_profile(turn, ("SS::", "SV::", "UP::"),
+                            complete=lambda p: engine_trace_counts(p["launches"]) == want_counts())
+    got, want = engine_trace_counts(prof["launches"]), want_counts()
+    check(got == want, f"{label}: the trace's kernel records {got} != replays x plan {want}")
+    return dict(tries=prof["tries"], kernels=got, wall_ms=prof["wall_ms"],
+                device_busy_ms=prof["device_busy_ms"], idle_share=prof["idle_share"],
+                top_kernels_device_ms=prof["top_kernels_device_ms"])
+
+
+def residency_phase(hopper, dev, smi: str) -> dict:
+    """Phase 7c: factor residency and streaming sessions through the
+    port's SolveEngine and SessionManager on the card (module docstring)."""
+    from capital_tpu_torch.ops import batched_small, blocktri_small, update_small
+    from capital_tpu_torch.robust import faultinject
+    from capital_tpu_torch.robust.config import RobustConfig
+    from capital_tpu_torch.serve import ServeConfig, SessionEvicted, SessionManager, SolveEngine
+
+    out = {"card": smi, "seconds": {}}
+    t_phase = time.perf_counter()
+    rdata, sdata = residency_data(dev), session_data(dev)
+    rcfg = ServeConfig(robust=RobustConfig(), **RESIDENCY_CFG)
+    scfg = ServeConfig(**SESSION_CFG)
+    nblocks, _, slide, _ = SESSION_FLAGSHIP
+
+    def streams():
+        eng = SolveEngine(cfg=rcfg)
+        seng = SolveEngine(cfg=scfg)
+        mgr = SessionManager(seng)
+        res = residency_turn(eng, rdata, faultinject)
+        ses = session_turn(seng, mgr, sdata, SessionEvicted)
+        return eng, seng, mgr, res, ses
+
+    # the main path: counters at 0 just before, read just after (captures
+    # count at build time; replays launch without the wrappers)
+    torch.cuda.synchronize()
+    hopper.reset_counts()
+    t0 = time.perf_counter()
+    eng, seng, mgr, res, ses = streams()
+    torch.cuda.synchronize()
+    out["seconds_first"] = time.perf_counter() - t0
+    counts = hopper.counts()
+    out["counts"] = {k: counts[k] for k in RESIDENCY_KERNELS}
+    missing = [k for k in RESIDENCY_KERNELS if not counts.get(k)]
+    check(not missing, f"residency: kernels of the residency and session programs never launched: {missing}")
+    check_plans(eng, "residency")
+    check_plans(seng, "session")
+    # the residency gates
+    worst = residency_checks(rdata, res)
+    check(res["flagged_ok"], "residency: the poisoned update was not refused with the resident R unchanged")
+    check(res["over_ok"], "residency: the infeasible downdate did not fail loudly with R unchanged")
+    check(res["extend_equals_refactor"], "residency: extend from the resident carry differs from the refactor")
+    nflag = sum(res["edge_flagged"].values())
+    check(nflag >= 1 and res["degrades"] == nflag,
+          f"residency: edge downdates degraded {res['degrades']}, flagged {res['edge_flagged']}")
+    check(bool(res["gone"]) and res["evict"].get("failed_loud") and res["evict"].get("reseeded"),
+          f"residency: eviction {res['gone']} {res['evict']}")
+    fstats = eng.factor_stats()
+    check(fstats["evictions"] >= 1 and sum(fstats["eviction_age_hist"].values()) == fstats["evictions"],
+          f"residency: factor_cache {fstats}")
+    out["residency"] = dict(requests=len(res["steps"]), worst_residual=worst, edge_flagged=res["edge_flagged"],
+                            extend_equals_refactor=res["extend_equals_refactor"],
+                            degrades=res["degrades"], evicted=res["gone"], evict=res["evict"],
+                            factor_cache=fstats, cache=eng.cache_stats())
+    print(json.dumps({"residency": "stream", "card": smi, **out["residency"]}), flush=True)
+    # the session gates: f32 for the balanced and guaranteed solves and the
+    # reconstruction, the repo's bf16 gate for the fast tier (a bf16 factor)
+    for c in ses["cycles"]:
+        gate = 5e-2 if c["tier"] == "fast" else 5e-5
+        check(c["solve_residual"] < gate and c["reconstruction_residual"] < 5e-5,
+              f"session: {c['tier']} cycle residuals {c['solve_residual']}, {c['reconstruction_residual']}")
+    check(ses["extend_equals_refactor"], "session: extend from the resident carry differs from the refactor")
+    check(ses["evicted_raised"] and ses["reseeded"], f"session: eviction {ses['evicted_raised']} {ses['reseeded']}")
+    sstats = mgr.stats()
+    check(sstats["evicted_failures"] == 1 and sstats["reseeds"] == 1, f"session: stats {sstats}")
+    out["session"] = dict(cycles=[{k: v for k, v in c.items() if k != "x"} for c in ses["cycles"]],
+                          extend_equals_refactor=ses["extend_equals_refactor"], session_stats=sstats,
+                          factor_cache=seng.factor_stats())
+    print(json.dumps({"session": "flagship 64x128 slide 8 f32", "card": smi, **out["session"]}), flush=True)
+    # the same streams on the plain versions, their programs eager (a
+    # capture of the plain versions' column loops would cost more than the
+    # stream): the kernels' answers within the f32 tolerance (bf16 for the
+    # fast tier)
+    t0 = time.perf_counter()
+    with plain_versions(batched_small, ("potrf", "potrs")), plain_versions(update_small, ("sweep",)), \
+            plain_versions(blocktri_small, BT_WRAPPERS), eager_programs():
+        peng, pseng, pmgr, pres, pses = streams()
+    out["seconds"]["plain_streams"] = time.perf_counter() - t0
+    worst_plain = 0.0
+    for (label, r, _), (plabel, p, _) in zip(res["steps"], pres["steps"]):
+        check(label == plabel and r.ok == p.ok, f"residency: plain stream diverged at {label} / {plabel}")
+        if r.ok and p.ok:
+            worst_plain = max(worst_plain, bt_rel(r.x, p.x))
+    check(worst_plain < 1e-4, f"residency: kernels vs plain {worst_plain}")
+    ses_plain = max(bt_rel(c["x"], pc["x"]) / (50.0 if c["tier"] == "fast" else 1.0)
+                    for c, pc in zip(ses["cycles"], pses["cycles"]))
+    check(ses_plain < 1e-4, f"session: kernels vs plain {ses_plain}")
+    out["vs_plain"] = dict(residency=worst_plain, session=ses_plain)
+    del peng, pseng, pmgr, pres, pses
+    # every captured program against its eager program
+    t0 = time.perf_counter()
+    rep = {**residency_replays(eng, rcfg, dev), **residency_replays(seng, scfg, dev)}
+    out["seconds"]["replays"] = time.perf_counter() - t0
+    out["replay_vs_eager"] = rep
+    for label, r in sorted(rep.items()):
+        print(json.dumps({"residency_program": label, **r}), flush=True)
+    # the sliding cycle against a full refactor of the 64-block window, both
+    # through the engine (captured programs), in turns; the window opens as
+    # "t" (one session resident: the pool holds one)
+    D, C = sdata["D"], sdata["C"]
+    mgr.close("s")
+    mgr.close("s2")
+    mgr.open("t", D[:nblocks], C[:nblocks])
+    walls = {"cycle": [], "refactor": []}
+    for i in range(5):
+        for name in (("cycle", "refactor") if i % 2 == 0 else ("refactor", "cycle")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "refactor":
+                r = mgr.open("t", D[:nblocks], C[:nblocks])
+            else:
+                r = mgr.append("t", D[nblocks:nblocks + slide], C[nblocks:nblocks + slide])
+                r = r.ok and mgr.contract("t", slide)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            check(bool(r) and getattr(r, "ok", True), f"session timing: {name} failed")
+    cyc, ref = statistics.median(walls["cycle"]), statistics.median(walls["refactor"])
+    out["sliding"] = dict(cycle_ms=cyc, refactor_ms=ref, refactor_over_cycle=ref / cyc,
+                          structural=nblocks / slide, card=smi)
+    print(json.dumps({"session_sliding": "append 8 + contract 8 vs open 64", **out["sliding"]}), flush=True)
+    # one profiled turn: a sliding cycle and a solve, and a round of solves,
+    # updates and downdates on the resident f32 tokens; the trace's kernel
+    # records against replays x plan, and the idle share
+    V = rdata["V"][8]
+
+    def turn():
+        mgr.append("t", D[nblocks:nblocks + slide], C[nblocks:nblocks + slide])
+        mgr.contract("t", slide)
+        mgr.solve("t", sdata["B"][0])
+        # a miss reseeds each token (the chain evicted them), an update, a
+        # downdate back and a hit
+        for op in ("posv_cached", "chol_update", "chol_downdate", "posv_cached"):
+            for t in ("tok0", "tok1"):
+                At = res["A"][t].float()
+                eng.submit(op, At if op == "posv_cached" else V, rdata["B"][t] if op == "posv_cached" else None,
+                           factor_token=t)
+            eng.drain()
+
+    out["profile"] = traced_turn(hopper, [eng, seng], turn, "residency turn")
+    print(json.dumps({"residency_profile": "session cycle + solve, residency round", "card": smi,
+                      **out["profile"]}), flush=True)
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(json.dumps({"residency_seconds": out["seconds"]}), flush=True)
     return out
 
 
@@ -3730,6 +4307,9 @@ def main(argv=None) -> int:
 
     # ---- phase 7b: the serve engine ----------------------------------------
     out["engine"] = engine_phase(hopper, dev)
+
+    # ---- phase 7c: factor residency and streaming sessions ------------------
+    out["residency"] = residency_phase(hopper, dev, smi)
 
     # ---- phase 8: the inversion slice's kernels against plain versions ---
     from capital_tpu_torch.ops import tsqr

@@ -14,10 +14,14 @@ batch (NaN patterns included).  Two sets:
   blocks of 128): also the host wall per call (a synchronized call,
   median of `CALLS`) of the replay and of the eager program, in turns;
 * `matrix()`, untimed: every op with a bucket program (posv, lstsq, inv,
-  posv_blocktri, posv_arrowhead, chol_update, chol_downdate) x dtype (f32, f64, bf16) x small_n_impl x chain
-  algorithm (chain ops) x tier (the tiered ops) x capacity (1 and 8) at
-  small widths — the library routes' single-matrix and batched cuSOLVER /
-  cuBLAS paths both.
+  posv_blocktri, posv_arrowhead, chol_update, chol_downdate, the residency
+  programs posv_cached, posv_cached_miss, blocktri_extend and the session
+  programs session_extend, session_solve) x dtype (f32, f64, bf16) x
+  small_n_impl x chain algorithm (chain ops) x tier (the tiered ops) x
+  capacity (1 and 8) at small widths — the library routes' single-matrix
+  and batched cuSOLVER / cuBLAS paths both.
+
+`--ops posv_cached,session_solve,...` keeps the cases of those ops only.
 
 A probe may try a capture that fails; the engine never does
 (`capturable` decides).  Prints a summary line and the card's name and
@@ -37,6 +41,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
+from capital_tpu_torch.models import blocktri  # noqa: E402
 from capital_tpu_torch.ops import _build  # noqa: E402
 from capital_tpu_torch.serve import api, batching, program  # noqa: E402
 from capital_tpu_torch.serve.engine import ServeConfig  # noqa: E402
@@ -73,6 +78,23 @@ CASES = (
     ("inv f64 auto", "inv", (128, 128), None, "float64", "balanced", "auto", "auto"),
     ("blocktri f32 xla", "posv_blocktri", (2, 8, 64, 64), (8, 64, 8), "float32", "balanced", "vmap", "auto"),
     ("blocktri f64", "posv_blocktri", (2, 8, 64, 64), (8, 64, 8), "float64", "balanced", "auto", "auto"),
+    ("posv_cached f32 auto", "posv_cached", (128, 128), (128, 8), "float32", "balanced", "auto", "auto"),
+    ("posv_cached_miss f32 auto", "posv_cached_miss", (128, 128), (128, 8), "float32", "balanced", "auto",
+     "auto"),
+    ("posv_cached f64 auto", "posv_cached", (128, 128), (128, 8), "float64", "balanced", "auto", "auto"),
+    ("posv_cached_miss f64 auto", "posv_cached_miss", (128, 128), (128, 8), "float64", "balanced", "auto",
+     "auto"),
+    ("chol_downdate f32 auto", "chol_downdate", (128, 128), (128, 8), "float32", "balanced", "auto", "auto"),
+    ("blocktri_extend f32 auto", "blocktri_extend", (2, 8, 128, 128), (128, 128), "float32", "balanced",
+     "auto", "auto"),
+    ("session_extend f32 auto", "session_extend", (2, 8, 128, 128), (128, 128), "float32", "balanced",
+     "auto", "auto"),
+    ("session_solve f32 auto", "session_solve", (4, 64, 128, 128), (64, 128, 2), "float32", "balanced",
+     "auto", "auto"),
+    ("session_solve f32 guaranteed", "session_solve", (4, 64, 128, 128), (64, 128, 2), "float32",
+     "guaranteed", "auto", "auto"),
+    ("session_solve f32 fast", "session_solve", (4, 64, 128, 128), (64, 128, 2), "float32", "fast",
+     "auto", "auto"),
 )
 
 
@@ -87,9 +109,12 @@ def operands(op, a_shape, b_shape, dtype, cap, seed, dev):
         X = torch.randn(*shape, generator=g, dtype=f64)
         return X @ X.mT / n + 3.0 * torch.eye(n, dtype=f64)
 
-    if op in ("posv", "inv"):
+    if op in ("posv", "inv", "posv_cached_miss"):
         A = spd(cap, a_shape[0], a_shape[0])
         B = None if b_shape is None else torch.randn(cap, *b_shape, generator=g, dtype=f64)
+    elif op == "posv_cached":
+        A = torch.linalg.cholesky(spd(cap, a_shape[0], a_shape[0])).mT.contiguous()
+        B = torch.randn(cap, *b_shape, generator=g, dtype=f64)
     elif op == "lstsq":
         A = torch.randn(cap, *a_shape, generator=g, dtype=f64)
         B = torch.randn(cap, *b_shape, generator=g, dtype=f64)
@@ -101,9 +126,20 @@ def operands(op, a_shape, b_shape, dtype, cap, seed, dev):
         _, nb, b, _ = a_shape
         D = spd(cap, nb, b, b) + 2.0 * torch.eye(b, dtype=f64)
         C = 0.2 * torch.randn(cap, nb, b, b, generator=g, dtype=f64) / b ** 0.5
+        if op in batching.EXTEND_OPS:
+            # appended blocks (C[:, 0] live) and the carry of a prefix
+            A = torch.stack([D, C], dim=1)
+            B = torch.linalg.cholesky(spd(cap, b, b) + 2.0 * torch.eye(b, dtype=f64))
+            dt = batching._dtype(dtype)
+            return tuple(x.to(dt).to(dev) for x in (A, B))
         C[:, 0] = 0
         A = torch.stack([D, C], dim=1)
-        if op == "posv_blocktri":
+        if op == "session_solve":
+            # the window beside its own resident factor
+            L, Wt, _ = blocktri.factor(D, C, impl="xla")
+            A = torch.cat([A, torch.stack([L, Wt], dim=1)], dim=1)
+            B = torch.randn(cap, *b_shape, generator=g, dtype=f64)
+        elif op == "posv_blocktri":
             B = torch.randn(cap, *b_shape, generator=g, dtype=f64)
         else:
             s = b_shape[0] - nb * b
@@ -123,7 +159,10 @@ def matrix():
     shapes = {"posv": ((32, 32), (32, 8)), "lstsq": ((128, 32), (128, 8)), "inv": ((32, 32), None),
               "posv_blocktri": ((2, 8, 32, 32), (8, 32, 8)),
               "posv_arrowhead": ((2, 8, 32, 32), (8 * 32 + 8, 8 + 8)),
-              "chol_update": ((32, 32), (32, 8)), "chol_downdate": ((32, 32), (32, 8))}
+              "chol_update": ((32, 32), (32, 8)), "chol_downdate": ((32, 32), (32, 8)),
+              "posv_cached": ((32, 32), (32, 8)), "posv_cached_miss": ((32, 32), (32, 8)),
+              "blocktri_extend": ((2, 8, 32, 32), (32, 32)), "session_extend": ((2, 8, 32, 32), (32, 32)),
+              "session_solve": ((4, 8, 32, 32), (8, 32, 8))}
     out = []
     for op, (a, b) in shapes.items():
         tiers = ("balanced", "fast", "guaranteed") if op in api.TIER_OPS else ("balanced",)
@@ -149,6 +188,7 @@ def wall_ms(fn) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the lines as a JSON list to this file")
+    ap.add_argument("--ops", help="comma-separated ops: keep only their cases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("serve_capture: no CUDA device", file=sys.stderr)
@@ -160,6 +200,9 @@ def main() -> int:
     dev = torch.device("cuda")
     lines = []
     cases = [c + (LADDERS["max_batch"], True) for c in CASES] + [c + (False,) for c in matrix()]
+    if args.ops:
+        keep = set(args.ops.split(","))
+        cases = [c for c in cases if c[1] in keep]
     for label, op, a_shape, b_shape, dtype, tier, impl, bt_impl, cap, timed in cases:
         cfg = ServeConfig(small_n_impl=impl, blocktri_impl=bt_impl, **dict(LADDERS, max_batch=cap))
         bucket = batching.Bucket(op, dtype, a_shape, b_shape, cap, tier)

@@ -2076,19 +2076,46 @@ CAPTURE_CASES = {
                           {"bt.fused_forward": 1, "bt.solve_backward": 1}),
     "blocktri f32 partitioned": (("posv_blocktri", (2, 32, 16, 16), (32, 16, 1), "float32", "balanced",
                                   "auto"), {"bt.fused_forward": 2, "bt.solve_backward": 2}),
+    # the residency and session programs
+    "posv_cached f32 auto": (("posv_cached", (64, 64), (64, 8), "float32", "balanced", "auto"),
+                             {"small.potrs": 1}),
+    "posv_cached_miss f32 auto": (("posv_cached_miss", (64, 64), (64, 8), "float32", "balanced", "auto"),
+                                  {"small.potrf": 1, "small.potrs": 1}),
+    "posv_cached_miss f64 auto": (("posv_cached_miss", (32, 32), (32, 1), "float64", "balanced", "auto"), {}),
+    "chol_downdate f32 auto": (("chol_downdate", (64, 64), (64, 8), "float32", "balanced", "auto"),
+                               {"up.sweep": 1}),
+    "blocktri_extend f32 auto": (("blocktri_extend", (2, 8, 32, 32), (32, 32), "float32", "balanced", "auto"),
+                                 {"bt.factor": 1}),
+    "session_extend f32 auto": (("session_extend", (2, 8, 32, 32), (32, 32), "float32", "balanced", "auto"),
+                                {"bt.factor": 1}),
+    "session_solve f32 auto": (("session_solve", (4, 8, 32, 32), (8, 32, 8), "float32", "balanced", "auto"),
+                               {"bt.forward_solve": 1, "bt.solve_backward": 1}),
+    "session_solve f32 guaranteed": (("session_solve", (4, 8, 32, 32), (8, 32, 2), "float32", "guaranteed",
+                                      "auto"), {"bt.forward_solve": refine.DEFAULT_MAX_ITERS + 1,
+                                                "bt.solve_backward": refine.DEFAULT_MAX_ITERS + 1}),
 }
 
 
 def _capture_operands(op, a_shape, b_shape, dtype, cap, dev):
     g = torch.Generator().manual_seed(len(op) + cap)
     f64 = torch.float64
-    if op == "posv_blocktri":
+    if op in ("posv_blocktri", "blocktri_extend", "session_extend", "session_solve"):
         _, nb, b, _ = a_shape
         G = torch.randn(cap, nb, b, b, generator=g, dtype=f64)
         D = G @ G.mT / b + 3.0 * torch.eye(b, dtype=f64)
         C = 0.3 / b ** 0.5 * torch.randn(cap, nb, b, b, generator=g, dtype=f64)
-        C[:, 0] = 0
-        A, B = torch.stack([D, C], dim=1), torch.randn(cap, *b_shape, generator=g, dtype=f64)
+        if op in ("blocktri_extend", "session_extend"):
+            # appended blocks (C[:, 0] live) and a prefix's carry
+            G = torch.randn(cap, b, b, generator=g, dtype=f64)
+            A, B = torch.stack([D, C], dim=1), torch.linalg.cholesky(G @ G.mT / b + 3.0 * torch.eye(b, dtype=f64))
+        else:
+            C[:, 0] = 0
+            A, B = torch.stack([D, C], dim=1), torch.randn(cap, *b_shape, generator=g, dtype=f64)
+            if op == "session_solve":
+                from capital_tpu_torch.models import blocktri
+
+                L, Wt, _ = blocktri.factor(D, C, impl="xla")
+                A = torch.cat([A, torch.stack([L, Wt], dim=1)], dim=1)
     elif op == "lstsq":
         A, B = torch.randn(cap, *a_shape, generator=g, dtype=f64), torch.randn(cap, *b_shape, generator=g, dtype=f64)
     else:
@@ -2096,6 +2123,10 @@ def _capture_operands(op, a_shape, b_shape, dtype, cap, dev):
         G = torch.randn(cap, n, n, generator=g, dtype=f64)
         A = G @ G.mT / n + 3.0 * torch.eye(n, dtype=f64)
         B = None if b_shape is None else torch.randn(cap, *b_shape, generator=g, dtype=f64)
+        if op in ("posv_cached", "chol_downdate"):
+            A = torch.linalg.cholesky(A).mT.contiguous()  # the resident upper factor
+        if op == "chol_downdate":
+            B = 0.05 * B
     dt = DTYPES[{"float64": "f64", "float32": "f32", "bfloat16": "bf16"}[dtype]]
     return tuple(x.to(dt).to(dev) for x in (A, B) if x is not None)
 
@@ -2120,8 +2151,10 @@ def test_engine_replay_equals_eager_and_capture_counts(cuda, case):
     fn = api.batched(op, cfg.precision, impl, blocktri_impl=cfg.blocktri_impl, tier=tier)
     prog = program.Program(fn, bucket, cuda, capture=True)
     assert prog.captured and prog.capture_counts == plan
-    chain = {k: {"blocked": v} for k, v in plan.items() if k.startswith("bt.")}
-    assert prog.capture_routes == chain
+    routes = {k: {"blocked": v} for k, v in plan.items() if k.startswith("bt.")}
+    if "up.sweep" in plan:  # the update's sweep tallies the route its batch and rank take
+        routes["up.sweep"] = {update_small.sweep_route(cfg.max_batch, b_shape[1]): plan["up.sweep"]}
+    assert prog.capture_routes == routes
     ins = _capture_operands(op, a_shape, b_shape, dtype, cfg.max_batch, cuda)
     hopper.reset_counts()
     got = prog(*ins)
@@ -2155,3 +2188,64 @@ def test_engine_two_inflight_batches_land_their_own(cuda):
         assert float((r.x.double().cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
     ((key, prog),) = eng.cache.programs().items()
     assert prog.captured and eng.cache.replays() == {key: 2}
+
+
+def test_engine_residency_and_sessions_on_the_card(cuda):
+    """The residency and session protocol through the engine on the card:
+    every bucket program captured; a poisoned update is refused and the
+    resident factor stays bit for bit; extending a chain from its resident
+    carry is bit for bit the refactor of the whole chain; a session's
+    sliding cycle answers for its marginalized window."""
+    from capital_tpu_torch.models import blocktri
+    from capital_tpu_torch.robust import faultinject
+    from capital_tpu_torch.serve import ServeConfig, SessionManager, SolveEngine
+
+    eng = SolveEngine(cfg=ServeConfig(**ENGINE_LADDERS))
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def spd(*shape):
+        G = torch.randn(*shape, generator=g, device=cuda, dtype=torch.float64)
+        return G @ G.mT / shape[-1] + 3.0 * torch.eye(shape[-1], device=cuda, dtype=torch.float64)
+
+    A, B = spd(48, 48).float(), torch.randn(48, 4, generator=g, device=cuda)
+    V = 0.05 * torch.randn(48, 8, generator=g, device=cuda)
+    assert eng.solve("posv_cached", A, B, factor_token="t").ok
+    R0 = eng.factors.peek("t").arrays[0].clone()
+    with faultinject.active_plan(faultinject.Fault(tag="serve::ingest", kind="nan")):
+        r = eng.solve("chol_update", V, factor_token="t")
+    assert not r.ok and "left unchanged" in r.error
+    assert torch.equal(eng.factors.peek("t").arrays[0], R0)
+    assert eng.solve("chol_update", V, factor_token="t").ok
+    r = eng.solve("posv_cached", A, B, factor_token="t")
+    want = torch.linalg.solve(A.double() + V.double() @ V.double().T, B.double())
+    assert float((r.x.double() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    # a chain extended from its resident carry is the whole chain's factor
+    D = spd(16, 32, 32).float()
+    C = (0.3 / 32 ** 0.5 * torch.randn(16, 32, 32, generator=g, device=cuda))
+    C[0] = 0
+    assert eng.solve("blocktri_extend", torch.stack([D[:8], C[:8]]), factor_token="c").ok
+    assert eng.solve("blocktri_extend", torch.stack([D[8:], C[8:]]), factor_token="c").ok
+    L, Wt, info = blocktri.factor(D[None], C[None])
+    ent = eng.factors.peek("c")
+    assert not info.any() and torch.equal(ent.arrays[0], L[0]) and torch.equal(ent.arrays[1], Wt[0])
+    # a session: open, append + contract, solve at the three tiers
+    mgr = SessionManager(eng)
+    assert mgr.open("s", D[:8], C[:8]).ok
+    assert mgr.append("s", D[8:12], C[8:12]).ok and mgr.contract("s", 4).ok
+    Dw, Cw = mgr.window("s")
+    Bw = torch.randn(8, 32, 2, generator=g, device=cuda)
+    dense = torch.zeros(256, 256, dtype=torch.float64, device=cuda)
+    for i in range(8):
+        dense[32 * i:32 * i + 32, 32 * i:32 * i + 32] = Dw[i].double()
+        if i:
+            dense[32 * i:32 * i + 32, 32 * i - 32:32 * i] = Cw[i].double()
+            dense[32 * i - 32:32 * i, 32 * i:32 * i + 32] = Cw[i].double().T
+    ref = torch.linalg.solve(dense, Bw.double().reshape(256, 2))
+    for tier, tol in (("balanced", 1e-4), ("guaranteed", 1e-4), ("fast", 5e-2)):
+        r = mgr.solve("s", Bw, accuracy_tier=tier)
+        assert r.ok, (tier, r.error)
+        assert float((r.x.double().reshape(256, 2) - ref).abs().max()) <= tol * float(ref.abs().max()), tier
+    progs = eng.cache.programs()
+    assert progs and all(p.captured for p in progs.values())
+    assert {k[1][0] for k in progs} >= {"posv_cached", "posv_cached_miss", "chol_update", "blocktri_extend",
+                                        "session_extend", "session_solve"}

@@ -47,6 +47,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import capital_tpu_torch.parallel.mesh\n"
         "import capital_tpu_torch.serve, capital_tpu_torch.serve.program\n"
         "import capital_tpu_torch.obs.spans, capital_tpu_torch.obs.ledger\n"
+        "import capital_tpu_torch.serve.factorcache, capital_tpu_torch.serve.sessions\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'capital_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'capital_tpu.')))\n"
         "print(','.join(bad))\n"
@@ -93,6 +94,13 @@ def test_inversion_slice_files_are_scanned():
 def test_update_and_refine_slice_files_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for f in ("ops/update_small.py", "robust/refine.py", "ops/lapack.py", "serve/api.py"):
+        assert "capital_tpu_torch/" + f in names
+
+
+def test_residency_and_session_slice_files_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("serve/factorcache.py", "serve/sessions.py", "serve/engine.py", "serve/api.py",
+              "serve/batching.py", "serve/program.py", "utils/tracing.py"):
         assert "capital_tpu_torch/" + f in names
 
 

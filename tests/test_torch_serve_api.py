@@ -112,32 +112,74 @@ def test_unknown_impl_message_matches_reference():
     assert str(p.value) == str(r.value)
 
 
+def _later_operands(op, rng):
+    """One request's engine-composed operands (A, B) for a residency or
+    session bucket op, in f32."""
+    def spd(n):
+        X = rng.standard_normal((n, n))
+        return X @ X.T / n + 3.0 * np.eye(n)
+
+    if op in ("posv_cached", "posv_cached_miss", "chol_update"):
+        A = spd(7)
+        if op != "posv_cached_miss":
+            A = np.linalg.cholesky(A).T
+        B = rng.standard_normal((7, 3))
+    elif op in ("session_extend", "blocktri_extend"):
+        A = np.stack([np.stack([spd(6) for _ in range(3)]), 0.1 * rng.standard_normal((3, 6, 6))])
+        B = np.linalg.cholesky(spd(6))
+    else:  # session_solve: the window beside its factor
+        D = np.stack([spd(6) for _ in range(3)])
+        C = 0.1 * rng.standard_normal((3, 6, 6))
+        L = np.stack([np.linalg.cholesky(d) for d in D])
+        A = np.stack([D, C, L, 0.1 * rng.standard_normal((3, 6, 6))])
+        B = rng.standard_normal((3, 6, 2))
+    return A.astype(np.float32), B.astype(np.float32)
+
+
 @pytest.mark.parametrize("op", ["session_extend", "blocktri_extend", "chol_update",
                                 "posv_cached", "posv_cached_miss", "session_solve"])
 def test_later_ops_name_their_roadmap_item(op):
-    item = "item 8"  # the factor-residency and session ops wait for the serve tier
-    with pytest.raises(NotImplementedError, match=item):
-        batching.check_op(op)  # the engine path refuses every one of them
-    if op in batching.UPDATE_OPS:
-        # the update's bucket program itself is served (tests/test_torch_update.py)
-        assert callable(api.batched(op))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        api.batched(op)
-    with pytest.raises(NotImplementedError, match=item):
-        batching.bucket_for(op, (2, 4, 8, 8), (4, 8, 1), "float32", ServeConfig(**CFG))
+    """The residency and session bucket ops, once refused naming ROADMAP
+    Queue A item 8, are served: `check_op` lets them through, `api.batched`
+    builds their program, and their bucket, padding, fill problem and crop
+    are the reference's bit for bit."""
+    batching.check_op(op)
+    assert callable(api.batched(op))
+    cfg, rcfg = ServeConfig(**CFG, nblocks_buckets=(4,), block_buckets=(8,)), \
+        reng.ServeConfig(**CFG, nblocks_buckets=(4,), block_buckets=(8,))
+    A, B = _later_operands(op, np.random.default_rng(3))
+    bk = batching.bucket_for(op, A.shape, B.shape, "float32", cfg)
+    rbk = rbat.bucket_for(op, A.shape, B.shape, "float32", rcfg)
+    assert bk.key == rbk.key
+    pa, pb = batching.pad_operands(op, torch.from_numpy(A), torch.from_numpy(B), bk)
+    rpa, rpb = rbat.pad_operands(op, jnp.asarray(A), jnp.asarray(B), rbk)
+    assert np.array_equal(pa.numpy(), np.asarray(rpa)) and np.array_equal(pb.numpy(), np.asarray(rpb))
+    fa, fb = batching.fill_problem(bk, device="cpu")
+    rfa, rfb = rbat.fill_problem(rbk)
+    assert np.array_equal(fa.numpy(), np.asarray(rfa)) and np.array_equal(fb.numpy(), np.asarray(rfb))
+    X = torch.arange(pa.numel() if op in batching.EXTEND_OPS else pb.numel(), dtype=torch.float32)
+    X = X.reshape(pa.shape if op in batching.EXTEND_OPS else pb.shape)
+    assert np.array_equal(batching.crop(op, X, A.shape, B.shape).numpy(),
+                          np.asarray(rbat.crop(op, jnp.asarray(X.numpy()), A.shape, B.shape)))
+    with pytest.raises(ValueError) as r:
+        rbat.bucket_for("session_open", A.shape, B.shape, "float32", rcfg)
+    with pytest.raises(ValueError) as p:
+        batching.bucket_for("session_open", A.shape, B.shape, "float32", cfg)
+    assert str(p.value) == str(r.value)
 
 
 @pytest.mark.parametrize("tier", ["fast", "guaranteed"])
 def test_tiers_beyond_balanced_name_their_roadmap_item(tier):
     """The tiers are served for posv, lstsq and posv_blocktri (tests/
-    test_torch_refine.py); the session solve's waits for the serve tier
-    (item 8); inv refuses a tier as the reference does."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        api.batched("session_solve", tier=tier)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        batching.bucket_for("session_solve", (4, 4, 8, 8), (4, 8, 1), "float32",
-                            ServeConfig(**CFG), tier=tier)
+    test_torch_refine.py) and, since the session slice, for session_solve
+    (its guaranteed tier refines against the resident factor): its tiered
+    bucket is the reference's.  inv refuses a tier as the reference does."""
+    assert callable(api.batched("session_solve", tier=tier))
+    bk = batching.bucket_for("session_solve", (4, 4, 8, 8), (4, 8, 1), "float32",
+                             ServeConfig(**CFG), tier=tier)
+    rbk = rbat.bucket_for("session_solve", (4, 4, 8, 8), (4, 8, 1), "float32",
+                          reng.ServeConfig(**CFG), tier=tier)
+    assert bk.key == rbk.key and bk.tier == tier
     with pytest.raises(ValueError) as r:
         rapi.batched("inv", tier=tier)
     with pytest.raises(ValueError) as p:
@@ -286,8 +328,12 @@ def test_single_matches_reference(op):
     (X, info), (Xp, infop) = rf(*args_r), pf(*args_p)
     assert _rel(Xp.numpy(), np.asarray(X)) <= TOL[op]
     assert int(infop) == int(info) == 0
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the residency and session ops have no single route: the reference's error
+    with pytest.raises(ValueError) as r:
+        rapi.single("session_solve", jgrid)
+    with pytest.raises(ValueError) as p:
         api.single("session_solve", Grid.square(device="cpu"))
+    assert str(p.value) == str(r.value)
 
 
 # ---------------------------------------------------------------------------

@@ -277,23 +277,68 @@ def test_default_grid_is_the_card():
             SolveEngine()
 
 
+def _residency_scenarios(eng):
+    """One short scenario per residency and session op, each on its own
+    token, through `eng` (either package): the op's requests land last.
+    Returns {op: [Response, ...]}."""
+    rng = np.random.default_rng(11)
+    A, B = _spd(rng, 10).astype(np.float32), rng.standard_normal((10, 2)).astype(np.float32)
+    V = (0.05 * rng.standard_normal((10, 2))).astype(np.float32)
+    win = _chain(rng, 4, 6).astype(np.float32)
+    seg = _chain(rng, 2, 6).astype(np.float32)
+    seg[1, 0] = 0.1 * rng.standard_normal((6, 6))
+    Bw = rng.standard_normal((4, 6, 2)).astype(np.float32)
+    out = {}
+
+    def run(op, tok, *steps):
+        out[op] = [eng.solve(o, X, Y, factor_token=tok) for o, X, Y in steps]
+
+    run("chol_update", "u", ("posv_cached", A, B), ("chol_update", V, None))
+    run("chol_downdate", "d", ("posv_cached", A, B), ("chol_downdate", V, None))
+    run("posv_cached", "c", ("posv_cached", A, B), ("posv_cached", A, B))
+    run("blocktri_extend", "x", ("blocktri_extend", win, None), ("blocktri_extend", seg, None))
+    run("session_open", "so", ("session_open", win, None))
+    run("session_append", "sa", ("session_open", win, None), ("session_append", seg, None))
+    run("session_solve", "ss", ("session_open", win, None), ("session_solve", win, Bw))
+    run("session_contract", "sc", ("session_open", win, None), ("session_contract", 1, None))
+    run("session_close", "sx", ("session_open", win, None), ("session_close", None, None),
+        ("session_close", None, None))
+    return out
+
+
+@pytest.fixture(scope="module")
+def residency_runs():
+    rcfg = rengine.ServeConfig(robust=RRobustConfig(), **LADDERS)
+    return (_residency_scenarios(rengine.SolveEngine(cfg=rcfg)),
+            _residency_scenarios(_engine("continuous")))
+
+
 @pytest.mark.parametrize("op", batching.FACTOR_OPS + batching.SESSION_OPS)
-def test_residency_and_session_ops_refuse(op):
+def test_residency_and_session_ops_refuse(residency_runs, op):
+    """Each residency and session op refuses a request without its
+    factor_token (the reference's ValueError, before any trace), and with
+    one it serves as the reference does: the same ok, info, bucket and
+    error, X within TOL (these ops raised NotImplementedError naming ROADMAP
+    Queue A item 8 until the residency slice)."""
     eng = _engine()
-    item = "factor residency" if op in batching.FACTOR_OPS else "streaming sessions"
-    with pytest.raises(NotImplementedError, match=f"item 8, serve tier \\({item}\\)"):
-        eng.submit(op, np.eye(4), np.ones((4, 1)), factor_token="t")
+    reng = rengine.SolveEngine(cfg=rengine.ServeConfig(**LADDERS))
+    A = None if op == "session_close" else np.eye(4)
+    for e in (eng, reng):
+        with pytest.raises(ValueError, match="requires factor_token="):
+            e.submit(op, A, None)
     assert eng.stats.requests == 0 and len(eng.trace_log) == 0
+    ref, got = residency_runs[0][op], residency_runs[1][op]
+    assert len(got) == len(ref)
+    for r, p in zip(ref, got):
+        assert (p.op, p.ok, p.bucket, p.batched, p.error) == (r.op, r.ok, r.bucket, r.batched, r.error)
+        assert _info(p.info) == _info(r.info) and p.ok
+        want, have = np.asarray(r.x, dtype=np.float64), p.x.double().numpy()
+        assert have.shape == want.shape
+        assert np.abs(have - want).max() <= TOL["float32"] * max(np.abs(want).max(), 1.0), op
 
 
 def test_engine_refusals_name_their_items():
     eng = _engine()
-    with pytest.raises(NotImplementedError, match="factor residency"):
-        eng.submit("posv", np.eye(4), np.ones((4, 1)), factor_token="t")
-    for call in (lambda: eng.install_factor("t", np.eye(4)), lambda: eng.release_factor("t"),
-                 eng.factor_stats):
-        with pytest.raises(NotImplementedError, match="factor residency"):
-            call()
     with pytest.raises(NotImplementedError, match="telemetry"):
         eng.enable_telemetry()
     with pytest.raises(NotImplementedError, match="persistent tier"):
@@ -321,7 +366,12 @@ def _buckets():
                 batching.Bucket("inv", dt, (16, 16), None, 4),
                 batching.Bucket("posv_blocktri", dt, (2, 4, 8, 8), (4, 8, 4), 4),
                 batching.Bucket("posv_arrowhead", dt, (2, 4, 8, 8), (36, 8), 4),
-                batching.Bucket("chol_update", dt, (16, 16), (16, 4), 4)]
+                batching.Bucket("chol_update", dt, (16, 16), (16, 4), 4),
+                batching.Bucket("posv_cached", dt, (16, 16), (16, 4), 4),
+                batching.Bucket("posv_cached_miss", dt, (16, 16), (16, 4), 4),
+                batching.Bucket("blocktri_extend", dt, (2, 4, 8, 8), (8, 8), 4),
+                batching.Bucket("session_extend", dt, (2, 4, 8, 8), (8, 8), 4),
+                batching.Bucket("session_solve", dt, (4, 4, 8, 8), (4, 8, 4), 4)]
         out += [batching.Bucket("posv", dt, (16, 16), (16, 4), 4, tier)
                 for tier in ("fast", "guaranteed")]
     return out
@@ -333,8 +383,8 @@ def test_capture_rule(impl):
     captures on the card, on the port's kernels and on the library routes
     alike (f64, 'vmap', the chain's 'xla'), under either chain algorithm
     and in every tier — the card's answer for every such combination
-    (probes/serve_capture.py).  The residency and session bucket programs
-    are not served."""
+    (probes/serve_capture.py), the residency and session programs
+    included."""
     for bt in ("auto", "scan", "partitioned"):
         cfg = ServeConfig(small_n_impl=impl, blocktri_impl=bt, **LADDERS)
         for b in _buckets():
@@ -344,9 +394,8 @@ def test_capture_rule(impl):
         assert program.small_route(big, cfg, interpret=False) == (impl in ("pallas", "pallas_split"))
         assert program.capturable(big, cfg)
         for op in batching.MISS_OPS + batching.SESSION_BUCKET_OPS + ("posv_cached", "blocktri_extend"):
-            assert not program.capturable(batching.Bucket(op, "float32", (16, 16), (16, 4), 4), cfg)
-    assert set(program.CAPTURED_OPS) == set(batching.DENSE_OPS + batching.STRUCTURED_OPS
-                                            + batching.UPDATE_OPS)
+            assert program.capturable(batching.Bucket(op, "float32", (16, 16), (16, 4), 4), cfg)
+    assert set(program.CAPTURED_OPS) == set(batching.OPS + batching.MISS_OPS + batching.SESSION_BUCKET_OPS)
 
 
 def test_small_route_matches_reference():
