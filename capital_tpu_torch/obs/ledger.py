@@ -10,6 +10,10 @@ reference's, key for key, so the reference's validators
 as they are.  Where the reference's manifest records jax and its first
 device, the port's records torch, its CUDA version and the card's name.
 The validators and `diff` wait for ROADMAP Queue A item 9.
+
+torch is imported where a manifest is written, not at module import, so
+the host-only serve modules (telemetry windows, the router's records)
+read `SCHEMA_VERSION` without loading it.
 """
 
 from __future__ import annotations
@@ -19,8 +23,6 @@ import enum
 import json
 import os
 from typing import Any, Optional
-
-import torch
 
 #: Bump on any breaking change to the record layout (the reference's value:
 #: the two packages' records share one schema).
@@ -46,7 +48,9 @@ def _jsonable(obj: Any) -> Any:
     return str(obj)
 
 
-def _device_of(grid) -> torch.device:
+def _device_of(grid):
+    import torch
+
     if grid is not None:
         return grid.device
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
@@ -56,6 +60,8 @@ def manifest(grid=None, dtype=None, config=None, **extra) -> dict:
     """The run manifest: everything needed to decide whether two records
     are comparable, plus the config that produced the run.  The device is
     the grid's (the CUDA card when there is one and no grid is given)."""
+    import torch
+
     dev = _device_of(grid)
     cuda = dev.type == "cuda"
     man = {

@@ -109,6 +109,17 @@ def _lib_path(src: str) -> Path:
     return build_dir() / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
+def sources_hash() -> str:
+    """A hash of every kernel source, the shared headers and the flags:
+    what a build in `build_dir()` was made from (the serve tier's warm-up
+    manifest keys its fingerprint on it)."""
+    h = hashlib.sha256()
+    for part in (*(CSRC / s for s in SOURCES), *sorted(CSRC.glob("*.cuh"))):
+        h.update(part.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 class _Kernels:
     """The loaded libraries and how long their build took."""
 

@@ -39,12 +39,15 @@ never see a token, so residency changes never rebuild a program.  Every
 case that cannot be served lands a loud failed Response, never a silent
 wrong answer.
 
+Rolling-window telemetry (`enable_telemetry`, serve/telemetry.py) rides
+the stats collector; ``ServeConfig.persist_dir`` turns on the program
+cache's persistent warm-up manifest (serve/cache.py): a warm-up on a warm
+directory also builds every program an earlier engine of the same config
+and fingerprint built there.
+
 `SolveEngine(grid=None, cfg)` runs on the CUDA card (`Grid.square()`,
 which raises without one); pass ``Grid.square(device="cpu")`` to run the
-plain versions on the host.  Not ported yet, each raising
-NotImplementedError naming its ROADMAP item: rolling-window telemetry
-(`enable_telemetry`, item 8's front end) and the persistent disk tier
-(`ServeConfig.persist_dir`, item 8's persistent tier).
+plain versions on the host.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ from capital_tpu_torch.parallel.topology import Grid
 from capital_tpu_torch.robust import faultinject
 from capital_tpu_torch.robust.config import RobustConfig, RobustInfo
 from capital_tpu_torch.serve import api, batching, program, stats
-from capital_tpu_torch.serve.cache import ExecutableCache
+from capital_tpu_torch.serve.cache import ExecutableCache, fingerprint
 from capital_tpu_torch.serve.executor import Executor, Response, Ticket, _Pending
 from capital_tpu_torch.serve.factorcache import FactorCache
 from capital_tpu_torch.serve.scheduler import Scheduler
@@ -74,11 +77,6 @@ from capital_tpu_torch.utils import tracing
 PRECISIONS = (None, "default", "high", "highest")
 
 SCHEDULERS = ("continuous", "sync")
-
-#: the ROADMAP items of what the engine refuses
-TELEMETRY_ITEM = "Queue A item 8, serve tier (front end: rolling-window telemetry)"
-PERSIST_ITEM = "Queue A item 8, serve tier (persistent tier)"
-
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
@@ -96,8 +94,10 @@ class ServeConfig:
     max_delay_s: oldest-request age that forces a flush.
     precision: matmul precision inside the programs ('highest' is IEEE f32).
     robust: per-request breakdown flagging.
-    donate, oversize, tail_fuse_depth, scheduler, max_inflight, persist_dir:
-        engine knobs.
+    donate, oversize, tail_fuse_depth, scheduler, max_inflight: engine knobs.
+    persist_dir: the directory of the program cache's warm-up manifest
+        (serve/cache.py), shareable by every engine on the card; None keeps
+        the cache in memory only.
     factor_cache_bytes: byte budget of the resident-factor pool
         (serve/factorcache.py).  Not in the config hash: residency is
         runtime policy (which factors are remembered), the bucket programs
@@ -193,17 +193,12 @@ class SolveEngine:
         if cfg.max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got "
                              f"{cfg.max_inflight}")
-        if cfg.persist_dir is not None:
-            raise NotImplementedError(
-                f"ServeConfig.persist_dir: the persistent program tier is not "
-                f"ported yet (ROADMAP {PERSIST_ITEM})")
         self.grid = grid or Grid.square()  # guarded-by: <frozen>
         self.cfg = cfg  # guarded-by: <frozen>
         # validate: check every declared donation at cache insert (the
         # primary output must live in the donated input's buffer)
         self.validate = validate  # guarded-by: <frozen>
         self.stats = stats.Collector()  # guarded-by: <owner-thread>
-        self.cache = ExecutableCache()  # guarded-by: <owner-thread>
         # host-side resident-factor pool: no program sees it, so residency
         # changes never rebuild one; its copies live on the grid's device
         self.factors = FactorCache(cfg.factor_cache_bytes, device=self.grid.device)  # guarded-by: <owner-thread>
@@ -228,6 +223,9 @@ class SolveEngine:
         self._cfg_hash = hashlib.sha1(ident.encode()).hexdigest()[:12]  # guarded-by: <frozen>
         self._grid_key = (self.grid.dx, self.grid.dy, self.grid.c,  # guarded-by: <frozen>
                           self.grid.platform)
+        self.cache = ExecutableCache(  # guarded-by: <owner-thread>
+            cfg.persist_dir, scope=repr((self._grid_key, self._cfg_hash)),
+            fingerprint=fingerprint(self.grid.device) if cfg.persist_dir else None)
 
     # ---- cache -------------------------------------------------------------
 
@@ -268,7 +266,8 @@ class SolveEngine:
                         "donation dropped at cache insert: " + "; ".join(probs))
             return prog
 
-        return self.cache.get(key, build, warmup=warmup)
+        spec = {"kind": "batch", "bucket": list(bucket.key)}
+        return self.cache.get(key, build, warmup=warmup, spec=spec)
 
     def _get_single(self, op: str, a_shape, b_shape, dtype: str,
                     warmup: bool = False):
@@ -283,7 +282,9 @@ class SolveEngine:
                               self.cfg.robust,
                               tail_fuse_depth=self.cfg.tail_fuse_depth)
 
-        return self.cache.get(key, build, warmup=warmup)
+        spec = {"kind": "single", "op": op, "dtype": dtype, "a_shape": list(a_shape),
+                "b_shape": None if b_shape is None else list(b_shape)}
+        return self.cache.get(key, build, warmup=warmup, spec=spec)
 
     def cache_stats(self) -> dict:
         """Hit/miss counters over request-driven program lookups plus the
@@ -297,7 +298,10 @@ class SolveEngine:
         dtype, accuracy_tier) — b_shape None for inv, tier defaulting to
         'balanced'.  Shapes resolve through the same bucket ladder as
         submit(); oversize shapes warm their exact-shape single route.
-        Returns the number of fresh builds."""
+        With ``persist_dir`` it then builds every program the warm-up
+        manifest holds for this engine's config and fingerprint (an earlier
+        engine's, or a peer replica's).  Returns the number of builds the
+        manifest did not foresee."""
         before = self.cache.warmup_compiles
         for op, a_shape, b_shape, dtype, *rest in specs:
             tier = rest[0] if rest else "balanced"
@@ -311,6 +315,17 @@ class SolveEngine:
             elif self.cfg.oversize == "models":
                 self._get_single(op, a_shape, b_shape if b_shape else None, dt,
                                  warmup=True)
+        for spec in self.cache.foreseen_specs():
+            if spec["kind"] == "batch":
+                op, dt, a_shape, b_shape, capacity, tier = spec["bucket"]
+                self._get_batched(batching.Bucket(
+                    op, dt, tuple(a_shape), None if b_shape is None else tuple(b_shape),
+                    capacity, tier), warmup=True)
+            elif self.cfg.oversize == "models":
+                b_shape = spec["b_shape"]
+                self._get_single(spec["op"], tuple(spec["a_shape"]),
+                                 None if b_shape is None else tuple(b_shape),
+                                 spec["dtype"], warmup=True)
         return self.cache.warmup_compiles - before
 
     # ---- request path ------------------------------------------------------
@@ -523,9 +538,18 @@ class SolveEngine:
         )
 
     def enable_telemetry(self, window_s: float = 1.0, *, sample_cap: Optional[int] = None):
-        """Rolling-window telemetry is not ported yet."""
-        raise NotImplementedError(
-            f"SolveEngine.enable_telemetry is not ported yet (ROADMAP {TELEMETRY_ITEM})")
+        """Attach a rolling-window aggregator (serve/telemetry.py) to the
+        stats tap: every request / batch / queue-depth note also lands in
+        the current time window, and `self.telemetry.emit(path)` appends
+        one serve:window record per closed window.  Host-side counters
+        only — never part of the config hash, never a program's concern.
+        Returns the aggregator."""
+        from capital_tpu_torch.serve import telemetry
+
+        kw = {} if sample_cap is None else {"sample_cap": sample_cap}
+        self.telemetry = telemetry.WindowAggregator(window_s, **kw)
+        self.stats.window = self.telemetry
+        return self.telemetry
 
     # ---- factor residency ----------------------------------------------------
 

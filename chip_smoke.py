@@ -105,6 +105,24 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    tolerance, and a profiled turn's trace holds replays x plan records;
    prints the sliding cycle against a full refactor of the window, the
    factor_cache and session_stats blocks and the idle share;
+7d. drives the serve front end through its entry points: the CLI
+   (`python -m capital_tpu_torch.serve smoke --trace`, in process) at the
+   reference smoke's configuration, cold and then warm on one persist_dir
+   (the warm run builds only what the warm-up manifest foresaw:
+   `--max-compiles 0`; profiled, its chain kernels counted); the
+   single-engine A/B `loadgen.compare` (sync against continuous, 256
+   closed-loop requests from 16 clients, posv / lstsq at n 32/64/128,
+   nrhs 1/8/64, phase 7b's ladders, 50 ms telemetry windows, traces) with
+   every response under the residual gates, no build after warm-up, valid
+   windows and complete chains; one continuous run profiled (trace records
+   = replays x plan, idle share) and one under cProfile (host time a
+   request by engine stage); `loadgen.compare_replicas` with one and two
+   process replicas on the card and process clients (scaling efficiency,
+   no drop, no build after warm-up); and the `replicas` CLI — a cold run of
+   thread replicas (profiled: the guaranteed quarter of the posv requests
+   runs potrf and potrs) warming the manifest, then two process replicas
+   on the warm directory with a kill (the replacement warms from the
+   manifest and serves with no build) and a drain + resume;
 8. holds the four kernels of the triangular-inversion slice against their
    plain versions, timed beside their bounds and library calls:
    write_diag_blocks (96 blocks of 512² bf16 into a NaN-filled 49152²
@@ -208,7 +226,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     no path, with 0), the nvidia-smi line, and last
     {"ok": true, "device": {...}}.
 
-Phases 3, 5, 7, 7b, 9–12, 14, 16 and 18 set every launch counter to 0 just
+Phases 3, 5, 7, 7b, 7d, 9–12, 14, 16 and 18 set every launch counter to 0 just
 before their runs and check the counts just after against the plan (7b:
 the counts move at capture, not at a replay; the trace counts the replays);
 phases 3, 4, 5, 9, 11, 17 and 18 also check that every tri_matmul and
@@ -2420,6 +2438,333 @@ def residency_phase(hopper, dev, smi: str) -> dict:
     return out
 
 
+# ---- the serve front end (phase 7d) ---------------------------------------------
+
+#: phase 7b's ladders under the front end's closed loop
+FRONT_CFG = dict(buckets=(32, 64, 128), rows_buckets=(128, 256, 512), nrhs_buckets=(1, 8, 64),
+                 max_batch=8, max_delay_s=0.005)
+#: the single-engine A/B's workload (requests and clients scale with the
+#: replica count in compare_replicas)
+FRONT_WORKLOAD = dict(requests=256, concurrency=16, ops=("posv", "lstsq"), ns=(32, 64, 128),
+                      nrhs=(1, 8, 64))
+#: the kernels the front end's in-process runs launch: the dense buckets,
+#: the CLI smoke's chains, the router's guaranteed share
+FRONT_KERNELS = ("small.posv", "small.lstsq", "bt.fused_forward", "bt.solve_backward", "small.potrf",
+                 "small.potrs")
+@contextmanager
+def spawn_light_main():
+    """Spawned children (process replicas, loadgen clients) import the
+    parent's main module unless its name ends in `.__main__`; this script
+    imports torch at its top, so while a phase spawns, the serve CLI's
+    module (standard library only at import) stands in as the main module
+    and the children import nothing of this script."""
+    from capital_tpu_torch.serve import __main__ as light
+
+    saved = sys.modules["__main__"]
+    sys.modules["__main__"] = light
+    try:
+        yield
+    finally:
+        sys.modules["__main__"] = saved
+
+
+def window_problems(w: dict) -> list[str]:
+    """A serve:window block's coherence (the reference's
+    validate_serve_window, its invariants): counts add up, the histogram
+    holds every latencied request, percentiles are ordered, the window's
+    end is not before its start."""
+    probs = []
+    if w["ok"] + w["failed"] + w["shed"] != w["requests"]:
+        probs.append(f"ok + failed + shed != requests: {w}")
+    if sum(w["hist_ms"]["counts"]) != w["ok"] + w["failed"]:
+        probs.append(f"histogram {w['hist_ms']['counts']} != ok + failed")
+    if len(w["hist_ms"]["counts"]) != len(w["hist_ms"]["edges"]) + 1:
+        probs.append("histogram bins != edges + 1")
+    lat = w["latency_ms"]
+    if not lat["p50"] <= lat["p95"] <= lat["p99"]:
+        probs.append(f"percentiles out of order: {lat}")
+    if w["t_end_s"] < w["t_start_s"] or not w["window_s"] > 0:
+        probs.append(f"window bounds {w['t_start_s']}..{w['t_end_s']}")
+    return probs
+
+
+def host_profile(eng, reqs, concurrency: int) -> dict:
+    """One closed-loop run through `eng` under cProfile: host time a
+    request by the engine's stage, each from the profile's
+    cumulative (`ct`), inline (`tt`) and caller-edge times so that no stage
+    holds another: submit less the flushes its admissions make; the pump's
+    own code and its readiness probes; every flush less the landings it
+    forces; every landing less its wait on the batch's event; the client's
+    sleeps; the rest of the wall is the client's own loop.  cProfile's own
+    overhead inflates every Python stage: `wall_s` beside
+    `unprofiled_wall_s` of the same run says by how much."""
+    import cProfile
+    import pstats
+
+    from capital_tpu_torch.serve import loadgen
+    from capital_tpu_torch.serve.engine import SolveEngine
+    from capital_tpu_torch.serve.executor import Executor
+    from capital_tpu_torch.serve.scheduler import Scheduler
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loadgen.run_closed_loop(eng, reqs, concurrency)
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    t0 = time.perf_counter()
+    res = loadgen.run_closed_loop(eng, reqs, concurrency)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.disable()
+    st = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, tt, ct, callers)
+
+    def key(fn):
+        code = fn.__code__
+        return code.co_filename, code.co_firstlineno, code.co_name
+
+    def tt(fn) -> float:
+        return st.get(key(fn), (0, 0, 0.0, 0.0, {}))[2]
+
+    def ct(fn) -> float:
+        return st.get(key(fn), (0, 0, 0.0, 0.0, {}))[3]
+
+    def edge(callee, caller) -> float:  # callee's cumulative time under this caller
+        entry = st.get(key(callee))
+        return entry[4].get(key(caller), (0, 0, 0.0, 0.0))[3] if entry else 0.0
+
+    sleeps = sum(v[3] for k, v in st.items() if k[0] == "~" and "time.sleep" in k[2])
+    wait = edge(torch.cuda.Event.synchronize, Executor.land)
+    stages = {
+        "submit/bucketing/padding": ct(SolveEngine.submit) - edge(Scheduler.flush, Scheduler.admit),
+        "scheduler pump": tt(SolveEngine.pump) + tt(Scheduler.pump) + tt(Scheduler.reap) + ct(Executor.ready),
+        "dispatch/replay": ct(Scheduler.flush) - edge(Scheduler.land, Scheduler.flush),
+        "landing/crop/stats": ct(Executor.land) - wait,
+        "device wait (landing)": wait,
+        "client sleeps": sleeps,
+    }
+    stages["closed-loop client"] = wall - sum(stages.values())
+    n = res["requests"]
+    top = sorted(((v[2], f"{k[0].rsplit('/', 1)[-1]}:{k[1]}({k[2]})") for k, v in st.items()), reverse=True)
+    return dict(requests=n, wall_s=wall, unprofiled_wall_s=plain,
+                us_per_request={k: v / n * 1e6 for k, v in stages.items()},
+                share={k: v / wall for k, v in stages.items()},
+                top_inline_us_per_request={name: t / n * 1e6 for t, name in top[:15]})
+
+
+def cli_turn(hopper, argv: list, label: str) -> dict:
+    """One in-process run of the serve CLI (`python -m
+    capital_tpu_torch.serve ...`) under the profiler: its exit code, the
+    trace's kernel records, and the launches the served requests made.
+    Every bucket program of these runs is captured at warm-up (phase 7b
+    holds each of these ops' programs to capture): one eager call, then
+    the capture — the counters move twice, the card runs the plan once — so
+    the requests' launches are the records less half the counters' move."""
+    from capital_tpu_torch.serve import __main__ as cli
+
+    state = {}
+
+    def run():
+        hopper.reset_counts()
+        state["rc"] = cli.main(argv)
+        state["counts"] = hopper.counts()
+
+    prof = profile(run, "SV::")
+    check(state["rc"] == 0, f"{label}: `python -m capital_tpu_torch.serve {' '.join(argv)}` exited {state['rc']}")
+    got, counts = engine_trace_counts(prof["launches"]), state["counts"]
+    check(all(counts.get(k, 0) % 2 == 0 for k in got),
+          f"{label}: odd launch counts {counts}: a bucket program ran eagerly")
+    served = {k: got[k] - counts.get(k, 0) // 2 for k in got}
+    check(all(v >= 0 for v in served.values()), f"{label}: trace {got} < warm-up launches {counts}")
+    return dict(counts={k: v for k, v in counts.items() if v}, trace=got,
+                served={k: v for k, v in served.items() if v}, wall_ms=prof["wall_ms"],
+                device_busy_ms=prof["device_busy_ms"], idle_share=prof["idle_share"])
+
+
+def frontend_phase(hopper, dev, smi: str) -> dict:
+    """Phase 7d: the serve front end on the card (module docstring): the
+    CLI smoke cold and warm on one persist_dir, the single-engine A/B
+    through `loadgen.compare`, a profiled continuous run, the host profile,
+    the router A/B with process replicas and process clients, and the
+    `replicas` CLI with a kill and a drain on a warm persist_dir."""
+    import tempfile
+    from collections import Counter
+
+    from capital_tpu_torch.obs import ledger, spans
+    from capital_tpu_torch.serve import ServeConfig, loadgen
+
+    out = {"card": smi, "seconds": {}}
+    t_phase = time.perf_counter()
+    tol32 = 5e-5  # bench/drivers.py:_tolerance; lstsq 10x
+    # this slice's main path: the counters set to 0 here and read after
+    # each in-process run (the process replicas count in their own
+    # processes), summed in `launched`
+    hopper.reset_counts()
+    launched = Counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_7d_")
+    root = tmp.name
+
+    # ---- (a) the CLI smoke, cold then warm on one persist_dir ------------------
+    t0 = time.perf_counter()
+    smoke_dir, smoke_led = f"{root}/smoke_cache", f"{root}/smoke.jsonl"
+    argv = ["smoke", "--trace", "--persist-dir", smoke_dir, "--ledger", smoke_led, "--device", dev.type]
+    from capital_tpu_torch.serve import __main__ as cli
+
+    check(cli.main(argv) == 0, "front end: the cold CLI smoke failed")
+    launched.update(hopper.counts())
+    out["smoke_warm"] = cli_turn(hopper, argv + ["--max-compiles", "0"], "front end warm smoke")
+    launched.update(out["smoke_warm"]["counts"])
+    recs = [r["request_stats"] for r in ledger.read(smoke_led) if r["kind"] == "serve:request_stats"]
+    check(len(recs) == 2, f"front end: {len(recs)} smoke records, want 2")
+    cold, warm = recs[0]["cache"], recs[1]["cache"]
+    check(cold["compiles"] == cold["disk"]["misses"] > 0 and cold["disk"]["hits"] == 0,
+          f"front end: cold smoke cache {cold}")
+    check(warm["compiles"] == 0 and warm["misses"] == 0 and warm["disk"]["hits"] == cold["compiles"]
+          and not warm["disk"]["errors"], f"front end: warm smoke cache {warm} (cold {cold})")
+    out["smoke"] = dict(cold=cold, warm=warm, requests=recs[1]["requests"], ops=recs[1]["ops"],
+                        seconds=time.perf_counter() - t0)
+    print(json.dumps({"frontend_smoke": "cold + warm", "card": smi, **out["smoke"],
+                      "warm_turn": out["smoke_warm"]}), flush=True)
+
+    # ---- (b) the single-engine A/B: sync against continuous ---------------------
+    t0 = time.perf_counter()
+    cfg = ServeConfig(**FRONT_CFG)
+    wl = loadgen.Workload(**FRONT_WORKLOAD)
+    reqs = loadgen.build_requests(wl)
+    ab_led, engines = f"{root}/ab.jsonl", {}
+    hopper.reset_counts()
+    res = loadgen.compare(cfg, wl, device=dev.type, ledger_path=ab_led, window_s=0.05, trace=True,
+                          engines=engines)
+    recs = ledger.read(ab_led)
+    for mode, (eng, tickets) in engines.items():
+        r = res[mode]
+        check(r["requests"] == r["ok"] == len(reqs) and not r["failed"], f"front end {mode}: {r}")
+        check(r["cache"]["misses"] == 0, f"front end {mode}: built after warm-up: {r['cache']}")
+        worst: dict = {}
+        for (op, A, B), t in zip(reqs, tickets):
+            x = t.result()
+            check(x.ok, f"front end {mode}: request {x.request_id} ({op}) failed: {x.error}")
+            At, Bt = torch.as_tensor(A, device=dev), torch.as_tensor(B, device=dev)
+            resid = engine_residual(op, At, Bt, x.x)
+            gate = 10 * tol32 if op == "lstsq" else tol32
+            check(resid < gate, f"front end {mode}: request {x.request_id} ({op} {A.shape}) residual {resid}")
+            worst[op] = max(worst.get(op, 0.0), resid)
+        st = r["trace_record"]["serve_trace"]
+        bad = [p for t in st["traces"] for p in spans.trace_dict_problems(t)]
+        check(st["requests"] == st["complete"] == len(reqs) and not st["dropped"] and not bad,
+              f"front end {mode}: {st['complete']} of {st['requests']} chains complete: {bad[:3]}")
+        wins = [rec["serve_window"] for rec in recs
+                if rec["kind"] == "serve:window" and rec["loadgen"]["mode"] == mode]
+        wbad = [p for w in wins for p in window_problems(w)]
+        check(wins and not wbad and sum(w["requests"] for w in wins) == len(reqs),
+              f"front end {mode}: windows {len(wins)}: {wbad[:3]}")
+        rs = r["record"]["request_stats"]
+        out[f"ab_{mode}"] = dict(qps=r["qps"], wall_s=r["wall_s"], windows=len(wins),
+                                 latency_ms=rs["latency_ms"], queue_wait_ms=rs["queue_wait_ms"],
+                                 device_ms=rs["device_ms"], occupancy=rs["batch_occupancy_mean"],
+                                 batches=rs["batches"], programs=len(eng.cache.programs()),
+                                 worst_residual=worst)
+        print(json.dumps({"frontend_ab": mode, "card": smi, **out[f"ab_{mode}"]}), flush=True)
+    out["ab_speedup"] = res["speedup"]
+    # one continuous run profiled: the replays ran their plans, the idle share
+    eng = engines["continuous"][0]
+    launched.update(hopper.counts())  # the two engines' warm-ups: eager call + capture
+    progs = eng.cache.programs()
+    check(progs and all(p.captured for p in progs.values()), "front end: a bucket program was not captured")
+    for prog in progs.values():
+        plan, routes = engine_plan(prog.bucket, eng.cfg)
+        check(prog.capture_counts == plan and prog.capture_routes == routes,
+              f"front end {prog.bucket}: capture launched {prog.capture_counts}, plan {plan}")
+    out["ab_profile"] = traced_turn(hopper, [eng], lambda: loadgen.run_closed_loop(eng, reqs, wl.concurrency),
+                                    "front end continuous run")
+    print(json.dumps({"frontend_ab_speedup": res["speedup"], "card": smi,
+                      "profile": out["ab_profile"]}), flush=True)
+    # ---- (d) the host profile of one continuous run ------------------------------
+    out["host_profile"] = host_profile(eng, reqs, wl.concurrency)
+    print(json.dumps({"frontend_host_profile": "continuous closed loop", "card": smi,
+                      **out["host_profile"]}), flush=True)
+    out["seconds"]["ab"] = time.perf_counter() - t0
+    del engines, eng
+
+    # ---- (c) the router: process replicas, process clients -----------------------
+    t0 = time.perf_counter()
+    rcfg = ServeConfig(persist_dir=f"{root}/router_cache", **FRONT_CFG)
+    with spawn_light_main():
+        rres = loadgen.compare_replicas(rcfg, wl, replica_counts=(1, 2), replica_mode="process",
+                                        client_mode="process", device=dev.type,
+                                        ledger_path=f"{root}/replicas.jsonl")
+    for n in (1, 2):
+        r = rres[n]
+        agg = r["records"][-1]["request_stats"]
+        check(r["requests"] == r["ok"] == wl.requests * n and not r["failed"],
+              f"front end router x{n}: {r['requests']} landed, {r['failed']} failed")
+        c = r["counters"]
+        check(c["completed"] == c["dispatched"] == wl.requests * n and not c["parked"],
+              f"front end router x{n}: dropped requests: {c}")
+        check(agg["cache"]["misses"] == 0, f"front end router x{n}: built after warm-up: {agg['cache']}")
+        check(all(v is not None for v in r["warmup_fresh"].values()),
+              f"front end router x{n}: a replica did not warm up: {r['warmup_fresh']}")
+        out[f"router_x{n}"] = dict(qps=r["qps"], wall_s=r["wall_s"], clients=r["clients"],
+                                   warmup_fresh=r["warmup_fresh"], latency_ms=agg["latency_ms"],
+                                   queue_wait_ms=agg.get("queue_wait_ms"), device_ms=agg.get("device_ms"),
+                                   per_replica=c["per_replica"], disk=agg["cache"].get("disk"))
+        print(json.dumps({"frontend_router": n, "card": smi, **out[f"router_x{n}"]}), flush=True)
+    out["scaling_efficiency"] = rres["scaling_efficiency"]
+    out["router_speedup"] = rres["speedup"]
+    print(json.dumps({"frontend_scaling": {"efficiency": rres["scaling_efficiency"],
+                                           "speedup": rres["speedup"],
+                                           "qps": {n: rres[n]["qps"] for n in (1, 2)}}, "card": smi}),
+          flush=True)
+    out["seconds"]["router"] = time.perf_counter() - t0
+
+    # the replicas CLI: a cold thread-replica run warms the manifest (and,
+    # profiled, counts the guaranteed share's kernels), then two process
+    # replicas on the warm directory take a kill and a drain
+    t0 = time.perf_counter()
+    rep_dir = f"{root}/replicas_cache"
+    base = ["replicas", "--persist-dir", rep_dir, "--guaranteed-share", "0.25", "--requests", "96",
+            "--device", dev.type]
+    out["replicas_cold"] = cli_turn(hopper, base + ["--replica-mode", "thread"], "front end replicas (thread)")
+    launched.update(out["replicas_cold"]["counts"])
+    led = f"{root}/replicas_cli.jsonl"
+    with spawn_light_main():
+        rc = cli.main(base + ["--replica-mode", "process", "--kill-one", "--drain-one", "--max-compiles", "0",
+                              "--ledger", led])
+    check(rc == 0, "front end: the replicas CLI (process, kill, drain) failed")
+    recs = ledger.read(led)
+    agg = recs[-1]
+    check(agg["router"]["failed_replicas"] == 1 and agg["router"]["completed"] == 96
+          and not agg["router"]["parked"], f"front end replicas: {agg['router']}")
+    check(agg["request_stats"]["cache"]["misses"] == 0 and agg["request_stats"]["cache"]["compiles"] == 0,
+          f"front end replicas: {agg['request_stats']['cache']}")
+    per = {r["request_stats"]["replica_id"]: r["request_stats"] for r in recs[:-1]}
+    check("r2" in per and per["r2"]["cache"]["compiles"] == 0 and per["r2"]["cache"]["misses"] == 0
+          and per["r2"]["requests"] > 0, f"front end replicas: the replacement {per.get('r2')}")
+    ref = agg["request_stats"].get("refine", {})
+    check(ref.get("requests", 0) > 0 and ref["converged"] == ref["requests"],
+          f"front end replicas: the guaranteed share {ref}")
+    out["replicas_warm"] = dict(router=agg["router"], cache=agg["request_stats"]["cache"], refine=ref,
+                                replacement=per["r2"]["cache"], latency_ms=agg["request_stats"]["latency_ms"])
+    print(json.dumps({"frontend_replicas": "cold thread + warm process, kill + drain", "card": smi,
+                      "cold": out["replicas_cold"], **out["replicas_warm"]}), flush=True)
+    out["seconds"]["replicas"] = time.perf_counter() - t0
+
+    # every kernel of the path launched (counted) and ran for the served
+    # requests (trace records)
+    out["counts"] = dict(launched)
+    served = {k: out["smoke_warm"]["served"].get(k, 0) + out["replicas_cold"]["served"].get(k, 0)
+              + out["ab_profile"]["kernels"].get(k, 0) for k in FRONT_KERNELS}
+    out["served"] = served
+    missing = [k for k in FRONT_KERNELS if not launched.get(k) or not served[k]]
+    check(not missing, f"front end: kernels never launched on the front end's path: {missing}")
+    tmp.cleanup()
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(json.dumps({"frontend_seconds": out["seconds"]}), flush=True)
+    return out
+
+
 # ---- the triangular-inversion slice (phases 8-12) --------------------------
 
 
@@ -4310,6 +4655,9 @@ def main(argv=None) -> int:
 
     # ---- phase 7c: factor residency and streaming sessions ------------------
     out["residency"] = residency_phase(hopper, dev, smi)
+
+    # ---- phase 7d: the serve front end ---------------------------------------
+    out["frontend"] = frontend_phase(hopper, dev, smi)
 
     # ---- phase 8: the inversion slice's kernels against plain versions ---
     from capital_tpu_torch.ops import tsqr

@@ -2249,3 +2249,49 @@ def test_engine_residency_and_sessions_on_the_card(cuda):
     assert progs and all(p.captured for p in progs.values())
     assert {k[1][0] for k in progs} >= {"posv_cached", "posv_cached_miss", "chol_update", "blocktri_extend",
                                         "session_extend", "session_solve"}
+
+
+def test_router_thread_and_process_replicas_on_the_card(cuda, tmp_path):
+    """Two ThreadReplicas and one ProcessReplica (its own CUDA context on
+    the card) behind a Router, sharing one warm-up manifest: the first
+    replica builds, the others build what it foresaw; every response under
+    the drivers' residual gates (5e-5 f32, 10x for lstsq), no build after
+    warm-up on any replica, and every replica served."""
+    from capital_tpu_torch.serve import loadgen
+    from capital_tpu_torch.serve.engine import ServeConfig
+    from capital_tpu_torch.serve.replica import ProcessReplica, ThreadReplica
+    from capital_tpu_torch.serve.router import Router, RouterConfig
+
+    cfg = ServeConfig(buckets=(32, 64), rows_buckets=(128, 256), nrhs_buckets=(1, 8), max_batch=4,
+                      max_delay_s=0.002, persist_dir=str(tmp_path))
+    wl = loadgen.Workload(requests=64, concurrency=8, ops=("posv", "lstsq"), ns=(32, 64), nrhs=(1, 8))
+    r = Router(RouterConfig(policy="least_loaded"))
+    for rep in (ThreadReplica("t0", cfg, device="cuda"), ThreadReplica("t1", cfg, device="cuda"),
+                ProcessReplica("p0", cfg, device="cuda")):
+        r.add_replica(rep)
+    try:
+        fresh = r.warmup(loadgen.warmup_specs(wl), timeout=600.0)
+        assert fresh["t0"] == len(loadgen.warmup_specs(wl)) and fresh["t1"] == fresh["p0"] == 0, fresh
+        r.start()
+        sent = [(op, A, B, r.submit(op, A, B)) for op, A, B in loadgen.build_requests(wl)]
+        served = set()
+        for op, A, B, t in sent:
+            res = t.result(timeout=300.0)
+            assert res.ok, res.error
+            A64, B64, x = (np.asarray(v, dtype=np.float64) for v in (A, B, res.x))
+            if op == "lstsq":
+                resid = np.linalg.norm(A64.T @ (A64 @ x - B64)) / np.linalg.norm(A64.T @ B64)
+            else:
+                resid = np.linalg.norm(A64 @ x - B64) / np.linalg.norm(B64)
+            assert resid < (5e-4 if op == "lstsq" else 5e-5), (op, A.shape, resid)
+            served.add(res.replica_id)
+        snaps = r.replica_stats()
+        assert set(snaps) == {"t0", "t1", "p0"} and served == set(snaps)
+        for rid, snap in snaps.items():
+            # builds only at warm-up: t0 the specs', t1 and p0 the manifest's
+            assert snap["cache"]["misses"] == 0, rid
+            assert snap["cache"]["compiles"] == snap["cache"]["warmup_compiles"] == fresh[rid], rid
+        c = r.counters()
+        assert c["completed"] == c["dispatched"] == wl.requests and not c["parked"]
+    finally:
+        r.stop()

@@ -48,6 +48,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import capital_tpu_torch.serve, capital_tpu_torch.serve.program\n"
         "import capital_tpu_torch.obs.spans, capital_tpu_torch.obs.ledger\n"
         "import capital_tpu_torch.serve.factorcache, capital_tpu_torch.serve.sessions\n"
+        "import capital_tpu_torch.serve.telemetry, capital_tpu_torch.serve.loadgen\n"
+        "import capital_tpu_torch.serve.replica, capital_tpu_torch.serve.router\n"
+        "import capital_tpu_torch.serve.__main__, capital_tpu_torch.serve.cache\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'capital_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'capital_tpu.')))\n"
         "print(','.join(bad))\n"
@@ -102,6 +105,48 @@ def test_residency_and_session_slice_files_are_scanned():
     for f in ("serve/factorcache.py", "serve/sessions.py", "serve/engine.py", "serve/api.py",
               "serve/batching.py", "serve/program.py", "utils/tracing.py"):
         assert "capital_tpu_torch/" + f in names
+
+
+def test_frontend_slice_files_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("serve/telemetry.py", "serve/loadgen.py", "serve/replica.py", "serve/router.py",
+              "serve/__main__.py", "serve/cache.py", "obs/ledger.py", "__init__.py"):
+        assert "capital_tpu_torch/" + f in names
+
+
+HOST_ONLY = ("router", "replica", "loadgen", "telemetry")
+
+
+@pytest.mark.parametrize("mod", HOST_ONLY)
+def test_host_only_modules_load_no_torch(mod):
+    """A router pump or a loadgen client process imports these without a
+    device runtime: neither torch nor jax lands in sys.modules."""
+    code = (
+        f"import sys, capital_tpu_torch.serve.{mod} as m\n"
+        "import capital_tpu_torch, capital_tpu_torch.serve\n"
+        "bad = sorted(x for x in sys.modules if x in ('torch', 'jax', 'jaxlib', 'capital_tpu')"
+        " or x.startswith(('torch.', 'jax.', 'jaxlib.', 'capital_tpu.')))\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True
+    )
+    assert out.stdout.strip() == ""
+
+
+def test_lazy_exports_resolve():
+    import capital_tpu_torch
+    import capital_tpu_torch.serve as serve
+
+    assert capital_tpu_torch.Grid is Grid
+    assert capital_tpu_torch.cholesky.__name__ == "capital_tpu_torch.models.cholesky"
+    assert sorted(capital_tpu_torch.__all__) == capital_tpu_torch.__all__
+    for name in serve.__all__:
+        assert getattr(serve, name).__name__ == name
+    with pytest.raises(AttributeError):
+        capital_tpu_torch.not_a_name  # noqa: B018
+    with pytest.raises(AttributeError):
+        serve.not_a_name  # noqa: B018
 
 
 def test_grid_without_device_needs_cuda():

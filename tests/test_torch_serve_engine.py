@@ -337,12 +337,22 @@ def test_residency_and_session_ops_refuse(residency_runs, op):
         assert np.abs(have - want).max() <= TOL["float32"] * max(np.abs(want).max(), 1.0), op
 
 
-def test_engine_refusals_name_their_items():
+def test_engine_refusals_name_their_items(tmp_path):
+    """Rolling-window telemetry and the persistent tier, which the engine
+    refused until the front end's slice, now attach as the reference's do:
+    the aggregator rides the stats collector, and a persist_dir engine's
+    cache block carries the reference's disk counters (both engines fresh,
+    so equal)."""
     eng = _engine()
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        eng.enable_telemetry()
-    with pytest.raises(NotImplementedError, match="persistent tier"):
-        _engine(persist_dir="/nonexistent")
+    agg = eng.enable_telemetry(window_s=0.5, sample_cap=16)
+    assert eng.telemetry is agg and eng.stats.window is agg
+    assert (agg.window_s, agg.sample_cap) == (0.5, 16)
+    reng = rengine.SolveEngine(cfg=rengine.ServeConfig(**LADDERS))
+    assert type(reng.enable_telemetry(window_s=0.5)).__name__ == type(agg).__name__
+    got = _engine(persist_dir=str(tmp_path / "port")).cache_stats()
+    want = rengine.SolveEngine(cfg=rengine.ServeConfig(
+        persist_dir=str(tmp_path / "jax"), **LADDERS)).cache_stats()
+    assert got == want and set(got["disk"]) == {"hits", "misses", "errors", "skips", "races"}
 
 
 @pytest.mark.parametrize("kw, msg", [(dict(oversize="panic"), "oversize policy"),
