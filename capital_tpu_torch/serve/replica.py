@@ -254,7 +254,7 @@ def _serve_loop(replica_id: str, cfg_kwargs: dict,
             # the handler), never die silently holding the outbox.
             try:
                 send(("fatal", f"{type(e).__name__}: {e}"))
-            except Exception:  # transport gone
+            except Exception:  # lint: allow-broad-except — transport gone
                 pass
             return
 

@@ -320,7 +320,7 @@ class Router:
                 for st in live:
                     # deliberate roundtrip under the lock: a concurrent
                     # pump() polling the same outbox would steal the ack
-                    st.replica.drain(
+                    st.replica.drain(  # lint: allow-blocking-under-lock
                         timeout=max(0.1, deadline - time.monotonic()))
                 self.pump()
                 if not self._parked and not any(
@@ -351,7 +351,7 @@ class Router:
             st.draining = True
             # hold the lock across the sync roundtrip: a concurrent pump()
             # polling the same outbox would steal the "drained" ack
-            ok = st.replica.drain(timeout)
+            ok = st.replica.drain(timeout)  # lint: allow-blocking-under-lock
             self.pump()
             return ok
 
@@ -368,7 +368,7 @@ class Router:
         with self._lock:
             st = self._states[replica_id]
             # sync stop ack under the lock, same reason as drain_replica
-            st.replica.stop(timeout)
+            st.replica.stop(timeout)  # lint: allow-blocking-under-lock
             self._sweep_and_redispatch(st)
             st.dead = True
 

@@ -122,7 +122,17 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
    thread replicas (profiled: the guaranteed quarter of the posv requests
    runs potrf and potrs) warming the manifest, then two process replicas
    on the warm directory with a kill (the replacement warms from the
-   manifest and serves with no build) and a drain + resume;
+   manifest and serves with no build) and a drain + resume; then hands
+   the phase's ledgers to the port's obs CLI (`python -m
+   capital_tpu_torch.obs`, in process) under the reference Makefile's
+   gates: serve-report on the smoke (hit rate 1.0, small-bucket p99 and
+   queue wait under 30 s), on the A/B (hit rate 1.0, occupancy 0.25 —
+   reported when it fails, as the A/B's many small buckets make it —
+   queue wait under 60 s; every chain complete, at least 3 windows) and
+   --aggregate on both router ledgers (2 replicas, hit rate 1.0); the
+   timeline's Chrome export of the smoke and the A/B, span for span the
+   traced requests' chains; robust-gate; the A/B's diff against itself;
+   each command's report on a line with the card;
 8. holds the four kernels of the triangular-inversion slice against their
    plain versions, timed beside their bounds and library calls:
    write_diag_blocks (96 blocks of 512² bf16 into a NaN-filled 49152²
@@ -2468,26 +2478,6 @@ def spawn_light_main():
         sys.modules["__main__"] = saved
 
 
-def window_problems(w: dict) -> list[str]:
-    """A serve:window block's coherence (the reference's
-    validate_serve_window, its invariants): counts add up, the histogram
-    holds every latencied request, percentiles are ordered, the window's
-    end is not before its start."""
-    probs = []
-    if w["ok"] + w["failed"] + w["shed"] != w["requests"]:
-        probs.append(f"ok + failed + shed != requests: {w}")
-    if sum(w["hist_ms"]["counts"]) != w["ok"] + w["failed"]:
-        probs.append(f"histogram {w['hist_ms']['counts']} != ok + failed")
-    if len(w["hist_ms"]["counts"]) != len(w["hist_ms"]["edges"]) + 1:
-        probs.append("histogram bins != edges + 1")
-    lat = w["latency_ms"]
-    if not lat["p50"] <= lat["p95"] <= lat["p99"]:
-        probs.append(f"percentiles out of order: {lat}")
-    if w["t_end_s"] < w["t_start_s"] or not w["window_s"] > 0:
-        probs.append(f"window bounds {w['t_start_s']}..{w['t_end_s']}")
-    return probs
-
-
 def host_profile(eng, reqs, concurrency: int) -> dict:
     """One closed-loop run through `eng` under cProfile: host time a
     request by the engine's stage, each from the profile's
@@ -2583,6 +2573,73 @@ def cli_turn(hopper, argv: list, label: str) -> dict:
                 device_busy_ms=prof["device_busy_ms"], idle_share=prof["idle_share"])
 
 
+#: the reference Makefile's serve-bench occupancy gate: phase 7d's A/B
+#: (18 buckets of capacity 8, 16 clients) flushes most batches at the
+#: deadline below it, so its failure is reported, never loosened
+OCCUPANCY_FAIL = re.compile(r"^serve-report gate FAIL: record #\d+: batch occupancy [0-9.]+ < 0\.25 ")
+
+
+def obs_gates(root: str, smi: str) -> dict:
+    """Phase 7d's ledgers through the port's obs CLI (`python -m
+    capital_tpu_torch.obs`, in process) under the reference Makefile's own
+    gates: serve-smoke's on the CLI smoke, serve-bench's and serve-trace's
+    on the A/B, serve-replicas' on both router ledgers; the Chrome-trace
+    export of the smoke and the A/B (one complete chain a traced request,
+    every span of it in the export), the robustness self-check and the
+    A/B's diff against itself.  Every exit code goes through `check`; the
+    one admitted failure is serve-bench's occupancy gate, at its own
+    number (`OCCUPANCY_FAIL`), which the run reports."""
+    import io
+    from contextlib import redirect_stderr, redirect_stdout
+
+    from capital_tpu_torch.obs import __main__ as obs
+    from capital_tpu_torch.obs import ledger, spans
+
+    res = {}
+
+    def run(label: str, argv: list) -> tuple[int, list]:
+        out, err = io.StringIO(), io.StringIO()
+        with redirect_stdout(out), redirect_stderr(err):
+            rc = obs.main(argv)
+        lines = out.getvalue().splitlines() + err.getvalue().splitlines()
+        res[label] = dict(argv=[a.replace(root + "/", "") for a in argv], rc=rc, report=lines)
+        print(json.dumps({"obs": label, **res[label], "card": smi}), flush=True)
+        return rc, err.getvalue().splitlines()
+
+    smoke, ab = f"{root}/smoke.jsonl", f"{root}/ab.jsonl"
+    rc, _ = run("serve-smoke", ["serve-report", smoke, "--min-hit-rate", "1.0",
+                                "--max-p99-ms-small", "30000", "--max-queue-wait-ms", "30000"])
+    check(rc == 0, f"obs: serve-report on the CLI smoke's ledger exited {rc}")
+    rc, err = run("serve-bench", ["serve-report", ab, "--min-hit-rate", "1.0", "--min-occupancy", "0.25",
+                                  "--max-queue-wait-ms", "60000"])
+    check(rc == 0 or (rc == 1 and err and all(OCCUPANCY_FAIL.match(line) for line in err)),
+          f"obs: serve-report on the A/B ledger exited {rc}: {err}")
+    res["serve-bench"]["occupancy_gate"] = "fail" if rc else "pass"
+    rc, _ = run("serve-trace", ["serve-report", ab, "--min-trace-complete", "1.0", "--min-windows", "3"])
+    check(rc == 0, f"obs: serve-report's trace and window gates on the A/B ledger exited {rc}")
+    for name in ("replicas_cli", "replicas"):
+        rc, _ = run(f"serve-replicas {name}", ["serve-report", f"{root}/{name}.jsonl", "--aggregate",
+                                               "--min-replicas", "2", "--min-hit-rate", "1.0"])
+        check(rc == 0, f"obs: serve-report --aggregate on {name}.jsonl exited {rc}")
+    for name, path in (("smoke", smoke), ("ab", ab)):
+        chrome = f"{root}/{name}_chrome.json"
+        rc, _ = run(f"timeline {name}", ["timeline", path, "--chrome", chrome])
+        check(rc == 0, f"obs: timeline of {name}.jsonl exited {rc}")
+        traces = [t for r in ledger.read(path) if r.get("serve_trace") for t in r["serve_trace"]["traces"]]
+        with open(chrome) as f:
+            events = [(e["name"], e["tid"]) for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+        bad = [p for t in traces for p in spans.trace_dict_problems(t)]
+        check(traces and not bad and events == [(sp["name"], t["request_id"]) for t in traces
+                                                for sp in t["spans"]],
+              f"obs: {name}'s Chrome export: {len(traces)} traces, {len(events)} spans, {bad[:3]}")
+        res[f"timeline {name}"].update(traces=len(traces), spans=len(events))
+    rc, _ = run("robust-gate", ["robust-gate"])
+    check(rc == 0, f"obs: robust-gate exited {rc}")
+    rc, _ = run("diff ab", ["diff", ab, ab])
+    check(rc == 0, f"obs: diff of the A/B ledger against itself exited {rc}")
+    return res
+
+
 def frontend_phase(hopper, dev, smi: str) -> dict:
     """Phase 7d: the serve front end on the card (module docstring): the
     CLI smoke cold and warm on one persist_dir, the single-engine A/B
@@ -2657,7 +2714,7 @@ def frontend_phase(hopper, dev, smi: str) -> dict:
               f"front end {mode}: {st['complete']} of {st['requests']} chains complete: {bad[:3]}")
         wins = [rec["serve_window"] for rec in recs
                 if rec["kind"] == "serve:window" and rec["loadgen"]["mode"] == mode]
-        wbad = [p for w in wins for p in window_problems(w)]
+        wbad = [p for w in wins for p in ledger.validate_serve_window(w)]
         check(wins and not wbad and sum(w["requests"] for w in wins) == len(reqs),
               f"front end {mode}: windows {len(wins)}: {wbad[:3]}")
         rs = r["record"]["request_stats"]
@@ -2759,6 +2816,10 @@ def frontend_phase(hopper, dev, smi: str) -> dict:
     out["served"] = served
     missing = [k for k in FRONT_KERNELS if not launched.get(k) or not served[k]]
     check(not missing, f"front end: kernels never launched on the front end's path: {missing}")
+    # ---- (e) the ledgers through the port's obs gates ----------------------------
+    t0 = time.perf_counter()
+    out["obs"] = obs_gates(root, smi)
+    out["seconds"]["obs"] = time.perf_counter() - t0
     tmp.cleanup()
     out["seconds"]["phase"] = time.perf_counter() - t_phase
     print(json.dumps({"frontend_seconds": out["seconds"]}), flush=True)

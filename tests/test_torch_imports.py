@@ -170,3 +170,47 @@ def test_bf16_round_trip_is_bitwise():
     assert np.array_equal(tensor_to_numpy(t), bits)
     back = tensor_to_numpy(t).view(jnp.bfloat16)
     assert np.array_equal(back.view(np.uint16), bits)
+
+
+def test_obs_and_lint_slice_files_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for f in ("obs/__init__.py", "obs/ledger.py", "obs/__main__.py", "obs/spans.py",
+              "lint/__init__.py", "lint/__main__.py", "lint/rules.py", "lint/baseline.py",
+              "lint/source.py", "lint/invariants.py", "lint/concurrency.py", "lint/schedule.py"):
+        assert "capital_tpu_torch/" + f in names
+
+
+HOST_TOOLS = (
+    "import capital_tpu_torch.obs.ledger, capital_tpu_torch.obs.__main__\n"
+    "import capital_tpu_torch.lint, capital_tpu_torch.lint.__main__\n"
+    "import capital_tpu_torch.lint.concurrency, capital_tpu_torch.lint.schedule\n"
+    "import capital_tpu_torch.lint.invariants, capital_tpu_torch.lint.baseline\n",
+    # the CLIs' own runs: a lint pass with its ledger record, a report of it,
+    # the robust gate and the static concurrency pass
+    "import tempfile, os\n"
+    "from capital_tpu_torch.obs import __main__ as obs\n"
+    "from capital_tpu_torch.lint import __main__ as lint\n"
+    "led = os.path.join(tempfile.mkdtemp(), 'l.jsonl')\n"
+    "assert lint.main(['source', 'capital_tpu_torch', '--ledger', led]) == 0\n"
+    "assert lint.main(['concurrency', '--static-only', '--ledger', led]) == 0\n"
+    "assert obs.main(['lint-report', led, '--require-pass', 'source']) == 0\n"
+    "assert obs.main(['serve-report', led]) == 0 and obs.main(['robust-gate']) == 0\n"
+    "assert obs.main(['diff', led, led]) == 0\n",
+)
+
+
+@pytest.mark.parametrize("code", HOST_TOOLS, ids=("imports", "runs"))
+def test_obs_and_lint_load_no_torch(code):
+    """The obs and lint CLIs read files and touch no device: neither torch
+    nor jax lands in sys.modules (the explorer's FactorCache scenario is
+    the one place that imports torch, inside the scenario)."""
+    probe = (
+        "import sys\n" + code
+        + "bad = sorted(x for x in sys.modules if x in ('torch', 'jax', 'jaxlib', 'capital_tpu')"
+        " or x.startswith(('torch.', 'jax.', 'jaxlib.', 'capital_tpu.')))\n"
+        "print('BAD=' + ','.join(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True, check=True
+    )
+    assert out.stdout.strip().splitlines()[-1] == "BAD="
