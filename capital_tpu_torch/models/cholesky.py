@@ -26,12 +26,20 @@ leaf, trsm, syrk and trmm launches; on the card that admits windows of
 128 (one block) and of 256, 384 and 512 (a thread-block cluster), and
 larger windows recurse unfused (`hopper.tail_eligible`).
 
+On a mesh with mode 'explicit', `balance` picks the layout: 'block' (the
+default), 'tile_cyclic' (windows of at least balance_min_window take
+summa's balanced schedules, permuting per call) or
+'tile_cyclic_persistent' (the whole padded matrix is permuted ONCE into the
+symmetric tile-cyclic layout of tile t = base_case_dim // d, every phase
+runs in layout — trmm's per-rank products on `sched_matmul` over the
+persistent schedules — and R, R⁻¹ are un-permuted once at exit; grids the
+layout cannot cover fall back to 'block' with a
+'cholinv::persistent_fallback' note).
+
 In-place semantics are real here (the JAX package returns new arrays):
 `out_buffers` are written into, and `schur_in_place=True` overwrites the
 trailing windows of the operand — the caller's A itself when no padding is
-needed.  Not ported yet: `balance != 'block'` (the tile-cyclic and
-persistent layouts, ROADMAP Queue A item 10), which raises
-NotImplementedError.
+needed.
 """
 
 from __future__ import annotations
@@ -67,7 +75,9 @@ class CholinvConfig:
     base_case_dtype: dtype of the leaf potrf/trtri; None means f32 for
         inputs narrower than f32, else the input dtype.
     precision: accepted for parity; f32 products are always IEEE f32.
-    balance: 'block' only (the balanced layouts are not ported).
+    balance: 'block', 'tile_cyclic' or 'tile_cyclic_persistent' (the last
+        two in mode 'explicit' only; see the module docstring).
+    balance_min_window: the smallest window 'tile_cyclic' balances.
     schur_in_place: write each Schur complement into the operand's own
         trailing window instead of a fresh buffer (peak memory ~3n² instead
         of ~3.35n²).  MODIFIES the operand — the caller's A when p == n.
@@ -158,19 +168,38 @@ def _zeros_plan(grid: Grid, node: PlanNode, cfg: CholinvConfig) -> int:
 def _check_config(cfg: CholinvConfig) -> None:
     if cfg.balance not in ("block", "tile_cyclic", "tile_cyclic_persistent"):
         raise ValueError(f"unknown balance {cfg.balance!r}")
-    if cfg.balance != "block":
-        raise NotImplementedError(
-            f"balance={cfg.balance!r} is not ported yet (ROADMAP Queue A item 10, "
-            "the tile-cyclic and persistent layouts)"
-        )
+    if cfg.balance.startswith("tile_cyclic") and cfg.mode != "explicit":
+        # the balanced schedules exist only in the explicit schedule
+        raise ValueError(f"balance={cfg.balance!r} requires mode='explicit'")
 
 
-def _base_case_into(grid, buf, off, n, dest, cfg, Rp, RIp):
+def persistent_tile(grid: Grid, node: PlanNode, cfg: CholinvConfig) -> int:
+    """The layout tile of balance='tile_cyclic_persistent', or 0 when the
+    grid or plan cannot hold the layout.  t = base_case_dim // d makes the
+    alignment quantum d·t == base_case_dim, so every window of a
+    bc-aligned plan extracts and updates cleanly (summa.cyclic_window)."""
+    d = grid.dx
+    if not (cfg.mode == "explicit" and grid.c == 1 and grid.dy == d and d > 1
+            and max(1, grid.num_chunks) == 1 and cfg.base_case_dim % d == 0):
+        return 0
+    bc = cfg.base_case_dim
+
+    def aligned(nd: PlanNode) -> bool:
+        if nd.off % bc or nd.n % bc:
+            return False
+        return nd.is_base or all(aligned(c) for c in nd.top)
+
+    return bc // d if aligned(node) else 0
+
+
+def _base_case_into(grid, buf, off, n, dest, cfg, Rp, RIp, ptile=0):
     """Leaf: read the window (off, off, n, n) of `buf` (upper triangle
     valid), factor and invert it, and write triu(R) / triu(R⁻¹) into Rp /
     RIp at (dest, dest).  One device: through the transpose kernels as a
     lower panel.  A mesh: the window is materialised (it is replicated to
-    every rank) and factored by the ranks of the policy's scope."""
+    every rank) and factored by the ranks of the policy's scope; with the
+    persistent layout (ptile) it is extracted in layout, un-permuted on the
+    replicated panel, factored, re-permuted and written back band-sized."""
     bc_dtype = cfg.base_case_dtype
     if bc_dtype is None:
         bc_dtype = buf.dtype if buf.dtype.itemsize >= 4 else torch.float32
@@ -187,6 +216,15 @@ def _base_case_into(grid, buf, off, n, dest, cfg, Rp, RIp):
             if p > 1:
                 comm, ncoll = comm + 2 * bcomm, ncoll + 2 * bcoll
         tracing.emit(flops=tracing.potrf_trtri_flops(n), comm_bytes=comm, collectives=ncoll)
+        if ptile:
+            wperm, winv = (torch.from_numpy(x).to(buf.device)
+                           for x in summa.tile_cyclic_perm(n, grid.dx, ptile))
+            window = summa.cyclic_window(buf, (off, off, n, n), grid.dx, ptile).to(bc_dtype)
+            R, Rinv = _scoped_base_factor(grid, window[winv][:, winv], scope_)
+            summa.cyclic_window_update(Rp, R[wperm][:, wperm], (dest, dest, n, n), grid.dx, ptile)
+            summa.cyclic_window_update(RIp, Rinv[wperm][:, wperm], (dest, dest, n, n), grid.dx,
+                                       ptile)
+            return Rp, RIp
         if grid.num_devices > 1:
             window = buf[off:off + n, off:off + n].to(bc_dtype)
             R, Rinv = _scoped_base_factor(grid, window, scope_)
@@ -263,12 +301,14 @@ def _tail_fusible(grid, buf, off, node, cfg, top, Rp) -> bool:
     return hopper.tail_eligible(node.n, buf.dtype, interpret=not buf.is_cuda)
 
 
-def _recurse(grid, buf, off, node, cfg, top, Rp, RIp, tail_infos=None):
+def _recurse(grid, buf, off, node, cfg, top, Rp, RIp, ptile=0, tail_infos=None):
     """One recursion window: the input is the (off, off, node.n, node.n)
     window of `buf` (upper triangle valid), the output blocks land in Rp /
-    RIp at the window's absolute offset node.off.  A fused subtree appends
-    (node.off, node.n, info) to `tail_infos` when it is a list."""
-    if _tail_fusible(grid, buf, off, node, cfg, top, Rp):
+    RIp at the window's absolute offset node.off.  ptile != 0: all three
+    buffers are in the persistent tile-cyclic layout of that tile.  A fused
+    subtree appends (node.off, node.n, info) to `tail_infos` when it is a
+    list."""
+    if not ptile and _tail_fusible(grid, buf, off, node, cfg, top, Rp):
         with tracing.scope("CI::tail_fused"):
             tracing.emit(flops=tracing.fused_tail_flops(node.n))
             Rp, RIp, kinfo = hopper.fused_tail(
@@ -279,14 +319,23 @@ def _recurse(grid, buf, off, node, cfg, top, Rp, RIp, tail_infos=None):
         return Rp, RIp
 
     if node.is_base:
-        return _base_case_into(grid, buf, off, node.n, node.off, cfg, Rp, RIp)
+        return _base_case_into(grid, buf, off, node.n, node.off, cfg, Rp, RIp, ptile)
 
     left, right = node.top
     n1, n2 = left.n, right.n
     d0 = node.off
 
     # 1. top-left window
-    Rp, RIp = _recurse(grid, buf, off, left, cfg, False, Rp, RIp, tail_infos)
+    Rp, RIp = _recurse(grid, buf, off, left, cfg, False, Rp, RIp, ptile, tail_infos)
+
+    def bal(win: int) -> str:
+        # the persistent layout states its storage contract on every call;
+        # 'tile_cyclic' balances the explicit windows of balance_min_window
+        # and up (summa falls back with a note where it cannot)
+        if ptile:
+            return "tile_cyclic_persistent"
+        return ("tile_cyclic" if cfg.balance == "tile_cyclic" and cfg.mode == "explicit"
+                and win >= cfg.balance_min_window else "block")
 
     # 2. TRSM phase: R12 = R11⁻ᵀ · A12
     with tracing.scope("CI::trsm"):
@@ -297,6 +346,7 @@ def _recurse(grid, buf, off, node, cfg, top, Rp, RIp, tail_infos=None):
             a_view=(d0, d0, n1, n1),
             b_view=(off, off + n1, n1, n2),
             out=Rp, out_off=(d0, d0 + n1),
+            balance=bal(n1), cyclic_tile=ptile,
         )
 
     # 3. Schur complement: A22' = A22 − R12ᵀR12, into buf's own trailing
@@ -309,11 +359,12 @@ def _recurse(grid, buf, off, node, cfg, top, Rp, RIp, tail_infos=None):
             a_view=(d0, d0 + n1, n1, n2),
             c_view=(off + n1, off + n1, n2, n2),
             in_place=cfg.schur_in_place,
+            balance=bal(n2), cyclic_tile=ptile,
         )
 
     # 4. trailing window
     s_off = off + n1 if cfg.schur_in_place else 0
-    Rp, RIp = _recurse(grid, S, s_off, right, cfg, False, Rp, RIp, tail_infos)
+    Rp, RIp = _recurse(grid, S, s_off, right, cfg, False, Rp, RIp, ptile, tail_infos)
 
     # 5. inverse completion: R⁻¹12 = −R11inv·R12·R22inv, skipped at the top
     # level when complete_inv=False (the block keeps its initial zeros)
@@ -325,13 +376,17 @@ def _recurse(grid, buf, off, node, cfg, top, Rp, RIp, tail_infos=None):
                 mode=cfg.mode,
                 a_view=(d0, d0, n1, n1),
                 b_view=(d0, d0 + n1, n1, n2),
+                balance=bal(n1), cyclic_tile=ptile,
             )
+            # the side-R completion never takes the per-call balanced
+            # schedule, but states the persistent layout's contract
             summa.trmm(
                 grid, RIp, T,
                 TrmmArgs(side="R", uplo="U", alpha=-1.0, precision=cfg.precision),
                 mode=cfg.mode,
                 a_view=(right.off, right.off, n2, n2),
                 out=RIp, out_off=(d0, d0 + n1),
+                balance="tile_cyclic_persistent" if ptile else "block", cyclic_tile=ptile,
             )
     return Rp, RIp
 
@@ -363,6 +418,22 @@ def factor(
     Ap = pad_embed_identity(A, n, p)
     node = plan(p, cfg)
 
+    # the persistent layout: permute once here (a symmetric permutation, so
+    # SPD and the triangular contract of the elimination order survive),
+    # un-permute R and R⁻¹ once at exit — three lifetime shuffles priced as
+    # grid transposes
+    ptile = 0
+    if cfg.balance == "tile_cyclic_persistent":
+        ptile = persistent_tile(grid, node, cfg)
+        if ptile:
+            perm, pinv = (torch.from_numpy(x).to(A.device)
+                          for x in summa.tile_cyclic_perm(p, grid.dx, ptile))
+            Ap = Ap[perm][:, perm]
+            cbytes, ncoll = tracing.transpose_cost(grid, p, p, Ap.dtype)
+            tracing.emit(comm_bytes=3 * cbytes, collectives=3 * ncoll)
+        else:
+            tracing.note("cholinv::persistent_fallback")
+
     if out_buffers is not None:
         Rp, RIp = out_buffers
         if Rp.shape != (p, p) or RIp.shape != (p, p):
@@ -375,6 +446,13 @@ def factor(
                 "out_buffers requires complete_inv=True (the skipped "
                 "off-diagonal window would keep the previous contents)"
             )
+        if ptile:
+            # the buffers arrive in original order: into the layout, in
+            # place (zeros are permutation-invariant), two more shuffles
+            Rp.copy_(Rp[perm][:, perm])
+            RIp.copy_(RIp[perm][:, perm])
+            cbytes, ncoll = tracing.transpose_cost(grid, p, p, Rp.dtype)
+            tracing.emit(comm_bytes=2 * cbytes, collectives=2 * ncoll)
     else:
         tile = _zeros_plan(grid, node, cfg)
         if tile:
@@ -396,7 +474,10 @@ def factor(
     # fused windows report breakdown through their in-kernel info, which
     # combines with the post-hoc scan of R
     tail_infos = [] if cfg.robust is not None else None
-    R, Rinv = _recurse(grid, Ap, 0, node, cfg, True, Rp, RIp, tail_infos)
+    R, Rinv = _recurse(grid, Ap, 0, node, cfg, True, Rp, RIp, ptile, tail_infos)
+    if ptile:
+        R.copy_(R[pinv][:, pinv])
+        Rinv.copy_(Rinv[pinv][:, pinv])
     if p != n:
         R, Rinv = R[:n, :n], Rinv[:n, :n]
     if cfg.robust is not None:

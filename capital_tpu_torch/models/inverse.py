@@ -19,14 +19,14 @@ of capital_tpu/models/inverse.py).
   inverted on its replicated window, the buffer is padded to the full
   bc·2^k chain, and with mode 'explicit' both merge trmms run the explicit
   SUMMA schedule, whose per-rank products are `hopper.sched_matmul`
-  launches where the shards tile.
+  launches where the shards tile; `balance='tile_cyclic'` sends the side-L
+  merge of windows of at least balance_min_window through summa's balanced
+  cyclic_rows schedule (per-tile products on `torch.matmul`).
 * ``newton`` — X ← X(2I − AX) from X₀ = Aᵀ/(‖A‖₁‖A‖∞), two products per
-  step on `torch.matmul`, exiting when ‖I − AX‖_F/√n <= tol.  The JAX
+  step through `summa.gemm` in cfg.mode (on a mesh, mode 'explicit' runs
+  the dense SUMMA schedule), exiting when ‖I − AX‖_F/√n <= tol.  The JAX
   package's lax.while_loop becomes a host loop: each step reads the
   residual on the host once to decide whether to go on.
-
-The balanced schedule (`balance='tile_cyclic'`) and newton on a mesh wait
-for ROADMAP Queue A item 10 and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,7 +51,8 @@ class RectriConfig:
         only the base cases up front (t = bc), 0 turns the prefix off, > 0
         also runs batched dense merge levels for windows up to it (clamped
         up to bc; levels above bc need a power-of-two block count).
-    balance: 'block' only here ('tile_cyclic' is not ported).
+    balance: 'block' or 'tile_cyclic' (the explicit side-L merges of
+        windows >= balance_min_window take the balanced schedule).
     precision: accepted for parity; f32 products are IEEE f32.
     """
 
@@ -61,16 +62,6 @@ class RectriConfig:
     balance: str = "block"
     balance_min_window: int = 8192
     batch_below: int = -1
-
-
-def _check_balance(balance: str, who: str) -> None:
-    if balance not in ("block", "tile_cyclic"):
-        raise ValueError(f"unknown balance {balance!r}")
-    if balance != "block":
-        raise NotImplementedError(
-            f"{who}: balance={balance!r} is not ported yet (ROADMAP Queue A item 10, "
-            "the tile-cyclic layout)"
-        )
 
 
 def _batched_prefix_size(grid: Grid, p: int, cfg: RectriConfig) -> int:
@@ -130,6 +121,8 @@ def _rectri_into(grid: Grid, Tp: torch.Tensor, out: torch.Tensor, off: int, size
     out = _rectri_into(grid, Tp, out, off, n1, cfg, stop_at)
     out = _rectri_into(grid, Tp, out, off + n1, n2, cfg, stop_at)
     # B21 = −L22⁻¹ · L21 · L11⁻¹, two triangular products through windows
+    bal = ("tile_cyclic" if cfg.balance == "tile_cyclic" and cfg.mode == "explicit"
+           and n2 >= cfg.balance_min_window else "block")
     with tracing.scope("RT::merge"):
         M = summa.trmm(
             grid, out, Tp, TrmmArgs(side="R", uplo="L", precision=cfg.precision),
@@ -142,6 +135,7 @@ def _rectri_into(grid: Grid, Tp: torch.Tensor, out: torch.Tensor, off: int, size
             mode=cfg.mode,
             a_view=(off + n1, off + n1, n2, n2),  # L22inv
             out=out, out_off=(off + n1, off),
+            balance=bal,
         )
     return out
 
@@ -157,7 +151,6 @@ def rectri(grid: Grid, T: torch.Tensor, uplo: str = "L",
         raise ValueError(f"triangular operand must be square, got {tuple(T.shape)}")
     if T.device.type != grid.device.type:
         raise ValueError(f"T is on {T.device}, the grid on {grid.device}")
-    _check_balance(cfg.balance, "rectri")
     if uplo == "U":
         # U⁻¹ = (L⁻¹)ᵀ with L = Uᵀ
         return summa.transpose(grid, rectri(grid, summa.transpose(grid, T), "L", cfg))
@@ -203,10 +196,6 @@ def newton(grid: Grid, A: torch.Tensor, cfg: NewtonConfig = NewtonConfig()):
     The loop runs on the host: after each step the residual is read back
     once (one device synchronisation per iteration) to decide whether to
     stop, as the JAX package's lax.while_loop decides on the device."""
-    if grid.num_devices != 1:
-        raise NotImplementedError(
-            "newton: multi-device grids are not ported yet (ROADMAP Queue A item 10)"
-        )
     n = A.shape[0]
     tol = cfg.tol
     if tol is None:

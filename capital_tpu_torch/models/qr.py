@@ -1,5 +1,6 @@
-"""cacqr: CholeskyQR2 for tall-skinny QR on one device (counterpart of
-capital_tpu/models/qr.py; CA-CQR2, IPDPS'19, arXiv:1710.08471).
+"""cacqr: CholeskyQR2 for tall-skinny QR on one device or a mesh
+(counterpart of capital_tpu/models/qr.py; CA-CQR2, IPDPS'19,
+arXiv:1710.08471).
 
 For tall-skinny A (m x n, m >> n) one sweep is
 
@@ -7,8 +8,8 @@ For tall-skinny A (m x n, m >> n) one sweep is
     R = chol(G)      (small n x n factorization)
     Q = A · R⁻¹      (tall scaling)
 
-and CQR2 runs two sweeps and merges R = R2·R1.  This slice ports the JAX
-package's regime '1d' on one device:
+and CQR2 runs two sweeps and merges R = R2·R1.  Regime '1d' (A's rows
+over every rank) on one device:
 
 * the fused tier (`_cqr2_fused`, plan 'full'): gram_blocked, scale_gram and
   scale_blocked, the hand-written kernels of ops/qr_fused.py, in mode
@@ -25,9 +26,15 @@ package's regime '1d' on one device:
   reads the status scalars — only under cfg.robust, so the default path
   never synchronises.
 
-Not ported yet (each raises NotImplementedError naming ROADMAP Queue A item
-10, multi-device): regime 'dist' (`_sweep_dist`, `solve_blocked`), the
-sharded fused tier, and any grid of more than one device.
+On a mesh (parallel/topology.py), regime '1d' runs the fused tier PER RANK
+on the rank's rows (`_cqr2_fused_sharded`: the three kernels once per rank,
+the grams summed over the mesh by `mesh.psum`), or — rows that do not
+divide, other modes, CQR1, and every robust run — the sweeps on the whole
+operand with the model priced per rank.  Regime 'dist' (`_sweep_dist`, on
+one device too) forms the gram with summa.syrk, factors it with the nested
+cholinv and scales with summa.trmm side R (mode 'explicit' on a mesh: the
+per-rank `sched_matmul`), or with `solve_blocked` when the nested cholinv
+skips the top-level inverse block.
 """
 
 from __future__ import annotations
@@ -39,19 +46,18 @@ import torch
 from capital_tpu_torch.models import cholesky
 from capital_tpu_torch.models.cholesky import CholinvConfig
 from capital_tpu_torch.ops import hopper, lapack, qr_fused, tsqr
-from capital_tpu_torch.parallel import summa
-from capital_tpu_torch.parallel.summa import GemmArgs
+from capital_tpu_torch.parallel import mesh, summa
+from capital_tpu_torch.parallel.summa import GemmArgs, SyrkArgs, TrmmArgs
 from capital_tpu_torch.parallel.topology import Grid
 from capital_tpu_torch.robust import config as config_mod
 from capital_tpu_torch.robust import faultinject, recovery
 from capital_tpu_torch.robust.config import RobustConfig, RobustInfo
 from capital_tpu_torch.utils import tracing
 
-#: grams at least this wide factor through the recursive cholinv; narrower
-#: ones through lapack.potrf_trtri_upper
+#: grams at least this wide factor through the recursive cholinv on one
+#: device; narrower ones (and every gram on a mesh) through
+#: lapack.potrf_trtri_upper
 GRAM_CHOLINV_MIN = 2048
-
-_MULTI_DEVICE = "is not ported yet (ROADMAP Queue A item 10, multi-device)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,11 +65,12 @@ class CacqrConfig:
     """Field for field the JAX package's CacqrConfig.
 
     num_iter: 1 = CholeskyQR, 2 = CholeskyQR2.
-    regime: '1d' | 'dist' | 'auto' ('auto' is '1d' on one device; 'dist'
-        is not ported yet).
+    regime: '1d' | 'dist' | 'auto' ('auto' is '1d' on a flat grid, else
+        '1d' for n <= dist_threshold).
     dist_threshold: in 'auto', gram sizes above this go distributed.
-    cholinv: configuration of the nested cholinv on grams with
-        n >= GRAM_CHOLINV_MIN (its base_case_dim is the bench's --bc).
+    cholinv: configuration of the nested cholinv: regime 'dist''s gram
+        factor, and regime '1d''s grams with n >= GRAM_CHOLINV_MIN on one
+        device (its base_case_dim is the bench's --bc).
     mode: 'pallas' runs the hand-written kernels, 'xla' plain torch.matmul.
     precision: accepted for parity; f32 products are IEEE f32.
     fused_g: column split of the fused passes; 0 = auto (qr_fused.pick_g).
@@ -131,10 +138,10 @@ def _sweep_1d(grid: Grid, A: torch.Tensor, cfg: CacqrConfig):
     g = _col_blocks(n)
     nb = n // g
     live_frac = qr_fused.live_fraction(g)
+    per = 2.0 * m * n * n / grid.num_devices  # the model is per rank
     with tracing.scope("CQR::gram"):
-        comm, ncoll = tracing.allreduce_cost(grid, n, n, A.dtype)
-        tracing.emit(flops=2.0 * m * n * n * live_frac, comm_bytes=comm * live_frac,
-                     collectives=ncoll * g)
+        comm, ncoll = tracing.allreduce_cost(grid, n, n, A.dtype, axes="all")
+        tracing.emit(flops=per * live_frac, comm_bytes=comm * live_frac, collectives=ncoll * g)
         if g > 1:
             grows = [A[:, i * nb:(i + 1) * nb].T @ A[:, i * nb:] for i in range(g)]
             G = torch.cat([
@@ -149,8 +156,8 @@ def _sweep_1d(grid: Grid, A: torch.Tensor, cfg: CacqrConfig):
         tracing.emit(flops=tracing.potrf_trtri_flops(n))
         R, Rinv = _chol_site(G, m, lambda g_: lapack.potrf_trtri(g_, uplo="U"))
     with tracing.scope("CQR::formR"):
-        tri_kernel = g > 1 and cfg.mode == "pallas" and nb <= 2048
-        tracing.emit(flops=2.0 * m * n * n * (live_frac if tri_kernel else 1.0))
+        tri_kernel = g > 1 and grid.num_devices == 1 and cfg.mode == "pallas" and nb <= 2048
+        tracing.emit(flops=per * (live_frac if tri_kernel else 1.0))
         if tri_kernel:
             # torch.linalg hands back a column-major R⁻¹; the kernel reads
             # row-major buffers (an n x n copy)
@@ -162,12 +169,12 @@ def _sweep_1d(grid: Grid, A: torch.Tensor, cfg: CacqrConfig):
 
 def _gram_chol(grid: Grid, G: torch.Tensor, cfg: CacqrConfig, m_rows: int):
     """(R, R⁻¹) of an upper-valid gram: the recursive cholinv for
-    n >= GRAM_CHOLINV_MIN (robust=None on the nested config: the session's
+    n >= GRAM_CHOLINV_MIN on one device (robust=None on the nested config: the session's
     guarded_chol owns detection; complete_inv forced, these tiers multiply
     by the whole inverse), else lapack.potrf_trtri_upper.  Both read only
     the upper triangle."""
     n = G.shape[0]
-    if n >= GRAM_CHOLINV_MIN:
+    if n >= GRAM_CHOLINV_MIN and grid.num_devices == 1:
         ccfg = dataclasses.replace(
             cfg.cholinv, mode=cfg.mode, precision=cfg.precision,
             complete_inv=True, robust=None,
@@ -268,10 +275,101 @@ def _cqr2_panels(grid: Grid, A: torch.Tensor, cfg: CacqrConfig, c: int = 512):
     return Q, R
 
 
+def _cqr2_fused_sharded(grid: Grid, A: torch.Tensor, cfg: CacqrConfig, g: int,
+                        plan: str = "full"):
+    """The fused CQR2 pipeline on a mesh: the same three kernels, run once
+    per rank on the rank's rows (`mesh.rows`, contiguous views read in
+    place):
+
+        G1 = psum(gram_blocked(A_r));  (R1, R1⁻¹) replicated
+        (Q1_r, G2_r) = scale_gram(A_r, R1⁻¹);  G2 = psum(G2_r);  (R2, R2⁻¹)
+        Q_r = scale_blocked(Q1_r, R2⁻¹);  R = R2·R1
+
+    The two psums are the pipeline's only collectives.  The factor pair of
+    a summed gram is the same on every rank, so it is computed once; the
+    model is priced per rank, as the JAX package's shard_map body
+    emits it."""
+    n = A.shape[1]
+    precision = cfg.precision
+    live = qr_fused.live_fraction(g)
+    axes = ("x", "y", "z")
+    parts = mesh.rows(grid, A)
+    m_loc = parts[0].shape[0]
+    comm, ncoll = tracing.allreduce_cost(grid, n, n, torch.float32, axes="all")
+
+    def psum(vals):
+        return mesh.replicated(grid, mesh.psum(grid, vals, axes)).to(A.dtype)
+
+    with tracing.scope("CQR::gram"):
+        tracing.emit(flops=2.0 * m_loc * n * n * live, comm_bytes=comm, collectives=ncoll)
+        G1 = psum([qr_fused.gram_blocked(a, g=g, precision=precision) for a in parts])
+    with tracing.scope("CQR::chol"):
+        tracing.emit(flops=tracing.potrf_trtri_flops(n))
+        R1, R1inv = lapack.potrf_trtri_upper(G1)
+    with tracing.scope("CQR::fused"):
+        tracing.emit(flops=2.0 * m_loc * n * n * (live + live), comm_bytes=comm, collectives=ncoll)
+        R1t = torch.triu(R1inv)
+        if plan == "split":
+            Q1 = [qr_fused.scale_blocked(a, R1t, g=g, precision=precision) for a in parts]
+            G2u = [qr_fused.gram_blocked(q, g=g, precision=precision) for q in Q1]
+        else:
+            Q1, G2u = zip(*(qr_fused.scale_gram(a, R1t, g=g, precision=precision) for a in parts))
+        G2 = psum(list(G2u))
+    with tracing.scope("CQR::chol"):
+        tracing.emit(flops=tracing.potrf_trtri_flops(n))
+        R2, R2inv = lapack.potrf_trtri_upper(G2)
+    with tracing.scope("CQR::formR"):
+        tracing.emit(flops=2.0 * m_loc * n * n * live)
+        R2t = torch.triu(R2inv)
+        Q = mesh.assemble_rows(grid, [qr_fused.scale_blocked(q, R2t, g=g, precision=precision)
+                                      for q in Q1])
+    with tracing.scope("CQR::merge"):
+        tracing.emit(flops=2.0 * n**3)
+        R = torch.triu(R2) @ torch.triu(R1)
+    return Q, R
+
+
+def _sweep_dist(grid: Grid, A: torch.Tensor, cfg: CacqrConfig):
+    """One CQR sweep, distributed regime (reference sweep_3d,
+    cacqr.hpp:82-116): the gram by summa.syrk, cholinv on the gram (the
+    nested cfg.cholinv), then Q = A·R⁻¹ by summa.trmm side R — or the
+    blocked solve when the nested cholinv skips the top-level inverse
+    block."""
+    with tracing.scope("CQR::gram"):
+        G = summa.syrk(grid, A, args=SyrkArgs(trans=True, precision=cfg.precision), mode=cfg.mode)
+        G = faultinject.tap(G)
+    with tracing.scope("CQR::chol"):
+        ccfg = dataclasses.replace(cfg.cholinv, robust=None)
+        R, Rinv = _chol_site(G, A.shape[0], lambda g_: cholesky.factor(grid, g_, ccfg))
+    with tracing.scope("CQR::formR"):
+        if cfg.cholinv.complete_inv:
+            Q = summa.trmm(grid, Rinv, A, TrmmArgs(side="R", uplo="U", precision=cfg.precision),
+                           mode=cfg.mode)
+        else:
+            Q = solve_blocked(grid, A, R, Rinv, cfg)
+    return Q, R
+
+
 def solve_blocked(grid: Grid, A, R, Rinv, cfg: CacqrConfig):
-    """X = A·R⁻¹ from cholinv's partial inverse (the dist regime's blocked
-    triangular solve): not ported yet."""
-    raise NotImplementedError(f"qr.solve_blocked (regime 'dist') {_MULTI_DEVICE}")
+    """X = A·R⁻¹ from cholinv's PARTIAL inverse (complete_inv=False: only
+    R11⁻¹ and R22⁻¹ are valid) — the 2x2 blocked triangular solve of
+    reference cacqr.hpp:46-73:
+
+        X1 = A1 · R11⁻¹
+        X2 = (A2 − X1·R12) · R22⁻¹
+    """
+    n = R.shape[0]
+    n1 = cholesky.top_split(n, cfg.cholinv)
+    targs = TrmmArgs(side="R", uplo="U", precision=cfg.precision)
+    if n1 == n:
+        # one base-case window: Rinv is already the whole inverse
+        return summa.trmm(grid, Rinv, A, targs, mode=cfg.mode)
+    A1, A2 = A[:, :n1], A[:, n1:]
+    X1 = summa.trmm(grid, Rinv[:n1, :n1], A1, targs, mode=cfg.mode)
+    A2p = summa.gemm(grid, X1, R[:n1, n1:], A2,
+                     GemmArgs(alpha=-1.0, beta=1.0, precision=cfg.precision), mode=cfg.mode)
+    X2 = summa.trmm(grid, Rinv[n1:, n1:], A2p, targs, mode=cfg.mode)
+    return torch.cat([X1, X2], dim=1)
 
 
 # --------------------------------------------------------------------------
@@ -282,16 +380,17 @@ def solve_blocked(grid: Grid, A, R, Rinv, cfg: CacqrConfig):
 def pallas_coupled(grid: Grid, n: int, mode: str, m: int | None = None, dtype=None) -> bool:
     """True when a 1d factor's outputs come out of the kernels (the fused
     tier, or the sweeps' trmm kernel) — mirrors the routing of
-    `_factor_core`, so it changes with it."""
-    if grid.num_devices != 1:
-        raise NotImplementedError(f"pallas_coupled on a multi-device grid {_MULTI_DEVICE}")
-    if mode != "pallas":
-        return False
+    `_factor_core`, so it changes with it.  On a mesh only the per-rank
+    fused tier counts, which needs (m, dtype) to decide; without them the
+    answer is False."""
+    plan = None
     if m is not None and dtype is not None:
         g = qr_fused.pick_g(n)
         plan = qr_fused.fused_plan(grid, m, n, mode, g=g, dtype=dtype) if g else None
-        if plan is not None:
-            return plan != "panels"
+    if plan is not None:
+        return plan != "panels"
+    if grid.num_devices != 1 or mode != "pallas":
+        return False
     return _col_blocks(n) > 1 and n // _col_blocks(n) <= 2048
 
 
@@ -307,10 +406,20 @@ def _pick_regime(grid: Grid, n: int, cfg: CacqrConfig) -> str:
 
 def _factor_core(grid: Grid, A: torch.Tensor, cfg: CacqrConfig, regime: str):
     """The regime dispatch and sweep pipeline shared by the plain and the
-    robust entry (factor)."""
-    if regime == "dist":
-        raise NotImplementedError(f"regime 'dist' (_sweep_dist, solve_blocked) {_MULTI_DEVICE}")
+    robust entry (factor).  On a mesh a robust run takes the guarded sweeps
+    unfused, as the JAX package must (its traced status values cannot
+    leave the shard_map body) — kept so the launch plan and the results
+    stay the reference's."""
     m, n = A.shape
+    if regime == "dist":
+        Q, R = _sweep_dist(grid, A, cfg)
+        if cfg.num_iter == 2:
+            Q, R2 = _sweep_dist(grid, Q, cfg)
+            # R = R2 · R1: a small distributed trmm (cacqr.hpp:181-189)
+            with tracing.scope("CQR::merge"):
+                R = summa.trmm(grid, R2, R, TrmmArgs(side="L", uplo="U", precision=cfg.precision),
+                               mode=cfg.mode)
+        return Q, R
     g = qr_fused.pick_g(n, cfg.fused_g)
     plan = (
         qr_fused.fused_plan(grid, m, n, cfg.mode, g=g, dtype=A.dtype)
@@ -318,9 +427,13 @@ def _factor_core(grid: Grid, A: torch.Tensor, cfg: CacqrConfig, regime: str):
         else None
     )
     if plan == "panels":
-        return _cqr2_panels(grid, A, cfg)
-    if plan:
-        return _cqr2_fused(grid, A, cfg, g, plan)
+        if grid.num_devices == 1:
+            return _cqr2_panels(grid, A, cfg)
+    elif plan:
+        if grid.num_devices == 1:
+            return _cqr2_fused(grid, A, cfg, g, plan)
+        if not _ROBUST:
+            return _cqr2_fused_sharded(grid, A, cfg, g, plan)
     Q, R = _sweep_1d(grid, A, cfg)
     if cfg.num_iter == 2:
         Q, R2 = _sweep_1d(grid, Q, cfg)
@@ -410,8 +523,6 @@ def factor(grid: Grid, A: torch.Tensor, cfg: CacqrConfig = CacqrConfig()):
         raise ValueError(f"num_iter must be 1 (CQR) or 2 (CQR2), got {cfg.num_iter}")
     if A.device.type != grid.device.type:
         raise ValueError(f"A is on {A.device}, the grid on {grid.device}")
-    if grid.num_devices != 1:
-        raise NotImplementedError(f"qr.factor on a multi-device grid {_MULTI_DEVICE}")
     regime = _pick_regime(grid, n, cfg)
     if cfg.robust is None:
         return _factor_core(grid, A, cfg, regime)

@@ -1,4 +1,4 @@
-"""Triangular solve (TRSM) on one device (counterpart of
+"""Triangular solve (TRSM) on one device or a mesh (counterpart of
 capital_tpu/models/trsm.py).
 
 Blocked recursion, lower-triangular side 'L' shown (the other side/uplo
@@ -13,8 +13,10 @@ with its inverse; 'solve' runs `torch.linalg.solve_triangular` on the leaf.
 The off-diagonal updates and the invert leaves are dense products
 (`summa.gemm`, `torch.matmul`): this module reaches no kernel of the JAX
 package, and none of the port's.  Solved blocks are written into one X
-buffer at their final offsets.  One device only; a mesh waits for ROADMAP
-Queue A item 10.
+buffer at their final offsets.  On a mesh (parallel/topology.py) A pads to
+the bc·2^k chain (`cholesky.padded_dim`), so every recursion window divides
+the face, and the updates run summa.gemm in cfg.mode (mode 'explicit': the
+dense SUMMA schedule).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import dataclasses
 
 import torch
 
-from capital_tpu_torch.models.cholesky import pad_embed_identity
+from capital_tpu_torch.models.cholesky import pad_embed_identity, padded_dim
 from capital_tpu_torch.ops import lapack
 from capital_tpu_torch.parallel import summa
 from capital_tpu_torch.parallel.summa import GemmArgs
@@ -81,20 +83,20 @@ def solve(grid: Grid, A: torch.Tensor, B: torch.Tensor, side: str = "L", uplo: s
     need = B.shape[0] if side == "L" else B.shape[1]
     if need != n:
         raise ValueError(f"shape mismatch: A {tuple(A.shape)} vs B {tuple(B.shape)} side={side}")
-    if grid.num_devices != 1:
-        raise NotImplementedError(
-            "trsm.solve: multi-device grids are not ported yet (ROADMAP Queue A item 10)"
-        )
     lower = uplo == "L"
     if trans_a:
         # op(T)·X = B is a solve with the transposed triangle
         return solve(grid, summa.transpose(grid, A), B, side, "U" if lower else "L",
                      False, cfg, unit_diag=unit_diag)
 
-    # diag(A, I) padding to a multiple of bc for the invert leaf (the
-    # zero-padded right-hand sides solve to zeros); 'solve' stays unpadded
+    # diag(A, I) padding (the zero-padded right-hand sides solve to zeros):
+    # a mesh pads to bc·2^k so every window divides the face; one device
+    # to a multiple of bc for the invert leaf, 'solve' unpadded
     bc = cfg.base_case_dim
-    p = -(-n // bc) * bc if cfg.leaf == "invert" and n > bc else n
+    if grid.num_devices > 1:
+        p = padded_dim(n, bc)
+    else:
+        p = -(-n // bc) * bc if cfg.leaf == "invert" and n > bc else n
     if p != n:
         A = pad_embed_identity(A, n, p)
         B = (torch.cat([B, B.new_zeros((p - n, B.shape[1]))]) if side == "L"

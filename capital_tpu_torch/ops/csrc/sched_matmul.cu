@@ -28,15 +28,17 @@
 //     sched_wgmma, the TMA + wgmma ring of wgmma_tiles.cuh on 128 x 128
 //     sub-tiles; its producer thread walks the run's k-tiles ko[q]·bk ...
 //     + bk, reading ko and last from device memory;
-//   * wmma (other bf16): sched_wmma, WMMA m16n16k16 128 x 128 tiles with
-//     element loads into one shared buffer;
+//   * wmma (other bf16 whose blocks the 128 x 128 x 32 tile divides):
+//     sched_wmma, WMMA m16n16k16 128 x 128 tiles with element loads into
+//     one shared buffer;
 //   * dmma (f64 with 16-byte-aligned operands): sched_dmma, the DMMA loop
 //     of mm_tiles.cuh (FP64 tensor cores, 3-stage cp.async ring) on 128 x 128
 //     sub-tiles, its k-tiles walked the same way;
 //   * fma (f32 with 16-byte-aligned operands): sched_fma, the pipelined
 //     IEEE-FMA loop of mm_tiles.cuh on 128 x 128 sub-tiles;
-//   * simt (the other f32 and f64): sched_simt, register-tiled FMA 64 x 64
-//     tiles.
+//   * simt (the other f32 and f64, and bf16 blocks that only a 64-row tile
+//     divides: the persistent tile-cyclic layout's t = 192): sched_simt,
+//     register-tiled FMA 64 x 64 tiles, bf16 widened to f32 on the way in.
 // Runs of unequal length (9–16 k-blocks on the flagship) leave SMs idle at
 // the tail: the fma blocks take the runs longest first
 // (pick_run; two blocks an SM put several runs in a wave), the other routes
@@ -350,7 +352,8 @@ static int launch_sched_wgmma(const SP& p, dim3 grid, cudaStream_t s) {
 }
 
 // route codes as capital_tri_matmul's: 0 the element-load loop (wmma for
-// bf16, simt for f32 / f64), 1 wgmma (bf16), 2 dmma (f64), 3 fma (f32)
+// bf16 blocks its 128 x 128 x 32 tile divides, else simt — the rule of
+// ops/hopper.py:sched_route), 1 wgmma (bf16), 2 dmma (f64), 3 fma (f32)
 enum Route : int { R_ELEM = 0, R_WGMMA = 1, R_DMMA = 2, R_FMA = 3 };
 
 // Returns the cudaError_t of the launch (0 = launched); -1 for a bad dtype
@@ -369,7 +372,8 @@ extern "C" int capital_sched_matmul(int dtype, const void* A, const void* B, voi
   if (!ok) return -1;
   // the CUDA sub-tile (rows, cols, depth) of each route
   int BMc = mmt::S_BM, BNc = mmt::S_BN, BKc = mmt::S_BK;
-  if (dtype == DT_BF16) {
+  const bool wmma_fits = bm % mmt::W_BM == 0 && bn % mmt::W_BN == 0 && bk % mmt::W_BK == 0;
+  if (dtype == DT_BF16 && (route == R_WGMMA || wmma_fits)) {
     BMc = mmt::W_BM;
     BNc = mmt::W_BN;
     BKc = route == R_WGMMA ? wg::BK : mmt::W_BK;
@@ -405,7 +409,13 @@ extern "C" int capital_sched_matmul(int dtype, const void* A, const void* B, voi
     return (int)cudaGetLastError();
   }
   switch (dtype) {
-    case DT_BF16: sched_wmma<<<grid, 256, 0, s>>>(p); break;
+    case DT_BF16:
+      if (wmma_fits) {
+        sched_wmma<<<grid, 256, 0, s>>>(p);
+      } else {
+        sched_simt<bf16><<<grid, 256, 0, s>>>(p);
+      }
+      break;
     case DT_F32: sched_simt<float><<<grid, 256, 0, s>>>(p); break;
     case DT_F64: sched_simt<double><<<grid, 256, 0, s>>>(p); break;
     default: return -1;

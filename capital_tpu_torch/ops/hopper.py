@@ -24,7 +24,10 @@ Each kernel sits here as three things side by side:
   also needs blocks that the route's tile divides) take the dtype's fast
   route: 'wgmma' for bf16 (TMA + wgmma), 'dmma' for f64 (mma.sync on the
   FP64 tensor cores), 'fma' for f32 (pipelined IEEE FMA); the others take
-  the element-load loop, 'wmma' for bf16 and 'simt' for f32 / f64.  The
+  the element-load loop, 'wmma' for bf16 and 'simt' for f32 / f64, and
+  sched blocks that only a 64-row tile divides (the persistent layout's
+  t = 192) take 'simt' in every dtype (`sched_route`).  No wrapper takes a
+  route from its caller.  The
   CholeskyQR2 kernels tally 'wgmma' for bf16 (their operands are always
   TMA-aligned) and 'simt' otherwise; `fused_tail` tallies 'block' (one
   block holds the window) or 'cluster' (a thread-block cluster does);
@@ -234,8 +237,9 @@ def _tma_ok(X: torch.Tensor, view) -> bool:
 
 
 #: each dtype's routes: the fast route for 16-byte-aligned windows first,
-#: then the element-load loop that takes any window.  A caller may ask for
-#: one by name (chip_smoke.py and the GPU tests pit them against each other)
+#: then the element-load loop that takes any window.  chip_smoke.py and the
+#: GPU tests pit them against each other through the C entry points, with
+#: `_pick_route` checking the route they name
 _ROUTES = {torch.bfloat16: ("wgmma", "wmma"), torch.float32: ("fma", "simt"),
            torch.float64: ("dmma", "simt")}
 #: the C entry points' route codes (csrc/tri_matmul.cu, sched_matmul.cu)
@@ -244,10 +248,11 @@ _DT_NAME = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64"}
 
 
 def _pick_route(dtype, aligned: bool, route: str | None, what: str) -> str:
-    """The route a launch takes: the dtype's fast route ('wgmma' bf16,
-    'dmma' f64, 'fma' f32) when `aligned` says its loop takes the
-    operands, else its element-load loop ('wmma' bf16, 'simt' f32 / f64) —
-    or the route asked for, which must be the dtype's and possible."""
+    """The route a tri_matmul launch takes: the dtype's fast route ('wgmma'
+    bf16, 'dmma' f64, 'fma' f32) when `aligned` says its loop takes the
+    operands, else its element-load loop ('wmma' bf16, 'simt' f32 / f64).
+    A named `route` (a direct C-entry launch) must be the dtype's and
+    possible."""
     if route is not None and route not in _ROUTE_CODE:
         raise ValueError(f"{what}: unknown route {route!r}")
     fast, elem = _ROUTES[dtype]
@@ -384,7 +389,6 @@ def tri_matmul(
     A, B, *, a_uplo=None, a_trans=False, b_uplo=None, b_trans=False,
     out_uplo=None, alpha=1.0, precision=None, a_view=None, b_view=None,
     out=None, out_off=(0, 0), c=None, c_view=None, beta=0.0,
-    _route=None,
 ):
     """C = alpha · op(A) · op(B) with dead triangular tiles never visited
     (ops/csrc/tri_matmul.cu; the JAX package's pallas_tpu.tri_matmul).
@@ -406,9 +410,8 @@ def tri_matmul(
     accumulates in f32 (f64 for f64).  Windows whose A and B origins and
     row strides are 16-byte aligned take the dtype's fast route (bf16
     'wgmma', f64 'dmma', f32 'fma'), the others its element-load loop (bf16
-    'wmma', f32 / f64 'simt'); `_route` names one (a fast route raises where
-    the alignment is missing), for measuring the routes against each other.
-    The fast routes launch their tiles longest k-range first."""
+    'wmma', f32 / f64 'simt').  The fast routes launch their tiles longest
+    k-range first."""
     s = _mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view,
                  b_view, out, out_off, c, c_view, beta)
     cc = c if s.fused_c else None
@@ -437,7 +440,7 @@ def tri_matmul(
     else:
         c_ptr, ldc = None, 0
     all_tiles = out_uplo is not None and not s.fused_c
-    route = _pick_route(A.dtype, _tma_ok(A, s.av) and _tma_ok(B, s.bv), _route, "tri_matmul")
+    route = _pick_route(A.dtype, _tma_ok(A, s.av) and _tma_ok(B, s.bv), None, "tri_matmul")
     rc = _build.entry("capital_tri_matmul")(
         _DTYPE_CODE[A.dtype],
         _ptr(A, s.av[0], s.av[1]), A.stride(0),
@@ -906,6 +909,22 @@ def _sched_fits(route: str, blocks) -> bool:
     return all(b % t == 0 for b, t in zip(blocks, _SCHED_TILE[route]))
 
 
+def sched_route(dtype, aligned: bool, blocks) -> str | None:
+    """The route a sched_matmul launch takes, by shape alone: the dtype's
+    fast route when the operands are 16-byte aligned and its tile divides
+    the blocks; else the element-load loop whose tile divides them — bf16's
+    128-row 'wmma', then the 64-row 'simt' loop of every dtype (blocks of
+    t = 192, the persistent layout's at base_case_dim 384 on a d = 2
+    face).  None when no tile divides the blocks."""
+    fast, elem = _ROUTES[dtype]
+    if aligned and _sched_fits(fast, blocks):
+        return fast
+    for route in (elem, "simt"):
+        if _sched_fits(route, blocks):
+            return route
+    return None
+
+
 def _sched_spec(A, B, to, ko, first, last, tri_side, blocks):
     if tri_side not in ("a", "b"):
         raise ValueError(f"tri_side must be 'a' or 'b', got {tri_side!r}")
@@ -954,8 +973,7 @@ def sched_matmul_plain(A, B, to, ko, first, last, *, tri_side="a", blocks, preci
     return out
 
 
-def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=None,
-                 _route=None):
+def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=None):
     """C = A @ B visiting only the (tile, k-tile) pairs listed in the int32
     schedule arrays (ops/csrc/sched_matmul.cu; pallas_tpu.sched_matmul).
 
@@ -966,12 +984,13 @@ def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=N
     blocks = (bm, bn, bk) tile M, N and K.  The operands are pre-masked: no
     mask is applied inside a tile.  Output tiles that no pair lists are
     undefined.  The kernel takes row-major contiguous A and B of one dtype
-    (bf16, f32 or f64), blocks that its route's CUDA tile divides
+    (bf16, f32 or f64), blocks that a route's CUDA tile divides
     (`_SCHED_TILE`), accumulates in f32 (f64 for f64) and writes the
-    operands' dtype.  16-byte-aligned operands whose blocks the fast
-    route's tile divides take that route (bf16 'wgmma', f64 'dmma', f32
-    'fma'), the others the element-load loop ('wmma', 'simt'); `_route`
-    names one, as in `tri_matmul`."""
+    operands' dtype.  The route is `sched_route`'s: 16-byte-aligned
+    operands whose blocks the fast route's tile divides take that route
+    (bf16 'wgmma', f64 'dmma', f32 'fma'), the others the element-load loop
+    ('wmma' bf16, 'simt' f32 / f64), and blocks only a 64-row tile divides
+    'simt' in bf16 too."""
     M, N, K = _sched_spec(A, B, to, ko, first, last, tri_side, blocks)
     if not _on_card(A, B, to, ko, first, last):
         return sched_matmul_plain(A, B, to, ko, first, last, tri_side=tri_side, blocks=blocks)
@@ -983,13 +1002,11 @@ def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=N
         raise TypeError(f"sched_matmul kernel: B is {B.dtype}, A is {A.dtype}")
     if to.numel() > SCHED_MAX_PAIRS:
         raise ValueError(f"sched_matmul kernel: {to.numel()} pairs, at most {SCHED_MAX_PAIRS}")
-    aligned = (_tma_ok(A, (0, 0)) and _tma_ok(B, (0, 0))
-               and _sched_fits(_ROUTES[A.dtype][0], blocks))
-    route = _pick_route(A.dtype, aligned, _route, "sched_matmul")
-    if not _sched_fits(route, blocks):
+    route = sched_route(A.dtype, _tma_ok(A, (0, 0)) and _tma_ok(B, (0, 0)), blocks)
+    if route is None:
         raise ValueError(
-            f"sched_matmul kernel: blocks {tuple(blocks)} must be multiples of the "
-            f"{route} tile {_SCHED_TILE[route]}"
+            f"sched_matmul kernel: blocks {tuple(blocks)} must be multiples of a route's "
+            f"tile, at least {_SCHED_TILE['simt']}"
         )
     res = torch.empty((M, N), dtype=A.dtype, device=A.device)
     rc = _build.entry("capital_sched_matmul")(

@@ -29,6 +29,35 @@ def take_triangle(A: torch.Tensor, uplo: str) -> torch.Tensor:
     raise ValueError(f"uplo must be 'U' or 'L', got {uplo!r}")
 
 
+def cyclic_index(n: int, d: int, tile: int, device=None) -> torch.Tensor:
+    """orig[i] = the ORIGINAL row/col index stored at position i of a
+    tile-cyclic layout over d ranks (parallel/summa.tile_cyclic_perm):
+    storage is d contiguous rank chunks, chunk s holding the original tiles
+    ≡ s (mod d) in ascending order."""
+    if n % (d * tile):
+        raise ValueError(f"cyclic_index: {d} devices x tile {tile} must tile {n}")
+    i = torch.arange(n, device=device)
+    chunk, j = i // (n // d), i % (n // d)
+    return ((j // tile) * d + chunk) * tile + (j % tile)
+
+
+def take_triangle_cyclic(A: torch.Tensor, uplo: str, d: int, tile: int,
+                         strict: bool = False) -> torch.Tensor:
+    """take_triangle for a matrix whose BOTH axes are stored tile-cyclically
+    (the persistent layout V = X[perm][:, perm]): the triangle lives at
+    ORIGINAL indices, so the mask compares the cyclic index maps.
+    strict=True drops the diagonal."""
+    r = cyclic_index(A.shape[0], d, tile, A.device)
+    c = cyclic_index(A.shape[1], d, tile, A.device)
+    if uplo == "U":
+        m = r[:, None] < c[None, :] if strict else r[:, None] <= c[None, :]
+    elif uplo == "L":
+        m = r[:, None] > c[None, :] if strict else r[:, None] >= c[None, :]
+    else:
+        raise ValueError(f"uplo must be 'U' or 'L', got {uplo!r}")
+    return torch.where(m, A, torch.zeros((), dtype=A.dtype, device=A.device))
+
+
 def embed_identity_tail(X: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     """Zero-pad the (m, n) matrix X to (rows, cols) with ones where padded
     row m+j meets padded column n+j (diag(X, I) for square X)."""

@@ -115,6 +115,9 @@ def fused_plan(grid, m: int, n: int, mode: str, bm: int = 1024, g: int = 2,
                *, dtype) -> str | None:
     """Which fused CQR2 pipeline runs: 'full' (gram_blocked, scale_gram,
     scale_blocked) for every eligible shape in mode 'pallas', else None.
+    On a mesh the kernels run once per rank on its m/p rows
+    (models/qr._cqr2_fused_sharded): the rows must divide over the ranks
+    and eligibility is the per-rank extent's.
 
     The JAX rule also answers 'split' and 'panels' where a kernel's VMEM
     envelope would be exceeded; the card has no such envelope, so its
@@ -122,11 +125,10 @@ def fused_plan(grid, m: int, n: int, mode: str, bm: int = 1024, g: int = 2,
     'split' and 'panels' tiers stay callable directly
     (models/qr._cqr2_fused, _cqr2_panels)."""
     del dtype  # no envelope depends on it here
-    if grid.num_devices != 1:
-        raise NotImplementedError(
-            "fused_plan on a multi-device grid is not ported yet (ROADMAP Queue A item 10)"
-        )
-    if mode == "pallas" and _eligible(m, n, bm, g):
+    p = grid.num_devices
+    if p > 1 and m % p:
+        return None
+    if mode == "pallas" and _eligible(m // p, n, bm, g):
         return "full"
     return None
 

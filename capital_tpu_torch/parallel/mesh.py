@@ -6,13 +6,17 @@ r at `grid.coords[r]` — and the collectives run between the steps:
 
 * `blocks(grid, X)` — the P('x', 'y') cut of a global X (shard_map's
   in_specs): rank (x, y, z) holds block (x, y), replicated over z;
+* `rows(grid, X)` — the P(('x', 'y', 'z'), None) cut (the JAX grid's
+  rows_sharding): rank (x, y, z) holds row block (x·dy + y)·c + z, a
+  contiguous view the kernels read in place;
 * `all_gather(grid, vals, axis, dim)` — lax.all_gather(tiled=True): every
   rank gets the concatenation, along `dim`, of the values of the ranks that
   differ from it only along `axis`, in that axis' order;
 * `psum(grid, vals, axes)` — lax.psum over the named axes;
 * `axis_index(grid, r, axis)` — lax.axis_index;
-* `assemble(grid, vals)` / `replicated(grid, vals)` — shard_map's out_specs
-  P('x', 'y') and P().
+* `assemble(grid, vals)` / `assemble_rows(grid, vals)` /
+  `replicated(grid, vals)` — shard_map's out_specs P('x', 'y'),
+  P(('x', 'y', 'z'), None) and P().
 
 Each collective the reference issues is one call here, so a
 `torch.distributed` backend for ranks on distinct devices replaces this
@@ -58,6 +62,21 @@ def blocks(grid: Grid, X: torch.Tensor) -> list[torch.Tensor]:
     return out
 
 
+def _row_block(grid: Grid, r: int) -> int:
+    x, y, z = grid.coords[r]
+    return (x * grid.dy + y) * grid.c + z
+
+
+def rows(grid: Grid, X: torch.Tensor) -> list[torch.Tensor]:
+    """Rank r's rows of the global X under P(('x', 'y', 'z'), None) (a
+    view); the row count must divide by the number of ranks."""
+    p = grid.num_devices
+    if X.shape[0] % p:
+        raise ValueError(f"{X.shape[0]} rows do not divide over {p} ranks")
+    mb = X.shape[0] // p
+    return [X[_row_block(grid, r) * mb:(_row_block(grid, r) + 1) * mb] for r in range(p)]
+
+
 def all_gather(grid: Grid, vals: list[torch.Tensor], axis: str, dim: int) -> list[torch.Tensor]:
     """Tiled all_gather over one axis (see the module docstring)."""
     out: list = [None] * grid.num_devices
@@ -86,6 +105,13 @@ def assemble(grid: Grid, vals: list[torch.Tensor]) -> torch.Tensor:
     at = {xyz: v for xyz, v in zip(grid.coords, vals)}
     rows = [torch.cat([at[(x, y, 0)] for y in range(grid.dy)], 1) for x in range(grid.dx)]
     return torch.cat(rows, 0)
+
+
+def assemble_rows(grid: Grid, vals: list[torch.Tensor]) -> torch.Tensor:
+    """The global tensor whose P(('x', 'y', 'z'), None) row blocks are the
+    ranks' values."""
+    order = sorted(range(grid.num_devices), key=lambda r: _row_block(grid, r))
+    return torch.cat([vals[r] for r in order], 0)
 
 
 def replicated(grid: Grid, vals: list[torch.Tensor]) -> torch.Tensor:

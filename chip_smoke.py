@@ -210,10 +210,16 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
 17. holds the mesh schedule's per-rank kernel, sched_matmul, against its
     plain version: the cholinv flagship's top-node slabs of one rank of a
     2x2x1 mesh (4096 x 8192 @ 8192 x 4096, blocks 512³) and a 128-block
-    case (256 x 512 @ 512 x 256), bf16, f32 and f64 each on both its routes,
-    tri_side 'a' and 'b', the padded rank and the full one; timed (the full
-    rank; both routes, interleaved) beside its bound, the plain version and
-    one torch.matmul of the pre-masked slabs;
+    case (256 x 512 @ 512 x 256), bf16, f32 and f64 each on both its routes
+    (the rule's through the wrapper, the other through the C entry,
+    uncounted), tri_side 'a' and 'b', the padded rank and the full one;
+    timed (the full rank; both routes, interleaved) beside its bound, the
+    plain version and one torch.matmul of the pre-masked slabs; then the
+    persistent tile-cyclic layout's schedules (`summa._sched_pairs_cyclic`):
+    one rank's top-node slabs of the persistent cholinv at n=16384, bc 512
+    (t = 256: the fast routes) and bc 384 (t = 192: the 64-row simt loop,
+    bf16 included), bf16, f32 and f64, 'a' and 'b', both ranks, every
+    launch on the route `hopper.sched_route` picks, timed the same way;
 18. drives the mesh path on a 2x2x1 in-process mesh of the card
     (`Grid.rect(2, 2, 1, devices=[cuda] * 4)`, mode 'explicit'; its
     collectives are copies and sums inside the one card, so no
@@ -225,9 +231,22 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     versions, (c) rectri n=16384 bf16 bc=512, (d) cholinv n=2048 f32 on a
     2x2x2 mesh (the c > 1 route, no kernel), and (e) cholinv n=16384 f64
     bc=512 (residual gates 1e-13, against the single-device f64 factor,
-    timed beside it) — each with the counters set to 0 just before and
-    checked just after: sched_matmul launches d² = 4 per trmm that the
-    sched gate routes, every other kernel 0;
+    timed beside it), (a') on (a)'s A the persistent layout at bc 512 and
+    384 and balance='tile_cyclic' (default balance_min_window): notes read
+    (no 'cholinv::persistent_fallback'), residual gates, against (a)'s
+    factor, timed beside it, the bc 512 one profiled; (c') rectri with
+    balance='tile_cyclic'; (c'') trsm.solve at phase 10's shape and newton
+    at n=8192 f32 on the mesh with phase 10's gates — each with the
+    counters set to 0 just before and checked just after: sched_matmul
+    launches d² = 4 per trmm that runs on the kernel (`mesh_plan`: the
+    block schedule's gate, the persistent schedules, none for the balanced
+    cyclic_rows products), every other kernel 0;
+18f. CholeskyQR2 on the mesh at 2,097,152 x 1024 bf16: regime '1d' on an
+    8-rank flat grid (the three qr_fused kernels once per rank: 8 launches
+    each, and 6 transposes; gated, R against the single-device flagship's,
+    timed beside it, peak memory) and regime 'dist' on 2x2x1 in mode
+    'explicit' (sched_matmul launches against `qr_dist_plan`; gated,
+    timed, peak memory);
 19. prints the `kernels` JSON line (each bt.* kernel's launches from the
     main path's own run: the flagship 'pallas' posv for fused_forward and
     solve_backward, the factor for factor, the solve for forward_solve;
@@ -236,12 +255,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     no path, with 0), the nvidia-smi line, and last
     {"ok": true, "device": {...}}.
 
-Phases 3, 5, 7, 7b, 7d, 9–12, 14, 16 and 18 set every launch counter to 0 just
+Phases 3, 5, 7, 7b, 7d, 9–12, 14, 16, 18 and 18f set every launch counter to 0 just
 before their runs and check the counts just after against the plan (7b:
 the counts move at capture, not at a replay; the trace counts the replays);
-phases 3, 4, 5, 9, 11, 17 and 18 also check that every tri_matmul and
+phases 3, 4, 5, 9, 11, 17, 18 and 18f also check that every tri_matmul and
 sched_matmul and qr_fused launch took its dtype's route (bf16 wgmma, f32
-fma, f64 dmma), phases 3, 8 and 11 that every fused_tail launch took
+fma, f64 dmma; the persistent schedules at t = 192 simt), phases 3, 8 and 11 that every fused_tail launch took
 its window's route (block or cluster), and phases 15 and 16 that every
 up.sweep launch took `update_small.sweep_route`'s (row or wave).
 
@@ -519,13 +538,62 @@ def mm_work(name, W, item) -> tuple[float, float]:
     return (W * (W + 1) / 2 + 2 * W * W) * item, W * W * (W + 1)
 
 
+def tri_matmul_c(hopper, route, A, B, *, a_uplo=None, a_trans=False, b_uplo=None, b_trans=False,
+                 out_uplo=None, alpha=1.0, a_view=None, b_view=None, out=None, out_off=(0, 0),
+                 c=None, c_view=None, beta=0.0):
+    """tri_matmul's launch through its C entry on the named route,
+    uncounted: the wrapper takes no route (it picks the dtype's by shape),
+    so the other route is reached here to hold the two side by side."""
+    from capital_tpu_torch.ops import _build
+
+    s = hopper._mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view, b_view,
+                        out, out_off, c, c_view, beta)
+    hopper._pick_route(A.dtype, hopper._tma_ok(A, s.av) and hopper._tma_ok(B, s.bv), route,
+                       "tri_matmul")
+    if out is None:
+        res = torch.empty((s.M, s.N), dtype=A.dtype, device=A.device)
+        o_ptr, ldo = res.data_ptr(), s.N
+    else:
+        res, o_ptr, ldo = out, hopper._ptr(out, *out_off), out.stride(0)
+    c_ptr, ldc = None, 0
+    if s.fused_c:
+        cv = hopper._full_view(c, c_view)
+        c_ptr, ldc = hopper._ptr(c, cv[0], cv[1]), c.stride(0)
+    rc = _build.entry("capital_tri_matmul")(
+        hopper._DTYPE_CODE[A.dtype], hopper._ptr(A, s.av[0], s.av[1]), A.stride(0),
+        hopper._ptr(B, s.bv[0], s.bv[1]), B.stride(0), o_ptr, ldo, c_ptr, ldc,
+        float(alpha), float(beta), s.M, s.N, s.K, int(bool(a_trans)), int(bool(b_trans)),
+        hopper._UPLO[a_uplo], hopper._UPLO[b_uplo], hopper._UPLO[out_uplo], int(s.fused_c),
+        int(out_uplo is not None and not s.fused_c), hopper._ROUTE_CODE[route], hopper._stream())
+    check(rc == 0, f"tri_matmul C entry on {route}: error {rc}")
+    return res
+
+
+def sched_matmul_c(hopper, route, A, B, to, ko, fi, la, *, tri_side, blocks):
+    """sched_matmul's launch through its C entry on the named element-load
+    route, uncounted (see tri_matmul_c)."""
+    from capital_tpu_torch.ops import _build
+
+    M, N, K = hopper._sched_spec(A, B, to, ko, fi, la, tri_side, blocks)
+    check(hopper._sched_fits(route, blocks), f"sched_matmul: the {route} tile does not divide {blocks}")
+    res = torch.empty((M, N), dtype=A.dtype, device=A.device)
+    rc = _build.entry("capital_sched_matmul")(
+        hopper._DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(), res.data_ptr(), to.data_ptr(),
+        ko.data_ptr(), fi.data_ptr(), la.data_ptr(), to.numel(), M, N, K, *blocks,
+        int(tri_side == "a"), hopper._ROUTE_CODE[route], hopper._stream())
+    check(rc == 0, f"sched_matmul C entry on {route}: error {rc}")
+    return res
+
+
 def mm_phase(hopper, dtype, dev, RIp, Rp, buf, W: int) -> dict:
     """Every tri_matmul call of the path against its plain version and timed
     beside its bound and library call, on both of the dtype's routes in the
     same run and interleaved (fast, element-load, element-load, fast: bf16
-    wgmma / wmma, f32 fma / simt, f64 dmma / simt); then, for bf16, NaN in
-    the dead triangles on the wgmma route, and an unaligned window, which
-    must take the wmma route."""
+    wgmma / wmma, f32 fma / simt, f64 dmma / simt: the fast route through
+    the wrapper, whose rule picks it for these aligned windows, the other
+    through the C entry, uncounted); then, for bf16, NaN in the dead
+    triangles on the wgmma route, and an unaligned window, which must take
+    the wmma route."""
     item = torch.tensor([], dtype=dtype).element_size()
     g = torch.Generator(device=dev).manual_seed(8)
     T = torch.randn(W, W, generator=g, device=dev, dtype=torch.float32).to(dtype)
@@ -537,7 +605,9 @@ def mm_phase(hopper, dtype, dev, RIp, Rp, buf, W: int) -> dict:
         outs = {"Rp": Rp, "B": B}
 
         def run(route, out=None):
-            return hopper.tri_matmul(A, B if where != "B" else out, out=out, _route=route, **kw)
+            if route == routes[0]:
+                return hopper.tri_matmul(A, B if where != "B" else out, out=out, **kw)
+            return tri_matmul_c(hopper, route, A, B if where != "B" else out, out=out, **kw)
 
         def fresh():  # the in-place call's buffer, as the path hands it over
             return outs[where].clone() if where else None
@@ -4361,8 +4431,11 @@ def sched_kernel_phase(hopper, summa, dev) -> dict:
                     want = hopper.sched_matmul_plain(As[r], Bs[r], *rows[r], **kw)
                     for route in routes:
                         hopper.reset_counts()
-                        got = hopper.sched_matmul(As[r], Bs[r], *rows[r], _route=route, **kw)
-                        check_routes(hopper, hopper.counts(), route, f"sched_matmul {name}")
+                        if route == routes[0]:  # the rule's route, through the wrapper
+                            got = hopper.sched_matmul(As[r], Bs[r], *rows[r], **kw)
+                            check_routes(hopper, hopper.counts(), route, f"sched_matmul {name}")
+                        else:
+                            got = sched_matmul_c(hopper, route, As[r], Bs[r], *rows[r], **kw)
                         torch.cuda.synchronize()
                         err = max(err, check_close(f"sched_matmul {name} {side} rank {r} {route}", got,
                                                    want, dtype))
@@ -4373,9 +4446,11 @@ def sched_kernel_phase(hopper, summa, dev) -> dict:
                 iters = 5 if name == "flagship" else 50
                 key = f"{name} {side} {str(dtype).split('.')[-1]}"
                 t = {r: [] for r in routes}
+                calls = {routes[0]: lambda: hopper.sched_matmul(A, B, *row, tri_side=side, blocks=blocks),
+                         routes[1]: lambda: sched_matmul_c(hopper, routes[1], A, B, *row, tri_side=side,
+                                                           blocks=blocks)}
                 for r in routes + routes[::-1]:  # interleaved: fast, element-load, element-load, fast
-                    t[r].append(time_ms(lambda: hopper.sched_matmul(A, B, *row, tri_side=side,
-                                                                    blocks=blocks, _route=r), iters))
+                    t[r].append(time_ms(calls[r], iters))
                 extra = {f"{routes[1]}_ms": sum(t[routes[1]]) / 2}
                 res[key] = dict(
                     max_abs_err=err, blocks=list(blocks), runs=[int(FI[r].sum()) for r in range(2)],
@@ -4391,11 +4466,104 @@ def sched_kernel_phase(hopper, summa, dev) -> dict:
     return res
 
 
-def mesh_plan(summa, cholesky, grid, n: int, bc: int, rectri: bool = False) -> int:
+#: phase 17's persistent cases: the (n, bc) of the cholinv on 2x2x1 whose
+#: top node's slabs one rank multiplies under the persistent layout
+#: (t = bc / 2: 256 on the fast routes, 192 on the 64-row simt loop)
+SCHED_PERSISTENT = {"t256": (16384, 512), "t192": (16384, 384)}
+
+
+def persistent_slabs(summa, masking, n1: int, n2: int, t: int, side: str, dtype, dev, seed):
+    """The top node's two persistent-layout products as one rank of 2x2x1
+    sees them: side 'a' (CI::trsm: the cyclic-masked lower n1 x n1 triangle
+    times a dense n1 x n2), side 'b' (the side-R completion: a dense
+    n1 x n2 times the cyclic-masked upper n2 x n2).  Returns both ranks'
+    (A slab, B slab), the schedule arrays (host) and blocks, and the
+    slabs' (mb, K, nb)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=dev, dtype=torch.float32).to(dtype)
+    if side == "a":
+        T = masking.take_triangle_cyclic(rnd(n1, n1), "L", 2, t)
+        M, K, N = n1, n1, n2
+        (TO, KO, FI, LA), _, blocks = summa._sched_host_cyclic(2, M, K, N, "L", None, t)
+        D = rnd(K, N)
+        slabs = [(T[r * (M // 2):(r + 1) * (M // 2)].contiguous(), D[:, :N // 2].contiguous())
+                 for r in range(2)]
+    else:
+        T = masking.take_triangle_cyclic(rnd(n2, n2), "U", 2, t)
+        M, K, N = n1, n2, n2
+        (TO, KO, FI, LA), _, blocks = summa._sched_host_cyclic(2, M, K, N, None, "U", t)
+        D = rnd(M, K)
+        slabs = [(D[:M // 2].contiguous(), T[:, r * (N // 2):(r + 1) * (N // 2)].contiguous())
+                 for r in range(2)]
+    return slabs, (TO, KO, FI, LA), blocks, (M // 2, K, N // 2)
+
+
+def sched_persistent_phase(hopper, summa, masking, cholesky, dev) -> dict:
+    """Phase 17, the persistent layout's schedules (`summa.
+    _sched_pairs_cyclic`): one rank's top-node slabs of the persistent
+    cholinv at n=16384 on 2x2x1, bc 512 (t = 256) and 384 (t = 192), bf16,
+    f32 and f64, tri_side 'a' and 'b', both ranks (the one with pads and the
+    full one) against the plain version, every launch on the route the
+    rule (`hopper.sched_route`) picks from the blocks; the full rank timed
+    beside its bound, the plain version and one torch.matmul of the
+    pre-masked slabs."""
+    res = {}
+    for name, (n, bc) in SCHED_PERSISTENT.items():
+        t = bc // 2
+        p = cholesky.padded_dim(n, bc)
+        n1 = n2 = p // 2
+        for dtype in (torch.bfloat16, torch.float32, torch.float64):
+            item = torch.tensor([], dtype=dtype).element_size()
+            for side in ("a", "b"):
+                slabs, (TO, KO, FI, LA), blocks, (mb, K, nb) = persistent_slabs(
+                    summa, masking, n1, n2, t, side, dtype, dev, seed=17)
+                sel = lambda r: [torch.from_numpy(x[r].copy()).to(dev) for x in (TO, KO, FI, LA)]
+                # pad entries follow the rank's last run (first = last = 0)
+                pads = [len(LA[r]) - 1 - max(i for i, v in enumerate(LA[r]) if v == 1) for r in range(2)]
+                route = hopper.sched_route(dtype, True, blocks)
+                check(route == (ROUTE_OF[dtype] if t % 128 == 0 else "simt"),
+                      f"sched persistent {name}: the rule picks {route} for blocks {blocks}")
+                err = 0.0
+                for r in range(2):
+                    A, B = slabs[r]
+                    row = sel(r)
+                    hopper.reset_counts()
+                    got = hopper.sched_matmul(A, B, *row, tri_side=side, blocks=blocks)
+                    check_routes(hopper, hopper.counts(), route, f"sched persistent {name} {side}")
+                    want = hopper.sched_matmul_plain(A, B, *row, tri_side=side, blocks=blocks)
+                    torch.cuda.synchronize()
+                    err = max(err, check_close(f"sched persistent {name} {side} rank {r}", got, want, dtype))
+                    del got, want
+                full = min(range(2), key=lambda r: pads[r])
+                A, B = slabs[full]
+                row = sel(full)
+                nbytes, flops = sched_work(row, blocks, mb, K, nb, side, item)
+                iters = 3 if dtype == torch.float64 else 5
+                key = f"persistent {name} {side} {str(dtype).split('.')[-1]}"
+                res[key] = dict(
+                    max_abs_err=err, t=t, blocks=list(blocks), route=route, pads=pads,
+                    runs=[int(FI[r].sum()) for r in range(2)],
+                    ms=time_ms(lambda: hopper.sched_matmul(A, B, *row, tri_side=side, blocks=blocks), iters),
+                    plain_ms=time_ms(lambda: hopper.sched_matmul_plain(A, B, *row, tri_side=side,
+                                                                       blocks=blocks), 1),
+                    library_ms=time_ms(lambda: torch.matmul(A, B), iters),
+                    shape=f"{mb}x{K} @ {K}x{nb}", bound=bound_ms(nbytes, flops, dtype),
+                )
+                del slabs, A, B
+                torch.cuda.empty_cache()
+    return res
+
+
+def mesh_plan(summa, cholesky, grid, n: int, bc: int, rectri: bool = False, balance: str = "block",
+              min_window: int = 8192) -> int:
     """sched_matmul launches of one cholinv (complete_inv) or rectri on
-    `grid`: d² for every trmm of the plan that the sched gate routes (both
-    recursions halve a padded bc·2^k window alike)."""
-    d2 = grid.dx * grid.dy
+    `grid`: d² for every trmm of the plan that runs on the kernel — the
+    sched gate's block schedule, or under balance='tile_cyclic_persistent'
+    the persistent schedule (t = bc / d); balance='tile_cyclic' sends the
+    side-L products of windows >= min_window to the balanced cyclic_rows
+    schedule (torch.matmul) where a cyclic tile exists (both recursions
+    halve a padded bc·2^k window alike)."""
+    d = grid.dx
     routed = 0
 
     def walk(node):
@@ -4404,16 +4572,151 @@ def mesh_plan(summa, cholesky, grid, n: int, bc: int, rectri: bool = False) -> i
             return
         n1, n2 = node.top[0].n, node.top[1].n
         if rectri:  # side R (n2 x n1 @ tri n1), then side L (tri n2 @ n2 x n1)
-            shapes = [(n2, n1, n1, None, "L"), (n2, n2, n1, "L", None)]
+            shapes = [(n2, n1, n1, None, "L", 0), (n2, n2, n1, "L", None, n2)]
         else:  # trsm, then the two completion trmms
-            shapes = [(n1, n1, n2, "L", None), (n1, n1, n2, "U", None), (n1, n2, n2, None, "U")]
-        for M, K, N, au, bu in shapes:
-            routed += summa._shard_sched_gate(grid, M, K, N, au, bu, None) is not None
+            shapes = [(n1, n1, n2, "L", None, n1), (n1, n1, n2, "U", None, n1),
+                      (n1, n2, n2, None, "U", 0)]
+        for M, K, N, au, bu, win in shapes:
+            if balance == "tile_cyclic_persistent":
+                routed += summa._sched_host_cyclic(d, M, K, N, au, bu, bc // d) is not None
+            elif (balance == "tile_cyclic" and win >= min_window
+                  and summa._pick_cyclic_tile(grid, M, 0)):
+                continue  # the balanced schedule: no kernel
+            else:
+                routed += summa._shard_sched_gate(grid, M, K, N, au, bu, None) is not None
         walk(node.top[0])
         walk(node.top[1])
 
     walk(cholesky.plan(cholesky.padded_dim(n, bc), cholesky.CholinvConfig(base_case_dim=bc)))
-    return d2 * routed
+    return d * d * routed
+
+
+def qr_dist_plan(summa, cholesky, grid, m: int, n: int, bc: int) -> int:
+    """sched_matmul launches of one CholeskyQR2 in regime 'dist', mode
+    'explicit' on `grid`: per sweep the nested cholinv's plan and the
+    side-R scale Q = A·R⁻¹, then the merge trmm R2·R1 — d² each that the
+    sched gate routes (the syrk gram has a triangular output: no kernel)."""
+    d2 = grid.dx * grid.dy
+    sweep = mesh_plan(summa, cholesky, grid, n, bc) + d2 * (
+        summa._shard_sched_gate(grid, m, n, n, None, "U", None) is not None)
+    return 2 * sweep + d2 * (summa._shard_sched_gate(grid, n, n, n, "U", None, None) is not None)
+
+
+#: phase 18 (a')'s layouts of the n=16384 bf16 cholinv: (balance, bc)
+MESH_LAYOUTS = {"persistent_bc512": ("tile_cyclic_persistent", 512),
+                "persistent_bc384": ("tile_cyclic_persistent", 384),
+                "tile_cyclic": ("tile_cyclic", 512)}
+
+
+def mesh_layouts(hopper, summa, cholesky, residual, mesh, A, Rb, Rib, t_block: float) -> dict:
+    """Phase 18 (a'): cholinv of phase 18a's A with the persistent layout at
+    bc 512 (t = 256: every sched_matmul launch on wgmma) and 384 (t = 192:
+    the 64-row simt loop) and with balance='tile_cyclic' at the default
+    balance_min_window, each counted against `mesh_plan`, its notes read
+    (no 'cholinv::persistent_fallback'), gated, held to 18a's block-layout
+    factor and timed beside it; the bc 512 persistent factor profiled."""
+    from capital_tpu_torch.utils import tracing
+
+    n = A.shape[0]
+    out = {}
+    for key, (bal, bc) in MESH_LAYOUTS.items():
+        cfg = cholesky.CholinvConfig(mode="explicit", base_case_dim=bc, precision=None, balance=bal)
+        plan = mesh_plan(summa, cholesky, mesh, n, bc, balance=bal)
+        persistent = bal == "tile_cyclic_persistent"
+        route = hopper.sched_route(torch.bfloat16, True, (bc // 2, 512, bc // 2)) if persistent else "wgmma"
+        with tracing.Recorder() as rec:
+            (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(mesh, A, cfg),
+                                                  {"sched_matmul": plan}, f"mesh cholinv {key}", route)
+        notes = {k: v.calls for k, v in rec.stats.items()
+                 if k.endswith(("_fallback", "_cyclic", "_dense", "shard_sched"))}
+        check("cholinv::persistent_fallback" not in notes, f"mesh cholinv {key}: notes {notes}")
+        check(not persistent or notes.get("syrk::persistent_cyclic", 0) >= 1,
+              f"mesh cholinv {key}: notes {notes}")
+        Af = A.float()
+        res_r = float(residual.cholesky_residual(Af, R.float()))
+        res_i = float(residual.cholesky_inverse_residual(R.float(), Ri.float()))
+        del Af
+        check(res_r < 1e-2 and res_i < 1e-2, f"mesh cholinv {key}: residuals {res_r}, {res_i}")
+        dR = float(residual.rel_fro(R.float() - Rb.float(), Rb.float()))
+        dRi = float(residual.rel_fro(Ri.float() - Rib.float(), Rib.float()))
+        check(dR < 2e-2 and dRi < 2e-2, f"mesh cholinv {key} vs the block layout: {dR}, {dRi}")
+        del R, Ri
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = timed_s(lambda: cholesky.factor(mesh, A, cfg), 2)
+        peak = torch.cuda.max_memory_allocated()
+        out[key] = dict(n=n, bc=bc, balance=bal, t=bc // 2 if persistent else None, route=route,
+                        dtype="bfloat16", grid="2x2x1", seconds=t, seconds_block=t_block,
+                        tflops=(2 * n**3 / 3) / t / 1e12, peak_bytes=peak, seconds_first=secs,
+                        residual=res_r, inverse_residual=res_i, vs_block=[dR, dRi], notes=notes,
+                        plan=plan, counts=counts)
+        print(json.dumps({"mesh": f"cholinv n=16384 bf16 {key}", **out[key]}), flush=True)
+        if key == "persistent_bc512":
+            out["profile_" + key] = profile(lambda: cholesky.factor(mesh, A, cfg), "CI::")
+            print(json.dumps({"profile": f"mesh cholinv {key}", **out["profile_" + key]}), flush=True)
+    return out
+
+
+def mesh_solvers(hopper, mesh, dev) -> dict:
+    """Phase 18 (c''): trsm.solve at phase 10's shape (n=32768, 8192 bf16
+    right-hand sides, bc 512, the invert leaf) and newton at n=8192 f32 on
+    the 2x2x1 mesh in mode 'explicit' (dense SUMMA products, no kernel),
+    with phase 10's gates."""
+    from capital_tpu_torch.models import inverse, trsm
+    from capital_tpu_torch.utils import residual
+
+    out = {}
+    n, nrhs, bc, gate_rhs = INV_SHAPES["trsm"]
+    L = tri_operand(n, torch.bfloat16, 0, dev)
+    B = torch.randn((n, nrhs), generator=torch.Generator(device=dev).manual_seed(1), device=dev,
+                    dtype=torch.bfloat16)
+    cfg = trsm.TrsmConfig(base_case_dim=bc, mode="explicit", precision=None, leaf="invert")
+    X, counts, secs = drive_counted(hopper, lambda: trsm.solve(mesh, L, B, "L", "L", cfg=cfg), {},
+                                    "mesh trsm")
+    Xg = X[:, :gate_rhs].float()
+    err = float(residual.rel_fro(torch.tril(L.float()) @ Xg - B[:, :gate_rhs].float(),
+                                 B[:, :gate_rhs].float()))
+    check(err < 5e-2, f"mesh trsm: residual {err} >= 5e-2")
+    del X, Xg
+    t = timed_s(lambda: trsm.solve(mesh, L, B, "L", "L", cfg=cfg), 2)
+    gates = {}
+    Bv = B[:, :gate_rhs]
+    tf = L.float()
+    for side, uplo, unit in (("L", "U", False), ("R", "L", False), ("R", "U", False), ("L", "L", True)):
+        if unit:
+            Tf = torch.tril(tf, -1) + torch.eye(n, device=dev)
+            op = L
+        else:
+            Tf = torch.tril(tf) if uplo == "L" else torch.triu(tf.T)
+            op = Tf.to(torch.bfloat16)
+        b = Bv if side == "L" else Bv.T.contiguous()
+        Xs = trsm.solve(mesh, op, b, side, uplo, cfg=cfg, unit_diag=unit)
+        got = Tf @ Xs.float() if side == "L" else Xs.float() @ Tf
+        e = float(residual.rel_fro(got - b.float(), b.float()))
+        name = f"trsm_residual_{'unit_diag' if unit else side + uplo}"
+        check(e < 5e-2, f"mesh {name}: {e} >= 5e-2")
+        gates[name] = e
+        del Tf, op, b, Xs, got
+    out["trsm"] = dict(n=n, nrhs=nrhs, bc=bc, dtype="bfloat16", grid="2x2x1", seconds=t,
+                       tflops=n * n * nrhs / t / 1e12, seconds_first=secs, counts=counts,
+                       trsm_residual_LL=err, **gates)
+    print(json.dumps({"mesh": "trsm n=32768 nrhs=8192 bf16", **out["trsm"]}), flush=True)
+    del L, B, Bv, tf
+    torch.cuda.empty_cache()
+
+    n = INV_SHAPES["newton"]
+    A = spd_hash(n, torch.float32, salt=2, device=dev)
+    ncfg = inverse.NewtonConfig(max_iter=30, mode="explicit", precision="highest")
+    (X, iters), counts, secs = drive_counted(hopper, lambda: inverse.newton(mesh, A, ncfg), {}, "mesh newton")
+    gate = float(residual.inverse_residual(A, X))
+    check(gate < 5e-4, f"mesh newton: inverse residual {gate} >= 5e-4")
+    out["newton"] = dict(n=n, dtype="float32", grid="2x2x1", iters_executed=iters, seconds=secs,
+                         tflops=2.0 * n**3 * (2 * iters + 1) / secs / 1e12, inverse_residual=gate,
+                         counts=counts)
+    print(json.dumps({"mesh": "newton n=8192 f32", **out["newton"]}), flush=True)
+    del A, X
+    torch.cuda.empty_cache()
+    return out
 
 
 def mesh_phase(hopper, dev) -> dict:
@@ -4444,7 +4747,7 @@ def mesh_phase(hopper, dev) -> dict:
     dR = float(residual.rel_fro(R.float() - R1.float(), R1.float()))
     dRi = float(residual.rel_fro(Ri.float() - Ri1.float(), Ri1.float()))
     check(dR < 2e-2 and dRi < 2e-2, f"mesh n=16384 bf16 vs the single-device factor: {dR}, {dRi}")
-    del R, Ri, R1, Ri1
+    del R1, Ri1  # R, Ri: the block layout's factor, which the layouts below are held to
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = timed_s(lambda: cholesky.factor(mesh, A, cfg), 2)
@@ -4458,7 +4761,10 @@ def mesh_phase(hopper, dev) -> dict:
     print(json.dumps({"mesh": "cholinv n=16384 bf16", **out["cholinv"]}), flush=True)
     out["profile"] = profile(lambda: cholesky.factor(mesh, A, cfg), "CI::")
     print(json.dumps({"profile": "mesh cholinv", **out["profile"]}), flush=True)
-    del A
+
+    # (a') the balanced layouts on the same A, held to (a)'s factor
+    out["layouts"] = mesh_layouts(hopper, summa, cholesky, residual, mesh, A, R, Ri, t)
+    del A, R, Ri
     torch.cuda.empty_cache()
 
     # (b) n=8192 f32: kernels against the plain versions through the path
@@ -4497,8 +4803,26 @@ def mesh_phase(hopper, dev) -> dict:
                          tflops=n**3 / 3.0 / t / 1e12, inverse_residual=gate, seconds_first=secs,
                          plan=plan, counts=counts)
     print(json.dumps({"mesh": "rectri n=16384 bf16", **out["rectri"]}), flush=True)
+
+    # (c') rectri with balance='tile_cyclic' (default balance_min_window:
+    # the top merge's side-L product balanced, the rest on the block route)
+    bcfg = inverse.RectriConfig(base_case_dim=bc, mode="explicit", precision=None, balance="tile_cyclic")
+    plan = mesh_plan(summa, cholesky, mesh, n, bc, rectri=True, balance="tile_cyclic")
+    Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(mesh, L, "L", bcfg),
+                                     {"sched_matmul": plan}, "mesh rectri tile_cyclic", "wgmma")
+    bgate = float(residual.inverse_residual_blocked(L, Li))
+    check(bgate < 5e-2, f"mesh rectri tile_cyclic: inverse residual {bgate} >= 5e-2")
+    del Li
+    tb = timed_s(lambda: inverse.rectri(mesh, L, "L", bcfg), 2)
+    out["rectri_tile_cyclic"] = dict(n=n, bc=bc, dtype="bfloat16", grid="2x2x1", seconds=tb,
+                                     seconds_block=t, inverse_residual=bgate, seconds_first=secs,
+                                     plan=plan, counts=counts)
+    print(json.dumps({"mesh": "rectri n=16384 bf16 tile_cyclic", **out["rectri_tile_cyclic"]}), flush=True)
     del L
     torch.cuda.empty_cache()
+
+    # (c'') TRSM and Newton at phase 10's shapes, on the mesh
+    out.update(mesh_solvers(hopper, mesh, dev))
 
     # (d) the c > 1 route on 2x2x2: masked-psum panels, no kernel
     n, dtype, bc = MESH_RUNS["cholinv_c2"]
@@ -4545,6 +4869,69 @@ def mesh_phase(hopper, dev) -> dict:
                               inverse_residual=res_i, vs_single_device=[dR, dRi], plan=plan,
                               counts=counts)
     print(json.dumps({"mesh": "cholinv n=16384 f64", **out["cholinv_f64"]}), flush=True)
+    del A
+    torch.cuda.empty_cache()
+    return out
+
+
+def qr_mesh_phase(hopper, dev) -> dict:
+    """Phase 18f: CholeskyQR2 on the mesh at BASELINE's 2,097,152 x 1024
+    bf16 (the row "CAQR2 tree-reduction across 8 ranks"): (a) regime '1d'
+    on an 8-rank flat grid, mode 'pallas' — each rank's 262,144 rows
+    through qr.gram_blocked, qr.scale_gram and qr.scale_blocked (8 launches
+    each) and the two grams' potrf_trtri_upper (3 transposes each) — gated,
+    R held to the single-device flagship's (phase 5's A), timed beside it,
+    peak memory; (b) regime 'dist' on 2x2x1, mode 'explicit' (the gram by
+    the syrk schedule, cholinv on the 1024 gram, Q by the side-R trmm:
+    sched_matmul launches counted against `qr_dist_plan`), gated, timed."""
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.models import cholesky, qr
+    from capital_tpu_torch.parallel import summa
+    from capital_tpu_torch.utils import residual
+
+    out = {}
+    m, n = QR_SHAPES["flagship"]
+    A = tall_randn(m, n, torch.bfloat16, 1, dev)  # phase 5's flagship operand
+    cfg = qr.CacqrConfig(regime="1d", mode="pallas", precision=None,
+                         cholinv=cholesky.CholinvConfig(base_case_dim=128, mode="pallas"))
+    flat = Grid.flat(devices=[dev] * 8)
+    want = {**dict.fromkeys(QR_KERNELS, 8), "transpose": 6}
+    (Q, R), counts, secs = drive_counted(hopper, lambda: qr.factor(flat, A, cfg), want,
+                                         "QR 1d on 8 ranks", torch.bfloat16)
+    gates = qr_gates(residual, A, Q, R, "QR 1d on 8 ranks")
+    del Q
+    single = Grid.square(device=dev)
+    Q1, R1 = qr.factor(single, A, cfg)
+    dR = float(residual.rel_fro(R.float() - R1.float(), R1.float()))
+    check(dR < 2e-2, f"QR 1d on 8 ranks: R vs the single-device flagship's {dR}")
+    del Q1, R1, R
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = timed_s(lambda: qr.factor(flat, A, cfg), 3)
+    peak = torch.cuda.max_memory_allocated()
+    t1 = timed_s(lambda: qr.factor(single, A, cfg), 3)
+    out["1d"] = dict(m=m, n=n, dtype="bfloat16", grid="8x1x1", seconds=t, seconds_single_device=t1,
+                     tflops=2.0 * m * n * n * 2 / t / 1e12, peak_bytes=peak, seconds_first=secs,
+                     counts=counts, r_vs_single_device=dR, **gates)
+    print(json.dumps({"mesh": "QR 1d 2097152x1024 bf16 8 ranks", **out["1d"]}), flush=True)
+
+    mesh = Grid.rect(2, 2, 1, devices=[dev] * 4)
+    bc = 256
+    dcfg = qr.CacqrConfig(regime="dist", mode="explicit", precision=None,
+                          cholinv=cholesky.CholinvConfig(base_case_dim=bc, mode="explicit", precision=None))
+    plan = qr_dist_plan(summa, cholesky, mesh, m, n, bc)
+    torch.cuda.reset_peak_memory_stats()
+    (Q, R), counts, secs = drive_counted(hopper, lambda: qr.factor(mesh, A, dcfg), {"sched_matmul": plan},
+                                         "QR dist on 2x2x1", torch.bfloat16)
+    peak = torch.cuda.max_memory_allocated()
+    gates = qr_gates(residual, A, Q, R, "QR dist on 2x2x1")
+    del Q, R
+    torch.cuda.empty_cache()
+    t = timed_s(lambda: qr.factor(mesh, A, dcfg), 2)
+    out["dist"] = dict(m=m, n=n, dtype="bfloat16", grid="2x2x1", bc=bc, seconds=t,
+                       tflops=2.0 * m * n * n * 2 / t / 1e12, peak_bytes=peak, seconds_first=secs,
+                       plan=plan, counts=counts, **gates)
+    print(json.dumps({"mesh": "QR dist 2097152x1024 bf16 2x2x1", **out["dist"]}), flush=True)
     del A
     torch.cuda.empty_cache()
     return out
@@ -4786,7 +5173,10 @@ def main(argv=None) -> int:
     # ---- phase 17: the mesh schedule's kernel against its plain version --
     from capital_tpu_torch.parallel import summa
 
+    from capital_tpu_torch.ops import masking
+
     sched = sched_kernel_phase(hopper, summa, dev)
+    sched.update(sched_persistent_phase(hopper, summa, masking, cholesky, dev))
     for name, r in sched.items():
         b, by = r.pop("bound")
         r.update(bound_ms=b, bound_by=by)
@@ -4797,6 +5187,9 @@ def main(argv=None) -> int:
     out["mesh"] = mesh_phase(hopper, dev)
     mesh_counts = {"sched_matmul": out["mesh"]["cholinv"]["counts"]["sched_matmul"]}
     check(mesh_counts["sched_matmul"] >= 1, "sched_matmul never launched on the mesh cholinv")
+
+    # ---- phase 18f: CholeskyQR2 on the mesh ------------------------------
+    out["mesh_qr"] = qr_mesh_phase(hopper, dev)
 
     bf = out["kernels"][str(torch.bfloat16)]
     # the small-N kernels report their f32 throughput batch; the blocktri

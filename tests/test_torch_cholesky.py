@@ -29,10 +29,12 @@ from capital_tpu.models import cholesky as jchol
 from capital_tpu.parallel.topology import Grid as JGrid
 from capital_tpu.robust.config import RobustConfig as JRobust
 from capital_tpu.utils import residual as jres
+from capital_tpu.utils import tracing as jtracing
 from capital_tpu_torch import Grid
 from capital_tpu_torch.models import cholesky as tchol
 from capital_tpu_torch.robust.config import RobustConfig
 from capital_tpu_torch.utils import residual as tres
+from capital_tpu_torch.utils import tracing as ttracing
 from capital_tpu_torch.utils.interop import config_from_fields, tensor_from_numpy
 
 NP_DT = {"f64": np.float64, "f32": np.float32, "bf16": jnp.bfloat16}
@@ -264,8 +266,23 @@ def test_config_from_jax_fields(jgrid, tgrid):
     assert _rel(R, jR) < VS_JAX["bf16"] and _rel(Ri, jRi) < VS_JAX["bf16"]
 
 
-@pytest.mark.parametrize("kw,match", [(dict(balance="tile_cyclic"), "Queue A item 10")])
-def test_unported_options_raise(tgrid, kw, match):
-    A = tensor_from_numpy(_spd(256, "f32"))
-    with pytest.raises(NotImplementedError, match=match):
-        tchol.factor(tgrid, A, _port_cfg(base_case_dim=128, **kw))
+@pytest.mark.parametrize("kw,match", [(dict(balance="tile_cyclic"), "requires mode='explicit'")])
+def test_unported_options_raise(jgrid, tgrid, kw, match):
+    """The balanced layouts are ported: outside mode 'explicit' both
+    packages refuse them with one message; in mode 'explicit' on one device
+    the kernels skip dead tiles themselves, and both factor alike and note
+    the fallback."""
+    A = _spd(256, "f32")
+    with pytest.raises(ValueError, match=match) as want:
+        jchol.factor(jgrid, jnp.asarray(A), jchol.CholinvConfig(mode="pallas", base_case_dim=128, **kw))
+    with pytest.raises(ValueError, match=match) as got:
+        tchol.factor(tgrid, tensor_from_numpy(A), _port_cfg(base_case_dim=128, **kw))
+    assert str(got.value) == str(want.value)
+    kw = dict(kw, mode="explicit", base_case_dim=128, balance_min_window=128)
+    with jtracing.Recorder() as jrec:
+        jR, jRi = jax.jit(lambda a: jchol.factor(jgrid, a, jchol.CholinvConfig(**kw)))(jnp.asarray(A))
+    with ttracing.Recorder() as trec:
+        R, Ri = tchol.factor(tgrid, tensor_from_numpy(A), _port_cfg(**kw))
+    assert _rel(R, jR) < VS_JAX["f32"] and _rel(Ri, jRi) < VS_JAX["f32"]
+    for note in ("trmm::tile_cyclic_fallback", "syrk::tile_cyclic_fallback"):
+        assert trec.stats[note].calls == jrec.stats[note].calls >= 1

@@ -153,12 +153,14 @@ def test_route_codes_name_every_route():
 
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_cpu_calls_move_no_counter(dt):
-    """On the CPU the wrappers run the plain versions, whatever route is
-    named: counts() keeps its keys at 0 and the route tally stays empty."""
+    """On the CPU the wrappers run the plain versions, whatever route the
+    shape would pick on the card: counts() keeps its keys at 0 and the
+    route tally stays empty."""
     hopper.reset_counts()
     A = torch.randn(256, 256).to(DTYPES[dt])
-    hopper.tri_matmul(A, A, a_uplo="U", _route=FAST[dt])
-    hopper.tri_matmul(A, A, out_uplo="L", a_trans=True, _route="simt")
+    hopper.tri_matmul(A, A, a_uplo="U")
+    hopper.tri_matmul(A, A, a_view=(0, 1, 255, 255), b_view=(0, 1, 255, 255), out_uplo="L",
+                      a_trans=True)
     c = hopper.counts()
     assert set(c) == set(hopper.KERNELS)
     assert all(type(v) is int and v == 0 for v in c.values())

@@ -15,7 +15,8 @@ import torch
 
 from capital_tpu_torch import Grid
 from capital_tpu_torch.models import arrowhead, blocktri, cholesky, inverse, qr
-from capital_tpu_torch.ops import _build, batched_small, blocktri_small, hopper, qr_fused, sweeps, tsqr, update_small
+from capital_tpu_torch.ops import (_build, batched_small, blocktri_small, hopper, masking, qr_fused, sweeps,
+                                    tsqr, update_small)
 from capital_tpu_torch.parallel import summa
 from capital_tpu_torch.robust import refine
 from capital_tpu_torch.serve import api
@@ -1665,8 +1666,9 @@ def test_sched_matmul_kernel_vs_plain(cuda, case, dt):
 def test_sched_matmul_wrapper_refuses(cuda):
     A = torch.ones(256, 256, device=cuda)
     s = torch.zeros(1, dtype=torch.int32, device=cuda)
+    # 64-blocks take the 64-row simt loop in every dtype; 32-blocks no route
     with pytest.raises(ValueError, match="multiples"):
-        hopper.sched_matmul(A.bfloat16(), A.bfloat16(), s, s, s + 1, s + 1, blocks=(64, 64, 64))
+        hopper.sched_matmul(A.bfloat16(), A.bfloat16(), s, s, s + 1, s + 1, blocks=(32, 32, 32))
     with pytest.raises(TypeError, match="B is"):
         hopper.sched_matmul(A, A.double(), s, s, s + 1, s + 1, blocks=(128, 128, 128))
     with pytest.raises(ValueError, match="schedule is on"):
@@ -1712,9 +1714,52 @@ WG_SHAPES = [((256, 384, 192), (128, 64)), ((1000, 520, 777), (8, 16))]
 
 
 def _wg_run(fn, A, B, **kw):
+    # aligned bf16 windows: the wrapper's rule picks wgmma
     if fn is hopper.tri_matmul:
-        return hopper.tri_matmul(A, B, _route="wgmma", **kw)
+        return hopper.tri_matmul(A, B, **kw)
     return hopper.tri_matmul_plain(A, B, **kw)
+
+
+def _tri_c(route, A, B, *, a_uplo=None, a_trans=False, b_uplo=None, b_trans=False, out_uplo=None,
+           alpha=1.0, a_view=None, b_view=None, out=None, out_off=(0, 0)):
+    """tri_matmul's launch through its C entry on the named route,
+    uncounted (the wrapper takes no route: it picks one by shape)."""
+    s = hopper._mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view, b_view,
+                        out, out_off, None, None, 0.0)
+    hopper._pick_route(A.dtype, hopper._tma_ok(A, s.av) and hopper._tma_ok(B, s.bv), route,
+                       "tri_matmul")
+    if out is None:
+        res = torch.empty((s.M, s.N), dtype=A.dtype, device=A.device)
+        o_ptr, ldo = res.data_ptr(), s.N
+    else:
+        res, o_ptr, ldo = out, hopper._ptr(out, *out_off), out.stride(0)
+    rc = _build.entry("capital_tri_matmul")(
+        hopper._DTYPE_CODE[A.dtype], hopper._ptr(A, s.av[0], s.av[1]), A.stride(0),
+        hopper._ptr(B, s.bv[0], s.bv[1]), B.stride(0), o_ptr, ldo, None, 0,
+        float(alpha), 0.0, s.M, s.N, s.K, int(a_trans), int(b_trans), hopper._UPLO[a_uplo],
+        hopper._UPLO[b_uplo], hopper._UPLO[out_uplo], 0, int(out_uplo is not None),
+        hopper._ROUTE_CODE[route], hopper._stream())
+    assert rc == 0, rc
+    return res
+
+
+def _sched_c(route, A, B, *sched, tri_side, blocks):
+    """sched_matmul's launch through its C entry on the named route,
+    uncounted; a route whose tile does not divide the blocks, or whose
+    copies cannot read the operands, raises as the rule would refuse it."""
+    M, N, K = hopper._sched_spec(A, B, *sched, tri_side, blocks)
+    aligned = hopper._tma_ok(A, (0, 0)) and hopper._tma_ok(B, (0, 0))
+    hopper._pick_route(A.dtype, aligned and hopper._sched_fits(route, blocks), route, "sched_matmul")
+    if not hopper._sched_fits(route, blocks):
+        raise ValueError(f"the {route} tile does not divide {blocks}")
+    res = torch.empty((M, N), dtype=A.dtype, device=A.device)
+    to, ko, fi, la = sched
+    rc = _build.entry("capital_sched_matmul")(
+        hopper._DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(), res.data_ptr(), to.data_ptr(),
+        ko.data_ptr(), fi.data_ptr(), la.data_ptr(), to.numel(), M, N, K, *blocks,
+        int(tri_side == "a"), hopper._ROUTE_CODE[route], hopper._stream())
+    assert rc == 0, rc
+    return res
 
 
 def _nan_dead(X, view, uplo):
@@ -1814,16 +1859,17 @@ def test_wgmma_route_tally(cuda):
     hopper.tri_matmul(A, A, a_uplo="U", a_view=(0, 0, 256, 256), b_view=(0, 256, 256, 256))
     hopper.tri_matmul(A, A, a_uplo="U", a_view=(0, 3, 256, 256), b_view=(0, 256, 256, 256))
     hopper.tri_matmul(A.float(), A.float(), out_uplo="U", a_trans=True)
-    hopper.tri_matmul(A, A, a_view=(0, 0, 256, 256), b_view=(0, 256, 256, 256), _route="wmma")
+    # the other route through the C entry: uncounted
+    _tri_c("wmma", A, A, a_view=(0, 0, 256, 256), b_view=(0, 256, 256, 256))
     assert hopper.route_counts() == {"tri_matmul.trmm": {"wgmma": 1, "wmma": 1},
-                                     "tri_matmul.syrk": {"fma": 1}, "tri_matmul.dense": {"wmma": 1}}
+                                     "tri_matmul.syrk": {"fma": 1}}
     c = hopper.counts()
     assert set(c) == set(hopper.KERNELS)
-    assert (c["tri_matmul.trmm"], c["tri_matmul.syrk"], c["tri_matmul.dense"]) == (2, 1, 1)
+    assert (c["tri_matmul.trmm"], c["tri_matmul.syrk"], c["tri_matmul.dense"]) == (2, 1, 0)
     with pytest.raises(ValueError, match="wgmma route cannot"):
-        hopper.tri_matmul(A, A, a_view=(0, 3, 256, 256), b_view=(0, 256, 256, 256), _route="wgmma")
+        _tri_c("wgmma", A, A, a_view=(0, 3, 256, 256), b_view=(0, 256, 256, 256))
     with pytest.raises(ValueError, match="only bf16"):
-        hopper.tri_matmul(A.float(), A.float(), _route="wgmma")
+        _tri_c("wgmma", A.float(), A.float())
     hopper.reset_counts()
     assert hopper.route_counts() == {}
 
@@ -1867,7 +1913,61 @@ def test_sched_matmul_wmma_route_stays(cuda):
     torch.cuda.synchronize()
     _close(got, want, "bf16", (~torch.isnan(want)).cpu())
     with pytest.raises(ValueError, match="wgmma route cannot"):
-        hopper.sched_matmul(A, B, *sched, tri_side="a", blocks=blocks, _route="wgmma")
+        _sched_c("wgmma", A, B, *sched, tri_side="a", blocks=blocks)
+
+
+@pytest.mark.parametrize("t", [192, 256])
+@pytest.mark.parametrize("side,uplo", [("a", "L"), ("b", "U")])
+@pytest.mark.parametrize("dt", ["bf16", "f32", "f64"])
+def test_sched_matmul_persistent_vs_plain(cuda, dt, side, uplo, t):
+    """The persistent tile-cyclic layout's schedules (summa.
+    _sched_host_cyclic) at the top node of a cholinv of 4t on 2x2x1 (base
+    case 2t): t = 256 takes the dtype's fast route, t = 192 — which no
+    128-row tile divides — the 64-row simt loop in every dtype, bf16 too.
+    Both ranks against the plain version, on the written tiles."""
+    n = 4 * t
+    au, bu = (uplo, None) if side == "a" else (None, uplo)
+    (TO, KO, FI, LA), _, blocks = summa._sched_host_cyclic(2, n, n, n, au, bu, t)
+    T = masking.take_triangle_cyclic(_rand(130, (n, n), dt, cuda), uplo, 2, t)
+    D = _rand(131, (n, n), dt, cuda)
+    h = n // 2
+    route = {192: "simt", 256: {"bf16": "wgmma", "f32": "fma", "f64": "dmma"}[dt]}[t]
+    for rank in range(2):
+        sched = [torch.from_numpy(x[rank].copy()).to(cuda) for x in (TO, KO, FI, LA)]
+        if side == "a":
+            A, B = T[rank * h:(rank + 1) * h].contiguous(), D[:, :h].contiguous()
+        else:
+            A, B = D[rank * h:(rank + 1) * h].contiguous(), T[:, rank * h:(rank + 1) * h].contiguous()
+        hopper.reset_counts()
+        got = hopper.sched_matmul(A, B, *sched, tri_side=side, blocks=blocks)
+        assert hopper.route_counts() == {"sched_matmul": {route: 1}}
+        want = hopper.sched_matmul_plain(A, B, *sched, tri_side=side, blocks=blocks)
+        torch.cuda.synchronize()
+        written = ~torch.isnan(want)
+        assert bool(written.all())  # every tile of the rank is live somewhere
+        _close(got, want, dt, written.cpu())
+
+
+@pytest.mark.parametrize("bc", [384, 512])
+def test_persistent_cholinv_launches_by_route(cuda, bc):
+    """A persistent-layout cholinv on 2x2x1 (t = bc / 2): every trmm of the
+    plan on sched_matmul, 4 ranks x 3 trmms per internal node, each on the
+    route its blocks give (bc 512: wgmma; bc 384: simt), and no other
+    kernel; R matches the block layout's factor."""
+    n = 4 * bc
+    g = np.random.default_rng(14).standard_normal((n, n))
+    A = torch.from_numpy(g @ g.T / n + 3 * np.eye(n)).to(torch.bfloat16).to(cuda)
+    mesh = Grid.rect(2, 2, 1, devices=[cuda] * 4)
+    cfg = cholesky.CholinvConfig(mode="explicit", base_case_dim=bc, balance="tile_cyclic_persistent")
+    hopper.reset_counts()
+    R, Ri = cholesky.factor(mesh, A, cfg)
+    c = hopper.counts()
+    assert c["sched_matmul"] == 4 * 3 * 3 and sum(c.values()) == c["sched_matmul"]
+    assert hopper.route_counts() == {"sched_matmul": {"wgmma" if bc == 512 else "simt": 36}}
+    Rb, _ = cholesky.factor(mesh, A, cholesky.CholinvConfig(mode="explicit", base_case_dim=bc))
+    # two layouts sum in other orders, each rounding R to bf16 at every
+    # level: the relative class of the mesh tests (2e-2)
+    assert float(residual.rel_fro(R.double() - Rb.double(), Rb.double())) < 2e-2
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f64"])
@@ -1905,8 +2005,9 @@ FP_FAST = {"f64": "dmma", "f32": "fma"}
 
 
 def _fp_run(fn, A, B, dt, **kw):
+    # 16-byte-aligned origins: the wrapper's rule picks the fast route
     if fn is hopper.tri_matmul:
-        return hopper.tri_matmul(A, B, _route=FP_FAST[dt], **kw)
+        return hopper.tri_matmul(A, B, **kw)
     return hopper.tri_matmul_plain(A, B, **kw)
 
 
@@ -2004,10 +2105,10 @@ def test_dmma_fma_against_simt(cuda, dt):
     for kw in (dict(a_uplo="L", a_trans=True, a_view=(64, 128, 520, 520), b_view=(8, 256, 520, 777)),
                dict(b_trans=True, a_view=(1024, 0, 1000, 777), b_view=(8, 16, 520, 777))):
         hopper.reset_counts()
-        fast = hopper.tri_matmul(A, B, _route=FP_FAST[dt], **kw)
-        simt = hopper.tri_matmul(A, B, _route="simt", **kw)
+        fast = hopper.tri_matmul(A, B, **kw)
+        simt = _tri_c("simt", A, B, **kw)
         form = "tri_matmul.trmm" if "a_uplo" in kw else "tri_matmul.dense"
-        assert hopper.route_counts() == {form: {FP_FAST[dt]: 1, "simt": 1}}
+        assert hopper.route_counts() == {form: {FP_FAST[dt]: 1}}
         torch.cuda.synchronize()
         _close(fast, simt, dt)
 
@@ -2026,7 +2127,7 @@ def test_sched_matmul_dmma_fma_vs_plain(cuda, dt, case):
         hopper.reset_counts()
         got = hopper.sched_matmul(A, B, *sched, tri_side=side, blocks=blocks)
         assert hopper.route_counts() == {"sched_matmul": {FP_FAST[dt]: 1}}
-        simt = hopper.sched_matmul(A, B, *sched, tri_side=side, blocks=blocks, _route="simt")
+        simt = _sched_c("simt", A, B, *sched, tri_side=side, blocks=blocks)
         want = hopper.sched_matmul_plain(A, B, *sched, tri_side=side, blocks=blocks)
         torch.cuda.synchronize()
         written = (~torch.isnan(want)).cpu()
@@ -2040,16 +2141,16 @@ def test_dmma_fma_routes_refuse(cuda):
     A = _rand(111, (512, 512), "f64", cuda)
     hopper.reset_counts()
     with pytest.raises(ValueError, match="dmma route cannot"):
-        hopper.tri_matmul(A, A, a_view=(0, 1, 256, 256), b_view=(0, 256, 256, 256), _route="dmma")
+        _tri_c("dmma", A, A, a_view=(0, 1, 256, 256), b_view=(0, 256, 256, 256))
     with pytest.raises(ValueError, match="only f32"):
-        hopper.tri_matmul(A, A, _route="fma")
+        _tri_c("fma", A, A)
     with pytest.raises(ValueError, match="only bf16"):
-        hopper.tri_matmul(A.float(), A.float(), _route="wmma")
+        _tri_c("wmma", A.float(), A.float())
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     odd = torch.zeros(1 + 256 * 384, device=cuda)[1:].view(256, 384)  # contiguous, 4 bytes off
     with pytest.raises(ValueError, match="fma route cannot"):
-        hopper.sched_matmul(odd, A.float()[:384, :256].contiguous(), one * 0, one * 0, one, one,
-                            tri_side="a", blocks=(128, 128, 128), _route="fma")
+        _sched_c("fma", odd, A.float()[:384, :256].contiguous(), one * 0, one * 0, one, one,
+                 tri_side="a", blocks=(128, 128, 128))
     assert hopper.route_counts() == {}
     # an unaligned f64 window takes the simt loop by itself
     got = hopper.tri_matmul(A, A, a_view=(0, 1, 256, 256), b_view=(0, 256, 256, 256))

@@ -143,10 +143,14 @@ def test_rectri_phases_and_prefix_plan(tgrid):
         assert got == want, (p, bc, bb)
 
 
-def test_rectri_refuses(tgrid):
-    T = tensor_from_numpy(_tri(64, "f32"))
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tinv.rectri(tgrid, T, "L", tinv.RectriConfig(balance="tile_cyclic"))
+def test_rectri_refuses(jgrid, tgrid):
+    # balance='tile_cyclic' is ported: on one device it has no balanced
+    # schedule and inverts as the JAX package does
+    T = _tri(64, "f32")
+    want = _jax_rectri(jgrid, T, "L", balance="tile_cyclic")
+    got = tinv.rectri(tgrid, tensor_from_numpy(T), "L", tinv.RectriConfig(balance="tile_cyclic"))
+    assert _rel(got, want) < VS_JAX["f32"]
+    T = tensor_from_numpy(T)
     with pytest.raises(ValueError, match="uplo"):
         tinv.rectri(tgrid, T, "X")
     with pytest.raises(ValueError, match="square"):

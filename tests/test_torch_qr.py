@@ -210,12 +210,23 @@ def test_bad_inputs_raise_like_jax(jgrid, tgrid, case):
     assert str(got.value) == str(want.value)
 
 
-def test_deferred_variants_raise(tgrid):
-    A = torch.from_numpy(_tall(256, 64, "f64"))
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tqr.factor(tgrid, A, tqr.CacqrConfig(regime="dist"))
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        tqr.solve_blocked(tgrid, A, None, None, tqr.CacqrConfig())
+def test_deferred_variants_raise(jgrid, tgrid):
+    """The once-deferred variants are ported: regime 'dist' and
+    solve_blocked against the JAX package; a grid on another device still
+    raises."""
+    An = _tall(256, 64, "f64")
+    A = torch.from_numpy(An)
+    jQ, jR = jax.jit(lambda a: jqr.factor(jgrid, a, jqr.CacqrConfig(regime="dist")))(jnp.asarray(An))
+    Q, R = tqr.factor(tgrid, A, tqr.CacqrConfig(regime="dist"))
+    assert _rel(Q, jQ) < VS_JAX["f64"] and _rel(R, jR) < VS_JAX["f64"]
+    G = An.T @ An
+    ccfg = dict(base_case_dim=32, complete_inv=False)
+    jcfg = jqr.CacqrConfig(cholinv=JCholinv(**ccfg))
+    want = jax.jit(lambda a, g_: jqr.solve_blocked(
+        jgrid, a, *jqr.cholesky.factor(jgrid, g_, jcfg.cholinv), jcfg))(jnp.asarray(An), jnp.asarray(G))
+    R2, Ri2 = tqr.cholesky.factor(tgrid, torch.from_numpy(G), CholinvConfig(**ccfg))
+    got = tqr.solve_blocked(tgrid, A, R2, Ri2, tqr.CacqrConfig(cholinv=CholinvConfig(**ccfg)))
+    assert _rel(got, want) < VS_JAX["f64"]
     with pytest.raises(ValueError, match="the grid on"):
         tqr.factor(Grid(device=torch.device("meta")), A, tqr.CacqrConfig())
 

@@ -129,7 +129,7 @@ def test_counts_keep_their_keys():
     tally sits beside it and CPU calls move neither."""
     hopper.reset_counts()
     A = torch.randn(256, 256).to(torch.bfloat16)
-    hopper.tri_matmul(A, A, a_uplo="U", _route="wgmma")
+    hopper.tri_matmul(A, A, a_uplo="U")
     c = hopper.counts()
     assert set(c) == COUNTER_KEYS == set(hopper.KERNELS)
     assert all(type(v) is int and v == 0 for v in c.values())
