@@ -74,7 +74,11 @@ class CholinvConfig:
         (masked torch.matmul).
     base_case_dtype: dtype of the leaf potrf/trtri; None means f32 for
         inputs narrower than f32, else the input dtype.
-    precision: accepted for parity; f32 products are always IEEE f32.
+    precision: f32 at 'high' runs the kernels' products (mode 'pallas' /
+        'explicit') as the JAX package's bf16x3 split (hopper.split_high);
+        every other dtype and precision, and the torch.matmul products of
+        mode 'xla' and of the mesh's segments, are full precision (f32
+        IEEE).
     balance: 'block', 'tile_cyclic' or 'tile_cyclic_persistent' (the last
         two in mode 'explicit' only; see the module docstring).
     balance_min_window: the smallest window 'tile_cyclic' balances.

@@ -53,7 +53,10 @@ class RectriConfig:
         up to bc; levels above bc need a power-of-two block count).
     balance: 'block' or 'tile_cyclic' (the explicit side-L merges of
         windows >= balance_min_window take the balanced schedule).
-    precision: accepted for parity; f32 products are IEEE f32.
+    precision: f32 at 'high' runs tri_matmul's and sched_matmul's
+        products as the JAX package's bf16x3 split (hopper.split_high);
+        torch.matmul products and every other dtype and precision are full
+        precision.
     """
 
     base_case_dim: int = 256

@@ -72,7 +72,10 @@ class CacqrConfig:
         factor, and regime '1d''s grams with n >= GRAM_CHOLINV_MIN on one
         device (its base_case_dim is the bench's --bc).
     mode: 'pallas' runs the hand-written kernels, 'xla' plain torch.matmul.
-    precision: accepted for parity; f32 products are IEEE f32.
+    precision: f32 at 'high' runs the kernels' products (the fused passes
+        and the nested cholinv's in mode 'pallas') as the JAX package's
+        bf16x3 split (hopper.split_high); torch.matmul products (mode
+        'xla') and every other dtype and precision are full precision.
     fused_g: column split of the fused passes; 0 = auto (qr_fused.pick_g).
     robust: with a RobustConfig factor() returns (Q, R, RobustInfo), every
         Cholesky site is guarded, and a breakdown runs the recovery ladder.

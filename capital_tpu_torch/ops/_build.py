@@ -40,7 +40,7 @@ SIGNATURES = {
     "capital_tri_matmul": (
         "tri_matmul.cu",
         [_I, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _D, _D, _I, _I, _I,
-         _I, _I, _I, _I, _I, _I, _I, _I, _P],
+         _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     ),
     "capital_transpose": ("transpose.cu", [_I, _I, _P, _LL, _P, _LL, _I, _I, _I, _P]),
     "capital_transpose_pair": (
@@ -50,10 +50,10 @@ SIGNATURES = {
         "zeros_dead.cu",
         [_P, _LL, _LL, _I, _I, _I, ctypes.POINTER(_LL), _I, _P],
     ),
-    "capital_gram_blocked": ("qr_fused.cu", [_I, _P, _LL, _LL, _I, _I, _P, _P, _I, _P]),
-    "capital_scale_blocked": ("qr_fused.cu", [_I, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _P]),
+    "capital_gram_blocked": ("qr_fused.cu", [_I, _P, _LL, _LL, _I, _I, _P, _P, _I, _P, _P]),
+    "capital_scale_blocked": ("qr_fused.cu", [_I, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _P, _P]),
     "capital_scale_gram": (
-        "qr_fused.cu", [_I, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _I, _P, _P, _I, _P],
+        "qr_fused.cu", [_I, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _I, _P, _P, _I, _P, _P],
     ),
     "capital_small_potrf": ("batched_small.cu", [_I, _P, _P, _P, _I, _I, _I, _P]),
     "capital_small_potrs": ("batched_small.cu", [_I, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -75,7 +75,7 @@ SIGNATURES = {
     ),
     "capital_up_sweep": ("update_small.cu", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _P]),
     "capital_sched_matmul": (
-        "sched_matmul.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "sched_matmul.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     ),
 }
 

@@ -20,6 +20,11 @@
 // loop of mm_tiles.cuh (mma.sync m16n8k8 on the FP64 tensor cores, every
 // multiply-add f64), f32 on its FMA loop (IEEE fmaf, no TF32).  The
 // wrapper's shape rule makes 128 divide n, c and m, so no tile is masked.
+// f32 at precision 'high' takes the x3 route instead (x3_tiles.cuh): the
+// split pass writes the f32 operands' bf16 hi / lo images into the caller's
+// workspace and gram_x3 / scale_x3 run the ring on them, three bf16
+// products a k-tile in 512-deep chains added in IEEE f32 — the reference's
+// bf16x3 split (qr_fused._dot through pallas_tpu.precision_dot).
 //
 // The TPU kernel carries the f32 (n, n) gram in VMEM across its sequential
 // row-block grid.  Here blocks run in no order and an SM holds 227 KB, so the
@@ -36,6 +41,7 @@
 
 #include "mm_tiles.cuh"
 #include "wgmma_tiles.cuh"
+#include "x3_tiles.cuh"
 
 // output tile edge of every gram and scale kernel
 constexpr int TILE = 128;
@@ -159,6 +165,38 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   }
 }
 
+// ---- gram, f32 at 'high': the ring on A's split images ----------------------
+// gram_wgmma's tiles and splits over A's hi / lo images (both maps MN-major
+// 64-row slabs, one pair for each side of the product); the partial is
+// written from the IEEE f32 totals of x3::consume.
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    gram_x3(const __grid_constant__ x3::Maps maps, GramArgs p) {
+  extern __shared__ uint8_t smem[];
+  int ti, tj;
+  live_tile(blockIdx.x, p.n / wg::BM, wg::BM, p.c, ti, tj);
+  long long r0, r1;
+  split_rows(p.m, blockIdx.y, p.splits, r0, r1);
+  const int nk = (int)((r1 - r0 + wg::BK - 1) / wg::BK), k0 = (int)r0;
+  const wg::Ring r = wg::make_ring(smem);
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) {
+      x3::produce<true, false>(r, maps, ti * wg::BM, tj * wg::BN, nk,
+                               [&](int t) { return k0 + t * wg::BK; });
+    }
+  } else {
+    wg::consumer_regs();
+    const int ctid = threadIdx.x - 128;
+    float* sum = x3::sum_of(r, ctid);
+    float dh[64], dx[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dh[i] = dx[i] = 0.0f;
+    x3::consume<true, false>(r, nk, ctid, sum, dh, dx);
+    float* out = (float*)p.out + (long long)blockIdx.y * p.n * p.n;
+    x3::store_totals(out + (long long)ti * wg::BM * p.n + tj * wg::BN, p.n, sum, ctid);
+  }
+}
+
 // ---- gram, f64 / f32: the DMMA and FMA loops of mm_tiles.cuh ---------------
 // The same tile and split as gram_wgmma: operand a is A[split rows, ti·128 :
 // +128], operand b is A[split rows, tj·128 : +128], both stored k-major (the
@@ -267,16 +305,34 @@ static int dmma_launch(void (*kernel)(Args), bool (&sized)[wg::MAX_DEVICES], dim
   return (int)cudaGetLastError();
 }
 
-// one split rule for every dtype: any count up to ceil(m / SPLIT_ROWS)
+// split A into its images at `images`, then gram_x3 on them
+static int gram_x3_launch(const GramArgs& p, bf16* images, dim3 grid, cudaStream_t s) {
+  int rc = x3::split(p.A, p.lda, p.m, p.n, UPLO_NONE, images, s);
+  if (rc) return rc;
+  x3::Maps maps;
+  if (!x3::image_maps(maps.a, images, p.m, p.n, wg::BM / 2)) return -2;
+  maps.b[0] = maps.a[0];
+  maps.b[1] = maps.a[1];
+  static bool sized[wg::MAX_DEVICES] = {};
+  const cudaError_t e = wg::size_smem(gram_x3, sized, x3::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  gram_x3<<<grid, wg::THREADS, x3::SMEM_BYTES, s>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+// one split rule for every dtype: any count up to ceil(m / SPLIT_ROWS);
+// `images` (f32 only) selects the x3 route
 template <typename T>
-static int gram_launch(const GramArgs& p, void* G, cudaStream_t s) {
+static int gram_launch(const GramArgs& p, void* G, bf16* images, cudaStream_t s) {
   typedef typename AccOf<T>::type A_t;
   if (p.n % TILE || p.c % TILE || p.splits < 1 || p.m < 1 || p.m > INT_MAX ||
       p.splits > (p.m + SPLIT_ROWS - 1) / SPLIT_ROWS)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)live_tiles(p.n, TILE, p.c), (unsigned)p.splits);
   int rc;
-  if constexpr (sizeof(T) == 2) {
+  if (images) {
+    rc = gram_x3_launch(p, images, grid, s);
+  } else if constexpr (sizeof(T) == 2) {
     rc = gram_wgmma_launch(p, grid, s);
   } else if constexpr (sizeof(T) == 8) {
     static bool sized[wg::MAX_DEVICES] = {};
@@ -293,15 +349,16 @@ static int gram_launch(const GramArgs& p, void* G, cudaStream_t s) {
 }
 
 static int gram_pass(int dtype, const void* A, long long lda, long long m, int n, int c,
-                     void* G, void* work, int splits, cudaStream_t s) {
+                     void* G, void* work, int splits, bf16* images, cudaStream_t s) {
   GramArgs p;
   p.A = A; p.lda = lda; p.m = m; p.n = n; p.c = c;
   p.out = splits > 1 ? work : G;
   p.splits = splits;
+  if (images && dtype != DT_F32) return -1;
   switch (dtype) {
-    case DT_BF16: return gram_launch<bf16>(p, G, s);
-    case DT_F32: return gram_launch<float>(p, G, s);
-    case DT_F64: return gram_launch<double>(p, G, s);
+    case DT_BF16: return gram_launch<bf16>(p, G, nullptr, s);
+    case DT_F32: return gram_launch<float>(p, G, images, s);
+    case DT_F64: return gram_launch<double>(p, G, nullptr, s);
     default: return -1;
   }
 }
@@ -443,6 +500,73 @@ static int scale_wgmma_launch(const ScaleArgs& p, long long tiles, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
+// ---- scale, f32 at 'high': the ring on A's and R⁻¹'s split images ----------
+// scale_wgmma's persistent walk and tile order over the images (A K-major,
+// R⁻¹ MN-major); one k-tile counter runs on across tiles for stages and
+// phases, so the producer loads the next tile while the consumers store
+// this one.  Q is written in f32 from the IEEE f32 totals of x3::consume.
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    scale_x3(const __grid_constant__ x3::Maps maps, ScaleArgs p) {
+  extern __shared__ uint8_t smem[];
+  const wg::Ring r = wg::make_ring(smem);
+  const int ntn = p.n / wg::BN;
+  const long long tiles = (p.m / wg::BM) * ntn;
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x != 0) return;
+    uint32_t g = 0;  // k-tiles loaded so far
+    for (long long b = blockIdx.x; b < tiles; b += gridDim.x) {
+      long long i0;
+      int j0;
+      scale_tile(b, ntn, i0, j0);
+      const int nk = (j0 + wg::BN) / wg::BK;
+      x3::produce<false, false>(r, maps, (int)i0, j0, nk, [](int t) { return t * wg::BK; }, g);
+      g += nk;
+    }
+    return;
+  }
+  wg::consumer_regs();
+  const int ctid = threadIdx.x - 128;
+  float* sum = x3::sum_of(r, ctid);
+  float* Q = (float*)p.Q;
+  float dh[64], dx[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dh[i] = dx[i] = 0.0f;
+  uint32_t g = 0;  // k-tiles consumed so far
+  for (long long b = blockIdx.x; b < tiles; b += gridDim.x) {
+    long long i0;
+    int j0;
+    scale_tile(b, ntn, i0, j0);
+    const int nk = (j0 + wg::BN) / wg::BK;
+    x3::consume<false, false>(r, nk, ctid, sum, dh, dx, g);
+    g += nk;
+    x3::store_totals(Q + i0 * p.ldq + j0, p.ldq, sum, ctid);
+  }
+}
+
+// split A and R⁻¹ into their images at `images` (A's, then R⁻¹'s), then
+// scale_x3 on them, one block an SM
+static int scale_x3_launch(const ScaleArgs& p, long long tiles, bf16* images, cudaStream_t s) {
+  bf16* rimg = images + x3::image_elems(p.m, p.n);
+  int rc = x3::split(p.A, p.lda, p.m, p.n, UPLO_NONE, images, s);
+  if (rc == 0) rc = x3::split(p.R, p.ldr, p.n, p.n, UPLO_NONE, rimg, s);
+  if (rc) return rc;
+  x3::Maps maps;
+  if (!x3::image_maps(maps.a, images, p.m, p.n, wg::BM) ||
+      !x3::image_maps(maps.b, rimg, p.n, p.n, wg::BN / 2))
+    return -2;
+  static bool sized[wg::MAX_DEVICES] = {};
+  cudaError_t e = wg::size_smem(scale_x3, sized, x3::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const unsigned blocks = (unsigned)(tiles < sms ? tiles : sms);
+  scale_x3<<<blocks, wg::THREADS, x3::SMEM_BYTES, s>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
 // ---- scale, f64 / f32: the DMMA and FMA loops of mm_tiles.cuh --------------
 // Q tile (i0, j0) = A[i0:i0+128, :j0+128] · R⁻¹[:j0+128, j0:j0+128], the
 // loops' <false, false> orientation; as in scale_wgmma the k-range stops at
@@ -506,10 +630,12 @@ __global__ void __launch_bounds__(mmt::F_THREADS, mmt::F_MINB) scale_fma(ScaleAr
   }
 }
 
-static int scale_pass(int dtype, const ScaleArgs& p, cudaStream_t s) {
+// `images` (f32 only) selects the x3 route
+static int scale_pass(int dtype, const ScaleArgs& p, bf16* images, cudaStream_t s) {
   if (p.n % TILE || p.m % TILE || p.m > INT_MAX) return (int)cudaErrorInvalidValue;
   const long long tiles = (p.m / TILE) * (p.n / TILE);
   if (tiles <= 0 || tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (images) return dtype == DT_F32 ? scale_x3_launch(p, tiles, images, s) : -1;
   switch (dtype) {
     case DT_BF16: return scale_wgmma_launch(p, tiles, s);
     case DT_F32: scale_fma<<<(unsigned)tiles, mmt::F_THREADS, 0, s>>>(p); break;
@@ -523,27 +649,33 @@ static int scale_pass(int dtype, const ScaleArgs& p, cudaStream_t s) {
 }
 
 // ---- C entry points: each returns the cudaError_t of its launches ---------
+// `images` is null on the dtype's own route; for f32 at precision 'high' it
+// is the x3 route's workspace: A's bf16 images (x3::image_elems(m, n)), then,
+// for the scales, R⁻¹'s (x3::image_elems(n, n)).  scale_gram splits its Q
+// into the space A's images held once the scale is done (stream order).
 
 extern "C" int capital_gram_blocked(int dtype, const void* A, long long lda, long long m, int n,
-                                    int g, void* G, void* work, int splits, void* stream) {
-  return gram_pass(dtype, A, lda, m, n, n / g, G, work, splits, (cudaStream_t)stream);
+                                    int g, void* G, void* work, int splits, void* images,
+                                    void* stream) {
+  return gram_pass(dtype, A, lda, m, n, n / g, G, work, splits, (bf16*)images,
+                   (cudaStream_t)stream);
 }
 
 extern "C" int capital_scale_blocked(int dtype, const void* A, long long lda, const void* R,
                                      long long ldr, void* Q, long long ldq, long long m, int n,
-                                     void* stream) {
+                                     void* images, void* stream) {
   ScaleArgs p;
   p.A = A; p.lda = lda; p.R = R; p.ldr = ldr; p.Q = Q; p.ldq = ldq; p.m = m; p.n = n;
-  return scale_pass(dtype, p, (cudaStream_t)stream);
+  return scale_pass(dtype, p, (bf16*)images, (cudaStream_t)stream);
 }
 
 extern "C" int capital_scale_gram(int dtype, const void* A, long long lda, const void* R,
                                   long long ldr, void* Q, long long ldq, long long m, int n, int g,
-                                  void* G, void* work, int splits, void* stream) {
+                                  void* G, void* work, int splits, void* images, void* stream) {
   ScaleArgs p;
   p.A = A; p.lda = lda; p.R = R; p.ldr = ldr; p.Q = Q; p.ldq = ldq; p.m = m; p.n = n;
   cudaStream_t s = (cudaStream_t)stream;
-  int rc = scale_pass(dtype, p, s);
+  int rc = scale_pass(dtype, p, (bf16*)images, s);
   if (rc) return rc;
-  return gram_pass(dtype, Q, ldq, m, n, n / g, G, work, splits, s);
+  return gram_pass(dtype, Q, ldq, m, n, n / g, G, work, splits, (bf16*)images, s);
 }

@@ -22,7 +22,7 @@
 //
 // What bounds it on the card: operations.  The flagship's top node per
 // rank is 4096 x 8192 @ 8192 x 4096 in 512-blocks, far above the H100's
-// ~295 flop/byte balance point.  Five routes, chosen by the wrapper
+// ~295 flop/byte balance point.  Seven routes, chosen by the wrapper
 // (ops/hopper.py) before the launch:
 //   * wgmma (bf16 with 16-byte-aligned operands and 64-multiple k-blocks):
 //     sched_wgmma, the TMA + wgmma ring of wgmma_tiles.cuh on 128 x 128
@@ -38,7 +38,16 @@
 //     IEEE-FMA loop of mm_tiles.cuh on 128 x 128 sub-tiles;
 //   * simt (the other f32 and f64, and bf16 blocks that only a 64-row tile
 //     divides: the persistent tile-cyclic layout's t = 192): sched_simt,
-//     register-tiled FMA 64 x 64 tiles, bf16 widened to f32 on the way in.
+//     register-tiled FMA 64 x 64 tiles, bf16 widened to f32 on the way in;
+//   * x3 (f32 at precision 'high' with 16-byte-aligned operands and
+//     64-multiple k-blocks): the split pass of x3_tiles.cuh writes A's and
+//     B's bf16 hi / lo images into the caller's workspace, then sched_x3
+//     runs the ring on them as sched_wgmma does, three bf16 products a
+//     k-tile in 512-deep chains added in IEEE f32 (the reference's bf16x3
+//     split);
+//   * simt3 (the other f32 at 'high', the t = 192 blocks among them):
+//     sched_simt3, sched_simt's tiles with each element split as it is
+//     staged.
 // Runs of unequal length (9–16 k-blocks on the flagship) leave SMs idle at
 // the tail: the fma blocks take the runs longest first
 // (pick_run; two blocks an SM put several runs in a wave), the other routes
@@ -46,6 +55,7 @@
 
 #include "mm_tiles.cuh"
 #include "wgmma_tiles.cuh"
+#include "x3_tiles.cuh"
 
 using namespace nvcuda;
 
@@ -116,6 +126,48 @@ __global__ void __launch_bounds__(256) sched_simt(SP p) {
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       O[(long long)(i0 + ty + 16 * r) * p.N + j0 + tx + 16 * c] = Cast<T>::from(acc[r][c]);
+}
+
+// f32 at 'high': sched_simt's tiles with the split, 512-deep chains
+__global__ void __launch_bounds__(256) sched_simt3(SP p) {
+  constexpr int BM = mmt::S_BM, BN = mmt::S_BN, BK = mmt::S_BK;
+  const int pos = blockIdx.y;
+  if (p.fi[pos] != 1) return;
+  __shared__ x3::Simt3Smem sm;
+  int i0, j0;
+  sub_origin(p, pos, BM, BN, i0, j0);
+  const float* A = (const float*)p.A;
+  const float* B = (const float*)p.B;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float sh[4][4], sx[4][4], total[4][4];
+  mmt::simt_zero<float>(sh);
+  mmt::simt_zero<float>(sx);
+  mmt::simt_zero<float>(total);
+  int slice = 0;
+  for (int q = pos; q < p.L; ++q) {
+    const int kb = p.ko[q] * p.bk;
+    for (int k0 = kb; k0 < kb + p.bk; k0 += BK) {
+      for (int e = tid; e < BM * BK; e += 256) {
+        int ii = e / BK, kk = e % BK;
+        x3::stage(sm.ah, sm.al, kk, ii, A[(long long)(i0 + ii) * p.K + k0 + kk]);
+      }
+      for (int e = tid; e < BK * BN; e += 256) {
+        int kk = e / BN, jj = e % BN;
+        x3::stage(sm.bh, sm.bl, kk, jj, B[(long long)(k0 + kk) * p.N + j0 + jj]);
+      }
+      __syncthreads();
+      x3::simt3_step(sm, tx, ty, sh, sx);
+      __syncthreads();
+      if (++slice % x3::S3_CHAIN == 0) x3::simt3_fold(sh, sx, total);
+    }
+    if (p.la[q] == 1) break;
+  }
+  x3::simt3_fold(sh, sx, total);
+  float* O = (float*)p.O;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) O[(long long)(i0 + ty + 16 * r) * p.N + j0 + tx + 16 * c] = total[r][c];
 }
 
 __global__ void __launch_bounds__(256) sched_wmma(SP p) {
@@ -351,25 +403,76 @@ static int launch_sched_wgmma(const SP& p, dim3 grid, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// f32 at 'high': the ring on A's and B's split images (maps.a K-major,
+// maps.b MN-major), the run's k-tiles walked as sched_wgmma walks them
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    sched_x3(const __grid_constant__ x3::Maps maps, SP p) {
+  const int pos = blockIdx.y;
+  if (p.fi[pos] != 1) return;
+  extern __shared__ uint8_t smem[];
+  int i0, j0;
+  sub_origin(p, pos, wg::BM, wg::BN, i0, j0);
+  const int per = p.bk / wg::BK, nk = run_pairs(p, pos) * per;
+  const wg::Ring r = wg::make_ring(smem);
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) {
+      x3::produce<false, false>(r, maps, i0, j0, nk, [&](int t) {
+        return p.ko[pos + t / per] * p.bk + (t % per) * wg::BK;
+      });
+    }
+  } else {
+    wg::consumer_regs();
+    const int ctid = threadIdx.x - 128;
+    float* sum = x3::sum_of(r, ctid);
+    float dh[64], dx[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dh[i] = dx[i] = 0.0f;
+    x3::consume<false, false>(r, nk, ctid, sum, dh, dx);
+    x3::store_totals((float*)p.O + (long long)i0 * p.N + j0, p.N, sum, ctid);
+  }
+}
+
+// split A (M x K) and B (K x N) into `work`, then the product on the images
+static int launch_sched_x3(const SP& p, dim3 grid, bf16* work, cudaStream_t s) {
+  bf16* bimg = work + x3::image_elems(p.M, p.K);
+  int rc = x3::split(p.A, p.K, p.M, p.K, UPLO_NONE, work, s);
+  if (rc == 0) rc = x3::split(p.B, p.N, p.K, p.N, UPLO_NONE, bimg, s);
+  if (rc) return rc;
+  x3::Maps maps;
+  if (!x3::image_maps(maps.a, work, p.M, p.K, wg::BM) ||
+      !x3::image_maps(maps.b, bimg, p.K, p.N, wg::BN / 2))
+    return -2;
+  static bool sized[wg::MAX_DEVICES] = {};
+  const cudaError_t e = wg::size_smem(sched_x3, sized, x3::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  sched_x3<<<grid, wg::THREADS, x3::SMEM_BYTES, s>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
 // route codes as capital_tri_matmul's: 0 the element-load loop (wmma for
 // bf16 blocks its 128 x 128 x 32 tile divides, else simt — the rule of
-// ops/hopper.py:sched_route), 1 wgmma (bf16), 2 dmma (f64), 3 fma (f32)
-enum Route : int { R_ELEM = 0, R_WGMMA = 1, R_DMMA = 2, R_FMA = 3 };
+// ops/hopper.py:sched_route), 1 wgmma (bf16), 2 dmma (f64), 3 fma (f32),
+// 4 x3 and 5 simt3 (f32 at precision 'high')
+enum Route : int { R_ELEM = 0, R_WGMMA = 1, R_DMMA = 2, R_FMA = 3, R_X3 = 4, R_SIMT3 = 5 };
 
 // Returns the cudaError_t of the launch (0 = launched); -1 for a bad dtype
 // or route, or blocks that the CUDA tiles do not divide; -2 when a tensor
 // map cannot be encoded.  The caller has checked the route's alignment
-// (16-byte operands for wgmma, dmma and fma; k-blocks of 64 for wgmma).
+// (16-byte operands for wgmma, dmma, fma and x3; k-blocks of 64 for wgmma
+// and x3).  `work` is x3's workspace: A's images, then B's
+// (x3::image_elems(M, K) + x3::image_elems(K, N); null on the other routes).
 extern "C" int capital_sched_matmul(int dtype, const void* A, const void* B, void* O,
                                     const int* to, const int* ko, const int* fi, const int* la,
                                     int L, int M, int N, int K, int bm, int bn, int bk,
-                                    int tri_a, int route, void* stream) {
+                                    int tri_a, int route, void* work, void* stream) {
   SP p;
   p.A = A; p.B = B; p.O = O; p.to = to; p.ko = ko; p.fi = fi; p.la = la;
   p.L = L; p.M = M; p.N = N; p.K = K; p.bm = bm; p.bn = bn; p.bk = bk; p.tri_a = tri_a;
   const bool ok = route == R_ELEM || (route == R_WGMMA && dtype == DT_BF16) ||
-                  (route == R_DMMA && dtype == DT_F64) || (route == R_FMA && dtype == DT_F32);
-  if (!ok) return -1;
+                  (route == R_DMMA && dtype == DT_F64) || (route == R_FMA && dtype == DT_F32) ||
+                  ((route == R_X3 || route == R_SIMT3) && dtype == DT_F32);
+  if (!ok || (route == R_X3 && !work)) return -1;
   // the CUDA sub-tile (rows, cols, depth) of each route
   int BMc = mmt::S_BM, BNc = mmt::S_BN, BKc = mmt::S_BK;
   const bool wmma_fits = bm % mmt::W_BM == 0 && bn % mmt::W_BN == 0 && bk % mmt::W_BK == 0;
@@ -377,6 +480,10 @@ extern "C" int capital_sched_matmul(int dtype, const void* A, const void* B, voi
     BMc = mmt::W_BM;
     BNc = mmt::W_BN;
     BKc = route == R_WGMMA ? wg::BK : mmt::W_BK;
+  } else if (route == R_X3) {
+    BMc = wg::BM;
+    BNc = wg::BN;
+    BKc = wg::BK;
   } else if (route == R_DMMA) {
     BMc = mmt::D_BM;
     BNc = mmt::D_BN;
@@ -396,6 +503,11 @@ extern "C" int capital_sched_matmul(int dtype, const void* A, const void* B, voi
   dim3 grid((unsigned)gx, (unsigned)L);
   cudaStream_t s = (cudaStream_t)stream;
   if (route == R_WGMMA) return launch_sched_wgmma(p, grid, s);
+  if (route == R_X3) return launch_sched_x3(p, grid, (bf16*)work, s);
+  if (route == R_SIMT3) {
+    sched_simt3<<<grid, 256, 0, s>>>(p);
+    return (int)cudaGetLastError();
+  }
   if (route == R_DMMA) {
     constexpr int bytes = mmt::dmma_smem_bytes<false, false>();
     static bool sized[wg::MAX_DEVICES] = {};

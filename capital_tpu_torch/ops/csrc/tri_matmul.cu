@@ -17,7 +17,7 @@
 // What bounds it on the card: operations.  cholinv's trmm/syrk windows are
 // thousands wide, far above the H100's ~295 flop/byte balance point.
 //
-// Five routes, chosen by the wrapper (ops/hopper.py) before the launch:
+// Seven routes, chosen by the wrapper (ops/hopper.py) before the launch:
 //   * wgmma (bf16 windows whose A and B origins and leading dimensions are
 //     16-byte aligned, as TMA needs): mm_wgmma, the TMA + wgmma ring of
 //     wgmma_tiles.cuh.  128 x 128 tiles, k-tile 64; k_range still bounds
@@ -38,8 +38,15 @@
 //     loop of mm_tiles.cuh — 128 x 128 tiles, 8 x 8 outputs a thread, the
 //     next k-slice in flight during the FMAs;
 //   * simt (unaligned f32 and f64 windows): mm_simt, register-tiled FMA
-//     64 x 64 tiles with element loads.
-// dmma and fma launch their tiles longest k-range first, as wgmma does.
+//     64 x 64 tiles with element loads;
+//   * x3 (f32 windows with that alignment at precision 'high'): the split
+//     pass of x3_tiles.cuh writes both windows' bf16 hi / lo images into the
+//     caller's workspace, then mm_x3 runs the TMA + wgmma ring on them,
+//     three bf16 products a k-tile (hi·hi, hi·lo + lo·hi) in 512-deep chains
+//     added in IEEE f32 — the reference's bf16x3 split;
+//   * simt3 (other f32 windows at 'high'): mm_simt3, mm_simt's tiles with
+//     each element split as it is staged.
+// dmma, fma and x3 launch their tiles longest k-range first, as wgmma does.
 //
 // The sequential (tile, k) pair axis of the TPU grid becomes the k loop
 // inside one thread block: blocks own disjoint output tiles, so nothing is
@@ -47,6 +54,7 @@
 
 #include "mm_tiles.cuh"
 #include "wgmma_tiles.cuh"
+#include "x3_tiles.cuh"
 
 using namespace nvcuda;
 
@@ -211,6 +219,50 @@ __global__ void __launch_bounds__(256) mm_simt(MM p) {
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) flush(p, O, C, i0 + ty + 16 * r, j0 + tx + 16 * c, acc[r][c]);
+}
+
+// ---- f32 at 'high', any window: mm_simt's tiles with the split (simt3) -----
+template <bool AT, bool BT>
+__global__ void __launch_bounds__(256) mm_simt3(MM p) {
+  constexpr int BM = mmt::S_BM, BN = mmt::S_BN, BK = mmt::S_BK;
+  __shared__ x3::Simt3Smem sm;
+  int ti, tj;
+  bool live;
+  tile_of(p, blockIdx.x, ti, tj, live);
+  const int i0 = ti * BM, j0 = tj * BN;
+  float* O = (float*)p.O;
+  if (!live) {
+    zero_tile(p, O, i0, j0, BM, BN);
+    return;
+  }
+  const float* A = (const float*)p.A;
+  const float* B = (const float*)p.B;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float sh[4][4], sx[4][4], total[4][4];
+  mmt::simt_zero<float>(sh);
+  mmt::simt_zero<float>(sx);
+  mmt::simt_zero<float>(total);
+  int kb, ke;
+  k_range(p, AT, BT, i0, j0, BM, BN, BK, kb, ke);
+  for (int k0 = kb, slice = 1; k0 < ke; k0 += BK, ++slice) {
+    for (int e = tid; e < BM * BK; e += 256) {
+      int ii = AT ? e % BM : e / BK, kk = AT ? e / BM : e % BK;
+      x3::stage(sm.ah, sm.al, kk, ii, load_a<float, AT>(p, A, i0 + ii, k0 + kk));
+    }
+    for (int e = tid; e < BK * BN; e += 256) {
+      int jj = BT ? e / BK : e % BN, kk = BT ? e % BK : e / BN;
+      x3::stage(sm.bh, sm.bl, kk, jj, load_b<float, BT>(p, B, k0 + kk, j0 + jj));
+    }
+    __syncthreads();
+    x3::simt3_step(sm, tx, ty, sh, sx);
+    __syncthreads();
+    if (slice % x3::S3_CHAIN == 0 || k0 + BK >= ke) x3::simt3_fold(sh, sx, total);
+  }
+  const float* C = (const float*)p.C;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) flush(p, O, C, i0 + ty + 16 * r, j0 + tx + 16 * c, total[r][c]);
 }
 
 // ---- bf16: WMMA on the tensor cores, f32 accumulate ------------------------
@@ -422,6 +474,68 @@ static int launch_wgmma(const MM& p, TileOpts o, dim3 grid, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ---- f32 at 'high', the x3 route: the ring on the split images --------------
+
+template <bool AT, bool BT>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    mm_x3(const __grid_constant__ x3::Maps maps, MM p, TileOpts o) {
+  constexpr int BM = wg::BM, BN = wg::BN, BK = wg::BK;
+  extern __shared__ uint8_t smem[];
+  int ti, tj;
+  bool live;
+  tile_of(p, ordered_bid(p, o.order, blockIdx.x), ti, tj, live);
+  const int i0 = ti * BM, j0 = tj * BN;
+  float* O = (float*)p.O;
+  if (!live) {
+    zero_tile(p, O, i0, j0, BM, BN);
+    return;
+  }
+  int kb, ke;
+  k_range(p, AT, BT, i0, j0, BM, BN, BK, kb, ke);
+  const int nk = ke > kb ? (ke - kb + BK - 1) / BK : 0;
+  const wg::Ring r = wg::make_ring(smem);
+  if (threadIdx.x < 128) {
+    wg::producer_regs();
+    if (threadIdx.x == 0) x3::produce<AT, BT>(r, maps, i0, j0, nk, [&](int t) { return kb + t * BK; });
+  } else {
+    wg::consumer_regs();
+    const int ctid = threadIdx.x - 128;
+    float* sum = x3::sum_of(r, ctid);
+    float dh[64], dx[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dh[i] = dx[i] = 0.0f;
+    x3::consume<AT, BT>(r, nk, ctid, sum, dh, dx);
+    const float* C = (const float*)p.C;
+#pragma unroll 4
+    for (int i = 0; i < 64; ++i) {
+      int row, col;
+      x3::total_rc(ctid, i, row, col);
+      flush(p, O, C, i0 + row, j0 + col, sum[i * 256]);
+    }
+  }
+}
+
+// split both windows as stored (AT: A is K x M; BT: B is N x K) into
+// `work`, A's images then B's (x3::split's layout), then the product on them
+template <bool AT, bool BT>
+static int launch_x3(const MM& p, TileOpts o, dim3 grid, bf16* work, cudaStream_t s) {
+  const long long ar = AT ? p.K : p.M, ac = AT ? p.M : p.K;
+  const long long br = BT ? p.N : p.K, bc = BT ? p.K : p.N;
+  bf16* bimg = work + x3::image_elems(ar, ac);
+  int rc = x3::split(p.A, p.lda, ar, ac, p.a_tri, work, s);
+  if (rc == 0) rc = x3::split(p.B, p.ldb, br, bc, p.b_tri, bimg, s);
+  if (rc) return rc;
+  x3::Maps maps;
+  if (!x3::image_maps(maps.a, work, ar, ac, AT ? wg::BM / 2 : wg::BM) ||
+      !x3::image_maps(maps.b, bimg, br, bc, BT ? wg::BN : wg::BN / 2))
+    return -2;
+  static bool sized[wg::MAX_DEVICES] = {};  // per instantiation
+  const cudaError_t e = wg::size_smem(mm_x3<AT, BT>, sized, x3::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  mm_x3<AT, BT><<<grid, wg::THREADS, x3::SMEM_BYTES, s>>>(maps, p, o);
+  return (int)cudaGetLastError();
+}
+
 // ---- f64, the dmma route; f32, the fma route (mm_tiles.cuh) -----------------
 
 // the A and B windows as stored (AT: A is K x M; BT: B is N x K)
@@ -532,29 +646,33 @@ static long long count_blocks(const MM& p) {
   } while (0)
 
 // route codes (ops/hopper.py:_ROUTE_CODE): 0 the element-load loop (wmma for
-// bf16, simt for f32 / f64), 1 wgmma (bf16), 2 dmma (f64), 3 fma (f32)
-enum Route : int { R_ELEM = 0, R_WGMMA = 1, R_DMMA = 2, R_FMA = 3 };
+// bf16, simt for f32 / f64), 1 wgmma (bf16), 2 dmma (f64), 3 fma (f32),
+// 4 x3 and 5 simt3 (f32 at precision 'high')
+enum Route : int { R_ELEM = 0, R_WGMMA = 1, R_DMMA = 2, R_FMA = 3, R_X3 = 4, R_SIMT3 = 5 };
 
 // Returns the cudaError_t of the launch (0 = launched); -1 for a bad dtype
 // or route, -2 when a tensor map cannot be encoded.  The caller has checked
 // the route's alignment (16-byte origins and leading dimensions of A and B
-// for wgmma, dmma and fma); those three launch their tiles longest k-range
-// first.
+// for wgmma, dmma, fma and x3); those four launch their tiles longest
+// k-range first.  `work` is x3's workspace: the images of the A window, then
+// of the B window, as stored (x3::image_elems of each; null on the other
+// routes).
 extern "C" int capital_tri_matmul(int dtype, const void* A, long long lda, const void* B,
                                   long long ldb, void* O, long long ldo, const void* C,
                                   long long ldc, double alpha, double beta, int M, int N,
                                   int K, int a_trans, int b_trans, int a_tri, int b_tri,
                                   int out_uplo, int fused_c, int all_tiles, int route,
-                                  void* stream) {
+                                  void* work, void* stream) {
   const bool ok = route == R_ELEM || (route == R_WGMMA && dtype == DT_BF16) ||
-                  (route == R_DMMA && dtype == DT_F64) || (route == R_FMA && dtype == DT_F32);
-  if (!ok || dtype < DT_BF16 || dtype > DT_F64) return -1;
+                  (route == R_DMMA && dtype == DT_F64) || (route == R_FMA && dtype == DT_F32) ||
+                  ((route == R_X3 || route == R_SIMT3) && dtype == DT_F32);
+  if (!ok || dtype < DT_BF16 || dtype > DT_F64 || (route == R_X3 && !work)) return -1;
   MM p;
   p.A = A; p.lda = lda; p.B = B; p.ldb = ldb; p.O = O; p.ldo = ldo; p.C = C; p.ldc = ldc;
   p.alpha = alpha; p.beta = beta; p.M = M; p.N = N; p.K = K;
   p.a_tri = a_tri; p.b_tri = b_tri; p.out_uplo = out_uplo; p.fused_c = fused_c;
   p.all_tiles = all_tiles;
-  p.bm = p.bn = dtype == DT_BF16 || route == R_FMA ? 128 : 64;
+  p.bm = p.bn = dtype == DT_BF16 || route == R_FMA || route == R_X3 ? 128 : 64;
   if (route == R_DMMA) {
     p.bm = mmt::D_BM;
     p.bn = mmt::D_BN;
@@ -566,6 +684,10 @@ extern "C" int capital_tri_matmul(int dtype, const void* A, long long lda, const
   dim3 grid((unsigned)blocks);
   cudaStream_t s = (cudaStream_t)stream;
   bool at = a_trans != 0, bt = b_trans != 0;
+  if (route == R_SIMT3) {
+    CAPITAL_MM_DISPATCH(mm_simt3, );
+    return (int)cudaGetLastError();
+  }
   if (route != R_ELEM) {
     // op(A) upper: short tiles at the bottom; lower: at the top.  op(B)
     // upper: short tiles at the left; lower: at the right.
@@ -580,6 +702,13 @@ extern "C" int capital_tri_matmul(int dtype, const void* A, long long lda, const
       if (at) return launch_wgmma<true, false>(p, o, grid, s);
       if (bt) return launch_wgmma<false, true>(p, o, grid, s);
       return launch_wgmma<false, false>(p, o, grid, s);
+    }
+    if (route == R_X3) {
+      bf16* w = (bf16*)work;
+      if (at && bt) return launch_x3<true, true>(p, o, grid, w, s);
+      if (at) return launch_x3<true, false>(p, o, grid, w, s);
+      if (bt) return launch_x3<false, true>(p, o, grid, w, s);
+      return launch_x3<false, false>(p, o, grid, w, s);
     }
     if (route == R_DMMA) {
       if (at && bt) return launch_dmma<true, true>(p, o, grid, s);

@@ -265,10 +265,31 @@ __device__ __forceinline__ void consumer_regs() {
 
 // ---- producer warpgroup: thread 0 loads, warps 1-3 mask ---------------------
 
+// One k-tile at k0 of the output tile at (i0, j0) into stage s, on the
+// barrier fb: A's 128 rows and B's 128 columns.  A K-major operand is one
+// box of 128 rows, an MN-major one two boxes of 64 (AT: A is stored K x M;
+// BT: B is stored N x K).
+template <bool AT, bool BT>
+__device__ __forceinline__ void load_stage(const Ring& r, int s, uint32_t fb, const CUtensorMap* ta,
+                                           const CUtensorMap* tb, int i0, int j0, int k0) {
+  const uint32_t sa = saddr(r.a(s)), sb = saddr(r.b(s));
+  bar_expect_tx(fb, STAGE_BYTES);
+  if (AT) {
+    tma_load(sa, ta, fb, i0, k0);
+    tma_load(sa + A_BYTES / 2, ta, fb, i0 + BM / 2, k0);
+  } else {
+    tma_load(sa, ta, fb, k0, i0);
+  }
+  if (BT) {
+    tma_load(sb, tb, fb, k0, j0);
+  } else {
+    tma_load(sb, tb, fb, j0, k0);
+    tma_load(sb + B_BYTES / 2, tb, fb, j0 + BN / 2, k0);
+  }
+}
+
 // Load the nk k-tiles of the output tile at (i0, j0); k_of(t) is the first k
 // of k-tile t, and a k-tile that need(t) lands on `landed` for the maskers.
-// A K-major operand is one box of 128 rows, an MN-major one two boxes of 64
-// (AT: A is stored K x M; BT: B is stored N x K).
 template <bool AT, bool BT, class KOf, class Need>
 __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* ta,
                                         const CUtensorMap* tb, int i0, int j0, int nk, KOf k_of,
@@ -276,21 +297,7 @@ __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* ta,
   for (int t = 0; t < nk; ++t) {
     const int s = t % STAGES;
     bar_wait(r.empty(s), ((t / STAGES) & 1) ^ 1);  // round 0 passes at once
-    const uint32_t fb = need(t) ? r.landed(s) : r.full(s), sa = saddr(r.a(s)), sb = saddr(r.b(s));
-    const int k0 = k_of(t);
-    bar_expect_tx(fb, STAGE_BYTES);
-    if (AT) {
-      tma_load(sa, ta, fb, i0, k0);
-      tma_load(sa + A_BYTES / 2, ta, fb, i0 + BM / 2, k0);
-    } else {
-      tma_load(sa, ta, fb, k0, i0);
-    }
-    if (BT) {
-      tma_load(sb, tb, fb, k0, j0);
-    } else {
-      tma_load(sb, tb, fb, j0, k0);
-      tma_load(sb + B_BYTES / 2, tb, fb, j0 + BN / 2, k0);
-    }
+    load_stage<AT, BT>(r, s, need(t) ? r.landed(s) : r.full(s), ta, tb, i0, j0, k_of(t));
   }
 }
 
@@ -341,19 +348,27 @@ __device__ __forceinline__ void mask_loop(const Ring& r, int nk, int mtid, Need 
 
 // ---- consumers (two warpgroups, ctid 0..255) --------------------------------
 
-// d += this warpgroup's 64 rows of A (stage s) · B (stage s), k = 64; with
-// accumulate false the first product overwrites d instead (a new tile's
-// first k-tile, without zeroing the accumulator registers in the loop)
+// d += this warpgroup's 64 rows of A (stage sa) · B (stage sb), k = 64;
+// with accumulate false the first product overwrites d instead (a new
+// chain's first k-tile, without zeroing the accumulator registers in the
+// loop)
 template <bool AT, bool BT>
-__device__ __forceinline__ void mma_stage(const Ring& r, int s, int wgi, float (&d)[64],
-                                          bool accumulate = true) {
-  const uint32_t sa = saddr(r.a(s)) + wgi * (A_BYTES / 2), sb = saddr(r.b(s));
+__device__ __forceinline__ void mma_stages(const Ring& r, int sa_stage, int sb_stage, int wgi,
+                                           float (&d)[64], bool accumulate = true) {
+  const uint32_t sa = saddr(r.a(sa_stage)) + wgi * (A_BYTES / 2), sb = saddr(r.b(sb_stage));
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint64_t da = AT ? desc(sa + kk * 2048, MN_LBO, MN_SBO) : desc(sa + kk * 32, 16, 1024);
     const uint64_t db = BT ? desc(sb + kk * 32, 16, 1024) : desc(sb + kk * 2048, MN_LBO, MN_SBO);
     mma_m64n128k16<AT ? 1 : 0, BT ? 0 : 1>(d, da, db, (kk > 0 || accumulate) ? 1 : 0);
   }
+}
+
+// the product of one stage's A and B
+template <bool AT, bool BT>
+__device__ __forceinline__ void mma_stage(const Ring& r, int s, int wgi, float (&d)[64],
+                                          bool accumulate = true) {
+  mma_stages<AT, BT>(r, s, s, wgi, d, accumulate);
 }
 
 // The consumers' main loop over nk k-tiles: each k-tile's products are

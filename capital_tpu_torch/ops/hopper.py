@@ -26,10 +26,15 @@ Each kernel sits here as three things side by side:
   FP64 tensor cores), 'fma' for f32 (pipelined IEEE FMA); the others take
   the element-load loop, 'wmma' for bf16 and 'simt' for f32 / f64, and
   sched blocks that only a 64-row tile divides (the persistent layout's
-  t = 192) take 'simt' in every dtype (`sched_route`).  No wrapper takes a
-  route from its caller.  The
-  CholeskyQR2 kernels tally 'wgmma' for bf16 (their operands are always
-  TMA-aligned) and 'simt' otherwise; `fused_tail` tallies 'block' (one
+  t = 192) take 'simt' in every dtype (`sched_route`).  f32 products at
+  precision 'high' compute the JAX package's bf16x3 split (`split_high`)
+  on two routes of their own: 'x3' (aligned windows: a split pass writes
+  the operands' bf16 hi / lo images, the wgmma ring multiplies them) and
+  'simt3' (the element-load loop splitting as it stages, any window).  No
+  wrapper takes a route from its caller.  The
+  CholeskyQR2 kernels tally their dtype's fast route ('wgmma' bf16, 'fma'
+  f32, 'dmma' f64, 'x3' f32 at 'high'; their operands are always
+  TMA-aligned); `fused_tail` tallies 'block' (one
   block holds the window) or 'cluster' (a thread-block cluster does);
   `write_diag_blocks` 'vec' (16-byte vectors, `write_diag_route`) or
   'elem'.  The route is chosen before the launch and never changes after a
@@ -242,23 +247,46 @@ def _tma_ok(X: torch.Tensor, view) -> bool:
 #: `_pick_route` checking the route they name
 _ROUTES = {torch.bfloat16: ("wgmma", "wmma"), torch.float32: ("fma", "simt"),
            torch.float64: ("dmma", "simt")}
+#: f32's routes at precision 'high' (`split_high`): the bf16x3 split on the
+#: wgmma ring over the operands' bf16 images for 16-byte-aligned windows,
+#: and the element-load loop that splits as it stages for any other
+_SPLIT_ROUTES = ("x3", "simt3")
 #: the C entry points' route codes (csrc/tri_matmul.cu, sched_matmul.cu)
-_ROUTE_CODE = {"wmma": 0, "simt": 0, "wgmma": 1, "dmma": 2, "fma": 3}
+_ROUTE_CODE = {"wmma": 0, "simt": 0, "wgmma": 1, "dmma": 2, "fma": 3, "x3": 4, "simt3": 5}
 _DT_NAME = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64"}
 
 
-def _pick_route(dtype, aligned: bool, route: str | None, what: str) -> str:
+def split_high(a_dtype, b_dtype, precision) -> bool:
+    """Does a product of these operand dtypes at `precision` take the bf16x3
+    split?  The JAX package's rule (pallas_tpu.precision_dot): f32 x f32
+    into an f32 accumulator at 'high'.  Every other 'high' runs as 'highest'
+    (f64 stays f64, bf16 one pass), and 'highest', 'default' and None leave
+    f32 on its IEEE routes."""
+    return precision == "high" and a_dtype == torch.float32 and b_dtype == torch.float32
+
+
+def _routes(dtype, precision) -> tuple[str, str]:
+    """(fast route, element-load route) of a product of two `dtype`
+    operands at `precision`."""
+    return _SPLIT_ROUTES if split_high(dtype, dtype, precision) else _ROUTES[dtype]
+
+
+def _pick_route(dtype, aligned: bool, route: str | None, what: str, precision=None) -> str:
     """The route a tri_matmul launch takes: the dtype's fast route ('wgmma'
-    bf16, 'dmma' f64, 'fma' f32) when `aligned` says its loop takes the
-    operands, else its element-load loop ('wmma' bf16, 'simt' f32 / f64).
-    A named `route` (a direct C-entry launch) must be the dtype's and
+    bf16, 'dmma' f64, 'fma' f32, 'x3' f32 at precision 'high') when
+    `aligned` says its loop takes the operands, else its element-load loop
+    ('wmma' bf16, 'simt' f32 / f64, 'simt3' f32 at 'high').  A named `route`
+    (a direct C-entry launch) must be the dtype's at that precision and
     possible."""
     if route is not None and route not in _ROUTE_CODE:
         raise ValueError(f"{what}: unknown route {route!r}")
-    fast, elem = _ROUTES[dtype]
+    fast, elem = _routes(dtype, precision)
     if route is None:
         return fast if aligned else elem
     if route not in (fast, elem):
+        if route in _SPLIT_ROUTES or route in _ROUTES.get(dtype, ()):
+            raise ValueError(f"{what}: {dtype} at precision {precision!r} takes {fast} / {elem}, "
+                             f"not the {route} route (x3 and simt3 are f32's at 'high')")
         owners = " and ".join(_DT_NAME[d] for d, rs in _ROUTES.items() if route in rs)
         raise ValueError(f"{what}: only {owners} has the {route} route, got {dtype}")
     if route == fast and not aligned:
@@ -340,6 +368,43 @@ def _acc_dtype(*dtypes) -> torch.dtype:
     return torch.float64 if dt == torch.float64 else torch.float32
 
 
+def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16x3 split of f32 x (the JAX package's pallas_tpu._split_bf16):
+    hi = RN_bf16(x) and lo = RN_bf16(x − hi), both widened back to f32,
+    where they are exact."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor, split: bool) -> torch.Tensor:
+    """The plain versions' product: a @ b, or where `split` (`split_high` of
+    the operands as the caller received them) the bf16x3 split, hi·hi +
+    (hi·lo + lo·hi) in f32 products of the images, summed as the reference
+    sums them.  Each product of two bf16 values is exact in f32, so only
+    the sums round (and TF32 would leave the images' products as they
+    are)."""
+    if not split:
+        return a @ b
+    ah, al = split_bf16(a)
+    bh, bl = split_bf16(b)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _image_elems(rows: int, cols: int) -> int:
+    """bf16 elements of one f32 operand's x3 images: the hi and lo planes of
+    rows x cols, each row rounded up to 16 bytes (csrc/x3_tiles.cuh
+    image_elems)."""
+    return 2 * rows * (-(-cols // 8) * 8)
+
+
+def _x3_work(device, *windows) -> torch.Tensor:
+    """The x3 route's workspace for the images of the given (rows, cols)
+    operand windows, one after the other (never empty: a tensor map needs
+    an address)."""
+    n = sum(_image_elems(r, c) for r, c in windows)
+    return torch.empty(max(n, 8), dtype=torch.bfloat16, device=device)
+
+
 def tri_matmul_plain(
     A, B, *, a_uplo=None, a_trans=False, b_uplo=None, b_trans=False,
     out_uplo=None, alpha=1.0, precision=None, a_view=None, b_view=None,
@@ -350,7 +415,6 @@ def tri_matmul_plain(
     contract, and NaN makes a reader of it visible."""
     s = _mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view,
                  b_view, out, out_off, c, c_view, beta)
-    del precision  # f32 is always full IEEE f32 here
     Aw, Bw = _window(A, s.av), _window(B, s.bv)
     if a_uplo is not None:
         Aw = take_triangle(Aw, a_uplo)
@@ -359,7 +423,7 @@ def tri_matmul_plain(
     acc = _acc_dtype(A.dtype, B.dtype)
     opA = (Aw.T if a_trans else Aw).to(acc)
     opB = (Bw.T if b_trans else Bw).to(acc)
-    res = opA @ opB
+    res = split_matmul(opA, opB, split_high(A.dtype, B.dtype, precision))
     if alpha != 1.0:
         res = alpha * res
     if out_uplo is not None:
@@ -403,22 +467,26 @@ def tri_matmul(
         `out`.  `out` may be A's or B's buffer when the windows are disjoint;
         with out_uplo the one in-place form is the syrk read-modify-write
         (out IS c, out_off == the c_view origin).
-    precision — accepted for the JAX signature; f32 always runs as IEEE f32
-        (the reference's 'highest'; 'high' is never less precise this way).
+    precision — f32 at 'high' computes the JAX package's bf16x3 split,
+        hi·hi + (hi·lo + lo·hi) of the operands' bf16 hi / lo parts
+        (`split_high`); every other dtype or precision is full precision (f32
+        IEEE, the reference's 'highest'; bf16 one pass; f64 f64).
 
     The kernel takes A, B, C and out of one dtype (bf16, f32 or f64) and
     accumulates in f32 (f64 for f64).  Windows whose A and B origins and
     row strides are 16-byte aligned take the dtype's fast route (bf16
-    'wgmma', f64 'dmma', f32 'fma'), the others its element-load loop (bf16
-    'wmma', f32 / f64 'simt').  The fast routes launch their tiles longest
-    k-range first."""
+    'wgmma', f64 'dmma', f32 'fma', f32 at 'high' 'x3': the split pass
+    writes both windows' bf16 images into a workspace from the caching
+    allocator, then the wgmma ring multiplies them), the others its
+    element-load loop (bf16 'wmma', f32 / f64 'simt', f32 at 'high'
+    'simt3').  The fast routes launch their tiles longest k-range first."""
     s = _mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view,
                  b_view, out, out_off, c, c_view, beta)
     cc = c if s.fused_c else None
     if not _on_card(A, B, out, cc):
         return tri_matmul_plain(
             A, B, a_uplo=a_uplo, a_trans=a_trans, b_uplo=b_uplo, b_trans=b_trans,
-            out_uplo=out_uplo, alpha=alpha, a_view=a_view, b_view=b_view,
+            out_uplo=out_uplo, alpha=alpha, precision=precision, a_view=a_view, b_view=b_view,
             out=out, out_off=out_off, c=c, c_view=c_view, beta=beta,
         )
     for X, what in ((A, "A"), (B, "B"), (out, "out"), (cc, "C")):
@@ -440,7 +508,9 @@ def tri_matmul(
     else:
         c_ptr, ldc = None, 0
     all_tiles = out_uplo is not None and not s.fused_c
-    route = _pick_route(A.dtype, _tma_ok(A, s.av) and _tma_ok(B, s.bv), None, "tri_matmul")
+    route = _pick_route(A.dtype, _tma_ok(A, s.av) and _tma_ok(B, s.bv), None, "tri_matmul",
+                        precision)
+    work = _x3_work(A.device, s.av[2:], s.bv[2:]) if route == "x3" else None
     rc = _build.entry("capital_tri_matmul")(
         _DTYPE_CODE[A.dtype],
         _ptr(A, s.av[0], s.av[1]), A.stride(0),
@@ -450,7 +520,7 @@ def tri_matmul(
         int(bool(a_trans)), int(bool(b_trans)),
         _UPLO[a_uplo], _UPLO[b_uplo], _UPLO[out_uplo],
         int(s.fused_c), int(all_tiles), _ROUTE_CODE[route],
-        _stream(),
+        work.data_ptr() if work is not None else None, _stream(),
     )
     _launched(rc, KERNELS["tri_matmul." + s.form], route)
     return res
@@ -899,7 +969,8 @@ def fused_tail(buf, Rp, RIp, *, off: int, n: int, dest: int, block: int = 0,
 #: must be multiples of it
 _WGMMA_BK = 64
 _SCHED_TILE = {"wgmma": (128, 128, _WGMMA_BK), "wmma": (128, 128, 32), "dmma": (128, 128, 32),
-               "fma": (128, 128, 8), "simt": (64, 64, 16)}
+               "fma": (128, 128, 8), "simt": (64, 64, 16), "x3": (128, 128, _WGMMA_BK),
+               "simt3": (64, 64, 16)}
 #: most schedule entries one launch takes (the grid's second dimension)
 SCHED_MAX_PAIRS = 65535
 
@@ -909,17 +980,18 @@ def _sched_fits(route: str, blocks) -> bool:
     return all(b % t == 0 for b, t in zip(blocks, _SCHED_TILE[route]))
 
 
-def sched_route(dtype, aligned: bool, blocks) -> str | None:
-    """The route a sched_matmul launch takes, by shape alone: the dtype's
-    fast route when the operands are 16-byte aligned and its tile divides
-    the blocks; else the element-load loop whose tile divides them — bf16's
-    128-row 'wmma', then the 64-row 'simt' loop of every dtype (blocks of
-    t = 192, the persistent layout's at base_case_dim 384 on a d = 2
-    face).  None when no tile divides the blocks."""
-    fast, elem = _ROUTES[dtype]
+def sched_route(dtype, aligned: bool, blocks, precision=None) -> str | None:
+    """The route a sched_matmul launch takes, by shape and precision alone:
+    the dtype's fast route when the operands are 16-byte aligned and its
+    tile divides the blocks; else the element-load loop whose tile divides
+    them — bf16's 128-row 'wmma', then the 64-row 'simt' loop of every
+    dtype (blocks of t = 192, the persistent layout's at base_case_dim 384
+    on a d = 2 face).  f32 at precision 'high' takes 'x3', else its 64-row
+    'simt3'.  None when no tile divides the blocks."""
+    fast, elem = _routes(dtype, precision)
     if aligned and _sched_fits(fast, blocks):
         return fast
-    for route in (elem, "simt"):
+    for route in (elem, "simt3" if elem == "simt3" else "simt"):
         if _sched_fits(route, blocks):
             return route
     return None
@@ -952,7 +1024,7 @@ def sched_matmul_plain(A, B, to, ko, first, last, *, tri_side="a", blocks, preci
     written out, with the outer (dense-side) axis done in one product per
     pair.  Tiles that no pair lists are NaN (undefined by contract)."""
     M, N, _ = _sched_spec(A, B, to, ko, first, last, tri_side, blocks)
-    del precision  # f32 is always full IEEE f32 here
+    split = split_high(A.dtype, B.dtype, precision)
     bm, bn, bk = blocks
     acc_dt = _acc_dtype(A.dtype, B.dtype)
     out = torch.full((M, N), float("nan"), dtype=torch.promote_types(A.dtype, B.dtype),
@@ -961,9 +1033,10 @@ def sched_matmul_plain(A, B, to, ko, first, last, *, tri_side="a", blocks, preci
     for t, k, fi, la in zip(to.tolist(), ko.tolist(), first.tolist(), last.tolist()):
         ks = slice(k * bk, (k + 1) * bk)
         if tri_side == "a":
-            prod = A[t * bm:(t + 1) * bm, ks].to(acc_dt) @ B[ks].to(acc_dt)
+            a_op, b_op = A[t * bm:(t + 1) * bm, ks], B[ks]
         else:
-            prod = A[:, ks].to(acc_dt) @ B[ks, t * bn:(t + 1) * bn].to(acc_dt)
+            a_op, b_op = A[:, ks], B[ks, t * bn:(t + 1) * bn]
+        prod = split_matmul(a_op.to(acc_dt), b_op.to(acc_dt), split)
         acc = prod if fi == 1 or acc is None else acc + prod
         if la == 1:
             if tri_side == "a":
@@ -990,10 +1063,13 @@ def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=N
     operands whose blocks the fast route's tile divides take that route
     (bf16 'wgmma', f64 'dmma', f32 'fma'), the others the element-load loop
     ('wmma' bf16, 'simt' f32 / f64), and blocks only a 64-row tile divides
-    'simt' in bf16 too."""
+    'simt' in bf16 too.  f32 at precision 'high' computes the bf16x3 split
+    (`split_high`) on 'x3' (the operands' bf16 images, split into a
+    workspace from the caching allocator, on the wgmma ring) or 'simt3'."""
     M, N, K = _sched_spec(A, B, to, ko, first, last, tri_side, blocks)
     if not _on_card(A, B, to, ko, first, last):
-        return sched_matmul_plain(A, B, to, ko, first, last, tri_side=tri_side, blocks=blocks)
+        return sched_matmul_plain(A, B, to, ko, first, last, tri_side=tri_side, blocks=blocks,
+                                  precision=precision)
     for X, what in ((A, "A"), (B, "B")):
         _kernel_operand(X, what)
         if not X.is_contiguous():
@@ -1002,17 +1078,19 @@ def sched_matmul(A, B, to, ko, first, last, *, tri_side="a", blocks, precision=N
         raise TypeError(f"sched_matmul kernel: B is {B.dtype}, A is {A.dtype}")
     if to.numel() > SCHED_MAX_PAIRS:
         raise ValueError(f"sched_matmul kernel: {to.numel()} pairs, at most {SCHED_MAX_PAIRS}")
-    route = sched_route(A.dtype, _tma_ok(A, (0, 0)) and _tma_ok(B, (0, 0)), blocks)
+    route = sched_route(A.dtype, _tma_ok(A, (0, 0)) and _tma_ok(B, (0, 0)), blocks, precision)
     if route is None:
         raise ValueError(
             f"sched_matmul kernel: blocks {tuple(blocks)} must be multiples of a route's "
             f"tile, at least {_SCHED_TILE['simt']}"
         )
     res = torch.empty((M, N), dtype=A.dtype, device=A.device)
+    work = _x3_work(A.device, (M, K), (K, N)) if route == "x3" else None
     rc = _build.entry("capital_sched_matmul")(
         _DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(), res.data_ptr(),
         to.data_ptr(), ko.data_ptr(), first.data_ptr(), last.data_ptr(),
-        to.numel(), M, N, K, *blocks, int(tri_side == "a"), _ROUTE_CODE[route], _stream(),
+        to.numel(), M, N, K, *blocks, int(tri_side == "a"), _ROUTE_CODE[route],
+        work.data_ptr() if work is not None else None, _stream(),
     )
     _launched(rc, KERNELS["sched_matmul"], route)
     return res

@@ -20,10 +20,14 @@ tensors — no other route.  The counters are `hopper.KERNELS["qr.*"]`, with
 each launch tallied by route, as `hopper._ROUTES` names each dtype's fast
 route: 'wgmma' for bf16 (the TMA + wgmma ring of ops/csrc/wgmma_tiles.cuh),
 'dmma' for f64 and 'fma' for f32 (the DMMA and FMA loops of
-ops/csrc/mm_tiles.cuh).  The plain versions follow the JAX kernels' block
-structure: row blocks of `bm` accumulated in turn into the gram, g column
-blocks, the zero block triangle.  The gram accumulates in f32 (f64 for
-f64).
+ops/csrc/mm_tiles.cuh); f32 at precision 'high' takes 'x3', the JAX
+package's bf16x3 split (`hopper.split_high`): the wrapper allocates a
+workspace for the operands' bf16 hi / lo images, the kernel splits them
+into it and runs the wgmma ring on them (ops/csrc/x3_tiles.cuh).  The plain
+versions follow the JAX kernels' block structure: row blocks of `bm`
+accumulated in turn into the gram, g column blocks, the zero block
+triangle, each product at the call's precision (`hopper.split_matmul`).
+The gram accumulates in f32 (f64 for f64).
 """
 
 from __future__ import annotations
@@ -144,27 +148,30 @@ def fused_ok(grid, m: int, n: int, mode: str, bm: int = 1024, g: int = 2,
 # --------------------------------------------------------------------------
 
 
-def _gram_into(G: torch.Tensor, X: torch.Tensor, bm: int, g: int) -> torch.Tensor:
+def _gram_into(G: torch.Tensor, X: torch.Tensor, bm: int, g: int, precision) -> torch.Tensor:
     n = X.shape[1]
     c = n // g
+    split = hopper.split_high(X.dtype, X.dtype, precision)
     for r0 in range(0, X.shape[0], bm):
         Xb = X[r0:r0 + bm].to(G.dtype)
         for j in range(g):
-            G[j * c:(j + 1) * c, j * c:] += Xb[:, j * c:(j + 1) * c].T @ Xb[:, j * c:]
+            G[j * c:(j + 1) * c, j * c:] += hopper.split_matmul(
+                Xb[:, j * c:(j + 1) * c].T, Xb[:, j * c:], split)
     return G
 
 
-def _scale(A: torch.Tensor, Rinv: torch.Tensor, g: int) -> torch.Tensor:
+def _scale(A: torch.Tensor, Rinv: torch.Tensor, g: int, precision) -> torch.Tensor:
     m, n = A.shape
     c = n // g
     acc = _acc_dtype(A.dtype)
+    split = hopper.split_high(A.dtype, Rinv.dtype, precision)
     R = Rinv.to(acc)
     Q = torch.empty_like(A)
     for r0 in range(0, m, _PLAIN_SCALE_ROWS):
         Ab = A[r0:r0 + _PLAIN_SCALE_ROWS].to(acc)
         for j in range(g):
-            Q[r0:r0 + Ab.shape[0], j * c:(j + 1) * c] = (
-                Ab[:, :(j + 1) * c] @ R[:(j + 1) * c, j * c:(j + 1) * c]
+            Q[r0:r0 + Ab.shape[0], j * c:(j + 1) * c] = hopper.split_matmul(
+                Ab[:, :(j + 1) * c], R[:(j + 1) * c, j * c:(j + 1) * c], split,
             ).to(A.dtype)
     return Q
 
@@ -177,32 +184,29 @@ def _check_rinv(A: torch.Tensor, Rinv: torch.Tensor) -> None:
 
 def gram_blocked_plain(A, *, bm: int = 1024, g: int = 2, precision=None):
     """Plain PyTorch version of `gram_blocked`."""
-    del precision  # f32 is always IEEE f32 here
     m, n = A.shape
     bm = _shape_gate("gram_blocked", m, n, bm, g)
     G = torch.zeros((n, n), dtype=_acc_dtype(A.dtype), device=A.device)
-    return _gram_into(G, A, bm, g)
+    return _gram_into(G, A, bm, g, precision)
 
 
 def scale_blocked_plain(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
     """Plain PyTorch version of `scale_blocked`."""
-    del precision
     m, n = A.shape
     _check_rinv(A, Rinv)
     _shape_gate("scale_blocked", m, n, bm, g)
-    return _scale(A, Rinv, g)
+    return _scale(A, Rinv, g, precision)
 
 
 def scale_gram_plain(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
     """Plain PyTorch version of `scale_gram`: the scale, then the gram of
     the rounded Q."""
-    del precision
     m, n = A.shape
     _check_rinv(A, Rinv)
     bm = _shape_gate("scale_gram", m, n, bm, g)
-    Q = _scale(A, Rinv, g)
+    Q = _scale(A, Rinv, g, precision)
     G = torch.zeros((n, n), dtype=_acc_dtype(A.dtype), device=A.device)
-    return Q, _gram_into(G, Q, bm, g)
+    return Q, _gram_into(G, Q, bm, g, precision)
 
 
 # --------------------------------------------------------------------------
@@ -229,22 +233,35 @@ def gram_split_rows(m: int, splits: int) -> list[tuple[int, int]]:
             for q in range(splits)]
 
 
-def gram_splits(m: int, n: int, g: int, dtype: torch.dtype) -> int:
+def gram_splits(m: int, n: int, g: int, dtype: torch.dtype, precision=None) -> int:
     """Row splits of the gram kernel: the fewest splits, at most 32 and at
     most one per 64-row k-tile, whose blocks need the fewest waves of the
-    card's block slots (132 SMs x `_BLOCKS_PER_SM`) per split.  At 65536 x
-    512, g=4 (10 live tiles): f64 13 splits (130 blocks, one wave of 132),
-    f32 26 (260 of 264 slots); the bf16 QR flagship 11 (36 x 11 = 396 = 3
-    whole waves)."""
+    card's block slots (132 SMs x `_BLOCKS_PER_SM`; the x3 route, f32 at
+    precision 'high', holds one block an SM as the bf16 ring does) per
+    split.  At 65536 x 512, g=4 (10 live tiles): f64 13 splits (130
+    blocks, one wave of 132), f32 26 (260 of 264 slots); the bf16 QR
+    flagship 11 (36 x 11 = 396 = 3 whole waves)."""
     live = len(gram_tiles(n, g))
-    slots = _SMS * _BLOCKS_PER_SM[dtype]
+    per_sm = 1 if hopper.split_high(dtype, dtype, precision) else _BLOCKS_PER_SM[dtype]
+    slots = _SMS * per_sm
     most = min(_MAX_SPLITS, -(-m // _SPLIT_ROWS))
     return min(range(1, most + 1), key=lambda s: (Fraction(-(-live * s // slots), s), s))
 
 
-def _route(A: torch.Tensor) -> str:
-    """The route every launch of A's dtype takes (its fast route)."""
-    return hopper._ROUTES[A.dtype][0]
+def _route(A: torch.Tensor, precision=None) -> str:
+    """The route every launch of A's dtype at `precision` takes (its fast
+    route: 'x3' for f32 at 'high')."""
+    return hopper._routes(A.dtype, precision)[0]
+
+
+def _images(A: torch.Tensor, route: str, *windows):
+    """The x3 route's workspace for the images of the (rows, cols)
+    operands (None on the other routes)."""
+    return hopper._x3_work(A.device, *windows) if route == "x3" else None
+
+
+def _data_ptr(X):
+    return X.data_ptr() if X is not None else None
 
 
 def _kernel_args(A: torch.Tensor, what: str) -> None:
@@ -253,10 +270,10 @@ def _kernel_args(A: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: the kernels read 16-byte aligned rows")
 
 
-def _gram_out(A: torch.Tensor, m: int, n: int, g: int):
+def _gram_out(A: torch.Tensor, m: int, n: int, g: int, precision):
     acc = _acc_dtype(A.dtype)
     G = torch.empty((n, n), dtype=acc, device=A.device)
-    splits = gram_splits(m, n, g, A.dtype)
+    splits = gram_splits(m, n, g, A.dtype, precision)
     work = torch.empty((splits, n, n), dtype=acc, device=A.device) if splits > 1 else None
     return G, work, splits
 
@@ -278,13 +295,14 @@ def gram_blocked(A, *, bm: int = 1024, g: int = 2, precision=None):
     if not hopper._on_card(A):
         return gram_blocked_plain(A, bm=bm, g=g, precision=precision)
     _kernel_args(A, "A")
-    G, work, splits = _gram_out(A, m, n, g)
+    G, work, splits = _gram_out(A, m, n, g, precision)
+    route = _route(A, precision)
+    images = _images(A, route, (m, n))
     rc = _build.entry("capital_gram_blocked")(
         hopper._DTYPE_CODE[A.dtype], A.data_ptr(), A.stride(0), m, n, g,
-        G.data_ptr(), work.data_ptr() if work is not None else None, splits,
-        hopper._stream(),
+        G.data_ptr(), _data_ptr(work), splits, _data_ptr(images), hopper._stream(),
     )
-    hopper._launched(rc, hopper.KERNELS["qr.gram_blocked"], _route(A))
+    hopper._launched(rc, hopper.KERNELS["qr.gram_blocked"], route)
     return G
 
 
@@ -300,13 +318,15 @@ def scale_gram(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
         return scale_gram_plain(A, Rinv, bm=bm, g=g, precision=precision)
     _scale_operands(A, Rinv)
     Q = torch.empty_like(A, memory_format=torch.contiguous_format)
-    G, work, splits = _gram_out(A, m, n, g)
+    G, work, splits = _gram_out(A, m, n, g, precision)
+    route = _route(A, precision)
+    images = _images(A, route, (m, n), (n, n))  # Q's images reuse A's once the scale is done
     rc = _build.entry("capital_scale_gram")(
         hopper._DTYPE_CODE[A.dtype], A.data_ptr(), A.stride(0), Rinv.data_ptr(),
         Rinv.stride(0), Q.data_ptr(), Q.stride(0), m, n, g, G.data_ptr(),
-        work.data_ptr() if work is not None else None, splits, hopper._stream(),
+        _data_ptr(work), splits, _data_ptr(images), hopper._stream(),
     )
-    hopper._launched(rc, hopper.KERNELS["qr.scale_gram"], _route(A))
+    hopper._launched(rc, hopper.KERNELS["qr.scale_gram"], route)
     return Q, G
 
 
@@ -320,9 +340,11 @@ def scale_blocked(A, Rinv, *, bm: int = 1024, g: int = 2, precision=None):
         return scale_blocked_plain(A, Rinv, bm=bm, g=g, precision=precision)
     _scale_operands(A, Rinv)
     Q = torch.empty_like(A, memory_format=torch.contiguous_format)
+    route = _route(A, precision)
+    images = _images(A, route, (m, n), (n, n))
     rc = _build.entry("capital_scale_blocked")(
         hopper._DTYPE_CODE[A.dtype], A.data_ptr(), A.stride(0), Rinv.data_ptr(),
-        Rinv.stride(0), Q.data_ptr(), Q.stride(0), m, n, hopper._stream(),
+        Rinv.stride(0), Q.data_ptr(), Q.stride(0), m, n, _data_ptr(images), hopper._stream(),
     )
-    hopper._launched(rc, hopper.KERNELS["qr.scale_blocked"], _route(A))
+    hopper._launched(rc, hopper.KERNELS["qr.scale_blocked"], route)
     return Q

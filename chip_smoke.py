@@ -247,7 +247,28 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     timed beside it, peak memory) and regime 'dist' on 2x2x1 in mode
     'explicit' (sched_matmul launches against `qr_dist_plan`; gated,
     timed, peak memory);
-19. prints the `kernels` JSON line (each bt.* kernel's launches from the
+19. f32 at precision 'high' (the JAX package's bf16x3 split,
+    `hopper.split_high`): (a) the n=16384 top window's tri_matmul calls and
+    the dense form on x3 (the wrapper) and simt3 (the C entry), in turns,
+    against the plain 'high' version, with the reference's error profile on
+    sampled rows (within 2× the plain version's error against f64, 50× the
+    IEEE route's, below 1/20 of one-pass bf16), NaN in the dead triangles
+    and an unaligned window (simt3), each timed beside its bound (three
+    bf16 passes), the plain version, the same call at 'highest' and
+    torch.matmul at IEEE and TF32; sched_matmul on phase 17's flagship
+    slabs and the three qr_fused kernels at 65536 x 512 the same way; (b)
+    cholinv n=16384 bc=512 (counted, every tri_matmul on x3; against the
+    plain versions; gated at the drivers' f32 5e-5; timed in turns against
+    'highest' with both idle shares), the n=49152 flagship at bc 384 once
+    (counted, probe gates), rectri at its f32 cell (counted, vs plain,
+    gated); (c) the 2x2x1 mesh cholinv n=8192 bc=256 (sched_matmul on x3,
+    `mesh_plan`, vs plain, gated) and the persistent layout at n=6144 bc
+    384 (t = 192: simt3; notes, gates, vs the block layout); (d) CQR2 at
+    65536 x 512 (counted, every qr_fused launch on x3, vs plain, gated)
+    and 2,097,152 x 1024 (the drivers' gates at 'high' and 'highest', an
+    orthogonality gate failing in its f32 form reported beside the same
+    measure in f64; peak memory; timed in turns against 'highest');
+20. prints the `kernels` JSON line (each bt.* kernel's launches from the
     main path's own run: the flagship 'pallas' posv for fused_forward and
     solve_backward, the factor for factor, the solve for forward_solve;
     up.sweep's from the api.batched("chol_update") 'auto' call;
@@ -255,18 +276,20 @@ Run from the root of a checkout on a machine with one NVIDIA H100.  It
     no path, with 0), the nvidia-smi line, and last
     {"ok": true, "device": {...}}.
 
-Phases 3, 5, 7, 7b, 7d, 9–12, 14, 16, 18 and 18f set every launch counter to 0 just
+Phases 3, 5, 7, 7b, 7d, 9–12, 14, 16, 18, 18f and 19 set every launch counter to 0 just
 before their runs and check the counts just after against the plan (7b:
 the counts move at capture, not at a replay; the trace counts the replays);
-phases 3, 4, 5, 9, 11, 17, 18 and 18f also check that every tri_matmul and
+phases 3, 4, 5, 9, 11, 17, 18, 18f and 19 also check that every tri_matmul and
 sched_matmul and qr_fused launch took its dtype's route (bf16 wgmma, f32
-fma, f64 dmma; the persistent schedules at t = 192 simt), phases 3, 8 and 11 that every fused_tail launch took
+fma, f64 dmma; the persistent schedules at t = 192 simt; f32 at 'high'
+x3, at t = 192 simt3), phases 3, 8 and 11 that every fused_tail launch took
 its window's route (block or cluster), and phases 15 and 16 that every
 up.sweep launch took `update_small.sweep_route`'s (row or wave).
 
 Any failed check raises, and the script exits non-zero without the last
 line; so does a machine without CUDA or a directory without the package.
-f32 matmuls run in full IEEE f32: TF32 is switched off below.
+f32 matmuls run in full IEEE f32: TF32 is switched off below (phase 19
+switches it on only around the TF32 library timings it names).
 """
 
 from __future__ import annotations
@@ -539,17 +562,19 @@ def mm_work(name, W, item) -> tuple[float, float]:
 
 
 def tri_matmul_c(hopper, route, A, B, *, a_uplo=None, a_trans=False, b_uplo=None, b_trans=False,
-                 out_uplo=None, alpha=1.0, a_view=None, b_view=None, out=None, out_off=(0, 0),
-                 c=None, c_view=None, beta=0.0):
+                 out_uplo=None, alpha=1.0, precision=None, a_view=None, b_view=None, out=None,
+                 out_off=(0, 0), c=None, c_view=None, beta=0.0):
     """tri_matmul's launch through its C entry on the named route,
-    uncounted: the wrapper takes no route (it picks the dtype's by shape),
-    so the other route is reached here to hold the two side by side."""
+    uncounted: the wrapper takes no route (it picks the dtype's by shape
+    and precision), so the other route is reached here to hold the two side
+    by side."""
     from capital_tpu_torch.ops import _build
 
     s = hopper._mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view, b_view,
                         out, out_off, c, c_view, beta)
     hopper._pick_route(A.dtype, hopper._tma_ok(A, s.av) and hopper._tma_ok(B, s.bv), route,
-                       "tri_matmul")
+                       "tri_matmul", precision)
+    work = hopper._x3_work(A.device, s.av[2:], s.bv[2:]) if route == "x3" else None
     if out is None:
         res = torch.empty((s.M, s.N), dtype=A.dtype, device=A.device)
         o_ptr, ldo = res.data_ptr(), s.N
@@ -564,45 +589,51 @@ def tri_matmul_c(hopper, route, A, B, *, a_uplo=None, a_trans=False, b_uplo=None
         hopper._ptr(B, s.bv[0], s.bv[1]), B.stride(0), o_ptr, ldo, c_ptr, ldc,
         float(alpha), float(beta), s.M, s.N, s.K, int(bool(a_trans)), int(bool(b_trans)),
         hopper._UPLO[a_uplo], hopper._UPLO[b_uplo], hopper._UPLO[out_uplo], int(s.fused_c),
-        int(out_uplo is not None and not s.fused_c), hopper._ROUTE_CODE[route], hopper._stream())
+        int(out_uplo is not None and not s.fused_c), hopper._ROUTE_CODE[route],
+        work.data_ptr() if work is not None else None, hopper._stream())
     check(rc == 0, f"tri_matmul C entry on {route}: error {rc}")
     return res
 
 
 def sched_matmul_c(hopper, route, A, B, to, ko, fi, la, *, tri_side, blocks):
-    """sched_matmul's launch through its C entry on the named element-load
-    route, uncounted (see tri_matmul_c)."""
+    """sched_matmul's launch through its C entry on the named route,
+    uncounted (see tri_matmul_c)."""
     from capital_tpu_torch.ops import _build
 
     M, N, K = hopper._sched_spec(A, B, to, ko, fi, la, tri_side, blocks)
     check(hopper._sched_fits(route, blocks), f"sched_matmul: the {route} tile does not divide {blocks}")
     res = torch.empty((M, N), dtype=A.dtype, device=A.device)
+    work = hopper._x3_work(A.device, (M, K), (K, N)) if route == "x3" else None
     rc = _build.entry("capital_sched_matmul")(
         hopper._DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(), res.data_ptr(), to.data_ptr(),
         ko.data_ptr(), fi.data_ptr(), la.data_ptr(), to.numel(), M, N, K, *blocks,
-        int(tri_side == "a"), hopper._ROUTE_CODE[route], hopper._stream())
+        int(tri_side == "a"), hopper._ROUTE_CODE[route],
+        work.data_ptr() if work is not None else None, hopper._stream())
     check(rc == 0, f"sched_matmul C entry on {route}: error {rc}")
     return res
 
 
-def mm_phase(hopper, dtype, dev, RIp, Rp, buf, W: int) -> dict:
+def mm_phase(hopper, dtype, dev, RIp, Rp, buf, W: int, precision=None) -> dict:
     """Every tri_matmul call of the path against its plain version and timed
-    beside its bound and library call, on both of the dtype's routes in the
-    same run and interleaved (fast, element-load, element-load, fast: bf16
-    wgmma / wmma, f32 fma / simt, f64 dmma / simt: the fast route through
-    the wrapper, whose rule picks it for these aligned windows, the other
-    through the C entry, uncounted); then, for bf16, NaN in the dead
-    triangles on the wgmma route, and an unaligned window, which must take
-    the wmma route."""
+    beside its bound and library call, on both of the dtype's routes at
+    `precision` in the same run and interleaved (fast, element-load,
+    element-load, fast: bf16 wgmma / wmma, f32 fma / simt, f64 dmma / simt,
+    f32 at 'high' x3 / simt3: the fast route through the wrapper, whose
+    rule picks it for these aligned windows, the other through the C entry,
+    uncounted); then, for bf16 and f32 at 'high', NaN in the dead triangles
+    on the fast route, and an unaligned window, which must take the
+    element-load route."""
     item = torch.tensor([], dtype=dtype).element_size()
     g = torch.Generator(device=dev).manual_seed(8)
     T = torch.randn(W, W, generator=g, device=dev, dtype=torch.float32).to(dtype)
     bf16 = dtype == torch.bfloat16
-    routes = (ROUTE_OF[dtype], ELEM_OF[dtype])
+    split = hopper.split_high(dtype, dtype, precision)
+    routes = hopper._routes(dtype, precision)
     live = torch.triu(torch.ones(W, W, dtype=torch.bool, device=dev))
     res = {}
     for name, (A, B, kw, where) in mm_calls(RIp, Rp, buf, T, W).items():
         outs = {"Rp": Rp, "B": B}
+        kw = dict(kw, precision=precision)
 
         def run(route, out=None):
             if route == routes[0]:
@@ -630,25 +661,82 @@ def mm_phase(hopper, dtype, dev, RIp, Rp, buf, W: int) -> dict:
             t[r].append(time_ms(lambda: run(r, out=out), iters))
         ms, extra = sum(t[routes[0]]) / 2, {f"{routes[1]}_ms": sum(t[routes[1]]) / 2}
         plain_out = fresh()
+        nbytes, flops = mm_work(name, W, item)
         res[name] = dict(
             max_abs_err=err, ms=ms, **extra,
             plain_ms=time_ms(lambda: hopper.tri_matmul_plain(
                 A, B if where != "B" else plain_out, out=plain_out, **kw), 2),
             library_ms=time_ms(mm_library(name, A, B, kw, W), 5),
             shape=f"window {W}" if name != "tri_matmul.dense" else f"{W // 2}^3",
-            bound=bound_ms(*mm_work(name, W, item), dtype),
+            # the split: three bf16 passes on the tensor cores
+            bound=bound_ms(nbytes, 3 * flops, torch.bfloat16) if split else bound_ms(nbytes, flops, dtype),
         )
+        if split:
+            res[name].update(high_extras(hopper, name, A, B, kw, where, out, W))
         del out, plain_out
     del T
-    if bf16:
-        res["nan_dead_triangle"] = nan_and_unaligned(hopper, dtype, dev, RIp, buf, W)
+    if bf16 or split:
+        res["nan_dead_triangle"] = nan_and_unaligned(hopper, dtype, dev, RIp, buf, W, precision)
     return res
 
 
-def nan_and_unaligned(hopper, dtype, dev, RIp, buf, W: int) -> dict:
-    """NaN in the dead triangle of the trsm and side-R operands, on the wgmma
-    route, against the plain version; then a window at an odd column offset,
-    which TMA cannot read: it must take the wmma route."""
+#: the rows of a W-wide result the f32 'high' error profile samples
+PROFILE_ROWS = 256
+
+
+def high_extras(hopper, name, A, B, kw, where, out, W: int) -> dict:
+    """For an f32 call at 'high': the same call at 'highest' (the fma route)
+    and torch.matmul at TF32 (a different arithmetic: 10-bit mantissas)
+    timed beside it, and the reference's error profile on sampled rows —
+    against an f64 product, x3's and simt3's errors at most 2× the plain
+    version's, within 50× the IEEE route's and below 1/20 of a one-pass
+    bf16 product's (tests/test_pallas_tpu.py:75-76)."""
+    kw_ieee = dict(kw, precision="highest")
+    Bo = out if where == "B" else B
+    ms_ieee = time_ms(lambda: hopper.tri_matmul(A, Bo, out=out, **kw_ieee), 2)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ms_tf32 = time_ms(mm_library(name, A, B, kw, W), 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    # fresh results (no in-place write) of the call on every route
+    fresh_kw = {k: v for k, v in kw.items() if k != "out_off"}
+    kw64 = dict(fresh_kw, precision=None, **({"c": kw["c"].double()} if "c" in kw else {}))
+    ref = hopper.tri_matmul_plain(A.double(), B.double(), **kw64)
+    del kw64
+    M, N = ref.shape
+    rows = torch.arange(0, M, max(1, M // PROFILE_ROWS), device=A.device)
+    live = torch.triu(torch.ones(M, N, dtype=torch.bool, device=A.device))[rows] if "syrk" in name else None
+
+    def sample(X):
+        X = X[rows].double()
+        return torch.where(live, X, 0.0) if live is not None else X
+
+    ref = sample(ref)
+    scale = float(ref.abs().max())
+    err = lambda X: float((sample(X) - ref).abs().max()) / scale  # noqa: E731
+    Ab, Bb = A.bfloat16().float(), B.bfloat16().float()
+    errs = dict(
+        x3=err(hopper.tri_matmul(A, B, **fresh_kw)),
+        simt3=err(tri_matmul_c(hopper, "simt3", A, B, **fresh_kw)),
+        plain=err(hopper.tri_matmul_plain(A, B, **fresh_kw)),
+        ieee=err(hopper.tri_matmul(A, B, **kw_ieee)),
+        bf16=err(hopper.tri_matmul_plain(Ab, Bb, **kw_ieee)),
+    )
+    del Ab, Bb, ref
+    for r in ("x3", "simt3"):
+        check(errs[r] <= 2 * errs["plain"] and errs[r] <= 50 * errs["ieee"] and errs[r] < errs["bf16"] / 20,
+              f"{name} {r} at 'high': error profile {errs}")
+    print(json.dumps({"high_profile": name, **errs}), flush=True)
+    return dict(highest_ms=ms_ieee, library_tf32_ms=ms_tf32, profile=errs)
+
+
+def nan_and_unaligned(hopper, dtype, dev, RIp, buf, W: int, precision=None) -> dict:
+    """NaN in the dead triangle of the trsm and side-R operands, on the fast
+    route (bf16 wgmma, f32 at 'high' x3), against the plain version; then a
+    window at an odd column offset, which TMA cannot read: it must take the
+    element-load route (wmma, simt3)."""
+    fast, elem = hopper._routes(dtype, precision)
     tri = RIp.clone()
     lower = torch.tril(torch.ones(W, W, dtype=torch.bool, device=dev), -1)
     for off in (0, W):
@@ -659,23 +747,25 @@ def nan_and_unaligned(hopper, dtype, dev, RIp, buf, W: int) -> dict:
                                  b_view=(0, W, W, W), out_off=(0, W)), "buf")),
         ("side R", (buf, tri, dict(b_uplo="U", alpha=-1.0, a_view=(0, 0, W, W), b_view=(W, W, W, W)), None)),
     ):
+        kw = dict(kw, precision=precision)
         o1, o2 = (buf.clone(), buf.clone()) if where else (None, None)
         hopper.reset_counts()
         got = hopper.tri_matmul(A, B, out=o1, **kw)
         rc = hopper.route_counts()
-        check(rc == {"tri_matmul.trmm": {"wgmma": 1}}, f"NaN {label}: route {rc}")
+        check(rc == {"tri_matmul.trmm": {fast: 1}}, f"NaN {label}: route {rc}")
         want = hopper.tri_matmul_plain(A, B, out=o2, **kw)
         torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"NaN {label} {dtype} {precision}: NaN leaked")
         out[label] = check_close(f"trmm NaN dead triangle {label}", got, want, dtype)
         del o1, o2, got, want
     del tri
-    kw = dict(a_uplo="L", a_view=(3, 5, 300, 300), b_view=(8, 16, 300, 200))
+    kw = dict(a_uplo="L", a_view=(3, 5, 300, 300), b_view=(8, 16, 300, 200), precision=precision)
     hopper.reset_counts()
     got = hopper.tri_matmul(buf, buf, **kw)
     rc = hopper.route_counts()
-    check(rc == {"tri_matmul.trmm": {"wmma": 1}}, f"unaligned window: route {rc}")
+    check(rc == {"tri_matmul.trmm": {elem: 1}}, f"unaligned window: route {rc}")
     out["unaligned"] = check_close("trmm unaligned window", got, hopper.tri_matmul_plain(buf, buf, **kw), dtype)
-    print(json.dumps({"kernel": "tri_matmul NaN / unaligned", **out}), flush=True)
+    print(json.dumps({"kernel": f"tri_matmul NaN / unaligned {dtype} {precision}", **out}), flush=True)
     return out
 
 
@@ -818,7 +908,7 @@ def drive(cholesky, hopper, grid, n, dtype, bc, precision):
     counts = hopper.counts()
     want = predicted_counts(cholesky.padded_dim(n, bc) // bc)
     check(counts == want, f"n={n} launch counts {counts} != predicted {want}")
-    check_routes(hopper, counts, dtype, f"n={n} {dtype}")
+    check_routes(hopper, counts, hopper._routes(dtype, precision)[0], f"n={n} {dtype} {precision}")
     return R, Ri, A, cfg, counts, secs
 
 
@@ -1073,18 +1163,20 @@ def tall_randn(m: int, n: int, dtype, seed: int, device) -> torch.Tensor:
     return torch.randn((m, n), generator=gen, device=device, dtype=dtype)
 
 
-def qr_kernel_phase(qr_fused, hopper, m: int, n: int, dtype, dev) -> dict:
+def qr_kernel_phase(qr_fused, hopper, m: int, n: int, dtype, dev, precision=None) -> dict:
     """The three CholeskyQR2 kernels against their plain versions at (m, n)
     and its column split, timed beside bound and library call; every launch
-    on the dtype's route (bf16 wgmma, f32 fma, f64 dmma).  Below the
-    flagship's size, where library calls swing ±20 % between runs, the
-    gram and scale are timed twice beside their library calls, in turns
-    (`pairs`: [kernel ms, library ms] each turn; `ms` and `library_ms` their
-    means)."""
+    on the dtype's route at `precision` (bf16 wgmma, f32 fma, f64 dmma, f32
+    at 'high' x3, whose bound is its three bf16 passes and beside whose
+    time the library call also runs at TF32).  Below the flagship's size,
+    where library calls swing ±20 % between runs, the gram and scale are
+    timed twice beside their library calls, in turns (`pairs`: [kernel ms,
+    library ms] each turn; `ms` and `library_ms` their means)."""
     hopper.reset_counts()
     g = qr_fused.pick_g(n)
     live = qr_fused.live_fraction(g)
     item = torch.tensor([], dtype=dtype).element_size()
+    split = hopper.split_high(dtype, dtype, precision)
     A = tall_randn(m, n, dtype, 11, dev)
     gen = torch.Generator(device=dev).manual_seed(12)
     Rinv = torch.triu(torch.randn((n, n), generator=gen, device=dev) * (0.1 / math.sqrt(n))
@@ -1094,53 +1186,65 @@ def qr_kernel_phase(qr_fused, hopper, m: int, n: int, dtype, dev) -> dict:
     res, iters = {}, 3 if big else 10
     pi = 1 if big else 3  # the plain versions loop over row blocks
     acc_item = 8 if dtype == torch.float64 else 4  # G's element
+    kw = dict(g=g, precision=precision)
+
+    def bound(nbytes, fl):
+        return bound_ms(nbytes, 3 * fl, torch.bfloat16) if split else bound_ms(nbytes, fl, dtype)
 
     def timed(kernel, library) -> dict:
         pairs = [[time_ms(kernel, iters), time_ms(library, iters)] for _ in range(1 if big else 2)]
-        return dict(ms=sum(p[0] for p in pairs) / len(pairs),
-                    library_ms=sum(p[1] for p in pairs) / len(pairs), pairs=pairs)
+        out = dict(ms=sum(p[0] for p in pairs) / len(pairs),
+                   library_ms=sum(p[1] for p in pairs) / len(pairs), pairs=pairs)
+        if split:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                out["library_tf32_ms"] = time_ms(library, iters)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        return out
 
-    Gk, Gp = qr_fused.gram_blocked(A, g=g), qr_fused.gram_blocked_plain(A, g=g)
+    Gk, Gp = qr_fused.gram_blocked(A, **kw), qr_fused.gram_blocked_plain(A, **kw)
     err = check_gram("gram_blocked", Gk, Gp, dtype, g)
     del Gk, Gp
     res["qr.gram_blocked"] = dict(
         max_abs_err=err,
-        **timed(lambda: qr_fused.gram_blocked(A, g=g), lambda: torch.mm(A.t(), A)),
-        plain_ms=time_ms(lambda: qr_fused.gram_blocked_plain(A, g=g), pi, warmup=1),
-        shape=f"{m}x{n} {dtype} g={g}", splits=qr_fused.gram_splits(m, n, g, dtype),
-        bound=bound_ms(m * n * item + acc_item * n * n, flops, dtype),
+        **timed(lambda: qr_fused.gram_blocked(A, **kw), lambda: torch.mm(A.t(), A)),
+        plain_ms=time_ms(lambda: qr_fused.gram_blocked_plain(A, **kw), pi, warmup=1),
+        shape=f"{m}x{n} {dtype} g={g}", splits=qr_fused.gram_splits(m, n, g, dtype, precision),
+        bound=bound(m * n * item + acc_item * n * n, flops),
     )
 
-    Qk, Qp = qr_fused.scale_blocked(A, Rinv, g=g), qr_fused.scale_blocked_plain(A, Rinv, g=g)
+    Qk, Qp = qr_fused.scale_blocked(A, Rinv, **kw), qr_fused.scale_blocked_plain(A, Rinv, **kw)
     err = check_close("scale_blocked", Qk, Qp, dtype)
     del Qk, Qp
     Rt = torch.triu(Rinv)
     res["qr.scale_blocked"] = dict(
         max_abs_err=err,
-        **timed(lambda: qr_fused.scale_blocked(A, Rinv, g=g), lambda: A @ Rt),
-        plain_ms=time_ms(lambda: qr_fused.scale_blocked_plain(A, Rinv, g=g), pi, warmup=1),
+        **timed(lambda: qr_fused.scale_blocked(A, Rinv, **kw), lambda: A @ Rt),
+        plain_ms=time_ms(lambda: qr_fused.scale_blocked_plain(A, Rinv, **kw), pi, warmup=1),
         shape=f"{m}x{n} {dtype} g={g}",
-        bound=bound_ms(2.0 * m * n * item + n * n * item, flops, dtype),
+        bound=bound(2.0 * m * n * item + n * n * item, flops),
     )
     del Rt
 
-    (Qk, Gk), (Qp, Gp) = qr_fused.scale_gram(A, Rinv, g=g), qr_fused.scale_gram_plain(A, Rinv, g=g)
+    (Qk, Gk), (Qp, Gp) = qr_fused.scale_gram(A, Rinv, **kw), qr_fused.scale_gram_plain(A, Rinv, **kw)
     err = max(check_close("scale_gram Q", Qk, Qp, dtype), check_gram("scale_gram", Gk, Gp, dtype, g))
     del Qk, Gk, Qp, Gp
     res["qr.scale_gram"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: qr_fused.scale_gram(A, Rinv, g=g), iters),
-        plain_ms=time_ms(lambda: qr_fused.scale_gram_plain(A, Rinv, g=g), pi, warmup=1),
+        ms=time_ms(lambda: qr_fused.scale_gram(A, Rinv, **kw), iters),
+        plain_ms=time_ms(lambda: qr_fused.scale_gram_plain(A, Rinv, **kw), pi, warmup=1),
         library_ms=None,  # no single PyTorch call computes it
         shape=f"{m}x{n} {dtype} g={g}",
-        bound=bound_ms(2.0 * m * n * item + n * n * item + acc_item * n * n, 2 * flops, dtype),
+        bound=bound(2.0 * m * n * item + n * n * item + acc_item * n * n, 2 * flops),
     )
     del A, Rinv
     torch.cuda.empty_cache()
     routes = hopper.route_counts()
-    check(set(routes) == set(QR_KERNELS) and all(set(v) == {ROUTE_OF[dtype]} for v in routes.values()),
-          f"QR kernels {m}x{n} {dtype}: launches by route {routes}")
-    print(json.dumps({"qr_routes": f"{m}x{n} {dtype} g={g}", **routes}), flush=True)
+    route = hopper._routes(dtype, precision)[0]
+    check(set(routes) == set(QR_KERNELS) and all(set(v) == {route} for v in routes.values()),
+          f"QR kernels {m}x{n} {dtype} {precision}: launches by route {routes}")
+    print(json.dumps({"qr_routes": f"{m}x{n} {dtype} g={g} {precision}", **routes}), flush=True)
     return res
 
 
@@ -1190,7 +1294,8 @@ def qr_gates(residual, A, Q, R, label) -> dict:
 def drive_qr(qr, hopper, grid, A, cfg, want, label):
     """One qr.factor with the counters set to 0 just before and read just
     after, held to the plan's launch counts, every routed launch on A's
-    dtype's route (the grams are factored in A's dtype)."""
+    dtype's route at the config's precision (the grams are factored in A's
+    dtype)."""
     torch.cuda.synchronize()
     hopper.reset_counts()
     t0 = time.perf_counter()
@@ -1201,7 +1306,7 @@ def drive_qr(qr, hopper, grid, A, cfg, want, label):
     if callable(want):
         want = want(out)
     check(counts == want, f"{label}: launch counts {counts} != predicted {want}")
-    check_routes(hopper, counts, A.dtype, label)
+    check_routes(hopper, counts, hopper._routes(A.dtype, cfg.precision)[0], label)
     return out, counts, secs
 
 
@@ -4937,6 +5042,315 @@ def qr_mesh_phase(hopper, dev) -> dict:
     return out
 
 
+#: phase 19, f32 at precision 'high': the cholinv (n, bc) of phase 3a and
+#: of the flagship (its width and bc); rectri's f32 cell; the mesh cholinv
+#: (n, bc) of phase 18b and the persistent layout's (n, bc) at t = 192 (n
+#: a bc·2^k, unpadded); the CholeskyQR2 shapes of phase 5
+HIGH = {"cholinv": (16384, 512), "flagship": (49152, 384), "rectri": INV_SHAPES["rectri_f32"],
+        "mesh": MESH_RUNS["cholinv_f32"][::2], "mesh_persistent": (6144, 384),
+        "qr_counted": QR_SHAPES["single_rank"], "qr_flagship": QR_SHAPES["flagship"]}
+#: the drivers' f32 gate (capital_tpu/bench/drivers.py `_tolerance`: 5e-5 for
+#: a 4-byte dtype), every 'high' factor's residuals and probes
+HIGH_GATE = 5e-5
+
+
+def high_sched(hopper, summa, dev) -> dict:
+    """sched_matmul at f32 'high' on phase 17's flagship slabs (one rank's
+    top-node trmm of the n=16384 mesh cholinv), both sides, both ranks,
+    against the plain version on x3 (the rule's, through the wrapper) and
+    simt3 (the C entry, uncounted); the full rank timed on both routes in
+    turns beside its bound (three bf16 passes), the plain version, the same
+    call at 'highest' (fma) and torch.matmul at IEEE and TF32."""
+    mb, K, nb = SCHED_SHAPES["flagship"]
+    dtype, res = torch.float32, {}
+    for side, uplo in (("a", "L"), ("b", "U")):
+        au, bu = (uplo, None) if side == "a" else (None, uplo)
+        (TO, KO, FI, LA), _, blocks = summa._sched_host(2, 2 * mb, K, 2 * nb, au, bu)
+        As, Bs = sched_operands(mb, K, nb, side, dtype, dev, seed=19)
+        rows = [[torch.from_numpy(x[r].copy()).to(dev) for x in (TO, KO, FI, LA)] for r in range(2)]
+        kw = dict(tri_side=side, blocks=blocks)
+        err = 0.0
+        for r in range(2):
+            want = hopper.sched_matmul_plain(As[r], Bs[r], *rows[r], precision="high", **kw)
+            hopper.reset_counts()
+            got = hopper.sched_matmul(As[r], Bs[r], *rows[r], precision="high", **kw)
+            check(hopper.route_counts() == {"sched_matmul": {"x3": 1}},
+                  f"sched_matmul 'high' {side}: routes {hopper.route_counts()}")
+            s3 = sched_matmul_c(hopper, "simt3", As[r], Bs[r], *rows[r], **kw)
+            torch.cuda.synchronize()
+            for label, x in (("x3", got), ("simt3", s3)):
+                err = max(err, check_close(f"sched_matmul high {side} rank {r} {label}", x, want, dtype))
+            del want, got, s3
+        A, B, row = As[1], Bs[1], rows[1]
+        nbytes, flops = sched_work(row, blocks, mb, K, nb, side, 4)
+        calls = {"x3": lambda: hopper.sched_matmul(A, B, *row, precision="high", **kw),
+                 "simt3": lambda: sched_matmul_c(hopper, "simt3", A, B, *row, **kw)}
+        t = {r: [] for r in calls}
+        for r in ("x3", "simt3", "simt3", "x3"):
+            t[r].append(time_ms(calls[r], 5 if r == "x3" else 2))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = time_ms(lambda: torch.matmul(A, B), 5)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        res[f"flagship {side} f32 high"] = dict(
+            max_abs_err=err, blocks=list(blocks), ms=sum(t["x3"]) / 2, simt3_ms=sum(t["simt3"]) / 2,
+            highest_ms=time_ms(lambda: hopper.sched_matmul(A, B, *row, precision="highest", **kw), 5),
+            plain_ms=time_ms(lambda: hopper.sched_matmul_plain(A, B, *row, precision="high", **kw), 2),
+            library_ms=time_ms(lambda: torch.matmul(A, B), 5), library_tf32_ms=tf32,
+            shape=f"{mb}x{K} @ {K}x{nb}", bound=bound_ms(nbytes, 3 * flops, torch.bfloat16),
+        )
+        del As, Bs, A, B
+        torch.cuda.empty_cache()
+    return res
+
+
+def high_factor(cholesky, hopper, grid, residual, dev) -> dict:
+    """Phase 19 (b): the f32 'high' cholinv, mode 'pallas', one device —
+    n=16384 bc=512 counted against `cholesky.plan` (every tri_matmul launch
+    on x3), held to the same factor through the plain versions at 'high'
+    (1e-5: the same split, f32 sums in another order), residual gates, and
+    timed in turns against the same factor at 'highest' with both idle
+    shares; the n=49152 flagship at bc 384 once, counted, with probe-vector
+    gates; rectri in mode 'pallas' at its f32 cell, counted, against the
+    plain versions, gated."""
+    from capital_tpu_torch.models import inverse
+
+    out = {}
+    n, bc = HIGH["cholinv"]
+    R, Ri, A, cfg, counts, secs = drive(cholesky, hopper, grid, n, torch.float32, bc, "high")
+    with plain_versions(hopper):
+        Rq, Riq = cholesky.factor(grid, A, cfg)
+    d = max(float(residual.rel_fro(R - Rq, Rq)), float(residual.rel_fro(Ri - Riq, Riq)))
+    del Rq, Riq
+    res_r = float(residual.cholesky_residual(A, R))
+    res_i = float(residual.cholesky_inverse_residual(R, Ri))
+    check(d < 1e-5 and res_r < HIGH_GATE and res_i < HIGH_GATE,
+          f"n={n} f32 'high': vs plain {d}, residuals {res_r}, {res_i}")
+    del R, Ri
+    torch.cuda.empty_cache()
+    cfg_ieee = cholesky.CholinvConfig(mode="pallas", base_case_dim=bc, precision="highest")
+    turns = turns_s({"high": lambda: cholesky.factor(grid, A, cfg),
+                     "highest": lambda: cholesky.factor(grid, A, cfg_ieee)}, rounds=2, iters=1)
+    prof = {k: profile(lambda c=c: cholesky.factor(grid, A, c), "CI::") for k, c in
+            (("high", cfg), ("highest", cfg_ieee))}
+    flops = 2 * n**3 / 3
+    out["cholinv"] = dict(n=n, bc=bc, counts=counts, seconds_first=secs, vs_plain=d, residual=res_r,
+                          inverse_residual=res_i, turns=turns,
+                          tflops={k: flops / v["median"] / 1e12 for k, v in turns.items()},
+                          idle_share={k: p["idle_share"] for k, p in prof.items()},
+                          top_kernels_device_ms={k: p["top_kernels_device_ms"] for k, p in prof.items()})
+    print(json.dumps({"high": f"cholinv n={n} f32 bc={bc}", **out["cholinv"]}), flush=True)
+    del A
+    torch.cuda.empty_cache()
+
+    n, bc = HIGH["flagship"]
+    R, Ri, A, cfg, counts, secs = drive(cholesky, hopper, grid, n, torch.float32, bc, "high")
+    v = torch.randn(n, 4, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    pr = float(residual.cholesky_probe_residual(A, R, v))
+    pi = float(residual.inverse_probe_residual(R, Ri, v))
+    check(pr < HIGH_GATE and pi < HIGH_GATE, f"f32 'high' flagship probe residuals {pr}, {pi}")
+    out["flagship"] = dict(n=n, bc=bc, seconds_first=secs, tflops_first=(2 * n**3 / 3) / secs / 1e12,
+                           probe_residual=pr, probe_inverse_residual=pi, counts=counts)
+    print(json.dumps({"high": f"flagship n={n} f32 bc={bc}", **out["flagship"]}), flush=True)
+    del R, Ri, A, v
+    torch.cuda.empty_cache()
+
+    n, bc = HIGH["rectri"]
+    want = {"zeros_dead_lower": 1, "write_diag_blocks": 1, "tri_matmul.trmm": 2 * (n // bc - 1)}
+    L = tri_operand(n, torch.float32, 1, dev)
+    rcfg = inverse.RectriConfig(base_case_dim=bc, mode="pallas", precision="high")
+    Li, counts, secs = drive_counted(hopper, lambda: inverse.rectri(grid, L, "L", rcfg), want,
+                                     "rectri f32 'high'", "x3",
+                                     extra_routes={"write_diag_blocks": {"vec": 1}})
+    with plain_versions(hopper):
+        Lq = inverse.rectri(grid, L, "L", rcfg)
+    d = float(residual.rel_fro(Li - Lq, Lq))
+    gate = float(residual.inverse_residual(L, Li))
+    check(d < 1e-5 and gate < HIGH_GATE, f"rectri f32 'high': vs plain {d}, inverse residual {gate}")
+    out["rectri"] = dict(n=n, bc=bc, counts=counts, seconds_first=secs, vs_plain=d, inverse_residual=gate,
+                         seconds=timed_s(lambda: inverse.rectri(grid, L, "L", rcfg), 2))
+    print(json.dumps({"high": f"rectri n={n} f32 bc={bc}", **out["rectri"]}), flush=True)
+    del L, Li, Lq
+    torch.cuda.empty_cache()
+    return out
+
+
+def high_mesh(hopper, cholesky, residual, dev) -> dict:
+    """Phase 19 (c): the f32 'high' cholinv on a 2x2x1 in-process mesh,
+    mode 'explicit' — phase 18b's n and bc (every sched_matmul launch on
+    x3, `mesh_plan`), held to the plain versions and gated; then the
+    persistent layout at bc 384 (t = 192: every launch on simt3), its notes
+    read, gated, held to the block layout's factor of the same A."""
+    from capital_tpu_torch import Grid
+    from capital_tpu_torch.parallel import summa
+    from capital_tpu_torch.utils import tracing
+
+    out = {}
+    mesh = Grid.rect(2, 2, 1, devices=[dev] * 4)
+    n, bc = HIGH["mesh"]
+    cfg = cholesky.CholinvConfig(mode="explicit", base_case_dim=bc, precision="high")
+    plan = mesh_plan(summa, cholesky, mesh, n, bc)
+    A = spd_hash(n, torch.float32, salt=2, device=dev)
+    (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(mesh, A, cfg),
+                                          {"sched_matmul": plan}, "mesh cholinv f32 'high'", "x3")
+    with plain_versions(hopper):
+        Rq, Riq = cholesky.factor(mesh, A, cfg)
+    d = max(float(residual.rel_fro(R - Rq, Rq)), float(residual.rel_fro(Ri - Riq, Riq)))
+    res_r = float(residual.cholesky_residual(A, R))
+    res_i = float(residual.cholesky_inverse_residual(R, Ri))
+    check(d < 1e-5 and res_r < HIGH_GATE and res_i < HIGH_GATE,
+          f"mesh f32 'high': vs plain {d}, residuals {res_r}, {res_i}")
+    out["cholinv"] = dict(n=n, bc=bc, plan=plan, counts=counts, seconds_first=secs, vs_plain=d,
+                          residual=res_r, inverse_residual=res_i,
+                          seconds=timed_s(lambda: cholesky.factor(mesh, A, cfg), 2))
+    print(json.dumps({"high": f"mesh cholinv n={n} f32 bc={bc}", **out["cholinv"]}), flush=True)
+    del A, R, Ri, Rq, Riq
+    torch.cuda.empty_cache()
+
+    n, bc = HIGH["mesh_persistent"]
+    A = spd_hash(n, torch.float32, salt=3, device=dev)
+    block = cholesky.CholinvConfig(mode="explicit", base_case_dim=bc, precision="high")
+    Rb, Rib = cholesky.factor(mesh, A, block)
+    cfg = cholesky.CholinvConfig(mode="explicit", base_case_dim=bc, precision="high",
+                                 balance="tile_cyclic_persistent")
+    plan = mesh_plan(summa, cholesky, mesh, n, bc, balance="tile_cyclic_persistent")
+    route = hopper.sched_route(torch.float32, True, (bc // 2, 512, bc // 2), "high")
+    check(route == "simt3" and plan > 0, f"persistent bc {bc}: route {route}, plan {plan}")
+    with tracing.Recorder() as rec:
+        (R, Ri), counts, secs = drive_counted(hopper, lambda: cholesky.factor(mesh, A, cfg),
+                                              {"sched_matmul": plan}, "mesh persistent f32 'high'", route)
+    notes = {k: v.calls for k, v in rec.stats.items() if k.endswith(("_fallback", "_cyclic", "shard_sched"))}
+    check("cholinv::persistent_fallback" not in notes and notes.get("syrk::persistent_cyclic", 0) >= 1,
+          f"mesh persistent f32 'high': notes {notes}")
+    res_r = float(residual.cholesky_residual(A, R))
+    res_i = float(residual.cholesky_inverse_residual(R, Ri))
+    dR = max(float(residual.rel_fro(R - Rb, Rb)), float(residual.rel_fro(Ri - Rib, Rib)))
+    check(res_r < HIGH_GATE and res_i < HIGH_GATE and dR < 1e-5,
+          f"mesh persistent f32 'high': residuals {res_r}, {res_i}, vs block {dR}")
+    out["persistent"] = dict(n=n, bc=bc, t=bc // 2, route=route, plan=plan, counts=counts, notes=notes,
+                             seconds_first=secs, residual=res_r, inverse_residual=res_i, vs_block=dR)
+    print(json.dumps({"high": f"mesh persistent n={n} f32 bc={bc}", **out["persistent"]}), flush=True)
+    del A, R, Ri, Rb, Rib
+    torch.cuda.empty_cache()
+    return out
+
+
+def qr_gates_reported(residual, A, Q, R, label) -> dict:
+    """`qr_gates` at the f32 tolerance (5e-5) for the QR flagship's shape,
+    where the orthogonality gate in the drivers' form (I − QᵀQ at Q's dtype,
+    an f32 sum over 2,097,152 rows) reads its own rounding near the
+    tolerance (probes/qr_high_orth.py): the residual gate must hold; a
+    failed orthogonality gate is reported, not loosened, beside the same
+    measure with Q widened to f64, which must hold the tolerance."""
+    tol = 5e-5
+    eye = torch.eye(Q.shape[1], dtype=torch.float64, device=Q.device)
+    Qd = Q.double()
+    out = dict(orthogonality=float(residual.qr_orthogonality(Q)),
+               orthogonality_f64=float(residual.rel_fro(eye - Qd.T @ Qd, eye)),
+               residual=float(residual.qr_residual_blocked(A, Q, R)))
+    del Qd
+    out["orthogonality_gate"] = "held" if out["orthogonality"] < tol else "FAILED (reported)"
+    check(out["residual"] < tol and out["orthogonality_f64"] < tol, f"{label}: gates {out} (tol {tol})")
+    if out["orthogonality"] >= tol:
+        print(json.dumps({"reported_gate_failure": label, "tol": tol, **out}), flush=True)
+    return out
+
+
+def high_qr(hopper, dev, grid) -> dict:
+    """Phase 19 (d): CholeskyQR2 at f32 'high', regime '1d', mode 'pallas'
+    — 65536 x 512 counted (every qr_fused launch on x3) and held to the
+    plain versions; the 2,097,152 x 1024 QR flagship's shape timed in turns
+    against 'highest', peak memory, the drivers' f32 gates (5e-5) at both
+    precisions (`qr_gates_reported`: an orthogonality gate that fails in its
+    f32 form is reported)."""
+    from capital_tpu_torch.models import cholesky, qr
+    from capital_tpu_torch.ops import qr_fused
+    from capital_tpu_torch.utils import residual
+
+    def cfg_for(prec):
+        return qr.CacqrConfig(regime="1d", mode="pallas", precision=prec,
+                              cholinv=cholesky.CholinvConfig(base_case_dim=128, mode="pallas"))
+
+    out = {}
+    m, n = HIGH["qr_counted"]
+    A = tall_randn(m, n, torch.float32, 2, dev)
+    cfg = cfg_for("high")
+    (Q, R), counts, secs = drive_qr(qr, hopper, grid, A, cfg, predicted_qr_counts(n, 128, 2),
+                                    "QR f32 'high'")
+    gates = qr_gates(residual, A, Q, R, "QR f32 'high'")
+    with plain_qr_versions(hopper, qr_fused):
+        Qq, Rq = qr.factor(grid, A, cfg)
+    d = max(float(residual.rel_fro(Q - Qq, Qq)), float(residual.rel_fro(torch.triu(R) - torch.triu(Rq),
+                                                                        torch.triu(Rq))))
+    check(d < 1e-5, f"QR f32 'high' vs plain: {d}")
+    out["counted"] = dict(m=m, n=n, counts=counts, seconds_first=secs, vs_plain=d, **gates)
+    print(json.dumps({"high": f"qr {m}x{n} f32", **out["counted"]}), flush=True)
+    del A, Q, R, Qq, Rq
+    torch.cuda.empty_cache()
+
+    m, n = HIGH["qr_flagship"]
+    A = tall_randn(m, n, torch.float32, 1, dev)
+    (Q, R), counts, secs = drive_qr(qr, hopper, grid, A, cfg, predicted_qr_counts(n, 128, 2),
+                                    "QR flagship f32 'high'")
+    gates = {"high": qr_gates_reported(residual, A, Q, R, "QR flagship f32 'high'")}
+    del Q, R
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = timed_s(lambda: qr.factor(grid, A, cfg), 1)
+    peak = torch.cuda.max_memory_allocated()
+    cfg_ieee = cfg_for("highest")
+    Q, R = qr.factor(grid, A, cfg_ieee)
+    gates["highest"] = qr_gates_reported(residual, A, Q, R, "QR flagship f32 'highest'")
+    del Q, R
+    torch.cuda.empty_cache()
+    turns = turns_s({"high": lambda: qr.factor(grid, A, cfg),
+                     "highest": lambda: qr.factor(grid, A, cfg_ieee)}, rounds=2, iters=1)
+    flops = 2.0 * m * n * n * 2
+    out["flagship"] = dict(m=m, n=n, seconds=t, peak_bytes=peak, seconds_first=secs, counts=counts,
+                           turns=turns, tflops={k: flops / v["median"] / 1e12 for k, v in turns.items()},
+                           gates=gates)
+    print(json.dumps({"high": f"qr {m}x{n} f32", **out["flagship"]}), flush=True)
+    del A
+    torch.cuda.empty_cache()
+    return out
+
+
+def high_phase(hopper, dev, grid) -> dict:
+    """Phase 19: f32 at precision 'high', the bf16x3 split — (a) the
+    kernels at the main path's shapes on x3 and simt3, (b) the one-device
+    cholinv, flagship and rectri, (c) the mesh, (d) CholeskyQR2."""
+    from capital_tpu_torch.models import cholesky
+    from capital_tpu_torch.ops import qr_fused
+    from capital_tpu_torch.parallel import summa
+    from capital_tpu_torch.utils import residual
+
+    t_phase = time.perf_counter()
+    out = {"kernels": {}}
+    W = 8192
+    g = torch.Generator(device=dev).manual_seed(19)
+    RIp, Rp, buf = (torch.randn(2 * W, 2 * W, generator=g, device=dev) for _ in range(3))
+    mm = mm_phase(hopper, torch.float32, dev, RIp, Rp, buf, W, precision="high")
+    del RIp, Rp, buf
+    torch.cuda.empty_cache()
+    sched = high_sched(hopper, summa, dev)
+    m, n = QR_SHAPES["single_rank"]
+    qk = qr_kernel_phase(qr_fused, hopper, m, n, torch.float32, dev, precision="high")
+    for res in (mm, sched, qk):
+        for name, r in res.items():
+            if "bound" in r:
+                b, by = r.pop("bound")
+                r.update(bound_ms=b, bound_by=by)
+                print(json.dumps({"kernel": name, "dtype": "float32", "precision": "high", **r}), flush=True)
+        out["kernels"].update(res)
+    out["factor"] = high_factor(cholesky, hopper, grid, residual, dev)
+    out["mesh"] = high_mesh(hopper, cholesky, residual, dev)
+    out["qr"] = high_qr(hopper, dev, grid)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"high_phase_seconds": out["seconds"]}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results as JSON to this file")
@@ -5190,6 +5604,9 @@ def main(argv=None) -> int:
 
     # ---- phase 18f: CholeskyQR2 on the mesh ------------------------------
     out["mesh_qr"] = qr_mesh_phase(hopper, dev)
+
+    # ---- phase 19: f32 at precision 'high' (the bf16x3 split) ------------
+    out["high"] = high_phase(hopper, dev, grid)
 
     bf = out["kernels"][str(torch.bfloat16)]
     # the small-N kernels report their f32 throughput batch; the blocktri

@@ -127,7 +127,7 @@ def scale(lib, A, R, Q) -> None:
     m, n = A.shape
     rc = lib.capital_scale_blocked(hopper._DTYPE_CODE[A.dtype], A.data_ptr(), A.stride(0),
                                    R.data_ptr(), R.stride(0), Q.data_ptr(), Q.stride(0), m, n,
-                                   hopper._stream())
+                                   None, hopper._stream())
     if rc:
         raise RuntimeError(f"capital_scale_blocked returned {rc}")
 
@@ -135,7 +135,7 @@ def scale(lib, A, R, Q) -> None:
 def gram(lib, A, g, splits, G, W) -> None:
     m, n = A.shape
     rc = lib.capital_gram_blocked(hopper._DTYPE_CODE[A.dtype], A.data_ptr(), A.stride(0), m, n, g,
-                                  G.data_ptr(), W.data_ptr(), splits, hopper._stream())
+                                  G.data_ptr(), W.data_ptr(), splits, None, hopper._stream())
     if rc:
         raise RuntimeError(f"capital_gram_blocked returned {rc}")
 

@@ -49,3 +49,16 @@ def test_every_entry_point_is_declared():
         text = (_build.CSRC / src).read_text()
         for name in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(', text):
             assert _build.SIGNATURES.get(name, (None,))[0] == src, f"{src}: {name} has no signature"
+
+
+@pytest.mark.parametrize("rows,cols", [(1, 1), (5, 17), (300, 200), (8192, 8192)])
+def test_x3_workspace_matches_the_source_layout(rows, cols):
+    """The x3 route's workspace: the wrappers size it (`hopper._image_elems`)
+    and the C side lays the images out in it (x3_tiles.cuh `image_ld`,
+    `image_elems`); both round an image row up to 16 bytes of bf16."""
+    from capital_tpu_torch.ops import hopper
+
+    text = (_build.CSRC / "x3_tiles.cuh").read_text()
+    assert "return (cols + 7) / 8 * 8;" in text
+    assert "return 2 * rows * image_ld(cols);" in text
+    assert hopper._image_elems(rows, cols) == 2 * rows * ((cols + 7) // 8 * 8)

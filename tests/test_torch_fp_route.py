@@ -142,13 +142,15 @@ def test_sched_tile_fits(route, blocks, ok):
 
 
 def test_route_codes_name_every_route():
-    """Every dtype's two routes have a C route code; the element-load loops
-    share code 0 and the fast routes have codes of their own."""
-    named = {r for rs in hopper._ROUTES.values() for r in rs}
+    """Every dtype's two routes, and f32's two at precision 'high', have a C
+    route code; the full-precision element-load loops share code 0, the
+    fast routes and the split routes have codes of their own."""
+    named = {r for rs in hopper._ROUTES.values() for r in rs} | set(hopper._SPLIT_ROUTES)
     assert named == set(hopper._ROUTE_CODE) == set(hopper._SCHED_TILE)
     fast = [hopper._ROUTE_CODE[rs[0]] for rs in hopper._ROUTES.values()]
     assert sorted(fast) == [1, 2, 3]
     assert {hopper._ROUTE_CODE[rs[1]] for rs in hopper._ROUTES.values()} == {0}
+    assert [hopper._ROUTE_CODE[r] for r in hopper._SPLIT_ROUTES] == [4, 5]
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))

@@ -1721,13 +1721,15 @@ def _wg_run(fn, A, B, **kw):
 
 
 def _tri_c(route, A, B, *, a_uplo=None, a_trans=False, b_uplo=None, b_trans=False, out_uplo=None,
-           alpha=1.0, a_view=None, b_view=None, out=None, out_off=(0, 0)):
+           alpha=1.0, precision=None, a_view=None, b_view=None, out=None, out_off=(0, 0)):
     """tri_matmul's launch through its C entry on the named route,
-    uncounted (the wrapper takes no route: it picks one by shape)."""
+    uncounted (the wrapper takes no route: it picks one by shape and
+    precision)."""
     s = hopper._mm_spec(A, B, a_uplo, a_trans, b_uplo, b_trans, out_uplo, a_view, b_view,
                         out, out_off, None, None, 0.0)
     hopper._pick_route(A.dtype, hopper._tma_ok(A, s.av) and hopper._tma_ok(B, s.bv), route,
-                       "tri_matmul")
+                       "tri_matmul", precision)
+    work = hopper._x3_work(A.device, s.av[2:], s.bv[2:]) if route == "x3" else None
     if out is None:
         res = torch.empty((s.M, s.N), dtype=A.dtype, device=A.device)
         o_ptr, ldo = res.data_ptr(), s.N
@@ -1738,26 +1740,29 @@ def _tri_c(route, A, B, *, a_uplo=None, a_trans=False, b_uplo=None, b_trans=Fals
         hopper._ptr(B, s.bv[0], s.bv[1]), B.stride(0), o_ptr, ldo, None, 0,
         float(alpha), 0.0, s.M, s.N, s.K, int(a_trans), int(b_trans), hopper._UPLO[a_uplo],
         hopper._UPLO[b_uplo], hopper._UPLO[out_uplo], 0, int(out_uplo is not None),
-        hopper._ROUTE_CODE[route], hopper._stream())
+        hopper._ROUTE_CODE[route], work.data_ptr() if work is not None else None, hopper._stream())
     assert rc == 0, rc
     return res
 
 
-def _sched_c(route, A, B, *sched, tri_side, blocks):
+def _sched_c(route, A, B, *sched, tri_side, blocks, precision=None):
     """sched_matmul's launch through its C entry on the named route,
     uncounted; a route whose tile does not divide the blocks, or whose
     copies cannot read the operands, raises as the rule would refuse it."""
     M, N, K = hopper._sched_spec(A, B, *sched, tri_side, blocks)
     aligned = hopper._tma_ok(A, (0, 0)) and hopper._tma_ok(B, (0, 0))
-    hopper._pick_route(A.dtype, aligned and hopper._sched_fits(route, blocks), route, "sched_matmul")
+    hopper._pick_route(A.dtype, aligned and hopper._sched_fits(route, blocks), route, "sched_matmul",
+                       precision)
     if not hopper._sched_fits(route, blocks):
         raise ValueError(f"the {route} tile does not divide {blocks}")
     res = torch.empty((M, N), dtype=A.dtype, device=A.device)
     to, ko, fi, la = sched
+    work = hopper._x3_work(A.device, (M, K), (K, N)) if route == "x3" else None
     rc = _build.entry("capital_sched_matmul")(
         hopper._DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(), res.data_ptr(), to.data_ptr(),
         ko.data_ptr(), fi.data_ptr(), la.data_ptr(), to.numel(), M, N, K, *blocks,
-        int(tri_side == "a"), hopper._ROUTE_CODE[route], hopper._stream())
+        int(tri_side == "a"), hopper._ROUTE_CODE[route],
+        work.data_ptr() if work is not None else None, hopper._stream())
     assert rc == 0, rc
     return res
 
@@ -2157,6 +2162,241 @@ def test_dmma_fma_routes_refuse(cuda):
     assert hopper.route_counts() == {"tri_matmul.dense": {"simt": 1}}
     torch.cuda.synchronize()
     _close(got, hopper.tri_matmul_plain(A, A, a_view=(0, 1, 256, 256), b_view=(0, 256, 256, 256)), "f64")
+
+
+# ---- f32 at precision 'high': the split routes x3 and simt3 ----------------
+# The bf16x3 split (hopper.split_high) on x3 (the wrapper's rule for aligned
+# windows: the split pass's bf16 images on the wgmma ring) and simt3 (the
+# element-load loop that splits as it stages; reached through the C entry,
+# or by the wrapper for an unaligned window), each held to the plain
+# version at 'high' with the f32 tolerance (1e-5 of the largest entry: the
+# same exact bf16 products, f32 sums in another order).
+
+SPLIT = dict(precision="high")
+
+
+def _split_pair(A, B, **kw):
+    """x3 through the wrapper (its tally checked) and simt3 through the C
+    entry, on the same call."""
+    hopper.reset_counts()
+    x3 = hopper.tri_matmul(A, B, **kw, **SPLIT)
+    assert list(hopper.route_counts().values()) == [{"x3": 1}]
+    out = kw.pop("out", None)
+    s3 = _tri_c("simt3", A, B, out=None if out is None else out.clone(), **kw, **SPLIT)
+    return x3, s3
+
+
+@pytest.mark.parametrize("shape", range(len(WG_SHAPES)))
+@pytest.mark.parametrize("b_trans", [False, True])
+@pytest.mark.parametrize("a_trans", [False, True])
+def test_split_dense_vs_plain(cuda, a_trans, b_trans, shape):
+    (M, N, K), (r0, c0) = WG_SHAPES[shape]
+    A, B = _rand(140, (WG_P, WG_P), "f32", cuda), _rand(141, (WG_P, WG_P), "f32", cuda)
+    kw = dict(a_trans=a_trans, b_trans=b_trans,
+              a_view=(r0, c0, K, M) if a_trans else (r0, c0, M, K),
+              b_view=(c0, r0, N, K) if b_trans else (c0, r0, K, N))
+    x3, s3 = _split_pair(A, B, **kw)
+    want = hopper.tri_matmul_plain(A, B, **kw, **SPLIT)
+    torch.cuda.synchronize()
+    _close(x3, want, "f32")
+    _close(s3, want, "f32")
+
+
+@pytest.mark.parametrize("b_trans", [False, True])
+@pytest.mark.parametrize("a_trans", [False, True])
+@pytest.mark.parametrize("uplo", ["U", "L"])
+@pytest.mark.parametrize("side", ["a", "b"])
+def test_split_trmm_vs_plain(cuda, side, uplo, a_trans, b_trans):
+    """NaN in the triangular operand's dead half (the split pass writes it
+    as zeros), ragged windows, the result in place at an offset."""
+    n, m = 520, 777
+    A, B = _rand(142, (WG_P, WG_P), "f32", cuda), _rand(143, (WG_P, WG_P), "f32", cuda)
+    if side == "a":
+        av, bv = (64, 128, n, n), ((8, 256, m, n) if b_trans else (8, 256, n, m))
+        A = _nan_dead(A, av, uplo)
+        tri = dict(a_uplo=uplo)
+    else:
+        av, bv = ((16, 8, n, m) if a_trans else (16, 8, m, n)), (256, 64, n, n)
+        B = _nan_dead(B, bv, uplo)
+        tri = dict(b_uplo=uplo)
+    kw = dict(a_trans=a_trans, b_trans=b_trans, a_view=av, b_view=bv, alpha=-0.5, out_off=(1024, 512), **tri)
+    C = _rand(144, (WG_P, WG_P), "f32", cuda)
+    x3, s3 = _split_pair(A, B, out=C.clone(), **kw)
+    want = hopper.tri_matmul_plain(A, B, out=C.clone(), **kw, **SPLIT)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x3).all()) and bool(torch.isfinite(s3).all())
+    _close(x3, want, "f32")
+    _close(s3, want, "f32")
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("out_uplo", ["U", "L"])
+def test_split_syrk_vs_plain(cuda, out_uplo, in_place):
+    n, k = 648, 520
+    A = _rand(145, (WG_P, WG_P), "f32", cuda)
+    C = _rand(146, (WG_P, WG_P), "f32", cuda)
+    kw = dict(a_trans=True, out_uplo=out_uplo, a_view=(0, 64, k, n), b_view=(0, 64, k, n))
+    r, q = torch.arange(n)[:, None], torch.arange(n)[None, :]
+    live = (r <= q) if out_uplo == "U" else (r >= q)
+    if in_place:
+        kw.update(alpha=-1.0, beta=1.0, c_view=(1024, 1024, n, n), out_off=(1024, 1024))
+        c = C.clone()
+        hopper.reset_counts()
+        got = hopper.tri_matmul(A, A, c=c, out=c, **kw, **SPLIT)
+        assert hopper.route_counts() == {"tri_matmul.syrk": {"x3": 1}}
+        c2 = C.clone()
+        want = hopper.tri_matmul_plain(A, A, c=c2, out=c2, **kw, **SPLIT)
+        torch.cuda.synchronize()
+        mask = torch.zeros(WG_P, WG_P, dtype=torch.bool)
+        mask[1024:1024 + n, 1024:1024 + n] = live
+        _close(got, want, "f32", mask)
+    else:
+        x3, s3 = _split_pair(A, A, **kw)
+        want = hopper.tri_matmul_plain(A, A, **kw, **SPLIT)
+        torch.cuda.synchronize()
+        for got in (x3, s3):
+            _close(got, want, "f32")
+            assert bool((got.cpu()[~live] == 0).all())
+
+
+def test_split_error_profile(cuda):
+    """The reference's criterion (tests/test_pallas_tpu.py:75-76) on both
+    routes at a 2048-wide trmm: against an f64 product, each route's error
+    at most 2× the plain version's, within 50× the IEEE route's and below
+    1/20 of a one-pass bf16 product's."""
+    n = 2048
+    A, B = _rand(147, (n, n), "f32", cuda), _rand(148, (n, n), "f32", cuda)
+    kw = dict(a_uplo="U", a_trans=True)
+    ref = hopper.tri_matmul_plain(A.double(), B.double(), **kw)
+    scale = float(ref.abs().max())
+
+    def err(X):
+        return float((X.double() - ref).abs().max()) / scale
+
+    x3, s3 = _split_pair(A, B, **kw)
+    plain = err(hopper.tri_matmul_plain(A, B, **kw, **SPLIT))
+    ieee = err(hopper.tri_matmul(A, B, precision="highest", **kw))
+    bf16 = err(hopper.tri_matmul_plain(A.bfloat16().float(), B.bfloat16().float(), **kw))
+    for e in (err(x3), err(s3)):
+        assert e <= 2 * plain and e <= 50 * ieee and e < bf16 / 20, (e, plain, ieee, bf16)
+
+
+def test_split_unaligned_window_takes_simt3(cuda):
+    A = _rand(149, (WG_P, WG_P), "f32", cuda)
+    kw = dict(a_uplo="L", a_view=(3, 5, 300, 300), b_view=(8, 16, 300, 200), **SPLIT)
+    hopper.reset_counts()
+    got = hopper.tri_matmul(A, A, **kw)
+    assert hopper.route_counts() == {"tri_matmul.trmm": {"simt3": 1}}
+    torch.cuda.synchronize()
+    _close(got, hopper.tri_matmul_plain(A, A, **kw), "f32")
+
+
+def test_split_routes_refuse(cuda):
+    """x3 where its rule would not pick it, and a split route at another
+    precision, raise before any launch."""
+    A = _rand(150, (512, 512), "f32", cuda)
+    hopper.reset_counts()
+    with pytest.raises(ValueError, match="x3 route cannot"):
+        _tri_c("x3", A, A, a_view=(0, 1, 256, 256), b_view=(0, 256, 256, 256), **SPLIT)
+    with pytest.raises(ValueError, match="not the x3 route"):
+        _tri_c("x3", A, A, precision="highest")
+    with pytest.raises(ValueError, match="not the simt3 route"):
+        _tri_c("simt3", A.double(), A.double(), **SPLIT)
+    assert hopper.route_counts() == {}
+
+
+@pytest.mark.parametrize("case", range(len(SCHED_CASES)))
+def test_sched_matmul_split_vs_plain(cuda, case):
+    """Every schedule case on x3 (the wrapper) and simt3 (the C entry), both
+    ranks, against the plain version at 'high'."""
+    mb, K, nb, side, uplo, _ = SCHED_CASES[case]
+    au, bu = (uplo, None) if side == "a" else (None, uplo)
+    (TO, KO, FI, LA), _, blocks = summa._sched_host(2, 2 * mb, K, 2 * nb, au, bu)
+    A, B = _rand(151 + case, (mb, K), "f32", cuda), _rand(161 + case, (K, nb), "f32", cuda)
+    for rank in range(2):
+        sched = [torch.from_numpy(x[rank].copy()).to(cuda) for x in (TO, KO, FI, LA)]
+        hopper.reset_counts()
+        got = hopper.sched_matmul(A, B, *sched, tri_side=side, blocks=blocks, **SPLIT)
+        assert hopper.route_counts() == {"sched_matmul": {"x3": 1}}
+        s3 = _sched_c("simt3", A, B, *sched, tri_side=side, blocks=blocks, **SPLIT)
+        want = hopper.sched_matmul_plain(A, B, *sched, tri_side=side, blocks=blocks, **SPLIT)
+        torch.cuda.synchronize()
+        written = (~torch.isnan(want)).cpu()
+        _close(got, want, "f32", written)
+        _close(s3, want, "f32", written)
+
+
+@pytest.mark.parametrize("side,uplo", [("a", "L"), ("b", "U")])
+def test_sched_matmul_split_t192_takes_simt3(cuda, side, uplo):
+    """The persistent layout's t = 192 schedules at 'high': the wrapper's
+    rule picks simt3 (no 128-row tile divides the blocks)."""
+    t = 192
+    n = 4 * t
+    au, bu = (uplo, None) if side == "a" else (None, uplo)
+    (TO, KO, FI, LA), _, blocks = summa._sched_host_cyclic(2, n, n, n, au, bu, t)
+    T = masking.take_triangle_cyclic(_rand(170, (n, n), "f32", cuda), uplo, 2, t)
+    D = _rand(171, (n, n), "f32", cuda)
+    h = n // 2
+    for rank in range(2):
+        sched = [torch.from_numpy(x[rank].copy()).to(cuda) for x in (TO, KO, FI, LA)]
+        if side == "a":
+            A, B = T[rank * h:(rank + 1) * h].contiguous(), D[:, :h].contiguous()
+        else:
+            A, B = D[rank * h:(rank + 1) * h].contiguous(), T[:, rank * h:(rank + 1) * h].contiguous()
+        hopper.reset_counts()
+        got = hopper.sched_matmul(A, B, *sched, tri_side=side, blocks=blocks, **SPLIT)
+        assert hopper.route_counts() == {"sched_matmul": {"simt3": 1}}
+        want = hopper.sched_matmul_plain(A, B, *sched, tri_side=side, blocks=blocks, **SPLIT)
+        torch.cuda.synchronize()
+        _close(got, want, "f32", (~torch.isnan(want)).cpu())
+
+
+@pytest.mark.parametrize("g", [2, 4])
+def test_qr_split_vs_plain(cuda, g):
+    """gram_blocked, scale_blocked and scale_gram at f32 'high' on x3
+    against their plain versions (the gram by relative Frobenius, 1e-5)."""
+    m, n = 8192, 512
+    A = _rand(172, (m, n), "f32", cuda) / 90.0
+    R = torch.triu(_rand(173, (n, n), "f32", cuda) / 23.0) + torch.eye(n, device=cuda)
+    kw = dict(g=g, **SPLIT)
+    hopper.reset_counts()
+    G = qr_fused.gram_blocked(A, **kw)
+    Q = qr_fused.scale_blocked(A, R, **kw)
+    Q2, G2 = qr_fused.scale_gram(A, R, **kw)
+    assert hopper.route_counts() == {k: {"x3": 1} for k in ("qr.gram_blocked", "qr.scale_blocked",
+                                                             "qr.scale_gram")}
+    Gp = qr_fused.gram_blocked_plain(A, **kw)
+    Qp, G2p = qr_fused.scale_gram_plain(A, R, **kw)
+    torch.cuda.synchronize()
+    _close(Q, Qp, "f32")
+    _close(Q2, Qp, "f32")
+    for got, want in ((G, Gp), (G2, G2p)):
+        assert float(residual.rel_fro(got.double() - want.double(), want.double())) < 1e-5
+
+
+def test_split_factor_routes(cuda):
+    """A cholinv and a rectri at f32 'high' launch every tri_matmul on x3,
+    and a mesh cholinv every sched_matmul; the factor is the plain
+    versions' within the f32 class (1e-5)."""
+    n = 1024
+    g = np.random.default_rng(15).standard_normal((n, n))
+    A = torch.from_numpy(g @ g.T / n + 3 * np.eye(n)).float().to(cuda)
+    cfg = cholesky.CholinvConfig(mode="pallas", base_case_dim=128, **SPLIT)
+    hopper.reset_counts()
+    R, Ri = cholesky.factor(Grid.square(device=cuda), A, cfg)
+    inverse.rectri(Grid.square(device=cuda), R.T.contiguous(), "L",
+                   inverse.RectriConfig(base_case_dim=128, mode="pallas", **SPLIT))
+    c = hopper.counts()
+    assert hopper.route_counts() == {
+        "tri_matmul.trmm": {"x3": c["tri_matmul.trmm"]}, "tri_matmul.syrk": {"x3": c["tri_matmul.syrk"]},
+        "write_diag_blocks": {"vec": 1}}
+    cpu = cholesky.factor(Grid.square(device="cpu"), A.cpu(), cfg)
+    for got, want in zip((R, Ri), cpu):
+        assert float(residual.rel_fro(got.cpu().double() - want.double(), want.double())) < 1e-5
+    hopper.reset_counts()
+    cholesky.factor(Grid.rect(2, 2, 1, devices=[cuda] * 4), A,
+                    cholesky.CholinvConfig(mode="explicit", base_case_dim=256, **SPLIT))
+    assert hopper.route_counts() == {"sched_matmul": {"x3": 12}}
 
 
 # ---- the serve engine's captured bucket programs ----------------------------
